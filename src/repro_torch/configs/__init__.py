@@ -1,0 +1,7 @@
+"""Model configurations of the port (counterpart of ``repro/configs``)."""
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    get_config,
+    list_configs,
+    register,
+)
