@@ -1,7 +1,11 @@
-"""Load a JAX parameter pytree (as numpy arrays) into the port's modules.
+"""Move parameters between a JAX parameter pytree (numpy leaves) and the
+port's modules, both ways.
 
 The port's module attributes mirror the JAX pytree keys, so the tree maps
-onto the modules by name.  Two layout differences are bridged here:
+onto the modules by name (:func:`params_from_jax`), and the modules' named
+tensors map back onto a tree (:func:`params_to_jax`, which also carries
+gradients, so tests compare gradients and updated parameters by name).
+Two layout differences are bridged here:
 
   * a dense weight ``w`` is stored (d_in, d_out) in JAX
     (``repro/layers/nn.py:27``) and (d_out, d_in) here: it is transposed;
@@ -16,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "named_to_jax"]
 
 
 def _load(module: nn.Module, tree: dict, where: str) -> None:
@@ -70,3 +74,44 @@ def _take(tree, i: int):
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def params_to_jax(model: nn.Module, *, grads: bool = False) -> dict:
+    """The JAX pytree layout of ``model``'s parameters (or, with ``grads``,
+    of their ``.grad``) as numpy fp32 arrays.  A parameter without a
+    gradient gets zeros, as ``jax.grad`` gives for a parameter the loss does
+    not reach (φ_q feeds only top-k indices)."""
+    return named_to_jax({
+        name: p if not grads else p.grad if p.grad is not None else torch.zeros_like(p)
+        for name, p in model.named_parameters()})
+
+
+def named_to_jax(named: dict) -> dict:
+    """Tensors keyed by parameter name (the model's parameters, their
+    gradients, an optimizer moment) in the JAX pytree layout, as numpy fp32
+    arrays that own their data (a later in-place update of the tensors
+    leaves them as they were): dense weights transposed to (d_in, d_out), ``layers.i.*``
+    stacked on a leading layer axis."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in named.items():
+        arr = t.detach().float().cpu().numpy().copy()
+        parts = name.split(".")
+        if parts[-1] == "w":                       # dense: (d_out, d_in) → (d_in, d_out)
+            arr = arr.T
+        if parts[0] == "layers":
+            stacked.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr
+            continue
+        _put(tree, parts, arr)
+    if stacked:
+        layers: dict = {}
+        for path, by_layer in stacked.items():
+            _put(layers, list(path), np.stack([by_layer[i] for i in sorted(by_layer)]))
+        tree["layers"] = layers
+    return tree
+
+
+def _put(tree: dict, path: list, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value

@@ -9,11 +9,14 @@ Shapes follow ``core``: q (B, N, Hq, D), k/v (B, L, Hkv, D), GQA-native.
 Built-ins:
 
   ``"reference"``  plain PyTorch (``core/branches.py``, ``core/bsa.py``,
-                   ``kernels/ref.py``) on any device;
-  ``"kernels"``    the CUDA kernels through ``kernels/ops.py`` (on CPU
-                   tensors each wrapper runs its kernel's plain version).
-                   An op without a kernel yet raises ``NotImplementedError``;
-                   it never answers with the reference;
+                   ``kernels/ref.py``) on any device, differentiated by
+                   autograd;
+  ``"kernels"``    the CUDA kernels through ``kernels/ops.py``, forward and
+                   backward (each op is a ``torch.autograd.Function`` whose
+                   backward launches the backward kernels; on CPU tensors
+                   each runs its kernel's plain versions).  An op without a
+                   kernel yet raises ``NotImplementedError``; it never
+                   answers with the reference;
   ``"auto"``       chosen by the device of the tensors: CUDA tensors take
                    ``"kernels"``, CPU tensors ``"reference"``.
 
@@ -99,7 +102,8 @@ class ReferenceBackend(_Unported):
 
 
 class KernelBackend(_Unported):
-    """The hand-written CUDA kernels (``kernels/ops.py``)."""
+    """The hand-written CUDA kernels (``kernels/ops.py``), differentiable:
+    on CUDA tensors a backward never answers with a plain version."""
 
     name = "kernels"
 

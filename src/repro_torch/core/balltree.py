@@ -1,10 +1,10 @@
 """Ball-tree ordering and ragged batching (host-side numpy).
 
-A copy of the parts of ``repro/core/balltree.py`` the padded serving path
-uses.  The tree is built by recursive median bisection along the axis of
-largest extent; the model consumes only the permutation that sorts points
-into ball order, after which every contiguous chunk of ``ball_size``
-points is one ball.
+A copy of the parts of ``repro/core/balltree.py`` the padded serving and
+training paths use.  The tree is built by recursive median bisection along
+the axis of largest extent; the model consumes only the permutation that
+sorts points into ball order, after which every contiguous chunk of
+``ball_size`` points is one ball.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["build_balltree_permutation", "build_balltree_permutations",
-           "pad_to_multiple", "bucket_length", "pack_ragged", "unpack_ragged"]
+           "pad_to_multiple", "bucket_length", "pack_ragged", "unpack_ragged",
+           "pack_items"]
 
 
 def _bisect(points: np.ndarray, idx: np.ndarray, out: list, leaf_size: int) -> None:
@@ -105,3 +106,15 @@ def unpack_ragged(batch: np.ndarray, mask: np.ndarray) -> list:
     batch = np.asarray(batch)
     mask = np.asarray(mask)
     return [batch[i, : int(mask[i].sum())] for i in range(batch.shape[0])]
+
+
+def pack_items(items: list[dict], pad_to: int | None) -> dict:
+    """Stack per-sample dicts of (padded) arrays into one packed batch dict.
+
+    Each item maps field name → (L_i, ...) array (already a ball multiple
+    long, with a ``feats`` entry and a bool ``mask``).  All fields re-pad to
+    ``pad_to`` (or the batch max); padding rows carry mask=False and zero
+    features, which the attention masks treat as invisible keys."""
+    target = pad_to or max(it["feats"].shape[0] for it in items)
+    return {k: pack_ragged([it[k] for it in items], 1, pad_to=target)[0]
+            for k in items[0]}

@@ -1,4 +1,4 @@
-// Shared device code of the port's forward attention kernels (sm_90a).
+// Shared device code of the port's attention kernels (sm_90a).
 //
 // Masking follows repro_torch/numerics.py: a masked key carries an additive
 // fp32 bias of NEG_INF (-1e30), statistics guard at NEG_INF/2, a row with no
@@ -20,6 +20,7 @@ namespace rt {
 constexpr float NEG_INF = -1e30f;
 constexpr float NEG_HALF = -5e29f;      // NEG_INF / 2
 constexpr float LSE_EMPTY = 1e30f;
+constexpr float LSE_HALF = 5e29f;       // lse at or above: an empty row
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -33,6 +34,52 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // the PV operand: p as the compute dtype would hold it
 template <typename T> __device__ __forceinline__ float pv_operand(float p) {
   return to_f(from_f<T>(p));
+}
+
+// Normalised probability recomputed from a logit and its row's lse residual
+// (repro/kernels/common.py::p_from_lse): exp(s - lse), exactly 0 for a
+// masked logit.  A row with lse = LSE_EMPTY gives 0 for every finite s.
+__device__ __forceinline__ float p_from_lse(float s, float lse) {
+  return s <= NEG_HALF ? 0.f : expf(s - lse);
+}
+
+// Sum of a value over the `width` lanes of an aligned lane group.
+template <int width>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < width; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Dot product of a register row with a row of D floats in shared memory
+// (16-byte aligned), read as float4 broadcasts; four partial sums.
+template <int D>
+__device__ __forceinline__ float dot_row(const float (&a)[D], const float* row) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 x = r4[d4];
+    s0 = fmaf(a[4 * d4 + 0], x.x, s0);
+    s1 = fmaf(a[4 * d4 + 1], x.y, s1);
+    s2 = fmaf(a[4 * d4 + 2], x.z, s2);
+    s3 = fmaf(a[4 * d4 + 3], x.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// acc += a * row, the row of D floats in shared memory.
+template <int D>
+__device__ __forceinline__ void axpy_row(float (&acc)[D], float a, const float* row) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 x = r4[d4];
+    acc[4 * d4 + 0] = fmaf(a, x.x, acc[4 * d4 + 0]);
+    acc[4 * d4 + 1] = fmaf(a, x.y, acc[4 * d4 + 1]);
+    acc[4 * d4 + 2] = fmaf(a, x.z, acc[4 * d4 + 2]);
+    acc[4 * d4 + 3] = fmaf(a, x.w, acc[4 * d4 + 3]);
+  }
 }
 
 // Online-softmax state of one query row, kept in registers by one thread.
@@ -130,6 +177,17 @@ template <typename T, int D>
 __device__ __forceinline__ void load_row(const T* src, float (&q)[D]) {
 #pragma unroll
   for (int d = 0; d < D; ++d) q[d] = to_f(src[d]);
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_row(const float (&x)[D], T* dst) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) dst[d] = from_f<T>(x[d]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_zeros(T* dst, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = from_f<T>(0.f);
 }
 
 // Copy n rows of D elements into shared memory as fp32, all threads of the

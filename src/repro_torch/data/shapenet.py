@@ -1,19 +1,27 @@
 """Synthetic ShapeNet-Car-like clouds (airflow pressure regression).
 
-A numpy copy of the generator in ``repro/data/shapenet.py``: car-like
-bodies (superellipsoid hull + cabin + four wheel clusters, randomised
-proportions) with a physically flavoured pressure field.  The real set is
-889 cars × 3586 surface points; nothing is downloaded.  Features are
-[xyz, n̂, 1] (in_dim = 7).
+A numpy copy of the generator and the dataset in ``repro/data/shapenet.py``:
+car-like bodies (superellipsoid hull + cabin + four wheel clusters,
+randomised proportions) with a physically flavoured pressure field.  The
+real set is 889 cars × 3586 surface points, split 700 train / 189 test;
+nothing is downloaded.  Features are [xyz, n̂, 1] (in_dim = 7).
+:class:`ShapeNetCarDataset` gives ball-ordered, padded samples and packed
+batches for training; :func:`make_clouds` gives clouds in their original
+point order for serving.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["N_POINTS", "make_cloud", "make_clouds"]
+from repro_torch.core.balltree import (bucket_length, build_balltree_permutation,
+                                       pack_items, pad_to_multiple)
+
+__all__ = ["N_POINTS", "N_TRAIN", "N_TEST", "ShapeNetCarDataset", "make_cloud",
+           "make_clouds"]
 
 N_POINTS = 3586
+N_TRAIN, N_TEST = 700, 189
 
 
 def _superellipsoid(u, v, a, b, c, e1, e2):
@@ -87,6 +95,75 @@ def _pressure(pts: np.ndarray, nrm: np.ndarray, rng) -> np.ndarray:
     cp += wake * rng.normal(0, 0.08, pts.shape[0])
     cp += 0.02 * rng.normal(0, 1, pts.shape[0])
     return cp.astype(np.float32)[:, None]
+
+
+class ShapeNetCarDataset:
+    """Deterministic synthetic clone.  ``__getitem__`` → dict ready for the
+    model: ball-ordered, padded features (N, 7), target (N, 1), mask (N,).
+
+    ``n_points_range=(lo, hi)`` turns on variable-size clouds: sample i
+    draws a point count in [lo, hi] from its own deterministic rng.
+    ``batches()`` pads every sample of a batch to one shared length
+    (``pad_to`` or the batch max) with per-sample masks."""
+
+    def __init__(self, split: str = "train", ball_size: int = 256,
+                 n_points: int = N_POINTS, seed: int = 1234,
+                 normalize: bool = True,
+                 n_points_range: tuple[int, int] | None = None):
+        if split not in ("train", "test"):
+            raise ValueError(f"split must be 'train' or 'test', got {split!r}")
+        self.split = split
+        self.ball_size = ball_size
+        self.n_points = n_points
+        self.n_points_range = n_points_range
+        self.seed = seed
+        self.offset = 0 if split == "train" else N_TRAIN
+        self.length = N_TRAIN if split == "train" else N_TEST
+        self.normalize = normalize
+
+    def __len__(self):
+        return self.length
+
+    @property
+    def max_padded_len(self) -> int:
+        """Upper bound on any sample's padded length (a ``pad_to`` that
+        freezes the batch shape)."""
+        hi = self.n_points_range[1] if self.n_points_range else self.n_points
+        return bucket_length(hi, self.ball_size, geometric=False)
+
+    def _sample_n(self, rng: np.random.Generator) -> int:
+        if self.n_points_range is None:
+            return self.n_points
+        lo, hi = self.n_points_range
+        return int(rng.integers(lo, hi + 1))
+
+    def __getitem__(self, i: int) -> dict:
+        rng = np.random.default_rng(self.seed + self.offset + i)
+        pts = _make_car(rng, self._sample_n(rng))
+        nrm = _normals(pts)
+        p = _pressure(pts, nrm, rng)
+        if self.normalize:
+            p = (p - 0.02) / 0.25
+        perm = build_balltree_permutation(pts, self.ball_size)
+        pts, nrm, p = pts[perm], nrm[perm], p[perm]
+        feats = np.concatenate([pts, nrm, np.ones((pts.shape[0], 1), np.float32)], -1)
+        feats, mask = pad_to_multiple(feats, self.ball_size)
+        p, _ = pad_to_multiple(p, self.ball_size)
+        return {"feats": feats, "target": p, "mask": mask}
+
+    def batches(self, batch_size: int, *, shuffle=True, seed=0, epochs=None,
+                pad_to: int | None = None):
+        """Yield packed numpy batches {feats (B, L, 7), target (B, L, 1),
+        mask (B, L)}; L is ``pad_to`` if given, else the batch's longest
+        sample (already a ball multiple)."""
+        rng = np.random.default_rng(seed)
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            order = rng.permutation(self.length) if shuffle else np.arange(self.length)
+            for s in range(0, self.length - batch_size + 1, batch_size):
+                items = [self[int(j)] for j in order[s:s + batch_size]]
+                yield pack_items(items, pad_to)
+            epoch += 1
 
 
 def make_cloud(seed: int, n: int) -> dict:

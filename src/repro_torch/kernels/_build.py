@@ -42,6 +42,20 @@ SIGNATURES = {
     "selection_fwd": [P] * 7 + [I] * 9 + [P],
     # o1, o2, o3, g1, g2, g3, m, out, R, D, bf16, stream
     "epilogue_fwd": [P] * 8 + [I] * 3 + [P],
+    # q, k, v, key_bias, live, do, lse, delta, dq, dk, dv, BH, rep, N, D, ball,
+    # n_heads, bf16, stream
+    "bta_bwd": [P] * 11 + [I] * 7 + [P],
+    # q, k, v, key_bias, do, lse, delta, dq, BH, rep, N, L, D, n_heads, causal,
+    # block_causal, ell, bf16, stream
+    "flash_dq": [P] * 8 + [I] * 10 + [P],
+    # q, k, v, key_bias, do, lse, delta, dk, dv, BH, rep, N, L, D, n_heads,
+    # causal, block_causal, ell, bf16, stream
+    "flash_dkv": [P] * 9 + [I] * 10 + [P],
+    # q, kb, vb, idx, tok_bias, do, lse, delta, dq, dkb, dvb, B, Hkv, G, M, NB,
+    # ell, k_star, D, bf16, stream
+    "selection_bwd": [P] * 11 + [I] * 9 + [P],
+    # o1, o2, o3, g1, g2, g3, m, do, do1, do2, do3, dg1, dg2, dg3, R, D, bf16, stream
+    "epilogue_bwd": [P] * 14 + [I] * 3 + [P],
 }
 
 _lib = None

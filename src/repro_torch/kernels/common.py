@@ -3,13 +3,14 @@ launch counters and the device/dtype checks every wrapper runs.
 
 Counterpart of ``repro/kernels/common.py``.  Each forward kernel emits a
 per-query-row logsumexp ``lse = m + log l`` (``LSE_EMPTY`` for a row with
-no valid key), the residual the backward kernels of a later slice recompute
-``p = exp(s − lse)`` from.
+no valid key), the residual its backward kernel recomputes
+``p = exp(s − lse)`` from, together with ``δ = rowsum(dO·O)``
+(:func:`row_delta`, plain PyTorch as in the JAX package).
 
 Dispatch rule shared by every kernel wrapper (``bta``, ``flash``,
-``selection``, ``epilogue``): a CPU tensor runs the kernel's plain PyTorch
-version, a CUDA tensor launches the CUDA kernel or raises.  There is no
-fallback from one to the other.
+``selection``, ``epilogue``, forward and backward): a CPU tensor runs the
+kernel's plain PyTorch version, a CUDA tensor launches the CUDA kernel or
+raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from repro_torch.numerics import NEG_INF
 
 __all__ = ["LSE_EMPTY", "resolve_compute_dtype", "mma_dtype", "lse_finalize",
-           "p_from_lse", "LaunchCounter", "COUNTERS", "reset_counters",
+           "p_from_lse", "row_delta", "LaunchCounter", "COUNTERS", "reset_counters",
            "on_cpu", "check_cuda_inputs", "SUPPORTED_HEAD_DIMS"]
 
 # Sentinel logsumexp for query rows with NO valid key: exp(s − LSE_EMPTY)
@@ -57,6 +58,11 @@ def p_from_lse(s: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     """Recompute normalised attention probabilities from logits + residual."""
     p = torch.exp(s - lse)
     return torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)
+
+
+def row_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """δ = Σ_D dO·O per query row, fp32: the softmax backward's row term."""
+    return (do.float() * o.float()).sum(-1)
 
 
 class LaunchCounter:
@@ -127,9 +133,6 @@ def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(),
     for t in (*data, *f32, *i32):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in data):
-        raise NotImplementedError(f"{name}: the forward kernels have no backward "
-                                  "yet; call under torch.no_grad()")
     if head_dim is not None and head_dim not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {head_dim} not built "
                          f"(kernels take {SUPPORTED_HEAD_DIMS})")

@@ -7,8 +7,11 @@ what the ``"kernels"`` backend dispatches to.  The contract is the JAX
 one: q (B, N, Hq, D), k/v (B, L, Hkv, D) with Hq = Hkv·rep and query head
 h·rep + r belonging to KV head h; masks are (B, L) bool with True = real
 and mask KEYS in logit space; ``q_valid`` is an optimisation hint whose
-padded rows come back unspecified.  Each wrapper launches one kernel on
-CUDA tensors and runs that kernel's plain version on CPU tensors.
+padded rows come back unspecified.  Each wrapper is differentiable: it
+calls its kernel's ``torch.autograd.Function``, whose forward launches the
+forward kernel and whose backward the backward kernel(s) on CUDA tensors,
+and which runs the plain versions on CPU tensors.  Masked keys get exactly
+zero gradient.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ def ball_attention(q, k, v, mask, ball_size: int):
     B, N, Hq, D = q.shape
     Hkv = k.shape[2]
     kb = key_padding_bias(mask, B, N, device=q.device)
-    o, _ = bta.ball_attention_fwd(_to_grouped(q, Hkv), _to_bh(k), _to_bh(v), kb,
-                                  ball_size=ball_size, n_heads=Hkv)
+    o = bta.BallAttentionFn.apply(_to_grouped(q, Hkv), _to_bh(k), _to_bh(v), kb,
+                                  ball_size, Hkv)
     return _from_grouped(o, B, Hkv)
 
 
@@ -65,9 +68,8 @@ def flash_attention(q, k, v, *, key_valid=None, causal=False, block_causal=False
         raise ValueError("token-causal flash needs aligned queries and keys "
                          f"(N={N}, L={L})")
     kb = key_padding_bias(key_valid, B, L, device=q.device)
-    o, _ = flash.flash_attention_fwd(
-        _to_grouped(q, Hkv), _to_bh(k), _to_bh(v), kb, q_valid, n_heads=Hkv,
-        causal=causal, block_causal=block_causal, ell=ell)
+    o = flash.FlashAttentionFn.apply(_to_grouped(q, Hkv), _to_bh(k), _to_bh(v), kb,
+                                     q_valid, Hkv, causal, block_causal, ell)
     return _from_grouped(o, B, Hkv)
 
 
@@ -97,7 +99,7 @@ def selection_attention(q, k, v, top_idx, sel_valid, mask, *, block_size: int,
         tok_bias = torch.zeros((B, nb, ell), dtype=torch.float32, device=q.device)
     else:
         tok_bias = mask_to_bias(mask.reshape(B, nb, ell))
-    o, _ = selection.selection_attention_fwd(qg.contiguous(), kb, vb, idx, tok_bias)
+    o = selection.SelectionAttentionFn.apply(qg.contiguous(), kb, vb, idx, tok_bias)
     return (o.reshape(B, Hkv, G, g, rep, D).permute(0, 2, 3, 1, 4, 5)
              .reshape(B, N, Hq, D))
 
@@ -105,8 +107,9 @@ def selection_attention(q, k, v, top_idx, sel_valid, mask, *, block_size: int,
 def gated_combine(outs, gates, mask):
     """Fused gate-and-mask epilogue over the three branch outputs.
     ``outs``: three (B, N, H, D) tensors; ``gates``: three fp32 tensors
-    broadcastable to (B, N, H, 1); ``mask``: (B, N) bool or None.  Returns
-    (B, N, H, D) in ``outs[0].dtype``."""
+    broadcastable to (B, N, H, 1) (per-head gates are expanded to rows here
+    and their row gradients sum back through the expand); ``mask``: (B, N)
+    bool or None.  Returns (B, N, H, D) in ``outs[0].dtype``."""
     o1, o2, o3 = outs
     B, N, H, D = o1.shape
     R = B * N * H
@@ -115,6 +118,6 @@ def gated_combine(outs, gates, mask):
         m = torch.ones(R, dtype=torch.float32, device=o1.device)
     else:
         m = mask[:, :, None].expand(B, N, H).reshape(R).float()
-    out = epilogue.gated_combine_fwd(*(o.reshape(R, D) for o in (o1, o2, o3)),
-                                     g1, g2, g3, m)
+    out = epilogue.GatedCombineFn.apply(*(o.reshape(R, D) for o in (o1, o2, o3)),
+                                        g1, g2, g3, m)
     return out.reshape(B, N, H, D)

@@ -4,7 +4,8 @@ Only the point-cloud family is ported:
 
     api = model_api(mcfg)
     model = api.init(seed)                     # on "cuda" unless device="cpu"
-    pred = api.forward(model, batch)           # (B, N, out_dim) fp32
+    loss, metrics = api.loss(model, batch)     # train step core (differentiable)
+    pred = api.forward(model, batch)           # (B, N, out_dim) fp32, no grad
     batch = api.make_batch(rng, B, N)          # random tensors (tests)
 """
 
@@ -25,6 +26,7 @@ __all__ = ["ModelAPI", "model_api"]
 class ModelAPI:
     mcfg: Any
     init: Callable
+    loss: Callable
     forward: Callable
     make_batch: Callable
 
@@ -41,6 +43,10 @@ def _pc_api(mcfg) -> ModelAPI:
         ``device`` (which must exist: no silent CPU fallback)."""
         return _pc.pc_init(mcfg, generator=_generator(seed), device=torch.device(device))
 
+    def loss(model, batch: dict):
+        return _pc.pc_loss(model, batch, mcfg=mcfg)
+
+    @torch.no_grad()
     def forward(model, batch: dict) -> torch.Tensor:
         return _pc.pc_apply(model, batch["feats"], mcfg=mcfg, mask=batch.get("mask"))
 
@@ -52,7 +58,8 @@ def _pc_api(mcfg) -> ModelAPI:
                 "target": torch.from_numpy(tgt).to(dev),
                 "mask": torch.ones((B, N), dtype=torch.bool, device=dev)}
 
-    return ModelAPI(mcfg=mcfg, init=init, forward=forward, make_batch=make_batch)
+    return ModelAPI(mcfg=mcfg, init=init, loss=loss, forward=forward,
+                    make_batch=make_batch)
 
 
 def model_api(mcfg) -> ModelAPI:

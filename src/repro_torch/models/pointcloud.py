@@ -1,7 +1,8 @@
 """The paper's model: n_layers × [RMSNorm → BSA → RMSNorm → SwiGLU] on
 ball-ordered point clouds, with a linear regression head.
 
-Counterpart of ``repro/models/pointcloud.py`` (``pc_init``, ``pc_apply``).
+Counterpart of ``repro/models/pointcloud.py`` (``pc_init``, ``pc_apply``,
+``pc_loss``).
 The JAX version stacks the layers' parameters and runs them under
 ``lax.scan``; here they are an ``nn.ModuleList`` walked by a Python loop.
 """
@@ -14,7 +15,8 @@ from torch import nn
 from repro_torch.layers.nn import Dense, RMSNorm, SwiGLU, dense, rmsnorm, swiglu
 from repro_torch.models.attention_layer import AttentionLayer, attention_layer_apply
 
-__all__ = ["PCLayer", "PointCloudModel", "pc_init", "pc_layer", "pc_apply"]
+__all__ = ["PCLayer", "PointCloudModel", "pc_init", "pc_layer", "pc_apply",
+           "pc_loss"]
 
 
 class PCLayer(nn.Module):
@@ -57,13 +59,28 @@ def pc_layer(lp: PCLayer, x, *, mcfg, mask=None) -> torch.Tensor:
     return x + swiglu(lp.ffn, h)
 
 
-@torch.no_grad()
 def pc_apply(params: PointCloudModel, feats, *, mcfg, mask=None) -> torch.Tensor:
     """feats: (B, N, in_dim) ball-ordered; mask: (B, N) bool.  → (B, N,
-    out_dim) fp32.  Forward only: the kernels of this slice have no
-    backward yet."""
+    out_dim) fp32, differentiable (the serving entry points call it under
+    ``torch.no_grad()``)."""
     x = dense(params.embed, feats.to(mcfg.cdtype()))
     for lp in params.layers:
         x = pc_layer(lp, x, mcfg=mcfg, mask=mask)
     x = rmsnorm(params.final_norm, x, mcfg.norm_eps)
     return dense(params.head, x).float()
+
+
+def pc_loss(params: PointCloudModel, batch: dict, *, mcfg):
+    """batch: {feats (B, N, F), target (B, N, out_dim), mask (B, N)} →
+    (masked MSE, {"mse": MSE}): the squared error summed over real points,
+    divided by max(mask.sum()·out_dim, 1)."""
+    pred = pc_apply(params, batch["feats"], mcfg=mcfg, mask=batch.get("mask"))
+    err = (pred - batch["target"].float()) ** 2
+    m = batch.get("mask")
+    if m is not None:
+        err = torch.where(m[..., None], err, torch.zeros_like(err))
+        denom = torch.clamp(m.sum() * mcfg.out_dim, min=1)
+    else:
+        denom = err.numel()
+    loss = err.sum() / denom
+    return loss, {"mse": loss}

@@ -56,10 +56,11 @@ class GeometryEngine:
         self.points_served = 0
         self.predict_time = 0.0
 
+    @torch.no_grad()
     def predict(self, clouds) -> list[np.ndarray]:
         """clouds: ``(points (n_i, d), feats (n_i, in_dim))`` pairs or dicts
         with those keys.  Returns one (n_i, out_dim) array per cloud, rows
-        in the caller's original point order."""
+        in the caller's original point order.  Runs under no-grad."""
         clouds = [(c["points"], c["feats"]) if isinstance(c, dict) else c
                   for c in clouds]
         results: list[np.ndarray] = []

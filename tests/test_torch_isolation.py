@@ -3,7 +3,8 @@
 * No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax`` or
   anything of ``repro``, and importing the port leaves ``jax`` out of
   ``sys.modules``.
-* On CPU tensors no kernel counter moves (the plain versions run); asking
+* On CPU tensors no kernel counter moves, forward or backward (the plain
+  versions run); asking
   for ``device="cuda"`` without a card raises instead of running on the CPU.
 * The kernel backend raises for the ops whose kernels later slices bring.
 """
@@ -41,7 +42,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.engine, repro_torch.kernels.ref, "
-            "repro_torch.convert, repro_torch.configs; "
+            "repro_torch.convert, repro_torch.configs, "
+            "repro_torch.launch.train_shapenet; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -70,8 +72,12 @@ def test_cpu_runs_move_no_kernel_counter(backend):
     reset_counters()
     with use_backend(backend):
         out = api.forward(model, batch)
+        loss, _ = api.loss(model, batch)
+        loss.backward()                                # the backward plain versions
     assert out.shape == (2, 32, 1) and torch.isfinite(out).all()
-    assert set(COUNTERS) == {"bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd"}
+    assert set(COUNTERS) == {"bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd",
+                             "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd",
+                             "epilogue_bwd"}
     assert all(c.n == 0 for c in COUNTERS.values())
 
 

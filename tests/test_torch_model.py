@@ -68,7 +68,7 @@ def test_pc_apply_matches_jax(backend):
         got = t_pc.pc_apply(model, torch.from_numpy(feats), mcfg=tcfg,
                             mask=torch.from_numpy(mask))
     assert got.shape == (3, 64, 1) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
 
 
 def _clouds(n_clouds=5, seed=3):
