@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA card (written for an H100) and the CUDA toolkit; it
-imports nothing of JAX and nothing of the JAX package.  Four phases:
+imports nothing of JAX and nothing of the JAX package.  Phases:
 
 1. set-up: the card's name and power limit, the kernels' build (one nvcc
    per CUDA source, all at once), TF32 off for every fp32 product;
@@ -14,34 +14,44 @@ imports nothing of JAX and nothing of the JAX package.  Four phases:
    in fp32 and bf16 and, for flash, in its causal modes too (fp32); with
    the median time of kernel, plain version and (where one exists) the
    library call, and the least time the H100 could take for the same work.
-   The four forward kernels run at the shapes serving ``shapenet-bsa``
-   gives them (8 slots of 3840 points, sample 0 padded from a 3586-point
-   cloud, the others 2800–3586 points, 8 heads of 32); the five backward
-   kernels at the shapes one train step gives them (8 train clouds of 3586
-   points padded to 3840), with the upstream gradient zero on padded query
-   rows as the combine gives it; the selection backward on each layer's
-   own top-k picks in the model's first train step (mode ``topk``, the
-   main path's traffic) and on uniform random picks;
-3. serve: ``shapenet-bsa`` at full width (18 layers, random weights from a
-   seed) serves 16 synthetic clouds of 2800–3586 points through
-   ``GeometryEngine(layout="padded", batch_slots=8, pad_to=3840)`` after a
-   warm-up batch; every forward kernel must have launched 18 times per
-   batch (and no backward kernel), the outputs must be finite with one row
-   per point, and on one batch every layer of the kernel path must match
-   the ``reference`` backend given the same layer input
-   (``reference_check``);
-4. train: ``shapenet-bsa`` at full width and depth (18 layers, fp32) takes
-   one warm-up step and then five timed steps of ``make_train_step``
-   (masked MSE, backward, clipping at 1.0, AdamW at lr 1e-3 with warm-up and
-   cosine decay over 300 steps, weight decay 0.01) on batches of 8
-   ShapeNet-Car train clouds padded to 3840; loss and every gradient must be
-   finite, each of the nine kernels must have launched 18 times per step,
-   and on one batch every layer's parameter and input gradients on the
-   kernel path must match the ``reference`` backend's given the same layer
-   input and upstream gradient, within 1e-4 of each tensor's largest value
-   (``train_reference_check``).
+   The four padded forward kernels run at the shapes serving
+   ``shapenet-bsa`` gives them (8 slots of 3840 points, sample 0 padded
+   from a 3586-point cloud, the others 2800–3586 points, 8 heads of 32);
+   the five padded backward kernels at the shapes one train step gives them
+   (8 train clouds of 3586 points padded to 3840), with the upstream
+   gradient zero on padded query rows as the combine gives it; the
+   selection backward on each layer's own top-k picks in the model's first
+   train step (mode ``topk``, the main path's traffic) and on uniform
+   random picks.  The three packed-varlen kernels: ``varlen_fwd`` at the
+   shapes packed serving gives the compression branch (the first 8 serving
+   clouds packed to a capacity of 30,720 rows, queries against the 3840
+   pooled keys, ``k_offsets = offsets / 8``), ``varlen_dq`` and
+   ``varlen_dkv`` at the packed train batch's;
+3. serve, padded then packed: ``shapenet-bsa`` at full width (18 layers,
+   random weights from a seed) serves 16 synthetic clouds of 2800–3586
+   points through ``GeometryEngine(batch_slots=8)``, ``layout="padded"``
+   with ``pad_to=3840`` and ``layout="packed"`` with ``pad_to=30720`` (the
+   same capacity), each after a warm-up batch; each forward kernel of the
+   layout's path must have launched 18 times per batch (and no other
+   kernel), the outputs must be finite with one row per point, and on one
+   batch every layer of the kernel path must match the ``reference``
+   backend given the same layer input (``reference_check``); the packed
+   and padded outputs are compared (information: top-k near-ties may
+   flip);
+4. train, padded then packed: ``shapenet-bsa`` at full width and depth
+   (18 layers, fp32) takes one warm-up step and then five timed steps of
+   ``make_train_step`` (masked MSE, backward, clipping at 1.0, AdamW at lr
+   1e-3 with warm-up and cosine decay over 300 steps, weight decay 0.01),
+   padded on batches of 8 ShapeNet-Car train clouds padded to 3840, packed
+   on batches of 8 train clouds of 2800–3586 points packed to 30,720 rows
+   with their offsets on the host; loss and every gradient must be finite,
+   each kernel of the layout's path must have launched 18 times per step
+   (and no other kernel), and on one batch every layer's parameter and
+   input gradients on the kernel path must match the ``reference``
+   backend's given the same layer input and upstream gradient, within 1e-4
+   of each tensor's largest value (``train_reference_check``).
 
-Nothing is cut: both paths run at full width and depth.  Any failed check
+Nothing is cut: every path runs at full width and depth.  Any failed check
 exits non-zero before the result lines.  On success the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -61,14 +71,18 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.backend import use_backend  # noqa: E402
+from repro_torch.core.balltree import pack_varlen  # noqa: E402
 from repro_torch.data.shapenet import N_POINTS, ShapeNetCarDataset, make_clouds  # noqa: E402
-from repro_torch.kernels import _build, bta, epilogue, flash, selection  # noqa: E402
+from repro_torch.kernels import _build, bta, epilogue, flash, selection, varlen  # noqa: E402
 from repro_torch.kernels.common import COUNTERS, reset_counters, row_delta  # noqa: E402
+from repro_torch.kernels.occupancy import (ranges_live_map, tile_seg_ranges,  # noqa: E402
+                                           varlen_maps)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.layers.nn import dense, rmsnorm  # noqa: E402
 from repro_torch.models.api import model_api  # noqa: E402
@@ -101,14 +115,24 @@ KERNELS = {
                       "src/repro/kernels/selection.py:103"),
     "epilogue_bwd": ("src/repro_torch/csrc/epilogue_bwd.cu",
                      "src/repro/kernels/epilogue.py:43"),
+    "varlen_fwd": ("src/repro_torch/csrc/varlen_fwd.cu", "src/repro/kernels/varlen.py:67"),
+    "varlen_dq": ("src/repro_torch/csrc/varlen_bwd.cu", "src/repro/kernels/varlen.py:117"),
+    "varlen_dkv": ("src/repro_torch/csrc/varlen_bwd.cu", "src/repro/kernels/varlen.py:154"),
 }
-FWD_KERNELS = [k for k in KERNELS if k.endswith("_fwd")]
+# the kernels each path runs (every other kernel must stay at 0 launches there)
+PATHS = {"serve_padded": ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd"),
+         "serve_packed": ("bta_fwd", "varlen_fwd", "selection_fwd", "epilogue_fwd")}
+PATHS["train_padded"] = PATHS["serve_padded"] + (
+    "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd", "epilogue_bwd")
+PATHS["train_packed"] = PATHS["serve_packed"] + (
+    "bta_bwd", "varlen_dq", "varlen_dkv", "selection_bwd", "epilogue_bwd")
 
 # the slice's shapes: shapenet-bsa served 8 clouds at a time, padded to 3840
 B, N, H, D = 8, 3840, 8, 32
 BALL, ELL, KSTAR, GROUP = 256, 8, 4, 8
 NB = N // ELL
 REAL_POINTS = N_POINTS                  # sample 0: a full ShapeNet-Car cloud
+CAPACITY = B * N                        # packed rows: the padded batch's 8 × 3840
 
 
 class CheckFailed(Exception):
@@ -512,16 +536,119 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
     return results
 
 
-def serve_phase(dev) -> tuple[dict, dict]:
-    cfg = get_config("shapenet-bsa")
-    api = model_api(cfg)
-    model = api.init(seed=0, device=dev)
-    t0 = time.perf_counter()
-    clouds = make_clouds(16, (2800, REAL_POINTS), seed=2024)
-    print(f"# made 16 clouds in {time.perf_counter() - t0:.1f} s", flush=True)
+def same_segment_pairs(offsets, mask) -> int:
+    """(valid row, valid pooled key) pairs of one segment, summed over the
+    segments: the varlen kernels' work for one head on this data."""
+    blk = mask.reshape(-1, ELL).any(-1)
+    return sum(int(mask[a:b].sum()) * int(blk[a // ELL:b // ELL].sum())
+               for a, b in zip(offsets[:-1], offsets[1:]))
+
+
+def varlen_case(dev, offsets, mask, dtype, seed):
+    """The compression branch's varlen call on a packed batch: T rows
+    against L = T/ℓ pooled keys, the block validity as key bias, the maps
+    of ``q_offsets = offsets`` and ``k_offsets = offsets / ℓ``."""
+    T = mask.shape[0]
+    L = T // ELL
+    maps = varlen_maps(offsets, offsets // ELL, T, L, dev)
+    blk = torch.from_numpy(mask.reshape(L, ELL).any(-1)).to(dev)
+    args = (rand((H, 1, T, D), dtype, dev, seed), rand((H, L, D), dtype, dev, seed + 1),
+            rand((H, L, D), dtype, dev, seed + 2),
+            torch.where(blk, 0.0, NEG_INF).float()[None], maps.qseg[None],
+            maps.kseg[None], maps.q_bounds, maps.k_bounds)
+    dense_mask = (maps.qseg[:, None] == maps.kseg[None, :]) & blk[None, :]   # (T, L)
+    return args, dense_mask
+
+
+def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dict]:
+    """The three varlen kernels against their plain versions: the forward at
+    packed serving's shapes, the backward at the packed train batch's, with
+    an upstream gradient that is zero on padded query rows."""
+    results = []
+    record = recorder(results)
+    T = CAPACITY
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        # ---- forward: the first 8 serving clouds packed to 30,720 rows
+        args, dense = varlen_case(dev, serve_offsets, serve_mask, dtype, 60)
+        q, k, v = args[:3]
+        got = varlen.flash_attention_varlen_fwd(*args)
+        want = varlen.flash_attention_varlen_fwd_plain(*args[:6])
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want)
+        pairs = H * same_segment_pairs(serve_offsets, serve_mask)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * es + 4 * 3 * k.shape[1] + 4 * T \
+            + 4 * q.numel() // D
+        b_ms, b_by = bound(nbytes, 4.0 * D * pairs, dtype)
+        qs, ks, vs = q.reshape(1, H, T, D), k[None], v[None]
+        record("varlen_fwd", "packed_serve", dtype, err, ok,
+               median_ms(lambda: varlen.flash_attention_varlen_fwd(*args)),
+               median_ms(lambda: varlen.flash_attention_varlen_fwd_plain(*args[:6]), reps=5),
+               b_ms, b_by,
+               median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                attn_mask=dense)))
+        if dtype == torch.float32:
+            qrng, krng = tile_seg_ranges(args[4][0], 128), tile_seg_ranges(args[5][0], 64)
+            live = ranges_live_map(qrng, krng)
+            print(json.dumps({"varlen_live_tiles": {
+                "query_tiles_of_128": live.shape[0], "key_tiles_of_64": live.shape[1],
+                "live": int(live.sum()), "total": live.numel(),
+                "same_segment_pairs_per_head": pairs // H,
+                "dense_pairs_per_head": T * k.shape[1]}}), flush=True)
+
+        # ---- backward: the packed train batch (8 clouds of 2800–3586 points)
+        offsets = train_batch["offsets"].numpy()
+        mask = train_batch["mask"][0].cpu().numpy()
+        args, dense = varlen_case(dev, offsets, mask, dtype, 70)
+        q, k, v = args[:3]
+        o, lse = varlen.flash_attention_varlen_fwd(*args)
+        do = rand(o.shape, dtype, dev, 73)
+        row_ok = torch.from_numpy(mask).to(dev)[None, None, :, None]
+        do = torch.where(row_ok, do, torch.zeros_like(do))
+        rest = (do, lse, row_delta(do, o))
+        dq = varlen.flash_attention_varlen_dq(*args, *rest)
+        dkv = varlen.flash_attention_varlen_dkv(*args, *rest)
+        want = varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest)
+        torch.cuda.synchronize()
+        pairs = H * same_segment_pairs(offsets, mask)
+        side = 2 * 4 * q.numel() // D + 4 * 3 * k.shape[1] + 4 * T
+        p_ms = median_ms(lambda: varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest),
+                         reps=5)
+        qs = q.reshape(1, H, T, D).clone().requires_grad_(True)
+        ks, vs = (t[None].clone().requires_grad_(True) for t in (k, v))
+        lib_ms = library_bwd_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=dense), (qs, ks, vs))
+        err, ok = max_err((dq,), want[:1])
+        b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side, 6.0 * D * pairs,
+                           dtype)
+        record("varlen_dq", "packed_train", dtype, err, ok,
+               median_ms(lambda: varlen.flash_attention_varlen_dq(*args, *rest)), p_ms,
+               b_ms, b_by, lib_ms)
+        err, ok = max_err(dkv, want[1:])
+        b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side, 8.0 * D * pairs,
+                           dtype)
+        record("varlen_dkv", "packed_train", dtype, err, ok,
+               median_ms(lambda: varlen.flash_attention_varlen_dkv(*args, *rest)), p_ms,
+               b_ms, b_by, lib_ms)
+    return results
+
+
+def check_launches(launches: dict, path: str, per_kernel: int) -> None:
+    """Every kernel of ``path`` launched ``per_kernel`` times, every other
+    kernel never."""
+    for name, n in launches.items():
+        want = per_kernel if name in PATHS[path] else 0
+        check(n == want, f"{name} launched {n} times on {path}, expected {want}")
+
+
+def serve_phase(dev, api, model, clouds, layout: str) -> tuple[dict, list]:
+    """Serve ``clouds`` in batches of 8 through ``GeometryEngine`` in
+    ``layout`` at the capacity of 8 × 3840 rows."""
+    cfg = api.mcfg
+    pad_to = N if layout == "padded" else CAPACITY
 
     def engine(backend=None):
-        return GeometryEngine(api, model, batch_slots=8, pad_to=N, layout="padded",
+        return GeometryEngine(api, model, batch_slots=8, pad_to=pad_to, layout=layout,
                               backend=backend)
 
     engine().predict(clouds[:8])                        # warm-up batch
@@ -536,21 +663,34 @@ def serve_phase(dev) -> tuple[dict, dict]:
         latency.append((time.perf_counter() - t0) * 1e3)
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
     batches = len(latency)
-    stats = {"clouds_served": eng.clouds_served, "points_served": eng.points_served,
+    stats = {"layout": layout, "pad_to": pad_to, "clouds_served": eng.clouds_served,
+             "points_served": eng.points_served,
              "points_per_second": eng.points_per_second, "batch_latency_ms": latency,
              "launches": launches}
     print(json.dumps({"serve": stats}), flush=True)
-    for name, n in launches.items():
-        want = cfg.n_layers * batches if name in FWD_KERNELS else 0
-        check(n == want, f"{name} launched {n} times in serving, expected {want}")
+    check_launches(launches, f"serve_{layout}", cfg.n_layers * batches)
     for out, c in zip(outs, clouds):
         check(out.shape == (c["points"].shape[0], 1), f"output shape {out.shape}")
         check(bool(torch.isfinite(torch.from_numpy(out)).all()), "non-finite output")
 
-    ref_stats = reference_check(api, model, cfg, clouds[:8], outs[:8],
-                                engine(backend="reference").predict(clouds[:8]))
+    stats["reference_check"] = reference_check(
+        engine(), model, cfg, clouds[:8], outs[:8],
+        engine(backend="reference").predict(clouds[:8]))
     profile_batch(engine(), clouds[:8])
-    return stats, ref_stats
+    return stats, outs
+
+
+def compare_layouts(clouds, padded, packed) -> dict:
+    """The packed and padded engines' outputs for the same clouds: reported,
+    not held (a top-k near-tie may pick another block in one of them)."""
+    diff = [np.abs(a - b) for a, b in zip(packed, padded)]
+    beyond = [int((d > 1e-3 * (1 + np.abs(b))).sum()) for d, b in zip(diff, padded)]
+    stats = {"max_abs_diff": float(max(d.max() for d in diff)),
+             "points_beyond_1e-3": sum(beyond),
+             "clouds_with_points_beyond_1e-3": sum(1 for n in beyond if n),
+             "points": sum(c["points"].shape[0] for c in clouds)}
+    print(json.dumps({"packed_vs_padded": stats}), flush=True)
+    return stats
 
 
 def train_batches(dev) -> list[dict]:
@@ -565,7 +705,30 @@ def train_batches(dev) -> list[dict]:
     return batches
 
 
-def train_phase(dev, batches) -> dict:
+def packed_train_batches(dev) -> list[dict]:
+    """1 + ``TRAIN_STEPS`` packed batches of 8 ShapeNet-Car train clouds of
+    2800–3586 points (seed 0 order): each item's feats, target and mask
+    (already ball multiples long) packed to ``CAPACITY`` rows; feats,
+    target and mask (1, T, ·) on the card, offsets (9,) on the host."""
+    t0 = time.perf_counter()
+    ds = ShapeNetCarDataset("train", n_points_range=(2800, REAL_POINTS))
+    order = np.random.default_rng(0).permutation(len(ds))
+    batches = []
+    for s in range(0, (TRAIN_STEPS + 1) * B, B):
+        items = [ds[int(j)] for j in order[s:s + B]]
+        b = {}
+        for key in ("feats", "target", "mask"):
+            rows, offsets, _ = pack_varlen([it[key] for it in items], BALL, pad_to=CAPACITY,
+                                           max_samples=B)
+            b[key] = torch.from_numpy(rows[None]).to(dev)
+        b["offsets"] = torch.from_numpy(offsets)
+        batches.append(b)
+    print(f"# made {len(batches) * B} packed train clouds in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return batches
+
+
+def train_phase(dev, batches, layout: str) -> dict:
     cfg = get_config("shapenet-bsa")
     api = model_api(cfg)
     model = api.init(seed=0, device=dev)
@@ -585,7 +748,8 @@ def train_phase(dev, batches) -> dict:
         metrics.append(out)
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
     points = sum(int(b["mask"].sum()) for b in batches[1:])
-    stats = {"steps": TRAIN_STEPS, "batch": B, "pad_to": N,
+    stats = {"layout": layout, "steps": TRAIN_STEPS, "batch": B,
+             "pad_to": N if layout == "padded" else CAPACITY, "points": points,
              "loss": [float(m["loss"]) for m in metrics],
              "grad_norm": [float(m["grad_norm"]) for m in metrics],
              "lr": [m["lr"] for m in metrics], "step_ms": step_ms,
@@ -598,12 +762,9 @@ def train_phase(dev, batches) -> dict:
           "non-finite loss or gradient norm")
     check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
               if p.grad is not None), "non-finite gradient")   # φ_q only feeds top-k
-    for name, n in launches.items():
-        check(n == cfg.n_layers * TRAIN_STEPS,
-              f"{name} launched {n} times in training, expected "
-              f"{cfg.n_layers} x {TRAIN_STEPS}")
+    check_launches(launches, f"train_{layout}", cfg.n_layers * TRAIN_STEPS)
     stats["reference_check"] = train_reference_check(model, cfg, batches[1])
-    profile_train_step(step, model, opt_state, batches[1])
+    profile_train_step(step, model, opt_state, batches[1], layout)
     return stats
 
 
@@ -621,14 +782,14 @@ def train_reference_check(model, cfg, batch) -> dict:
     is held by max|kernel − reference| / max|reference| ≤ ``GRAD_REL_TOL``:
     the loss is a mean over ~29k outputs, so the gradients are far below 1
     and an absolute limit would let a wrong one through."""
-    mask = batch["mask"]
+    mask, offsets = batch["mask"], batch.get("offsets")
     eps = cfg.norm_eps
     xs, ys = [], []
     h = dense(model.embed, batch["feats"]).detach()
     with use_backend("kernels"):
         for lp in model.layers:
             x = h.detach().requires_grad_(True)
-            h = pc_layer(lp, x, mcfg=cfg, mask=mask)
+            h = pc_layer(lp, x, mcfg=cfg, mask=mask, offsets=offsets)
             xs.append(x)
             ys.append(h)
     top = h.detach().requires_grad_(True)
@@ -642,7 +803,7 @@ def train_reference_check(model, cfg, batch) -> dict:
         wrt = [xs[i]] + [p for _, p in lp.named_parameters() if p.requires_grad]
         gk = torch.autograd.grad(ys[i], wrt, gy, allow_unused=True)
         with use_backend("reference"):
-            yr = pc_layer(lp, xs[i], mcfg=cfg, mask=mask)
+            yr = pc_layer(lp, xs[i], mcfg=cfg, mask=mask, offsets=offsets)
         gr = torch.autograd.grad(yr, wrt, gy, allow_unused=True)
         for name, a, b in zip(["input"] + names, gk, gr):
             check((a is None) == (b is None), f"layer {i} {name}: gradient on one side only")
@@ -657,7 +818,8 @@ def train_reference_check(model, cfg, batch) -> dict:
         gy = gk[0]
     worst = max(rows, key=lambda r: r["rel"])
     smallest = min(rows, key=lambda r: r["ref_max_abs"])
-    stats = {"rel_tol": GRAD_REL_TOL, "worst": worst, "smallest_ref": smallest,
+    stats = {"layout": "padded" if offsets is None else "packed",
+             "rel_tol": GRAD_REL_TOL, "worst": worst, "smallest_ref": smallest,
              "max_abs_diff": max(r["max_abs_diff"] for r in rows),
              "input_grad_ref_max_abs": [r["ref_max_abs"] for r in reversed(rows)
                                         if r["name"] == "input"],
@@ -671,7 +833,7 @@ def train_reference_check(model, cfg, batch) -> dict:
     return stats
 
 
-def profile_train_step(step, model, opt_state, batch) -> None:
+def profile_train_step(step, model, opt_state, batch, layout: str) -> None:
     """Where one train step spends device time (torch.profiler): kernel time
     on the card, each ported kernel's share, the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -679,7 +841,8 @@ def profile_train_step(step, model, opt_state, batch) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(model, opt_state, batch)
         torch.cuda.synchronize()
-    print(json.dumps({"train_profile": device_summary(prof)}), flush=True)
+    print(json.dumps({"train_profile": {"layout": layout, **device_summary(prof)}}),
+          flush=True)
 
 
 def device_summary(prof) -> dict:
@@ -691,12 +854,12 @@ def device_summary(prof) -> dict:
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     ported = {}
     for name, ms, _ in kernels:
-        hit = re.search(r"(bta_fwd|bta_bwd|flash_fwd|flash_dq|flash_dkv|selection_fwd|"
-                        r"selection_bwd|epilogue_fwd|epilogue_bwd)_kernel<", name)
+        hit = re.search(r"(" + "|".join(KERNELS) + r")_kernel<", name)
         if hit:
             ported[hit.group(1)] = ported.get(hit.group(1), 0.0) + ms
     top = sorted(kernels, key=lambda r: -r[1])[:12]
     return {"device_kernel_ms": sum(ms for _, ms, _ in kernels), "ported_kernels_ms": ported,
+            "topk_ms": sum(ms for n, ms, _ in kernels if "topk" in n.lower()),
             "top_device_kernels": [{"name": n[:90], "ms": t, "calls": c} for n, t, c in top]}
 
 
@@ -710,10 +873,11 @@ def profile_batch(eng, clouds) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.predict(clouds)
         torch.cuda.synchronize()
-    print(json.dumps({"profile": device_summary(prof)}), flush=True)
+    print(json.dumps({"profile": {"layout": eng.layout, **device_summary(prof)}}),
+          flush=True)
 
 
-def reference_check(api, model, cfg, clouds, served, free_ref) -> dict:
+def reference_check(eng, model, cfg, clouds, served, free_ref) -> dict:
     """Hold the kernel path to the ``reference`` backend on one served batch.
 
     The check is per layer: along the kernel path's own trajectory, every
@@ -725,18 +889,17 @@ def reference_check(api, model, cfg, clouds, served, free_ref) -> dict:
     grows through the later layers; the free-running comparison (kernel
     engine vs reference engine, end to end) is therefore reported, with
     the layer where the two trajectories first part, not required."""
-    eng = GeometryEngine(api, model, batch_slots=8, pad_to=N, layout="padded")
     batch, _, _ = eng.pack_batch([(c["points"], c["feats"]) for c in clouds])
-    mask = batch["mask"]
+    mask, offsets = batch["mask"], batch.get("offsets")
     step_worst, step_beyond, parted = 0.0, 0, []
     with torch.no_grad():
         xk = xr = dense(model.embed, batch["feats"])
         for i, lp in enumerate(model.layers):
             with use_backend("kernels"):
-                yk = pc_layer(lp, xk, mcfg=cfg, mask=mask)
+                yk = pc_layer(lp, xk, mcfg=cfg, mask=mask, offsets=offsets)
             with use_backend("reference"):
-                want = pc_layer(lp, xk, mcfg=cfg, mask=mask)      # same input
-                yr = pc_layer(lp, xr, mcfg=cfg, mask=mask)        # free-running
+                want = pc_layer(lp, xk, mcfg=cfg, mask=mask, offsets=offsets)  # same input
+                yr = pc_layer(lp, xr, mcfg=cfg, mask=mask, offsets=offsets)    # free-running
             d = (yk - want).abs()[mask]
             step_worst = max(step_worst, float(d.max()))
             step_beyond += int((d > 1e-3 * (1 + want.abs()[mask])).any(-1).sum())
@@ -744,8 +907,8 @@ def reference_check(api, model, cfg, clouds, served, free_ref) -> dict:
             parted.append(int(far.any(-1).sum()))
             xk, xr = yk, yr
     end_diff = [abs(g - w) for g, w in zip(served, free_ref)]
-    stats = {"per_layer_max_abs_diff": step_worst, "per_layer_points_beyond_1e-3":
-             step_beyond, "layers": len(model.layers),
+    stats = {"layout": eng.layout, "per_layer_max_abs_diff": step_worst,
+             "per_layer_points_beyond_1e-3": step_beyond, "layers": len(model.layers),
              "points_compared": int(mask.sum()),
              "free_running_points_apart_per_layer": parted,
              "free_running_output_max_abs_diff": float(max(d.max() for d in end_diff)),
@@ -777,23 +940,40 @@ def main() -> int:
             print("# ptxas " + line.strip(), flush=True)
 
     batches = train_batches(dev)
-    rows = kernel_phase(dev) + backward_kernel_phase(dev, batches[0])
-    serve, _ = serve_phase(dev)
-    train = train_phase(dev, batches)
+    packed_batches = packed_train_batches(dev)
+    t0 = time.perf_counter()
+    clouds = make_clouds(16, (2800, REAL_POINTS), seed=2024)
+    print(f"# made 16 clouds in {time.perf_counter() - t0:.1f} s", flush=True)
+    _, serve_offsets, serve_mask = pack_varlen(
+        [np.zeros((c["points"].shape[0], 1), np.float32) for c in clouds[:8]], BALL,
+        pad_to=CAPACITY, max_samples=B)
+    rows = (kernel_phase(dev) + backward_kernel_phase(dev, batches[0])
+            + varlen_kernel_phase(dev, serve_offsets, serve_mask, packed_batches[0]))
+
+    api = model_api(get_config("shapenet-bsa"))
+    model = api.init(seed=0, device=dev)
+    paths = {}
+    paths["serve_padded"], padded_outs = serve_phase(dev, api, model, clouds, "padded")
+    paths["serve_packed"], packed_outs = serve_phase(dev, api, model, clouds, "packed")
+    compare_layouts(clouds, padded_outs, packed_outs)
+    del model
+    paths["train_padded"] = train_phase(dev, batches, "padded")
+    paths["train_packed"] = train_phase(dev, packed_batches, "packed")
 
     summary = []
     for name, (src, replaces) in KERNELS.items():
-        # the main path's mode: fp32, key-bias flash; launches of the train
-        # path (this slice's), and of the serve path for the forward kernels
+        # the main path's mode (fp32, key-bias flash); launches of this slice's
+        # train path for the kernels it runs (of the padded one for the others),
+        # and of every path
         row = next(r for r in rows if r["name"] == name and r["dtype"] == "float32")
-        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": train["launches"][name],
-                 "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        if name in FWD_KERNELS:
-            entry["serve_launches"] = serve["launches"][name]
-        summary.append(entry)
+        by_path = {p: st["launches"][name] for p, st in paths.items()}
+        main_path = "train_packed" if name in PATHS["train_packed"] else "train_padded"
+        summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": by_path[main_path],
+                        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "launches_by_path": by_path})
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,13 @@
 
 Counterpart of ``repro/core/backend.py``.  ``bsa_attention`` runs its hot
 loops through a backend object with the ops ``ball``, ``flash``,
-``selection`` and ``gated_combine`` (the JAX protocol's ``local_window``,
-``*_varlen`` and ``paged_gather`` belong to later slices of the port).
-Shapes follow ``core``: q (B, N, Hq, D), k/v (B, L, Hkv, D), GQA-native.
+``selection`` and ``gated_combine``; ``bsa_attention_varlen`` (the packed
+layout) through ``ball_varlen``, ``flash_varlen`` and ``selection_varlen``,
+resolved by :func:`get_varlen` (the JAX protocol's ``local_window``,
+``local_window_varlen`` and ``paged_gather`` belong to later slices of the
+port).  Shapes follow ``core``: q (B, N, Hq, D), k/v (B, L, Hkv, D),
+GQA-native; the varlen ops take one packed axis, q (T, Hq, D), k/v
+(L, Hkv, D), and host ``offsets``.
 
 Built-ins:
 
@@ -32,7 +36,7 @@ from typing import Iterator
 
 __all__ = ["ReferenceBackend", "KernelBackend", "AutoBackend", "DEFAULT_BACKEND",
            "BRANCH_KEYS", "register_backend", "get_backend", "list_backends",
-           "use_backend", "resolve_branch_backends"]
+           "use_backend", "resolve_branch_backends", "get_varlen"]
 
 DEFAULT_BACKEND = "auto"
 BRANCH_KEYS = ("ball", "cmp", "slc")
@@ -50,9 +54,6 @@ class _Unported:
     """The JAX protocol's ops that later slices of the port bring."""
     local_window = staticmethod(_not_ported("local_window", "causal LM"))
     paged_gather = staticmethod(_not_ported("paged_gather", "paged decode"))
-    ball_varlen = staticmethod(_not_ported("ball_varlen", "packed-layout"))
-    flash_varlen = staticmethod(_not_ported("flash_varlen", "packed-layout"))
-    selection_varlen = staticmethod(_not_ported("selection_varlen", "packed-layout"))
     local_window_varlen = staticmethod(_not_ported("local_window_varlen", "causal LM"))
 
 
@@ -100,6 +101,34 @@ class ReferenceBackend(_Unported):
         from repro_torch.core.branches import gated_combine_ref
         return gated_combine_ref(outs, gates, mask)
 
+    # -- packed-varlen ops: q (T, Hq, D), k/v (L, Hkv, D), host offsets.  The
+    # parity oracle of the varlen kernels: sample isolation is an explicit
+    # segment bias on the reference math.
+
+    def ball_varlen(self, q, k, v, offsets, mask, *, ball_size, chunk_tokens=0):
+        # offsets are ball multiples: packed ball attention IS B = 1 ball attention
+        return self.ball(q[None], k[None], v[None], None if mask is None else mask[None],
+                         ball_size=ball_size, chunk_tokens=chunk_tokens)[0]
+
+    def flash_varlen(self, q, k, v, q_offsets, k_offsets, *, key_valid=None,
+                     chunk_tokens=0):
+        from repro_torch.core.branches import chunked_q_attention
+        from repro_torch.kernels.occupancy import segment_ids
+        kb, vb = self._rep(q[None], k[None], v[None])
+        return chunked_q_attention(
+            q[None], kb, vb, key_valid=None if key_valid is None else key_valid[None],
+            chunk=chunk_tokens, q_seg=segment_ids(q_offsets, q.shape[0], q.device),
+            k_seg=segment_ids(k_offsets, k.shape[0], q.device))[0]
+
+    def selection_varlen(self, q, k, v, top_idx, sel_valid, offsets, mask, *,
+                         block_size, group_size, chunk_tokens=0):
+        # isolation lives in the scores (other samples' blocks are never
+        # picked), so the packed gather-attend is B = 1 selection attention
+        return self.selection(q[None], k[None], v[None], top_idx[None], sel_valid[None],
+                              None if mask is None else mask[None],
+                              block_size=block_size, group_size=group_size,
+                              chunk_tokens=chunk_tokens)[0]
+
 
 class KernelBackend(_Unported):
     """The hand-written CUDA kernels (``kernels/ops.py``), differentiable:
@@ -128,6 +157,23 @@ class KernelBackend(_Unported):
     def gated_combine(self, outs, gates, mask):
         from repro_torch.kernels import ops
         return ops.gated_combine(outs, gates, mask)
+
+    def ball_varlen(self, q, k, v, offsets, mask, *, ball_size, chunk_tokens=0):
+        from repro_torch.kernels import ops
+        return ops.ball_attention_varlen(q, k, v, offsets, mask, ball_size)
+
+    def flash_varlen(self, q, k, v, q_offsets, k_offsets, *, key_valid=None,
+                     chunk_tokens=0):
+        from repro_torch.kernels import ops
+        return ops.flash_attention_varlen(q, k, v, q_offsets, k_offsets,
+                                          key_valid=key_valid)
+
+    def selection_varlen(self, q, k, v, top_idx, sel_valid, offsets, mask, *,
+                         block_size, group_size, chunk_tokens=0):
+        from repro_torch.kernels import ops
+        return ops.selection_attention_varlen(q, k, v, top_idx, sel_valid, offsets,
+                                              mask, block_size=block_size,
+                                              group_size=group_size)
 
 
 class AutoBackend:
@@ -208,6 +254,18 @@ def resolve_branch_backends(cfg) -> dict:
     base = cfg.backend or DEFAULT_BACKEND
     overrides = dict(cfg.backend_overrides or ())
     return {b: get_backend(overrides.get(b, base)) for b in BRANCH_KEYS}
+
+
+def get_varlen(backend, op: str):
+    """The backend's packed-varlen op ``<op>_varlen`` (``op`` one of
+    ``"ball"``, ``"flash"``, ``"selection"``), or the reference backend's
+    when a registered backend does not provide it.  The built-ins
+    (``reference``, ``kernels``, ``auto``) always answer with their own."""
+    name = f"{op}_varlen"
+    fn = getattr(backend, name, None)
+    if callable(fn):
+        return fn
+    return getattr(_REGISTRY["reference"], name)
 
 
 _AUTO = AutoBackend()

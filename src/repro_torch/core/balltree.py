@@ -1,10 +1,12 @@
 """Ball-tree ordering and ragged batching (host-side numpy).
 
-A copy of the parts of ``repro/core/balltree.py`` the padded serving and
-training paths use.  The tree is built by recursive median bisection along
-the axis of largest extent; the model consumes only the permutation that
-sorts points into ball order, after which every contiguous chunk of
-``ball_size`` points is one ball.
+A copy of the parts of ``repro/core/balltree.py`` the serving and training
+paths use: the padded layout (``pack_ragged``) and the packed-varlen layout
+(``pack_varlen``: all samples on one axis with an ``offsets`` array).
+The tree is built by recursive median bisection along the axis of largest
+extent; the model consumes only the permutation that sorts points into
+ball order, after which every contiguous chunk of ``ball_size`` points is
+one ball.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 
 __all__ = ["build_balltree_permutation", "build_balltree_permutations",
            "pad_to_multiple", "bucket_length", "pack_ragged", "unpack_ragged",
-           "pack_items"]
+           "pack_items", "pack_varlen", "unpack_varlen"]
 
 
 def _bisect(points: np.ndarray, idx: np.ndarray, out: list, leaf_size: int) -> None:
@@ -106,6 +108,74 @@ def unpack_ragged(batch: np.ndarray, mask: np.ndarray) -> list:
     batch = np.asarray(batch)
     mask = np.asarray(mask)
     return [batch[i, : int(mask[i].sum())] for i in range(batch.shape[0])]
+
+
+# ---------------------------------------------------------------------------
+# Packed-varlen layout: one concatenated axis + offsets (the cu_seqlens idiom)
+#
+#   packed  (T, ...)       samples back-to-back, each padded to a multiple of
+#                          ``multiple`` (the ball size), so balls, φ blocks
+#                          and selection groups never straddle two samples
+#   offsets (S+1,) int32   sample i owns rows [offsets[i], offsets[i+1]);
+#                          every entry a multiple of ``multiple``; trailing
+#                          repeats are empty segments (a static shape)
+#   mask    (T,) bool      True on real rows; prefix-true in each segment
+#
+# Rows at or after offsets[-1] are the capacity tail, shared by no sample.
+# ---------------------------------------------------------------------------
+
+def pack_varlen(arrays, multiple: int, *, pad_to: int | None = None,
+                max_samples: int | None = None, value: float = 0.0,
+                geometric: bool = True):
+    """Concatenate variable-length arrays into one packed axis + offsets.
+
+    ``arrays``: (n_i, ...) arrays sharing trailing dims.  Returns
+    ``(packed (T, ...), offsets (S+1,) int32, mask (T,))``.  ``pad_to``
+    freezes the capacity T (a multiple of ``multiple``, ≥ the packed
+    total); otherwise T is ``bucket_length(total)``.  ``max_samples`` pads
+    ``offsets`` to ``(max_samples + 1,)`` by repeating the final boundary.
+    Inverse: :func:`unpack_varlen`."""
+    arrays = [np.asarray(a) for a in arrays]
+    if not arrays:
+        raise ValueError("pack_varlen needs at least one array")
+    if max_samples is not None and len(arrays) > max_samples:
+        raise ValueError(f"{len(arrays)} samples > max_samples={max_samples}")
+    lengths = [a.shape[0] for a in arrays]
+    padded = [-(-n // multiple) * multiple for n in lengths]
+    total = sum(padded)
+    if pad_to is None:
+        cap = bucket_length(total, multiple, geometric=geometric)
+    else:
+        if pad_to % multiple or pad_to < total:
+            raise ValueError(f"pad_to={pad_to} must be a multiple of "
+                             f"{multiple} and ≥ packed total {total}")
+        cap = pad_to
+    n_seg = max_samples if max_samples is not None else len(arrays)
+    offsets = np.zeros((n_seg + 1,), dtype=np.int32)
+    offsets[1:len(arrays) + 1] = np.cumsum(padded)
+    offsets[len(arrays) + 1:] = total          # trailing repeats: empty segments
+    packed = np.full((cap,) + arrays[0].shape[1:], value, dtype=arrays[0].dtype)
+    mask = np.zeros((cap,), dtype=bool)
+    for a, n, start in zip(arrays, lengths, offsets[:len(arrays)]):
+        packed[start:start + n] = a
+        mask[start:start + n] = True
+    return packed, offsets, mask
+
+
+def unpack_varlen(packed: np.ndarray, offsets: np.ndarray,
+                  mask: np.ndarray | None = None) -> list:
+    """Inverse of :func:`pack_varlen`: one array per segment; with ``mask``
+    each sample's padding rows are dropped.  Empty segments give empty
+    arrays."""
+    packed = np.asarray(packed)
+    offsets = np.asarray(offsets)
+    outs = []
+    for i in range(offsets.shape[0] - 1):
+        a, b = int(offsets[i]), int(offsets[i + 1])
+        if mask is not None:
+            b = a + int(np.asarray(mask[a:b]).sum())
+        outs.append(packed[a:b])
+    return outs
 
 
 def pack_items(items: list[dict], pad_to: int | None) -> dict:

@@ -208,13 +208,16 @@ def selection_attend(q, k, v, top_idx, sel_valid, mask, *, block_size: int,
 
 
 def chunked_q_attention(q, k, v, *, key_valid=None, block_causal_ell: int = 0,
-                        chunk: int = 0):
+                        chunk: int = 0, q_seg=None, k_seg=None):
     """Dense attention of q against (small) K/V, optionally in query chunks.
 
     q: (B, N, H, D); k/v: (B, L, H, D) with the same head count;
     key_valid: (B, L) bool.  ``block_causal_ell`` > 0 applies the
     compression-branch causal rule: query t sees key j iff
-    (j+1)·ℓ − 1 < t.  ``chunk`` bounds the logits held at once."""
+    (j+1)·ℓ − 1 < t.  ``q_seg`` / ``k_seg`` (given together): (N,) / (L,)
+    int32 segment ids shared across the batch — packed-varlen isolation, a
+    query sees only keys of its own segment.  ``chunk`` bounds the logits
+    held at once."""
     B, N, H, D = q.shape
     L = k.shape[1]
     kh = k.transpose(1, 2)
@@ -230,6 +233,8 @@ def chunked_q_attention(q, k, v, *, key_valid=None, block_causal_ell: int = 0,
         if block_causal_ell:
             end = (torch.arange(L, device=q.device) + 1) * block_causal_ell - 1
             bias = bias + mask_to_bias(end[None, :] < pos[:, None])[None, None]
+        if q_seg is not None:
+            bias = bias + mask_to_bias(q_seg[pos][:, None] == k_seg[None, :])[None, None]
         return sdpa(qc, kh, vh, bias)
 
     pos = torch.arange(N, device=q.device)

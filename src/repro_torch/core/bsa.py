@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/core/bsa.py`` (``bsa_init``, ``ball_attention_ref``,
 ``_compression_branch``, ``_selection_scores``, ``_selection_branch``,
-``bsa_attention``).  Operates on ball-ordered point sequences: after the
+``bsa_attention`` and, for the packed-varlen layout,
+``bsa_attention_varlen``).  Operates on ball-ordered point sequences: after the
 ball-tree permutation every contiguous chunk of ``ball_size`` tokens is a
 ball.  Three branches (paper Eq. 9), combined with sigmoid gates:
 
@@ -20,15 +21,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.backend import resolve_branch_backends
+from repro_torch.core.backend import get_varlen, resolve_branch_backends
 from repro_torch.core.branches import (BRANCHES, block_validity, diag_scores,
                                        gate_values, phi_apply, score_dtype_cast,
                                        sdpa)
 from repro_torch.core.config import BSAConfig
+from repro_torch.kernels.occupancy import segment_ids
 from repro_torch.layers.nn import Dense
 from repro_torch.numerics import NEG_INF, mask_to_bias
 
-__all__ = ["BSAParams", "bsa_init", "bsa_attention", "ball_attention_ref"]
+__all__ = ["BSAParams", "bsa_init", "bsa_attention", "bsa_attention_varlen",
+           "ball_attention_ref"]
 
 
 class Phi(nn.Module):
@@ -133,9 +136,13 @@ def _compression_branch(params, q, k, v, mask, cfg: BSAConfig, backend):
 # Branch 3 — Selection
 # ---------------------------------------------------------------------------
 
-def _selection_scores(params, q, k_cmp, blk_valid, mask, cfg: BSAConfig):
+def _selection_scores(params, q, k_cmp, blk_valid, mask, cfg: BSAConfig, q_seg=None):
     """Group-level importance scores (B, G, Hkv, NB) fp32, already masked
-    (invalid block / own ball)."""
+    (invalid block / own ball).
+
+    ``q_seg``: (N,) int32 segment ids of a packed-varlen axis (B = 1): the
+    blocks of other segments score NEG_INF, so top-k never picks across a
+    sample boundary (and ``sel_valid`` goes False for any that slip in)."""
     B, N, Hq, D = q.shape
     Hkv = k_cmp.shape[2]
     rep = Hq // Hkv
@@ -163,6 +170,14 @@ def _selection_scores(params, q, k_cmp, blk_valid, mask, cfg: BSAConfig):
         blk_ball = (torch.arange(nb, device=s.device) * ell) // cfg.ball_size
         own = grp_ball[:, None] == blk_ball[None, :]                # (G, NB)
         s = torch.where(own[None, :, None, :], neg, s)
+    if q_seg is not None:
+        # offsets are ball multiples and groups / blocks subdivide balls, so
+        # each lies inside one segment: its first token's id is its segment
+        n_groups = s.shape[1]
+        grp_seg = q_seg.reshape(n_groups, N // n_groups)[:, 0]      # (G,)
+        blk_seg = q_seg.reshape(nb, ell)[:, 0]                      # (NB,)
+        same = grp_seg[:, None] == blk_seg[None, :]
+        s = torch.where(same[None, :, None, :], s, neg)
     return s
 
 
@@ -218,4 +233,75 @@ def bsa_attention(params: BSAParams, q, k, v, *, cfg: BSAConfig, mask=None, x=No
     if return_aux:
         return out, {"ball": out_ball, "cmp": out_cmp, "slc": out_slc,
                      "indices": top_idx, "gates": gates}
+    return out
+
+
+def bsa_attention_varlen(params: BSAParams, q, k, v, *, cfg: BSAConfig, offsets,
+                         mask=None, x=None, return_aux: bool = False):
+    """Ball Sparse Attention over a packed-varlen batch.
+
+    q: (T, Hq, D); k, v: (T, Hkv, D): all samples concatenated on one token
+    axis of capacity T.  ``offsets``: (S+1,) int32 sample boundaries on the
+    host (numpy or a CPU tensor), each a multiple of ``cfg.ball_size``
+    (what ``core.balltree.pack_varlen`` gives); trailing repeats are empty
+    segments.  ``mask``: (T,) bool, True on real tokens (pass the one from
+    ``pack_varlen``, so per-sample padding and the capacity tail are
+    masked).  Equal to running each sample alone: the ball and selection
+    branches keep samples apart by construction (offsets are ball
+    multiples; a group picks only blocks of its own segment), the
+    compression branch by segment ids in the varlen kernel.  ``x``: the
+    pre-projection input (T, d_model), for token gating.  Returns
+    (T, Hq, D) [+ aux dict]."""
+    T, Hq, D = q.shape
+    if k.shape[0] != T or v.shape != k.shape:
+        raise ValueError(f"k/v must be (T, Hkv, D) with T = {T}")
+    if Hq % k.shape[1]:
+        raise ValueError("q heads must be a multiple of kv heads")
+    in_dtype = q.dtype
+    q, k, v = score_dtype_cast(cfg, q, k, v)
+    ell = cfg.cmp_block
+    nb = T // ell
+    ct = cfg.jnp_chunk_tokens
+    maskb = None if mask is None else mask[None]
+    offsets = torch.as_tensor(offsets)
+    bk = resolve_branch_backends(cfg)
+
+    # ball branch: block-diagonal by construction (offsets are ball multiples)
+    out_ball = get_varlen(bk["ball"], "ball")(q, k, v, offsets, mask,
+                                              ball_size=cfg.ball_size, chunk_tokens=ct)
+
+    # compression branch: packed tokens against packed φ blocks; the block
+    # offsets are exact because sample boundaries are ball (hence ℓ) multiples
+    k_cmp = phi_apply(params.phi_k, k[None], maskb, cfg)[0]        # (NB, Hkv, D)
+    v_cmp = phi_apply(params.phi_v, v[None], maskb, cfg)[0]
+    blk_valid = block_validity(maskb, 1, T, ell, device=q.device)  # (1, NB)
+    k_off = offsets // ell
+    flash_vl = get_varlen(bk["cmp"], "flash")
+    if cfg.group_compression:
+        q_cmp = phi_apply(params.phi_q, q[None], maskb, cfg)[0]
+        out_c = flash_vl(q_cmp, k_cmp, v_cmp, k_off, k_off, key_valid=blk_valid[0],
+                         chunk_tokens=ct)                           # (NB, Hq, D)
+        out_cmp = out_c[:, None].expand(nb, ell, Hq, D).reshape(T, Hq, D)
+    else:
+        out_cmp = flash_vl(q, k_cmp, v_cmp, offsets, k_off, key_valid=blk_valid[0],
+                           chunk_tokens=ct)
+
+    # selection branch: segment isolation on top of the usual masking of the
+    # scores, then the layout-agnostic gather-attend
+    scores = _selection_scores(params, q[None], k_cmp[None], blk_valid, maskb, cfg,
+                               q_seg=segment_ids(offsets, T, q.device))
+    G = scores.shape[1]
+    top_vals, top_idx = torch.topk(scores, min(cfg.top_k, nb), dim=-1)
+    sel_valid = top_vals > NEG_INF / 2
+    out_slc = get_varlen(bk["slc"], "selection")(
+        q, k, v, top_idx[0], sel_valid[0], offsets, mask, block_size=ell,
+        group_size=T // G, chunk_tokens=ct)
+
+    gates = gate_values(params.gates, cfg, None if x is None else x[None], Hq)
+    out = bk["ball"].gated_combine(
+        (out_ball[None], out_cmp[None], out_slc[None]),
+        (gates["ball"], gates["cmp"], gates["slc"]), maskb)[0].to(in_dtype)
+    if return_aux:
+        return out, {"ball": out_ball, "cmp": out_cmp, "slc": out_slc,
+                     "indices": top_idx[0], "gates": gates}
     return out

@@ -56,6 +56,14 @@ SIGNATURES = {
     "selection_bwd": [P] * 11 + [I] * 9 + [P],
     # o1, o2, o3, g1, g2, g3, m, do, do1, do2, do3, dg1, dg2, dg3, R, D, bf16, stream
     "epilogue_bwd": [P] * 14 + [I] * 3 + [P],
+    # q, k, v, key_bias, qseg, kseg, k_bounds, o, lse, H, rep, T, L, D, bf16, stream
+    "varlen_fwd": [P] * 9 + [I] * 6 + [P],
+    # q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta, dq, H, rep,
+    # T, L, D, bf16, stream
+    "varlen_dq": [P] * 12 + [I] * 6 + [P],
+    # q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta, dk, dv, H,
+    # rep, T, L, D, bf16, stream
+    "varlen_dkv": [P] * 13 + [I] * 6 + [P],
 }
 
 _lib = None

@@ -8,9 +8,9 @@ no valid key), the residual its backward kernel recomputes
 (:func:`row_delta`, plain PyTorch as in the JAX package).
 
 Dispatch rule shared by every kernel wrapper (``bta``, ``flash``,
-``selection``, ``epilogue``, forward and backward): a CPU tensor runs the
-kernel's plain PyTorch version, a CUDA tensor launches the CUDA kernel or
-raises.  There is no fallback from one to the other.
+``varlen``, ``selection``, ``epilogue``, forward and backward): a CPU
+tensor runs the kernel's plain PyTorch version, a CUDA tensor launches the
+CUDA kernel or raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 kernels' GQA-grouped (B·Hkv, rep, N, D) / blocked layouts.
 
 Counterpart of ``repro/kernels/ops.py`` (``ball_attention``,
-``flash_attention``, ``selection_attention``, ``gated_combine``); these are
-what the ``"kernels"`` backend dispatches to.  The contract is the JAX
+``flash_attention``, ``selection_attention``, ``gated_combine`` and the
+packed-varlen ``flash_attention_varlen``, ``ball_attention_varlen``,
+``selection_attention_varlen``); these are what the ``"kernels"`` backend
+dispatches to.  The contract is the JAX
 one: q (B, N, Hq, D), k/v (B, L, Hkv, D) with Hq = Hkv·rep and query head
 h·rep + r belonging to KV head h; masks are (B, L) bool with True = real
 and mask KEYS in logit space; ``q_valid`` is an optimisation hint whose
@@ -18,25 +20,28 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bta, epilogue, flash, selection
-from repro_torch.kernels.occupancy import invalidate_dead_groups
+from repro_torch.kernels import bta, epilogue, flash, selection, varlen
+from repro_torch.kernels.occupancy import invalidate_dead_groups, varlen_maps
 from repro_torch.numerics import key_padding_bias, mask_to_bias
 
 __all__ = ["ball_attention", "flash_attention", "selection_attention",
-           "gated_combine"]
+           "gated_combine", "flash_attention_varlen", "ball_attention_varlen",
+           "selection_attention_varlen"]
 
 
 def _to_bh(t):
-    """(B, L, Hkv, D) → (B·Hkv, L, D): one K/V stream per KV head."""
+    """(B, L, Hkv, D) → (B·Hkv, L, D): one K/V stream per KV head
+    (contiguous: at B = 1 the reshape alone would be a strided view)."""
     B, L, H, D = t.shape
-    return t.transpose(1, 2).reshape(B * H, L, D)
+    return t.transpose(1, 2).reshape(B * H, L, D).contiguous()
 
 
 def _to_grouped(q, Hkv):
     """(B, N, Hq, D) → (B·Hkv, rep, N, D)."""
     B, N, Hq, D = q.shape
     rep = Hq // Hkv
-    return q.reshape(B, N, Hkv, rep, D).permute(0, 2, 3, 1, 4).reshape(B * Hkv, rep, N, D)
+    return (q.reshape(B, N, Hkv, rep, D).permute(0, 2, 3, 1, 4)
+             .reshape(B * Hkv, rep, N, D).contiguous())
 
 
 def _from_grouped(o, B, Hkv):
@@ -121,3 +126,51 @@ def gated_combine(outs, gates, mask):
     out = epilogue.GatedCombineFn.apply(*(o.reshape(R, D) for o in (o1, o2, o3)),
                                         g1, g2, g3, m)
     return out.reshape(B, N, H, D)
+
+
+# ---------------------------------------------------------------------------
+# Packed-varlen wrappers.  No batch dim: all samples lie on one packed axis,
+# q (T, Hq, D), k/v (L, Hkv, D), with host ``offsets`` (S+1,) int32 marking
+# the sample boundaries (every entry a multiple of the ball size; trailing
+# repeats are empty segments).  ``mask`` / ``key_valid`` is the packed (T,)
+# / (L,) bool validity.
+# ---------------------------------------------------------------------------
+
+def flash_attention_varlen(q, k, v, q_offsets, k_offsets, *, key_valid=None):
+    """Packed-varlen streaming-softmax attention: segment i of the queries
+    (``q_offsets``) attends only segment i of the keys (``k_offsets``; the
+    compression branch passes ``offsets // ℓ`` for its pooled keys), and the
+    capacity tail only the tail.  ``key_valid``: (L,) bool.  The offsets stay
+    on the host; their device maps are built once per layout
+    (``occupancy.varlen_maps``).  Returns (T, Hq, D)."""
+    T, Hq, D = q.shape
+    L, Hkv, _ = k.shape
+    maps = varlen_maps(q_offsets, k_offsets, T, L, q.device)
+    kb = key_padding_bias(None if key_valid is None else key_valid[None], 1, L,
+                          device=q.device)
+    o = varlen.VarlenAttentionFn.apply(
+        _to_grouped(q[None], Hkv), _to_bh(k[None]), _to_bh(v[None]), kb,
+        maps.qseg[None], maps.kseg[None], maps.q_bounds, maps.k_bounds)
+    return _from_grouped(o, 1, Hkv)[0]
+
+
+def ball_attention_varlen(q, k, v, offsets, mask, ball_size: int):
+    """Packed-varlen Ball-Tree Attention.  Every offset is a multiple of
+    ``ball_size``, so no ball straddles two samples: this is
+    :func:`ball_attention` at B = 1.  ``mask``: (T,) bool or None.  Returns
+    (T, Hq, D)."""
+    return ball_attention(q[None], k[None], v[None],
+                          None if mask is None else mask[None], ball_size)[0]
+
+
+def selection_attention_varlen(q, k, v, top_idx, sel_valid, offsets, mask, *,
+                               block_size: int, group_size: int):
+    """Packed-varlen group-selected sparse attention.  ``top_idx`` /
+    ``sel_valid``: (G, Hkv, k*) global block indices on the packed axis;
+    samples are kept apart upstream (the selection scores mask other
+    segments' blocks), so this is :func:`selection_attention` at B = 1;
+    ``offsets`` is part of the signature for uniformity.  Returns
+    (T, Hq, D)."""
+    return selection_attention(q[None], k[None], v[None], top_idx[None],
+                               sel_valid[None], None if mask is None else mask[None],
+                               block_size=block_size, group_size=group_size)[0]

@@ -6,6 +6,7 @@ Only the point-cloud family is ported:
     model = api.init(seed)                     # on "cuda" unless device="cpu"
     loss, metrics = api.loss(model, batch)     # train step core (differentiable)
     pred = api.forward(model, batch)           # (B, N, out_dim) fp32, no grad
+                                               # (an "offsets" key: packed layout)
     batch = api.make_batch(rng, B, N)          # random tensors (tests)
 """
 
@@ -48,7 +49,8 @@ def _pc_api(mcfg) -> ModelAPI:
 
     @torch.no_grad()
     def forward(model, batch: dict) -> torch.Tensor:
-        return _pc.pc_apply(model, batch["feats"], mcfg=mcfg, mask=batch.get("mask"))
+        return _pc.pc_apply(model, batch["feats"], mcfg=mcfg, mask=batch.get("mask"),
+                            offsets=batch.get("offsets"))
 
     def make_batch(rng: np.random.Generator, B: int, N: int, *, device="cuda") -> dict:
         feats = rng.standard_normal((B, N, mcfg.in_dim), dtype=np.float32)

@@ -43,29 +43,32 @@ class PointCloudModel(nn.Module):
                                   dtype=mcfg.pdtype(), device=device)
         self.head = Dense(mcfg.d_model, mcfg.out_dim, scale=0.02, bias=True, **kw)
 
-    def forward(self, feats, mask=None):
-        return pc_apply(self, feats, mcfg=self.mcfg, mask=mask)
+    def forward(self, feats, mask=None, offsets=None):
+        return pc_apply(self, feats, mcfg=self.mcfg, mask=mask, offsets=offsets)
 
 
 def pc_init(mcfg, *, generator: torch.Generator, device) -> PointCloudModel:
     return PointCloudModel(mcfg, generator=generator, device=device)
 
 
-def pc_layer(lp: PCLayer, x, *, mcfg, mask=None) -> torch.Tensor:
+def pc_layer(lp: PCLayer, x, *, mcfg, mask=None, offsets=None) -> torch.Tensor:
     """One block: x + BSA(norm(x)), then + SwiGLU(norm(x))."""
     h = rmsnorm(lp.norm1, x, mcfg.norm_eps)
-    x = x + attention_layer_apply(lp.attn, h, mcfg=mcfg, mask=mask)
+    x = x + attention_layer_apply(lp.attn, h, mcfg=mcfg, mask=mask, offsets=offsets)
     h = rmsnorm(lp.norm2, x, mcfg.norm_eps)
     return x + swiglu(lp.ffn, h)
 
 
-def pc_apply(params: PointCloudModel, feats, *, mcfg, mask=None) -> torch.Tensor:
-    """feats: (B, N, in_dim) ball-ordered; mask: (B, N) bool.  → (B, N,
-    out_dim) fp32, differentiable (the serving entry points call it under
+def pc_apply(params: PointCloudModel, feats, *, mcfg, mask=None,
+             offsets=None) -> torch.Tensor:
+    """feats: (B, N, in_dim) ball-ordered; mask: (B, N) bool; ``offsets``
+    (S+1,) int32 on the host selects the packed-varlen layout (B == 1, the
+    samples back to back on one row).  → (B, N, out_dim) fp32,
+    differentiable (the serving entry points call it under
     ``torch.no_grad()``)."""
     x = dense(params.embed, feats.to(mcfg.cdtype()))
     for lp in params.layers:
-        x = pc_layer(lp, x, mcfg=mcfg, mask=mask)
+        x = pc_layer(lp, x, mcfg=mcfg, mask=mask, offsets=offsets)
     x = rmsnorm(params.final_norm, x, mcfg.norm_eps)
     return dense(params.head, x).float()
 
@@ -73,8 +76,10 @@ def pc_apply(params: PointCloudModel, feats, *, mcfg, mask=None) -> torch.Tensor
 def pc_loss(params: PointCloudModel, batch: dict, *, mcfg):
     """batch: {feats (B, N, F), target (B, N, out_dim), mask (B, N)} →
     (masked MSE, {"mse": MSE}): the squared error summed over real points,
-    divided by max(mask.sum()·out_dim, 1)."""
-    pred = pc_apply(params, batch["feats"], mcfg=mcfg, mask=batch.get("mask"))
+    divided by max(mask.sum()·out_dim, 1).  An ``offsets`` key selects the
+    packed-varlen layout."""
+    pred = pc_apply(params, batch["feats"], mcfg=mcfg, mask=batch.get("mask"),
+                    offsets=batch.get("offsets"))
     err = (pred - batch["target"].float()) ** 2
     m = batch.get("mask")
     if m is not None:

@@ -3,7 +3,8 @@
 Marked ``gpu``: without a card every test here skips (decided inside the
 fixture, never at import).  On a machine with an H100 run them with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
-Small shapes with rep 2, one padded sample and one fully masked slot.
+Small shapes with rep 2, one padded sample and one fully masked slot (the
+varlen kernels: four clouds packed with a capacity tail and a dead block).
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
 version.  Tolerance: fp32 1e-4, bf16 4e-2 (6e-2 for the selection
 backward, as the JAX suite's bf16 gradient tolerances).
@@ -132,7 +133,8 @@ def test_model_kernels_match_reference(cuda):
         want = api.forward(model, batch)
     reset_counters()
     got = api.forward(model, batch)                    # "auto" → kernels on cuda
-    assert all(c.n == (cfg.n_layers if name.endswith("_fwd") else 0)
+    padded_fwd = ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
+    assert all(c.n == (cfg.n_layers if name in padded_fwd else 0)
                for name, c in COUNTERS.items())
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
 
@@ -247,6 +249,96 @@ def test_train_step_grads_match_reference(cuda):
             loss.backward()
         grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters()
                           if p.grad is not None}      # phi_q only feeds top-k
-    assert all(c.n == cfg.n_layers for c in COUNTERS.values())
+    assert all(c.n == (0 if name.startswith("varlen") else cfg.n_layers)
+               for name, c in COUNTERS.items())
+    for name, want in grads["reference"].items():
+        torch.testing.assert_close(grads["kernels"][name], want, atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# packed-varlen kernels: clouds of 20, 45, 33 and 11 points packed at ball 16
+# to capacity 160 (the tail is segment S), q_offsets = offsets and
+# k_offsets = offsets / ℓ as in the compression branch
+# ---------------------------------------------------------------------------
+
+def _varlen_case(dtype, dev, seed):
+    from repro_torch.core.balltree import pack_varlen
+    from repro_torch.kernels.occupancy import varlen_maps
+    sizes = (20, 45, 33, 11)
+    _, offsets, mask = pack_varlen([np.zeros((n, 1)) for n in sizes], BALL, pad_to=160,
+                                   max_samples=5)
+    T, L = 160, 160 // ELL
+    maps = varlen_maps(offsets, offsets // ELL, T, L, dev)
+    blk = torch.from_numpy(mask.reshape(L, ELL).any(-1)).to(dev)
+    blk[2] = False                            # a dead block inside a segment
+    q = _rand((HKV, REP, T, D), dtype, dev, seed)
+    k = _rand((HKV, L, D), dtype, dev, seed + 1)
+    v = _rand((HKV, L, D), dtype, dev, seed + 2)
+    return (q, k, v, _bias(blk)[None], maps.qseg[None], maps.kseg[None], maps.q_bounds,
+            maps.k_bounds)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_varlen_kernel(cuda, dtype):
+    from repro_torch.kernels import varlen
+    args = _varlen_case(dtype, cuda, 20)
+    before = varlen.COUNT.n
+    got = varlen.flash_attention_varlen_fwd(*args)
+    torch.cuda.synchronize()
+    assert varlen.COUNT.n == before + 1
+    _check(got, varlen.flash_attention_varlen_fwd_plain(*args[:6]), dtype)
+    assert bool((got[1][..., 144:] == 1e30).all())       # the tail sees no valid key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_varlen_bwd_kernels(cuda, dtype):
+    from repro_torch.kernels import varlen
+    args = _varlen_case(dtype, cuda, 23)
+    o, lse = varlen.flash_attention_varlen_fwd(*args)
+    rest = _bwd_inputs(o, lse, dtype, 26)
+    before = (varlen.COUNT_DQ.n, varlen.COUNT_DKV.n)
+    got = varlen.flash_attention_varlen_bwd(*args, *rest)
+    torch.cuda.synchronize()
+    assert (varlen.COUNT_DQ.n, varlen.COUNT_DKV.n) == (before[0] + 1, before[1] + 1)
+    _check(got, varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest), dtype)
+    assert bool((got[0][..., 144:, :] == 0).all())       # tail rows: exact zeros
+    assert bool((got[1][:, 2] == 0).all())               # the dead block
+
+
+def test_packed_model_matches_reference(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import use_backend
+    from repro_torch.core.balltree import pack_varlen
+    from repro_torch.core.config import BSAConfig
+    from repro_torch.kernels.common import COUNTERS, reset_counters
+    from repro_torch.models.api import model_api
+    cfg = get_config("shapenet-bsa").scaled(
+        n_layers=2, d_model=64, n_heads=HQ, n_kv_heads=HKV, head_dim=D, d_ff=128,
+        bsa=BSAConfig(ball_size=BALL, cmp_block=ELL, slc_block=ELL, top_k=2,
+                      group_size=4))
+    api = model_api(cfg)
+    model = api.init(0)
+    rng = np.random.default_rng(1)
+    items = [rng.standard_normal((n, 8)).astype(np.float32) for n in (20, 45, 33, 11)]
+    packed, offsets, mask = pack_varlen(items, BALL, pad_to=160, max_samples=5)
+    batch = {"feats": torch.from_numpy(packed[None, :, :7]).to(cuda),
+             "target": torch.from_numpy(packed[None, :, 7:]).to(cuda),
+             "mask": torch.from_numpy(mask[None]).to(cuda),
+             "offsets": torch.from_numpy(offsets)}
+    grads, preds = {}, {}
+    for backend in ("reference", "kernels"):
+        model.zero_grad(set_to_none=True)
+        reset_counters()
+        with use_backend(backend):
+            preds[backend] = api.forward(model, batch)
+            loss, _ = api.loss(model, batch)
+            loss.backward()
+        grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters()
+                          if p.grad is not None}
+    packed_path = ("bta_fwd", "varlen_fwd", "selection_fwd", "epilogue_fwd")
+    assert all(c.n == (2 * cfg.n_layers if name in packed_path
+                       else 0 if name.startswith("flash") else cfg.n_layers)
+               for name, c in COUNTERS.items())
+    torch.testing.assert_close(preds["kernels"], preds["reference"], atol=1e-3, rtol=1e-3)
     for name, want in grads["reference"].items():
         torch.testing.assert_close(grads["kernels"][name], want, atol=1e-3, rtol=1e-3)

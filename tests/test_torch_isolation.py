@@ -6,7 +6,9 @@
 * On CPU tensors no kernel counter moves, forward or backward (the plain
   versions run); asking
   for ``device="cuda"`` without a card raises instead of running on the CPU.
-* The kernel backend raises for the ops whose kernels later slices bring.
+* The kernel backend raises for the ops whose kernels later slices bring,
+  and the built-in ``kernels`` / ``auto`` backends answer the packed-varlen
+  ops with their own methods, never with the reference's.
 """
 
 import ast
@@ -63,21 +65,28 @@ def _tiny():
 @pytest.mark.parametrize("backend", ["kernels", "auto", "reference"])
 def test_cpu_runs_move_no_kernel_counter(backend):
     from repro_torch.core.backend import use_backend
+    from repro_torch.core.balltree import pack_varlen
     from repro_torch.kernels.common import COUNTERS, reset_counters
     from repro_torch.models.api import model_api
     import repro_torch.kernels.ops  # noqa: F401  (registers every counter)
     api = model_api(_tiny())
     model = api.init(0, device="cpu")
     batch = api.make_batch(np.random.default_rng(0), 2, 32, device="cpu")
+    rows, offsets, mask = pack_varlen([np.ones((n, 8), np.float32) for n in (20, 9)], 16,
+                                      max_samples=3)
+    packed = {"feats": torch.from_numpy(rows[None, :, :7]),
+              "target": torch.from_numpy(rows[None, :, 7:]),
+              "mask": torch.from_numpy(mask[None]), "offsets": torch.from_numpy(offsets)}
     reset_counters()
     with use_backend(backend):
-        out = api.forward(model, batch)
-        loss, _ = api.loss(model, batch)
-        loss.backward()                                # the backward plain versions
-    assert out.shape == (2, 32, 1) and torch.isfinite(out).all()
+        for b in (batch, packed):
+            out = api.forward(model, b)
+            loss, _ = api.loss(model, b)
+            loss.backward()                            # the backward plain versions
+            assert out.shape == b["mask"].shape + (1,) and torch.isfinite(out).all()
     assert set(COUNTERS) == {"bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd",
                              "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd",
-                             "epilogue_bwd"}
+                             "epilogue_bwd", "varlen_fwd", "varlen_dq", "varlen_dkv"}
     assert all(c.n == 0 for c in COUNTERS.values())
 
 
@@ -92,13 +101,33 @@ def test_cuda_without_a_card_raises():
         api.make_batch(np.random.default_rng(0), 1, 32)
 
 
-@pytest.mark.parametrize("op", ["local_window", "ball_varlen", "flash_varlen",
-                                "selection_varlen", "local_window_varlen",
-                                "paged_gather"])
+@pytest.mark.parametrize("op", ["local_window", "local_window_varlen", "paged_gather"])
 def test_kernel_backend_raises_for_unported_ops(op):
     from repro_torch.core.backend import get_backend
     with pytest.raises(NotImplementedError):
         getattr(get_backend("kernels"), op)(torch.zeros(1, 16, 1, 16))
+
+
+@pytest.mark.parametrize("backend", ["kernels", "auto"])
+@pytest.mark.parametrize("op", ["ball", "flash", "selection"])
+def test_builtin_backends_resolve_varlen_ops_to_their_own(backend, op, monkeypatch):
+    from repro_torch.core import backend as bk
+    from repro_torch.kernels import ops
+    fn = bk.get_varlen(bk.get_backend(backend), op)
+    assert fn != getattr(bk.get_backend("reference"), f"{op}_varlen")
+    # on a CUDA tensor the op reaches the kernel wrapper (spied here: this
+    # machine may have no card), never the reference
+    calls = []
+    monkeypatch.setattr(ops, f"{op}_attention_varlen", lambda *a, **kw: calls.append(a))
+    monkeypatch.setattr(bk.ReferenceBackend, f"{op}_varlen",
+                        lambda *a, **kw: pytest.fail("reached the reference"))
+    class OnCard:                                      # what "auto" reads of a tensor
+        device = torch.device("cuda")
+
+    n_args, kw = {"ball": (5, dict(ball_size=16)), "flash": (5, {}),
+                  "selection": (7, dict(block_size=4, group_size=4))}[op]
+    fn(OnCard(), *[None] * (n_args - 1), **kw)
+    assert len(calls) == 1
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

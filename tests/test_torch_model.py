@@ -99,9 +99,14 @@ def test_geometry_engine_padded_matches_jax(pad_to):
 
 
 def test_geometry_engine_packed_layout_is_next_slice():
+    # the packed slice has landed: "packed" is the default for BSA, as in the
+    # JAX package (its parity: tests/test_torch_varlen.py), and a layout of
+    # neither kind is refused
     _, _, tcfg, model = _pair()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        GeometryEngine(model_api(tcfg), model, layout="packed")
+    assert GeometryEngine(model_api(tcfg), model).layout == "packed"
+    assert GeometryEngine(model_api(tcfg), model, layout="packed").layout == "packed"
+    with pytest.raises(ValueError, match="layout"):
+        GeometryEngine(model_api(tcfg), model, layout="ragged")
 
 
 @pytest.mark.parametrize("n,ball", [(3586, 256), (50, 16), (64, 16), (1000, 64)])
