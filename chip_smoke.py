@@ -51,13 +51,48 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    backend's given the same layer input and upstream gradient, within 1e-4
    of each tensor's largest value (``train_reference_check``).
 
-Nothing is cut: every path runs at full width and depth.  Any failed check
-exits non-zero before the result lines.  On success the last line is
+5. LM kernels: ``local_fwd`` (B = 1, N = 4096, rep 8, D 64, window 256,
+   a padded tail, a hole and a packed-sample boundary) and ``paged_gather``
+   (the serving pool of 65 blocks of 256 rows of 4 × 64, 4096 rows: one
+   decode step's local-window gather of 8 slots) in fp32 and bf16 against
+   their plain versions, and ``flash_fwd`` (block-causal), ``selection_fwd``
+   and ``epilogue_fwd`` at the shapes one 32,768-token sequence of the
+   prefill gives them (32 query heads on 4 KV heads of 64, ℓ = 64,
+   k* = 16, g = 64, so 512 rows a group);
+6. prefill: ``make_prefill_step`` on ``tinyllama-1.1b`` at full width and
+   depth (22 layers, d_model 2048, 32 / 4 heads of 64, vocabulary 32,000,
+   bf16, random weights from seed 0) over B = 2 × N = 32,768 random tokens
+   (``prefill_32k``'s sequence length, its global batch of 32 cut to 2 for
+   one card); it must launch exactly 22 each of ``local_fwd``,
+   ``flash_fwd``, ``selection_fwd`` and ``epilogue_fwd`` and no other
+   kernel, and every layer on the kernel path must match the ``reference``
+   backend given the same layer input within 4e-2 of the layer output's
+   largest value (the repository's bf16 tolerance);
+7. decode oracle: ``nsa_causal_decode_paged`` at the full width's heads
+   (32 / 4 of 64, fp32, ``LM_BSA`` with ``group_size=0,
+   query_cmp_selection=False``, the configuration whose decode is exact
+   against the forward) over a shuffled block table and three staggered
+   slots of 1,100–1,600 tokens must match ``nsa_causal_attention`` on the
+   kernel path at every position within 1e-4 of the output's largest value;
+8. serving: ``ServingEngine(paged=True)`` with 8 slots, ``max_len`` 2048,
+   pages of 256 serves 10 greedy requests of 1,100–1,600 random tokens
+   (numpy seed 0), 8 new tokens each; requests 0, 1 and 8 open with the
+   same 512 tokens (a shared system prompt; request 8, admitted after the
+   first slot retires, reuses the sealed pages); the serve must launch
+   ``paged_gather`` 8 times a layer and step and no other kernel; requests
+   0 and 9 are also generated by B = 1 lockstep ``generate`` (two processes
+   side by side, after the serve) and their tokens must equal the served
+   ones, or part at a near-tie (the lockstep top-two logit gap there below
+   4e-2 of the largest |logit|).
+
+The shapenet paths run at full width and depth.  Any failed check exits
+non-zero before the result lines.  On success the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -76,20 +111,23 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import nsa_causal  # noqa: E402
 from repro_torch.core.backend import use_backend  # noqa: E402
 from repro_torch.core.balltree import pack_varlen  # noqa: E402
 from repro_torch.data.shapenet import N_POINTS, ShapeNetCarDataset, make_clouds  # noqa: E402
-from repro_torch.kernels import _build, bta, epilogue, flash, selection, varlen  # noqa: E402
+from repro_torch.kernels import (_build, bta, epilogue, flash, local, paged,  # noqa: E402
+                                 selection, varlen)
 from repro_torch.kernels.common import COUNTERS, reset_counters, row_delta  # noqa: E402
 from repro_torch.kernels.occupancy import (ranges_live_map, tile_seg_ranges,  # noqa: E402
                                            varlen_maps)
-from repro_torch.launch.steps import make_train_step  # noqa: E402
-from repro_torch.layers.nn import dense, rmsnorm  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
+from repro_torch.layers.nn import dense, embed, rmsnorm  # noqa: E402
 from repro_torch.models.api import model_api  # noqa: E402
 from repro_torch.models.pointcloud import pc_layer  # noqa: E402
+from repro_torch.models.transformer import lm_layer  # noqa: E402
 from repro_torch.numerics import NEG_INF  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
-from repro_torch.serving.engine import GeometryEngine  # noqa: E402
+from repro_torch.serving.engine import GeometryEngine, ServingEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32
 # outside the tensor cores, bf16 tensor cores
@@ -118,6 +156,9 @@ KERNELS = {
     "varlen_fwd": ("src/repro_torch/csrc/varlen_fwd.cu", "src/repro/kernels/varlen.py:67"),
     "varlen_dq": ("src/repro_torch/csrc/varlen_bwd.cu", "src/repro/kernels/varlen.py:117"),
     "varlen_dkv": ("src/repro_torch/csrc/varlen_bwd.cu", "src/repro/kernels/varlen.py:154"),
+    "local_fwd": ("src/repro_torch/csrc/local_fwd.cu", "src/repro/kernels/local.py:72"),
+    "paged_gather": ("src/repro_torch/csrc/paged_gather.cu",
+                     "src/repro/kernels/paged.py:23"),
 }
 # the kernels each path runs (every other kernel must stay at 0 launches there)
 PATHS = {"serve_padded": ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd"),
@@ -126,6 +167,12 @@ PATHS["train_padded"] = PATHS["serve_padded"] + (
     "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd", "epilogue_bwd")
 PATHS["train_packed"] = PATHS["serve_packed"] + (
     "bta_bwd", "varlen_dq", "varlen_dkv", "selection_bwd", "epilogue_bwd")
+PATHS["prefill"] = ("local_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
+PATHS["decode_oracle"] = ("paged_gather",)
+PATHS["serve_lm"] = ("paged_gather",)
+# the path (and dtype) whose launches and row the kernels line reports for
+# the LM kernels; the others report the train paths' (fp32)
+LM_MAIN = {"local_fwd": ("prefill", "bfloat16"), "paged_gather": ("serve_lm", "float32")}
 
 # the slice's shapes: shapenet-bsa served 8 clouds at a time, padded to 3840
 B, N, H, D = 8, 3840, 8, 32
@@ -133,6 +180,17 @@ BALL, ELL, KSTAR, GROUP = 256, 8, 4, 8
 NB = N // ELL
 REAL_POINTS = N_POINTS                  # sample 0: a full ShapeNet-Car cloud
 CAPACITY = B * N                        # packed rows: the padded batch's 8 × 3840
+
+# the LM slice: tinyllama-1.1b (32 query heads on 4 KV heads of 64, LM_BSA)
+LM = "tinyllama-1.1b"
+LM_HQ, LM_HKV, LM_D = 32, 4, 64
+LM_W, LM_ELL, LM_KSTAR, LM_G = 256, 64, 16, 64
+PREFILL_B, PREFILL_N = 2, 32768          # prefill_32k's length, its batch of 32 cut to 2
+LM_LAYER_TOL = 4e-2                      # bf16, of each layer output's largest value
+DECODE_TOL = 1e-4                        # fp32, of the output's largest value
+SLOTS, MAX_LEN, PAGE = 8, 2048, 256
+N_REQUESTS, NEW_TOKENS, SHARED = 10, 8, 512
+NEAR_TIE = 4e-2                          # of the largest |logit|
 
 
 class CheckFailed(Exception):
@@ -920,6 +978,470 @@ def reference_check(eng, model, cfg, clouds, served, free_ref) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the causal LM: tinyllama-1.1b
+# ---------------------------------------------------------------------------
+
+def local_visible_pairs(key_bias, blk_seg, w: int) -> int:
+    """(query position, key) pairs the local kernel attends, per query head:
+    each row of block i sees the valid keys of block i−1 (when it exists and
+    lies in the same segment) and the valid keys of its own block up to
+    itself."""
+    Bk, n = key_bias.shape
+    valid = (key_bias > NEG_INF / 2).reshape(Bk, n // w, w)
+    prev = torch.cat([torch.zeros_like(valid[:, :1, 0], dtype=torch.long),
+                      valid[:, :-1].sum(-1)], dim=1)                   # (B, nb)
+    if blk_seg is not None:
+        same = torch.cat([torch.zeros_like(blk_seg[:, :1], dtype=torch.bool),
+                          blk_seg[:, 1:] == blk_seg[:, :-1]], dim=1)
+        prev = torch.where(same, prev, 0)
+    return int((prev[..., None] + valid.long().cumsum(-1)).sum())
+
+
+def local_dense_mask(key_bias, blk_seg, w: int) -> torch.Tensor:
+    """(N, N) bool of the same rule, for one sample (SDPA's yardstick)."""
+    n = key_bias.shape[1]
+    t = torch.arange(n, device=key_bias.device)
+    bt, bj = t[:, None] // w, t[None, :] // w
+    seg = blk_seg[0][t // w]
+    ok = ((bt == bj) & (t[None, :] <= t[:, None])) | \
+        ((bj == bt - 1) & (seg[None, :] == seg[:, None]))
+    return ok & (key_bias[0] > NEG_INF / 2)[None, :]
+
+
+def lm_kernel_phase(dev) -> list[dict]:
+    """The two LM kernels against their plain versions, and the three
+    forward kernels the LM shares with shapenet at the LM's shapes."""
+    results = []
+    record = recorder(results)
+    rep = LM_HQ // LM_HKV
+    # local_fwd: one 4096-token sequence, a padded tail, a hole, a sample boundary
+    n = 4096
+    mask = torch.ones(1, n, dtype=torch.bool, device=dev)
+    mask[0, 1000:1100] = False
+    mask[0, n - 300:] = False
+    key_bias = torch.where(mask, 0.0, NEG_INF).float()
+    blk_seg = (torch.arange(n // LM_W, device=dev) >= 6).int()[None].contiguous()
+    pairs = LM_HQ * local_visible_pairs(key_bias, blk_seg, LM_W)
+    dense_ok = local_dense_mask(key_bias, blk_seg, LM_W)
+    # flash (block-causal), selection, epilogue: one prefill sequence
+    N1 = PREFILL_N
+    NB1 = N1 // LM_ELL
+    vis = flash.visible_keys(N1, NB1, causal=False, block_causal=True, ell=LM_ELL,
+                             device=dev)
+    g = torch.Generator(device=dev).manual_seed(90)
+    grp = torch.arange(NB1, device=dev)
+    past = grp[None, :] < grp[:, None]                       # block j ends before group g
+    score = torch.where(past[None, None], torch.rand((1, LM_HKV, NB1, NB1), generator=g,
+                                                     device=dev), -1.0)
+    score[..., 0] += torch.where(grp > 0, 2.0, 0.0)           # force_first_block
+    val, idx = torch.topk(score, LM_KSTAR, dim=-1)
+    idx = torch.where(val > -0.5, idx, -1).int().contiguous()  # (1, Hkv, G, k*)
+    M = LM_G * rep
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        # ---- local_fwd
+        q = rand((LM_HKV, rep, n, LM_D), dtype, dev, 91)
+        k = rand((LM_HKV, n, LM_D), dtype, dev, 92)
+        v = rand((LM_HKV, n, LM_D), dtype, dev, 93)
+        kw = dict(window=LM_W, n_heads=LM_HKV)
+        got = local.local_window_fwd(q, k, v, key_bias, blk_seg, **kw)
+        want = local.local_window_fwd_plain(q, k, v, key_bias, blk_seg, **kw)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * es + 4 * n + 4 * 2 * (n // LM_W) \
+            + 4 * q.numel() // LM_D
+        b_ms, b_by = bound(nbytes, 4.0 * LM_D * pairs, dtype)
+        qs = q.reshape(1, LM_HQ, n, LM_D)
+        ks, vs = (t.repeat_interleave(rep, 0)[None] for t in (k, v))
+        record("local_fwd", "lm_window", dtype, err, ok,
+               median_ms(lambda: local.local_window_fwd(q, k, v, key_bias, blk_seg, **kw)),
+               median_ms(lambda: local.local_window_fwd_plain(q, k, v, key_bias, blk_seg,
+                                                              **kw), reps=5),
+               b_ms, b_by,
+               median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                attn_mask=dense_ok)))
+        del q, k, v, qs, ks, vs, got, want
+
+        # ---- paged_gather: one decode step's window gather of 8 slots
+        R = (SLOTS * (MAX_LEN // PAGE) + 1) * PAGE
+        pool = rand((R, LM_HKV, LM_D), dtype, dev, 94)
+        rows = torch.randint(0, R, (SLOTS * 2 * LM_W,), generator=g, device=dev)
+        got = paged.paged_gather(pool, rows)
+        want = paged.paged_gather_plain(pool, rows)
+        torch.cuda.synchronize()
+        err, ok = max_err((got,), (want,))
+        row_bytes = LM_HKV * LM_D * es
+        b_ms, b_by = bound(2 * rows.numel() * row_bytes + 4 * rows.numel(), 0.0, dtype)
+        record("paged_gather", "decode_window", dtype, err, ok,
+               median_ms(lambda: paged.paged_gather(pool, rows)),
+               median_ms(lambda: paged.paged_gather_plain(pool, rows), reps=5),
+               b_ms, b_by, median_ms(lambda: torch.index_select(pool, 0, rows)))
+        del pool
+
+        # ---- flash_fwd, block-causal: 32,768 queries against 512 pooled keys
+        q = rand((LM_HKV, rep, N1, LM_D), dtype, dev, 95)
+        k = rand((LM_HKV, NB1, LM_D), dtype, dev, 96)
+        v = rand((LM_HKV, NB1, LM_D), dtype, dev, 97)
+        zb = torch.zeros((1, NB1), dtype=torch.float32, device=dev)
+        kw = dict(n_heads=LM_HKV, block_causal=True, ell=LM_ELL)
+        got = flash.flash_attention_fwd(q, k, v, zb, None, **kw)
+        want = flash.flash_attention_fwd_plain(q, k, v, zb, None, **kw)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want)
+        del got, want
+        nbytes = (2 * q.numel() + 2 * k.numel()) * es + 4 * NB1 + 4 * q.numel() // LM_D
+        b_ms, b_by = bound(nbytes, 4.0 * LM_D * LM_HQ * float(vis.sum()), dtype)
+        qs = q.reshape(1, LM_HQ, N1, LM_D)
+        ks, vs = (t.repeat_interleave(rep, 0)[None] for t in (k, v))
+        record("flash_fwd", "lm_block_causal", dtype, err, ok,
+               median_ms(lambda: flash.flash_attention_fwd(q, k, v, zb, None, **kw)),
+               median_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, zb, None, **kw),
+                         warmup=1, reps=3),
+               b_ms, b_by,
+               median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis)))
+        del q, k, v, qs, ks, vs
+
+        # ---- selection_fwd: 512 groups of g·rep = 512 rows, 16 blocks of 64 keys
+        qg = rand((1, LM_HKV, NB1, M, LM_D), dtype, dev, 98)
+        kb = rand((1, LM_HKV, NB1, LM_ELL, LM_D), dtype, dev, 99)
+        vb = rand((1, LM_HKV, NB1, LM_ELL, LM_D), dtype, dev, 100)
+        tok_bias = torch.zeros((1, NB1, LM_ELL), dtype=torch.float32, device=dev)
+        got = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
+        want = selection.selection_attention_fwd_plain(qg, kb, vb, idx, tok_bias)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want)
+        del got, want
+        valid_sel = int((idx >= 0).sum())
+        used = torch.zeros(1, LM_HKV, NB1, dtype=torch.bool, device=dev)
+        used.scatter_(2, idx.clamp(min=0).reshape(1, LM_HKV, -1).long(),
+                      (idx >= 0).reshape(1, LM_HKV, -1))
+        nbytes = (2 * qg.numel() + 2 * int(used.sum()) * LM_ELL * LM_D) * es \
+            + 4 * idx.numel() + 4 * tok_bias.numel() + 4 * qg.numel() // LM_D
+        b_ms, b_by = bound(nbytes, 4.0 * M * LM_ELL * LM_D * valid_sel, dtype)
+        record("selection_fwd", "lm_groups", dtype, err, ok,
+               median_ms(lambda: selection.selection_attention_fwd(qg, kb, vb, idx,
+                                                                   tok_bias)),
+               median_ms(lambda: selection.selection_attention_fwd_plain(
+                   qg, kb, vb, idx, tok_bias), warmup=1, reps=3),
+               b_ms, b_by, None)
+        del qg, kb, vb
+
+        # ---- epilogue_fwd: R = N·Hq rows of 64
+        R = N1 * LM_HQ
+        os_ = [rand((R, LM_D), dtype, dev, 101 + i) for i in range(3)]
+        gs = [torch.sigmoid(rand((R,), torch.float32, dev, 104 + i)) for i in range(3)]
+        m = torch.ones(R, dtype=torch.float32, device=dev)
+        got = epilogue.gated_combine_fwd(*os_, *gs, m)
+        want = epilogue.gated_combine_fwd_plain(*os_, *gs, m)
+        torch.cuda.synchronize()
+        err, ok = max_err((got,), (want,))
+        b_ms, b_by = bound(4 * R * LM_D * es + 4 * 4 * R, 6.0 * R * LM_D, torch.float32)
+        record("epilogue_fwd", "lm_rows", dtype, err, ok,
+               median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
+               median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
+               b_ms, b_by, None)
+        del os_, gs, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def prefill_phase(dev, api, model) -> dict:
+    """``make_prefill_step`` on B = 2 × N = 32,768 random tokens: one
+    warm-up call, one timed call (its launches checked), the per-layer
+    reference check and a profiled call."""
+    cfg = api.mcfg
+    batch = api.make_batch(np.random.default_rng(0), PREFILL_B, PREFILL_N, device=dev)
+    step = make_prefill_step(api)
+    t0 = time.perf_counter()
+    step(model, batch)                                   # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()                                     # just before the main path
+    t0 = time.perf_counter()
+    logits = step(model, batch)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    stats = {"arch": LM, "batch": PREFILL_B, "seq_len": PREFILL_N, "layers": cfg.n_layers,
+             "dtype": cfg.compute_dtype, "latency_s": latency, "warmup_s": warm_s,
+             "tokens_per_second": PREFILL_B * PREFILL_N / latency,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches}
+    print(json.dumps({"prefill": stats}), flush=True)
+    check_launches(launches, "prefill", cfg.n_layers)
+    check(logits.shape == (PREFILL_B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"prefill logits: shape {tuple(logits.shape)} or non-finite")
+    stats["reference_check"] = prefill_reference_check(model, cfg, batch["tokens"])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_summary(prof)
+    summary["profiled_wall_ms"] = wall * 1e3
+    print(json.dumps({"prefill_profile": summary}), flush=True)
+    return stats
+
+
+def prefill_reference_check(model, cfg, tokens) -> dict:
+    """Every layer on the kernel path against the ``reference`` backend given
+    the same layer input, along the kernel path's own trajectory (the
+    reference runs one sequence at a time, to bound its memory)."""
+    B_, N_ = tokens.shape
+    pos = torch.arange(N_, device=tokens.device)[None].expand(B_, N_)
+    rows = []
+    with torch.no_grad():
+        x = embed(model.embed, tokens, dtype=cfg.cdtype())
+        for i, period in enumerate(model.layers):
+            lp = period.pos0
+            with use_backend("kernels"):
+                yk = lm_layer(lp, x, mcfg=cfg, positions=pos)
+            with use_backend("reference"):
+                yr = torch.cat([lm_layer(lp, x[b:b + 1], mcfg=cfg, positions=pos[b:b + 1])
+                                for b in range(B_)])
+            check(bool(torch.isfinite(yk).all()), f"layer {i}: non-finite output")
+            diff = float((yk.float() - yr.float()).abs().max())
+            ref = float(yr.float().abs().max())
+            rows.append({"layer": i, "max_abs_diff": diff, "ref_max_abs": ref,
+                         "rel": diff / ref})
+            x = yk
+            del yr
+    stats = {"rel_tol": LM_LAYER_TOL, "layers": len(rows),
+             "worst": max(rows, key=lambda r: r["rel"]),
+             "rel_by_layer": [r["rel"] for r in rows]}
+    print(json.dumps({"prefill_reference_check": stats}), flush=True)
+    beyond = [f"layer {r['layer']} ({r['rel']:.2e})" for r in rows
+              if not r["rel"] <= LM_LAYER_TOL]
+    check(not beyond, f"prefill kernel path vs reference backend beyond {LM_LAYER_TOL}: "
+                      f"{', '.join(beyond)}")
+    return stats
+
+
+def decode_oracle_phase(dev) -> dict:
+    """Paged decode over a shuffled block table with three staggered slots,
+    against the full-sequence forward on the kernel path, per position."""
+    cfg = dataclasses.replace(get_config(LM).bsa, group_size=0, query_cmp_selection=False)
+    lens, starts = [1600, 1350, 1100], [0, 150, 450]
+    Bs, n_pad = 3, 1792                                  # 7 windows of 256
+    n_pages = n_pad // PAGE
+    num_blocks = Bs * n_pages
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((Bs, n_pad, LM_HQ, LM_D), generator=g, device=dev)
+    k = torch.randn((Bs, n_pad, LM_HKV, LM_D), generator=g, device=dev)
+    v = torch.randn((Bs, n_pad, LM_HKV, LM_D), generator=g, device=dev)
+    params = nsa_causal.nsa_init(cfg, n_heads=LM_HQ, n_kv_heads=LM_HKV, head_dim=LM_D,
+                                 d_model=LM_HQ * LM_D, generator=g, device=dev)
+    with torch.no_grad():                                # gates apart, so each branch shows
+        for i, b in enumerate(("ball", "cmp", "slc")):
+            getattr(params.gates, b).copy_(torch.linspace(-1, 1, LM_HQ) * (i + 1))
+    got = torch.zeros_like(q)
+    with torch.no_grad(), use_backend("kernels"):
+        ref = nsa_causal.nsa_causal_attention(params, q, k, v, cfg=cfg)
+        cache = nsa_causal.init_paged_decode_cache(num_blocks, PAGE, LM_HKV, LM_D, cfg,
+                                                   dtype=torch.float32, device=dev)
+        blocks = np.random.default_rng(0).permutation(num_blocks)
+        table = np.full((Bs, n_pages), num_blocks, np.int32)
+        next_blk, steps = 0, 0
+        sl = torch.arange(Bs, device=dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        for t in range(max(s + n for s, n in zip(starts, lens))):
+            for s in range(Bs):
+                p = t - starts[s]
+                if 0 <= p < lens[s] and p % PAGE == 0:
+                    table[s, p // PAGE] = blocks[next_blk]
+                    next_blk += 1
+            active = np.array([0 <= t - starts[s] < lens[s] for s in range(Bs)])
+            pos = np.minimum([max(t - starts[s], 0) for s in range(Bs)], np.array(lens) - 1)
+            lengths = torch.from_numpy(np.where(active, pos, 0)).to(dev)
+            pt = torch.from_numpy(pos).to(dev)
+            out, cache = nsa_causal.nsa_causal_decode_paged(
+                params, q[sl, pt][:, None], k[sl, pt][:, None], v[sl, pt][:, None], cache,
+                torch.from_numpy(table.copy()).to(dev), lengths, cfg=cfg, page=PAGE)
+            act = torch.from_numpy(active).to(dev)
+            got[sl[act], pt[act]] = out[act, 0]
+            steps += 1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {name: c.n for name, c in COUNTERS.items()}
+    check_launches(launches, "decode_oracle", 8 * steps)
+    valid = torch.zeros((Bs, n_pad), dtype=torch.bool, device=dev)
+    for s in range(Bs):
+        valid[s, :lens[s]] = True
+    diff = (got - ref).abs()[valid]
+    scale = float(ref[valid].abs().max())
+    worst = float(diff.max())
+    beyond = (diff > DECODE_TOL * scale).flatten(1).any(-1)
+    stats = {"slots": Bs, "lens": lens, "starts": starts, "steps": steps,
+             "positions": int(valid.sum()), "max_abs_diff": worst, "ref_max_abs": scale,
+             "rel": worst / scale, "rel_tol": DECODE_TOL,
+             "positions_beyond_tol": int(beyond.sum()), "seconds": seconds,
+             "launches": launches}
+    print(json.dumps({"decode_oracle": stats}), flush=True)
+    check(stats["positions_beyond_tol"] == 0,
+          f"paged decode vs forward: {stats['positions_beyond_tol']} positions beyond "
+          f"{DECODE_TOL} of the largest value (max {worst / scale:.2e})")
+    return stats
+
+
+def serve_requests(vocab: int) -> list[np.ndarray]:
+    """10 prompts of 1,100–1,600 random tokens (numpy seed 0); requests 0, 1
+    and 8 open with the same 512 tokens."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1100, 1601, N_REQUESTS)
+    prompts = [rng.integers(0, vocab, int(n), dtype=np.int32) for n in lens]
+    for r in (1, 8):
+        prompts[r][:SHARED] = prompts[0][:SHARED]
+    return prompts
+
+
+def serve_lm_phase(dev, api, model) -> dict:
+    """Paged continuous batching of the 10 requests, then B = 1 lockstep
+    generation of requests 0 and 9 (two processes side by side, after the
+    serve) against the served tokens."""
+    cfg = api.mcfg
+    prompts = serve_requests(cfg.vocab_size)
+    eng = ServingEngine(api, model, batch_slots=SLOTS, max_len=MAX_LEN, paged=True,
+                        page=PAGE)
+    windows = []
+    wstep = eng._wstep
+
+    def timed_window(*args):                             # CUDA events: no host sync
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wstep(*args)
+        end.record()
+        windows.append((start, end, args[2].shape[0]))
+        return out
+    eng._wstep = timed_window
+    torch.cuda.synchronize()
+    reset_counters()                                     # just before the main path
+    t0 = time.perf_counter()
+    served = eng.serve(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    eng.kv.check()
+    per_step = [s.elapsed_time(e) / w for s, e, w in windows]
+    stats = {"arch": LM, "slots": SLOTS, "max_len": MAX_LEN, "page": PAGE,
+             "requests": N_REQUESTS, "prompt_tokens": int(sum(len(p) for p in prompts)),
+             "new_tokens": NEW_TOKENS, "serve_steps": eng.serve_steps,
+             "windows": len(windows), "wall_s": wall,
+             "tokens_per_second": eng.tokens_per_second,
+             "tokens_generated": eng.tokens_generated,
+             "tokens_processed_per_second":
+                 (sum(len(p) for p in prompts) + eng.tokens_generated) / wall,
+             "steps_per_second": eng.serve_steps / wall,
+             "median_step_ms": statistics.median(per_step),
+             "blocks_reused": eng.kv.blocks_reused, "cow_copies": eng.kv.cow_copies,
+             "launches": launches}
+    print(json.dumps({"serve_lm": stats}), flush=True)
+    check_launches(launches, "serve_lm", 8 * cfg.n_layers * eng.serve_steps)
+    check(all(len(o) == NEW_TOKENS for o in served), "a request got the wrong token count")
+    check(eng.kv.blocks_reused > 0, "the shared prompt prefix was not reused")
+    profile_decode(eng)
+    stats["lockstep"] = lockstep_checks(cfg, dev, prompts, served, (0, 9))
+    return stats
+
+
+def lockstep_worker(cfg, prompt, out_path, device, max_len, new_tokens):
+    """One B = 1 lockstep generation, in a process of its own: the same
+    weights (seed 0, drawn on ``device``), the tokens and the logits of the
+    generated positions saved to ``out_path`` (.npz)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    api = model_api(cfg)
+    model = api.init(seed=0, device=torch.device(device))
+    eng = ServingEngine(api, model, batch_slots=1, max_len=max_len)
+    logits = []
+    step = eng._step
+
+    def keep_logits(*args):
+        nxt, lg, caches = step(*args)
+        logits.append(lg[0])
+        del logits[:-new_tokens]
+        return nxt, lg, caches
+    eng._step = keep_logits
+    t0 = time.perf_counter()
+    toks = eng.generate(prompt[None], new_tokens)[0]
+    seconds = time.perf_counter() - t0
+    np.savez(out_path, tokens=toks, logits=torch.stack(logits).float().cpu().numpy(),
+             seconds=seconds, tokens_per_second=eng.tokens_per_second)
+
+
+def lockstep_checks(cfg, dev, prompts, served, rids) -> list[dict]:
+    """B = 1 lockstep generation of requests ``rids``, one process each (the
+    decode is host-bound, so two processes take the time of one), held to
+    the served tokens; where they part, the lockstep top-two logit gap says
+    whether it is a near-tie."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    out_dir = ROOT / "build" / "lockstep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for rid in rids:
+        path = out_dir / f"request_{rid}.npz"
+        path.unlink(missing_ok=True)
+        args = (cfg, prompts[rid], str(path), str(dev), MAX_LEN, NEW_TOKENS)
+        procs[rid] = (ctx.Process(target=lockstep_worker, args=args), path)
+        procs[rid][0].start()
+    rows = []
+    try:
+        for rid, (proc, path) in procs.items():
+            proc.join(timeout=900)
+            check(proc.exitcode == 0 and path.exists(),
+                  f"lockstep process for request {rid} failed (exit {proc.exitcode})")
+            res = np.load(path)
+            toks = res["tokens"]
+            row = {"request": rid, "prompt_tokens": len(prompts[rid]),
+                   "served": served[rid].tolist(), "lockstep": toks.tolist(),
+                   "seconds": float(res["seconds"]),
+                   "lockstep_tokens_per_second": float(res["tokens_per_second"])}
+            apart = np.nonzero(toks != served[rid])[0]
+            if len(apart):
+                j = int(apart[0])
+                lg = res["logits"][j]
+                top2 = np.sort(lg)[-2:]
+                gap, scale = float(top2[1] - top2[0]), float(np.abs(lg).max())
+                row.update(parted_at=j, top2_gap=gap, max_abs_logit=scale,
+                           near_tie=gap < NEAR_TIE * scale)
+            print(json.dumps({"lockstep_check": row}), flush=True)
+            check(not len(apart) or row["near_tie"],
+                  f"request {rid}: served tokens part from lockstep at "
+                  f"{row.get('parted_at')} with a top-two logit gap of {row.get('top2_gap')}")
+            rows.append(row)
+    finally:
+        for proc, _ in procs.values():
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    return rows
+
+
+def profile_decode(eng) -> None:
+    """Where three paged decode steps of the serving engine (8 slots, after
+    the serve) spend their time: device kernel time against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    tok = torch.zeros(SLOTS, dtype=torch.int64, device=eng.device)
+    table = torch.from_numpy(eng.kv.table.copy()).to(eng.device)
+    lengths = torch.from_numpy(eng.kv.lengths.astype(np.int64)).to(eng.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng._pstep(eng.model, eng.caches, tok, table, lengths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_summary(prof)
+    summary.update(steps=3, profiled_wall_ms=wall * 1e3,
+                   device_busy_share=summary["device_kernel_ms"] / (wall * 1e3))
+    print(json.dumps({"decode_profile": summary}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
@@ -959,15 +1481,33 @@ def main() -> int:
     del model
     paths["train_padded"] = train_phase(dev, batches, "padded")
     paths["train_packed"] = train_phase(dev, packed_batches, "packed")
+    del batches, packed_batches
+    torch.cuda.empty_cache()
+
+    rows += lm_kernel_phase(dev)
+    lm_api = model_api(get_config(LM))
+    t0 = time.perf_counter()
+    lm_model = lm_api.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"# {LM}: {sum(p.numel() for p in lm_model.parameters()) / 1e9:.3f} B "
+          f"parameters ({lm_api.mcfg.param_dtype}) made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    paths["prefill"] = prefill_phase(dev, lm_api, lm_model)
+    torch.cuda.empty_cache()
+    paths["decode_oracle"] = decode_oracle_phase(dev)
+    paths["serve_lm"] = serve_lm_phase(dev, lm_api, lm_model)
 
     summary = []
     for name, (src, replaces) in KERNELS.items():
-        # the main path's mode (fp32, key-bias flash); launches of this slice's
-        # train path for the kernels it runs (of the padded one for the others),
-        # and of every path
-        row = next(r for r in rows if r["name"] == name and r["dtype"] == "float32")
+        # the main path's mode and dtype (fp32 and the key-bias flash for the
+        # shapenet kernels, the prefill's bf16 for local_fwd, the engine's fp32
+        # cache for paged_gather); launches of the main path (the train paths
+        # for the shapenet kernels, packed where it runs them), and of every path
+        main_path, dt = LM_MAIN.get(name, (None, "float32"))
+        row = next(r for r in rows if r["name"] == name and r["dtype"] == dt)
         by_path = {p: st["launches"][name] for p, st in paths.items()}
-        main_path = "train_packed" if name in PATHS["train_packed"] else "train_padded"
+        if main_path is None:
+            main_path = "train_packed" if name in PATHS["train_packed"] else "train_padded"
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": by_path[main_path],
                         "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],

@@ -1,7 +1,10 @@
 """Model configuration schema and registry.
 
 Counterpart of ``repro/configs/base.py``, with the fields the point-cloud
-family reads.  ``pdtype()`` / ``cdtype()`` return torch dtypes.
+and dense causal-LM families read.  ``pdtype()`` / ``cdtype()`` return
+torch dtypes.  :func:`get_config` finds a config by name in the module of
+that name (``"tinyllama-1.1b"`` → ``configs/tinyllama_1_1b.py``), as the
+JAX registry does; the point-cloud variants live in ``shapenet_bsa.py``.
 """
 
 from __future__ import annotations
@@ -20,15 +23,18 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # only "pointcloud" is ported
+    family: str                      # ported: "pointcloud", "dense"
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
     d_ff: int
     head_dim: int = 0                # 0 ⇒ d_model // n_heads
+    vocab_size: int = 0              # LM families
     attention: str = "bsa"           # mechanism; only "bsa" is ported
     bsa: BSAConfig = dataclasses.field(default_factory=BSAConfig)
+    rope_theta: float = 1e4
+    tie_embeddings: bool = False
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -59,14 +65,20 @@ def register(name: str):
     return deco
 
 
+_MODULES = ("shapenet_bsa", "tinyllama_1_1b")
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
-        importlib.import_module("repro_torch.configs.shapenet_bsa")
+        mod = name.replace("-", "_").replace(".", "_")
+        importlib.import_module(f"repro_torch.configs."
+                                f"{mod if mod in _MODULES else 'shapenet_bsa'}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown config {name!r}; the port has {list_configs()}")
     return _REGISTRY[name]()
 
 
 def list_configs() -> list[str]:
-    importlib.import_module("repro_torch.configs.shapenet_bsa")
+    for mod in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{mod}")
     return sorted(_REGISTRY)

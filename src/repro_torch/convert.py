@@ -10,8 +10,15 @@ Two layout differences are bridged here:
   * a dense weight ``w`` is stored (d_in, d_out) in JAX
     (``repro/layers/nn.py:27``) and (d_out, d_in) here: it is transposed;
   * ``params["layers"]`` holds every layer's parameters stacked on a
-    leading ``n_layers`` axis (``repro/models/pointcloud.py`` builds it with
-    ``jax.vmap``): it is unstacked into ``model.layers[i]``.
+    leading axis (``jax.vmap`` in ``repro/models/pointcloud.py`` and
+    ``repro/models/transformer.py``): it is unstacked into
+    ``model.layers[i]``.  For the LM the stack is over periods and each
+    period's layers sit under ``pos0``, ``pos1``, …; the port's period
+    modules carry the same names, so that level maps by name too.
+
+The LM's other keys load the same way: ``embed.table`` (vocab, d_model)
+as it is, ``lm_head.w`` transposed like every dense weight,
+``final_norm.g``.  A key the port lacks, or a shape that disagrees, raises.
 """
 
 from __future__ import annotations

@@ -2,13 +2,16 @@
 
 Counterpart of ``repro/core/backend.py``.  ``bsa_attention`` runs its hot
 loops through a backend object with the ops ``ball``, ``flash``,
-``selection`` and ``gated_combine``; ``bsa_attention_varlen`` (the packed
-layout) through ``ball_varlen``, ``flash_varlen`` and ``selection_varlen``,
-resolved by :func:`get_varlen` (the JAX protocol's ``local_window``,
-``local_window_varlen`` and ``paged_gather`` belong to later slices of the
-port).  Shapes follow ``core``: q (B, N, Hq, D), k/v (B, L, Hkv, D),
-GQA-native; the varlen ops take one packed axis, q (T, Hq, D), k/v
-(L, Hkv, D), and host ``offsets``.
+``selection`` and ``gated_combine``; ``nsa_causal_attention`` (the causal
+LM) through ``local_window`` in place of ``ball``;
+``bsa_attention_varlen`` (the packed layout) through ``ball_varlen``,
+``flash_varlen``, ``local_window_varlen`` and ``selection_varlen``,
+resolved by :func:`get_varlen`; the paged decode
+(``nsa_causal_decode_paged``) fetches its pool rows through
+``paged_gather``, resolved by :func:`get_paged_gather`.  Shapes follow
+``core``: q (B, N, Hq, D), k/v (B, L, Hkv, D), GQA-native; the varlen ops
+take one packed axis, q (T, Hq, D), k/v (L, Hkv, D), and host ``offsets``;
+``paged_gather(pool (R, Hkv, D), rows)`` → ``rows.shape + (Hkv, D)``.
 
 Built-ins:
 
@@ -18,8 +21,7 @@ Built-ins:
   ``"kernels"``    the CUDA kernels through ``kernels/ops.py``, forward and
                    backward (each op is a ``torch.autograd.Function`` whose
                    backward launches the backward kernels; on CPU tensors
-                   each runs its kernel's plain versions).  An op without a
-                   kernel yet raises ``NotImplementedError``; it never
+                   each runs its kernel's plain versions).  It never
                    answers with the reference;
   ``"auto"``       chosen by the device of the tensors: CUDA tensors take
                    ``"kernels"``, CPU tensors ``"reference"``.
@@ -36,28 +38,14 @@ from typing import Iterator
 
 __all__ = ["ReferenceBackend", "KernelBackend", "AutoBackend", "DEFAULT_BACKEND",
            "BRANCH_KEYS", "register_backend", "get_backend", "list_backends",
-           "use_backend", "resolve_branch_backends", "get_varlen"]
+           "use_backend", "resolve_branch_backends", "get_varlen", "get_paged_gather"]
 
 DEFAULT_BACKEND = "auto"
 BRANCH_KEYS = ("ball", "cmp", "slc")
 REQUIRED_OPS = ("ball", "flash", "selection", "gated_combine")
 
 
-def _not_ported(op: str, slice_name: str):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"{op} has no port yet: it comes with the {slice_name} slice")
-    return missing
-
-
-class _Unported:
-    """The JAX protocol's ops that later slices of the port bring."""
-    local_window = staticmethod(_not_ported("local_window", "causal LM"))
-    paged_gather = staticmethod(_not_ported("paged_gather", "paged decode"))
-    local_window_varlen = staticmethod(_not_ported("local_window_varlen", "causal LM"))
-
-
-class ReferenceBackend(_Unported):
+class ReferenceBackend:
     """Plain PyTorch: the parity oracle of the kernels, on any device.  GQA
     repeats K/V before the equal-head math (``branches.repeat_kv``), which
     pins the semantics the kernels' shared-fetch layouts must match."""
@@ -91,6 +79,12 @@ class ReferenceBackend(_Unported):
                                    block_causal_ell=ell if block_causal else 0,
                                    chunk=chunk_tokens)
 
+    def local_window(self, q, k, v, *, window, mask=None, chunk_tokens=0):
+        from repro_torch.core.nsa_causal import local_window_attention_ref
+        k, v = self._rep(q, k, v)
+        cb = max(chunk_tokens // window, 1) if chunk_tokens else 0
+        return local_window_attention_ref(q, k, v, window, mask=mask, chunk_blocks=cb)
+
     def selection(self, q, k, v, top_idx, sel_valid, mask, *, block_size,
                   group_size, chunk_tokens=0, q_valid=None):
         from repro_torch.core.branches import selection_attend
@@ -100,6 +94,10 @@ class ReferenceBackend(_Unported):
     def gated_combine(self, outs, gates, mask):
         from repro_torch.core.branches import gated_combine_ref
         return gated_combine_ref(outs, gates, mask)
+
+    def paged_gather(self, pool, rows):
+        # plain advanced indexing: the semantics of the paged decode's fetch
+        return pool[rows]
 
     # -- packed-varlen ops: q (T, Hq, D), k/v (L, Hkv, D), host offsets.  The
     # parity oracle of the varlen kernels: sample isolation is an explicit
@@ -120,6 +118,17 @@ class ReferenceBackend(_Unported):
             chunk=chunk_tokens, q_seg=segment_ids(q_offsets, q.shape[0], q.device),
             k_seg=segment_ids(k_offsets, k.shape[0], q.device))[0]
 
+    def local_window_varlen(self, q, k, v, offsets, *, window, mask=None,
+                            chunk_tokens=0):
+        from repro_torch.core.nsa_causal import local_window_attention_ref
+        from repro_torch.kernels.occupancy import segment_ids
+        kb, vb = self._rep(q[None], k[None], v[None])
+        seg = segment_ids(offsets, q.shape[0], q.device)
+        cb = max(chunk_tokens // window, 1) if chunk_tokens else 0
+        return local_window_attention_ref(
+            q[None], kb, vb, window, mask=None if mask is None else mask[None],
+            chunk_blocks=cb, block_seg=seg.reshape(-1, window)[:, 0])[0]
+
     def selection_varlen(self, q, k, v, top_idx, sel_valid, offsets, mask, *,
                          block_size, group_size, chunk_tokens=0):
         # isolation lives in the scores (other samples' blocks are never
@@ -130,7 +139,7 @@ class ReferenceBackend(_Unported):
                               chunk_tokens=chunk_tokens)[0]
 
 
-class KernelBackend(_Unported):
+class KernelBackend:
     """The hand-written CUDA kernels (``kernels/ops.py``), differentiable:
     on CUDA tensors a backward never answers with a plain version."""
 
@@ -147,12 +156,20 @@ class KernelBackend(_Unported):
                                    block_causal=block_causal, ell=ell,
                                    q_valid=q_valid)
 
+    def local_window(self, q, k, v, *, window, mask=None, chunk_tokens=0):
+        from repro_torch.kernels import ops
+        return ops.local_window_attention(q, k, v, window, mask=mask)
+
     def selection(self, q, k, v, top_idx, sel_valid, mask, *, block_size,
                   group_size, chunk_tokens=0, q_valid=None):
         from repro_torch.kernels import ops
         return ops.selection_attention(q, k, v, top_idx, sel_valid, mask,
                                        block_size=block_size,
                                        group_size=group_size, q_valid=q_valid)
+
+    def paged_gather(self, pool, rows):
+        from repro_torch.kernels import ops
+        return ops.paged_gather(pool, rows)
 
     def gated_combine(self, outs, gates, mask):
         from repro_torch.kernels import ops
@@ -167,6 +184,11 @@ class KernelBackend(_Unported):
         from repro_torch.kernels import ops
         return ops.flash_attention_varlen(q, k, v, q_offsets, k_offsets,
                                           key_valid=key_valid)
+
+    def local_window_varlen(self, q, k, v, offsets, *, window, mask=None,
+                            chunk_tokens=0):
+        from repro_torch.kernels import ops
+        return ops.local_window_attention_varlen(q, k, v, offsets, window, mask=mask)
 
     def selection_varlen(self, q, k, v, top_idx, sel_valid, offsets, mask, *,
                          block_size, group_size, chunk_tokens=0):
@@ -258,7 +280,7 @@ def resolve_branch_backends(cfg) -> dict:
 
 def get_varlen(backend, op: str):
     """The backend's packed-varlen op ``<op>_varlen`` (``op`` one of
-    ``"ball"``, ``"flash"``, ``"selection"``), or the reference backend's
+    ``"ball"``, ``"flash"``, ``"local_window"``, ``"selection"``), or the reference backend's
     when a registered backend does not provide it.  The built-ins
     (``reference``, ``kernels``, ``auto``) always answer with their own."""
     name = f"{op}_varlen"
@@ -266,6 +288,16 @@ def get_varlen(backend, op: str):
     if callable(fn):
         return fn
     return getattr(_REGISTRY["reference"], name)
+
+
+def get_paged_gather(backend):
+    """The backend's paged-cache row gather, or the reference backend's
+    (plain indexing, the same semantics) when a registered backend does not
+    provide one."""
+    fn = getattr(backend, "paged_gather", None)
+    if callable(fn):
+        return fn
+    return _REGISTRY["reference"].paged_gather
 
 
 _AUTO = AutoBackend()

@@ -41,7 +41,8 @@ class Phi(nn.Module):
         super().__init__()
         if cfg.phi != "mean":
             raise NotImplementedError(f"phi={cfg.phi!r} is not ported (only 'mean')")
-        pos = torch.randn((cfg.cmp_block, head_dim), generator=generator) * 0.02
+        pos = torch.randn((cfg.cmp_block, head_dim), generator=generator,
+                          device=generator.device) * 0.02
         self.pos = nn.Parameter(pos.to(dtype=dtype, device=device))
 
 

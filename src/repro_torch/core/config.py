@@ -25,8 +25,8 @@ class BSAConfig:
     phi: str = "mean"               # φ pooling: "mean" | "mlp" (mlp not ported)
     gate_mode: str = "scalar"       # σ(γ_b): "scalar" (per head) | "token"
     mask_own_ball: bool = True      # §3.2: selection ignores blocks in own ball
-    local_window: int = 0           # causal variant (not ported); 0 ⇒ ball_size
-    force_first_block: bool = True  # causal variant (not ported)
+    local_window: int = 0           # causal variant: window w; 0 ⇒ ball_size
+    force_first_block: bool = True  # causal variant: always select block 0
     backend: str = "auto"           # "reference" | "kernels" | "auto" | plug-in
     backend_overrides: tuple = ()   # per-branch redirects, keys "ball"|"cmp"|"slc"
     jnp_chunk_tokens: int = 0       # reference path: query-chunk bound (0 = off)
@@ -62,3 +62,7 @@ class BSAConfig:
         if self.group_size and self.query_cmp_selection and (
                 self.group_size % self.cmp_block and self.cmp_block % self.group_size):
             raise ValueError("group_size and cmp_block must nest")
+
+    @property
+    def effective_local_window(self) -> int:
+        return self.local_window or self.ball_size

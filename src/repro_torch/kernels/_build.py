@@ -64,6 +64,10 @@ SIGNATURES = {
     # q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta, dk, dv, H,
     # rep, T, L, D, bf16, stream
     "varlen_dkv": [P] * 13 + [I] * 6 + [P],
+    # q, k, v, key_bias, live, o, lse, BH, rep, N, D, window, n_heads, bf16, stream
+    "local_fwd": [P] * 7 + [I] * 6 + [P],
+    # pool, rows, out, R, M, row_bytes, stream
+    "paged_gather": [P] * 3 + [I] * 3 + [P],
 }
 
 _lib = None

@@ -2,7 +2,8 @@
 
 Counterpart of the helpers of ``repro/kernels/occupancy.py`` that the
 serving and training paths use.  ``key_tile_live`` feeds the ball kernel's
-dead-ball skip; ``invalidate_dead_groups`` is SEMANTIC: the selection oracle
+dead-ball skip and :func:`local_half_live` the local-window kernel's
+dead-half skip; ``invalidate_dead_groups`` is SEMANTIC: the selection oracle
 applies it too (``core/branches.py::selection_attend``), so kernel and
 oracle both give exact zeros for an all-padding query group.
 
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
 
-__all__ = ["key_tile_live", "group_live", "invalidate_dead_groups",
+__all__ = ["key_tile_live", "local_half_live", "group_live", "invalidate_dead_groups",
            "offsets_key", "segment_ids", "VarlenMaps", "varlen_maps",
            "tile_seg_ranges", "ranges_live_map"]
 
@@ -36,6 +37,22 @@ def key_tile_live(key_bias: torch.Tensor, tile: int) -> torch.Tensor:
     NEG_INF/2 guard, the threshold at which the kernels zero p."""
     B, L = key_bias.shape
     return (key_bias.reshape(B, L // tile, tile) > NEG_INF / 2).any(-1)
+
+
+def local_half_live(key_bias: torch.Tensor, window: int,
+                    blk_seg: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, N) fp32 key bias → (B, N/window, 2) bool: the two halves of each
+    local-window block that carry weight, (prev, self) — exactly the two
+    ``pl.when`` steps of ``repro/kernels/local.py`` (``_local_half_live``
+    of ``repro/kernels/ops.py``).  Block 0 has no prev half; with
+    ``blk_seg`` (B, N/window) int32 per-block segment ids, neither has a
+    block whose predecessor lies in another segment."""
+    kv = key_tile_live(key_bias, window)                       # (B, n_b)
+    no = torch.zeros_like(kv[:, :1])
+    prev = torch.cat([no, kv[:, :-1]], dim=1)
+    if blk_seg is not None:
+        prev = prev & torch.cat([no, blk_seg[:, 1:] == blk_seg[:, :-1]], dim=1)
+    return torch.stack([prev, kv], dim=-1)
 
 
 def group_live(mask: torch.Tensor, n_groups: int) -> torch.Tensor:

@@ -2,10 +2,11 @@
 kernels' GQA-grouped (B·Hkv, rep, N, D) / blocked layouts.
 
 Counterpart of ``repro/kernels/ops.py`` (``ball_attention``,
-``flash_attention``, ``selection_attention``, ``gated_combine`` and the
-packed-varlen ``flash_attention_varlen``, ``ball_attention_varlen``,
-``selection_attention_varlen``); these are what the ``"kernels"`` backend
-dispatches to.  The contract is the JAX
+``flash_attention``, ``local_window_attention``, ``selection_attention``,
+``gated_combine``, the packed-varlen ``flash_attention_varlen``,
+``ball_attention_varlen``, ``local_window_attention_varlen``,
+``selection_attention_varlen``, and the paged decode's ``paged_gather``);
+these are what the ``"kernels"`` backend dispatches to.  The contract is the JAX
 one: q (B, N, Hq, D), k/v (B, L, Hkv, D) with Hq = Hkv·rep and query head
 h·rep + r belonging to KV head h; masks are (B, L) bool with True = real
 and mask KEYS in logit space; ``q_valid`` is an optimisation hint whose
@@ -20,13 +21,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bta, epilogue, flash, selection, varlen
-from repro_torch.kernels.occupancy import invalidate_dead_groups, varlen_maps
+from repro_torch.kernels import bta, epilogue, flash, local, paged, selection, varlen
+from repro_torch.kernels.occupancy import invalidate_dead_groups, segment_ids, varlen_maps
 from repro_torch.numerics import key_padding_bias, mask_to_bias
 
-__all__ = ["ball_attention", "flash_attention", "selection_attention",
-           "gated_combine", "flash_attention_varlen", "ball_attention_varlen",
-           "selection_attention_varlen"]
+__all__ = ["ball_attention", "flash_attention", "local_window_attention",
+           "selection_attention", "gated_combine", "flash_attention_varlen",
+           "ball_attention_varlen", "local_window_attention_varlen",
+           "selection_attention_varlen", "paged_gather"]
 
 
 def _to_bh(t):
@@ -75,6 +77,19 @@ def flash_attention(q, k, v, *, key_valid=None, causal=False, block_causal=False
     kb = key_padding_bias(key_valid, B, L, device=q.device)
     o = flash.FlashAttentionFn.apply(_to_grouped(q, Hkv), _to_bh(k), _to_bh(v), kb,
                                      q_valid, Hkv, causal, block_causal, ell)
+    return _from_grouped(o, B, Hkv)
+
+
+def local_window_attention(q, k, v, window: int, mask=None):
+    """Blocked local causal attention (the causal LM's local branch): query
+    block i (``window`` positions) attends causally within itself and fully
+    to block i−1.  q: (B, N, Hq, D); k, v: (B, N, Hkv, D); ``mask``: (B, N)
+    bool key validity or None.  Returns (B, N, Hq, D)."""
+    B, N, Hq, D = q.shape
+    Hkv = k.shape[2]
+    kb = key_padding_bias(mask, B, N, device=q.device)
+    o = local.LocalWindowFn.apply(_to_grouped(q, Hkv), _to_bh(k), _to_bh(v), kb, None,
+                                  window, Hkv)
     return _from_grouped(o, B, Hkv)
 
 
@@ -163,6 +178,24 @@ def ball_attention_varlen(q, k, v, offsets, mask, ball_size: int):
                           None if mask is None else mask[None], ball_size)[0]
 
 
+def local_window_attention_varlen(q, k, v, offsets, window: int, mask=None):
+    """Packed-varlen blocked local causal attention.  q: (T, Hq, D); k, v:
+    (T, Hkv, D); host ``offsets`` (S+1,), every entry a multiple of
+    ``window``, so no block straddles two samples: the first block of each
+    sample sees no previous block.  ``mask``: (T,) bool or None.  Returns
+    (T, Hq, D)."""
+    T, Hq, D = q.shape
+    Hkv = k.shape[1]
+    if any(int(o) % window for o in torch.as_tensor(offsets).reshape(-1).tolist()):
+        raise ValueError(f"offsets must be multiples of the local window {window}")
+    seg = segment_ids(offsets, T, q.device)
+    blk_seg = seg.reshape(T // window, window)[:, 0][None].contiguous()    # (1, n_b)
+    kb = key_padding_bias(None if mask is None else mask[None], 1, T, device=q.device)
+    o = local.LocalWindowFn.apply(_to_grouped(q[None], Hkv), _to_bh(k[None]),
+                                  _to_bh(v[None]), kb, blk_seg, window, Hkv)
+    return _from_grouped(o, 1, Hkv)[0]
+
+
 def selection_attention_varlen(q, k, v, top_idx, sel_valid, offsets, mask, *,
                                block_size: int, group_size: int):
     """Packed-varlen group-selected sparse attention.  ``top_idx`` /
@@ -174,3 +207,9 @@ def selection_attention_varlen(q, k, v, top_idx, sel_valid, offsets, mask, *,
     return selection_attention(q[None], k[None], v[None], top_idx[None],
                                sel_valid[None], None if mask is None else mask[None],
                                block_size=block_size, group_size=group_size)[0]
+
+
+def paged_gather(pool, rows):
+    """Gather pool rows for the paged decode: ``pool`` (R, Hkv, D) flat KV
+    pool, ``rows`` integer of any shape → ``rows.shape + (Hkv, D)``."""
+    return paged.paged_gather(pool, rows)

@@ -1,0 +1,64 @@
+"""Paged-KV-cache row gather kernel (the paged decode's hot fetch).
+
+Replaces ``repro/kernels/paged.py::_copy_kernel`` (Pallas, TPU).  The CUDA
+source is ``csrc/paged_gather.cu``.  ``paged_gather(pool (R, Hkv, D), rows)``
+returns ``pool[rows]`` with shape ``rows.shape + (Hkv, D)``.  Indices
+follow jnp indexing under jit (and the Pallas kernel in interpret mode): a
+negative index counts from the end, then an index still outside [0, R)
+reads the nearest edge row, so no index reads out of bounds.
+
+What bounds it on the H100: it only moves bytes (each gathered row read once
+and written once), so memory bounds it; the decode step's gathers are small
+(a few hundred to a few thousand rows of Hkv·D elements), so the launch is
+most of their time.  The TPU scalar-prefetched each row index into a
+BlockSpec and pipelined one row DMA per grid cell; here one warp copies one
+row with 16-byte vector loads, neighbouring lanes on neighbouring
+addresses.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import _counter, check_cuda_inputs, on_cpu
+
+__all__ = ["paged_gather", "paged_gather_plain", "COUNT"]
+
+COUNT = _counter("paged_gather")
+
+
+def _check(pool, rows):
+    if pool.dim() != 3:
+        raise ValueError(f"paged_gather: pool must be (R, Hkv, D), got {tuple(pool.shape)}")
+    if rows.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"paged_gather: rows must be an integer tensor, got {rows.dtype}")
+    if pool.shape[0] == 0:
+        raise ValueError("paged_gather: empty pool")
+
+
+def paged_gather_plain(pool, rows):
+    """Plain PyTorch version of the kernel: ``pool[rows]`` with negative
+    indices from the end and the rest clamped to [0, R−1]."""
+    _check(pool, rows)
+    R = pool.shape[0]
+    r = rows.long()
+    return pool[torch.where(r < 0, r + R, r).clamp(0, R - 1)]
+
+
+def paged_gather(pool, rows):
+    """``pool[rows]`` (negative from the end, then clamped): the CUDA kernel
+    on CUDA tensors, the plain version on CPU tensors.  ``rows``: integer
+    tensor of any shape."""
+    _check(pool, rows)
+    if on_cpu(pool, rows):
+        return paged_gather_plain(pool, rows)
+    flat = rows.reshape(-1).to(torch.int32).contiguous()
+    check_cuda_inputs("paged_gather", data=(pool,), i32=(flat,))
+    R, H, D = pool.shape
+    out = torch.empty((flat.shape[0], H, D), dtype=pool.dtype, device=pool.device)
+    _build.launch("paged_gather", pool.data_ptr(), flat.data_ptr(), out.data_ptr(),
+                  R, flat.shape[0], H * D * pool.element_size(),
+                  torch.cuda.current_stream(pool.device).cuda_stream)
+    COUNT.hit()
+    return out.reshape(*rows.shape, H, D)

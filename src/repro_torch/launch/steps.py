@@ -1,10 +1,15 @@
-"""The train step: loss → backward → global-norm clipping → AdamW.
+"""Step functions: the train step, the prefill step and the serve steps.
 
-Counterpart of ``repro/launch/steps.py::make_train_step``.  The JAX step is
-a pure function returning new parameters; this one updates the model's
-parameters and the optimizer state in place (and returns them, so the two
-read alike).  It runs on the device of the model and the batch: the
-attention ops take their CUDA forward and backward kernels there.
+Counterpart of ``repro/launch/steps.py``.  ``make_train_step``: loss →
+backward → global-norm clipping → AdamW.  The JAX step is a pure function
+returning new parameters; this one updates the model's parameters and the
+optimizer state in place (and returns them, so the two read alike).
+``make_prefill_step``, ``make_serve_step``, ``make_paged_serve_step`` and
+``make_paged_serve_window`` are the LM serving steps: they run under
+``torch.inference_mode()`` (no autograd bookkeeping, which is most of a
+decode step's host time) and update the caches in place.  Every step runs on the device of the model
+and its inputs: the attention ops take their CUDA kernels there.  The JAX
+package jits each step once; PyTorch runs them eagerly.
 """
 
 from __future__ import annotations
@@ -13,7 +18,8 @@ import torch
 
 from repro_torch.optim import adamw_update, clip_by_global_norm, cosine_schedule
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
+           "make_paged_serve_step", "make_paged_serve_window"]
 
 
 def make_train_step(api, *, base_lr=1e-3, weight_decay=0.01, total_steps=100_000,
@@ -41,3 +47,64 @@ def make_train_step(api, *, base_lr=1e-3, weight_decay=0.01, total_steps=100_000
         return model, opt_state, out
 
     return train_step
+
+
+def make_prefill_step(api):
+    """(model, batch) → last-position logits (B, V) fp32."""
+
+    @torch.inference_mode()
+    def prefill_step(model, batch):
+        return api.forward(model, batch)[:, -1].float()
+
+    return prefill_step
+
+
+def make_serve_step(api):
+    """(model, caches, token (B,)) → (next_token (B,), logits (B, V), caches):
+    one greedy decode step over the dense caches."""
+
+    @torch.inference_mode()
+    def serve_step(model, caches, token):
+        logits, caches = api.decode_step(model, token, caches)
+        return logits.argmax(-1).to(torch.int32), logits, caches
+
+    return serve_step
+
+
+def make_paged_serve_step(api, *, page: int):
+    """The continuous-batching decode step (block-table addressing):
+    (model, caches, token (B,), table (B, n_pages), lengths (B,)) →
+    (next_token (B,), logits (B, V), caches)."""
+
+    @torch.inference_mode()
+    def paged_serve_step(model, caches, token, table, lengths):
+        logits, caches = api.paged_decode_step(model, token, caches, table, lengths, page)
+        return logits.argmax(-1).to(torch.int32), logits, caches
+
+    return paged_serve_step
+
+
+def make_paged_serve_window(api, *, page: int):
+    """W greedy continuous-batching steps with the samples kept on the
+    device: nothing in the loop waits for the card.  Per-step feeds are
+    data: ``feed (W, B)`` holds prompt tokens and ``use_prev (W, B)``
+    switches a slot to feeding its previous sample once its prompt is
+    spent, so prefill turns into decode inside the window.  ``occ (B,)``
+    advances only the occupied slots' lengths.
+
+    (model, caches, feed (W, B), use_prev (W, B) bool, prev (B,), table
+    (B, n_pages), lengths (B,), occ (B,)) → (samples (W, B) int32, caches)."""
+
+    @torch.inference_mode()
+    def paged_serve_window(model, caches, feed, use_prev, prev, table, lengths, occ):
+        samples = []
+        for feed_t, use_t in zip(feed, use_prev):
+            tok = torch.where(use_t, prev, feed_t)
+            logits, caches = api.paged_decode_step(model, tok, caches, table, lengths,
+                                                   page)
+            prev = logits.argmax(-1).to(torch.int32)
+            samples.append(prev)
+            lengths = lengths + occ
+        return torch.stack(samples), caches
+
+    return paged_serve_window

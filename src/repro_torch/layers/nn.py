@@ -1,4 +1,4 @@
-"""Minimal NN layers: dense, RMSNorm, SwiGLU.
+"""Minimal NN layers: dense, RMSNorm, SwiGLU, token embedding.
 
 Counterpart of ``repro/layers/nn.py``.  Layers are ``nn.Module``s whose
 parameter names mirror the JAX pytree keys (``w``, ``b``, ``g``), so
@@ -7,8 +7,9 @@ name.  One difference in storage: a ``Dense`` weight is (d_out, d_in), the
 PyTorch habit, where JAX stores (d_in, d_out).
 
 Initialisation follows the JAX package's distributions (He-normal dense
-weights, zero biases, unit norm gains) from an explicit ``torch.Generator``;
-the two frameworks draw different numbers from the same seed.
+weights, zero biases, unit norm gains, N(0, 1/d) embeddings) from an
+explicit ``torch.Generator``, drawn on the generator's device; the two
+frameworks draw different numbers from the same seed.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["he_scale", "Dense", "dense", "RMSNorm", "rmsnorm", "SwiGLU", "swiglu"]
+__all__ = ["he_scale", "Dense", "dense", "RMSNorm", "rmsnorm", "SwiGLU", "swiglu",
+           "Embed", "embed", "unembed"]
 
 
 def he_scale(fan_in: int) -> float:
@@ -33,7 +35,8 @@ class Dense(nn.Module):
         super().__init__()
         if scale is None:
             scale = he_scale(d_in)
-        w = torch.randn((d_out, d_in), generator=generator) * scale
+        w = torch.randn((d_out, d_in), generator=generator,
+                        device=generator.device) * scale
         self.w = nn.Parameter(w.to(dtype=dtype, device=device))
         self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
                   if bias else None)
@@ -90,3 +93,25 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     u = dense(p.up, x)
     h = F.silu(g.float()).to(x.dtype) * u
     return dense(p.down, h)
+
+
+class Embed(nn.Module):
+    """Token embedding ``table`` (vocab, d_model), N(0, 1/d_model)."""
+
+    def __init__(self, vocab: int, d_model: int, *, generator: torch.Generator,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        t = torch.randn((vocab, d_model), generator=generator,
+                        device=generator.device) * (1.0 / d_model ** 0.5)
+        self.table = nn.Parameter(t.to(dtype=dtype, device=device))
+
+
+def embed(p, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Rows of the table for ``ids`` (any shape), cast to ``dtype``."""
+    t = p.table if dtype is None else p.table.to(dtype)
+    return t[ids.long()]
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    """Tied logits projection x (…, d) · tableᵀ → (…, vocab), fp32."""
+    return torch.matmul(x.float(), p.table.to(x.dtype).float().t())

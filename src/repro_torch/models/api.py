@@ -1,13 +1,21 @@
 """Family-dispatch API (counterpart of ``repro/models/api.py``).
 
-Only the point-cloud family is ported:
+Ported: the point-cloud family and the dense causal LM (serving only):
 
     api = model_api(mcfg)
     model = api.init(seed)                     # on "cuda" unless device="cpu"
-    loss, metrics = api.loss(model, batch)     # train step core (differentiable)
-    pred = api.forward(model, batch)           # (B, N, out_dim) fp32, no grad
-                                               # (an "offsets" key: packed layout)
+    loss, metrics = api.loss(model, batch)     # train step core (point cloud)
+    pred = api.forward(model, batch)           # point cloud: (B, N, out_dim);
+                                               # LM: logits (B, N, V); fp32, no grad
     batch = api.make_batch(rng, B, N)          # random tensors (tests)
+
+and, for the LM, the decode state and steps the serving engine drives:
+
+    caches = api.cache_init(B, max_len)                       # dense (lockstep)
+    logits, caches = api.decode_step(model, token, caches)
+    caches = api.paged_cache_init(B, num_blocks, page)        # paged pools
+    logits, caches = api.paged_decode_step(model, token, caches, table, lengths, page)
+    caches = api.cache_copy_block(caches, src, dst, page)     # copy-on-write
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import pointcloud as _pc
+from repro_torch.models import transformer as _tf
 
 __all__ = ["ModelAPI", "model_api"]
 
@@ -30,10 +39,23 @@ class ModelAPI:
     loss: Callable
     forward: Callable
     make_batch: Callable
+    cache_init: Callable | None = None
+    decode_step: Callable | None = None
+    # paged continuous-batching decode (serving/paged_cache.py owns the
+    # host-side tables these consume)
+    paged_cache_init: Callable | None = None
+    paged_decode_step: Callable | None = None
+    cache_reset_slot: Callable | None = None
+    cache_copy_block: Callable | None = None
+    has_recurrent_state: bool = False
+
+    @property
+    def has_paged_decoder(self) -> bool:
+        return self.paged_decode_step is not None
 
 
-def _generator(seed: int) -> torch.Generator:
-    g = torch.Generator()
+def _generator(seed: int, device="cpu") -> torch.Generator:
+    g = torch.Generator(device=device)
     g.manual_seed(seed)
     return g
 
@@ -64,7 +86,55 @@ def _pc_api(mcfg) -> ModelAPI:
                     make_batch=make_batch)
 
 
+def _lm_api(mcfg) -> ModelAPI:
+    def init(seed: int = 0, *, device="cuda") -> _tf.LanguageModel:
+        """Random weights from ``seed``, drawn on ``device`` itself (1.1B
+        parameters at tinyllama's size; no silent CPU fallback)."""
+        dev = torch.device(device)
+        return _tf.lm_init(mcfg, generator=_generator(seed, dev), device=dev)
+
+    def loss(model, batch: dict):
+        raise NotImplementedError("the LM loss (lm_loss, layers/losses.py) comes with "
+                                  "the LM training slice of the port")
+
+    @torch.inference_mode()
+    def forward(model, batch: dict) -> torch.Tensor:
+        return _tf.lm_apply(model, batch["tokens"], mcfg=mcfg)
+
+    def make_batch(rng: np.random.Generator, B: int, N: int, *, device="cuda") -> dict:
+        toks = torch.from_numpy(rng.integers(0, mcfg.vocab_size, (B, N),
+                                             dtype=np.int32)).to(torch.device(device))
+        return {"tokens": toks, "labels": toks}
+
+    def cache_init(B, S, dtype=torch.bfloat16, *, device="cuda"):
+        return _tf.lm_cache_init(mcfg, B, S, dtype, torch.device(device))
+
+    def paged_cache_init(B, num_blocks, page, dtype=torch.bfloat16, *, device="cuda"):
+        return _tf.lm_paged_cache_init(mcfg, B, num_blocks, page, dtype,
+                                       torch.device(device))
+
+    @torch.inference_mode()
+    def decode_step(model, token, caches):
+        return _tf.lm_decode_step(model, token, caches, mcfg=mcfg)
+
+    @torch.inference_mode()
+    def paged_decode_step(model, token, caches, table, lengths, page):
+        return _tf.lm_paged_decode_step(model, token, caches, table, lengths, mcfg=mcfg,
+                                        page=page)
+
+    return ModelAPI(
+        mcfg=mcfg, init=init, loss=loss, forward=forward, make_batch=make_batch,
+        cache_init=cache_init, decode_step=decode_step,
+        paged_cache_init=paged_cache_init, paged_decode_step=paged_decode_step,
+        cache_reset_slot=lambda c, slot: _tf.lm_paged_cache_reset_slot(mcfg, c, slot),
+        cache_copy_block=lambda c, src, dst, page: _tf.lm_paged_cache_copy_block(
+            mcfg, c, src, dst, page=page),
+        has_recurrent_state=_tf.lm_has_recurrent_state(mcfg))
+
+
 def model_api(mcfg) -> ModelAPI:
     if mcfg.family == "pointcloud":
         return _pc_api(mcfg)
+    if mcfg.family == "dense":
+        return _lm_api(mcfg)
     raise NotImplementedError(f"family {mcfg.family!r} is not ported yet")

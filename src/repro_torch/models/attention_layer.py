@@ -1,10 +1,12 @@
-"""Attention layer: Q/K/V/O projections around non-causal BSA.
+"""Attention layer: Q/K/V/O projections, RoPE and BSA.
 
-Counterpart of ``repro/models/attention_layer.py`` for the path the
-point-cloud model runs: no RoPE, non-causal ``bsa_attention``, or
-``bsa_attention_varlen`` on a packed batch (``offsets``).  The other
-mechanisms (full, Erwin), the causal variant and decoding belong to later
-slices of the port.
+Counterpart of ``repro/models/attention_layer.py`` for the BSA mechanism:
+non-causal ``bsa_attention`` (the point-cloud model, no RoPE), or
+``bsa_attention_varlen`` on a packed batch (``offsets``); causal
+``nsa_causal_attention`` with RoPE (the LM), and its one-token decode steps
+over a dense cache (``attention_layer_decode``) or paged pools
+(``attention_layer_decode_paged``).  The other mechanisms (full, Erwin)
+belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -13,9 +15,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.bsa import bsa_attention, bsa_attention_varlen, bsa_init
+from repro_torch.core.nsa_causal import (init_decode_cache, init_paged_decode_cache,
+                                         nsa_causal_attention, nsa_causal_decode,
+                                         nsa_causal_decode_paged)
 from repro_torch.layers.nn import Dense, dense
+from repro_torch.layers.rope import rope_angles, rotate
 
-__all__ = ["AttentionLayer", "attention_layer_apply"]
+__all__ = ["AttentionLayer", "attention_layer_apply", "attention_cache_init",
+           "attention_paged_cache_init", "attention_layer_decode",
+           "attention_layer_decode_paged"]
 
 
 class AttentionLayer(nn.Module):
@@ -36,24 +44,87 @@ class AttentionLayer(nn.Module):
                             n_kv_heads=mcfg.n_kv_heads, head_dim=hd, d_model=d, **kw)
 
 
-def attention_layer_apply(p: AttentionLayer, x: torch.Tensor, *, mcfg,
-                          mask=None, offsets=None) -> torch.Tensor:
-    """x: (B, N, d_model) → (B, N, d_model) through non-causal BSA.
-
-    ``offsets`` (S+1,) int32 on the host switches to the packed-varlen
-    layout: x must then be one packed row (B == 1) whose samples lie back
-    to back at ball-size boundaries, and ``mask``'s row marks real tokens."""
+def _project(p: AttentionLayer, x, mcfg, positions=None, rope: bool = True):
+    """q (B, N, Hq, hd), k, v (B, N, Hkv, hd); RoPE on q and k at
+    ``positions`` (B, N) when given."""
     B, N, _ = x.shape
-    if offsets is not None and B != 1:
-        raise ValueError(f"packed-varlen input must be a single packed row, got B={B}")
     hd = mcfg.resolved_head_dim
     q = dense(p.wq, x).reshape(B, N, mcfg.n_heads, hd)
     k = dense(p.wk, x).reshape(B, N, mcfg.n_kv_heads, hd)
     v = dense(p.wv, x).reshape(B, N, mcfg.n_kv_heads, hd)
+    if rope and positions is not None:
+        cos, sin = rope_angles(positions, hd, mcfg.rope_theta)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+    return q, k, v
+
+
+def attention_layer_apply(p: AttentionLayer, x: torch.Tensor, *, mcfg,
+                          causal: bool = False, mask=None, positions=None,
+                          rope: bool = True, offsets=None) -> torch.Tensor:
+    """Full-sequence forward.  x: (B, N, d_model) → (B, N, d_model).
+
+    ``causal`` runs causal BSA (the LM) with RoPE at ``positions``;
+    otherwise non-causal BSA.  ``offsets`` (S+1,) int32 on the host
+    switches the non-causal path to the packed-varlen layout: x must then
+    be one packed row (B == 1) whose samples lie back to back at ball-size
+    boundaries, and ``mask``'s row marks real tokens."""
+    B, N, _ = x.shape
+    q, k, v = _project(p, x, mcfg, positions, rope)
     if offsets is not None:
+        if causal:
+            raise NotImplementedError("packed-varlen offsets are only supported by "
+                                      "non-causal BSA")
+        if B != 1:
+            raise ValueError(f"packed-varlen input must be a single packed row, got B={B}")
         out = bsa_attention_varlen(p.bsa, q[0], k[0], v[0], cfg=mcfg.bsa,
                                    offsets=offsets,
                                    mask=None if mask is None else mask[0], x=x[0])[None]
+    elif causal:
+        out = nsa_causal_attention(p.bsa, q, k, v, cfg=mcfg.bsa, mask=mask, x=x)
     else:
         out = bsa_attention(p.bsa, q, k, v, cfg=mcfg.bsa, mask=mask, x=x)
-    return dense(p.wo, out.reshape(B, N, mcfg.n_heads * hd))
+    return dense(p.wo, out.reshape(B, N, mcfg.n_heads * mcfg.resolved_head_dim))
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def attention_cache_init(mcfg, batch: int, max_len: int, dtype, device=None) -> dict:
+    return init_decode_cache(batch, max_len, mcfg.n_kv_heads, mcfg.resolved_head_dim,
+                             mcfg.bsa, dtype=dtype, device=device)
+
+
+def attention_paged_cache_init(mcfg, num_blocks: int, page: int, dtype,
+                               device=None) -> dict:
+    """Flat paged pools of one layer (+1 trash block).  Every layer's pools
+    have the same block layout, so one host block table serves the stack."""
+    return init_paged_decode_cache(num_blocks, page, mcfg.n_kv_heads,
+                                   mcfg.resolved_head_dim, mcfg.bsa, dtype=dtype,
+                                   device=device)
+
+
+def attention_layer_decode_paged(p: AttentionLayer, x1, cache, table, lengths, *, mcfg,
+                                 page: int, rope: bool = True, step=None):
+    """One-token decode against paged pools with per-slot lengths: x1
+    (B, 1, d); ``table`` (B, n_pages); ``lengths`` (B,) — RoPE turns each
+    slot's query and key by its own position.  ``step``: the step's
+    ``nsa_causal.paged_step``, shared by the layers.  Returns (out
+    (B, 1, d), cache)."""
+    B = x1.shape[0]
+    q, k, v = _project(p, x1, mcfg, lengths[:, None] if rope else None, rope)
+    out, cache = nsa_causal_decode_paged(p.bsa, q, k, v, cache, table, lengths,
+                                         cfg=mcfg.bsa, page=page, x1=x1, step=step)
+    return dense(p.wo, out.reshape(B, 1, mcfg.n_heads * mcfg.resolved_head_dim)), cache
+
+
+def attention_layer_decode(p: AttentionLayer, x1, cache, *, mcfg, rope: bool = True,
+                           step=None):
+    """One-token decode over the dense cache: x1 (B, 1, d) at position
+    ``cache["length"]`` → (out (B, 1, d), cache).  ``step``: the step's
+    ``nsa_causal.dense_step``, shared by the layers."""
+    B = x1.shape[0]
+    pos = cache["length"].expand(B, 1)
+    q, k, v = _project(p, x1, mcfg, pos if rope else None, rope)
+    out, cache = nsa_causal_decode(p.bsa, q, k, v, cache, cfg=mcfg.bsa, x1=x1, step=step)
+    return dense(p.wo, out.reshape(B, 1, mcfg.n_heads * mcfg.resolved_head_dim)), cache

@@ -1,6 +1,27 @@
-"""Batched inference over ragged point clouds (the point-cloud family).
+"""Serving engines: LM decode slots and batched ragged geometry inference.
 
-Counterpart of ``repro/serving/engine.py::GeometryEngine``: per-cloud
+``ServingEngine`` (counterpart of ``repro/serving/engine.py::ServingEngine``)
+serves a causal LM in two modes that share one decode core
+(``core.nsa_causal.nsa_causal_decode_paged``):
+
+* lockstep (``generate``): a fixed number of slots decode together at one
+  shared cache position.  Prefill is decode replay: prompts stream token by
+  token through the decode step, so generation after a prefill equals
+  teacher forcing.
+* continuous batching (``paged=True``, ``serve``): slots hold independent
+  requests at independent positions over paged pools
+  (``serving/paged_cache.py``); every step advances every occupied slot by
+  one token, finished slots retire and free slots admit queued requests
+  mid-flight; hash-chained prefix caching reuses KV blocks across requests
+  that share prompt prefixes (copy-on-write on divergence).
+
+The JAX engine jits one step per mode; here the steps run eagerly under
+``torch.inference_mode()``, and the greedy, EOS-free paged path runs
+windows of W steps whose samples stay on the device
+(``launch/steps.py::make_paged_serve_window``).
+
+``GeometryEngine`` (counterpart of ``repro/serving/engine.py::GeometryEngine``)
+serves the point-cloud family: per-cloud
 ball-tree permutation on the host → pack → one forward on the model's
 device → unpack and inverse-permute.  Two batch layouts:
 
@@ -14,7 +35,9 @@ device → unpack and inverse-permute.  Two batch layouts:
 from __future__ import annotations
 
 import contextlib
+import math
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -23,8 +46,344 @@ from repro_torch.core.backend import use_backend
 from repro_torch.core.balltree import (bucket_length, build_balltree_permutations,
                                        pack_ragged, pack_varlen, unpack_ragged,
                                        unpack_varlen)
+from repro_torch.launch.steps import (make_paged_serve_step, make_paged_serve_window,
+                                      make_serve_step)
+from repro_torch.serving.paged_cache import PagedKVCache
 
-__all__ = ["GeometryEngine"]
+__all__ = ["ServingEngine", "GeometryEngine"]
+
+
+def _backend_scope(name: str | None):
+    return use_backend(name) if name else contextlib.nullcontext()
+
+
+class ServingEngine:
+    def __init__(self, api, model, *, batch_slots: int, max_len: int,
+                 cache_dtype=torch.float32, temperature: float = 0.0, seed: int = 0,
+                 backend: str | None = None, paged: bool = False,
+                 page: int | None = None, num_blocks: int | None = None,
+                 prefix_cache: bool = True):
+        """``paged=True`` enables continuous batching (``serve``): ``page``
+        tokens per pool block (default: the least common multiple of the
+        local window and the compression block), ``num_blocks`` pool blocks
+        shared by all slots (default: every slot's full capacity,
+        ``batch_slots · max_len / page``), ``prefix_cache`` toggles
+        cross-request prefix block reuse.  The caches live on the device of
+        ``model``'s parameters; ``backend`` forces an attention backend by
+        name (None = the model config's)."""
+        self.api = api
+        self.model = model
+        self.B = batch_slots
+        self.max_len = max_len
+        self.temperature = temperature
+        self.backend = backend
+        self.cache_dtype = cache_dtype
+        self.device = next(model.parameters()).device
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.paged = paged
+        if paged:
+            if not api.has_paged_decoder:
+                raise ValueError(f"family {api.mcfg.family!r} has no paged decode path")
+            if page is None:
+                bsa = api.mcfg.bsa
+                page = math.lcm(bsa.effective_local_window, bsa.cmp_block)
+            if max_len % page:
+                raise ValueError(f"max_len={max_len} not a multiple of page={page}")
+            self.page = page
+            self.n_pages = max_len // page
+            self.num_blocks = num_blocks or batch_slots * self.n_pages
+            self._prefix_enabled = prefix_cache and not api.has_recurrent_state
+            self._pstep = make_paged_serve_step(api, page=page)
+            self._wstep = make_paged_serve_window(api, page=page)
+            self._alloc_state()
+        else:
+            self.caches = api.cache_init(batch_slots, max_len, cache_dtype,
+                                         device=self.device)
+        self._step = make_serve_step(api)
+        self.tokens_generated = 0
+        self.decode_time = 0.0
+        self.serve_steps = 0
+
+    def _alloc_state(self):
+        self.kv = PagedKVCache(n_slots=self.B, num_blocks=self.num_blocks,
+                               page=self.page, n_pages=self.n_pages,
+                               prefix_cache=self._prefix_enabled)
+        self.caches = self.api.paged_cache_init(self.B, self.num_blocks, self.page,
+                                                self.cache_dtype, device=self.device)
+
+    def reset(self, cache_dtype=None):
+        """Drop all cached state.  ``cache_dtype=None`` keeps the engine's
+        dtype; passing one switches it from here on."""
+        if cache_dtype is not None:
+            self.cache_dtype = cache_dtype
+        if self.paged:
+            self._alloc_state()
+        else:
+            self.caches = self.api.cache_init(self.B, self.max_len, self.cache_dtype,
+                                              device=self.device)
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.array(a)).to(self.device)
+
+    @torch.inference_mode()
+    def prefill(self, prompts: np.ndarray) -> torch.Tensor:
+        """prompts: (B, P) int — replayed through the decode step.  Returns
+        the argmax of the last logits (the first generated token), on the
+        device."""
+        if prompts.shape[0] != self.B:
+            raise ValueError(f"prompts must have {self.B} rows, got {prompts.shape[0]}")
+        toks = self._dev(prompts.astype(np.int64))
+        nxt = None
+        with _backend_scope(self.backend):
+            for t in range(toks.shape[1]):
+                nxt, _, self.caches = self._step(self.model, self.caches, toks[:, t])
+        return nxt
+
+    def _sample(self, logits):
+        if self.temperature <= 0.0:
+            return logits.argmax(-1).to(torch.int32)
+        probs = torch.softmax(logits / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(torch.int32)
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, n_tokens: int, eos_id: int | None = None,
+                 pad_id: int = 0) -> np.ndarray:
+        """Greedy or temperature generation.  Returns (B, n_tokens).
+
+        With ``eos_id`` set, a slot that samples it retires: its remaining
+        columns are ``pad_id``, it is no longer counted, and the loop stops
+        once every slot is done; each step's samples then come back to the
+        host.  Without it the samples stay on the device until the end."""
+        tok = self.prefill(prompts)
+        first = tok.cpu().numpy()                # waits for the prefill, as JAX does
+        done = np.zeros(self.B, bool)
+        t0 = time.perf_counter()
+        if eos_id is None:
+            out = [tok]
+            with _backend_scope(self.backend):
+                for _ in range(n_tokens - 1):
+                    _, logits, self.caches = self._step(self.model, self.caches, tok)
+                    tok = self._sample(logits)
+                    out.append(tok)
+            result = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+            self.tokens_generated += self.B * n_tokens
+        else:
+            done |= first == eos_id
+            emit = np.where(done, pad_id, first).astype(np.int32)
+            out = [emit]
+            self.tokens_generated += int((~done).sum())
+            with _backend_scope(self.backend):
+                for _ in range(n_tokens - 1):
+                    if done.all():
+                        break
+                    _, logits, self.caches = self._step(
+                        self.model, self.caches, self._dev(emit.astype(np.int64)))
+                    s = self._sample(logits).cpu().numpy()
+                    done |= s == eos_id
+                    emit = np.where(done, pad_id, s).astype(np.int32)
+                    out.append(emit)
+                    self.tokens_generated += int((~done).sum())
+            while len(out) < n_tokens:                       # early-exit padding
+                out.append(np.full(self.B, pad_id, np.int32))
+            result = np.stack(out, axis=1)
+        self.decode_time += time.perf_counter() - t0
+        return result
+
+    # -- continuous batching over the paged cache ---------------------------
+
+    @torch.inference_mode()
+    def serve(self, prompts, max_new_tokens: int,
+              eos_id: int | None = None) -> list[np.ndarray]:
+        """Continuous-batching generation over a list of requests.
+
+        ``prompts``: 1-D int token arrays of any lengths up to ``max_len``.
+        Returns one generated-token array per prompt (EOS excluded, at most
+        ``max_new_tokens``; a slot also stops at its capacity).  Every step
+        advances every occupied slot by one token — replaying its prompt
+        (prefill) or feeding its last sample (decode).  Greedy without EOS
+        takes the windowed path; otherwise one step at a time, with each
+        step's samples back on the host when EOS decides retirement."""
+        if not self.paged:
+            raise RuntimeError("serve() requires ServingEngine(paged=True)")
+        prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
+        if eos_id is None and self.temperature <= 0.0:
+            return self._serve_windowed(prompts, max_new_tokens)
+        results: list = [None] * len(prompts)
+        queue = deque(range(len(prompts)))
+        kv = self.kv
+        slot_req = np.full(self.B, -1, np.int64)
+        slot_feed = np.zeros(self.B, np.int64)
+        slot_decode = np.zeros(self.B, bool)    # feed = last sample, not prompt
+        slot_gen: list[list] = [[] for _ in range(self.B)]
+        # EOS makes the schedule depend on the samples: they come back every
+        # step.  Without it (temperature sampling) they stay on the device
+        # and feed back there; the history is pulled once at the end.
+        sync = eos_id is not None
+        hist: list = []                          # (B,) device samples per step
+        dev_table, tver = None, -1
+        prev = None
+        t0 = time.perf_counter()
+        with _backend_scope(self.backend):
+            while queue or (slot_req >= 0).any():
+                # 1) admission into free slots (prefix-reuse aware)
+                for s in range(self.B):
+                    if slot_req[s] < 0 and queue:
+                        rid = queue.popleft()
+                        reused = kv.admit(s, prompts[rid])
+                        self.caches = self.api.cache_reset_slot(self.caches, s)
+                        slot_req[s] = rid
+                        slot_gen[s] = []
+                        slot_feed[s] = prompts[rid][reused]
+                        slot_decode[s] = False
+                # 2) make every occupied slot's next position writable
+                for s in np.nonzero(slot_req >= 0)[0]:
+                    for op in kv.prepare_append(int(s)):
+                        self.caches = self.api.cache_copy_block(self.caches, op.src,
+                                                                op.dst, self.page)
+                if kv.version != tver:           # table changed since the last push
+                    dev_table = self._dev(kv.table)
+                    tver = kv.version
+                # 3) one decode step for the whole batch
+                tok = self._dev(slot_feed)
+                if not sync and prev is not None and slot_decode.any():
+                    tok = torch.where(self._dev(slot_decode), prev.long(), tok)
+                _, logits, self.caches = self._pstep(self.model, self.caches, tok,
+                                                     dev_table, self._dev(kv.lengths))
+                prev = self._sample(logits)
+                if sync:
+                    sampled = prev.cpu().numpy()
+                else:
+                    hist.append(prev)
+                self.serve_steps += 1
+                # 4) commit, transition, retire, publish prefix pages
+                step_idx = len(hist) - 1
+                for s in range(self.B):
+                    rid = int(slot_req[s])
+                    if rid < 0:
+                        continue
+                    prompt = prompts[rid]
+                    fed_pos = int(kv.lengths[s])
+                    kv.committed(s)
+                    kv.seal_prompt_page(s, prompt)
+                    if fed_pos < len(prompt) - 1:
+                        slot_feed[s] = prompt[fed_pos + 1]   # prefill replay
+                        slot_decode[s] = False
+                        continue
+                    done = False                             # decode sample
+                    if sync:
+                        t_s = int(sampled[s])
+                        done = t_s == eos_id
+                        if not done:
+                            slot_gen[s].append(t_s)
+                            slot_feed[s] = t_s
+                    else:
+                        slot_gen[s].append((step_idx, s))    # resolved at the end
+                    if not done:
+                        self.tokens_generated += 1
+                        slot_decode[s] = True
+                        done = (len(slot_gen[s]) >= max_new_tokens
+                                or int(kv.lengths[s]) >= kv.capacity)
+                    if done:
+                        results[rid] = slot_gen[s]
+                        kv.retire(s)
+                        slot_req[s] = -1
+                        slot_feed[s] = 0
+                        slot_decode[s] = False
+        if hist:
+            all_samples = torch.stack(hist).cpu().numpy()    # the one pull
+            results = [np.asarray([all_samples[i, s] for i, s in r], np.int32)
+                       for r in results]
+        else:
+            results = [np.asarray(r, np.int32) for r in results]
+        self.decode_time += time.perf_counter() - t0
+        return results
+
+    MAX_WINDOW = 32
+
+    @torch.inference_mode()
+    def _serve_windowed(self, prompts, max_new_tokens: int) -> list[np.ndarray]:
+        """The greedy, EOS-free path of :meth:`serve`: windows of W steps.
+
+        Without EOS the schedule depends only on lengths, which the host
+        knows ahead, so between scheduling events (a slot retiring, a
+        request admitted) there is nothing to decide per step.  W = steps
+        until the next retirement, rounded down to a power of two and capped
+        at ``MAX_WINDOW`` (the JAX engine's schedule, there to bound its
+        compiled variants; kept so both engines step alike).  Every page the
+        window touches is prepared first, and the samples come back once, at
+        the end."""
+        results: list = [None] * len(prompts)
+        queue = deque(range(len(prompts)))
+        kv = self.kv
+        slot_req = np.full(self.B, -1, np.int64)
+        slot_gen: list[list] = [[] for _ in range(self.B)]
+        hist: list = []                          # (W, B) device samples
+        base = 0                                 # global step index of the window
+        dev_table, tver = None, -1
+        prev = torch.zeros(self.B, dtype=torch.int32, device=self.device)
+        t0 = time.perf_counter()
+        with _backend_scope(self.backend):
+            while queue or (slot_req >= 0).any():
+                for s in range(self.B):          # admission into free slots
+                    if slot_req[s] < 0 and queue:
+                        rid = queue.popleft()
+                        kv.admit(s, prompts[rid])
+                        self.caches = self.api.cache_reset_slot(self.caches, s)
+                        slot_req[s] = rid
+                        slot_gen[s] = []
+                occ = np.nonzero(slot_req >= 0)[0]
+                horizon = self.MAX_WINDOW        # steps until the first retirement
+                for s in occ:
+                    pr = prompts[slot_req[s]]
+                    stop = min(len(pr) - 1 + max_new_tokens, kv.capacity)
+                    horizon = min(horizon, stop - int(kv.lengths[s]))
+                W = 1 << (int(horizon).bit_length() - 1)
+                feed = np.zeros((W, self.B), np.int32)
+                use_prev = np.zeros((W, self.B), bool)
+                for s in occ:
+                    pr = prompts[slot_req[s]]
+                    t = int(kv.lengths[s])
+                    for op in kv.prepare_window(int(s), W):
+                        self.caches = self.api.cache_copy_block(self.caches, op.src,
+                                                                op.dst, self.page)
+                    n_pref = max(0, min(W, len(pr) - t))     # prompt feeds
+                    feed[:n_pref, s] = pr[t:t + n_pref]
+                    use_prev[n_pref:, s] = True              # then self-feed
+                if kv.version != tver:
+                    dev_table = self._dev(kv.table)
+                    tver = kv.version
+                samples, self.caches = self._wstep(
+                    self.model, self.caches, self._dev(feed), self._dev(use_prev), prev,
+                    dev_table, self._dev(kv.lengths.astype(np.int64)),
+                    self._dev((slot_req >= 0).astype(np.int64)))
+                prev = samples[-1]
+                hist.append(samples)
+                self.serve_steps += W
+                for s in occ:
+                    rid = int(slot_req[s])
+                    pr = prompts[rid]
+                    old = int(kv.lengths[s])
+                    kv.committed(int(s), W)
+                    kv.seal_prompt_pages(int(s), pr, old)
+                    gen0 = min(W, max(0, len(pr) - 1 - old))  # first decode step
+                    for i in range(gen0, W):
+                        slot_gen[s].append((base + i, s))
+                    self.tokens_generated += W - gen0
+                    if len(slot_gen[s]) >= max_new_tokens or old + W >= kv.capacity:
+                        results[rid] = slot_gen[s]
+                        kv.retire(int(s))
+                        slot_req[s] = -1
+                base += W
+        if hist:                                 # the one device → host pull
+            allv = torch.cat(hist).cpu().numpy()
+            results = [np.asarray([allv[i, s] for i, s in r], np.int32) for r in results]
+        self.decode_time += time.perf_counter() - t0
+        return results
+
+    @property
+    def tokens_per_second(self) -> float:
+        return self.tokens_generated / max(self.decode_time, 1e-9)
 
 
 class GeometryEngine:
@@ -109,8 +468,7 @@ class GeometryEngine:
 
     def _predict_batch(self, chunk) -> list[np.ndarray]:
         batch, mask, perms = self.pack_batch(chunk)
-        scope = use_backend(self.backend) if self.backend else contextlib.nullcontext()
-        with scope:
+        with _backend_scope(self.backend):
             pred = self.api.forward(self.model, batch)
         if self.layout == "packed":
             per_cloud = unpack_varlen(pred[0].cpu().numpy(),

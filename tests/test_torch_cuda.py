@@ -6,8 +6,12 @@ fixture, never at import).  On a machine with an H100 run them with
 Small shapes with rep 2, one padded sample and one fully masked slot (the
 varlen kernels: four clouds packed with a capacity tail and a dead block).
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
-version.  Tolerance: fp32 1e-4, bf16 4e-2 (6e-2 for the selection
-backward, as the JAX suite's bf16 gradient tolerances).
+version.  The causal LM's kernels: ``local_fwd`` with a mask, a dead block,
+a masked slot and packed segments (windows 32 and 256), ``paged_gather``
+with out-of-range rows and unaligned rows, and a 2-layer smoke tinyllama
+forward and paged decode against the reference backend.  Tolerance: fp32
+1e-4, bf16 4e-2 (6e-2 for the selection backward, as the JAX suite's bf16
+gradient tolerances); the row gather is exact.
 """
 
 import numpy as np
@@ -249,7 +253,9 @@ def test_train_step_grads_match_reference(cuda):
             loss.backward()
         grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters()
                           if p.grad is not None}      # phi_q only feeds top-k
-    assert all(c.n == (0 if name.startswith("varlen") else cfg.n_layers)
+    padded_train = ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd", "bta_bwd",
+                    "flash_dq", "flash_dkv", "selection_bwd", "epilogue_bwd")
+    assert all(c.n == (cfg.n_layers if name in padded_train else 0)
                for name, c in COUNTERS.items())
     for name, want in grads["reference"].items():
         torch.testing.assert_close(grads["kernels"][name], want, atol=1e-3, rtol=1e-3)
@@ -336,9 +342,91 @@ def test_packed_model_matches_reference(cuda):
         grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters()
                           if p.grad is not None}
     packed_path = ("bta_fwd", "varlen_fwd", "selection_fwd", "epilogue_fwd")
+    packed_bwd = ("bta_bwd", "varlen_dq", "varlen_dkv", "selection_bwd", "epilogue_bwd")
     assert all(c.n == (2 * cfg.n_layers if name in packed_path
-                       else 0 if name.startswith("flash") else cfg.n_layers)
+                       else cfg.n_layers if name in packed_bwd else 0)
                for name, c in COUNTERS.items())
     torch.testing.assert_close(preds["kernels"], preds["reference"], atol=1e-3, rtol=1e-3)
     for name, want in grads["reference"].items():
         torch.testing.assert_close(grads["kernels"][name], want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,segmented", [(32, False), (32, True), (256, False)])
+def test_local_kernel(cuda, dtype, window, segmented):
+    from repro_torch.kernels import local
+    n = 4 * window
+    q = _rand((B * HKV, REP, n, D), dtype, cuda, 80)
+    k = _rand((B * HKV, n, D), dtype, cuda, 81)
+    v = _rand((B * HKV, n, D), dtype, cuda, 82)
+    mask = torch.ones(B, n, dtype=torch.bool, device=cuda)
+    mask[1, window + 5:2 * window + 9] = False      # a dead block and a ragged hole
+    mask[2] = False                                 # a fully masked slot
+    seg = None
+    if segmented:
+        seg = torch.tensor([[0, 0, 1, 1], [0, 1, 1, 2], [0, 0, 0, 0]], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(window=window, n_heads=HKV)
+    got = local.local_window_fwd(q, k, v, _bias(mask), seg, **kw)
+    want = local.local_window_fwd_plain(q, k, v, _bias(mask), seg, **kw)
+    _check(got, want, dtype)
+    assert bool((got[0][2 * HKV:] == 0).all())     # the masked slot: exact zeros
+
+
+def test_local_kernel_backward_raises_on_the_card(cuda):
+    from repro_torch.kernels import ops
+    q = _rand((1, 64, HQ, D), torch.float32, cuda, 83).requires_grad_(True)
+    k = _rand((1, 64, HKV, D), torch.float32, cuda, 84)
+    out = ops.local_window_attention(q, k, k, 32)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (40, 2, 16)),
+                                         (torch.bfloat16, (40, 2, 16)),
+                                         (torch.float32, (40, 1, 3)),     # 4-byte words
+                                         (torch.bfloat16, (40, 1, 3))])   # bytes
+def test_paged_gather_kernel(cuda, dtype, shape):
+    from repro_torch.kernels import paged
+    pool = _rand(shape, dtype, cuda, 85)
+    rows = torch.randint(0, 40, (5, 9), device=cuda)
+    rows[0, :4] = torch.tensor([40, 57, -1, -45])  # past the end, from the end, before 0
+    got = paged.paged_gather(pool, rows)
+    assert got.shape == (5, 9) + shape[1:]
+    torch.testing.assert_close(got, paged.paged_gather_plain(pool, rows), atol=0, rtol=0)
+
+
+def test_lm_kernels_match_reference(cuda):
+    """A 2-layer smoke tinyllama on the card: the forward launches the four
+    LM forward kernels once a layer and matches the reference backend; the
+    paged decode launches 8 row gathers a layer and step and matches too."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import smoke_config
+    from repro_torch.core.backend import use_backend
+    from repro_torch.kernels.common import COUNTERS, reset_counters
+    from repro_torch.models.api import model_api
+    cfg = smoke_config(get_config("tinyllama-1.1b"))
+    api = model_api(cfg)
+    model = api.init(0)
+    batch = api.make_batch(np.random.default_rng(0), 2, 128)
+    with use_backend("reference"):
+        want = api.forward(model, batch)
+    reset_counters()
+    got = api.forward(model, batch)                    # "auto" → kernels on cuda
+    lm_fwd = ("local_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
+    assert {n: c.n for n, c in COUNTERS.items()} == {
+        n: (cfg.n_layers if n in lm_fwd else 0) for n in COUNTERS}
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    caches = {b: api.paged_cache_init(2, 8, 32, torch.float32) for b in ("kernels", "ref")}
+    table = torch.tensor([[3, 0, 8, 8], [5, 1, 2, 8]], device=cuda)
+    for t in range(40):
+        tok = batch["tokens"][:, t]
+        lengths = torch.tensor([t, max(t - 3, 0)], device=cuda)
+        reset_counters()
+        got, caches["kernels"] = api.paged_decode_step(model, tok, caches["kernels"], table,
+                                                       lengths, 32)
+        assert COUNTERS["paged_gather"].n == 8 * cfg.n_layers
+        with use_backend("reference"):
+            want, caches["ref"] = api.paged_decode_step(model, tok, caches["ref"], table,
+                                                        lengths, 32)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -6,9 +6,11 @@
 * On CPU tensors no kernel counter moves, forward or backward (the plain
   versions run); asking
   for ``device="cuda"`` without a card raises instead of running on the CPU.
-* The kernel backend raises for the ops whose kernels later slices bring,
-  and the built-in ``kernels`` / ``auto`` backends answer the packed-varlen
-  ops with their own methods, never with the reference's.
+* On CPU tensors the kernel backend answers the causal LM's ops
+  (``local_window``, ``local_window_varlen``, ``paged_gather``) with the
+  kernels' plain versions, equal to the reference backend; the built-in
+  ``kernels`` / ``auto`` backends answer the packed-varlen ops with their
+  own methods, never with the reference's.
 """
 
 import ast
@@ -45,7 +47,11 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.engine, repro_torch.kernels.ref, "
             "repro_torch.convert, repro_torch.configs, "
-            "repro_torch.launch.train_shapenet; "
+            "repro_torch.launch.train_shapenet, repro_torch.launch.serve, "
+            "repro_torch.core.nsa_causal, repro_torch.models.transformer, "
+            "repro_torch.serving.paged_cache, repro_torch.configs.reduce, "
+            "repro_torch.kernels.local, repro_torch.kernels.paged; "
+            "repro_torch.configs.list_configs(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -86,7 +92,8 @@ def test_cpu_runs_move_no_kernel_counter(backend):
             assert out.shape == b["mask"].shape + (1,) and torch.isfinite(out).all()
     assert set(COUNTERS) == {"bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd",
                              "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd",
-                             "epilogue_bwd", "varlen_fwd", "varlen_dq", "varlen_dkv"}
+                             "epilogue_bwd", "varlen_fwd", "varlen_dq", "varlen_dkv",
+                             "local_fwd", "paged_gather"}
     assert all(c.n == 0 for c in COUNTERS.values())
 
 
@@ -101,11 +108,38 @@ def test_cuda_without_a_card_raises():
         api.make_batch(np.random.default_rng(0), 1, 32)
 
 
+def _lm_op_args(op):
+    """Inputs of the causal LM's backend ops, on the CPU: blocked local
+    attention (GQA rep 2, a masked tail; packed: three samples at window
+    multiples) and the paged row gather."""
+    g = torch.Generator().manual_seed(0)
+    if op == "paged_gather":
+        return (torch.randn(40, 2, 16, generator=g),
+                torch.randint(0, 40, (3, 7), generator=g)), {}
+    if op == "local_window":
+        mask = torch.ones(2, 64, dtype=torch.bool)
+        mask[1, 50:] = False
+        return (torch.randn(2, 64, 4, 16, generator=g), torch.randn(2, 64, 2, 16, generator=g),
+                torch.randn(2, 64, 2, 16, generator=g)), dict(window=16, mask=mask)
+    mask = torch.ones(64, dtype=torch.bool)
+    mask[40:48] = False
+    return (torch.randn(64, 4, 16, generator=g), torch.randn(64, 2, 16, generator=g),
+            torch.randn(64, 2, 16, generator=g), np.array([0, 16, 48, 64], np.int32)), \
+        dict(window=16, mask=mask)
+
+
 @pytest.mark.parametrize("op", ["local_window", "local_window_varlen", "paged_gather"])
-def test_kernel_backend_raises_for_unported_ops(op):
+def test_kernel_backend_answers_lm_ops_on_cpu_like_the_reference(op):
+    """The kernels backend on CPU tensors runs the kernels' plain versions:
+    equal to the reference backend, and no kernel counter moves."""
     from repro_torch.core.backend import get_backend
-    with pytest.raises(NotImplementedError):
-        getattr(get_backend("kernels"), op)(torch.zeros(1, 16, 1, 16))
+    from repro_torch.kernels.common import COUNTERS, reset_counters
+    args, kw = _lm_op_args(op)
+    reset_counters()
+    got = getattr(get_backend("kernels"), op)(*args, **kw)
+    want = getattr(get_backend("reference"), op)(*args, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert all(c.n == 0 for c in COUNTERS.values())
 
 
 @pytest.mark.parametrize("backend", ["kernels", "auto"])
