@@ -83,7 +83,29 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    0 and 9 are also generated by B = 1 lockstep ``generate`` (two processes
    side by side, after the serve) and their tokens must equal the served
    ones, or part at a near-tie (the lockstep top-two logit gap there below
-   4e-2 of the largest |logit|).
+   4e-2 of the largest |logit|);
+9. LM backward kernels: ``local_dq`` and ``local_dkv`` against their plain
+   version in fp32 and bf16 on the ``local_fwd`` case of phase 5 and at the
+   LM train shapes (B = 2 × 4096 tokens, no mask), within 1e-4 (fp32) and
+   4e-2 (bf16) of each gradient's largest value, timed beside SDPA with the
+   dense banded mask (forward + backward − forward); and, at the train
+   shapes in bf16, ``flash_dq`` / ``flash_dkv`` block-causal against the
+   64 pooled keys, ``selection_bwd`` on each layer's own picks (512 rows a
+   group) and ``epilogue_bwd``;
+10. LM train: ``make_train_step`` on ``tinyllama-1.1b`` at full width and
+   depth (bf16 parameters, fp32 AdamW moments, remat on, random weights
+   from seed 0) over ``lm_batches(seed=0)`` at ``train_4k``'s length, B =
+   2 × 4096 tokens (its global batch of 256 cut to 2 for one card): one
+   warm-up step and three timed steps (AdamW as in phase 4); the loss,
+   every gradient and the gradient norm must be finite, each step must
+   launch every forward kernel of the prefill 44 times (22 and 22
+   recomputed) and ``local_dq``, ``local_dkv``, ``flash_dq``,
+   ``flash_dkv``, ``selection_bwd`` and ``epilogue_bwd`` 22 times each (and
+   no other kernel), and every layer's input and parameter gradients on the
+   kernel path must match the ``reference`` backend's within 6e-2 of each
+   tensor's largest value (a parameter's floored at 1e-4 of the layer's
+   largest parameter gradient), given the same layer input and upstream
+   gradient (``lm_train_reference_check``).
 
 The shapenet paths run at full width and depth.  Any failed check exits
 non-zero before the result lines.  On success the last line is
@@ -114,6 +136,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import nsa_causal  # noqa: E402
 from repro_torch.core.backend import use_backend  # noqa: E402
 from repro_torch.core.balltree import pack_varlen  # noqa: E402
+from repro_torch.data.lm import lm_batches  # noqa: E402
 from repro_torch.data.shapenet import N_POINTS, ShapeNetCarDataset, make_clouds  # noqa: E402
 from repro_torch.kernels import (_build, bta, epilogue, flash, local, paged,  # noqa: E402
                                  selection, varlen)
@@ -121,6 +144,7 @@ from repro_torch.kernels.common import COUNTERS, reset_counters, row_delta  # no
 from repro_torch.kernels.occupancy import (ranges_live_map, tile_seg_ranges,  # noqa: E402
                                            varlen_maps)
 from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
+from repro_torch.layers.losses import masked_mean_nll  # noqa: E402
 from repro_torch.layers.nn import dense, embed, rmsnorm  # noqa: E402
 from repro_torch.models.api import model_api  # noqa: E402
 from repro_torch.models.pointcloud import pc_layer  # noqa: E402
@@ -157,6 +181,8 @@ KERNELS = {
     "varlen_dq": ("src/repro_torch/csrc/varlen_bwd.cu", "src/repro/kernels/varlen.py:117"),
     "varlen_dkv": ("src/repro_torch/csrc/varlen_bwd.cu", "src/repro/kernels/varlen.py:154"),
     "local_fwd": ("src/repro_torch/csrc/local_fwd.cu", "src/repro/kernels/local.py:72"),
+    "local_dq": ("src/repro_torch/csrc/local_bwd.cu", "src/repro/kernels/local.py:126"),
+    "local_dkv": ("src/repro_torch/csrc/local_bwd.cu", "src/repro/kernels/local.py:126"),
     "paged_gather": ("src/repro_torch/csrc/paged_gather.cu",
                      "src/repro/kernels/paged.py:23"),
 }
@@ -170,9 +196,14 @@ PATHS["train_packed"] = PATHS["serve_packed"] + (
 PATHS["prefill"] = ("local_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
 PATHS["decode_oracle"] = ("paged_gather",)
 PATHS["serve_lm"] = ("paged_gather",)
-# the path (and dtype) whose launches and row the kernels line reports for
-# the LM kernels; the others report the train paths' (fp32)
-LM_MAIN = {"local_fwd": ("prefill", "bfloat16"), "paged_gather": ("serve_lm", "float32")}
+PATHS["train_lm"] = PATHS["prefill"] + ("local_dq", "local_dkv", "flash_dq", "flash_dkv",
+                                        "selection_bwd", "epilogue_bwd")
+# the path, dtype and mode whose launches and row the kernels line reports
+# for the LM kernels; the others report the shapenet train paths' (fp32)
+LM_MAIN = {"local_fwd": ("prefill", "bfloat16", "lm_window"),
+           "paged_gather": ("serve_lm", "float32", "decode_window"),
+           "local_dq": ("train_lm", "bfloat16", "lm_train"),
+           "local_dkv": ("train_lm", "bfloat16", "lm_train")}
 
 # the slice's shapes: shapenet-bsa served 8 clouds at a time, padded to 3840
 B, N, H, D = 8, 3840, 8, 32
@@ -191,6 +222,16 @@ DECODE_TOL = 1e-4                        # fp32, of the output's largest value
 SLOTS, MAX_LEN, PAGE = 8, 2048, 256
 N_REQUESTS, NEW_TOKENS, SHARED = 10, 8, 512
 NEAR_TIE = 4e-2                          # of the largest |logit|
+TRAIN_LM_B, TRAIN_LM_N = 2, 4096         # train_4k's length, its global batch of 256 cut to 2
+TRAIN_LM_STEPS = 3
+# the LM's backward kernels against their plain versions, of each gradient's
+# largest value; the LM train check against the reference backend (the
+# repository's bf16 selection-gradient tolerance), of each gradient's
+# largest value, a parameter's floored at 1e-4 of its layer's largest
+# parameter gradient (only φ_k.pos, whose exact gradient is 0, falls under it)
+LM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
+LM_GRAD_REL_TOL = 6e-2
+LM_GRAD_FLOOR = 1e-4
 
 
 class CheckFailed(Exception):
@@ -691,11 +732,15 @@ def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dic
     return results
 
 
-def check_launches(launches: dict, path: str, per_kernel: int) -> None:
-    """Every kernel of ``path`` launched ``per_kernel`` times, every other
-    kernel never."""
+def check_launches(launches: dict, path: str, per_kernel: int,
+                   per_forward_kernel: int | None = None) -> None:
+    """Every kernel of ``path`` launched ``per_kernel`` times (its forward
+    kernels ``per_forward_kernel`` times, when given), every other kernel
+    never."""
     for name, n in launches.items():
         want = per_kernel if name in PATHS[path] else 0
+        if want and per_forward_kernel is not None and name.endswith("_fwd"):
+            want = per_forward_kernel
         check(n == want, f"{name} launched {n} times on {path}, expected {want}")
 
 
@@ -999,14 +1044,26 @@ def local_visible_pairs(key_bias, blk_seg, w: int) -> int:
 
 
 def local_dense_mask(key_bias, blk_seg, w: int) -> torch.Tensor:
-    """(N, N) bool of the same rule, for one sample (SDPA's yardstick)."""
-    n = key_bias.shape[1]
+    """(B, 1, N, N) bool of the same rule, per sample (SDPA's yardstick)."""
+    Bk, n = key_bias.shape
     t = torch.arange(n, device=key_bias.device)
     bt, bj = t[:, None] // w, t[None, :] // w
-    seg = blk_seg[0][t // w]
-    ok = ((bt == bj) & (t[None, :] <= t[:, None])) | \
-        ((bj == bt - 1) & (seg[None, :] == seg[:, None]))
-    return ok & (key_bias[0] > NEG_INF / 2)[None, :]
+    seg = (torch.zeros((Bk, n), dtype=torch.int32, device=key_bias.device)
+           if blk_seg is None else blk_seg[:, t // w])
+    ok = ((bt == bj) & (t[None, :] <= t[:, None]))[None] | \
+        ((bj == bt - 1)[None] & (seg[:, None, :] == seg[:, :, None]))
+    return (ok & (key_bias > NEG_INF / 2)[:, None, :])[:, None]
+
+
+def lm_window_case(dev, n: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+    """The local kernels' test sequence: B = 1, a padded tail, a hole and a
+    packed-sample boundary at block 6.  Returns (key_bias, blk_seg)."""
+    mask = torch.ones(1, n, dtype=torch.bool, device=dev)
+    mask[0, 1000:1100] = False
+    mask[0, n - 300:] = False
+    key_bias = torch.where(mask, 0.0, NEG_INF).float()
+    blk_seg = (torch.arange(n // LM_W, device=dev) >= 6).int()[None].contiguous()
+    return key_bias, blk_seg
 
 
 def lm_kernel_phase(dev) -> list[dict]:
@@ -1017,11 +1074,7 @@ def lm_kernel_phase(dev) -> list[dict]:
     rep = LM_HQ // LM_HKV
     # local_fwd: one 4096-token sequence, a padded tail, a hole, a sample boundary
     n = 4096
-    mask = torch.ones(1, n, dtype=torch.bool, device=dev)
-    mask[0, 1000:1100] = False
-    mask[0, n - 300:] = False
-    key_bias = torch.where(mask, 0.0, NEG_INF).float()
-    blk_seg = (torch.arange(n // LM_W, device=dev) >= 6).int()[None].contiguous()
+    key_bias, blk_seg = lm_window_case(dev, n)
     pairs = LM_HQ * local_visible_pairs(key_bias, blk_seg, LM_W)
     dense_ok = local_dense_mask(key_bias, blk_seg, LM_W)
     # flash (block-causal), selection, epilogue: one prefill sequence
@@ -1442,6 +1495,335 @@ def profile_decode(eng) -> None:
     print(json.dumps({"decode_profile": summary}), flush=True)
 
 
+def rel_err(got, want, tol_table=LM_BWD_TOL) -> tuple[float, bool]:
+    """(max |got − want|, within the tolerance of each tensor's largest
+    value?)"""
+    errs, ok = [], True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            return float("nan"), False
+        d = float((g - w).abs().max())
+        ok = ok and d <= tol_table[got[0].dtype] * float(w.abs().max())
+        errs.append(d)
+    return max(errs), ok
+
+
+def lm_train_batches(dev, vocab: int) -> list[dict]:
+    """1 + ``TRAIN_LM_STEPS`` batches of ``lm_batches(seed=0)`` at
+    ``train_4k``'s length (B = 2 × 4096 tokens), tokens and labels on the
+    card."""
+    return [{k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
+            for _, b in zip(range(TRAIN_LM_STEPS + 1),
+                            lm_batches(vocab_size=vocab, batch_size=TRAIN_LM_B,
+                                       seq_len=TRAIN_LM_N, seed=0))]
+
+
+def lm_selection_picks(api, model, batch) -> list[torch.Tensor]:
+    """Each layer's selections (B, Hkv, G, k*) as the selection kernel gets
+    them in the kernel path's forward of the LM on ``batch``."""
+    apply, picks = selection.SelectionAttentionFn.apply, []
+
+    def spy(qg, kb, vb, idx, tok_bias):
+        picks.append(idx.clone())
+        return apply(qg, kb, vb, idx, tok_bias)
+
+    with mock.patch.object(selection.SelectionAttentionFn, "apply", spy), \
+            use_backend("kernels"):
+        api.forward(model, batch)
+    check(len(picks) == api.mcfg.n_layers, f"{len(picks)} selection calls in "
+                                           f"{api.mcfg.n_layers} layers")
+    return picks
+
+
+def lm_backward_kernel_phase(dev, picks) -> list[dict]:
+    """``local_dq`` and ``local_dkv`` against their plain version in fp32
+    and bf16, on the ``local_fwd`` case (B = 1, 4096 tokens, a padded tail,
+    a hole, a sample boundary) and at the LM train shapes (B = 2 × 4096, no
+    mask); then, at the train shapes in bf16, the backward kernels the LM
+    shares with shapenet: flash_dq / flash_dkv block-causal against the
+    N/64 pooled keys, selection_bwd on each layer's own picks (512 rows a
+    group) and epilogue_bwd.  Each gets the forward kernel's (o, lse), a
+    random dO and δ = rowsum(dO·O)."""
+    results = []
+    record = recorder(results)
+    rep = LM_HQ // LM_HKV
+    n, Bt = TRAIN_LM_N, TRAIN_LM_B
+    cases = [("lm_window", 1, *lm_window_case(dev, n)),
+             ("lm_train", Bt, torch.zeros((Bt, n), dtype=torch.float32, device=dev), None)]
+    kw = dict(window=LM_W, n_heads=LM_HKV)
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for mode, Bc, key_bias, blk_seg in cases:
+            q = rand((Bc * LM_HKV, rep, n, LM_D), dtype, dev, 110)
+            k = rand((Bc * LM_HKV, n, LM_D), dtype, dev, 111)
+            v = rand((Bc * LM_HKV, n, LM_D), dtype, dev, 112)
+            o, lse = local.local_window_fwd(q, k, v, key_bias, blk_seg, **kw)
+            do = rand(o.shape, dtype, dev, 113)
+            args = (q, k, v, key_bias, blk_seg, do, lse, row_delta(do, o))
+            dq = local.local_window_dq(*args, **kw)
+            dkv = local.local_window_dkv(*args, **kw)
+            want = local.local_window_bwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+            pairs = LM_HQ * local_visible_pairs(key_bias, blk_seg, LM_W)
+            side = 2 * 4 * q.numel() // LM_D + 4 * key_bias.numel() + 4 * 2 * Bc * (n // LM_W)
+            p_ms = median_ms(lambda: local.local_window_bwd_plain(*args, **kw), warmup=1,
+                             reps=3)
+            qs = q.reshape(Bc, LM_HQ, n, LM_D).clone().requires_grad_(True)
+            ks, vs = (t.reshape(Bc, LM_HKV, n, LM_D).repeat_interleave(rep, 1).clone()
+                      .requires_grad_(True) for t in (k, v))
+            dense_ok = local_dense_mask(key_bias, blk_seg, LM_W)
+            lib_ms = library_bwd_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=dense_ok), (qs, ks, vs))
+            del qs, ks, vs, dense_ok
+            err, ok = rel_err((dq,), want[:1])
+            b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side,
+                               6.0 * LM_D * pairs, dtype)
+            record("local_dq", mode, dtype, err, ok,
+                   median_ms(lambda: local.local_window_dq(*args, **kw)), p_ms, b_ms, b_by,
+                   lib_ms)
+            err, ok = rel_err(dkv, want[1:])
+            b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side,
+                               8.0 * LM_D * pairs, dtype)
+            record("local_dkv", mode, dtype, err, ok,
+                   median_ms(lambda: local.local_window_dkv(*args, **kw)), p_ms, b_ms,
+                   b_by, lib_ms)
+            del q, k, v, o, lse, do, args, dq, dkv, want
+            torch.cuda.empty_cache()
+
+    dtype, es = torch.bfloat16, 2
+    # ---- flash_dq / flash_dkv, block-causal: 4096 queries against 64 pooled keys
+    NBt = n // LM_ELL
+    q = rand((Bt * LM_HKV, rep, n, LM_D), dtype, dev, 120)
+    kf = rand((Bt * LM_HKV, NBt, LM_D), dtype, dev, 121)
+    vf = rand((Bt * LM_HKV, NBt, LM_D), dtype, dev, 122)
+    zb = torch.zeros((Bt, NBt), dtype=torch.float32, device=dev)
+    fkw = dict(n_heads=LM_HKV, block_causal=True, ell=LM_ELL)
+    o, lse = flash.flash_attention_fwd(q, kf, vf, zb, None, **fkw)
+    do = rand(o.shape, dtype, dev, 123)
+    args = (q, kf, vf, zb, do, lse, row_delta(do, o))
+    dq = flash.flash_attention_dq(*args, **fkw)
+    dkv = flash.flash_attention_dkv(*args, **fkw)
+    want = flash.flash_attention_bwd_plain(*args, **fkw)
+    torch.cuda.synchronize()
+    vis = flash.visible_keys(n, NBt, causal=False, block_causal=True, ell=LM_ELL, device=dev)
+    n_pairs = Bt * LM_HQ * float(vis.sum())
+    side = 2 * 4 * q.numel() // LM_D + 4 * Bt * NBt
+    p_ms = median_ms(lambda: flash.flash_attention_bwd_plain(*args, **fkw), warmup=1, reps=3)
+    qs = q.reshape(Bt, LM_HQ, n, LM_D).clone().requires_grad_(True)
+    ks, vs = (t.reshape(Bt, LM_HKV, NBt, LM_D).repeat_interleave(rep, 1).clone()
+              .requires_grad_(True) for t in (kf, vf))
+    lib_ms = library_bwd_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis),
+                            (qs, ks, vs))
+    err, ok = rel_err((dq,), want[:1])
+    b_ms, b_by = bound((3 * q.numel() + 2 * kf.numel()) * es + side, 6.0 * LM_D * n_pairs,
+                       dtype)
+    record("flash_dq", "lm_train_block_causal", dtype, err, ok,
+           median_ms(lambda: flash.flash_attention_dq(*args, **fkw)), p_ms, b_ms, b_by, lib_ms)
+    err, ok = rel_err(dkv, want[1:])
+    b_ms, b_by = bound((2 * q.numel() + 4 * kf.numel()) * es + side, 8.0 * LM_D * n_pairs,
+                       dtype)
+    record("flash_dkv", "lm_train_block_causal", dtype, err, ok,
+           median_ms(lambda: flash.flash_attention_dkv(*args, **fkw)), p_ms, b_ms, b_by,
+           lib_ms)
+    del q, kf, vf, o, lse, do, args, dq, dkv, want, qs, ks, vs
+
+    # ---- selection_bwd: each layer's picks, 64 groups of g·rep = 512 rows,
+    # 16 blocks of 64 keys; times and bounds the mean over the layers
+    G, M = n // LM_G, LM_G * rep
+    qg = rand((Bt, LM_HKV, G, M, LM_D), dtype, dev, 124)
+    kb = rand((Bt, LM_HKV, NBt, LM_ELL, LM_D), dtype, dev, 125)
+    vb = rand((Bt, LM_HKV, NBt, LM_ELL, LM_D), dtype, dev, 126)
+    tok_bias = torch.zeros((Bt, NBt, LM_ELL), dtype=torch.float32, device=dev)
+    do = rand(qg.shape, dtype, dev, 127)
+    errs, oks, k_ms, p_ms, b_ms = [], [], [], [], []
+    for idx in picks:
+        check(idx.shape == (Bt, LM_HKV, G, LM_KSTAR), f"LM picks {tuple(idx.shape)}")
+        o, lse = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
+        args = (qg, kb, vb, idx, tok_bias, do, lse, row_delta(do, o))
+        got = selection.selection_attention_bwd(*args)
+        want = selection.selection_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err, ok = rel_err(got, want, tol_table=SEL_BWD_TOL)
+        errs.append(err)
+        oks.append(ok)
+        valid_sel = int((idx >= 0).sum())
+        used = torch.zeros(Bt, LM_HKV, NBt, dtype=torch.bool, device=dev)
+        used.scatter_(2, idx.clamp(min=0).reshape(Bt, LM_HKV, -1).long(),
+                      (idx >= 0).reshape(Bt, LM_HKV, -1))
+        nbytes = (3 * qg.numel() + 2 * int(used.sum()) * LM_ELL * LM_D) * es \
+            + 4 * 2 * kb.numel() + 4 * idx.numel() + 4 * tok_bias.numel() \
+            + 2 * 4 * qg.numel() // LM_D
+        b_ms.append(bound(nbytes, 10.0 * M * LM_ELL * LM_D * valid_sel, dtype))
+        k_ms.append(median_ms(lambda: selection.selection_attention_bwd(*args), warmup=1,
+                              reps=3))
+        p_ms.append(median_ms(lambda: selection.selection_attention_bwd_plain(*args),
+                              warmup=1, reps=1))
+        del o, lse, args, got, want
+    record("selection_bwd", "lm_train_topk", dtype,
+           max(errs) if all(math.isfinite(e) for e in errs) else math.nan, all(oks),
+           statistics.fmean(k_ms), statistics.fmean(p_ms),
+           statistics.fmean(t for t, _ in b_ms), b_ms[0][1], None)
+    del qg, kb, vb, do
+
+    # ---- epilogue_bwd: R = B·N·Hq rows of 64
+    R = Bt * n * LM_HQ
+    os_ = [rand((R, LM_D), dtype, dev, 128 + i) for i in range(3)]
+    gs = [torch.sigmoid(rand((R,), torch.float32, dev, 131 + i)) for i in range(3)]
+    m = torch.ones(R, dtype=torch.float32, device=dev)
+    do = rand((R, LM_D), dtype, dev, 134)
+    args = (*os_, *gs, m, do)
+    got = epilogue.gated_combine_bwd(*args)
+    want = epilogue.gated_combine_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err, ok = rel_err(got, want)
+    b_ms, b_by = bound(7 * R * LM_D * es + 7 * 4 * R, 10.0 * R * LM_D, torch.float32)
+    record("epilogue_bwd", "lm_train_rows", dtype, err, ok,
+           median_ms(lambda: epilogue.gated_combine_bwd(*args)),
+           median_ms(lambda: epilogue.gated_combine_bwd_plain(*args), reps=5),
+           b_ms, b_by, None)
+    del os_, gs, args, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def train_lm_phase(dev, api, model, batches) -> dict:
+    """``make_train_step`` on the LM at full width and depth (bf16
+    parameters, fp32 AdamW moments, remat on): one warm-up step, then
+    ``TRAIN_LM_STEPS`` timed steps (their launches checked), the per-layer
+    gradient check against the reference backend and a profiled step."""
+    cfg = api.mcfg
+    check(cfg.remat, f"{LM} trains with remat on")
+    opt_state = adamw_init(dict(model.named_parameters()),
+                           state_dtype=getattr(torch, cfg.opt_state_dtype))
+    step = make_train_step(api, base_lr=1e-3, weight_decay=0.01, total_steps=300,
+                           warmup_steps=30)
+    t0 = time.perf_counter()
+    model, opt_state, _ = step(model, opt_state, batches[0])       # warm-up step
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()                                    # just before the main path
+    metrics, step_ms = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        model, opt_state, out = step(model, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(out)
+    launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    tokens = TRAIN_LM_STEPS * TRAIN_LM_B * TRAIN_LM_N
+    stats = {"arch": LM, "steps": TRAIN_LM_STEPS, "batch": TRAIN_LM_B, "seq_len": TRAIN_LM_N,
+             "layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
+             "opt_state_dtype": cfg.opt_state_dtype, "remat": cfg.remat,
+             "loss": [float(m["loss"]) for m in metrics],
+             "grad_norm": [float(m["grad_norm"]) for m in metrics],
+             "lr": [m["lr"] for m in metrics], "warmup_s": warm_s, "step_ms": step_ms,
+             "median_step_ms": statistics.median(step_ms),
+             "trained_tokens_per_second": tokens / (sum(step_ms) / 1e3),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches}
+    print(json.dumps({"train_lm": stats}), flush=True)
+    check(all(math.isfinite(x) for x in stats["loss"] + stats["grad_norm"]),
+          "LM train: non-finite loss or gradient norm")
+    check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+              if p.grad is not None), "LM train: non-finite gradient")   # φ_q: none
+    check_launches(launches, "train_lm", cfg.n_layers * TRAIN_LM_STEPS,
+                   per_forward_kernel=2 * cfg.n_layers * TRAIN_LM_STEPS)   # + recompute
+    stats["reference_check"] = lm_train_reference_check(model, cfg, batches[1])
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, opt_state, batches[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_summary(prof)
+    summary.update(profiled_wall_ms=wall * 1e3,
+                   device_busy_share=summary["device_kernel_ms"] / (wall * 1e3))
+    print(json.dumps({"train_lm_profile": summary}), flush=True)
+    return stats
+
+
+def lm_train_reference_check(model, cfg, batch) -> dict:
+    """Hold each LM layer's gradients on the kernel path to the ``reference``
+    backend's, given the same layer input and the same upstream gradient
+    (the ``train_reference_check`` recipe).  The layer inputs come from a
+    no-grad forward on the kernel path; walking down, each layer runs again
+    with grad on each backend, so one layer's graph is held at a time.
+
+    Each gradient tensor is held by max|kernel − reference| / max|reference|
+    ≤ ``LM_GRAD_REL_TOL``, a parameter's denominator floored at
+    ``LM_GRAD_FLOOR`` × the layer's largest parameter gradient.  The floor
+    is for a gradient that is 0 in exact arithmetic: φ_k.pos adds the same
+    mean(pos) to every pooled key when no token is padded, and softmax
+    ignores a shift shared by every key, so both backends return rounding
+    noise for it.  ``by_name`` reports, per tensor name over the layers, the
+    held ratio, the unfloored one and the smallest share of the layer's
+    largest parameter gradient."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B_, N_ = tokens.shape
+    pos = torch.arange(N_, device=tokens.device)[None].expand(B_, N_)
+    layers = [period.pos0 for period in model.layers]
+    xs = []
+    with torch.no_grad(), use_backend("kernels"):
+        h = embed(model.embed, tokens, dtype=cfg.cdtype())
+        for lp in layers:
+            xs.append(h)
+            h = lm_layer(lp, h, mcfg=cfg, positions=pos)
+    top = h.detach().requires_grad_(True)
+    logits = dense(model.lm_head, rmsnorm(model.final_norm, top, cfg.norm_eps)).float()
+    gy, = torch.autograd.grad(masked_mean_nll(logits, labels), top)
+    del logits
+    rows = []
+    for i in reversed(range(len(layers))):
+        lp = layers[i]
+        names = [n for n, p in lp.named_parameters() if p.requires_grad]
+        x = xs[i].detach().requires_grad_(True)
+        wrt = [x] + [p for _, p in lp.named_parameters() if p.requires_grad]
+        grads = {}
+        for backend in ("kernels", "reference"):
+            with use_backend(backend):
+                y = lm_layer(lp, x, mcfg=cfg, positions=pos)
+                grads[backend] = torch.autograd.grad(y, wrt, gy, allow_unused=True)
+            del y
+        pairs = []
+        for name, a, b in zip(["input"] + names, grads["kernels"], grads["reference"]):
+            check((a is None) == (b is None), f"LM layer {i} {name}: gradient on one side only")
+            if a is None:                              # φ_q only feeds top-k
+                continue
+            check(bool(torch.isfinite(a).all()), f"LM layer {i} {name}: non-finite gradient")
+            pairs.append((name, float((a.float() - b.float()).abs().max()),
+                          float(b.float().abs().max())))
+        floor = LM_GRAD_FLOOR * max(ref for name, _, ref in pairs if name != "input")
+        for name, diff, ref in pairs:
+            den = ref if name == "input" else max(ref, floor)
+            rows.append({"layer": i, "name": name, "max_abs_diff": diff, "ref_max_abs": ref,
+                         "rel": diff / den if den > 0 else (0.0 if diff == 0 else math.inf),
+                         "rel_own": diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf),
+                         "floored": den > ref, "share": ref / (floor / LM_GRAD_FLOOR)})
+        gy = grads["kernels"][0]
+        del grads
+    worst = max(rows, key=lambda r: r["rel"])
+    by_name = {}
+    for r in rows:
+        b = by_name.setdefault(r["name"], {"rel": 0.0, "rel_own": 0.0, "share": math.inf,
+                                           "floored_layers": 0})
+        b.update(rel=max(b["rel"], r["rel"]), rel_own=max(b["rel_own"], r["rel_own"]),
+                 share=min(b["share"], r["share"]),
+                 floored_layers=b["floored_layers"] + r["floored"])
+    stats = {"rel_tol": LM_GRAD_REL_TOL, "floor": LM_GRAD_FLOOR, "worst": worst,
+             "by_name": by_name, "tensors_compared": len(rows), "layers": len(layers),
+             "rel_by_layer": [max(r["rel"] for r in rows if r["layer"] == i)
+                              for i in range(len(layers))]}
+    print(json.dumps({"train_lm_reference_check": stats}), flush=True)
+    beyond = [f"layer {r['layer']} {r['name']} ({r['rel']:.2e})" for r in rows
+              if not r["rel"] <= LM_GRAD_REL_TOL]
+    check(not beyond, f"LM kernel-path gradients vs reference backend beyond "
+                      f"{LM_GRAD_REL_TOL}: {', '.join(beyond[:8])}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
@@ -1458,7 +1840,7 @@ def main() -> int:
     verb = "built" if info["built"] else "found built"
     print(f"# kernels {verb} in {info['seconds']:.1f} s -> {info['path']}", flush=True)
     for line in info["log"].splitlines():
-        if re.search(r"registers|spill|error", line):
+        if re.search(r"entry function|registers|spill|error", line):
             print("# ptxas " + line.strip(), flush=True)
 
     batches = train_batches(dev)
@@ -1496,15 +1878,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["decode_oracle"] = decode_oracle_phase(dev)
     paths["serve_lm"] = serve_lm_phase(dev, lm_api, lm_model)
+    torch.cuda.empty_cache()
+    lm_batches_ = lm_train_batches(dev, lm_api.mcfg.vocab_size)
+    rows += lm_backward_kernel_phase(dev, lm_selection_picks(lm_api, lm_model,
+                                                             lm_batches_[0]))
+    paths["train_lm"] = train_lm_phase(dev, lm_api, lm_model, lm_batches_)
 
     summary = []
     for name, (src, replaces) in KERNELS.items():
         # the main path's mode and dtype (fp32 and the key-bias flash for the
         # shapenet kernels, the prefill's bf16 for local_fwd, the engine's fp32
-        # cache for paged_gather); launches of the main path (the train paths
-        # for the shapenet kernels, packed where it runs them), and of every path
-        main_path, dt = LM_MAIN.get(name, (None, "float32"))
-        row = next(r for r in rows if r["name"] == name and r["dtype"] == dt)
+        # cache for paged_gather, the LM train shapes in bf16 for local_dq and
+        # local_dkv); launches of the main path (the train paths for the
+        # shapenet kernels, packed where it runs them), and of every path
+        main_path, dt, mode = LM_MAIN.get(name, (None, "float32", None))
+        row = next(r for r in rows if r["name"] == name and r["dtype"] == dt
+                   and mode in (None, r["mode"]))
         by_path = {p: st["launches"][name] for p, st in paths.items()}
         if main_path is None:
             main_path = "train_packed" if name in PATHS["train_packed"] else "train_padded"

@@ -38,6 +38,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True               # activation checkpointing per layer period
+    opt_state_dtype: str = "float32"  # AdamW moments
     in_dim: int = 0                  # per-point input features
     out_dim: int = 0                 # regression targets per point
 

@@ -23,7 +23,7 @@ SMOKE_BSA = BSAConfig(ball_size=32, local_window=32, cmp_block=8, slc_block=8,
 def smoke_config(mcfg: ModelConfig) -> ModelConfig:
     """Scale a config down to CPU-smoke size, keeping its structure: two
     layers, d_model 64, four query heads of 16 (GQA rep up to 4), d_ff 128,
-    vocabulary 512, ``SMOKE_BSA``, fp32."""
+    vocabulary 512, ``SMOKE_BSA``, fp32, no remat."""
     if mcfg.n_heads:
         rep = max(1, min(mcfg.n_heads // max(mcfg.n_kv_heads, 1), 4))
         n_heads = 4
@@ -41,6 +41,7 @@ def smoke_config(mcfg: ModelConfig) -> ModelConfig:
         bsa=SMOKE_BSA,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )
     if mcfg.family == "pointcloud":
         kw.update(in_dim=mcfg.in_dim, out_dim=mcfg.out_dim)

@@ -17,7 +17,7 @@ def _base(**kw) -> ModelConfig:
         name="shapenet-bsa", family="pointcloud", n_layers=18, d_model=256,
         n_heads=8, n_kv_heads=8, head_dim=32, d_ff=1024,
         in_dim=7, out_dim=1, attention="bsa", bsa=PAPER_BSA,
-        param_dtype="float32", compute_dtype="float32")
+        param_dtype="float32", compute_dtype="float32", remat=False)
     d.update(kw)
     return ModelConfig(**d)
 

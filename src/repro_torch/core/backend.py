@@ -38,7 +38,8 @@ from typing import Iterator
 
 __all__ = ["ReferenceBackend", "KernelBackend", "AutoBackend", "DEFAULT_BACKEND",
            "BRANCH_KEYS", "register_backend", "get_backend", "list_backends",
-           "use_backend", "resolve_branch_backends", "get_varlen", "get_paged_gather"]
+           "use_backend", "active_backend", "resolve_branch_backends", "get_varlen",
+           "get_paged_gather"]
 
 DEFAULT_BACKEND = "auto"
 BRANCH_KEYS = ("ball", "cmp", "slc")
@@ -263,6 +264,16 @@ def use_backend(name: str) -> Iterator:
         yield backend
     finally:
         stack.pop()
+
+
+def active_backend() -> str | None:
+    """The name forced by the innermost ``use_backend`` of this thread, or
+    None.  Autograd runs a CUDA backward on a thread of its own, where no
+    ``use_backend`` of the caller is active: code that runs part of a
+    forward again in the backward (activation checkpointing) re-enters this
+    name there."""
+    stack = getattr(_tls, "stack", None)
+    return stack[-1] if stack else None
 
 
 def resolve_branch_backends(cfg) -> dict:

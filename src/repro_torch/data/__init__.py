@@ -1,1 +1,6 @@
 """data of the PyTorch port (mirrors repro.data)."""
+
+from repro_torch.data.lm import lm_batches
+from repro_torch.data.shapenet import ShapeNetCarDataset
+
+__all__ = ["ShapeNetCarDataset", "lm_batches"]

@@ -1,80 +1,86 @@
-"""Blocked local causal attention kernel (the causal LM's local branch),
-forward.
+"""Blocked local causal attention kernels (the causal LM's local branch),
+forward and backward.
 
-Replaces ``repro/kernels/local.py::_fwd_kernel`` (Pallas, TPU).  The CUDA
-source is ``csrc/local_fwd.cu``.  Query block i (``window`` = w positions)
-attends causally within block i and fully to block i−1, the blocked
-equivalent of a sliding window of w..2w keys.
+Replaces ``repro/kernels/local.py::_fwd_kernel`` and ``::_bwd_kernel``
+(Pallas, TPU).  The CUDA sources are ``csrc/local_fwd.cu`` and
+``csrc/local_bwd.cu`` (``local_dq`` and ``local_dkv``).  Query block i
+(``window`` = w positions) attends causally within block i and fully to
+block i−1, the blocked equivalent of a sliding window of w..2w keys.
 
-What bounds it on the H100: each query row does 4·D FLOP per visible key
-(w to 2w of them) against one read of its q row, so the arithmetic bounds
-it at the prefill shapes.  The TPU fetched the prev and self key halves
-with two index maps and skipped dead halves through a scalar-prefetched
-liveness table; here a thread block owns up to 128 rows of one (b·h,
-query head, block), stages each live half through shared memory in 64-key
-tiles and folds every row through an online softmax.  The liveness of the
-two halves, (B, N/w, 2), is computed here (``occupancy.local_half_live``),
-with the packed layout's segment rule folded into the prev half, so the
-kernel reads no segment ids.
+What bounds them on the H100: each query row does 4·D FLOP per visible key
+(w to 2w of them) forward and 14·D backward against one read of its q row,
+so the arithmetic bounds them at the LM's shapes.  The TPU fetched the prev
+and self key halves with two index maps, skipped dead halves through a
+scalar-prefetched liveness table, and ran the backward in one grid cell per
+block that also fetched the next query block.  Here the forward and
+``local_dq`` give a thread block up to 64–128 rows of one (b·h, query head,
+block), stage each live half through shared memory in 64-key tiles and fold
+every row; ``local_dkv`` gives a block 64 keys of one (b·h, block) and
+walks the rep query heads over the rows that see them (its own block's,
+causally, and the next block's, in full), so no block adds into another's
+output.  The liveness of the two halves, (B, N/w, 2), is computed here
+(``occupancy.local_half_live``), with the packed layout's segment rule
+folded into the prev half; block i's "next" flag is block i+1's prev flag.
+The kernels read no segment ids.
 
 Layout: q (B·Hkv, rep, N, D); k, v (B·Hkv, N, D); key_bias (B, N) fp32
 (0 valid / NEG_INF padding); blk_seg (B, N/w) int32 per-block segment ids
-or None (one segment).  Returns o like q and lse (B·Hkv, rep, N) fp32
-(``LSE_EMPTY`` on a row with no valid key); serving reads only o, the
-backward kernel of the training slice reads lse.
-
-:class:`LocalWindowFn` is the differentiable op.  Its backward kernel
-(``repro/kernels/local.py::_bwd_kernel``) comes with the LM training
-slice: on CUDA tensors the backward raises; on CPU tensors autograd
-differentiates the plain version.
+or None (one segment).  The forward returns o like q and lse
+(B·Hkv, rep, N) fp32 (``LSE_EMPTY`` on a row with no valid key); the
+backward takes them with dO and δ = rowsum(dO·O).  :class:`LocalWindowFn`
+is the differentiable op.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core.branches import sdpa
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import _counter, check_cuda_inputs, on_cpu
+from repro_torch.kernels.common import (_counter, check_cuda_inputs, on_cpu, p_from_lse,
+                                        row_delta)
 from repro_torch.kernels.occupancy import local_half_live
 from repro_torch.numerics import NEG_INF
 
-__all__ = ["local_window_fwd", "local_window_fwd_plain", "LocalWindowFn", "COUNT"]
+__all__ = ["local_window_fwd", "local_window_fwd_plain", "local_window_bwd",
+           "local_window_bwd_plain", "local_window_dq", "local_window_dkv",
+           "LocalWindowFn", "COUNT", "COUNT_DQ", "COUNT_DKV"]
 
 COUNT = _counter("local_fwd")
+COUNT_DQ = _counter("local_dq")
+COUNT_DKV = _counter("local_dkv")
 
 
-def _check_shapes(q, k, v, key_bias, blk_seg, window, n_heads):
+def _check_shapes(name, q, k, v, key_bias, blk_seg, window, n_heads):
     BH, rep, N, D = q.shape
     B = BH // n_heads
     if window <= 0 or N % window:
-        raise ValueError(f"local_fwd: N={N} is not a multiple of the window {window}")
+        raise ValueError(f"{name}: N={N} is not a multiple of the window {window}")
     if k.shape != (BH, N, D) or v.shape != k.shape or key_bias.shape != (B, N):
-        raise ValueError(f"local_fwd: k/v must be {(BH, N, D)} and key_bias {(B, N)}, "
+        raise ValueError(f"{name}: k/v must be {(BH, N, D)} and key_bias {(B, N)}, "
                          f"got {tuple(k.shape)}, {tuple(v.shape)}, "
                          f"{tuple(key_bias.shape)}")
     if blk_seg is not None and blk_seg.shape != (B, N // window):
-        raise ValueError(f"local_fwd: blk_seg must be {(B, N // window)}, "
+        raise ValueError(f"{name}: blk_seg must be {(B, N // window)}, "
                          f"got {tuple(blk_seg.shape)}")
 
 
-def local_window_fwd_plain(q, k, v, key_bias, blk_seg=None, *, window: int,
-                           n_heads: int):
-    """Plain PyTorch version of the kernel: same inputs, same (o, lse).
-    Each block's rows attend the 2w keys [prev block, own block] under one
-    (w, 2w) bias: the key bias, NEG_INF on the prev half of block 0 and of a
-    block whose predecessor lies in another segment, and the causal rule on
-    the self half."""
-    BH, rep, N, D = q.shape
-    w = window
+def _with_prev(t, w: int):
+    """(BH, N, D) → (BH, N/w, 2w, D): each block's keys after its
+    predecessor's (zeros before block 0)."""
+    BH, N, D = t.shape
+    tb = t.reshape(BH, N // w, w, D)
+    return torch.cat([torch.cat([torch.zeros_like(tb[:, :1]), tb[:, :-1]], 1), tb], 2)
+
+
+def _window_bias(key_bias, blk_seg, w: int, n_heads: int):
+    """(B·Hkv, N/w, 1, w, 2w) additive bias of each block's rows against
+    [prev block, own block]: the key bias, NEG_INF on the prev half of block
+    0 and of a block whose predecessor lies in another segment, and the
+    causal rule on the self half."""
+    B, N = key_bias.shape
     nb = N // w
-    B = BH // n_heads
-    qb = q.reshape(BH, rep, nb, w, D).transpose(1, 2)              # (BH,nb,rep,w,D)
-
-    def with_prev(t):                                              # (BH,nb,2w,D)
-        tb = t.reshape(BH, nb, w, D)
-        return torch.cat([torch.cat([torch.zeros_like(tb[:, :1]), tb[:, :-1]], 1), tb], 2)
-
     kbias = key_bias.reshape(B, nb, w)
     neg = torch.full_like(kbias[:, :1], NEG_INF)
     pbias = torch.cat([neg, kbias[:, :-1]], dim=1)
@@ -82,20 +88,40 @@ def local_window_fwd_plain(q, k, v, key_bias, blk_seg=None, *, window: int,
         same = torch.cat([torch.zeros_like(blk_seg[:, :1], dtype=torch.bool),
                           blk_seg[:, 1:] == blk_seg[:, :-1]], dim=1)
         pbias = torch.where(same[..., None], pbias, NEG_INF)
-    ok = torch.ones((w, 2 * w), dtype=torch.bool, device=q.device)
+    ok = torch.ones((w, 2 * w), dtype=torch.bool, device=key_bias.device)
     ok[:, w:] = torch.tril(ok[:, w:])                              # self half: causal
     bias = torch.where(ok, torch.cat([pbias, kbias], dim=2)[:, :, None, :], NEG_INF)
-    bias = bias.repeat_interleave(n_heads, dim=0)[:, :, None]      # (BH,nb,1,w,2w)
-    o, lse = sdpa(qb, with_prev(k)[:, :, None], with_prev(v)[:, :, None], bias,
-                  return_lse=True)
-    return (o.transpose(1, 2).reshape(BH, rep, N, D),
-            lse.transpose(1, 2).reshape(BH, rep, N))
+    return bias.repeat_interleave(n_heads, dim=0)[:, :, None]      # (BH,nb,1,w,2w)
+
+
+def _blocks(t, w: int):
+    """(BH, rep, N, ·) → (BH, N/w, rep, w, ·)."""
+    BH, rep, N = t.shape[:3]
+    return t.reshape(BH, rep, N // w, w, *t.shape[3:]).transpose(1, 2)
+
+
+def _unblocks(t):
+    """Inverse of :func:`_blocks`."""
+    BH, nb, rep, w = t.shape[:4]
+    return t.transpose(1, 2).reshape(BH, rep, nb * w, *t.shape[4:])
+
+
+def local_window_fwd_plain(q, k, v, key_bias, blk_seg=None, *, window: int,
+                           n_heads: int):
+    """Plain PyTorch version of the forward kernel: same inputs, same
+    (o, lse).  Each block's rows attend the 2w keys [prev block, own block]
+    under one (w, 2w) bias (:func:`_window_bias`)."""
+    w = window
+    bias = _window_bias(key_bias, blk_seg, w, n_heads)
+    o, lse = sdpa(_blocks(q, w), _with_prev(k, w)[:, :, None], _with_prev(v, w)[:, :, None],
+                  bias, return_lse=True)
+    return _unblocks(o), _unblocks(lse)
 
 
 def local_window_fwd(q, k, v, key_bias, blk_seg=None, *, window: int, n_heads: int):
     """(o, lse) of blocked local causal attention: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors."""
-    _check_shapes(q, k, v, key_bias, blk_seg, window, n_heads)
+    _check_shapes("local_fwd", q, k, v, key_bias, blk_seg, window, n_heads)
     side = () if blk_seg is None else (blk_seg,)
     if on_cpu(q, k, v, key_bias, *side):
         return local_window_fwd_plain(q, k, v, key_bias, blk_seg, window=window,
@@ -114,31 +140,113 @@ def local_window_fwd(q, k, v, key_bias, blk_seg=None, *, window: int, n_heads: i
     return o, lse
 
 
+def local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
+                           n_heads: int):
+    """Plain PyTorch version of the two backward kernels, on the forward's
+    (w, 2w) blocked layout: p recomputed from lse, dP = dO·Vᵀ,
+    dS = p(dP − δ)·scale, dQ = dS·K, dK = dSᵀQ, dV = pᵀdO; block i's keys
+    collect its own rows' (self half) and block i+1's rows' (prev half)
+    contributions, summed over the group's rep query heads; p and dS rounded
+    to the operand dtype before their products.  Returns (dq, dk, dv)."""
+    BH, rep, N, D = q.shape
+    w = window
+    scale = D ** -0.5
+    adt = q.dtype
+    bias = _window_bias(key_bias, blk_seg, w, n_heads)
+    qb, dob = _blocks(q.float(), w), _blocks(do.float(), w)        # (BH,nb,rep,w,D)
+    lb, db = (_blocks(t, w)[..., None] for t in (lse, delta))       # (BH,nb,rep,w,1)
+    kk, vv = (_with_prev(t.float(), w)[:, :, None] for t in (k, v))  # (BH,nb,1,2w,D)
+    s = torch.matmul(qb, kk.transpose(-1, -2)) * scale + bias
+    p = p_from_lse(s, lb)                                           # (BH,nb,rep,w,2w)
+    dp = torch.matmul(dob, vv.transpose(-1, -2))
+    ds = (p * (dp - db) * scale).to(adt).float()
+    dq = torch.matmul(ds, kk)
+
+    def own_keys(g):                       # (BH, nb, 2w, D) → block i's keys
+        out = g[:, :, w:].clone()
+        out[:, :-1] += g[:, 1:, :w]        # block i+1's prev half is block i
+        return out.reshape(BH, N, D)
+
+    dk = own_keys(torch.einsum("bnrtj,bnrtd->bnjd", ds, qb))
+    dv = own_keys(torch.einsum("bnrtj,bnrtd->bnjd", p.to(adt).float(), dob))
+    return _unblocks(dq).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_launch(name, outs, q, k, v, key_bias, blk_seg, do, lse, delta, *, window,
+                n_heads):
+    BH, rep, N, D = q.shape
+    if do.shape != q.shape or lse.shape != (BH, rep, N) or delta.shape != lse.shape:
+        raise ValueError(f"{name}: dO must be {tuple(q.shape)} and lse / delta "
+                         f"{(BH, rep, N)}")
+    live = local_half_live(key_bias, window, blk_seg).to(torch.int32).contiguous()
+    check_cuda_inputs(name, data=(q, k, v, do), f32=(key_bias, lse, delta), i32=(live,),
+                      head_dim=D)
+    _build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+                  live.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  *(t.data_ptr() for t in outs), BH, rep, N, D, window, n_heads,
+                  int(q.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def local_window_dq(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
+                    n_heads: int):
+    """dq from the forward's lse and δ = rowsum(dO·O): the ``local_dq``
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kw = dict(window=window, n_heads=n_heads)
+    _check_shapes("local_dq", q, k, v, key_bias, blk_seg, window, n_heads)
+    side = () if blk_seg is None else (blk_seg,)
+    if on_cpu(q, k, v, key_bias, do, lse, delta, *side):
+        return local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, **kw)[0]
+    dq = torch.empty_like(q)
+    _bwd_launch("local_dq", (dq,), q, k, v, key_bias, blk_seg, do, lse, delta, **kw)
+    COUNT_DQ.hit()
+    return dq
+
+
+def local_window_dkv(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
+                     n_heads: int):
+    """(dk, dv) from the forward's lse and δ: the ``local_dkv`` kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    kw = dict(window=window, n_heads=n_heads)
+    _check_shapes("local_dkv", q, k, v, key_bias, blk_seg, window, n_heads)
+    side = () if blk_seg is None else (blk_seg,)
+    if on_cpu(q, k, v, key_bias, do, lse, delta, *side):
+        return local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, **kw)[1:]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("local_dkv", (dk, dv), q, k, v, key_bias, blk_seg, do, lse, delta, **kw)
+    COUNT_DKV.hit()
+    return dk, dv
+
+
+def local_window_bwd(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
+                     n_heads: int):
+    """(dq, dk, dv): the two backward kernels (``local_dq``, ``local_dkv``)
+    on CUDA tensors, the plain version on CPU tensors."""
+    kw = dict(window=window, n_heads=n_heads)
+    side = () if blk_seg is None else (blk_seg,)
+    if on_cpu(q, k, v, key_bias, do, lse, delta, *side):
+        return local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, **kw)
+    return (local_window_dq(q, k, v, key_bias, blk_seg, do, lse, delta, **kw),
+            *local_window_dkv(q, k, v, key_bias, blk_seg, do, lse, delta, **kw))
+
+
 class LocalWindowFn(torch.autograd.Function):
     """Differentiable blocked local attention in q, k, v (bias and segment
-    ids take no gradient).  On CPU tensors the backward differentiates the
-    plain version by autograd; on CUDA tensors it raises until the backward
-    kernel (``repro/kernels/local.py::_bwd_kernel``) is ported with the LM
-    training slice."""
+    ids take no gradient)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, blk_seg, window: int, n_heads: int):
-        o, _ = local_window_fwd(q, k, v, key_bias, blk_seg, window=window,
-                                n_heads=n_heads)
-        ctx.save_for_backward(q, k, v, key_bias, blk_seg)
+        o, lse = local_window_fwd(q, k, v, key_bias, blk_seg, window=window,
+                                  n_heads=n_heads)
+        ctx.save_for_backward(q, k, v, key_bias, blk_seg, o, lse)
         ctx.kw = dict(window=window, n_heads=n_heads)
         return o
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
-        q, k, v, key_bias, blk_seg = ctx.saved_tensors
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "local_fwd has no backward kernel yet: the backward of "
-                "repro/kernels/local.py::_bwd_kernel comes with the LM training "
-                "slice of the port")
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            o, _ = local_window_fwd_plain(*leaves, key_bias, blk_seg, **ctx.kw)
-            dq, dk, dv = torch.autograd.grad(o, leaves, do)
+        q, k, v, key_bias, blk_seg, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = local_window_bwd(q, k, v, key_bias, blk_seg, do, lse,
+                                      row_delta(do, o), **ctx.kw)
         return dq, dk, dv, None, None, None, None

@@ -28,7 +28,10 @@ from repro_torch.optim import adamw_init
 
 
 def to_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    """numpy batch → tensors on ``device`` (keys starting with ``_``, such
+    as the LM pipeline's ``_state``, stay behind)."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+            if not k.startswith("_")}
 
 
 def evaluate(api, model, ds, *, device, n_batches: int = 8, batch_size: int = 8) -> float:

@@ -1,0 +1,32 @@
+"""Cross-entropy of the LM (counterpart of ``repro/layers/losses.py``).
+
+The JAX version picks the gold logit with a one-hot masked sum so that it
+stays sharded over the vocabulary; the port runs on one card, so a
+``gather`` picks the same number.  The formula is the JAX one: fp32
+logsumexp minus the gold logit, and a masked mean whose denominator is
+floored at 1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["vocab_parallel_nll", "masked_mean_nll"]
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (..., V), labels (...) int → per-position negative
+    log-likelihood (...), fp32."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def masked_mean_nll(logits: torch.Tensor, labels: torch.Tensor,
+                    loss_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean NLL over the positions of ``loss_mask`` (all when None)."""
+    nll = vocab_parallel_nll(logits, labels)
+    if loss_mask is None:
+        return nll.sum() / nll.numel()
+    nll = torch.where(loss_mask.bool(), nll, 0.0)
+    return nll.sum() / torch.clamp(loss_mask.sum(), min=1)

@@ -1,10 +1,11 @@
 """Family-dispatch API (counterpart of ``repro/models/api.py``).
 
-Ported: the point-cloud family and the dense causal LM (serving only):
+Ported: the point-cloud family and the dense causal LM:
 
     api = model_api(mcfg)
     model = api.init(seed)                     # on "cuda" unless device="cpu"
-    loss, metrics = api.loss(model, batch)     # train step core (point cloud)
+    loss, metrics = api.loss(model, batch)     # train step core (point cloud:
+                                               # masked MSE; LM: next-token NLL)
     pred = api.forward(model, batch)           # point cloud: (B, N, out_dim);
                                                # LM: logits (B, N, V); fp32, no grad
     batch = api.make_batch(rng, B, N)          # random tensors (tests)
@@ -94,8 +95,7 @@ def _lm_api(mcfg) -> ModelAPI:
         return _tf.lm_init(mcfg, generator=_generator(seed, dev), device=dev)
 
     def loss(model, batch: dict):
-        raise NotImplementedError("the LM loss (lm_loss, layers/losses.py) comes with "
-                                  "the LM training slice of the port")
+        return _tf.lm_loss(model, batch, mcfg=mcfg)
 
     @torch.inference_mode()
     def forward(model, batch: dict) -> torch.Tensor:

@@ -9,17 +9,26 @@ Counterpart of ``repro/models/transformer.py`` for the dense family
 the periods and runs them under ``lax.scan``; here the periods are an
 ``nn.ModuleList`` walked by a Python loop, each period a module whose
 layers are named ``pos0``, ``pos1``, … as the JAX pytree's keys, so a JAX
-tree loads by name (``convert.params_from_jax``).  Caches are a list over
+tree loads by name (``convert.params_from_jax``).  ``lm_loss`` is the
+training loss; with ``mcfg.remat`` each period runs under
+``torch.utils.checkpoint`` when autograd records (JAX's
+``jax.checkpoint`` with the ``nothing_saveable`` policy): its forward runs
+again in the backward, under the attention backend the forward used.  Caches are a list over
 periods of dicts (one per ``pos``) of tensors, updated in place.  The MoE
 and mamba mixers (the moe / ssm / hybrid families) are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.backend import active_backend, use_backend
 from repro_torch.core.nsa_causal import dense_step, paged_step
+from repro_torch.layers.losses import masked_mean_nll
 from repro_torch.layers.nn import (Dense, Embed, RMSNorm, SwiGLU, dense, embed, rmsnorm,
                                    swiglu, unembed)
 from repro_torch.models.attention_layer import (AttentionLayer, attention_cache_init,
@@ -28,7 +37,7 @@ from repro_torch.models.attention_layer import (AttentionLayer, attention_cache_
                                                 attention_layer_decode_paged,
                                                 attention_paged_cache_init)
 
-__all__ = ["layer_spec", "n_periods", "LanguageModel", "lm_init", "lm_apply",
+__all__ = ["layer_spec", "n_periods", "LanguageModel", "lm_init", "lm_apply", "lm_loss",
            "lm_cache_init", "lm_decode_step", "lm_paged_cache_init",
            "lm_paged_decode_step", "lm_has_recurrent_state", "lm_paged_cache_reset_slot",
            "lm_paged_cache_copy_block"]
@@ -113,6 +122,16 @@ def lm_layer(lp: LMLayer, x, *, mcfg, mask=None, positions=None) -> torch.Tensor
     return x
 
 
+def _period_apply(period: LMPeriod, x, positions, *, mcfg, mask=None,
+                  backend: str | None = None) -> torch.Tensor:
+    # ``backend``: the forward's ``use_backend``, re-entered when the
+    # checkpointed period runs again on autograd's thread
+    with use_backend(backend) if backend else contextlib.nullcontext():
+        for lp in period.positions():
+            x = lm_layer(lp, x, mcfg=mcfg, mask=mask, positions=positions)
+    return x
+
+
 def lm_apply(params: LanguageModel, tokens, *, mcfg, mask=None,
              positions=None) -> torch.Tensor:
     """tokens: (B, N) int → logits (B, N, V) fp32.  Differentiable (the
@@ -122,10 +141,24 @@ def lm_apply(params: LanguageModel, tokens, *, mcfg, mask=None,
     B, N, _ = x.shape
     if positions is None:
         positions = torch.arange(N, device=x.device)[None].expand(B, N)
+    remat = mcfg.remat and torch.is_grad_enabled()
     for period in params.layers:
-        for lp in period.positions():
-            x = lm_layer(lp, x, mcfg=mcfg, mask=mask, positions=positions)
+        if remat:
+            x = checkpoint(_period_apply, period, x, positions, mcfg=mcfg, mask=mask,
+                           backend=active_backend(), use_reentrant=False)
+        else:
+            x = _period_apply(period, x, positions, mcfg=mcfg, mask=mask)
     return _logits(params, x, mcfg)
+
+
+def lm_loss(params: LanguageModel, batch: dict, *, mcfg):
+    """batch: {tokens (B, N), labels (B, N)[, loss_mask (B, N)]} →
+    (loss + 0.01·aux_loss, {"loss", "aux_loss"}); the auxiliary (MoE) loss
+    is a 0-d fp32 zero for the dense family, as in JAX."""
+    logits = lm_apply(params, batch["tokens"], mcfg=mcfg)
+    loss = masked_mean_nll(logits, batch["labels"], batch.get("loss_mask"))
+    aux_loss = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return loss + 0.01 * aux_loss, {"loss": loss, "aux_loss": aux_loss}
 
 
 # ---------------------------------------------------------------------------

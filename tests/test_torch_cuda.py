@@ -6,10 +6,11 @@ fixture, never at import).  On a machine with an H100 run them with
 Small shapes with rep 2, one padded sample and one fully masked slot (the
 varlen kernels: four clouds packed with a capacity tail and a dead block).
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
-version.  The causal LM's kernels: ``local_fwd`` with a mask, a dead block,
-a masked slot and packed segments (windows 32 and 256), ``paged_gather``
-with out-of-range rows and unaligned rows, and a 2-layer smoke tinyllama
-forward and paged decode against the reference backend.  Tolerance: fp32
+version.  The causal LM's kernels: ``local_fwd``, ``local_dq`` and
+``local_dkv`` with a mask, a dead block, a masked slot and packed segments
+(windows 32 and 256), ``paged_gather`` with out-of-range rows and unaligned
+rows, and a 2-layer smoke tinyllama's forward, paged decode and (with remat)
+gradients against the reference backend.  Tolerance: fp32
 1e-4, bf16 4e-2 (6e-2 for the selection backward, as the JAX suite's bf16
 gradient tolerances); the row gather is exact.
 """
@@ -373,13 +374,65 @@ def test_local_kernel(cuda, dtype, window, segmented):
     assert bool((got[0][2 * HKV:] == 0).all())     # the masked slot: exact zeros
 
 
-def test_local_kernel_backward_raises_on_the_card(cuda):
-    from repro_torch.kernels import ops
-    q = _rand((1, 64, HQ, D), torch.float32, cuda, 83).requires_grad_(True)
-    k = _rand((1, 64, HKV, D), torch.float32, cuda, 84)
-    out = ops.local_window_attention(q, k, k, 32)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,segmented", [(32, False), (32, True), (256, False)])
+def test_local_bwd_kernels(cuda, dtype, window, segmented):
+    from repro_torch.kernels import local
+    n = 4 * window
+    q = _rand((B * HKV, REP, n, D), dtype, cuda, 86)
+    k = _rand((B * HKV, n, D), dtype, cuda, 87)
+    v = _rand((B * HKV, n, D), dtype, cuda, 88)
+    mask = torch.ones(B, n, dtype=torch.bool, device=cuda)
+    mask[1, window + 5:2 * window + 9] = False      # a dead block and a ragged hole
+    mask[2] = False                                 # a fully masked slot
+    seg = None
+    if segmented:
+        seg = torch.tensor([[0, 0, 1, 1], [0, 1, 1, 2], [0, 0, 0, 0]], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(window=window, n_heads=HKV)
+    o, lse = local.local_window_fwd(q, k, v, _bias(mask), seg, **kw)
+    rest = _bwd_inputs(o, lse, dtype, 15)
+    before = (local.COUNT_DQ.n, local.COUNT_DKV.n)
+    got = local.local_window_bwd(q, k, v, _bias(mask), seg, *rest, **kw)
+    torch.cuda.synchronize()
+    assert (local.COUNT_DQ.n, local.COUNT_DKV.n) == (before[0] + 1, before[1] + 1)
+    _check(got, local.local_window_bwd_plain(q, k, v, _bias(mask), seg, *rest, **kw),
+           dtype)
+    assert all(bool((g[2 * HKV:] == 0).all()) for g in got)   # the masked slot
+
+
+def test_lm_train_step_grads_match_reference(cuda):
+    """A 2-layer smoke tinyllama with remat on the card: the backward
+    launches each LM backward kernel once a layer and each forward kernel
+    twice (the forward and its recompute), and every gradient matches the
+    reference backend's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import smoke_config
+    from repro_torch.core.backend import use_backend
+    from repro_torch.kernels.common import COUNTERS, reset_counters
+    from repro_torch.models.api import model_api
+    cfg = smoke_config(get_config("tinyllama-1.1b")).scaled(remat=True)
+    api = model_api(cfg)
+    model = api.init(0)
+    batch = api.make_batch(np.random.default_rng(0), 2, 128)
+    grads = {}
+    for backend in ("reference", "auto"):              # "auto" → kernels on cuda
+        model.zero_grad(set_to_none=True)
+        reset_counters()
+        with use_backend(backend):
+            loss, _ = api.loss(model, batch)
+            loss.backward()
+        grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters()
+                          if p.grad is not None}      # phi_q only feeds top-k
+    lm_fwd = ("local_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
+    lm_bwd = ("local_dq", "local_dkv", "flash_dq", "flash_dkv", "selection_bwd",
+              "epilogue_bwd")
+    assert {n: c.n for n, c in COUNTERS.items()} == {
+        n: (2 * cfg.n_layers if n in lm_fwd else cfg.n_layers if n in lm_bwd else 0)
+        for n in COUNTERS}
+    assert sorted(grads["auto"]) == sorted(grads["reference"])
+    for name, want in grads["reference"].items():
+        torch.testing.assert_close(grads["auto"][name], want, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (40, 2, 16)),

@@ -4,7 +4,7 @@
   anything of ``repro``, and importing the port leaves ``jax`` out of
   ``sys.modules``.
 * On CPU tensors no kernel counter moves, forward or backward (the plain
-  versions run); asking
+  versions run; the point-cloud model and the LM with remat); asking
   for ``device="cuda"`` without a card raises instead of running on the CPU.
 * On CPU tensors the kernel backend answers the causal LM's ops
   (``local_window``, ``local_window_varlen``, ``paged_gather``) with the
@@ -25,6 +25,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# modules the checks below must reach by name, whatever the glob finds
+NAMED = ("configs/base.py", "kernels/local.py", "kernels/_build.py", "layers/losses.py",
+         "data/lm.py", "data/__init__.py", "models/transformer.py", "models/api.py",
+         "optim/adamw.py", "launch/steps.py", "launch/train.py")
 
 
 def _imported_modules(path: Path) -> set:
@@ -36,6 +40,10 @@ def _imported_modules(path: Path) -> set:
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             names.add(node.module.split(".")[0])
     return names
+
+
+def test_named_modules_are_checked():
+    assert {ROOT / "src" / "repro_torch" / m for m in NAMED} <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -50,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train_shapenet, repro_torch.launch.serve, "
             "repro_torch.core.nsa_causal, repro_torch.models.transformer, "
             "repro_torch.serving.paged_cache, repro_torch.configs.reduce, "
-            "repro_torch.kernels.local, repro_torch.kernels.paged; "
+            "repro_torch.kernels.local, repro_torch.kernels.paged, "
+            "repro_torch.launch.train, repro_torch.layers.losses, repro_torch.data.lm, "
+            "repro_torch.data, repro_torch.optim.adamw; "
             "repro_torch.configs.list_configs(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -70,6 +80,8 @@ def _tiny():
 
 @pytest.mark.parametrize("backend", ["kernels", "auto", "reference"])
 def test_cpu_runs_move_no_kernel_counter(backend):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import smoke_config
     from repro_torch.core.backend import use_backend
     from repro_torch.core.balltree import pack_varlen
     from repro_torch.kernels.common import COUNTERS, reset_counters
@@ -83,6 +95,9 @@ def test_cpu_runs_move_no_kernel_counter(backend):
     packed = {"feats": torch.from_numpy(rows[None, :, :7]),
               "target": torch.from_numpy(rows[None, :, 7:]),
               "mask": torch.from_numpy(mask[None]), "offsets": torch.from_numpy(offsets)}
+    lm_api = model_api(smoke_config(get_config("tinyllama-1.1b")).scaled(remat=True))
+    lm = lm_api.init(0, device="cpu")
+    tokens = lm_api.make_batch(np.random.default_rng(0), 2, 64, device="cpu")
     reset_counters()
     with use_backend(backend):
         for b in (batch, packed):
@@ -90,10 +105,13 @@ def test_cpu_runs_move_no_kernel_counter(backend):
             loss, _ = api.loss(model, b)
             loss.backward()                            # the backward plain versions
             assert out.shape == b["mask"].shape + (1,) and torch.isfinite(out).all()
+        loss, _ = lm_api.loss(lm, tokens)              # the LM, remat on
+        loss.backward()
+        assert torch.isfinite(loss)
     assert set(COUNTERS) == {"bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd",
                              "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd",
                              "epilogue_bwd", "varlen_fwd", "varlen_dq", "varlen_dkv",
-                             "local_fwd", "paged_gather"}
+                             "local_fwd", "local_dq", "local_dkv", "paged_gather"}
     assert all(c.n == 0 for c in COUNTERS.values())
 
 
