@@ -9,7 +9,9 @@ It needs one CUDA card (written for an H100) and the CUDA toolkit; it
 imports nothing of JAX and nothing of the JAX package.  Phases:
 
 1. set-up: the card's name and power limit, the kernels' build (one nvcc
-   per CUDA source, all at once), TF32 off for every fp32 product;
+   per CUDA source, all at once; ``flash_dq`` and ``flash_dkv`` must build
+   with 0 bytes spilled at head dims 64 and 128, by ptxas's report), TF32
+   off for every fp32 product;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16 and, for flash, in its causal modes too (fp32); with
    the median time of kernel, plain version and (where one exists) the
@@ -58,7 +60,10 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    their plain versions, and ``flash_fwd`` (block-causal), ``selection_fwd``
    and ``epilogue_fwd`` at the shapes one 32,768-token sequence of the
    prefill gives them (32 query heads on 4 KV heads of 64, ℓ = 64,
-   k* = 16, g = 64, so 512 rows a group);
+   k* = 16, g = 64, so 512 rows a group); then head_dim 128: each kernel of
+   the causal path, the two epilogues and ``paged_gather`` in fp32 and bf16
+   at phi4-mini's heads (24 query on 8 KV heads of 128, ``LM_BSA``, one
+   4,096-token sequence) against its plain version, timed;
 6. prefill: ``make_prefill_step`` on ``tinyllama-1.1b`` at full width and
    depth (22 layers, d_model 2048, 32 / 4 heads of 64, vocabulary 32,000,
    bf16, random weights from seed 0) over B = 2 × N = 32,768 random tokens
@@ -232,6 +237,11 @@ TRAIN_LM_STEPS = 3
 LM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
 LM_GRAD_REL_TOL = 6e-2
 LM_GRAD_FLOOR = 1e-4
+# head_dim 128: phi4-mini-3.8b's heads (24 query on 8 KV heads of 128), LM_BSA
+D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
+# the redesigned backward kernels (csrc/flash_bwd.cu) must build without
+# spills at these head dims
+NO_SPILL = {"flash_dq": (64, 128), "flash_dkv": (64, 128)}
 
 
 class CheckFailed(Exception):
@@ -957,7 +967,7 @@ def device_summary(prof) -> dict:
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     ported = {}
     for name, ms, _ in kernels:
-        hit = re.search(r"(" + "|".join(KERNELS) + r")_kernel<", name)
+        hit = re.search(r"(" + "|".join(KERNELS) + r")_(?:kernel|mma|fma|reduce)<", name)
         if hit:
             ported[hit.group(1)] = ported.get(hit.group(1), 0.0) + ms
     top = sorted(kernels, key=lambda r: -r[1])[:12]
@@ -1197,6 +1207,216 @@ def lm_kernel_phase(dev) -> list[dict]:
         del os_, gs, got, want
         torch.cuda.empty_cache()
     return results
+
+
+def head_dim_128_phase(dev) -> list[dict]:
+    """The causal LM path's kernels at head_dim 128 against their plain
+    versions, in fp32 and bf16: phi4-mini's heads (24 / 8 of 128, rep 3)
+    with ``LM_BSA`` on B = 1 × 4096 tokens.  ``local_fwd`` / ``local_dq`` /
+    ``local_dkv`` on ``lm_window_case`` (a padded tail, a hole, a sample
+    boundary), ``flash_fwd`` / ``flash_dq`` / ``flash_dkv`` block-causal
+    against the 64 pooled keys, ``selection_fwd`` / ``selection_bwd`` on 64
+    groups of g·rep = 192 rows picking 16 of the past blocks of 64 keys, the
+    two epilogues on 4096 · 24 rows and ``paged_gather`` on one decode
+    step's window (8 slots of 512 rows of 8 × 128)."""
+    results = []
+    record = recorder(results)
+    Hq, Hkv, Dh, n = D128_HQ, D128_HKV, D128, D128_N
+    rep = Hq // Hkv
+    key_bias, blk_seg = lm_window_case(dev, n)
+    pairs = Hq * local_visible_pairs(key_bias, blk_seg, LM_W)
+    nb = n // LM_ELL
+    vis = flash.visible_keys(n, nb, causal=False, block_causal=True, ell=LM_ELL, device=dev)
+    f_pairs = Hq * float(vis.sum())
+    G, M = n // LM_G, LM_G * rep
+    g = torch.Generator(device=dev).manual_seed(140)
+    grp = torch.arange(G, device=dev)
+    blk = torch.arange(nb, device=dev)
+    past = blk[None, :] * LM_ELL + LM_ELL - 1 < grp[:, None] * LM_G   # block ends before group
+    score = torch.where(past[None, None], torch.rand((1, Hkv, G, nb), generator=g, device=dev),
+                        -1.0)
+    score[..., 0] += torch.where(grp > 0, 2.0, 0.0)            # force_first_block
+    val, idx = torch.topk(score, LM_KSTAR, dim=-1)
+    idx = torch.where(val > -0.5, idx, -1).int().contiguous()  # (1, Hkv, G, k*)
+    valid_sel = int((idx >= 0).sum())
+    used = torch.zeros(1, Hkv, nb, dtype=torch.bool, device=dev)
+    used.scatter_(2, idx.clamp(min=0).reshape(1, Hkv, -1).long(), (idx >= 0).reshape(1, Hkv, -1))
+    n_used = int(used.sum())
+    lkw = dict(window=LM_W, n_heads=Hkv)
+    fkw = dict(n_heads=Hkv, block_causal=True, ell=LM_ELL)
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        # ---- local_fwd, local_dq, local_dkv
+        q = rand((Hkv, rep, n, Dh), dtype, dev, 141)
+        k = rand((Hkv, n, Dh), dtype, dev, 142)
+        v = rand((Hkv, n, Dh), dtype, dev, 143)
+        got = local.local_window_fwd(q, k, v, key_bias, blk_seg, **lkw)
+        want = local.local_window_fwd_plain(q, k, v, key_bias, blk_seg, **lkw)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want)
+        side = 4 * n + 4 * 2 * (n // LM_W) + 4 * q.numel() // Dh
+        b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es + side, 4.0 * Dh * pairs, dtype)
+        record("local_fwd", "d128_lm_window", dtype, err, ok,
+               median_ms(lambda: local.local_window_fwd(q, k, v, key_bias, blk_seg, **lkw)),
+               median_ms(lambda: local.local_window_fwd_plain(q, k, v, key_bias, blk_seg, **lkw),
+                         warmup=1, reps=3), b_ms, b_by, None)
+        o, lse = got
+        do = rand(o.shape, dtype, dev, 144)
+        args = (q, k, v, key_bias, blk_seg, do, lse, row_delta(do, o))
+        dq = local.local_window_dq(*args, **lkw)
+        dkv = local.local_window_dkv(*args, **lkw)
+        want = local.local_window_bwd_plain(*args, **lkw)
+        torch.cuda.synchronize()
+        p_ms = median_ms(lambda: local.local_window_bwd_plain(*args, **lkw), warmup=1, reps=3)
+        side += 4 * q.numel() // Dh
+        err, ok = rel_err((dq,), want[:1])
+        b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side, 6.0 * Dh * pairs, dtype)
+        record("local_dq", "d128_lm_window", dtype, err, ok,
+               median_ms(lambda: local.local_window_dq(*args, **lkw)), p_ms, b_ms, b_by, None)
+        err, ok = rel_err(dkv, want[1:])
+        b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side, 8.0 * Dh * pairs, dtype)
+        record("local_dkv", "d128_lm_window", dtype, err, ok,
+               median_ms(lambda: local.local_window_dkv(*args, **lkw)), p_ms, b_ms, b_by, None)
+        del k, v, o, lse, do, args, dq, dkv, want, got
+
+        # ---- flash_fwd, flash_dq, flash_dkv: block-causal against 64 pooled keys
+        kf = rand((Hkv, nb, Dh), dtype, dev, 145)
+        vf = rand((Hkv, nb, Dh), dtype, dev, 146)
+        zb = torch.zeros((1, nb), dtype=torch.float32, device=dev)
+        got = flash.flash_attention_fwd(q, kf, vf, zb, None, **fkw)
+        want = flash.flash_attention_fwd_plain(q, kf, vf, zb, None, **fkw)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want)
+        side = 4 * nb + 4 * q.numel() // Dh
+        b_ms, b_by = bound((2 * q.numel() + 2 * kf.numel()) * es + side, 4.0 * Dh * f_pairs,
+                           dtype)
+        record("flash_fwd", "d128_block_causal", dtype, err, ok,
+               median_ms(lambda: flash.flash_attention_fwd(q, kf, vf, zb, None, **fkw)),
+               median_ms(lambda: flash.flash_attention_fwd_plain(q, kf, vf, zb, None, **fkw),
+                         warmup=1, reps=3), b_ms, b_by, None)
+        o, lse = got
+        do = rand(o.shape, dtype, dev, 147)
+        args = (q, kf, vf, zb, do, lse, row_delta(do, o))
+        dq = flash.flash_attention_dq(*args, **fkw)
+        dkv = flash.flash_attention_dkv(*args, **fkw)
+        want = flash.flash_attention_bwd_plain(*args, **fkw)
+        torch.cuda.synchronize()
+        p_ms = median_ms(lambda: flash.flash_attention_bwd_plain(*args, **fkw), warmup=1, reps=3)
+        side += 4 * q.numel() // Dh
+        err, ok = rel_err((dq,), want[:1])
+        b_ms, b_by = bound((3 * q.numel() + 2 * kf.numel()) * es + side, 6.0 * Dh * f_pairs,
+                           dtype)
+        record("flash_dq", "d128_block_causal", dtype, err, ok,
+               median_ms(lambda: flash.flash_attention_dq(*args, **fkw)), p_ms, b_ms, b_by,
+               None)
+        err, ok = rel_err(dkv, want[1:])
+        b_ms, b_by = bound((2 * q.numel() + 4 * kf.numel()) * es + side, 8.0 * Dh * f_pairs,
+                           dtype)
+        record("flash_dkv", "d128_block_causal", dtype, err, ok,
+               median_ms(lambda: flash.flash_attention_dkv(*args, **fkw)), p_ms, b_ms, b_by,
+               None)
+        del q, kf, vf, o, lse, do, args, dq, dkv, want, got
+
+        # ---- selection_fwd, selection_bwd
+        qg = rand((1, Hkv, G, M, Dh), dtype, dev, 148)
+        kb = rand((1, Hkv, nb, LM_ELL, Dh), dtype, dev, 149)
+        vb = rand((1, Hkv, nb, LM_ELL, Dh), dtype, dev, 150)
+        tok_bias = torch.zeros((1, nb, LM_ELL), dtype=torch.float32, device=dev)
+        got = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
+        want = selection.selection_attention_fwd_plain(qg, kb, vb, idx, tok_bias)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want)
+        side = 4 * idx.numel() + 4 * tok_bias.numel() + 4 * qg.numel() // Dh
+        b_ms, b_by = bound((2 * qg.numel() + 2 * n_used * LM_ELL * Dh) * es + side,
+                           4.0 * M * LM_ELL * Dh * valid_sel, dtype)
+        record("selection_fwd", "d128_groups", dtype, err, ok,
+               median_ms(lambda: selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)),
+               median_ms(lambda: selection.selection_attention_fwd_plain(qg, kb, vb, idx,
+                                                                         tok_bias),
+                         warmup=1, reps=3), b_ms, b_by, None)
+        o, lse = got
+        do = rand(o.shape, dtype, dev, 151)
+        args = (qg, kb, vb, idx, tok_bias, do, lse, row_delta(do, o))
+        got = selection.selection_attention_bwd(*args)
+        want = selection.selection_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err, ok = rel_err(got, want, tol_table=SEL_BWD_TOL)
+        b_ms, b_by = bound((3 * qg.numel() + 2 * n_used * LM_ELL * Dh) * es
+                           + 4 * 2 * kb.numel() + side + 4 * qg.numel() // Dh,
+                           10.0 * M * LM_ELL * Dh * valid_sel, dtype)
+        record("selection_bwd", "d128_groups", dtype, err, ok,
+               median_ms(lambda: selection.selection_attention_bwd(*args), warmup=1, reps=5),
+               median_ms(lambda: selection.selection_attention_bwd_plain(*args), warmup=1,
+                         reps=3), b_ms, b_by, None)
+        del qg, kb, vb, o, lse, do, args, got, want
+
+        # ---- epilogue_fwd, epilogue_bwd: R = N·Hq rows of 128
+        R = n * Hq
+        os_ = [rand((R, Dh), dtype, dev, 152 + i) for i in range(3)]
+        gs = [torch.sigmoid(rand((R,), torch.float32, dev, 155 + i)) for i in range(3)]
+        m = torch.ones(R, dtype=torch.float32, device=dev)
+        got = epilogue.gated_combine_fwd(*os_, *gs, m)
+        want = epilogue.gated_combine_fwd_plain(*os_, *gs, m)
+        torch.cuda.synchronize()
+        err, ok = max_err((got,), (want,))
+        b_ms, b_by = bound(4 * R * Dh * es + 4 * 4 * R, 6.0 * R * Dh, torch.float32)
+        record("epilogue_fwd", "d128_rows", dtype, err, ok,
+               median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
+               median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
+               b_ms, b_by, None)
+        do = rand((R, Dh), dtype, dev, 158)
+        args = (*os_, *gs, m, do)
+        got = epilogue.gated_combine_bwd(*args)
+        want = epilogue.gated_combine_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err, ok = rel_err(got, want)
+        b_ms, b_by = bound(7 * R * Dh * es + 7 * 4 * R, 10.0 * R * Dh, torch.float32)
+        record("epilogue_bwd", "d128_rows", dtype, err, ok,
+               median_ms(lambda: epilogue.gated_combine_bwd(*args)),
+               median_ms(lambda: epilogue.gated_combine_bwd_plain(*args), reps=5),
+               b_ms, b_by, None)
+        del os_, gs, args, got, want
+
+        # ---- paged_gather: one decode step's window gather of 8 slots
+        Rp = (SLOTS * (MAX_LEN // PAGE) + 1) * PAGE
+        pool = rand((Rp, Hkv, Dh), dtype, dev, 159)
+        rows = torch.randint(0, Rp, (SLOTS * 2 * LM_W,), generator=g, device=dev)
+        got = paged.paged_gather(pool, rows)
+        want = paged.paged_gather_plain(pool, rows)
+        torch.cuda.synchronize()
+        err, ok = max_err((got,), (want,))
+        b_ms, b_by = bound(2 * rows.numel() * Hkv * Dh * es + 4 * rows.numel(), 0.0, dtype)
+        record("paged_gather", "d128_decode_window", dtype, err, ok,
+               median_ms(lambda: paged.paged_gather(pool, rows)),
+               median_ms(lambda: paged.paged_gather_plain(pool, rows), reps=5),
+               b_ms, b_by, median_ms(lambda: torch.index_select(pool, 0, rows)))
+        del pool
+        torch.cuda.empty_cache()
+    return results
+
+
+def ptxas_table(log: str) -> list[dict]:
+    """Registers and spill bytes of each flash_dq / flash_dkv instantiation
+    in the nvcc -Xptxas=-v log: kernel, head dim, the entry's name."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_dq|flash_dkv)_(mma|fma)ILi(\d+)E", m.group(1))
+            cur = None
+            if k:
+                cur = {"kernel": k.group(1), "variant": k.group(2), "head_dim": int(k.group(3))}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def prefill_phase(dev, api, model) -> dict:
@@ -1842,6 +2062,16 @@ def main() -> int:
     for line in info["log"].splitlines():
         if re.search(r"entry function|registers|spill|error", line):
             print("# ptxas " + line.strip(), flush=True)
+    if info["built"]:                      # the log of this build: no spills where it matters
+        table = ptxas_table(info["log"])
+        print(json.dumps({"ptxas_flash_bwd": table}), flush=True)
+        for name, dims in NO_SPILL.items():
+            for d in dims:
+                got = [r for r in table if r["kernel"] == name and r["head_dim"] == d]
+                check(len(got) == 2, f"ptxas: {name} at D {d}: {len(got)} entries, expected 2")
+                for r in got:
+                    check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+                          f"ptxas: {name} ({r['variant']}) at D {d} spills: {r}")
 
     batches = train_batches(dev)
     packed_batches = packed_train_batches(dev)
@@ -1867,6 +2097,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows += lm_kernel_phase(dev)
+    t0 = time.perf_counter()
+    rows += head_dim_128_phase(dev)
+    print(f"# head_dim 128 phase: {time.perf_counter() - t0:.1f} s", flush=True)
     lm_api = model_api(get_config(LM))
     t0 = time.perf_counter()
     lm_model = lm_api.init(seed=0, device=dev)

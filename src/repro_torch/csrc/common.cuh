@@ -6,9 +6,10 @@
 // all-masked row never produces NaN.
 //
 // Precision contract (kernels/common.py::resolve_compute_dtype): bf16 inputs
-// are widened to fp32 on load, so QK^T products are exact and accumulate in
-// fp32; the probabilities are rounded to bf16 before PV, as a bf16 tensor-core
-// operand would be; every softmax statistic is fp32.
+// are widened to fp32 on load (or multiplied as bf16 on the tensor cores,
+// flash_bwd.cu), so QK^T products are exact and accumulate in fp32; the
+// probabilities are rounded to bf16 before PV, as a bf16 tensor-core operand
+// would be; every softmax statistic is fp32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -197,13 +198,30 @@ __device__ __forceinline__ void stage(const T* src, float* dst, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = to_f(src[i]);
 }
 
+// Keys (or rows) per staged fp32 tile of the one-thread-a-row kernels: 64,
+// and fewer at D = 128 so that two staged tiles stay at 32 KB of static
+// shared memory (the 48 KB cap).
+template <int D>
+constexpr int kTileRows = D > 64 ? 4096 / D : 64;
+
 }  // namespace rt
 
-// Dispatch a templated launch over the head dims the port builds.
+// Dispatch a templated launch over the head dims the port builds:
+// RT_DISPATCH_D for the ball and packed-varlen kernels (16, 32, 64),
+// RT_DISPATCH_D128 for the causal LM path's kernels (also 128).
 #define RT_DISPATCH_D(D, ...)                                   \
   switch (D) {                                                  \
     case 16: { constexpr int kD = 16; __VA_ARGS__; break; }     \
     case 32: { constexpr int kD = 32; __VA_ARGS__; break; }     \
     case 64: { constexpr int kD = 64; __VA_ARGS__; break; }     \
+    default: return (int)cudaErrorInvalidValue;                 \
+  }
+
+#define RT_DISPATCH_D128(D, ...)                                \
+  switch (D) {                                                  \
+    case 16: { constexpr int kD = 16; __VA_ARGS__; break; }     \
+    case 32: { constexpr int kD = 32; __VA_ARGS__; break; }     \
+    case 64: { constexpr int kD = 64; __VA_ARGS__; break; }     \
+    case 128: { constexpr int kD = 128; __VA_ARGS__; break; }   \
     default: return (int)cudaErrorInvalidValue;                 \
   }

@@ -13,7 +13,7 @@
 // scratch across sequential grid steps over K tiles; Hopper blocks run in no
 // order, so here the K loop is a loop inside the block.  One thread block
 // owns 128 query rows of one (batch*KV-head); it stages K/V tiles of 64 keys
-// into shared memory as fp32 and every thread folds its row through an
+// (32 at D = 128) into shared memory as fp32 and every thread folds its row through an
 // online softmax (rt::fold_keys).  The ragged edge (L = 480 is not a tile
 // multiple) is masked here, so the caller pads nothing.  A block none of
 // whose rows is a valid query (q_valid) writes zeros / LSE_EMPTY and stops:
@@ -27,7 +27,6 @@
 namespace {
 
 constexpr int kRows = 128;   // query rows (threads) per block
-constexpr int kTile = 64;    // keys per shared-memory tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
@@ -36,6 +35,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const uint8_t* __restrict__ q_valid, T* __restrict__ o,
                  float* __restrict__ lse, int rep, int N, int L, int n_heads,
                  int causal, int block_causal, int ell, float scale) {
+  constexpr int kTile = rt::kTileRows<D>;   // keys per shared-memory tile
   __shared__ __align__(16) float Ks[kTile * D];
   __shared__ __align__(16) float Vs[kTile * D];
   __shared__ float bs[kTile];
@@ -101,7 +101,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int n_heads, int causal, int block_causal, int ell,
                          int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_DISPATCH_D(D, {
+  RT_DISPATCH_D128(D, {
     return bf16 ? launch<__nv_bfloat16, kD>(q, k, v, key_bias, q_valid, o, lse,
                                             BH, rep, N, L, n_heads, causal,
                                             block_causal, ell, s)

@@ -24,13 +24,15 @@
 // kernels that each own their outputs; neither uses atomics:
 //   local_dq   the forward's grid: a block owns 64 positions of one
 //              (b*h, query head r, block i), stages the live halves' K/V in
-//              tiles of 64 keys into shared memory and folds them:
+//              tiles of 64 keys (32 at D = 128) into shared memory and
+//              folds them:
 //              p = exp(s - lse), dS = p*(dO.v - delta)*scale, dq += dS*k.
 //              The self half stops at the warp's last position.
 //   local_dkv  a block owns 64 keys of one (b*h, block i) and walks the rep
 //              query heads over block i's rows at positions >= its first key
 //              and, if the next flag is set, all of block i+1's rows, staging
-//              Q, dO, lse, delta in tiles of 64 rows: dv += p*dO, dk += dS*q.
+//              Q, dO, lse, delta in tiles of 64 rows (32 at D = 128):
+//              dv += p*dO, dk += dS*q.
 //              The GQA group's sum is this loop.
 // A row (local_dq) or a key (local_dkv) is held by 4 lanes, each with D/4
 // dims (float4 chunks sub, sub+4, ...: the four lanes read neighbouring 16
@@ -53,7 +55,6 @@ namespace {
 constexpr int kLanes = 4;                  // lanes per query row / per key
 constexpr int kThreads = 256;
 constexpr int kItems = kThreads / kLanes;  // rows (local_dq) or keys (local_dkv) a block
-constexpr int kTile = 64;                  // staged keys (local_dq) or rows (local_dkv)
 constexpr int kWarpItems = 32 / kLanes;    // rows a warp holds (local_dq)
 
 // The lane's D/4 dims of a global row, as fp32: chunk c holds dims
@@ -114,6 +115,7 @@ local_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 T* __restrict__ dq, int rep, int N, int w, int n_heads, int chunks,
                 float scale) {
+  constexpr int kTile = rt::kTileRows<D>;  // staged keys
   __shared__ __align__(16) float Ks[kTile * D];
   __shared__ __align__(16) float Vs[kTile * D];
   __shared__ float bs[kTile];
@@ -190,6 +192,7 @@ local_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  T* __restrict__ dk, T* __restrict__ dv, int rep, int N, int w,
                  int n_heads, int chunks, float scale) {
+  constexpr int kTile = rt::kTileRows<D>;  // staged rows
   __shared__ __align__(16) float Qs[kTile * D];
   __shared__ __align__(16) float Ds[kTile * D];
   __shared__ float ls[kTile];
@@ -295,7 +298,7 @@ extern "C" int local_dq(const void* q, const void* k, const void* v,
                         int N, int D, int w, int n_heads, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH == 0 || N == 0) return 0;
-  RT_DISPATCH_D(D, {
+  RT_DISPATCH_D128(D, {
     return bf16 ? launch_dq<__nv_bfloat16, kD>(q, k, v, key_bias, live, dout, lse, delta,
                                                dq, BH, rep, N, w, n_heads, s)
                 : launch_dq<float, kD>(q, k, v, key_bias, live, dout, lse, delta, dq,
@@ -311,7 +314,7 @@ extern "C" int local_dkv(const void* q, const void* k, const void* v,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH == 0 || N == 0) return 0;
-  RT_DISPATCH_D(D, {
+  RT_DISPATCH_D128(D, {
     return bf16 ? launch_dkv<__nv_bfloat16, kD>(q, k, v, key_bias, live, dout, lse,
                                                 delta, dk, dv, BH, rep, N, w, n_heads, s)
                 : launch_dkv<float, kD>(q, k, v, key_bias, live, dout, lse, delta, dk,

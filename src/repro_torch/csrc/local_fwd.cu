@@ -16,7 +16,8 @@
 // Here one thread block owns up to 128 query positions of one (b*h, r,
 // block i) and every thread folds one row through an online softmax
 // (rt::fold_keys): first the prev half, then the self half with the causal
-// rule; K/V are staged through shared memory in tiles of 64 keys as fp32.
+// rule; K/V are staged through shared memory in tiles of 64 keys (32 at
+// D = 128) as fp32.
 // A dead half is skipped exactly (its keys would all be masked), and a block
 // with both halves dead writes zeros and LSE_EMPTY, the oracle's all-masked
 // row.  The self half stops at the block's last row's position, so a block
@@ -31,7 +32,6 @@
 namespace {
 
 constexpr int kRows = 128;   // query rows (threads) per block
-constexpr int kTile = 64;    // keys per shared-memory tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
@@ -40,6 +40,7 @@ local_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const int* __restrict__ live, T* __restrict__ o,
                  float* __restrict__ lse, int rep, int N, int w, int n_heads,
                  int chunks, float scale) {
+  constexpr int kTile = rt::kTileRows<D>;   // keys per shared-memory tile
   __shared__ __align__(16) float Ks[kTile * D];
   __shared__ __align__(16) float Vs[kTile * D];
   __shared__ float bs[kTile];
@@ -111,7 +112,7 @@ extern "C" int local_fwd(const void* q, const void* k, const void* v,
                          int n_heads, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH == 0 || N == 0) return 0;
-  RT_DISPATCH_D(D, {
+  RT_DISPATCH_D128(D, {
     return bf16 ? launch<__nv_bfloat16, kD>(q, k, v, key_bias, live, o, lse, BH,
                                             rep, N, w, n_heads, s)
                 : launch<float, kD>(q, k, v, key_bias, live, o, lse, BH, rep, N,

@@ -136,7 +136,7 @@ extern "C" int selection_fwd(const void* q, const void* kb, const void* vb,
                              void* lse, int B, int Hkv, int G, int M, int NB,
                              int ell, int k_star, int D, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_DISPATCH_D(D, {
+  RT_DISPATCH_D128(D, {
     return bf16 ? launch<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, o, lse, B,
                                             Hkv, G, M, NB, ell, k_star, s)
                 : launch<float, kD>(q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G,

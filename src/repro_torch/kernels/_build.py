@@ -48,9 +48,9 @@ SIGNATURES = {
     # q, k, v, key_bias, do, lse, delta, dq, BH, rep, N, L, D, n_heads, causal,
     # block_causal, ell, bf16, stream
     "flash_dq": [P] * 8 + [I] * 10 + [P],
-    # q, k, v, key_bias, do, lse, delta, dk, dv, BH, rep, N, L, D, n_heads,
-    # causal, block_causal, ell, bf16, stream
-    "flash_dkv": [P] * 9 + [I] * 10 + [P],
+    # q, k, v, key_bias, do, lse, delta, dk, dv, ws, BH, rep, N, L, D, n_heads,
+    # causal, block_causal, ell, S, bf16, stream
+    "flash_dkv": [P] * 10 + [I] * 11 + [P],
     # q, kb, vb, idx, tok_bias, do, lse, delta, dq, dkb, dvb, B, Hkv, G, M, NB,
     # ell, k_star, D, bf16, stream
     "selection_bwd": [P] * 11 + [I] * 9 + [P],

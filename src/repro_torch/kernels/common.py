@@ -21,14 +21,25 @@ from repro_torch.numerics import NEG_INF
 
 __all__ = ["LSE_EMPTY", "resolve_compute_dtype", "mma_dtype", "lse_finalize",
            "p_from_lse", "row_delta", "LaunchCounter", "COUNTERS", "reset_counters",
-           "on_cpu", "check_cuda_inputs", "SUPPORTED_HEAD_DIMS"]
+           "on_cpu", "check_cuda_inputs", "HEAD_DIMS"]
 
 # Sentinel logsumexp for query rows with NO valid key: exp(s − LSE_EMPTY)
 # underflows to exactly 0 for any finite logit s.
 LSE_EMPTY = 1e30
 
-# head dims the CUDA kernels are instantiated for (csrc/*.cu dispatch)
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+# head dims each CUDA kernel is instantiated for (csrc/*.cu dispatch):
+# the causal LM path's kernels also take 128 (RT_DISPATCH_D128); the ball
+# and packed-varlen kernels do not yet (a ball of 256 keys at D 128 needs
+# its keys tiled to fit a block's shared memory)
+_CAUSAL_DIMS = (16, 32, 64, 128)
+_BALL_DIMS = (16, 32, 64)
+HEAD_DIMS = {
+    **{name: _CAUSAL_DIMS for name in ("local_fwd", "local_dq", "local_dkv", "flash_fwd",
+                                       "flash_dq", "flash_dkv", "selection_fwd",
+                                       "selection_bwd")},
+    **{name: _BALL_DIMS for name in ("bta_fwd", "bta_bwd", "varlen_fwd", "varlen_dq",
+                                     "varlen_dkv")},
+}
 
 
 def resolve_compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -117,7 +128,7 @@ def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(),
 
     ``data``: operand tensors that must share one dtype, fp32 or bf16;
     ``f32`` / ``i32``: side inputs of fixed dtype.  Every tensor must be
-    contiguous."""
+    contiguous, and ``head_dim`` one of ``HEAD_DIMS[name]``."""
     dts = {t.dtype for t in data}
     if len(dts) > 1:
         raise TypeError(f"{name}: operands must share one dtype, got {dts}")
@@ -133,6 +144,6 @@ def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(),
     for t in (*data, *f32, *i32):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if head_dim is not None and head_dim not in SUPPORTED_HEAD_DIMS:
+    if head_dim is not None and head_dim not in HEAD_DIMS[name]:
         raise ValueError(f"{name}: head_dim {head_dim} not built "
-                         f"(kernels take {SUPPORTED_HEAD_DIMS})")
+                         f"(the kernel takes {HEAD_DIMS[name]})")

@@ -7,20 +7,40 @@ Replaces ``repro/kernels/flash.py::_fwd_kernel``, ``::_dq_kernel`` and
 ``csrc/flash_bwd.cu`` (``flash_dq`` and ``flash_dkv``, one file: they share
 their inputs, the mask code and the recompute of p).
 
-What bounds them on the H100: in the compression branch (N queries against
-L = N/ℓ pooled keys, D = 32) the forward does 4·L·D FLOP per query row and
-the backward 10·L·D, so the arithmetic bounds them.  The TPU carried the
-running softmax state (and the backward's dQ / dK, dV sums) across
-sequential grid steps; Hopper blocks run in no order, so each sum runs
-inside one block: the forward and ``flash_dq`` give a block 128 query rows
-and stage 64-key K/V tiles into shared memory; ``flash_dkv`` runs on the
-transposed grid, a block owning 64 keys and staging 64-row tiles of Q and
-dO, and sums the GQA group's rep query heads in that loop.  The ragged last
-key tile (L = 480) is masked in the kernel, so nothing is padded here.
-Query rows the forward skipped (a 128-row tile none of whose rows is a
-valid query, ``q_valid``) carry o = 0 and lse = ``LSE_EMPTY``; the backward
-kernels read that residual and skip them, so their dQ is exactly 0 and they
-add nothing to dK, dV.
+What bounds them on the H100.  Per visible (row, key) pair the forward
+does 4·D FLOP, ``flash_dq`` 6·D and ``flash_dkv`` 8·D.  In the compression
+branch of ``shapenet-bsa`` (N = 3840 queries against L = 480 pooled keys,
+D 32, fp32) that arithmetic bounds them on the FMA pipes; in the LM's
+train step (B·Hkv 8, rep 8, N 4096 against L 64 pooled keys, D 64, bf16)
+the bytes of Q and dO bound the backward, and parallelism: its 64 keys
+alone give ``flash_dkv`` one block per (batch, KV head).  The TPU carried
+the running softmax state (and the backward's dQ / dK, dV sums) across
+sequential grid steps; Hopper blocks run in no order.  The forward gives a
+block 128 query rows and stages 64-key K/V tiles (32 at D 128).  The
+backward (``csrc/flash_bwd.cu``):
+
+- ``flash_dkv`` runs on (key tiles of 64, B·Hkv, S row splits): a block
+  owns one key tile and one range of positions, walks the GQA group's rep
+  heads over it in staged row tiles and keeps the group's dK, dV sum in
+  registers.  A key tile's ranges start at its first visible position
+  (:func:`dkv_ranges`), and a staged tile of ``LSE_EMPTY`` rows is
+  skipped.  S (:func:`dkv_splits`) gives about four blocks per SM; with
+  S > 1 the splits write fp32 partials into a (2, S, B·Hkv, L, D)
+  workspace that this wrapper allocates, and a second pass behind the same
+  entry point sums them in split order and casts (no atomics,
+  deterministic).
+- ``flash_dq`` gives a block 64 query rows and stages only the key tiles
+  its last row can see.
+- Tiles are staged by ``cp.async``, double-buffered, in the operand dtype;
+  bf16 runs its products on the tensor cores (``mma.sync`` m16n8k16, fp32
+  accumulation), fp32 on the FMA pipes in register micro-tiles with the
+  dK/dV (dQ) sums split over threads by dims.
+
+The ragged last key tile (L = 480) and row tile are masked in the kernels,
+so nothing is padded here.  Query rows the forward skipped (a 128-row tile
+none of whose rows is a valid query, ``q_valid``) carry o = 0 and lse =
+``LSE_EMPTY``; the backward kernels read that residual, so their dQ is
+exactly 0 and they add nothing to dK, dV.
 
 Layout: q (B·Hkv, rep, N, D); k, v (B·Hkv, L, D); key_bias (B, L) fp32;
 q_valid (B, N) bool or None.  ``causal``: key j visible to query t iff
@@ -42,11 +62,56 @@ from repro_torch.numerics import NEG_INF
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_dq", "flash_attention_dkv",
-           "FlashAttentionFn", "COUNT", "COUNT_DQ", "COUNT_DKV"]
+           "dkv_splits", "dkv_ranges", "FlashAttentionFn", "COUNT", "COUNT_DQ",
+           "COUNT_DKV"]
 
 COUNT = _counter("flash_fwd")
 COUNT_DQ = _counter("flash_dq")
 COUNT_DKV = _counter("flash_dkv")
+
+
+# flash_dkv's tiles (csrc/flash_bwd.cu: DkvMma, DkvFma): 64 keys a block,
+# staged row tiles of 64 positions (32 at D 128)
+DKV_KEYS = 64
+
+
+def dkv_row_tile(D: int) -> int:
+    """Positions per staged row tile of ``flash_dkv`` at head dim D."""
+    return 32 if D > 64 else 64
+
+
+def first_visible(j: int, *, causal: bool, block_causal: bool, ell: int) -> int:
+    """The first query position that sees key j."""
+    if block_causal:
+        return (j + 1) * ell
+    return j if causal else 0
+
+
+def dkv_splits(N: int, L: int, BH: int, D: int, *, causal: bool = False,
+               block_causal: bool = False, ell: int = 1, sms: int = 132) -> int:
+    """S, the row splits of ``flash_dkv``: enough for about four blocks on
+    each of the ``sms`` SMs, never more than the first key tile has row
+    tiles of live positions, at least 1."""
+    blocks = -(-L // DKV_KEYS) * BH
+    live = N - min(N, first_visible(0, causal=causal, block_causal=block_causal, ell=ell))
+    return max(1, min(-(-4 * sms // max(blocks, 1)), -(-live // dkv_row_tile(D))))
+
+
+def dkv_ranges(kt: int, S: int, N: int, D: int, *, causal: bool = False,
+               block_causal: bool = False, ell: int = 1) -> list[tuple[int, int]]:
+    """The positions [lo, hi) each of the S splits of key tile ``kt`` walks:
+    [first visible position, N) cut into S chunks of whole row tiles, as
+    ``csrc/flash_bwd.cu::split_range`` cuts it (trailing splits may be
+    empty)."""
+    first = min(N, first_visible(kt * DKV_KEYS, causal=causal, block_causal=block_causal,
+                                 ell=ell))
+    bm = dkv_row_tile(D)
+    chunk = -(-(-(-(N - first) // S)) // bm) * bm
+    out = []
+    for s in range(S):
+        lo = min(N, first + s * chunk)
+        out.append((lo, min(N, lo + chunk)))
+    return out
 
 
 def visible_keys(N: int, L: int, *, causal: bool, block_causal: bool, ell: int,
@@ -143,18 +208,12 @@ def flash_attention_bwd_plain(q, k, v, key_bias, do, lse, delta, *, n_heads: int
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_launch(name, outs, q, k, v, key_bias, do, lse, delta, *, n_heads, causal,
-                block_causal, ell):
+def _bwd_check(name, q, lse, delta, do, k, v, key_bias):
     BH, rep, N, D = q.shape
     if do.shape != q.shape or lse.shape != (BH, rep, N) or delta.shape != lse.shape:
         raise ValueError(f"{name}: dO must be {tuple(q.shape)} and lse / delta "
                          f"{(BH, rep, N)}")
     check_cuda_inputs(name, data=(q, k, v, do), f32=(key_bias, lse, delta), head_dim=D)
-    _build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  *(t.data_ptr() for t in outs), BH, rep, N, k.shape[1], D, n_heads,
-                  int(causal), int(block_causal), ell, int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention_dq(q, k, v, key_bias, do, lse, delta, *, n_heads: int,
@@ -165,8 +224,14 @@ def flash_attention_dq(q, k, v, key_bias, do, lse, delta, *, n_heads: int,
     _check_shapes("flash_dq", q, k, v, key_bias, n_heads)
     if on_cpu(q, k, v, key_bias, do, lse, delta):
         return flash_attention_bwd_plain(q, k, v, key_bias, do, lse, delta, **kw)[0]
+    _bwd_check("flash_dq", q, lse, delta, do, k, v, key_bias)
+    BH, rep, N, D = q.shape
     dq = torch.empty_like(q)
-    _bwd_launch("flash_dq", (dq,), q, k, v, key_bias, do, lse, delta, **kw)
+    _build.launch("flash_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, rep,
+                  N, k.shape[1], D, n_heads, int(causal), int(block_causal), ell,
+                  int(q.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     COUNT_DQ.hit()
     return dq
 
@@ -174,13 +239,26 @@ def flash_attention_dq(q, k, v, key_bias, do, lse, delta, *, n_heads: int,
 def flash_attention_dkv(q, k, v, key_bias, do, lse, delta, *, n_heads: int,
                         causal: bool = False, block_causal: bool = False, ell: int = 1):
     """(dk, dv) from the forward's lse and δ: the ``flash_dkv`` kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors (its row splits from :func:`dkv_splits` for the card), the
+    plain version on CPU tensors."""
     kw = dict(n_heads=n_heads, causal=causal, block_causal=block_causal, ell=ell)
     _check_shapes("flash_dkv", q, k, v, key_bias, n_heads)
     if on_cpu(q, k, v, key_bias, do, lse, delta):
         return flash_attention_bwd_plain(q, k, v, key_bias, do, lse, delta, **kw)[1:]
+    _bwd_check("flash_dkv", q, lse, delta, do, k, v, key_bias)
+    BH, rep, N, D = q.shape
+    L = k.shape[1]
+    S = dkv_splits(N, L, BH, D, causal=causal, block_causal=block_causal, ell=ell,
+                   sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_dkv", (dk, dv), q, k, v, key_bias, do, lse, delta, **kw)
+    ws = (torch.empty((2, S, BH, L, D), dtype=torch.float32, device=q.device)
+          if S > 1 else None)
+    _build.launch("flash_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), None if ws is None else ws.data_ptr(), BH, rep, N, L, D,
+                  n_heads, int(causal), int(block_causal), ell, S,
+                  int(q.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     COUNT_DKV.hit()
     return dk, dv
 

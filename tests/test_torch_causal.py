@@ -32,7 +32,7 @@ from repro.models import transformer as j_tf
 from repro.models.api import model_api as j_model_api
 from repro_torch.configs import get_config
 from repro_torch.configs.reduce import smoke_config
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.core import nsa_causal as t_nsa
 from repro_torch.core.backend import use_backend
 from repro_torch.core.config import BSAConfig
@@ -206,6 +206,52 @@ def test_nsa_causal_attention_matches_jax(backend, jax_backend, masked):
     for b, g, h in zip(*np.nonzero(live[:, :, None].repeat(ti.shape[2], 2))):
         pick = lambda idx: {int(j) for j in idx if ok[b, g, j]}
         assert pick(ti[b, g, h]) == pick(wi[b, g, h]), (b, g, h)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        out.update(_flat(val, path) if isinstance(val, dict) else {path: _np(val)})
+    return out
+
+
+@pytest.mark.parametrize("backend,jax_backend", [("reference", "jnp"),
+                                                 ("kernels", "interpret")])
+def test_nsa_causal_attention_grads_match_jax_head_dim_128(backend, jax_backend):
+    """phi4-mini's head layout (24 query heads on 8 KV heads of 128: rep 3,
+    D 128) cut to one KV head at N = 128 with a padded tail: the output and
+    the gradients of q, k, v and of every parameter against ``jax.vjp`` on
+    converted weights (the padded rows carry a zero cotangent)."""
+    B, N, Hq, Hkv, D = 1, 128, 3, 1, 128
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((B, N, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, N, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, N, Hkv, D)).astype(np.float32)
+    do = rng.standard_normal((B, N, Hq, D)).astype(np.float32)
+    mask = np.ones((B, N), bool)
+    mask[0, 112:] = False
+    do[~mask] = 0.0
+    jp, tp = _nsa_pair(SMOKE, Hq, Hkv, D)
+    jcfg = JBSAConfig(**SMOKE)
+
+    def attend(params, q, k, v):
+        return j_nsa.nsa_causal_attention(params, q, k, v, cfg=jcfg, mask=jnp.asarray(mask))
+    with j_use_backend(jax_backend):
+        want, vjp = jax.vjp(attend, jax.tree.map(jnp.asarray, jp), *map(jnp.asarray, (q, k, v)))
+        jgrads = vjp(jnp.asarray(do))
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    with use_backend(backend):
+        got = t_nsa.nsa_causal_attention(tp, *leaves, cfg=BSAConfig(**SMOKE),
+                                         mask=torch.from_numpy(mask))
+        got.backward(_t(do))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    for name, leaf, w in zip("qkv", leaves, jgrads[1:]):
+        np.testing.assert_allclose(_np(leaf.grad), _np(w), err_msg=name, **TOL)
+    g, w = _flat(params_to_jax(tp, grads=True)), _flat(jgrads[0])
+    assert sorted(g) == sorted(w)
+    for name in w:
+        np.testing.assert_allclose(g[name], w[name], err_msg=name, **TOL)
 
 
 def _staggered_decode(decode_step, q, k, v, B, page, n_pages, num_blocks, lens, starts):

@@ -4,7 +4,10 @@ Marked ``gpu``: without a card every test here skips (decided inside the
 fixture, never at import).  On a machine with an H100 run them with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 Small shapes with rep 2, one padded sample and one fully masked slot (the
-varlen kernels: four clouds packed with a capacity tail and a dead block).
+varlen kernels: four clouds packed with a capacity tail and a dead block),
+head_dim 16 and, for the causal LM path's kernels, 128; the flash backward
+at every head dim (16-128) with rep 3 and ``flash_dkv``'s row splits forced
+to 1 and 3.
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
 version.  The causal LM's kernels: ``local_fwd``, ``local_dq`` and
 ``local_dkv`` with a mask, a dead block, a masked slot and packed segments
@@ -79,12 +82,13 @@ def test_bta_kernel(cuda, dtype):
                                         (torch.bfloat16, "plain"),
                                         (torch.float32, "causal"),
                                         (torch.float32, "block_causal")])
-def test_flash_kernel(cuda, dtype, mode):
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_flash_kernel(cuda, dtype, mode, head_dim):
     from repro_torch.kernels import flash
     L = N if mode == "causal" else NB - 3
-    q = _rand((B * HKV, REP, N, D), dtype, cuda, 3)
-    k = _rand((B * HKV, L, D), dtype, cuda, 4)
-    v = _rand((B * HKV, L, D), dtype, cuda, 5)
+    q = _rand((B * HKV, REP, N, head_dim), dtype, cuda, 3)
+    k = _rand((B * HKV, L, head_dim), dtype, cuda, 4)
+    v = _rand((B * HKV, L, head_dim), dtype, cuda, 5)
     kv = torch.ones(B, L, dtype=torch.bool, device=cuda)
     kv[1, 5:] = False
     kw = dict(n_heads=HKV, causal=mode == "causal",
@@ -94,12 +98,13 @@ def test_flash_kernel(cuda, dtype, mode):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_selection_kernel(cuda, dtype):
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_selection_kernel(cuda, dtype, head_dim):
     from repro_torch.kernels import selection
     G, M, ks = NB, 4 * REP, 2
-    q = _rand((B, HKV, G, M, D), dtype, cuda, 6)
-    kb = _rand((B, HKV, NB, ELL, D), dtype, cuda, 7)
-    vb = _rand((B, HKV, NB, ELL, D), dtype, cuda, 8)
+    q = _rand((B, HKV, G, M, head_dim), dtype, cuda, 6)
+    kb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 7)
+    vb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 8)
     g = torch.Generator().manual_seed(9)
     idx = torch.randint(-1, NB, (B, HKV, G, ks), generator=g).int().to(cuda)
     tok = _bias(_mask(cuda)).reshape(B, NB, ELL)
@@ -168,40 +173,58 @@ def test_bta_bwd_kernel(cuda, dtype):
     assert all(bool((g.reshape(B, -1)[2] == 0).all()) for g in got)   # dead slot
 
 
-@pytest.mark.parametrize("dtype,mode", [(torch.float32, "plain"),
-                                        (torch.bfloat16, "plain"),
-                                        (torch.float32, "causal"),
-                                        (torch.float32, "block_causal")])
-def test_flash_bwd_kernels(cuda, dtype, mode):
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "causal", "block_causal"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_flash_bwd_kernels(cuda, head_dim, mode, dtype, splits, monkeypatch):
+    """flash_dq / flash_dkv at each head dim, mask mode and dtype, with
+    ``flash_dkv``'s row splits (``dkv_splits``) forced to 1 (direct writes)
+    and to 3 (the workspace and the reduction pass), a GQA group of rep 3, N = 200 rows (a
+    ragged row tile) against L = 70 keys (a ragged key tile; N in causal
+    mode), a fully masked slot (plain mode: its query tiles skipped by the
+    forward) and, in every mode, a 64-row span of one head set to
+    LSE_EMPTY: those rows get exact zeros in dq and add nothing to dk, dv."""
     from repro_torch.kernels import flash
-    L = N if mode == "causal" else NB - 3
-    q = _rand((B * HKV, REP, N, D), dtype, cuda, 3)
-    k = _rand((B * HKV, L, D), dtype, cuda, 4)
-    v = _rand((B * HKV, L, D), dtype, cuda, 5)
+    from repro_torch.kernels.common import LSE_EMPTY
+    rep, n = 3, 200
+    L = n if mode == "causal" else 70
+    q = _rand((B * HKV, rep, n, head_dim), dtype, cuda, 3)
+    k = _rand((B * HKV, L, head_dim), dtype, cuda, 4)
+    v = _rand((B * HKV, L, head_dim), dtype, cuda, 5)
     kv = torch.ones(B, L, dtype=torch.bool, device=cuda)
-    kv[1, 5:] = False
-    q_valid = _mask(cuda) if mode == "plain" else None
+    kv[1, 5:9] = False
+    q_valid = None
+    if mode == "plain":
+        q_valid = torch.ones(B, n, dtype=torch.bool, device=cuda)
+        q_valid[1, 150:] = False
+        q_valid[2] = False
     kw = dict(n_heads=HKV, causal=mode == "causal",
               block_causal=mode == "block_causal", ell=ELL)
     o, lse = flash.flash_attention_fwd(q, k, v, _bias(kv), q_valid, **kw)
-    rest = _bwd_inputs(o, lse, dtype, 12)
+    lse[0, 1, 64:128] = LSE_EMPTY                  # an empty row tile
+    o[0, 1, 64:128] = 0
+    do, lse, delta = _bwd_inputs(o, lse, dtype, 12)
     before = (flash.COUNT_DQ.n, flash.COUNT_DKV.n)
-    got = flash.flash_attention_bwd(q, k, v, _bias(kv), *rest, **kw)
+    args = (q, k, v, _bias(kv), do, lse, delta)
+    monkeypatch.setattr(flash, "dkv_splits", lambda *a, **k: splits)
+    got = (flash.flash_attention_dq(*args, **kw), *flash.flash_attention_dkv(*args, **kw))
     torch.cuda.synchronize()
     assert (flash.COUNT_DQ.n, flash.COUNT_DKV.n) == (before[0] + 1, before[1] + 1)
-    _check(got, flash.flash_attention_bwd_plain(q, k, v, _bias(kv), *rest, **kw),
-               dtype)
-    if q_valid is not None:                   # the skipped tiles: exact zeros
+    _check(got, flash.flash_attention_bwd_plain(*args, **kw), dtype)
+    assert bool((got[0][0, 1, 64:128] == 0).all())          # the empty tile
+    if q_valid is not None:                                 # the skipped slot
         assert bool((got[0].reshape(B, -1)[2] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_selection_bwd_kernel(cuda, dtype):
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_selection_bwd_kernel(cuda, dtype, head_dim):
     from repro_torch.kernels import selection
     G, M, ks = NB, 4 * REP, 2
-    q = _rand((B, HKV, G, M, D), dtype, cuda, 6)
-    kb = _rand((B, HKV, NB, ELL, D), dtype, cuda, 7)
-    vb = _rand((B, HKV, NB, ELL, D), dtype, cuda, 8)
+    q = _rand((B, HKV, G, M, head_dim), dtype, cuda, 6)
+    kb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 7)
+    vb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 8)
     g = torch.Generator().manual_seed(9)
     idx = torch.randint(-1, NB, (B, HKV, G, ks), generator=g).int()
     idx[0, 0, :4, 0] = 3                      # four groups pick one block
@@ -354,12 +377,13 @@ def test_packed_model_matches_reference(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,segmented", [(32, False), (32, True), (256, False)])
-def test_local_kernel(cuda, dtype, window, segmented):
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_local_kernel(cuda, dtype, window, segmented, head_dim):
     from repro_torch.kernels import local
     n = 4 * window
-    q = _rand((B * HKV, REP, n, D), dtype, cuda, 80)
-    k = _rand((B * HKV, n, D), dtype, cuda, 81)
-    v = _rand((B * HKV, n, D), dtype, cuda, 82)
+    q = _rand((B * HKV, REP, n, head_dim), dtype, cuda, 80)
+    k = _rand((B * HKV, n, head_dim), dtype, cuda, 81)
+    v = _rand((B * HKV, n, head_dim), dtype, cuda, 82)
     mask = torch.ones(B, n, dtype=torch.bool, device=cuda)
     mask[1, window + 5:2 * window + 9] = False      # a dead block and a ragged hole
     mask[2] = False                                 # a fully masked slot
@@ -376,12 +400,13 @@ def test_local_kernel(cuda, dtype, window, segmented):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,segmented", [(32, False), (32, True), (256, False)])
-def test_local_bwd_kernels(cuda, dtype, window, segmented):
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_local_bwd_kernels(cuda, dtype, window, segmented, head_dim):
     from repro_torch.kernels import local
     n = 4 * window
-    q = _rand((B * HKV, REP, n, D), dtype, cuda, 86)
-    k = _rand((B * HKV, n, D), dtype, cuda, 87)
-    v = _rand((B * HKV, n, D), dtype, cuda, 88)
+    q = _rand((B * HKV, REP, n, head_dim), dtype, cuda, 86)
+    k = _rand((B * HKV, n, head_dim), dtype, cuda, 87)
+    v = _rand((B * HKV, n, head_dim), dtype, cuda, 88)
     mask = torch.ones(B, n, dtype=torch.bool, device=cuda)
     mask[1, window + 5:2 * window + 9] = False      # a dead block and a ragged hole
     mask[2] = False                                 # a fully masked slot

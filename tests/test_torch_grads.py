@@ -82,29 +82,85 @@ def test_ball_attention_grads_match_jax(rep, dtype):
     assert (_np(got[1])[:, -N // 8:] == 0).all()      # padded keys: exact zeros
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rep", [1, 2])
-def test_flash_attention_grads_match_jax(rep, dtype):
+# (mode, D, rep, dtype): key-bias mode as the compression branch runs it at
+# D 32, and the causal LM's modes at head_dim 128 with rep 3 (phi4-mini's
+# group of 24 / 8 heads)
+_FLASH_CASES = [pytest.param("key_bias", D, rep, dt, id=f"{rep}-{dt}")
+                for rep in (1, 2) for dt in ("float32", "bfloat16")]
+_FLASH_CASES += [pytest.param(mode, 128, 3, dt, id=f"{mode}-d128-3-{dt}")
+                 for mode in ("causal", "block_causal") for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("mode,head_dim,rep,dtype", _FLASH_CASES)
+def test_flash_attention_grads_match_jax(mode, head_dim, rep, dtype):
     """Key-bias mode as the compression branch runs it: L = 19 coarse keys
     (a ragged tile edge), the q_valid hint on, padded query rows carrying a
-    zero cotangent (the combine masks them)."""
-    L = 19
+    zero cotangent (the combine masks them).  Causal: L = N keys;
+    block-causal: L = N/ℓ pooled keys, ℓ = 8; both with three masked keys
+    and no q_valid hint."""
+    causal, block_causal, ell = mode == "causal", mode == "block_causal", 8
+    L = {"key_bias": 19, "causal": N, "block_causal": N // ell}[mode]
     kv = np.ones((B, L), bool)
-    kv[:, 16:] = False
-    qv = _mask()
-    q, k, v, do = _arrays(10 + rep, (B, N, HKV * rep, D), (B, L, HKV, D),
-                          (B, L, HKV, D), (B, N, HKV * rep, D))
+    kv[:, 16:19] = mode != "key_bias"                  # key-bias: keys 16-18 masked,
+    kv[:, 5:8] = mode == "key_bias"                    # causal modes: keys 5-7
+    qv = _mask() if mode == "key_bias" else np.ones((B, N), bool)
+    q, k, v, do = _arrays(10 + rep, (B, N, HKV * rep, head_dim), (B, L, HKV, head_dim),
+                          (B, L, HKV, head_dim), (B, N, HKV * rep, head_dim))
     do[~qv] = 0.0
+    hint = mode == "key_bias"
+    kw = dict(causal=causal, block_causal=block_causal, ell=ell)
     _, want = _jax_vjp(lambda q, k, v: j_ops.flash_attention(
-        q, k, v, key_valid=jnp.asarray(kv), q_valid=jnp.asarray(qv), interpret=True),
-        (q, k, v), do, dtype)
+        q, k, v, key_valid=jnp.asarray(kv), q_valid=jnp.asarray(qv) if hint else None,
+        interpret=True, **kw), (q, k, v), do, dtype)
     _, got = _torch_grads(lambda q, k, v: ops.flash_attention(
-        q, k, v, key_valid=torch.from_numpy(kv), q_valid=torch.from_numpy(qv)),
-        (q, k, v), do, dtype)
+        q, k, v, key_valid=torch.from_numpy(kv),
+        q_valid=torch.from_numpy(qv) if hint else None, **kw), (q, k, v), do, dtype)
     _close_all(got[:1], want[:1], TOL[dtype], where=qv)
     _close_all(got[1:], want[1:], TOL[dtype])
     assert (_np(got[0])[~qv] == 0).all()               # skipped rows: exact zeros
-    assert (_np(got[1])[:, 16:] == 0).all() and (_np(got[2])[:, 16:] == 0).all()
+    dead = ~kv[0]                                      # masked keys: exact zeros
+    assert (_np(got[1])[:, dead] == 0).all() and (_np(got[2])[:, dead] == 0).all()
+
+
+@pytest.mark.parametrize("mode,N,L,ell,D,BH", [
+    ("key_bias", 3840, 480, 8, 32, 64),          # shapenet's compression branch
+    ("key_bias", 200, 70, 1, 128, 2),            # ragged key edge, D 128
+    ("causal", 300, 300, 1, 64, 4),              # five key tiles, the last one ragged
+    ("block_causal", 4096, 64, 64, 64, 8),       # the LM train shape
+    ("block_causal", 1000, 333, 3, 16, 1),       # ℓ = 3 divides no tile; L ragged
+    ("block_causal", 100, 40, 5, 128, 3),        # tiles past N: empty ranges
+])
+def test_flash_dkv_row_split_plan(mode, N, L, ell, D, BH):
+    """``flash_dkv``'s row splits: S ≥ 1, and for every key tile the S
+    ranges are disjoint, in order, and cover [the tile's first visible
+    position, N) exactly once, each but the last a whole number of row
+    tiles; the plan for the card's 132 SMs and a forced S alike."""
+    kw = dict(causal=mode == "causal", block_causal=mode == "block_causal", ell=ell)
+    S_auto = flash.dkv_splits(N, L, BH, D, **kw)
+    assert S_auto >= 1
+    bm = flash.dkv_row_tile(D)
+    n_kt = -(-L // flash.DKV_KEYS)
+    first0 = min(N, flash.first_visible(0, **kw))
+    assert S_auto <= max(1, -(-(N - first0) // bm))       # never more splits than row tiles
+    assert S_auto == 1 or n_kt * BH * (S_auto - 1) < 4 * 132   # none past ~4 blocks an SM
+    for S in (S_auto, 1, 3):
+        for kt in range(n_kt):
+            ranges = flash.dkv_ranges(kt, S, N, D, **kw)
+            assert len(ranges) == S
+            first = min(N, flash.first_visible(kt * flash.DKV_KEYS, **kw))
+            covered = np.zeros(N, int)
+            for lo, hi in ranges:
+                assert lo <= hi
+                covered[lo:hi] += 1
+            assert (covered[first:] == 1).all() and (covered[:first] == 0).all()
+            live = [(lo, hi) for lo, hi in ranges if hi > lo]
+            assert all(a[1] == b[0] for a, b in zip(live, live[1:]))
+            assert all((hi - lo) % bm == 0 for lo, hi in live[:-1])
+            # no position before `first` sees any key of the tile
+            vis = flash.visible_keys(N, L, device="cpu", **kw)
+            if vis is not None:
+                tile = vis[:, kt * flash.DKV_KEYS:(kt + 1) * flash.DKV_KEYS]
+                assert not tile[:first].any() and (first == N or tile[first].any())
 
 
 def _selection_case(seed, rep):

@@ -225,3 +225,25 @@ def test_gated_combine_ref_and_repeat_kv(with_mask):
     np.testing.assert_array_equal(
         _np(t_br.repeat_kv(torch.from_numpy(kv), 2)),
         _np(j_br.repeat_kv(jnp.asarray(kv), 2)))
+
+
+_CAUSAL_PATH = ("local_fwd", "local_dq", "local_dkv", "flash_fwd", "flash_dq", "flash_dkv",
+                "selection_fwd", "selection_bwd")
+_BALL_VARLEN = ("bta_fwd", "bta_bwd", "varlen_fwd", "varlen_dq", "varlen_dkv")
+
+
+@pytest.mark.parametrize("name", _CAUSAL_PATH + _BALL_VARLEN)
+def test_check_cuda_inputs_head_dims(name):
+    """head_dim 128 passes the CUDA input check of the causal LM path's
+    eight kernels; the ball and packed-varlen kernels refuse it, naming the
+    kernel and the head dim.  All take 16, 32 and 64; none takes 96."""
+    x = torch.zeros(2, 4, 128)
+    for d in (16, 32, 64):
+        t_common.check_cuda_inputs(name, data=(x, x), f32=(x,), head_dim=d)
+    if name in _CAUSAL_PATH:
+        t_common.check_cuda_inputs(name, data=(x, x), f32=(x,), head_dim=128)
+    else:
+        with pytest.raises(ValueError, match=rf"^{name}: head_dim 128 not built"):
+            t_common.check_cuda_inputs(name, data=(x, x), f32=(x,), head_dim=128)
+    with pytest.raises(ValueError, match=rf"^{name}: head_dim 96 not built"):
+        t_common.check_cuda_inputs(name, data=(x, x), f32=(x,), head_dim=96)
