@@ -83,20 +83,23 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    pages of 256 serves 10 greedy requests of 1,100–1,600 random tokens
    (numpy seed 0), 8 new tokens each; requests 0, 1 and 8 open with the
    same 512 tokens (a shared system prompt; request 8, admitted after the
-   first slot retires, reuses the sealed pages); the serve must launch
-   ``paged_gather`` 8 times a layer and step and no other kernel; requests
-   0 and 9 are also generated by B = 1 lockstep ``generate`` (two processes
-   side by side, after the serve) and their tokens must equal the served
-   ones, or part at a near-tie (the lockstep top-two logit gap there below
-   4e-2 of the largest |logit|);
+   first slot retires, reuses the sealed pages), and an 11th request is
+   exactly those 512 tokens: it reuses both sealed pages and must
+   copy-on-write the second (``cow_copies`` ≥ 1, ``kv.check()``); the serve
+   must launch ``paged_gather`` 8 times a layer and step and no other
+   kernel; requests 0, 9 and 10 are also generated by B = 1 lockstep
+   ``generate`` (three processes side by side, after the serve) and their
+   tokens must equal the served ones, or part at a near-tie (the lockstep
+   top-two logit gap there below 4e-2 of the largest |logit|);
 9. LM backward kernels: ``local_dq`` and ``local_dkv`` against their plain
    version in fp32 and bf16 on the ``local_fwd`` case of phase 5 and at the
    LM train shapes (B = 2 × 4096 tokens, no mask), within 1e-4 (fp32) and
    4e-2 (bf16) of each gradient's largest value, timed beside SDPA with the
    dense banded mask (forward + backward − forward); and, at the train
    shapes in bf16, ``flash_dq`` / ``flash_dkv`` block-causal against the
-   64 pooled keys, ``selection_bwd`` on each layer's own picks (512 rows a
-   group) and ``epilogue_bwd``;
+   64 pooled keys, ``selection_fwd``, ``selection_dq`` and
+   ``selection_dkv`` (the tiled path) on each layer's own picks (512 rows a
+   group) beside SDPA with the dense mask, and ``epilogue_bwd``;
 10. LM train: ``make_train_step`` on ``tinyllama-1.1b`` at full width and
    depth (bf16 parameters, fp32 AdamW moments, remat on, random weights
    from seed 0) over ``lm_batches(seed=0)`` at ``train_4k``'s length, B =
@@ -105,12 +108,12 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    every gradient and the gradient norm must be finite, each step must
    launch every forward kernel of the prefill 44 times (22 and 22
    recomputed) and ``local_dq``, ``local_dkv``, ``flash_dq``,
-   ``flash_dkv``, ``selection_bwd`` and ``epilogue_bwd`` 22 times each (and
-   no other kernel), and every layer's input and parameter gradients on the
-   kernel path must match the ``reference`` backend's within 6e-2 of each
-   tensor's largest value (a parameter's floored at 1e-4 of the layer's
-   largest parameter gradient), given the same layer input and upstream
-   gradient (``lm_train_reference_check``).
+   ``flash_dkv``, ``selection_dq``, ``selection_dkv`` and ``epilogue_bwd``
+   22 times each (and no other kernel), and every layer's input and
+   parameter gradients on the kernel path must match the ``reference``
+   backend's within 6e-2 of each tensor's largest value (a parameter's
+   floored at 1e-4 of the layer's largest parameter gradient), given the
+   same layer input and upstream gradient (``lm_train_reference_check``).
 
 The shapenet paths run at full width and depth.  Any failed check exits
 non-zero before the result lines.  On success the last line is
@@ -180,6 +183,10 @@ KERNELS = {
     "flash_dkv": ("src/repro_torch/csrc/flash_bwd.cu", "src/repro/kernels/flash.py:183"),
     "selection_bwd": ("src/repro_torch/csrc/selection_bwd.cu",
                       "src/repro/kernels/selection.py:103"),
+    "selection_dq": ("src/repro_torch/csrc/selection_bwd.cu",
+                     "src/repro/kernels/selection.py:103"),
+    "selection_dkv": ("src/repro_torch/csrc/selection_bwd.cu",
+                      "src/repro/kernels/selection.py:103"),
     "epilogue_bwd": ("src/repro_torch/csrc/epilogue_bwd.cu",
                      "src/repro/kernels/epilogue.py:43"),
     "varlen_fwd": ("src/repro_torch/csrc/varlen_fwd.cu", "src/repro/kernels/varlen.py:67"),
@@ -202,13 +209,15 @@ PATHS["prefill"] = ("local_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
 PATHS["decode_oracle"] = ("paged_gather",)
 PATHS["serve_lm"] = ("paged_gather",)
 PATHS["train_lm"] = PATHS["prefill"] + ("local_dq", "local_dkv", "flash_dq", "flash_dkv",
-                                        "selection_bwd", "epilogue_bwd")
+                                        "selection_dq", "selection_dkv", "epilogue_bwd")
 # the path, dtype and mode whose launches and row the kernels line reports
 # for the LM kernels; the others report the shapenet train paths' (fp32)
 LM_MAIN = {"local_fwd": ("prefill", "bfloat16", "lm_window"),
            "paged_gather": ("serve_lm", "float32", "decode_window"),
            "local_dq": ("train_lm", "bfloat16", "lm_train"),
-           "local_dkv": ("train_lm", "bfloat16", "lm_train")}
+           "local_dkv": ("train_lm", "bfloat16", "lm_train"),
+           "selection_dq": ("train_lm", "bfloat16", "lm_train_topk"),
+           "selection_dkv": ("train_lm", "bfloat16", "lm_train_topk")}
 
 # the slice's shapes: shapenet-bsa served 8 clouds at a time, padded to 3840
 B, N, H, D = 8, 3840, 8, 32
@@ -239,9 +248,11 @@ LM_GRAD_REL_TOL = 6e-2
 LM_GRAD_FLOOR = 1e-4
 # head_dim 128: phi4-mini-3.8b's heads (24 query on 8 KV heads of 128), LM_BSA
 D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
-# the redesigned backward kernels (csrc/flash_bwd.cu) must build without
-# spills at these head dims
-NO_SPILL = {"flash_dq": (64, 128), "flash_dkv": (64, 128)}
+# the redesigned kernels (csrc/flash_bwd.cu, the tiled path of
+# csrc/selection_{fwd,bwd}.cu) must build without spills at these head dims,
+# both variants (mma: bf16, fma: fp32)
+NO_SPILL = {"flash_dq": (64, 128), "flash_dkv": (64, 128), "selection_fwd": (64, 128),
+            "selection_dq": (64, 128), "selection_dkv": (64, 128)}
 
 
 class CheckFailed(Exception):
@@ -326,7 +337,7 @@ def recorder(results: list):
     return record
 
 
-def library_bwd_ms(fn, leaves) -> float:
+def library_bwd_ms(fn, leaves, warmup: int = 3, reps: int = 15) -> float:
     """Backward time of one library call: median (forward + backward) minus
     median forward."""
     out = fn()
@@ -337,8 +348,121 @@ def library_bwd_ms(fn, leaves) -> float:
             t.grad = None
         fn().backward(g)
     with torch.no_grad():
-        f_ms = median_ms(fn)
-    return median_ms(fwd_bwd) - f_ms
+        f_ms = median_ms(fn, warmup, reps)
+    return median_ms(fwd_bwd, warmup, reps) - f_ms
+
+
+def selection_dense_case(qg, kb, vb, idx, tok_bias):
+    """One SDPA call's inputs for the function the selection kernels compute:
+    the queries (B, Hkv, G·M, D), the un-blocked keys and values (B, Hkv,
+    NB·ℓ, D) and a bool mask (B, Hkv, G·M, NB·ℓ) that lets row (g, r) see key
+    (blk, c) iff blk is one of idx[b, h, g] and tok_bias[b, blk, c] >
+    NEG_INF/2.  (A block picked twice by one group counts twice in the
+    kernel and once here; top-k picks are distinct.)"""
+    Bc, Hkv, G, M, Dh = qg.shape
+    nb, ell = kb.shape[2], kb.shape[3]
+    sel = torch.zeros((Bc, Hkv, G, nb + 1), dtype=torch.bool, device=qg.device)
+    sel.scatter_(3, torch.where((idx >= 0) & (idx < nb), idx, nb).long(), True)
+    tok = (tok_bias > NEG_INF / 2)[:, None, None]                 # (B, 1, 1, NB, ℓ)
+    mask = (sel[..., :nb, None] & tok).reshape(Bc, Hkv, G, 1, nb * ell)
+    mask = mask.expand(Bc, Hkv, G, M, nb * ell).reshape(Bc, Hkv, G * M, nb * ell)
+    return (qg.reshape(Bc, Hkv, G * M, Dh), kb.reshape(Bc, Hkv, nb * ell, Dh),
+            vb.reshape(Bc, Hkv, nb * ell, Dh), mask)
+
+
+def selection_library_ms(qg, kb, vb, idx, tok_bias, backward: bool = False) -> float:
+    """SDPA with the dense selection mask (:func:`selection_dense_case`), one
+    warm-up and three timed calls, as the slow plain rows are timed; with
+    ``backward`` its backward time, (forward + backward) − forward.  The
+    mask is built once for the call and freed."""
+    qs, ks, vs, mask = selection_dense_case(qg, kb, vb, idx, tok_bias)
+    if backward:
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (qs, ks, vs))
+        ms = library_bwd_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                   attn_mask=mask),
+                            (qs, ks, vs), warmup=1, reps=3)
+    else:
+        ms = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+                       warmup=1, reps=3)
+    del qs, ks, vs, mask
+    torch.cuda.empty_cache()
+    return ms
+
+
+def selection_tiled_rows(record, mode, qg, kb, vb, idxs, tok_bias, do) -> None:
+    """The tiled path's kernels (``selection_fwd``, ``selection_dq``,
+    ``selection_dkv``) on each pick set of ``idxs`` against the plain
+    versions, one row each (errors the worst, times and bounds the mean over
+    the pick sets; dq and dkv share the plain backward's time), SDPA with the
+    dense mask on the first pick set; and a ``selection_backward`` line: the
+    whole backward (both kernels and the inverse index) and the bytes of its
+    staging buffer, written once and read once."""
+    dtype, es = qg.dtype, qg.element_size()
+    Bc, Hkv, G, M, Dh = qg.shape
+    nb, ell = kb.shape[2], kb.shape[3]
+    check(selection.selection_plan(M, ell, Dh, dtype).path == "tiles",
+          f"selection [{mode}]: groups of {M} rows should take the tiled path")
+    rows = {n: ([], [], [], [], []) for n in ("selection_fwd", "selection_dq", "selection_dkv")}
+    total, staged = [], []
+    side = 4 * idxs[0].numel() + 4 * tok_bias.numel() + 4 * qg.numel() // Dh
+    for idx in idxs:
+        valid_sel = int(((idx >= 0) & (idx < nb)).sum())
+        used = torch.zeros(Bc, Hkv, nb, dtype=torch.bool, device=qg.device)
+        used.scatter_(2, idx.clamp(min=0).reshape(Bc, Hkv, -1).long(),
+                      (idx >= 0).reshape(Bc, Hkv, -1))
+        kv_bytes = 2 * int(used.sum()) * ell * Dh * es
+        pairs = float(M * ell * valid_sel)
+
+        def add(name, err_ok, k_ms, p_ms, b):
+            for lst, x in zip(rows[name], (*err_ok, k_ms, p_ms, b)):
+                lst.append(x)
+        o, lse = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
+        want = selection.selection_attention_fwd_plain(qg, kb, vb, idx, tok_bias)
+        torch.cuda.synchronize()
+        add("selection_fwd", max_err((o, lse), want),
+            median_ms(lambda: selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias),
+                      warmup=1, reps=3),
+            median_ms(lambda: selection.selection_attention_fwd_plain(qg, kb, vb, idx,
+                                                                      tok_bias),
+                      warmup=1, reps=1),
+            bound(2 * qg.numel() * es + kv_bytes + side, 4.0 * Dh * pairs, dtype))
+        del want
+        args = (qg, kb, vb, idx, tok_bias, do, lse, row_delta(do, o))
+        dq = selection.selection_attention_dq(*args)
+        dkv = selection.selection_attention_dkv(*args)
+        want = selection.selection_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        p_ms = median_ms(lambda: selection.selection_attention_bwd_plain(*args), warmup=1,
+                         reps=1)
+        add("selection_dq", rel_err((dq,), want[:1], tol_table=SEL_BWD_TOL),
+            median_ms(lambda: selection.selection_attention_dq(*args), warmup=1, reps=3),
+            p_ms, bound(3 * qg.numel() * es + kv_bytes + side + 4 * qg.numel() // Dh,
+                        6.0 * Dh * pairs, dtype))
+        add("selection_dkv", rel_err(dkv, want[1:], tol_table=SEL_BWD_TOL),
+            median_ms(lambda: selection.selection_attention_dkv(*args), warmup=1, reps=3),
+            p_ms, bound(2 * qg.numel() * es + kv_bytes + 2 * kb.numel() * es + side
+                        + 4 * qg.numel() // Dh, 8.0 * Dh * pairs, dtype))
+        total.append(median_ms(lambda: selection.selection_attention_bwd(*args), warmup=1,
+                               reps=3))
+        staged.append(2 * 2 * valid_sel * ell * Dh * 4)
+        del o, lse, args, dq, dkv, want
+    lib = {"selection_fwd": selection_library_ms(qg, kb, vb, idxs[0], tok_bias)}
+    lib["selection_dq"] = lib["selection_dkv"] = selection_library_ms(
+        qg, kb, vb, idxs[0], tok_bias, backward=True)
+    for name, (errs, oks, k_ms, p_ms, b_ms) in rows.items():
+        record(name, mode, dtype,
+               max(errs) if all(math.isfinite(e) for e in errs) else math.nan, all(oks),
+               statistics.fmean(k_ms), statistics.fmean(p_ms),
+               statistics.fmean(t for t, _ in b_ms), b_ms[0][1], lib[name])
+    line = {"mode": mode, "dtype": str(dtype).replace("torch.", ""),
+            "dq_ms": statistics.fmean(rows["selection_dq"][2]),
+            "dkv_ms": statistics.fmean(rows["selection_dkv"][2]),
+            "backward_ms": statistics.fmean(total),
+            "plain_ms": statistics.fmean(rows["selection_dq"][3]),
+            "library_ms": lib["selection_dq"],
+            "staging_bytes": statistics.fmean(staged),
+            "staging_ms": statistics.fmean(staged) / HBM_BYTES_PER_S * 1e3}
+    print(json.dumps({"selection_backward": line}), flush=True)
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -443,7 +567,7 @@ def kernel_phase(dev) -> list[dict]:
                                                                    tok_bias)),
                median_ms(lambda: selection.selection_attention_fwd_plain(
                    qg, kb, vb, idx, tok_bias), reps=5),
-               b_ms, b_by, None)
+               b_ms, b_by, selection_library_ms(qg, kb, vb, idx, tok_bias))
 
         # ---- epilogue: R = B·N·H rows of D
         R = B * N * H
@@ -601,6 +725,7 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
         do = torch.where(mask.reshape(B, 1, NB, M, 1), do, torch.zeros_like(do))
         for mode, idxs in (("topk", picks), ("random", [idx])):
             errs, oks, k_ms, p_ms, b_ms = [], [], [], [], []
+            lib_ms = selection_library_ms(qg, kb, vb, idxs[0], tok_bias, backward=True)
             for idx in idxs:
                 o, lse = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
                 args = (qg, kb, vb, idx, tok_bias, do, lse, row_delta(do, o))
@@ -624,7 +749,7 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
             record("selection_bwd", mode, dtype,
                    max(errs) if all(math.isfinite(e) for e in errs) else math.nan, all(oks),
                    statistics.fmean(k_ms), statistics.fmean(p_ms),
-                   statistics.fmean(t for t, _ in b_ms), b_ms[0][1], None)
+                   statistics.fmean(t for t, _ in b_ms), b_ms[0][1], lib_ms)
 
         # ---- epilogue: R = B·N·H rows of D
         R = B * N * H
@@ -1182,6 +1307,8 @@ def lm_kernel_phase(dev) -> list[dict]:
         nbytes = (2 * qg.numel() + 2 * int(used.sum()) * LM_ELL * LM_D) * es \
             + 4 * idx.numel() + 4 * tok_bias.numel() + 4 * qg.numel() // LM_D
         b_ms, b_by = bound(nbytes, 4.0 * M * LM_ELL * LM_D * valid_sel, dtype)
+        # no library time here: SDPA's dense mask would be 4 × 262,144 ×
+        # 32,768 bools (34 GB); the LM train shape times it instead
         record("selection_fwd", "lm_groups", dtype, err, ok,
                median_ms(lambda: selection.selection_attention_fwd(qg, kb, vb, idx,
                                                                    tok_bias)),
@@ -1238,10 +1365,6 @@ def head_dim_128_phase(dev) -> list[dict]:
     score[..., 0] += torch.where(grp > 0, 2.0, 0.0)            # force_first_block
     val, idx = torch.topk(score, LM_KSTAR, dim=-1)
     idx = torch.where(val > -0.5, idx, -1).int().contiguous()  # (1, Hkv, G, k*)
-    valid_sel = int((idx >= 0).sum())
-    used = torch.zeros(1, Hkv, nb, dtype=torch.bool, device=dev)
-    used.scatter_(2, idx.clamp(min=0).reshape(1, Hkv, -1).long(), (idx >= 0).reshape(1, Hkv, -1))
-    n_used = int(used.sum())
     lkw = dict(window=LM_W, n_heads=Hkv)
     fkw = dict(n_heads=Hkv, block_causal=True, ell=LM_ELL)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1317,38 +1440,14 @@ def head_dim_128_phase(dev) -> list[dict]:
                None)
         del q, kf, vf, o, lse, do, args, dq, dkv, want, got
 
-        # ---- selection_fwd, selection_bwd
+        # ---- selection_fwd, selection_dq, selection_dkv
         qg = rand((1, Hkv, G, M, Dh), dtype, dev, 148)
         kb = rand((1, Hkv, nb, LM_ELL, Dh), dtype, dev, 149)
         vb = rand((1, Hkv, nb, LM_ELL, Dh), dtype, dev, 150)
         tok_bias = torch.zeros((1, nb, LM_ELL), dtype=torch.float32, device=dev)
-        got = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
-        want = selection.selection_attention_fwd_plain(qg, kb, vb, idx, tok_bias)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, want)
-        side = 4 * idx.numel() + 4 * tok_bias.numel() + 4 * qg.numel() // Dh
-        b_ms, b_by = bound((2 * qg.numel() + 2 * n_used * LM_ELL * Dh) * es + side,
-                           4.0 * M * LM_ELL * Dh * valid_sel, dtype)
-        record("selection_fwd", "d128_groups", dtype, err, ok,
-               median_ms(lambda: selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)),
-               median_ms(lambda: selection.selection_attention_fwd_plain(qg, kb, vb, idx,
-                                                                         tok_bias),
-                         warmup=1, reps=3), b_ms, b_by, None)
-        o, lse = got
-        do = rand(o.shape, dtype, dev, 151)
-        args = (qg, kb, vb, idx, tok_bias, do, lse, row_delta(do, o))
-        got = selection.selection_attention_bwd(*args)
-        want = selection.selection_attention_bwd_plain(*args)
-        torch.cuda.synchronize()
-        err, ok = rel_err(got, want, tol_table=SEL_BWD_TOL)
-        b_ms, b_by = bound((3 * qg.numel() + 2 * n_used * LM_ELL * Dh) * es
-                           + 4 * 2 * kb.numel() + side + 4 * qg.numel() // Dh,
-                           10.0 * M * LM_ELL * Dh * valid_sel, dtype)
-        record("selection_bwd", "d128_groups", dtype, err, ok,
-               median_ms(lambda: selection.selection_attention_bwd(*args), warmup=1, reps=5),
-               median_ms(lambda: selection.selection_attention_bwd_plain(*args), warmup=1,
-                         reps=3), b_ms, b_by, None)
-        del qg, kb, vb, o, lse, do, args, got, want
+        do = rand(qg.shape, dtype, dev, 151)
+        selection_tiled_rows(record, "d128_groups", qg, kb, vb, [idx], tok_bias, do)
+        del qg, kb, vb, do
 
         # ---- epilogue_fwd, epilogue_bwd: R = N·Hq rows of 128
         R = n * Hq
@@ -1396,13 +1495,14 @@ def head_dim_128_phase(dev) -> list[dict]:
 
 
 def ptxas_table(log: str) -> list[dict]:
-    """Registers and spill bytes of each flash_dq / flash_dkv instantiation
-    in the nvcc -Xptxas=-v log: kernel, head dim, the entry's name."""
+    """Registers and spill bytes of each instantiation of the kernels in
+    ``NO_SPILL`` in the nvcc -Xptxas=-v log: kernel, variant, head dim."""
     out, cur = [], None
+    names = "|".join(NO_SPILL)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_dq|flash_dkv)_(mma|fma)ILi(\d+)E", m.group(1))
+            k = re.search(r"(%s)_(mma|fma)ILi(\d+)E" % names, m.group(1))
             cur = None
             if k:
                 cur = {"kernel": k.group(1), "variant": k.group(2), "head_dim": int(k.group(3))}
@@ -1562,19 +1662,24 @@ def decode_oracle_phase(dev) -> dict:
 
 def serve_requests(vocab: int) -> list[np.ndarray]:
     """10 prompts of 1,100–1,600 random tokens (numpy seed 0); requests 0, 1
-    and 8 open with the same 512 tokens."""
+    and 8 open with the same 512 tokens; request 10 is exactly those 512
+    tokens (two full pages): admitted after they are sealed, it reuses both
+    and must copy-on-write the second before it recomputes its last
+    position."""
     rng = np.random.default_rng(0)
     lens = rng.integers(1100, 1601, N_REQUESTS)
     prompts = [rng.integers(0, vocab, int(n), dtype=np.int32) for n in lens]
     for r in (1, 8):
         prompts[r][:SHARED] = prompts[0][:SHARED]
+    prompts.append(prompts[0][:SHARED].copy())
     return prompts
 
 
 def serve_lm_phase(dev, api, model) -> dict:
-    """Paged continuous batching of the 10 requests, then B = 1 lockstep
-    generation of requests 0 and 9 (two processes side by side, after the
-    serve) against the served tokens."""
+    """Paged continuous batching of the 11 requests (the last one forces a
+    copy-on-write), then B = 1 lockstep generation of requests 0, 9 and 10
+    (three processes side by side, after the serve) against the served
+    tokens."""
     cfg = api.mcfg
     prompts = serve_requests(cfg.vocab_size)
     eng = ServingEngine(api, model, batch_slots=SLOTS, max_len=MAX_LEN, paged=True,
@@ -1601,7 +1706,7 @@ def serve_lm_phase(dev, api, model) -> dict:
     eng.kv.check()
     per_step = [s.elapsed_time(e) / w for s, e, w in windows]
     stats = {"arch": LM, "slots": SLOTS, "max_len": MAX_LEN, "page": PAGE,
-             "requests": N_REQUESTS, "prompt_tokens": int(sum(len(p) for p in prompts)),
+             "requests": len(prompts), "prompt_tokens": int(sum(len(p) for p in prompts)),
              "new_tokens": NEW_TOKENS, "serve_steps": eng.serve_steps,
              "windows": len(windows), "wall_s": wall,
              "tokens_per_second": eng.tokens_per_second,
@@ -1616,8 +1721,10 @@ def serve_lm_phase(dev, api, model) -> dict:
     check_launches(launches, "serve_lm", 8 * cfg.n_layers * eng.serve_steps)
     check(all(len(o) == NEW_TOKENS for o in served), "a request got the wrong token count")
     check(eng.kv.blocks_reused > 0, "the shared prompt prefix was not reused")
+    check(eng.kv.cow_copies >= 1, "request 10 (the shared 512 tokens) made no "
+                                  "copy-on-write")
     profile_decode(eng)
-    stats["lockstep"] = lockstep_checks(cfg, dev, prompts, served, (0, 9))
+    stats["lockstep"] = lockstep_checks(cfg, dev, prompts, served, (0, 9, 10))
     return stats
 
 
@@ -1848,43 +1955,19 @@ def lm_backward_kernel_phase(dev, picks) -> list[dict]:
            lib_ms)
     del q, kf, vf, o, lse, do, args, dq, dkv, want, qs, ks, vs
 
-    # ---- selection_bwd: each layer's picks, 64 groups of g·rep = 512 rows,
-    # 16 blocks of 64 keys; times and bounds the mean over the layers
+    # ---- selection_fwd, selection_dq, selection_dkv: each layer's picks, 64
+    # groups of g·rep = 512 rows, 16 blocks of 64 keys
     G, M = n // LM_G, LM_G * rep
+    for idx in picks:
+        check(idx.shape == (Bt, LM_HKV, G, LM_KSTAR), f"LM picks {tuple(idx.shape)}")
     qg = rand((Bt, LM_HKV, G, M, LM_D), dtype, dev, 124)
     kb = rand((Bt, LM_HKV, NBt, LM_ELL, LM_D), dtype, dev, 125)
     vb = rand((Bt, LM_HKV, NBt, LM_ELL, LM_D), dtype, dev, 126)
     tok_bias = torch.zeros((Bt, NBt, LM_ELL), dtype=torch.float32, device=dev)
     do = rand(qg.shape, dtype, dev, 127)
-    errs, oks, k_ms, p_ms, b_ms = [], [], [], [], []
-    for idx in picks:
-        check(idx.shape == (Bt, LM_HKV, G, LM_KSTAR), f"LM picks {tuple(idx.shape)}")
-        o, lse = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
-        args = (qg, kb, vb, idx, tok_bias, do, lse, row_delta(do, o))
-        got = selection.selection_attention_bwd(*args)
-        want = selection.selection_attention_bwd_plain(*args)
-        torch.cuda.synchronize()
-        err, ok = rel_err(got, want, tol_table=SEL_BWD_TOL)
-        errs.append(err)
-        oks.append(ok)
-        valid_sel = int((idx >= 0).sum())
-        used = torch.zeros(Bt, LM_HKV, NBt, dtype=torch.bool, device=dev)
-        used.scatter_(2, idx.clamp(min=0).reshape(Bt, LM_HKV, -1).long(),
-                      (idx >= 0).reshape(Bt, LM_HKV, -1))
-        nbytes = (3 * qg.numel() + 2 * int(used.sum()) * LM_ELL * LM_D) * es \
-            + 4 * 2 * kb.numel() + 4 * idx.numel() + 4 * tok_bias.numel() \
-            + 2 * 4 * qg.numel() // LM_D
-        b_ms.append(bound(nbytes, 10.0 * M * LM_ELL * LM_D * valid_sel, dtype))
-        k_ms.append(median_ms(lambda: selection.selection_attention_bwd(*args), warmup=1,
-                              reps=3))
-        p_ms.append(median_ms(lambda: selection.selection_attention_bwd_plain(*args),
-                              warmup=1, reps=1))
-        del o, lse, args, got, want
-    record("selection_bwd", "lm_train_topk", dtype,
-           max(errs) if all(math.isfinite(e) for e in errs) else math.nan, all(oks),
-           statistics.fmean(k_ms), statistics.fmean(p_ms),
-           statistics.fmean(t for t, _ in b_ms), b_ms[0][1], None)
+    selection_tiled_rows(record, "lm_train_topk", qg, kb, vb, picks, tok_bias, do)
     del qg, kb, vb, do
+    torch.cuda.empty_cache()
 
     # ---- epilogue_bwd: R = B·N·Hq rows of 64
     R = Bt * n * LM_HQ
@@ -2064,7 +2147,7 @@ def main() -> int:
             print("# ptxas " + line.strip(), flush=True)
     if info["built"]:                      # the log of this build: no spills where it matters
         table = ptxas_table(info["log"])
-        print(json.dumps({"ptxas_flash_bwd": table}), flush=True)
+        print(json.dumps({"ptxas_no_spill": table}), flush=True)
         for name, dims in NO_SPILL.items():
             for d in dims:
                 got = [r for r in table if r["kernel"] == name and r["head_dim"] == d]

@@ -44,6 +44,14 @@ __device__ __forceinline__ float p_from_lse(float s, float lse) {
   return s <= NEG_HALF ? 0.f : expf(s - lse);
 }
 
+// The same on the MUFU unit (__expf: ex2.approx, a few ulp): the bf16
+// tensor-core kernels, whose p is rounded to bf16 before its products, use
+// it; at their tile sizes the exact expf's range reduction, not the
+// products, sets their pace.
+__device__ __forceinline__ float p_from_lse_fast(float s, float lse) {
+  return s <= NEG_HALF ? 0.f : __expf(s - lse);
+}
+
 // Sum of a value over the `width` lanes of an aligned lane group.
 template <int width>
 __device__ __forceinline__ float group_sum(float v) {

@@ -1,7 +1,6 @@
-// Group-selected sparse attention backward: for each (batch, KV head, query
-// group), dQ accumulated over the group's k* selected blocks, and each
-// selected block's dK, dV added into the blocked gradients, recomputed from
-// the forward's lse.
+// Group-selected sparse attention backward, recomputed from the forward's
+// lse: dQ accumulated over each group's k* selected blocks, and each selected
+// block's dK, dV summed into the blocked gradients, duplicates summing.
 //
 // Replaces repro/kernels/selection.py::_bwd_kernel (Pallas, TPU) and the jnp
 // scatter that follows it (selection.py::_scatter_blocks).
@@ -9,28 +8,65 @@
 // Layout: q, dO (B, Hkv, G, M, D) with M = g*rep rows per group, kb/vb
 // (B, Hkv, NB, ell, D), idx (B, Hkv, G, k*) int32 (-1 = skip), tok_bias
 // (B, NB, ell) fp32, lse and delta = rowsum(dO*O) (B, Hkv, G, M) fp32
-// -> dq like q, dkb/dvb (B, Hkv, NB, ell, D) fp32, zeroed by the caller.
+// -> dq like q, dkb/dvb like kb.
 //
-// Design.  As in the forward, one warp owns one (b, h, group): lanes are
-// (8 rows) x (4 lanes per row), each lane holds D/4 dims of its row's q,
-// dO and dq; a row's dot products (q.k, dO.v) are summed over its 4 lanes
-// by shuffles.  For each valid selection and each of its ell keys:
-//   p = exp(s - lse), dS = p*(dO.v - delta)*scale, dq += dS*k (lane-local),
-//   dk_key = sum_rows dS*q, dv_key = sum_rows p*dO  (summed over the 8 row
-//   groups of lanes by shuffles, then added atomically, one dim per lane).
-// The TPU kernel wrote per-selection tiles to a staging buffer that jnp then
-// scatter-added; here the atomic fp32 adds are the scatter, and a block
-// picked by several groups sums their contributions in place.  p and dS are
-// rounded to the operand dtype before their products.  Invalid selections,
-// masked keys and rows with lse = LSE_EMPTY contribute nothing; a group with
-// no valid selection writes dq = 0.
+// Per valid (row, key) pair: p = exp(s - lse), dS = p*(dO.v - delta)*scale,
+// dq += dS*k, dk += dS*q, dv += p*dO: 10*M*k*ell*D FLOP a group against
+// the k* blocks of K and V it reads and as many gradient elements it adds.
+// p and dS are rounded to the operand dtype before their products.  Invalid
+// selections, masked keys and rows with lse = LSE_EMPTY contribute nothing;
+// a group with no valid selection writes dq = 0, a block no group selected
+// dk = dv = 0.
 //
-// Bound on the H100: each group reads k* blocks of K and V (2*k*ell*D
-// elements) and adds as many gradient elements for 10*M*k*ell*D FLOP, so
-// memory bounds it; the fp32 atomics resolve in L2.
-#include "common.cuh"
+// Design: two paths, chosen by kernels/selection.py::selection_plan.
+//   warp   M < 16 (shapenet: 8 rows, ell = 8), one entry point,
+//          selection_bwd.  One warp owns one (b, h, group): lanes are (8
+//          rows) x (4 lanes per row), each lane holds D/4 dims of its row's
+//          q, dO and dq; a row's dot products are summed over its 4 lanes by
+//          shuffles.  Each selection's dk, dv (summed over the 8 row groups
+//          of lanes by shuffles) is added atomically into fp32 buffers the
+//          caller zeroed: one atomic per element and selection, in a
+//          run-to-run order.
+//   tiles  M >= 16 (the LM: 512 rows, ell = 64), the TPU's own split into
+//          two entry points, no atomics:
+//     selection_dq   on the forward's grid (b, h, group, tile of 64 rows):
+//                    stages its rows of Q and dO once and walks the group's
+//                    valid selections in staged chunks of keys, recomputing
+//                    S, P and dP; dQ stays in registers.
+//     selection_dkv  one block per (valid selection, chunk of keys): stages
+//                    the chunk's K and V once, streams the group's rows of
+//                    Q, dO, lse and delta through shared memory and keeps dK,
+//                    dV of its keys in registers; writes them, fp32, into a
+//                    staging buffer ws (2, B*Hkv*G*k*, ell, D), as the TPU's
+//                    out_specs did.  The blocks run in the order of an
+//                    inverse index of idx (kernels/selection.py::
+//                    scatter_plan: selections sorted by block, stable, with
+//                    each block's [offsets[i], offsets[i+1]) range), so slot
+//                    s of ws holds the s-th selection in that order; a second
+//                    pass (selection_dkv_reduce) sums each block's range in
+//                    order and casts: deterministic.
+//     Tiles are staged by cp.async, double-buffered, in the operand dtype:
+//       bf16  the products on the tensor cores (mma.sync m16n8k16, fp32
+//             accumulation); P and dS go from the accumulator to the next
+//             product's A fragment in registers; p from __expf (MUFU).
+//       fp32  the FMA pipes in register micro-tiles, P and dS through shared
+//             memory (3xTF32 fails shapenet's train check on phi_k.pos).
+#include "selection.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+using rt::dot4;
+using rt::lane_of;
+using rt::load_vec;
+using rt::set_smem;
+using rt::stage_rows;
+using rt::stage_vals;
+using rt::store2;
+
+// ---------------------------------------------------------------------------
+// warp: one warp a (b, h, group), 8 rows a pass, atomics per key.
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;          // (b, h, group) items per block
 constexpr int kLanesPerRow = 4;
@@ -115,11 +151,665 @@ selection_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
   }
 }
 
+// ---------------------------------------------------------------------------
+// selection_dq, bf16: tensor cores.  4 warps, warp w owns rows 16w..16w+15
+// of the block's 64; per staged chunk of 64 keys a warp computes S and dP
+// (16 rows x 64 keys), turns dS into A fragments and adds dS K into its dQ.
+// ---------------------------------------------------------------------------
+template <int D>
+struct DqMma {
+  static constexpr int BM = 64, BK = 64, NT = 128, LD = D + 8;
+  static constexpr int Q_OFF = 0, DO_OFF = BM * LD, K_OFF = 2 * BM * LD;
+  static constexpr int V_OFF = K_OFF + 2 * BK * LD, BF_END = V_OFF + 2 * BK * LD;
+  // + the selection list, k* + 1 ints
+  static constexpr size_t SMEM = (size_t)BF_END * 2 + (size_t)2 * BK * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+selection_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ kb,
+                 const bf16* __restrict__ vb, const int* __restrict__ idx,
+                 const float* __restrict__ tok_bias, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dq, int Hkv, int G, int M, int NB, int ell, int k_star,
+                 float scale) {
+  using C = DqMma<D>;
+  constexpr int BK = C::BK, LD = C::LD;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  bf16* Qs = sm + C::Q_OFF;
+  bf16* Ds = sm + C::DO_OFF;
+  float* bs = reinterpret_cast<float*>(sm + C::BF_END);    // [2][BK]
+  int* list = reinterpret_cast<int*>(bs + 2 * BK);        // [k* + 1]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int rw = (threadIdx.x / 32) * 16;                   // the warp's first row
+  const int item = blockIdx.x;                              // (b * Hkv + h) * G + group
+  const int bh = item / G, b = bh / Hkv;
+  const int row0 = blockIdx.y * C::BM;
+  const int nrows = min(C::BM, M - row0);
+  const size_t base = (size_t)item * M + row0;
+
+  const bool live = threadIdx.x < nrows && lse[base + threadIdx.x] < rt::LSE_HALF;
+  if (!__syncthreads_or(live)) {           // every row empty: dq == 0
+    rt::store_zeros(dq + base * D, nrows * D);
+    return;
+  }
+  const int n_sel = rt::collect_selections(idx + (size_t)item * k_star, k_star, NB, list);
+  const int nch = (ell + BK - 1) / BK;
+  const int n_tiles = n_sel * nch;
+  stage_rows<bf16, D, LD>(Qs, q + base * D, nrows, C::BM, C::NT);
+  stage_rows<bf16, D, LD>(Ds, dout + base * D, nrows, C::BM, C::NT);
+  auto load_tile = [&](int t, int buf) {
+    rt::stage_block_chunk<bf16, D, LD, BK>(sm + C::K_OFF + buf * BK * LD,
+                                           sm + C::V_OFF + buf * BK * LD, bs + buf * BK,
+                                           kb, vb, tok_bias, bh, b, list[1 + t / nch],
+                                           (t % nch) * BK, NB, ell, C::NT);
+  };
+
+  float l[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rw + g + 8 * h;
+    const bool ok = r < nrows;
+    l[h] = ok ? lse[base + r] : rt::LSE_EMPTY;
+    dl[h] = ok ? delta[base + r] : 0.f;
+  }
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = sm + C::K_OFF + buf * BK * LD;
+    const bf16* Vt = sm + C::V_OFF + buf * BK * LD;
+    const float* bt = bs + buf * BK;
+    float st[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][e] = dp[i][e] = 0.f;
+    // S = Q K^T, dP = dO V^T over D
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 16) {
+      uint32_t qa[4], da[4];
+      const int aoff = (rw + lane % 16) * LD + d0 + (lane / 16) * 8;
+      rt::ldmatrix_x4(qa, Qs + aoff);
+      rt::ldmatrix_x4(da, Ds + aoff);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        const int boff = (np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 + 8 * ((lane / 8) % 2);
+        uint32_t kf[4], vf[4];
+        rt::ldmatrix_x4(kf, Kt + boff);
+        rt::ldmatrix_x4(vf, Vt + boff);
+        rt::mma_bf16(st[2 * np], qa, kf[0], kf[1]);
+        rt::mma_bf16(st[2 * np + 1], qa, kf[2], kf[3]);
+        rt::mma_bf16(dp[2 * np], da, vf[0], vf[1]);
+        rt::mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
+      }
+    }
+    // dS = P (dP - delta) scale, rounded to bf16 as A fragments (rows x keys)
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const float p = rt::p_from_lse_fast(st[nt][e] * scale + bt[nt * 8 + tig * 2 + (e % 2)],
+                                       l[h]);
+        dp[nt][e] = p * (dp[nt][e] - dl[h]) * scale;
+      }
+    }
+    // dQ += dS K over the chunk's keys
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t sa[4];
+      sa[0] = rt::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      sa[1] = rt::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      sa[2] = rt::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      sa[3] = rt::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+      for (int n0 = 0; n0 < D; n0 += 16) {
+        const int boff = (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n0 + 8 * (lane / 16);
+        uint32_t kf[4];
+        rt::ldmatrix_x4_trans(kf, Kt + boff);
+        rt::mma_bf16(dqa[n0 / 8], sa, kf[0], kf[1]);
+        rt::mma_bf16(dqa[n0 / 8 + 1], sa, kf[2], kf[3]);
+      }
+    }
+    __syncthreads();                       // buffer `buf` is free for chunk t+2
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rw + g + 8 * h;
+    if (r >= nrows) continue;
+    bf16* out = dq + (base + r) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      store2<bf16>(out + nt * 8, dqa[nt][2 * h], dqa[nt][2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// selection_dq, fp32: FMA pipes, register-tiled.  NT threads as 16 key lanes
+// (kx) x RY row lanes (ry).  S and dP of a staged chunk: a thread holds rows
+// ry+RY*j (j < 64/RY) x keys kx+16i (i < BK/16).  dS goes to shared memory;
+// then the thread adds dS K into dQ of its rows x D/16 dims.
+// ---------------------------------------------------------------------------
+template <int D>
+struct DqFma {
+  static constexpr int BM = 64, BK = 32, NT = D > 64 ? 256 : 128;
+  static constexpr int RY = NT / 16, RPT = BM / RY, KPT = BK / 16, DPT = D / 16;
+  static constexpr int LD = D + 4, LS = BK + 4;
+  static constexpr int Q_OFF = 0, DO_OFF = BM * LD, K_OFF = 2 * BM * LD;
+  static constexpr int V_OFF = K_OFF + 2 * BK * LD, S_OFF = V_OFF + 2 * BK * LD;
+  static constexpr int L_OFF = S_OFF + BM * LS, DL_OFF = L_OFF + BM, B_OFF = DL_OFF + BM;
+  // + the selection list, k* + 1 ints
+  static constexpr size_t SMEM = (size_t)(B_OFF + 2 * BK) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqFma<D>::NT, 1)
+selection_dq_fma(const float* __restrict__ q, const float* __restrict__ kb,
+                 const float* __restrict__ vb, const int* __restrict__ idx,
+                 const float* __restrict__ tok_bias, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dq, int Hkv, int G, int M, int NB, int ell, int k_star,
+                 float scale) {
+  using C = DqFma<D>;
+  constexpr int BK = C::BK, LD = C::LD, LS = C::LS, RY = C::RY, RPT = C::RPT;
+  constexpr int KPT = C::KPT, DPT = C::DPT;
+  float* sm = reinterpret_cast<float*>(rt::dyn_smem());
+  float* Qs = sm + C::Q_OFF;
+  float* Ds = sm + C::DO_OFF;
+  float* Ss = sm + C::S_OFF;
+  float* ls = sm + C::L_OFF;
+  float* dls = sm + C::DL_OFF;
+  float* bs = sm + C::B_OFF;                                // [2][BK]
+  int* list = reinterpret_cast<int*>(bs + 2 * BK);          // [k* + 1]
+
+  const int kx = threadIdx.x % 16, ry = threadIdx.x / 16;
+  const int item = blockIdx.x;
+  const int bh = item / G, b = bh / Hkv;
+  const int row0 = blockIdx.y * C::BM;
+  const int nrows = min(C::BM, M - row0);
+  const size_t base = (size_t)item * M + row0;
+
+  const bool live = threadIdx.x < nrows && lse[base + threadIdx.x] < rt::LSE_HALF;
+  if (!__syncthreads_or(live)) {           // every row empty: dq == 0
+    rt::store_zeros(dq + base * D, nrows * D);
+    return;
+  }
+  const int n_sel = rt::collect_selections(idx + (size_t)item * k_star, k_star, NB, list);
+  const int nch = (ell + BK - 1) / BK;
+  const int n_tiles = n_sel * nch;
+  stage_rows<float, D, LD>(Qs, q + base * D, nrows, C::BM, C::NT);
+  stage_rows<float, D, LD>(Ds, dout + base * D, nrows, C::BM, C::NT);
+  stage_vals(ls, lse + base, nrows, C::BM, rt::LSE_EMPTY, C::NT);
+  stage_vals(dls, delta + base, nrows, C::BM, 0.f, C::NT);
+  auto load_tile = [&](int t, int buf) {
+    rt::stage_block_chunk<float, D, LD, BK>(sm + C::K_OFF + buf * BK * LD,
+                                            sm + C::V_OFF + buf * BK * LD, bs + buf * BK,
+                                            kb, vb, tok_bias, bh, b, list[1 + t / nch],
+                                            (t % nch) * BK, NB, ell, C::NT);
+  };
+
+  float dqa[RPT][DPT];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j)
+#pragma unroll
+    for (int m = 0; m < DPT; ++m) dqa[j][m] = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = sm + C::K_OFF + buf * BK * LD;
+    const float* Vt = sm + C::V_OFF + buf * BK * LD;
+    const float* bt = bs + buf * BK;
+    float st[RPT][KPT], dp[RPT][KPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) st[j][i] = dp[j][i] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kk[KPT], vv[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        kk[i] = *reinterpret_cast<const float4*>(Kt + (kx + 16 * i) * LD + d);
+        vv[i] = *reinterpret_cast<const float4*>(Vt + (kx + 16 * i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const float4 qq = *reinterpret_cast<const float4*>(Qs + (ry + RY * j) * LD + d);
+        const float4 oo = *reinterpret_cast<const float4*>(Ds + (ry + RY * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+          st[j][i] = dot4(qq, kk[i], st[j][i]);
+          dp[j][i] = dot4(oo, vv[i], dp[j][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int row = ry + RY * j;
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const int key = kx + 16 * i;
+        const float p = rt::p_from_lse(st[j][i] * scale + bt[key], ls[row]);
+        Ss[row * LS + key] = p * (dp[j][i] - dls[row]) * scale;
+      }
+    }
+    __syncthreads();
+    // dQ += dS K: rows ry+RY*j, dims kx*DPT..
+#pragma unroll 2
+    for (int c0 = 0; c0 < BK; c0 += 4) {
+      float4 dd[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j)
+        dd[j] = *reinterpret_cast<const float4*>(Ss + (ry + RY * j) * LS + c0);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float kd[DPT];
+        load_vec<DPT>(kd, Kt + (c0 + c) * LD + kx * DPT);
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const float sv = lane_of(dd[j], c);
+#pragma unroll
+          for (int m = 0; m < DPT; ++m) dqa[j][m] = fmaf(sv, kd[m], dqa[j][m]);
+        }
+      }
+    }
+    __syncthreads();                       // buffers free for the next loads
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    const int row = ry + RY * j;
+    if (row >= nrows) continue;
+    float* out = dq + (base + row) * D + kx * DPT;
+#pragma unroll
+    for (int m = 0; m < DPT; ++m) out[m] = dqa[j][m];
+  }
+}
+
+// The selection a selection_dkv block owns: slot s of the inverse index,
+// its group item = (b * Hkv + h) * G + group and its block.  false when s is
+// past the valid selections (offsets[n_blocks]).
+struct Slot {
+  int item, blk;
+};
+__device__ __forceinline__ bool slot_of(int s, const int* order, const int* offsets,
+                                        const int* idx, int n_blocks, int k_star, Slot& out) {
+  if (s >= offsets[n_blocks]) return false;
+  const int pos = order[s];                                 // (item, j) flattened
+  out.item = pos / k_star;
+  out.blk = idx[pos];
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// selection_dkv, bf16: tensor cores.  4 warps, warp w owns keys 16w..16w+15
+// of the block's chunk of 64; per 32 rows of a staged row tile a warp
+// computes S^T and dP^T (16 keys x 32 rows), turns them into P^T and dS^T
+// fragments and adds P^T dO and dS^T Q into its dV, dK (16 keys x D, fp32).
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkvMma {
+  static constexpr int BK = 64, BM = D > 64 ? 32 : 64, NT = 128;
+  static constexpr int LD = D + 8;   // bf16 row stride: ldmatrix rows on distinct banks
+  static constexpr int K_OFF = 0, V_OFF = BK * LD, Q_OFF = 2 * BK * LD;
+  static constexpr int DO_OFF = Q_OFF + 2 * BM * LD, BF_END = DO_OFF + 2 * BM * LD;
+  static constexpr size_t SMEM = (size_t)BF_END * 2 + (size_t)(4 * BM + BK) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+selection_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ kb,
+                  const bf16* __restrict__ vb, const int* __restrict__ idx,
+                  const float* __restrict__ tok_bias, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ order, const int* __restrict__ offsets,
+                  float* __restrict__ ws, int n_blocks, int n_slots, int Hkv, int G, int M,
+                  int NB, int ell, int k_star, float scale) {
+  using C = DkvMma<D>;
+  constexpr int BM = C::BM, LD = C::LD;
+  Slot sl;
+  if (!slot_of(blockIdx.x, order, offsets, idx, n_blocks, k_star, sl)) return;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  bf16* Ks = sm + C::K_OFF;
+  bf16* Vs = sm + C::V_OFF;
+  float* ls = reinterpret_cast<float*>(sm + C::BF_END);   // [2][BM]
+  float* dls = ls + 2 * BM;                                // [2][BM]
+  float* bs = dls + 2 * BM;                                // [BK]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int kw = (threadIdx.x / 32) * 16;                   // the warp's first key
+  const int bh = sl.item / G, b = bh / Hkv;
+  const int j0 = blockIdx.y * C::BK;
+  const int nk = min(C::BK, ell - j0);
+
+  rt::stage_block_chunk<bf16, D, LD, C::BK>(Ks, Vs, bs, kb, vb, tok_bias, bh, b, sl.blk, j0,
+                                            NB, ell, C::NT);
+  const int n_tiles = (M + BM - 1) / BM;
+  const size_t rows0 = (size_t)sl.item * M;
+  auto load_tile = [&](int it, int buf) {
+    const int t0 = it * BM;
+    const int n = min(BM, M - t0);
+    const size_t row0 = rows0 + t0;
+    stage_rows<bf16, D, LD>(sm + C::Q_OFF + buf * BM * LD, q + row0 * D, n, BM, C::NT);
+    stage_rows<bf16, D, LD>(sm + C::DO_OFF + buf * BM * LD, dout + row0 * D, n, BM, C::NT);
+    stage_vals(ls + buf * BM, lse + row0, n, BM, rt::LSE_EMPTY, C::NT);
+    stage_vals(dls + buf * BM, delta + row0, n, BM, 0.f, C::NT);
+  };
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) load_tile(it + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    const float* lt = ls + buf * BM;
+    const float* dlt = dls + buf * BM;
+    const bool row_live = threadIdx.x < BM && lt[threadIdx.x] < rt::LSE_HALF;
+    // the tile has a live row, and the warp a key of the block
+    if (__syncthreads_or(row_live) && kw < nk) {
+      const bf16* Qt = sm + C::Q_OFF + buf * BM * LD;
+      const bf16* Dt = sm + C::DO_OFF + buf * BM * LD;
+      // sub-tiles of 32 rows bound the S^T / dP^T registers
+#pragma unroll 1
+      for (int r0 = 0; r0 < BM; r0 += 32) {
+        float st[4][4], dp[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[i][e] = dp[i][e] = 0.f;
+        // S^T = K Q^T, dP^T = V dO^T over D
+#pragma unroll
+        for (int d0 = 0; d0 < D; d0 += 16) {
+          uint32_t ka[4], va[4];
+          const int aoff = (kw + lane % 16) * LD + d0 + (lane / 16) * 8;
+          rt::ldmatrix_x4(ka, Ks + aoff);
+          rt::ldmatrix_x4(va, Vs + aoff);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            const int boff =
+                (r0 + np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 + 8 * ((lane / 8) % 2);
+            uint32_t qb[4], db[4];
+            rt::ldmatrix_x4(qb, Qt + boff);
+            rt::ldmatrix_x4(db, Dt + boff);
+            rt::mma_bf16(st[2 * np], ka, qb[0], qb[1]);
+            rt::mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
+            rt::mma_bf16(dp[2 * np], va, db[0], db[1]);
+            rt::mma_bf16(dp[2 * np + 1], va, db[2], db[3]);
+          }
+        }
+        // P^T and dS^T, rounded to bf16 as A fragments (keys x rows)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kw + g + 8 * (e / 2);
+            const int row = r0 + nt * 8 + tig * 2 + (e % 2);
+            const float p = rt::p_from_lse_fast(st[nt][e] * scale + bs[key], lt[row]);
+            dp[nt][e] = p * (dp[nt][e] - dlt[row]) * scale;
+            st[nt][e] = p;
+          }
+        }
+        uint32_t pa[2][4], sa[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          pa[kk][0] = rt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
+          pa[kk][1] = rt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
+          pa[kk][2] = rt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+          pa[kk][3] = rt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+          sa[kk][0] = rt::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+          sa[kk][1] = rt::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+          sa[kk][2] = rt::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+          sa[kk][3] = rt::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+        }
+        // dV += P^T dO, dK += dS^T Q over the sub-tile's rows
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+          for (int n0 = 0; n0 < D; n0 += 16) {
+            const int boff =
+                (r0 + kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n0 + 8 * (lane / 16);
+            uint32_t db[4], qb[4];
+            rt::ldmatrix_x4_trans(db, Dt + boff);
+            rt::ldmatrix_x4_trans(qb, Qt + boff);
+            rt::mma_bf16(dva[n0 / 8], pa[kk], db[0], db[1]);
+            rt::mma_bf16(dva[n0 / 8 + 1], pa[kk], db[2], db[3]);
+            rt::mma_bf16(dka[n0 / 8], sa[kk], qb[0], qb[1]);
+            rt::mma_bf16(dka[n0 / 8 + 1], sa[kk], qb[2], qb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                       // buffer `buf` is free for tile it+2
+  }
+  rt::cp_async_wait<0>();
+
+  const size_t slab = (size_t)n_slots * ell * D;            // one (slots, ell, D) array
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kw + g + 8 * h;
+    if (key >= nk) continue;
+    const size_t off = ((size_t)blockIdx.x * ell + j0 + key) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      store2<float>(ws + off + nt * 8, dka[nt][2 * h], dka[nt][2 * h + 1]);
+      store2<float>(ws + slab + off + nt * 8, dva[nt][2 * h], dva[nt][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// selection_dkv, fp32: FMA pipes, register-tiled.  NT threads as 16 key
+// lanes (kx) x RY row lanes (ry).  S^T and dP^T of a staged row tile: a
+// thread holds keys kx+16i (i < 4) x rows ry+RY*j (j < BM/RY).  P^T and dS^T
+// go to shared memory; then the thread adds into dV, dK of its 4 keys x D/RY
+// dims.
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkvFma {
+  static constexpr int BK = 64, BM = D > 64 ? 32 : 64, NT = D > 64 ? 256 : 128;
+  static constexpr int RY = NT / 16, RPT = BM / RY, DPT = D / RY;
+  static constexpr int LD = D + 4, LP = BM + 4;
+  static constexpr int K_OFF = 0, V_OFF = BK * LD, Q_OFF = 2 * BK * LD;
+  static constexpr int DO_OFF = Q_OFF + 2 * BM * LD, P_OFF = DO_OFF + 2 * BM * LD;
+  static constexpr int S_OFF = P_OFF + BK * LP, L_OFF = S_OFF + BK * LP;
+  static constexpr int DL_OFF = L_OFF + 2 * BM, B_OFF = DL_OFF + 2 * BM;
+  static constexpr size_t SMEM = (size_t)(B_OFF + BK) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvFma<D>::NT, 1)
+selection_dkv_fma(const float* __restrict__ q, const float* __restrict__ kb,
+                  const float* __restrict__ vb, const int* __restrict__ idx,
+                  const float* __restrict__ tok_bias, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int* __restrict__ order, const int* __restrict__ offsets,
+                  float* __restrict__ ws, int n_blocks, int n_slots, int Hkv, int G, int M,
+                  int NB, int ell, int k_star, float scale) {
+  using C = DkvFma<D>;
+  constexpr int BM = C::BM, LD = C::LD, LP = C::LP, RY = C::RY, RPT = C::RPT, DPT = C::DPT;
+  Slot sl;
+  if (!slot_of(blockIdx.x, order, offsets, idx, n_blocks, k_star, sl)) return;
+  float* sm = reinterpret_cast<float*>(rt::dyn_smem());
+  float* Ks = sm + C::K_OFF;
+  float* Vs = sm + C::V_OFF;
+  float* Ps = sm + C::P_OFF;
+  float* Ss = sm + C::S_OFF;
+  float* ls = sm + C::L_OFF;
+  float* dls = sm + C::DL_OFF;
+  float* bs = sm + C::B_OFF;
+
+  const int kx = threadIdx.x % 16, ry = threadIdx.x / 16;
+  const int bh = sl.item / G, b = bh / Hkv;
+  const int j0 = blockIdx.y * C::BK;
+  const int nk = min(C::BK, ell - j0);
+
+  rt::stage_block_chunk<float, D, LD, C::BK>(Ks, Vs, bs, kb, vb, tok_bias, bh, b, sl.blk, j0,
+                                             NB, ell, C::NT);
+  const int n_tiles = (M + BM - 1) / BM;
+  const size_t rows0 = (size_t)sl.item * M;
+  auto load_tile = [&](int it, int buf) {
+    const int t0 = it * BM;
+    const int n = min(BM, M - t0);
+    const size_t row0 = rows0 + t0;
+    stage_rows<float, D, LD>(sm + C::Q_OFF + buf * BM * LD, q + row0 * D, n, BM, C::NT);
+    stage_rows<float, D, LD>(sm + C::DO_OFF + buf * BM * LD, dout + row0 * D, n, BM, C::NT);
+    stage_vals(ls + buf * BM, lse + row0, n, BM, rt::LSE_EMPTY, C::NT);
+    stage_vals(dls + buf * BM, delta + row0, n, BM, 0.f, C::NT);
+  };
+
+  float dka[4][DPT], dva[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < DPT; ++m) dka[i][m] = dva[i][m] = 0.f;
+
+  load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) load_tile(it + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    const float* lt = ls + buf * BM;
+    const float* dlt = dls + buf * BM;
+    const bool row_live = threadIdx.x < BM && lt[threadIdx.x] < rt::LSE_HALF;
+    if (__syncthreads_or(row_live)) {      // block-uniform
+      const float* Qt = sm + C::Q_OFF + buf * BM * LD;
+      const float* Dt = sm + C::DO_OFF + buf * BM * LD;
+      float st[4][RPT], dp[4][RPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) st[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        float4 kk[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kk[i] = *reinterpret_cast<const float4*>(Ks + (kx + 16 * i) * LD + d);
+          vv[i] = *reinterpret_cast<const float4*>(Vs + (kx + 16 * i) * LD + d);
+        }
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const float4 qq = *reinterpret_cast<const float4*>(Qt + (ry + RY * j) * LD + d);
+          const float4 oo = *reinterpret_cast<const float4*>(Dt + (ry + RY * j) * LD + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            st[i][j] = dot4(kk[i], qq, st[i][j]);
+            dp[i][j] = dot4(vv[i], oo, dp[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = kx + 16 * i;
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const int row = ry + RY * j;
+          const float p = rt::p_from_lse(st[i][j] * scale + bs[key], lt[row]);
+          Ps[key * LP + row] = p;
+          Ss[key * LP + row] = p * (dp[i][j] - dlt[row]) * scale;
+        }
+      }
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: keys kx+16i, dims ry*DPT..
+#pragma unroll 2
+      for (int r = 0; r < BM; r += 4) {
+        float4 pp[4], ss[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pp[i] = *reinterpret_cast<const float4*>(Ps + (kx + 16 * i) * LP + r);
+          ss[i] = *reinterpret_cast<const float4*>(Ss + (kx + 16 * i) * LP + r);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float od[DPT], qd[DPT];
+          load_vec<DPT>(od, Dt + (r + c) * LD + ry * DPT);
+          load_vec<DPT>(qd, Qt + (r + c) * LD + ry * DPT);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pv = lane_of(pp[i], c), sv = lane_of(ss[i], c);
+#pragma unroll
+            for (int m = 0; m < DPT; ++m) {
+              dva[i][m] = fmaf(pv, od[m], dva[i][m]);
+              dka[i][m] = fmaf(sv, qd[m], dka[i][m]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                       // buffers free for the next loads
+  }
+  rt::cp_async_wait<0>();
+
+  const size_t slab = (size_t)n_slots * ell * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = kx + 16 * i;
+    if (key >= nk) continue;
+    const size_t off = ((size_t)blockIdx.x * ell + j0 + key) * D + ry * DPT;
+#pragma unroll
+    for (int m = 0; m < DPT; ++m) {
+      ws[off + m] = dka[i][m];
+      ws[slab + off + m] = dva[i][m];
+    }
+  }
+}
+
+// Each block's dK and dV: the sum of its staged slots [offsets[i],
+// offsets[i+1]) in slot order, cast; zeros for a block no group selected.
+template <typename T>
+__global__ void __launch_bounds__(256)
+selection_dkv_reduce(const float* __restrict__ ws, const int* __restrict__ offsets,
+                     T* __restrict__ dkb, T* __restrict__ dvb, int n_slots, int per_blk4) {
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;      // float4 within the block
+  if (e >= per_blk4) return;
+  const int blk = blockIdx.x, which = blockIdx.z;           // which 0: dK, 1: dV
+  const int lo = offsets[blk], hi = offsets[blk + 1];
+  const float4* src = reinterpret_cast<const float4*>(ws) + (size_t)which * n_slots * per_blk4 + e;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = lo; s < hi; ++s) {
+    const float4 x = src[(size_t)s * per_blk4];
+    a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+  }
+  T* out = (which == 0 ? dkb : dvb) + ((size_t)blk * per_blk4 + e) * 4;
+  store2<T>(out, a.x, a.y);
+  store2<T>(out + 2, a.z, a.w);
+}
+
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
-int launch(const void* q, const void* kb, const void* vb, const void* idx,
-           const void* tok_bias, const void* dout, const void* lse, const void* delta,
-           void* dq, void* dkb, void* dvb, int B, int Hkv, int G, int M, int NB,
-           int ell, int k_star, cudaStream_t stream) {
+int launch_warp(const void* q, const void* kb, const void* vb, const void* idx,
+                const void* tok_bias, const void* dout, const void* lse, const void* delta,
+                void* dq, void* dkb, void* dvb, int B, int Hkv, int G, int M, int NB,
+                int ell, int k_star, cudaStream_t stream) {
   const int n_items = B * Hkv * G;
   const int blocks = (n_items + kWarps - 1) / kWarps;
   if (blocks == 0) return 0;
@@ -133,8 +823,87 @@ int launch(const void* q, const void* kb, const void* vb, const void* idx,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int launch_dq(const void* q, const void* kb, const void* vb, const void* idx,
+              const void* tok_bias, const void* dout, const void* lse, const void* delta,
+              void* dq, int B, int Hkv, int G, int M, int NB, int ell, int k_star,
+              cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const size_t list_bytes = (size_t)(k_star + 1) * sizeof(int);
+  if constexpr (sizeof(T) == 2) {
+    using C = DqMma<D>;
+    auto kern = selection_dq_mma<D>;
+    const size_t smem = C::SMEM + list_bytes;
+    if (int err = set_smem(kern, smem)) return err;
+    const dim3 grid(B * Hkv * G, (M + C::BM - 1) / C::BM);
+    kern<<<grid, C::NT, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(kb), static_cast<const bf16*>(vb),
+        static_cast<const int*>(idx), static_cast<const float*>(tok_bias),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dq), Hkv, G, M, NB, ell, k_star,
+        scale);
+  } else {
+    using C = DqFma<D>;
+    auto kern = selection_dq_fma<D>;
+    const size_t smem = C::SMEM + list_bytes;
+    if (int err = set_smem(kern, smem)) return err;
+    const dim3 grid(B * Hkv * G, (M + C::BM - 1) / C::BM);
+    kern<<<grid, C::NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kb),
+        static_cast<const float*>(vb), static_cast<const int*>(idx),
+        static_cast<const float*>(tok_bias), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dq), Hkv, G, M, NB, ell, k_star, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* kb, const void* vb, const void* idx,
+               const void* tok_bias, const void* dout, const void* lse, const void* delta,
+               const void* order, const void* offsets, void* ws, void* dkb, void* dvb, int B,
+               int Hkv, int G, int M, int NB, int ell, int k_star, cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const int n_blocks = B * Hkv * NB, n_slots = B * Hkv * G * k_star;
+  if (n_slots > 0 && M > 0) {
+    if constexpr (sizeof(T) == 2) {
+      using C = DkvMma<D>;
+      auto kern = selection_dkv_mma<D>;
+      if (int err = set_smem(kern, C::SMEM)) return err;
+      const dim3 grid(n_slots, (ell + C::BK - 1) / C::BK);
+      kern<<<grid, C::NT, C::SMEM, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(kb),
+          static_cast<const bf16*>(vb), static_cast<const int*>(idx),
+          static_cast<const float*>(tok_bias), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const int*>(order), static_cast<const int*>(offsets),
+          static_cast<float*>(ws), n_blocks, n_slots, Hkv, G, M, NB, ell, k_star, scale);
+    } else {
+      using C = DkvFma<D>;
+      auto kern = selection_dkv_fma<D>;
+      if (int err = set_smem(kern, C::SMEM)) return err;
+      const dim3 grid(n_slots, (ell + C::BK - 1) / C::BK);
+      kern<<<grid, C::NT, C::SMEM, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(kb),
+          static_cast<const float*>(vb), static_cast<const int*>(idx),
+          static_cast<const float*>(tok_bias), static_cast<const float*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<const int*>(order), static_cast<const int*>(offsets),
+          static_cast<float*>(ws), n_blocks, n_slots, Hkv, G, M, NB, ell, k_star, scale);
+    }
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  const int per_blk4 = ell * D / 4;
+  const dim3 rgrid(n_blocks, (per_blk4 + 255) / 256, 2);
+  selection_dkv_reduce<T><<<rgrid, 256, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const int*>(offsets), static_cast<T*>(dkb),
+      static_cast<T*>(dvb), n_slots, per_blk4);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// The warp path: dkb, dvb fp32, zeroed by the caller.
 extern "C" int selection_bwd(const void* q, const void* kb, const void* vb,
                              const void* idx, const void* tok_bias, const void* dout,
                              const void* lse, const void* delta, void* dq, void* dkb,
@@ -142,11 +911,48 @@ extern "C" int selection_bwd(const void* q, const void* kb, const void* vb,
                              int k_star, int D, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   RT_DISPATCH_D128(D, {
-    return bf16 ? launch<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, dout, lse,
-                                            delta, dq, dkb, dvb, B, Hkv, G, M, NB,
-                                            ell, k_star, s)
-                : launch<float, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta, dq,
-                                    dkb, dvb, B, Hkv, G, M, NB, ell, k_star, s);
+    return bf16 ? launch_warp<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, dout, lse,
+                                                 delta, dq, dkb, dvb, B, Hkv, G, M, NB,
+                                                 ell, k_star, s)
+                : launch_warp<float, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta, dq,
+                                         dkb, dvb, B, Hkv, G, M, NB, ell, k_star, s);
+  });
+  return 0;
+}
+
+// The tiled path's dQ.
+extern "C" int selection_dq(const void* q, const void* kb, const void* vb, const void* idx,
+                            const void* tok_bias, const void* dout, const void* lse,
+                            const void* delta, void* dq, int B, int Hkv, int G, int M,
+                            int NB, int ell, int k_star, int D, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * Hkv * G == 0 || M == 0) return 0;
+  RT_DISPATCH_D128(D, {
+    return bf16 ? launch_dq<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta,
+                                               dq, B, Hkv, G, M, NB, ell, k_star, s)
+                : launch_dq<float, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta, dq, B,
+                                       Hkv, G, M, NB, ell, k_star, s);
+  });
+  return 0;
+}
+
+// The tiled path's dK, dV: order / offsets the inverse index of idx
+// (kernels/selection.py::scatter_plan; offsets has B*Hkv*NB + 1 entries),
+// ws (2, B*Hkv*G*k*, ell, D) fp32 staging; dkb, dvb like kb, written whole.
+extern "C" int selection_dkv(const void* q, const void* kb, const void* vb, const void* idx,
+                             const void* tok_bias, const void* dout, const void* lse,
+                             const void* delta, const void* order, const void* offsets,
+                             void* ws, void* dkb, void* dvb, int B, int Hkv, int G, int M,
+                             int NB, int ell, int k_star, int D, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * Hkv * NB == 0) return 0;
+  RT_DISPATCH_D128(D, {
+    return bf16 ? launch_dkv<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta,
+                                                order, offsets, ws, dkb, dvb, B, Hkv, G, M,
+                                                NB, ell, k_star, s)
+                : launch_dkv<float, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta, order,
+                                        offsets, ws, dkb, dvb, B, Hkv, G, M, NB, ell,
+                                        k_star, s);
   });
   return 0;
 }

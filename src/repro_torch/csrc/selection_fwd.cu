@@ -8,23 +8,53 @@
 // kb/vb (B, Hkv, NB, ell, D), idx (B, Hkv, G, k*) int32, tok_bias (B, NB, ell)
 // fp32 -> o (B, Hkv, G, M, D), lse (B, Hkv, G, M).
 //
-// Design.  The TPU scalar-prefetches idx so that its BlockSpecs fetch the
-// selected blocks; here each warp loads its own group's indices.  At the
-// paper's shapes a group is M = 8 rows against ell = 8 keys per block, far
-// below a tensor-core tile, so one warp owns one (b, h, group): lanes are
-// (8 rows) x (4 lanes per row), each lane holds D/4 dims of its row's query
-// and accumulator, and a row's dot products are summed across its 4 lanes by
-// shuffles.  The k* loop runs inside the warp.  An invalid selection costs
-// nothing; a group with no valid selection writes zeros and LSE_EMPTY.
-// Indices at or beyond NB are skipped as well, so a bad index never reads
-// out of bounds.
+// What bounds it on the H100.  Each group reads its k* selected blocks of K
+// and V (2*k*ell*D elements) for 4*M*k*ell*D FLOP: at the paper's shapes
+// (M = 8 rows, ell = 8, fp32) memory bounds it; at the LM's (M = g*rep = 512
+// rows, ell = 64, bf16) a group does 64 FLOP a byte of K/V, so the kernel
+// must keep the selected blocks on chip and run its products on the tensor
+// cores to get near its bound.
 //
-// Bound on the H100: each group reads k* blocks of K and V (2*k*ell*D
-// elements) for 4*M*k*ell*D FLOP, so it moves more bytes than it computes
-// and memory bounds it; the blocks a group gathers are re-read through L2.
-#include "common.cuh"
+// Design.  The TPU scalar-prefetches idx so that its BlockSpecs fetch the
+// selected blocks; here a block loads its own group's indices.  Two paths,
+// chosen by kernels/selection.py::selection_plan (the wrapper passes
+// `tiles`):
+//   warp   M < 16 (shapenet: 8 rows against 8 keys, far below a tensor-core
+//          tile).  One warp owns one (b, h, group): lanes are (8 rows) x (4
+//          lanes per row), each lane holds D/4 dims of its row's query and
+//          accumulator, and a row's dot products are summed across its 4
+//          lanes by shuffles; the k* loop runs inside the warp.
+//   tiles  M >= 16.  One block owns one (b, h, group, tile of 64 rows): it
+//          stages its rows of Q once, collects the group's valid selections
+//          and walks them in staged chunks of BK keys (cp.async,
+//          double-buffered: the next chunk is in flight while the current
+//          one is computed), so a selected block is read from L2 once per
+//          row tile instead of once per 8 rows.
+//            bf16  S = QK^T and O += PV on the tensor cores (mma.sync
+//                  m16n8k16, fp32 accumulation), a warp owning 16 rows and
+//                  64 keys; P is rounded to bf16 as the A fragment of PV,
+//                  and exponentials go to the MUFU unit (__expf).
+//            fp32  the FMA pipes, register-tiled: 16 key lanes x NT/16 row
+//                  lanes, P through shared memory (no TF32: its 2^-11
+//                  operands would miss fp32's tolerances).
+// An invalid selection (or an index at or beyond NB) costs nothing; a group
+// with no valid selection writes zeros and LSE_EMPTY.  Masked keys (token
+// bias NEG_INF) and the key slots past ell in the last chunk get p = 0.
+#include "selection.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+using rt::dot4;
+using rt::lane_of;
+using rt::load_vec;
+using rt::set_smem;
+using rt::stage_rows;
+using rt::store2;
+
+// ---------------------------------------------------------------------------
+// warp: one warp a (b, h, group), 8 rows a pass.
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;          // (b, h, group) items per block
 constexpr int kLanesPerRow = 4;
@@ -115,10 +145,322 @@ selection_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tiles, bf16: tensor cores.  4 warps, warp w owns rows 16w..16w+15 of the
+// block's 64; per staged chunk of 64 keys a warp computes S (16 rows x 64
+// keys), folds it into the running max / sum of its rows, and adds P V into
+// its O (16 x D, fp32).
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdMma {
+  static constexpr int BM = 64, BK = 64, NT = 128, LD = D + 8;
+  static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
+  static constexpr int BF_END = V_OFF + 2 * BK * LD;
+  // + the selection list, k* + 1 ints
+  static constexpr size_t SMEM = (size_t)BF_END * 2 + (size_t)2 * BK * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+selection_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ kb,
+                  const bf16* __restrict__ vb, const int* __restrict__ idx,
+                  const float* __restrict__ tok_bias, bf16* __restrict__ o,
+                  float* __restrict__ lse, int Hkv, int G, int M, int NB, int ell,
+                  int k_star, float scale) {
+  using C = FwdMma<D>;
+  constexpr int BK = C::BK, LD = C::LD;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  bf16* Qs = sm + C::Q_OFF;
+  float* bs = reinterpret_cast<float*>(sm + C::BF_END);     // [2][BK]
+  int* list = reinterpret_cast<int*>(bs + 2 * BK);         // [k* + 1]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int rw = (threadIdx.x / 32) * 16;                   // the warp's first row
+  const int item = blockIdx.x;                              // (b * Hkv + h) * G + group
+  const int bh = item / G, b = bh / Hkv;
+  const int row0 = blockIdx.y * C::BM;
+  const int nrows = min(C::BM, M - row0);
+  const size_t base = (size_t)item * M + row0;
+
+  const int n_sel = rt::collect_selections(idx + (size_t)item * k_star, k_star, NB, list);
+  const int nch = (ell + BK - 1) / BK;                      // chunks a selected block
+  const int n_tiles = n_sel * nch;
+  stage_rows<bf16, D, LD>(Qs, q + base * D, nrows, C::BM, C::NT);
+  auto load_tile = [&](int t, int buf) {
+    rt::stage_block_chunk<bf16, D, LD, BK>(sm + C::K_OFF + buf * BK * LD,
+                                           sm + C::V_OFF + buf * BK * LD, bs + buf * BK,
+                                           kb, vb, tok_bias, bh, b, list[1 + t / nch],
+                                           (t % nch) * BK, NB, ell, C::NT);
+  };
+
+  float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  float oa[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oa[i][e] = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = sm + C::K_OFF + buf * BK * LD;
+    const bf16* Vt = sm + C::V_OFF + buf * BK * LD;
+    const float* bt = bs + buf * BK;
+    float st[BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][e] = 0.f;
+    // S = Q K^T over D
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 16) {
+      uint32_t qa[4];
+      rt::ldmatrix_x4(qa, Qs + (rw + lane % 16) * LD + d0 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t kf[4];
+        rt::ldmatrix_x4(kf, Kt + (np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 +
+                                8 * ((lane / 8) % 2));
+        rt::mma_bf16(st[2 * np], qa, kf[0], kf[1]);
+        rt::mma_bf16(st[2 * np + 1], qa, kf[2], kf[3]);
+      }
+    }
+    // the online softmax of rows g (h 0) and g + 8 (h 1); a row's 64 keys lie
+    // on the 4 lanes of its quad
+    float mx[2] = {rt::NEG_INF, rt::NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[nt][e] = st[nt][e] * scale + bt[nt * 8 + tig * 2 + (e % 2)];
+        mx[e / 2] = fmaxf(mx[e / 2], st[nt][e]);
+      }
+    float ms[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      ms[h] = fmaxf(m_new, rt::NEG_HALF);
+      alpha[h] = m[h] <= rt::NEG_HALF ? 0.f : __expf(fminf(m[h] - ms[h], 0.f));
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = st[nt][e];
+        const float p = s > rt::NEG_HALF ? __expf(s - ms[e / 2]) : 0.f;
+        l[e / 2] += p;
+        st[nt][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oa[i][e] *= alpha[e / 2];
+    // O += P V over the chunk's keys, P rounded to bf16 as A fragments
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = rt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
+      pa[1] = rt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
+      pa[2] = rt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+      pa[3] = rt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+#pragma unroll
+      for (int n0 = 0; n0 < D; n0 += 16) {
+        uint32_t vf[4];
+        rt::ldmatrix_x4_trans(vf, Vt + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD +
+                                      n0 + 8 * (lane / 16));
+        rt::mma_bf16(oa[n0 / 8], pa, vf[0], vf[1]);
+        rt::mma_bf16(oa[n0 / 8 + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                       // buffer `buf` is free for chunk t+2
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = rw + g + 8 * h;
+    if (r >= nrows) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    bf16* out = o + (base + r) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      store2<bf16>(out + nt * 8, oa[nt][2 * h] * inv, oa[nt][2 * h + 1] * inv);
+    if (tig == 0)
+      lse[base + r] = l[h] > 0.f ? fmaxf(m[h], rt::NEG_HALF) + logf(fmaxf(l[h], 1e-30f))
+                                 : rt::LSE_EMPTY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tiles, fp32: FMA pipes, register-tiled.  NT threads as 16 key lanes (kx) x
+// RY row lanes (ry).  S of a staged chunk: a thread holds rows ry+RY*j
+// (j < 64/RY) x keys kx+16i (i < BK/16); a row's max and sum run over its
+// 16 key lanes (one half-warp) by shuffles.  P goes to shared memory; then
+// the thread adds P V into O of its rows x D/16 dims.
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdFma {
+  static constexpr int BM = 64, BK = 32, NT = D > 64 ? 256 : 128;
+  static constexpr int RY = NT / 16, RPT = BM / RY, KPT = BK / 16, DPT = D / 16;
+  static constexpr int LD = D + 4, LS = BK + 4;
+  static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
+  static constexpr int P_OFF = V_OFF + 2 * BK * LD, B_OFF = P_OFF + BM * LS;
+  // + the selection list, k* + 1 ints
+  static constexpr size_t SMEM = (size_t)(B_OFF + 2 * BK) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdFma<D>::NT, 1)
+selection_fwd_fma(const float* __restrict__ q, const float* __restrict__ kb,
+                  const float* __restrict__ vb, const int* __restrict__ idx,
+                  const float* __restrict__ tok_bias, float* __restrict__ o,
+                  float* __restrict__ lse, int Hkv, int G, int M, int NB, int ell,
+                  int k_star, float scale) {
+  using C = FwdFma<D>;
+  constexpr int BK = C::BK, LD = C::LD, LS = C::LS, RY = C::RY, RPT = C::RPT;
+  constexpr int KPT = C::KPT, DPT = C::DPT;
+  float* sm = reinterpret_cast<float*>(rt::dyn_smem());
+  float* Qs = sm + C::Q_OFF;
+  float* Ps = sm + C::P_OFF;
+  float* bs = sm + C::B_OFF;                                // [2][BK]
+  int* list = reinterpret_cast<int*>(bs + 2 * BK);          // [k* + 1]
+
+  const int kx = threadIdx.x % 16, ry = threadIdx.x / 16;
+  const int item = blockIdx.x;
+  const int bh = item / G, b = bh / Hkv;
+  const int row0 = blockIdx.y * C::BM;
+  const int nrows = min(C::BM, M - row0);
+  const size_t base = (size_t)item * M + row0;
+
+  const int n_sel = rt::collect_selections(idx + (size_t)item * k_star, k_star, NB, list);
+  const int nch = (ell + BK - 1) / BK;
+  const int n_tiles = n_sel * nch;
+  stage_rows<float, D, LD>(Qs, q + base * D, nrows, C::BM, C::NT);
+  auto load_tile = [&](int t, int buf) {
+    rt::stage_block_chunk<float, D, LD, BK>(sm + C::K_OFF + buf * BK * LD,
+                                            sm + C::V_OFF + buf * BK * LD, bs + buf * BK,
+                                            kb, vb, tok_bias, bh, b, list[1 + t / nch],
+                                            (t % nch) * BK, NB, ell, C::NT);
+  };
+
+  float m[RPT], l[RPT], acc[RPT][DPT];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    m[j] = rt::NEG_INF;
+    l[j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc[j][d] = 0.f;
+  }
+
+  if (n_tiles > 0) load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = sm + C::K_OFF + buf * BK * LD;
+    const float* Vt = sm + C::V_OFF + buf * BK * LD;
+    const float* bt = bs + buf * BK;
+    float st[RPT][KPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) st[j][i] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kk[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i)
+        kk[i] = *reinterpret_cast<const float4*>(Kt + (kx + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const float4 qq = *reinterpret_cast<const float4*>(Qs + (ry + RY * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) st[j][i] = dot4(qq, kk[i], st[j][i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      float mx = rt::NEG_INF;
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        st[j][i] = st[j][i] * scale + bt[kx + 16 * i];
+        mx = fmaxf(mx, st[j][i]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[j], mx);
+      const float ms = fmaxf(m_new, rt::NEG_HALF);
+      const float alpha = m[j] <= rt::NEG_HALF ? 0.f : expf(fminf(m[j] - ms, 0.f));
+      m[j] = m_new;
+      l[j] *= alpha;
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const float p = st[j][i] > rt::NEG_HALF ? expf(st[j][i] - ms) : 0.f;
+        l[j] += p;
+        Ps[(ry + RY * j) * LS + kx + 16 * i] = p;
+      }
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) acc[j][d] *= alpha;
+    }
+    __syncthreads();
+    // O += P V: rows ry+RY*j, dims kx*DPT..
+#pragma unroll 2
+    for (int c0 = 0; c0 < BK; c0 += 4) {
+      float4 pp[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j)
+        pp[j] = *reinterpret_cast<const float4*>(Ps + (ry + RY * j) * LS + c0);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float vd[DPT];
+        load_vec<DPT>(vd, Vt + (c0 + c) * LD + kx * DPT);
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const float pv = lane_of(pp[j], c);
+#pragma unroll
+          for (int d = 0; d < DPT; ++d) acc[j][d] = fmaf(pv, vd[d], acc[j][d]);
+        }
+      }
+    }
+    __syncthreads();                       // buffers free for the next loads
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l[j] += __shfl_xor_sync(0xffffffffu, l[j], off);
+    const int row = ry + RY * j;
+    if (row >= nrows) continue;
+    const float inv = l[j] > 0.f ? 1.f / l[j] : 0.f;
+    float* out = o + (base + row) * D + kx * DPT;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) out[d] = acc[j][d] * inv;
+    if (kx == 0)
+      lse[base + row] = l[j] > 0.f ? fmaxf(m[j], rt::NEG_HALF) + logf(fmaxf(l[j], 1e-30f))
+                                   : rt::LSE_EMPTY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
-int launch(const void* q, const void* kb, const void* vb, const void* idx,
-           const void* tok_bias, void* o, void* lse, int B, int Hkv, int G, int M,
-           int NB, int ell, int k_star, cudaStream_t stream) {
+int launch_warp(const void* q, const void* kb, const void* vb, const void* idx,
+                const void* tok_bias, void* o, void* lse, int B, int Hkv, int G, int M,
+                int NB, int ell, int k_star, cudaStream_t stream) {
   const int n_items = B * Hkv * G;
   const int blocks = (n_items + kWarps - 1) / kWarps;
   selection_fwd_kernel<T, D><<<blocks, 32 * kWarps, 0, stream>>>(
@@ -129,18 +471,57 @@ int launch(const void* q, const void* kb, const void* vb, const void* idx,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int launch_tiles(const void* q, const void* kb, const void* vb, const void* idx,
+                 const void* tok_bias, void* o, void* lse, int B, int Hkv, int G, int M,
+                 int NB, int ell, int k_star, cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const size_t list_bytes = (size_t)(k_star + 1) * sizeof(int);
+  if constexpr (sizeof(T) == 2) {
+    using C = FwdMma<D>;
+    auto kern = selection_fwd_mma<D>;
+    const size_t smem = C::SMEM + list_bytes;
+    if (int err = set_smem(kern, smem)) return err;
+    const dim3 grid(B * Hkv * G, (M + C::BM - 1) / C::BM);
+    kern<<<grid, C::NT, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(kb), static_cast<const bf16*>(vb),
+        static_cast<const int*>(idx), static_cast<const float*>(tok_bias),
+        static_cast<bf16*>(o), static_cast<float*>(lse), Hkv, G, M, NB, ell, k_star, scale);
+  } else {
+    using C = FwdFma<D>;
+    auto kern = selection_fwd_fma<D>;
+    const size_t smem = C::SMEM + list_bytes;
+    if (int err = set_smem(kern, smem)) return err;
+    const dim3 grid(B * Hkv * G, (M + C::BM - 1) / C::BM);
+    kern<<<grid, C::NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kb),
+        static_cast<const float*>(vb), static_cast<const int*>(idx),
+        static_cast<const float*>(tok_bias), static_cast<float*>(o),
+        static_cast<float*>(lse), Hkv, G, M, NB, ell, k_star, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// tiles: 0 = the warp path, 1 = the tiled path (kernels/selection.py::selection_plan)
 extern "C" int selection_fwd(const void* q, const void* kb, const void* vb,
                              const void* idx, const void* tok_bias, void* o,
                              void* lse, int B, int Hkv, int G, int M, int NB,
-                             int ell, int k_star, int D, int bf16, void* stream) {
+                             int ell, int k_star, int D, int bf16, int tiles,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * Hkv * G == 0 || M == 0) return 0;
   RT_DISPATCH_D128(D, {
-    return bf16 ? launch<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, o, lse, B,
-                                            Hkv, G, M, NB, ell, k_star, s)
-                : launch<float, kD>(q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G,
-                                    M, NB, ell, k_star, s);
+    if (tiles)
+      return bf16 ? launch_tiles<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, o, lse, B,
+                                                    Hkv, G, M, NB, ell, k_star, s)
+                  : launch_tiles<float, kD>(q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G,
+                                            M, NB, ell, k_star, s);
+    return bf16 ? launch_warp<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, o, lse, B,
+                                                 Hkv, G, M, NB, ell, k_star, s)
+                : launch_warp<float, kD>(q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G, M,
+                                         NB, ell, k_star, s);
   });
   return 0;
 }

@@ -38,8 +38,9 @@ SIGNATURES = {
     # q, k, v, key_bias, q_valid, o, lse, BH, rep, N, L, D, n_heads,
     # causal, block_causal, ell, bf16, stream
     "flash_fwd": [P] * 7 + [I] * 10 + [P],
-    # q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G, M, NB, ell, k_star, D, bf16, stream
-    "selection_fwd": [P] * 7 + [I] * 9 + [P],
+    # q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G, M, NB, ell, k_star, D, bf16,
+    # tiles, stream
+    "selection_fwd": [P] * 7 + [I] * 10 + [P],
     # o1, o2, o3, g1, g2, g3, m, out, R, D, bf16, stream
     "epilogue_fwd": [P] * 8 + [I] * 3 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dq, dk, dv, BH, rep, N, D, ball,
@@ -54,6 +55,12 @@ SIGNATURES = {
     # q, kb, vb, idx, tok_bias, do, lse, delta, dq, dkb, dvb, B, Hkv, G, M, NB,
     # ell, k_star, D, bf16, stream
     "selection_bwd": [P] * 11 + [I] * 9 + [P],
+    # q, kb, vb, idx, tok_bias, do, lse, delta, dq, B, Hkv, G, M, NB, ell, k_star,
+    # D, bf16, stream
+    "selection_dq": [P] * 9 + [I] * 9 + [P],
+    # q, kb, vb, idx, tok_bias, do, lse, delta, order, offsets, ws, dkb, dvb, B,
+    # Hkv, G, M, NB, ell, k_star, D, bf16, stream
+    "selection_dkv": [P] * 13 + [I] * 9 + [P],
     # o1, o2, o3, g1, g2, g3, m, do, do1, do2, do3, dg1, dg2, dg3, R, D, bf16, stream
     "epilogue_bwd": [P] * 14 + [I] * 3 + [P],
     # q, k, v, key_bias, qseg, kseg, k_bounds, o, lse, H, rep, T, L, D, bf16, stream

@@ -36,7 +36,7 @@ _BALL_DIMS = (16, 32, 64)
 HEAD_DIMS = {
     **{name: _CAUSAL_DIMS for name in ("local_fwd", "local_dq", "local_dkv", "flash_fwd",
                                        "flash_dq", "flash_dkv", "selection_fwd",
-                                       "selection_bwd")},
+                                       "selection_bwd", "selection_dq", "selection_dkv")},
     **{name: _BALL_DIMS for name in ("bta_fwd", "bta_bwd", "varlen_fwd", "varlen_dq",
                                      "varlen_dkv")},
 }

@@ -5,23 +5,43 @@ Replaces ``repro/kernels/selection.py::_fwd_kernel`` and ``::_bwd_kernel``
 with its jnp scatter ``_scatter_blocks`` (Pallas, TPU).  The CUDA sources
 are ``csrc/selection_fwd.cu`` and ``csrc/selection_bwd.cu``.
 
-What bounds them on the H100: each query group gathers k* blocks of ℓ keys
-and values for only 4·M·k*·ℓ·D FLOP forward and 10·M·k*·ℓ·D backward
-(M = g·rep = 8 rows at the paper's shapes), so memory traffic bounds them.
-The TPU scalar-prefetched the indices to drive its block fetches; here each
-warp loads its own group's indices and gathers the selected blocks itself.
-With 8 rows against 8 keys a tensor-core tile would be mostly empty, so one
-warp owns one (batch, KV head, group): 8 rows × 4 lanes, D/4 dims a lane,
-shuffles sum a row's dot products.  Invalid selections (−1) cost nothing; a
-group with no valid selection writes zeros (and lse = ``LSE_EMPTY``).
+What bounds them on the H100: each query group of M = g·rep rows gathers
+its k* selected blocks of ℓ keys and values for 4·M·k*·ℓ·D FLOP forward
+and 10·M·k*·ℓ·D backward.  At the paper's shapes (M = 8, ℓ = 8, fp32)
+memory traffic bounds them; at the LM's (M = 512, ℓ = 64, bf16) a group
+does 64 FLOP a byte of K/V, so the selected blocks must stay on chip and
+the products run on the tensor cores.  The TPU scalar-prefetched the
+indices to drive its block fetches; here a block loads its own group's
+indices and gathers the selected blocks itself.
 
-The backward accumulates dQ over the group's k* selections in registers and
-adds each selection's dK, dV (summed over the group's rows by shuffles)
-atomically into fp32 (B, Hkv, NB, ℓ, D) buffers, so a block chosen by
-several groups sums their contributions without the TPU's staging buffer
-of per-selection tiles; bf16 operands are cast from the fp32 sums at the
-end.  Atomic adds make the order of that sum vary from run to run (fp32
-rounding only).
+Two paths, one rule (:func:`selection_plan`, a pure function of M, ℓ, D
+and the dtype; the wrappers follow it, a CUDA tensor never goes to the
+plain version):
+
+- ``warp`` for M < 16 (shapenet's 8 rows against 8 keys would fill a
+  tensor-core tile half at best): one warp owns one (batch, KV head,
+  group), 8 rows × 4 lanes, D/4 dims a lane, shuffles sum a row's dot
+  products.  Its backward (``selection_bwd``) accumulates dQ in registers
+  and adds each selection's dK, dV (summed over the group's rows by
+  shuffles) atomically into fp32 (B, Hkv, NB, ℓ, D) buffers: one atomic
+  per element and selection, summed in a run-to-run order.
+- ``tiles`` for M ≥ 16: a block owns 64 rows of one group and walks the
+  group's valid selections in staged chunks of keys (``cp.async``,
+  double-buffered); bf16 on the tensor cores (``mma.sync`` m16n8k16, fp32
+  accumulation, exponentials on the MUFU unit: ``__expf``), fp32 on the FMA
+  pipes in register micro-tiles (the exact ``expf``).  The
+  backward is the TPU's own split, no atomics: ``selection_dq`` on the
+  forward's grid, and ``selection_dkv`` with one block per (valid
+  selection, chunk of keys) that streams the group's rows and writes its
+  dK, dV tile (fp32) into a staging buffer (2, B·Hkv·G·k*, ℓ, D), in the
+  order of an inverse index of ``idx`` (:func:`scatter_plan`); a second
+  pass behind the same entry point sums each block's tiles in that order
+  (deterministic) and casts.  The staging buffer is 268 MB at the LM's
+  train shape (B 2 × 4,096 tokens).
+
+Invalid selections (−1, or ≥ NB) cost nothing; a group with no valid
+selection writes zeros (and lse = ``LSE_EMPTY``); p and dS are rounded to
+the operand dtype before their products.
 
 Layout: q (B, Hkv, G, M, D); kb, vb (B, Hkv, NB, ℓ, D); idx (B, Hkv, G, k*)
 int32 (−1 = invalid); tok_bias (B, NB, ℓ) fp32.  The forward returns o like
@@ -31,21 +51,93 @@ differentiable op (in q, kb, vb).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core.branches import sdpa
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (_counter, check_cuda_inputs, on_cpu,
+from repro_torch.kernels.common import (HEAD_DIMS, _counter, check_cuda_inputs, on_cpu,
                                         p_from_lse, row_delta)
 from repro_torch.numerics import NEG_INF
 
 __all__ = ["selection_attention_fwd", "selection_attention_fwd_plain",
            "selection_attention_bwd", "selection_attention_bwd_plain",
-           "SelectionAttentionFn", "COUNT", "COUNT_BWD"]
+           "selection_attention_dq", "selection_attention_dkv", "selection_plan",
+           "SelectionPlan", "scatter_plan", "reduce_staged_plain", "SelectionAttentionFn",
+           "COUNT", "COUNT_BWD", "COUNT_DQ", "COUNT_DKV"]
 
 COUNT = _counter("selection_fwd")
-COUNT_BWD = _counter("selection_bwd")
+COUNT_BWD = _counter("selection_bwd")           # the warp path's backward
+COUNT_DQ = _counter("selection_dq")             # the tiled path's backward: dQ
+COUNT_DKV = _counter("selection_dkv")           # and dK, dV
+
+
+class SelectionPlan(NamedTuple):
+    """How the CUDA kernels take one shape: ``path`` ``"warp"`` or
+    ``"tiles"``; ``rows``: query rows a block (forward, ``selection_dq``) or
+    a pass of the warp; ``keys``: keys a staged chunk; ``dkv_rows``: rows a
+    staged tile of ``selection_dkv`` (0 on the warp path)."""
+    path: str
+    rows: int
+    keys: int
+    dkv_rows: int
+
+
+TILE_MIN_ROWS = 16          # one m16n8k16 tile of rows
+
+
+def selection_plan(M: int, ell: int, D: int, dtype: torch.dtype) -> SelectionPlan:
+    """The path and tiles of the selection kernels for groups of M rows
+    against blocks of ℓ keys at head dim D (the constants of
+    ``csrc/selection_{fwd,bwd}.cu``).  M < 16 takes the warp path (one warp
+    a group, 8 rows a pass, keys in chunks of 8); M ≥ 16 the tiled path
+    (blocks of 64 rows; chunks of 64 keys in bf16, 32 in fp32;
+    ``selection_dkv`` stages 64 rows, 32 at D 128).  A shape no path takes
+    raises, naming the kernel and the shape."""
+    if (dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["selection_fwd"]
+            or M < 1 or ell < 1):
+        raise ValueError(f"selection kernels: no path takes M {M}, ℓ {ell}, D {D}, {dtype} "
+                         f"(M, ℓ ≥ 1; D in {HEAD_DIMS['selection_fwd']}; float32 or "
+                         "bfloat16)")
+    if M < TILE_MIN_ROWS:
+        return SelectionPlan("warp", 8, 8, 0)
+    return SelectionPlan("tiles", 64, 64 if dtype == torch.bfloat16 else 32,
+                         32 if D > 64 else 64)
+
+
+def scatter_plan(idx: torch.Tensor, NB: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inverse index of ``idx`` (B, Hkv, G, k*) that ``selection_dkv``
+    runs in: ``order`` (B·Hkv·G·k*,) int32, the flat (b, h, g, j) positions
+    of the valid selections (0 ≤ idx < NB) sorted by block b·Hkv·NB + h·NB +
+    idx, stably (a block's selections in (g, j) order), the invalid ones
+    last; ``offsets`` (B·Hkv·NB + 1,) int32, block i's selections at
+    ``order[offsets[i]:offsets[i+1]]``, ``offsets[-1]`` the valid count."""
+    B, Hkv, G, k_star = idx.shape
+    n_blocks = B * Hkv * NB
+    head = torch.arange(B * Hkv, device=idx.device).reshape(B, Hkv, 1, 1) * NB
+    valid = (idx >= 0) & (idx < NB)
+    key = torch.where(valid, head + idx.long(), n_blocks).reshape(-1)
+    sorted_key, order = torch.sort(key, stable=True)
+    # no host sync (bincount would read the keys' range back first)
+    offsets = torch.searchsorted(sorted_key, torch.arange(n_blocks + 1, device=idx.device))
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+def reduce_staged_plain(staged: torch.Tensor, offsets: torch.Tensor,
+                        shape: tuple[int, ...]) -> torch.Tensor:
+    """Plain PyTorch version of ``selection_dkv``'s second pass: block i of
+    the (B, Hkv, NB, ℓ, D) result is the sum of staged tiles
+    ``[offsets[i], offsets[i+1])`` (``staged`` (slots, ℓ, D) fp32, in
+    :func:`scatter_plan` order), zeros where a block has none."""
+    n_blocks = offsets.numel() - 1
+    counts = (offsets[1:] - offsets[:-1]).long()
+    target = torch.repeat_interleave(torch.arange(n_blocks, device=staged.device), counts)
+    out = torch.zeros((n_blocks,) + tuple(staged.shape[1:]), dtype=torch.float32,
+                      device=staged.device)
+    out.index_add_(0, target, staged[:target.numel()].float())
+    return out.reshape(shape)
 
 
 def _check_shapes(name, q, kb, vb, idx, tok_bias):
@@ -92,13 +184,14 @@ def selection_attention_fwd(q, kb, vb, idx, tok_bias):
         return selection_attention_fwd_plain(q, kb, vb, idx, tok_bias)
     check_cuda_inputs("selection_fwd", data=(q, kb, vb), f32=(tok_bias,),
                       i32=(idx,), head_dim=D)
+    plan = selection_plan(M, ell, D, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hkv, G, M), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch("selection_fwd", q.data_ptr(), kb.data_ptr(), vb.data_ptr(),
                   idx.data_ptr(), tok_bias.data_ptr(), o.data_ptr(),
                   lse.data_ptr(), B, Hkv, G, M, NB, ell, idx.shape[-1], D,
-                  int(q.dtype == torch.bfloat16), stream)
+                  int(q.dtype == torch.bfloat16), int(plan.path == "tiles"), stream)
     COUNT.hit()
     return o, lse
 
@@ -132,28 +225,76 @@ def selection_attention_bwd_plain(q, kb, vb, idx, tok_bias, do, lse, delta):
     return dq.to(q.dtype), scatter(dk_sel).to(kb.dtype), scatter(dv_sel).to(vb.dtype)
 
 
-def selection_attention_bwd(q, kb, vb, idx, tok_bias, do, lse, delta):
-    """(dq, dkb, dvb) from the forward's lse and δ = rowsum(dO·O): the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+def _bwd_check(name, q, kb, vb, idx, tok_bias, do, lse, delta):
     B, Hkv, G, M, D = q.shape
-    NB, ell = kb.shape[2], kb.shape[3]
-    _check_shapes("selection_bwd", q, kb, vb, idx, tok_bias)
+    _check_shapes(name, q, kb, vb, idx, tok_bias)
     if do.shape != q.shape or lse.shape != (B, Hkv, G, M) or delta.shape != lse.shape:
-        raise ValueError(f"selection_bwd: dO must be {tuple(q.shape)} and lse / "
+        raise ValueError(f"{name}: dO must be {tuple(q.shape)} and lse / "
                          f"delta {(B, Hkv, G, M)}")
     if on_cpu(q, kb, vb, idx, tok_bias, do, lse, delta):
+        return None
+    check_cuda_inputs(name, data=(q, kb, vb, do), f32=(tok_bias, lse, delta), i32=(idx,),
+                      head_dim=D)
+    plan = selection_plan(M, kb.shape[3], D, q.dtype)
+    if name != "selection_bwd" and plan.path != "tiles":
+        raise ValueError(f"{name}: groups of {M} rows take the warp path "
+                         "(selection_bwd), not the tiled backward")
+    ptrs = (q.data_ptr(), kb.data_ptr(), vb.data_ptr(), idx.data_ptr(),
+            tok_bias.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    shape = (B, Hkv, G, M, kb.shape[2], kb.shape[3], idx.shape[-1], D,
+             int(q.dtype == torch.bfloat16))
+    return plan, ptrs, shape, torch.cuda.current_stream(q.device).cuda_stream
+
+
+def selection_attention_dq(q, kb, vb, idx, tok_bias, do, lse, delta):
+    """dq of the tiled path: the ``selection_dq`` kernel on CUDA tensors (M
+    ≥ 16 rows a group), the plain version on CPU tensors."""
+    launch = _bwd_check("selection_dq", q, kb, vb, idx, tok_bias, do, lse, delta)
+    if launch is None:
+        return selection_attention_bwd_plain(q, kb, vb, idx, tok_bias, do, lse, delta)[0]
+    _, ptrs, shape, stream = launch
+    dq = torch.empty_like(q)
+    _build.launch("selection_dq", *ptrs, dq.data_ptr(), *shape, stream)
+    COUNT_DQ.hit()
+    return dq
+
+
+def selection_attention_dkv(q, kb, vb, idx, tok_bias, do, lse, delta):
+    """(dkb, dvb) of the tiled path: the ``selection_dkv`` kernel on CUDA
+    tensors (per-selection tiles staged in :func:`scatter_plan` order, then
+    each block's summed in that order), the plain version on CPU tensors."""
+    launch = _bwd_check("selection_dkv", q, kb, vb, idx, tok_bias, do, lse, delta)
+    if launch is None:
+        return selection_attention_bwd_plain(q, kb, vb, idx, tok_bias, do, lse, delta)[1:]
+    _, ptrs, shape, stream = launch
+    B, Hkv, G, _, NB, ell, k_star, D, _ = shape
+    order, offsets = scatter_plan(idx, NB)
+    ws = torch.empty((2, B * Hkv * G * k_star, ell, D), dtype=torch.float32,
+                     device=q.device)
+    dkb, dvb = torch.empty_like(kb), torch.empty_like(vb)
+    _build.launch("selection_dkv", *ptrs, order.data_ptr(), offsets.data_ptr(),
+                  ws.data_ptr(), dkb.data_ptr(), dvb.data_ptr(), *shape, stream)
+    COUNT_DKV.hit()
+    return dkb, dvb
+
+
+def selection_attention_bwd(q, kb, vb, idx, tok_bias, do, lse, delta):
+    """(dq, dkb, dvb) from the forward's lse and δ = rowsum(dO·O): on CUDA
+    tensors the warp path's ``selection_bwd`` kernel or the tiled path's
+    ``selection_dq`` and ``selection_dkv`` (:func:`selection_plan`), the
+    plain version on CPU tensors."""
+    launch = _bwd_check("selection_bwd", q, kb, vb, idx, tok_bias, do, lse, delta)
+    if launch is None:
         return selection_attention_bwd_plain(q, kb, vb, idx, tok_bias, do, lse, delta)
-    check_cuda_inputs("selection_bwd", data=(q, kb, vb, do),
-                      f32=(tok_bias, lse, delta), i32=(idx,), head_dim=D)
+    plan, ptrs, shape, stream = launch
+    if plan.path == "tiles":
+        return (selection_attention_dq(q, kb, vb, idx, tok_bias, do, lse, delta),
+                *selection_attention_dkv(q, kb, vb, idx, tok_bias, do, lse, delta))
     dq = torch.empty_like(q)
     dkb = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
     dvb = torch.zeros(vb.shape, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.launch("selection_bwd", q.data_ptr(), kb.data_ptr(), vb.data_ptr(),
-                  idx.data_ptr(), tok_bias.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), dq.data_ptr(), dkb.data_ptr(), dvb.data_ptr(),
-                  B, Hkv, G, M, NB, ell, idx.shape[-1], D,
-                  int(q.dtype == torch.bfloat16), stream)
+    _build.launch("selection_bwd", *ptrs, dq.data_ptr(), dkb.data_ptr(), dvb.data_ptr(),
+                  *shape, stream)
     COUNT_BWD.hit()
     return dq, dkb.to(kb.dtype), dvb.to(vb.dtype)
 

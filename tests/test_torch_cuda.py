@@ -97,19 +97,43 @@ def test_flash_kernel(cuda, dtype, mode, head_dim):
     _check(got, flash.flash_attention_fwd_plain(q, k, v, _bias(kv), **kw), dtype)
 
 
+# (M rows a group, ℓ keys a block): the warp path at 4·REP rows, the tiled
+# path at 64 and 192 rows against blocks of 64 keys
+SEL_SHAPES = [(4 * REP, ELL), (64, 64), (192, 64)]
+
+
+def _selection_case(dev, dtype, M, ell, head_dim, ks=2):
+    """Groups of M rows (one a block), blocks of ℓ keys: random picks with
+    −1 and out-of-range ones, four groups on one block, a dead slot (batch
+    2: every key masked, every pick −1) and a masked tail in batch 1."""
+    G = NB
+    q = _rand((B, HKV, G, M, head_dim), dtype, dev, 6)
+    kb = _rand((B, HKV, NB, ell, head_dim), dtype, dev, 7)
+    vb = _rand((B, HKV, NB, ell, head_dim), dtype, dev, 8)
+    g = torch.Generator().manual_seed(9)
+    idx = torch.randint(-1, NB, (B, HKV, G, ks), generator=g).int()
+    idx[1, 1, 5, 1] = NB                      # past the last block: skipped
+    idx[0, 0, :4, 0] = 3                      # four groups pick one block
+    idx[2] = -1                               # a dead slot
+    tok_ok = torch.ones(B, NB * ell, dtype=torch.bool)
+    tok_ok[1, NB * ell * 41 // N:] = False
+    tok_ok[2] = False
+    return q, kb, vb, idx.to(dev), _bias(tok_ok.to(dev)).reshape(B, NB, ell)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [16, 128])
-def test_selection_kernel(cuda, dtype, head_dim):
+@pytest.mark.parametrize("M,ell", SEL_SHAPES)
+def test_selection_kernel(cuda, dtype, head_dim, M, ell):
     from repro_torch.kernels import selection
-    G, M, ks = NB, 4 * REP, 2
-    q = _rand((B, HKV, G, M, head_dim), dtype, cuda, 6)
-    kb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 7)
-    vb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 8)
-    g = torch.Generator().manual_seed(9)
-    idx = torch.randint(-1, NB, (B, HKV, G, ks), generator=g).int().to(cuda)
-    tok = _bias(_mask(cuda)).reshape(B, NB, ELL)
+    q, kb, vb, idx, tok = _selection_case(cuda, dtype, M, ell, head_dim)
+    before = selection.COUNT.n
     got = selection.selection_attention_fwd(q, kb, vb, idx, tok)
-    _check(got, selection.selection_attention_fwd_plain(q, kb, vb, idx, tok), dtype)
+    torch.cuda.synchronize()
+    assert selection.COUNT.n == before + 1
+    plain_idx = torch.where(idx < NB, idx, -1)          # the plain version takes −1 only
+    _check(got, selection.selection_attention_fwd_plain(q, kb, vb, plain_idx, tok), dtype)
+    assert bool((got[0][2] == 0).all()) and bool((got[1][2] == 1e30).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -219,27 +243,40 @@ def test_flash_bwd_kernels(cuda, head_dim, mode, dtype, splits, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [16, 128])
-def test_selection_bwd_kernel(cuda, dtype, head_dim):
+@pytest.mark.parametrize("M,ell", SEL_SHAPES)
+def test_selection_bwd_kernel(cuda, dtype, head_dim, M, ell):
     from repro_torch.kernels import selection
-    G, M, ks = NB, 4 * REP, 2
-    q = _rand((B, HKV, G, M, head_dim), dtype, cuda, 6)
-    kb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 7)
-    vb = _rand((B, HKV, NB, ELL, head_dim), dtype, cuda, 8)
-    g = torch.Generator().manual_seed(9)
-    idx = torch.randint(-1, NB, (B, HKV, G, ks), generator=g).int()
-    idx[0, 0, :4, 0] = 3                      # four groups pick one block
-    idx[2] = -1                               # a dead slot
-    idx = idx.to(cuda)
-    tok = _bias(_mask(cuda)).reshape(B, NB, ELL)
+    q, kb, vb, idx, tok = _selection_case(cuda, dtype, M, ell, head_dim)
     o, lse = selection.selection_attention_fwd(q, kb, vb, idx, tok)
     rest = _bwd_inputs(o, lse, dtype, 13)
+    tiles = selection.selection_plan(M, ell, head_dim, dtype).path == "tiles"
+    before = {c: c.n for c in (selection.COUNT_BWD, selection.COUNT_DQ, selection.COUNT_DKV)}
     got = selection.selection_attention_bwd(q, kb, vb, idx, tok, *rest)
     torch.cuda.synchronize()
+    assert {c: c.n - n for c, n in before.items()} == {
+        selection.COUNT_BWD: int(not tiles), selection.COUNT_DQ: int(tiles),
+        selection.COUNT_DKV: int(tiles)}
     tol = {torch.float32: TOL[torch.float32],
            torch.bfloat16: dict(atol=6e-2, rtol=6e-2)}[dtype]
-    _check(got, selection.selection_attention_bwd_plain(q, kb, vb, idx, tok, *rest),
-               dtype, tol)
+    plain_idx = torch.where(idx < NB, idx, -1)
+    _check(got, selection.selection_attention_bwd_plain(q, kb, vb, plain_idx, tok, *rest),
+           dtype, tol)
     assert all(bool((t[2] == 0).all()) for t in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selection_bwd_tiles_deterministic(cuda, dtype):
+    """The tiled backward sums each block's selections in a fixed order: two
+    runs give bit-identical dK, dV (and dQ)."""
+    from repro_torch.kernels import selection
+    q, kb, vb, idx, tok = _selection_case(cuda, dtype, 192, 64, 64, ks=4)
+    idx[:, :, :, 1] = 3                       # every group of every head picks block 3
+    o, lse = selection.selection_attention_fwd(q, kb, vb, idx, tok)
+    rest = _bwd_inputs(o, lse, dtype, 14)
+    first = selection.selection_attention_bwd(q, kb, vb, idx, tok, *rest)
+    second = selection.selection_attention_bwd(q, kb, vb, idx, tok, *rest)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -450,8 +487,8 @@ def test_lm_train_step_grads_match_reference(cuda):
         grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters()
                           if p.grad is not None}      # phi_q only feeds top-k
     lm_fwd = ("local_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
-    lm_bwd = ("local_dq", "local_dkv", "flash_dq", "flash_dkv", "selection_bwd",
-              "epilogue_bwd")
+    lm_bwd = ("local_dq", "local_dkv", "flash_dq", "flash_dkv", "selection_dq",
+              "selection_dkv", "epilogue_bwd")
     assert {n: c.n for n, c in COUNTERS.items()} == {
         n: (2 * cfg.n_layers if n in lm_fwd else cfg.n_layers if n in lm_bwd else 0)
         for n in COUNTERS}

@@ -110,6 +110,7 @@ def test_cpu_runs_move_no_kernel_counter(backend):
         assert torch.isfinite(loss)
     assert set(COUNTERS) == {"bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd",
                              "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd",
+                             "selection_dq", "selection_dkv",
                              "epilogue_bwd", "varlen_fwd", "varlen_dq", "varlen_dkv",
                              "local_fwd", "local_dq", "local_dkv", "paged_gather"}
     assert all(c.n == 0 for c in COUNTERS.values())
