@@ -9,11 +9,14 @@ It needs one CUDA card (written for an H100) and the CUDA toolkit; it
 imports nothing of JAX and nothing of the JAX package.  Phases:
 
 1. set-up: the card's name and power limit, the kernels' build (one nvcc
-   per CUDA source, all at once; ``flash_dq`` and ``flash_dkv`` must build
-   with 0 bytes spilled at head dims 64 and 128, by ptxas's report), TF32
-   off for every fp32 product;
+   per CUDA source, all at once; the redesigned kernels, ``flash_fwd``,
+   ``flash_dq``, ``flash_dkv``, the tiled selection kernels, ``local_dq``
+   and ``local_dkv``, must build with 0 bytes spilled at head dims 64 and
+   128 in every variant, by ptxas's report: ``NO_SPILL``), TF32 off for
+   every fp32 product;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   in fp32 and bf16 and, for flash, in its causal modes too (fp32); with
+   in fp32 and bf16 and, for flash, in its causal modes too (fp32; the
+   tiled ``flash_fwd``: register tiles in fp32, tensor cores in bf16); with
    the median time of kernel, plain version and (where one exists) the
    library call, and the least time the H100 could take for the same work.
    The four padded forward kernels run at the shapes serving
@@ -57,10 +60,12 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    a padded tail, a hole and a packed-sample boundary) and ``paged_gather``
    (the serving pool of 65 blocks of 256 rows of 4 × 64, 4096 rows: one
    decode step's local-window gather of 8 slots) in fp32 and bf16 against
-   their plain versions, and ``flash_fwd`` (block-causal), ``selection_fwd``
-   and ``epilogue_fwd`` at the shapes one 32,768-token sequence of the
-   prefill gives them (32 query heads on 4 KV heads of 64, ℓ = 64,
-   k* = 16, g = 64, so 512 rows a group); then head_dim 128: each kernel of
+   their plain versions, and ``flash_fwd`` (block-causal, timed beside SDPA
+   with the dense block-causal mask; the kernels line gives this row as
+   ``flash_fwd``'s ``lm_prefill``), ``selection_fwd`` and ``epilogue_fwd``
+   at the shapes one 32,768-token sequence of the prefill gives them (32
+   query heads on 4 KV heads of 64, ℓ = 64, k* = 16, g = 64, so 512 rows a
+   group); then head_dim 128: each kernel of
    the causal path, the two epilogues and ``paged_gather`` in fp32 and bf16
    at phi4-mini's heads (24 query on 8 KV heads of 128, ``LM_BSA``, one
    4,096-token sequence) against its plain version, timed;
@@ -92,10 +97,12 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    tokens must equal the served ones, or part at a near-tie (the lockstep
    top-two logit gap there below 4e-2 of the largest |logit|);
 9. LM backward kernels: ``local_dq`` and ``local_dkv`` against their plain
-   version in fp32 and bf16 on the ``local_fwd`` case of phase 5 and at the
-   LM train shapes (B = 2 × 4096 tokens, no mask), within 1e-4 (fp32) and
-   4e-2 (bf16) of each gradient's largest value, timed beside SDPA with the
-   dense banded mask (forward + backward − forward); and, at the train
+   version in fp32 (the lanes path) and bf16 (the tiled path on the tensor
+   cores, ``local.local_plan``) on the ``local_fwd`` case of phase 5 and at
+   the LM train shapes (B = 2 × 4096 tokens, no mask), within 1e-4 (fp32)
+   and 4e-2 (bf16) of each gradient's largest value, timed with one
+   liveness map for both, as ``local_window_bwd`` shares it, beside SDPA
+   with the dense banded mask (forward + backward − forward); and, at the train
    shapes in bf16, ``flash_dq`` / ``flash_dkv`` block-causal against the
    64 pooled keys, ``selection_fwd``, ``selection_dq`` and
    ``selection_dkv`` (the tiled path) on each layer's own picks (512 rows a
@@ -248,11 +255,17 @@ LM_GRAD_REL_TOL = 6e-2
 LM_GRAD_FLOOR = 1e-4
 # head_dim 128: phi4-mini-3.8b's heads (24 query on 8 KV heads of 128), LM_BSA
 D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
-# the redesigned kernels (csrc/flash_bwd.cu, the tiled path of
-# csrc/selection_{fwd,bwd}.cu) must build without spills at these head dims,
-# both variants (mma: bf16, fma: fp32)
-NO_SPILL = {"flash_dq": (64, 128), "flash_dkv": (64, 128), "selection_fwd": (64, 128),
-            "selection_dq": (64, 128), "selection_dkv": (64, 128)}
+# the redesigned kernels must build without spills at these head dims, every
+# variant: mma (bf16 tensor cores), fma (fp32 register tiles) and, for the
+# local backward, lanes (fp32 and small windows, both dtypes)
+NO_SPILL = {**{name: ((64, 128), ("mma", "fma"))
+               for name in ("flash_fwd", "flash_dq", "flash_dkv", "selection_fwd",
+                            "selection_dq", "selection_dkv")},
+            "local_dq": ((64, 128), ("mma", "lanes")),
+            "local_dkv": ((64, 128), ("mma", "lanes"))}
+# a kernel's second row in the kernels line: the LM main path's, beside the
+# shapenet train path's (name -> key, path, dtype, mode)
+LM_ALSO = {"flash_fwd": ("lm_prefill", "prefill", "bfloat16", "lm_block_causal")}
 
 
 class CheckFailed(Exception):
@@ -1386,8 +1399,9 @@ def head_dim_128_phase(dev) -> list[dict]:
         o, lse = got
         do = rand(o.shape, dtype, dev, 144)
         args = (q, k, v, key_bias, blk_seg, do, lse, row_delta(do, o))
-        dq = local.local_window_dq(*args, **lkw)
-        dkv = local.local_window_dkv(*args, **lkw)
+        live = local.live_map(key_bias, blk_seg, LM_W)
+        dq = local.local_window_dq(*args, live=live, **lkw)
+        dkv = local.local_window_dkv(*args, live=live, **lkw)
         want = local.local_window_bwd_plain(*args, **lkw)
         torch.cuda.synchronize()
         p_ms = median_ms(lambda: local.local_window_bwd_plain(*args, **lkw), warmup=1, reps=3)
@@ -1395,12 +1409,14 @@ def head_dim_128_phase(dev) -> list[dict]:
         err, ok = rel_err((dq,), want[:1])
         b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side, 6.0 * Dh * pairs, dtype)
         record("local_dq", "d128_lm_window", dtype, err, ok,
-               median_ms(lambda: local.local_window_dq(*args, **lkw)), p_ms, b_ms, b_by, None)
+               median_ms(lambda: local.local_window_dq(*args, live=live, **lkw)), p_ms, b_ms,
+               b_by, None)
         err, ok = rel_err(dkv, want[1:])
         b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side, 8.0 * Dh * pairs, dtype)
         record("local_dkv", "d128_lm_window", dtype, err, ok,
-               median_ms(lambda: local.local_window_dkv(*args, **lkw)), p_ms, b_ms, b_by, None)
-        del k, v, o, lse, do, args, dq, dkv, want, got
+               median_ms(lambda: local.local_window_dkv(*args, live=live, **lkw)), p_ms, b_ms,
+               b_by, None)
+        del k, v, o, lse, do, args, live, dq, dkv, want, got
 
         # ---- flash_fwd, flash_dq, flash_dkv: block-causal against 64 pooled keys
         kf = rand((Hkv, nb, Dh), dtype, dev, 145)
@@ -1502,7 +1518,7 @@ def ptxas_table(log: str) -> list[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(%s)_(mma|fma)ILi(\d+)E" % names, m.group(1))
+            k = re.search(r"(%s)_(mma|fma|lanes)I\w*?Li(\d+)E" % names, m.group(1))
             cur = None
             if k:
                 cur = {"kernel": k.group(1), "variant": k.group(2), "head_dim": int(k.group(3))}
@@ -1888,8 +1904,9 @@ def lm_backward_kernel_phase(dev, picks) -> list[dict]:
             o, lse = local.local_window_fwd(q, k, v, key_bias, blk_seg, **kw)
             do = rand(o.shape, dtype, dev, 113)
             args = (q, k, v, key_bias, blk_seg, do, lse, row_delta(do, o))
-            dq = local.local_window_dq(*args, **kw)
-            dkv = local.local_window_dkv(*args, **kw)
+            live = local.live_map(key_bias, blk_seg, LM_W)   # shared, as in local_window_bwd
+            dq = local.local_window_dq(*args, live=live, **kw)
+            dkv = local.local_window_dkv(*args, live=live, **kw)
             want = local.local_window_bwd_plain(*args, **kw)
             torch.cuda.synchronize()
             pairs = LM_HQ * local_visible_pairs(key_bias, blk_seg, LM_W)
@@ -1907,15 +1924,15 @@ def lm_backward_kernel_phase(dev, picks) -> list[dict]:
             b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side,
                                6.0 * LM_D * pairs, dtype)
             record("local_dq", mode, dtype, err, ok,
-                   median_ms(lambda: local.local_window_dq(*args, **kw)), p_ms, b_ms, b_by,
-                   lib_ms)
+                   median_ms(lambda: local.local_window_dq(*args, live=live, **kw)), p_ms,
+                   b_ms, b_by, lib_ms)
             err, ok = rel_err(dkv, want[1:])
             b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side,
                                8.0 * LM_D * pairs, dtype)
             record("local_dkv", mode, dtype, err, ok,
-                   median_ms(lambda: local.local_window_dkv(*args, **kw)), p_ms, b_ms,
-                   b_by, lib_ms)
-            del q, k, v, o, lse, do, args, dq, dkv, want
+                   median_ms(lambda: local.local_window_dkv(*args, live=live, **kw)), p_ms,
+                   b_ms, b_by, lib_ms)
+            del q, k, v, o, lse, do, args, live, dq, dkv, want
             torch.cuda.empty_cache()
 
     dtype, es = torch.bfloat16, 2
@@ -2148,10 +2165,12 @@ def main() -> int:
     if info["built"]:                      # the log of this build: no spills where it matters
         table = ptxas_table(info["log"])
         print(json.dumps({"ptxas_no_spill": table}), flush=True)
-        for name, dims in NO_SPILL.items():
+        for name, (dims, variants) in NO_SPILL.items():
             for d in dims:
                 got = [r for r in table if r["kernel"] == name and r["head_dim"] == d]
-                check(len(got) == 2, f"ptxas: {name} at D {d}: {len(got)} entries, expected 2")
+                check({r["variant"] for r in got} == set(variants),
+                      f"ptxas: {name} at D {d}: variants {[r['variant'] for r in got]}, "
+                      f"expected {variants}")
                 for r in got:
                     check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
                           f"ptxas: {name} ({r['variant']}) at D {d} spills: {r}")
@@ -2213,12 +2232,20 @@ def main() -> int:
         by_path = {p: st["launches"][name] for p, st in paths.items()}
         if main_path is None:
             main_path = "train_packed" if name in PATHS["train_packed"] else "train_padded"
-        summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": by_path[main_path],
-                        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                        "launches_by_path": by_path})
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": by_path[main_path], "max_abs_err": row["max_abs_err"],
+                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"], "launches_by_path": by_path}
+        if name in LM_ALSO:
+            key, path, dt, mode = LM_ALSO[name]
+            row = next(r for r in rows if r["name"] == name and r["dtype"] == dt
+                       and r["mode"] == mode)
+            entry[key] = {"launches": by_path[path], "max_abs_err": row["max_abs_err"],
+                          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                          "library_ms": row["library_ms"]}
+        summary.append(entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

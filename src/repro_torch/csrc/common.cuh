@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace rt {
 
 constexpr float NEG_INF = -1e30f;
@@ -51,6 +53,30 @@ __device__ __forceinline__ float p_from_lse(float s, float lse) {
 __device__ __forceinline__ float p_from_lse_fast(float s, float lse) {
   return s <= NEG_HALF ? 0.f : __expf(s - lse);
 }
+
+// The index masks of the flash kernels (repro/kernels/flash.py::_mask_logits):
+//   causal        key j visible to query t iff j <= t,
+//   block_causal  coarse key j visible iff (j+1)*ell - 1 < t.
+struct Mask {
+  int causal, block_causal, ell;
+  __device__ __forceinline__ bool visible(int key, int t) const {
+    if (block_causal) return (key + 1) * ell <= t;
+    if (causal) return key <= t;
+    return true;
+  }
+  // the first position that sees key j
+  __device__ __forceinline__ int first_t(int key) const {
+    if (block_causal) return (key + 1) * ell;
+    if (causal) return key;
+    return 0;
+  }
+  // how many keys (0, 1, ...) position t sees
+  __device__ __forceinline__ int keys_seen(int t) const {
+    if (block_causal) return t / ell;
+    if (causal) return t + 1;
+    return INT_MAX;
+  }
+};
 
 // Sum of a value over the `width` lanes of an aligned lane group.
 template <int width>

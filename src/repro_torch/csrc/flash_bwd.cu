@@ -54,8 +54,6 @@
 // nothing to dK, dV.  The ragged key edge (L = 480) and the ragged row edge
 // are masked here: staged rows past the edge are zeros, keys past L carry
 // NEG_INF bias.
-#include <climits>
-
 #include "tiles.cuh"
 
 namespace {
@@ -64,31 +62,11 @@ using bf16 = __nv_bfloat16;
 using rt::dot4;
 using rt::lane_of;
 using rt::load_vec;
+using rt::Mask;
 using rt::set_smem;
 using rt::stage_rows;
 using rt::stage_vals;
 using rt::store2;
-
-struct Mask {
-  int causal, block_causal, ell;
-  __device__ __forceinline__ bool visible(int key, int t) const {
-    if (block_causal) return (key + 1) * ell <= t;
-    if (causal) return key <= t;
-    return true;
-  }
-  // the first position that sees key j
-  __device__ __forceinline__ int first_t(int key) const {
-    if (block_causal) return (key + 1) * ell;
-    if (causal) return key;
-    return 0;
-  }
-  // how many keys (0, 1, ...) position t sees
-  __device__ __forceinline__ int keys_seen(int t) const {
-    if (block_causal) return t / ell;
-    if (causal) return t + 1;
-    return INT_MAX;
-  }
-};
 
 // Positions [lo, hi) that split s of S walks for a key tile whose first
 // visible position is `first`: [first, N) cut into S chunks of whole BM-row

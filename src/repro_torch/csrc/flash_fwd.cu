@@ -9,104 +9,467 @@
 // Layout (GQA-native): q (B*Hkv, rep, N, D), k/v (B*Hkv, L, D), key_bias
 // (B, L) fp32, q_valid (B, N) uint8 or NULL -> o like q, lse (B*Hkv, rep, N).
 //
+// What bounds it on the H100.  Per visible (row, key) pair it does 4*D FLOP
+// against one read of q and one write of o: at the LM prefill (one
+// 32,768-token sequence, 32 / 4 heads of 64 against 512 pooled keys, bf16)
+// the Q and O bytes bound it (0.08 ms) and the products sit just below them
+// on the bf16 tensor cores; at the compression branch of shapenet (N 3840
+// against L 480, D 32, fp32) the FMA pipes do.
+//
 // Design.  The TPU kernel carries its running max / sum / accumulator in
 // scratch across sequential grid steps over K tiles; Hopper blocks run in no
-// order, so here the K loop is a loop inside the block.  One thread block
-// owns 128 query rows of one (batch*KV-head); it stages K/V tiles of 64 keys
-// (32 at D = 128) into shared memory as fp32 and every thread folds its row through an
-// online softmax (rt::fold_keys).  The ragged edge (L = 480 is not a tile
-// multiple) is masked here, so the caller pads nothing.  A block none of
-// whose rows is a valid query (q_valid) writes zeros / LSE_EMPTY and stops:
-// those rows are unspecified by the JAX contract (repro/kernels/ops.py).
-//
-// Bound on the H100: at the compression branch's shapes (N = 3840,
-// L = N/8 = 480, D = 32, fp32) the work is 4*L*D FLOP per query row, so the
-// fp32 FMA rate bounds it.  This first kernel uses the fp32 pipes only.
-#include "common.cuh"
+// order, so the K loop is a loop inside the block.  A block owns a tile of
+// BM positions of one query head r of one (batch*KV head) bh
+// (kernels/flash.py::flash_fwd_plan); the grid runs the late position tiles
+// first, since in the causal modes they walk the most keys.  A tile walks
+// the key tiles up to the last one its last row sees (block-causal: keys
+// j < t_last/ell; causal: j <= t_last) and masks per element only a key
+// tile that some row of it does not see whole.  A tile that sees no key, or
+// none of whose rows is a valid query (q_valid), writes zeros and LSE_EMPTY
+// and stops: in block-causal mode every row t < ell sees nothing, and the
+// padding rows are unspecified by the JAX contract (repro/kernels/ops.py).
+// The ragged key edge (L = 480 is not a tile multiple) is masked here
+// (keys past L carry NEG_INF bias), so the caller pads nothing.
+//   mma   bf16: K/V tiles of 64 keys staged by cp.async, double-buffered;
+//         S = QK^T and O += PV on the tensor cores (mma.sync m16n8k16, fp32
+//         accumulation), a warp owning 16 rows; the online softmax runs in
+//         registers in the accumulator's layout, exponentials on the MUFU
+//         unit (__expf), and P is rounded to bf16 as PV's A fragment.
+//   fma   fp32: the same walk on the FMA pipes, register-tiled (16 key
+//         lanes x NT/16 row lanes, P through shared memory), so no thread
+//         holds a row of D: D 128 builds without spills.  (It replaced one
+//         thread a row over all L keys, which spilled at D 128 and was
+//         slower at shapenet's shape.)
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int kRows = 128;   // query rows (threads) per block
+using bf16 = __nv_bfloat16;
+using rt::dot4;
+using rt::lane_of;
+using rt::load_vec;
+using rt::Mask;
+using rt::set_smem;
+using rt::stage_rows;
+using rt::stage_vals;
+using rt::store2;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ key_bias,
-                 const uint8_t* __restrict__ q_valid, T* __restrict__ o,
-                 float* __restrict__ lse, int rep, int N, int L, int n_heads,
-                 int causal, int block_causal, int ell, float scale) {
-  constexpr int kTile = rt::kTileRows<D>;   // keys per shared-memory tile
-  __shared__ __align__(16) float Ks[kTile * D];
-  __shared__ __align__(16) float Vs[kTile * D];
-  __shared__ float bs[kTile];
+// The positions [t0, t0 + n) of query head r of bh that a tiled block owns:
+// blockIdx.x = ((P - 1 - tile) * BH + bh) * rep + r over the P position
+// tiles of bm rows, so the late tiles launch first.
+struct RowTile {
+  int bh, r, t0, n;
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / n_heads;
-  const int row = blockIdx.x * kRows + threadIdx.x;        // in [0, rep*N)
-  const bool has_row = row < rep * N;
-  const int t = row % N;                                    // query position
-  const size_t qrow = (size_t)bh * rep * N + row;
-
-  if (q_valid != nullptr) {
-    const bool mine = has_row && q_valid[(size_t)b * N + t] != 0;
-    if (!__syncthreads_or(mine)) {         // whole tile is padding
-      if (has_row) rt::write_empty_row<T, D>(o + qrow * D, lse + qrow);
-      return;
-    }
-  }
-  float qr[D];
-  if (has_row) rt::load_row<T, D>(q + qrow * D, qr);
-  rt::Row<D> st;
-  const T* kb = k + (size_t)bh * L * D;
-  const T* vb = v + (size_t)bh * L * D;
-  const float* biasb = key_bias + (size_t)b * L;
-  for (int j0 = 0; j0 < L; j0 += kTile) {
-    const int n = min(kTile, L - j0);
-    __syncthreads();                       // previous tile fully consumed
-    rt::stage(kb + (size_t)j0 * D, Ks, n * D);
-    rt::stage(vb + (size_t)j0 * D, Vs, n * D);
-    rt::stage(biasb + j0, bs, n);
-    __syncthreads();
-    if (!has_row) continue;
-    auto visible = [=](int j) {
-      const int key = j0 + j;
-      if (block_causal) return (key + 1) * ell - 1 < t;
-      if (causal) return key <= t;
-      return true;
-    };
-    rt::fold_keys<T, D>(qr, Ks, Vs, bs, n, scale, visible, st);
-  }
-  if (has_row) rt::write_row<T, D>(st, o + qrow * D, lse + qrow);
+__device__ __forceinline__ RowTile row_tile(int BH, int rep, int N, int bm) {
+  const int P = (N + bm - 1) / bm;
+  int x = blockIdx.x;
+  const int r = x % rep;
+  x /= rep;
+  const int bh = x % BH;
+  const int t0 = (P - 1 - x / BH) * bm;
+  return {bh, r, t0, min(bm, N - t0)};
 }
 
+// The keys [0, kmax) a tile walks: those its last row sees.  0 when it sees
+// none, or when none of its rows is a valid query (q_valid; block-uniform).
+__device__ __forceinline__ int tile_kmax(const uint8_t* q_valid, int b, int N, int L,
+                                         const RowTile& tile, Mask mask) {
+  if (q_valid != nullptr) {
+    const bool mine =
+        threadIdx.x < tile.n && q_valid[(size_t)b * N + tile.t0 + threadIdx.x] != 0;
+    if (!__syncthreads_or(mine)) return 0;
+  }
+  return min(L, mask.keys_seen(tile.t0 + tile.n - 1));
+}
+
+// n rows that attend nothing: zeros and LSE_EMPTY.
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* key_bias,
-           const void* q_valid, void* o, void* lse, int BH, int rep, int N, int L,
-           int n_heads, int causal, int block_causal, int ell,
-           cudaStream_t stream) {
-  const dim3 grid((rep * N + kRows - 1) / kRows, BH);
-  flash_fwd_kernel<T, D><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+__device__ __forceinline__ void write_empty_tile(T* o, float* lse, int n) {
+  rt::store_zeros(o, n * D);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) lse[i] = rt::LSE_EMPTY;
+}
+
+// ---------------------------------------------------------------------------
+// mma, bf16: tensor cores.  4 warps, warp w owns rows 16w..16w+15 of the
+// block's 64; per staged tile of 64 keys a warp computes S (16 rows x 64
+// keys), folds it into the running max / sum of its rows, and adds P V into
+// its O (16 x D, fp32).
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdMma {
+  static constexpr int BM = 64, BK = 64, NT = 128, LD = D + 8;
+  static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
+  static constexpr int BF_END = V_OFF + 2 * BK * LD;
+  static constexpr size_t SMEM = (size_t)BF_END * 2 + (size_t)2 * BK * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const float* __restrict__ key_bias,
+              const uint8_t* __restrict__ q_valid, bf16* __restrict__ o,
+              float* __restrict__ lse, int BH, int rep, int N, int L, int n_heads,
+              Mask mask, float scale) {
+  using C = FwdMma<D>;
+  constexpr int BK = C::BK, LD = C::LD;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  bf16* Qs = sm + C::Q_OFF;
+  float* bs = reinterpret_cast<float*>(sm + C::BF_END);     // [2][BK]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int rw = (threadIdx.x / 32) * 16;                   // the warp's first row
+  const RowTile tile = row_tile(BH, rep, N, C::BM);
+  const int b = tile.bh / n_heads;
+  const size_t base = ((size_t)tile.bh * rep + tile.r) * N + tile.t0;
+  const int kmax = tile_kmax(q_valid, b, N, L, tile, mask);
+  if (kmax <= 0) {
+    write_empty_tile<bf16, D>(o + base * D, lse + base, tile.n);
+    return;
+  }
+  const int n_kt = (kmax + BK - 1) / BK;
+  const int seen0 = mask.keys_seen(tile.t0);                // keys the first row sees
+
+  stage_rows<bf16, D, LD>(Qs, q + base * D, tile.n, C::BM, C::NT);
+  const bf16* kb = k + (size_t)tile.bh * L * D;
+  const bf16* vb = v + (size_t)tile.bh * L * D;
+  const float* biasb = key_bias + (size_t)b * L;
+  auto load_tile = [&](int kt, int buf) {
+    const int j0 = kt * BK, n = min(BK, L - j0);
+    stage_rows<bf16, D, LD>(sm + C::K_OFF + buf * BK * LD, kb + (size_t)j0 * D, n, BK, C::NT);
+    stage_rows<bf16, D, LD>(sm + C::V_OFF + buf * BK * LD, vb + (size_t)j0 * D, n, BK, C::NT);
+    stage_vals(bs + buf * BK, biasb + j0, n, BK, rt::NEG_INF, C::NT);
+  };
+
+  int t[2];                                                  // rows g, g + 8
+  float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) t[h] = tile.t0 + rw + g + 8 * h;
+  float oa[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oa[i][e] = 0.f;
+
+  load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) load_tile(kt + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = sm + C::K_OFF + buf * BK * LD;
+    const bf16* Vt = sm + C::V_OFF + buf * BK * LD;
+    const float* bt = bs + buf * BK;
+    const int j0 = kt * BK;
+    float st[BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][e] = 0.f;
+    // S = Q K^T over D
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 16) {
+      uint32_t qa[4];
+      rt::ldmatrix_x4(qa, Qs + (rw + lane % 16) * LD + d0 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t kf[4];
+        rt::ldmatrix_x4(kf, Kt + (np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 +
+                                8 * ((lane / 8) % 2));
+        rt::mma_bf16(st[2 * np], qa, kf[0], kf[1]);
+        rt::mma_bf16(st[2 * np + 1], qa, kf[2], kf[3]);
+      }
+    }
+    // logits, masked where some row does not see the whole tile; then the
+    // online softmax of rows g (h 0) and g + 8 (h 1), whose 64 keys lie on
+    // the 4 lanes of their quad
+    const bool partial = seen0 < j0 + BK;                    // block-uniform
+    float mx[2] = {rt::NEG_INF, rt::NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nt * 8 + tig * 2 + (e % 2);
+        float s = st[nt][e] * scale + bt[key];
+        if (partial && !mask.visible(j0 + key, t[e / 2])) s = rt::NEG_INF;
+        st[nt][e] = s;
+        mx[e / 2] = fmaxf(mx[e / 2], s);
+      }
+    float ms[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      ms[h] = fmaxf(m_new, rt::NEG_HALF);
+      alpha[h] = m[h] <= rt::NEG_HALF ? 0.f : __expf(fminf(m[h] - ms[h], 0.f));
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = st[nt][e];
+        const float p = s > rt::NEG_HALF ? __expf(s - ms[e / 2]) : 0.f;
+        l[e / 2] += p;
+        st[nt][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oa[i][e] *= alpha[e / 2];
+    // O += P V over the tile's keys, P rounded to bf16 as A fragments
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = rt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
+      pa[1] = rt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
+      pa[2] = rt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+      pa[3] = rt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+#pragma unroll
+      for (int n0 = 0; n0 < D; n0 += 16) {
+        uint32_t vf[4];
+        rt::ldmatrix_x4_trans(vf, Vt + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD +
+                                      n0 + 8 * (lane / 16));
+        rt::mma_bf16(oa[n0 / 8], pa, vf[0], vf[1]);
+        rt::mma_bf16(oa[n0 / 8 + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                       // buffer `buf` is free for tile kt+2
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = rw + g + 8 * h;
+    if (r >= tile.n) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    bf16* out = o + (base + r) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      store2<bf16>(out + nt * 8, oa[nt][2 * h] * inv, oa[nt][2 * h + 1] * inv);
+    if (tig == 0)
+      lse[base + r] = l[h] > 0.f ? fmaxf(m[h], rt::NEG_HALF) + logf(fmaxf(l[h], 1e-30f))
+                                 : rt::LSE_EMPTY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fma, fp32: FMA pipes, register-tiled.  NT threads as 16 key lanes (kx) x
+// RY row lanes (ry).  S of a staged key tile: a thread holds rows ry+RY*j
+// (j < 64/RY) x keys kx+16i (i < BK/16); a row's max and sum run over its 16
+// key lanes (one half-warp) by shuffles.  P goes to shared memory; then the
+// thread adds P V into O of its rows x D/16 dims.
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdFma {
+  static constexpr int BM = 64, BK = 32, NT = D > 64 ? 256 : 128;
+  static constexpr int RY = NT / 16, RPT = BM / RY, KPT = BK / 16, DPT = D / 16;
+  static constexpr int LD = D + 4, LS = BK + 4;
+  static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
+  static constexpr int P_OFF = V_OFF + 2 * BK * LD, B_OFF = P_OFF + BM * LS;
+  static constexpr size_t SMEM = (size_t)(B_OFF + 2 * BK) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdFma<D>::NT, 1)
+flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ key_bias,
+              const uint8_t* __restrict__ q_valid, float* __restrict__ o,
+              float* __restrict__ lse, int BH, int rep, int N, int L, int n_heads,
+              Mask mask, float scale) {
+  using C = FwdFma<D>;
+  constexpr int BK = C::BK, LD = C::LD, LS = C::LS, RY = C::RY, RPT = C::RPT;
+  constexpr int KPT = C::KPT, DPT = C::DPT;
+  float* sm = reinterpret_cast<float*>(rt::dyn_smem());
+  float* Qs = sm + C::Q_OFF;
+  float* Ps = sm + C::P_OFF;
+  float* bs = sm + C::B_OFF;                                // [2][BK]
+
+  const int kx = threadIdx.x % 16, ry = threadIdx.x / 16;
+  const RowTile tile = row_tile(BH, rep, N, C::BM);
+  const int b = tile.bh / n_heads;
+  const size_t base = ((size_t)tile.bh * rep + tile.r) * N + tile.t0;
+  const int kmax = tile_kmax(q_valid, b, N, L, tile, mask);
+  if (kmax <= 0) {
+    write_empty_tile<float, D>(o + base * D, lse + base, tile.n);
+    return;
+  }
+  const int n_kt = (kmax + BK - 1) / BK;
+  const int seen0 = mask.keys_seen(tile.t0);
+
+  stage_rows<float, D, LD>(Qs, q + base * D, tile.n, C::BM, C::NT);
+  const float* kb = k + (size_t)tile.bh * L * D;
+  const float* vb = v + (size_t)tile.bh * L * D;
+  const float* biasb = key_bias + (size_t)b * L;
+  auto load_tile = [&](int kt, int buf) {
+    const int j0 = kt * BK, n = min(BK, L - j0);
+    stage_rows<float, D, LD>(sm + C::K_OFF + buf * BK * LD, kb + (size_t)j0 * D, n, BK, C::NT);
+    stage_rows<float, D, LD>(sm + C::V_OFF + buf * BK * LD, vb + (size_t)j0 * D, n, BK, C::NT);
+    stage_vals(bs + buf * BK, biasb + j0, n, BK, rt::NEG_INF, C::NT);
+  };
+
+  float m[RPT], l[RPT], acc[RPT][DPT];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    m[j] = rt::NEG_INF;
+    l[j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc[j][d] = 0.f;
+  }
+
+  load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) load_tile(kt + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = sm + C::K_OFF + buf * BK * LD;
+    const float* Vt = sm + C::V_OFF + buf * BK * LD;
+    const float* bt = bs + buf * BK;
+    const int j0 = kt * BK;
+    const bool partial = seen0 < j0 + BK;                    // block-uniform
+    float st[RPT][KPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) st[j][i] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kk[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i)
+        kk[i] = *reinterpret_cast<const float4*>(Kt + (kx + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const float4 qq = *reinterpret_cast<const float4*>(Qs + (ry + RY * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) st[j][i] = dot4(qq, kk[i], st[j][i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int t = tile.t0 + ry + RY * j;
+      float mx = rt::NEG_INF;
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const int key = kx + 16 * i;
+        float s = st[j][i] * scale + bt[key];
+        if (partial && !mask.visible(j0 + key, t)) s = rt::NEG_INF;
+        st[j][i] = s;
+        mx = fmaxf(mx, s);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[j], mx);
+      const float ms = fmaxf(m_new, rt::NEG_HALF);
+      const float alpha = m[j] <= rt::NEG_HALF ? 0.f : expf(fminf(m[j] - ms, 0.f));
+      m[j] = m_new;
+      l[j] *= alpha;
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const float p = st[j][i] > rt::NEG_HALF ? expf(st[j][i] - ms) : 0.f;
+        l[j] += p;
+        Ps[(ry + RY * j) * LS + kx + 16 * i] = p;
+      }
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) acc[j][d] *= alpha;
+    }
+    __syncthreads();
+    // O += P V: rows ry+RY*j, dims kx*DPT..
+#pragma unroll 2
+    for (int c0 = 0; c0 < BK; c0 += 4) {
+      float4 pp[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j)
+        pp[j] = *reinterpret_cast<const float4*>(Ps + (ry + RY * j) * LS + c0);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float vd[DPT];
+        load_vec<DPT>(vd, Vt + (c0 + c) * LD + kx * DPT);
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const float pv = lane_of(pp[j], c);
+#pragma unroll
+          for (int d = 0; d < DPT; ++d) acc[j][d] = fmaf(pv, vd[d], acc[j][d]);
+        }
+      }
+    }
+    __syncthreads();                       // buffers free for the next loads
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l[j] += __shfl_xor_sync(0xffffffffu, l[j], off);
+    const int row = ry + RY * j;
+    if (row >= tile.n) continue;
+    const float inv = l[j] > 0.f ? 1.f / l[j] : 0.f;
+    float* out = o + (base + row) * D + kx * DPT;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) out[d] = acc[j][d] * inv;
+    if (kx == 0)
+      lse[base + row] = l[j] > 0.f ? fmaxf(m[j], rt::NEG_HALF) + logf(fmaxf(l[j], 1e-30f))
+                                   : rt::LSE_EMPTY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* key_bias,
+               const void* q_valid, void* o, void* lse, int BH, int rep, int N, int L,
+               int n_heads, Mask mask, float scale, cudaStream_t stream) {
+  using C = FwdMma<D>;
+  auto kern = flash_fwd_mma<D>;
+  if (int err = set_smem(kern, C::SMEM)) return err;
+  const unsigned blocks = (unsigned)((N + C::BM - 1) / C::BM) * BH * rep;
+  kern<<<blocks, C::NT, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(key_bias), static_cast<const uint8_t*>(q_valid),
-      static_cast<T*>(o), static_cast<float*>(lse), rep, N, L, n_heads, causal,
-      block_causal, ell, (float)(1.0 / sqrt((double)D)));
+      static_cast<bf16*>(o), static_cast<float*>(lse), BH, rep, N, L, n_heads, mask, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, const void* key_bias,
+               const void* q_valid, void* o, void* lse, int BH, int rep, int N, int L,
+               int n_heads, Mask mask, float scale, cudaStream_t stream) {
+  using C = FwdFma<D>;
+  auto kern = flash_fwd_fma<D>;
+  if (int err = set_smem(kern, C::SMEM)) return err;
+  const unsigned blocks = (unsigned)((N + C::BM - 1) / C::BM) * BH * rep;
+  kern<<<blocks, C::NT, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(key_bias), static_cast<const uint8_t*>(q_valid),
+      static_cast<float*>(o), static_cast<float*>(lse), BH, rep, N, L, n_heads, mask, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// kernels/flash.py::flash_fwd_plan: bf16 takes mma, fp32 fma
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* key_bias, const void* q_valid, void* o,
                          void* lse, int BH, int rep, int N, int L, int D,
                          int n_heads, int causal, int block_causal, int ell,
                          int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (BH == 0 || rep == 0 || N == 0) return 0;
+  const Mask mask{causal, block_causal, ell};
+  const float scale = (float)(1.0 / sqrt((double)D));
   RT_DISPATCH_D128(D, {
-    return bf16 ? launch<__nv_bfloat16, kD>(q, k, v, key_bias, q_valid, o, lse,
-                                            BH, rep, N, L, n_heads, causal,
-                                            block_causal, ell, s)
-                : launch<float, kD>(q, k, v, key_bias, q_valid, o, lse, BH, rep,
-                                    N, L, n_heads, causal, block_causal, ell, s);
+    return bf16 ? launch_mma<kD>(q, k, v, key_bias, q_valid, o, lse, BH, rep, N, L, n_heads,
+                                 mask, scale, s)
+                : launch_fma<kD>(q, k, v, key_bias, q_valid, o, lse, BH, rep, N, L, n_heads,
+                                 mask, scale, s);
   });
   return 0;
 }

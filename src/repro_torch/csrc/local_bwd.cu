@@ -18,37 +18,42 @@
 // block i's key liveness and the same-segment rule (the JAX kernel's
 // live_next), and is 0 past the last block.
 //
+// What bounds them on the H100.  Each visible (row, key) pair costs 6*D
+// FLOP in local_dq and 8*D in local_dkv against one read of q, dO, k, v: at
+// the tinyllama train shape (w 256, rep 8, D 64, bf16) the products bound
+// them on the tensor cores (~0.04 / 0.05 ms).
+//
 // Design.  The TPU ran one grid cell per (b*h, block i) that owned dQ, dK
 // and dV of block i, fetching the next query block through a second set of
 // index maps.  Hopper blocks run in no order, so the work is split in two
-// kernels that each own their outputs; neither uses atomics:
-//   local_dq   the forward's grid: a block owns 64 positions of one
-//              (b*h, query head r, block i), stages the live halves' K/V in
-//              tiles of 64 keys (32 at D = 128) into shared memory and
-//              folds them:
-//              p = exp(s - lse), dS = p*(dO.v - delta)*scale, dq += dS*k.
-//              The self half stops at the warp's last position.
-//   local_dkv  a block owns 64 keys of one (b*h, block i) and walks the rep
-//              query heads over block i's rows at positions >= its first key
-//              and, if the next flag is set, all of block i+1's rows, staging
-//              Q, dO, lse, delta in tiles of 64 rows (32 at D = 128):
-//              dv += p*dO, dk += dS*q.
-//              The GQA group's sum is this loop.
-// A row (local_dq) or a key (local_dkv) is held by 4 lanes, each with D/4
-// dims (float4 chunks sub, sub+4, ...: the four lanes read neighbouring 16
-// bytes of a shared row, so no bank conflict), and the dot products are
-// summed over the 4 lanes by shuffles.  One thread a key would keep k, v, dk
-// and dv rows (4*D floats) in registers, past the 255-register cap at
-// D = 64; a lane here keeps D floats.  p and dS are rounded to the operand
-// dtype before their products.  A masked key (bias NEG_INF) and a row with
-// lse = LSE_EMPTY give p = 0, so they contribute exactly 0; a block with no
-// live half writes zeros.
-//
-// Bound on the H100: at the tinyllama train shapes (w = 256, rep 8, D 64)
-// each visible (row, key) pair costs 6*D FLOP in local_dq and 8*D in
-// local_dkv against one read of q, dO, k, v, so the arithmetic bounds them.
-// This first version uses the fp32 pipes only.
-#include "common.cuh"
+// kernels that each own their outputs; neither uses atomics, and both sum
+// in a fixed order (the backward is bit-reproducible).  Two paths, one rule
+// (kernels/local.py::local_plan, the wrapper passes `tiles`):
+//   tiles  bf16, w a multiple of 64: the tensor cores (mma.sync m16n8k16,
+//          fp32 accumulation), tiles staged by cp.async, double-buffered,
+//          exponentials on the MUFU unit (__expf).
+//     local_dq   a block owns 64 rows of one (b*h, query head r, block i)
+//                and walks the live prev half's 64-key tiles, then the self
+//                half's up to the diagonal tile (masked key <= row); a warp
+//                owns 16 rows: S, dP = dO V^T and dQ += dS K.
+//     local_dkv  a block owns 64 keys of one (b*h, block i) and walks the
+//                rep query heads over block i's rows from its first key on
+//                (the first 64 masked row >= key) and, when block i+1's prev
+//                flag is set, all of block i+1's rows, in staged tiles of BM
+//                rows (32 at D 128); a warp owns 16 keys: S^T, dP^T,
+//                dV += P^T dO and dK += dS^T Q.  The GQA group's sum stays
+//                in registers.
+//   lanes  fp32, and w not a multiple of 64: 256 threads, a row (local_dq)
+//          or a key (local_dkv) held by 4 lanes with D/4 dims each (float4
+//          chunks sub, sub+4, ...: the four lanes read neighbouring 16
+//          bytes of a shared row, so no bank conflict), K/V or Q/dO staged
+//          as fp32 in tiles of 64 (32 at D = 128), dot products summed over
+//          the 4 lanes by shuffles; the self half stops at the warp's last
+//          position.
+// p and dS are rounded to the operand dtype before their products.  A masked
+// key (bias NEG_INF) and a row with lse = LSE_EMPTY give p = 0, so they
+// contribute exactly 0; a block with no live half writes zeros.
+#include "tiles.cuh"
 
 namespace {
 
@@ -109,7 +114,7 @@ __device__ __forceinline__ void part_axpy(float (&acc)[D / 4], float a, const fl
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-local_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+local_dq_lanes(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ key_bias,
                 const int* __restrict__ live, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
@@ -186,7 +191,7 @@ local_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-local_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+local_dkv_lanes(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ key_bias,
                  const int* __restrict__ live, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
@@ -259,13 +264,353 @@ local_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tiles, local_dq (bf16): 4 warps, warp w owns rows 16w..16w+15 of the
+// block's 64; per staged tile of 64 keys a warp computes S and dP (16 rows x
+// 64 keys), turns dS into A fragments and adds dS K into its dQ (16 x D).
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+using rt::stage_rows;
+using rt::stage_vals;
+using rt::store2;
+
+template <int D>
+struct DqMma {
+  static constexpr int BM = 64, BK = 64, NT = 128, LD = D + 8;
+  // three blocks an SM where the registers allow it without spills
+  static constexpr int MIN_BLOCKS = D > 64 ? 2 : 3;
+  static constexpr int Q_OFF = 0, DO_OFF = BM * LD, K_OFF = 2 * BM * LD;
+  static constexpr int V_OFF = K_OFF + 2 * BK * LD, BF_END = V_OFF + 2 * BK * LD;
+  static constexpr size_t SMEM = (size_t)BF_END * 2 + (size_t)2 * BK * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqMma<D>::NT, DqMma<D>::MIN_BLOCKS)
+local_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const float* __restrict__ key_bias,
+             const int* __restrict__ live, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, int BH, int rep, int N, int w, int n_heads, float scale) {
+  using C = DqMma<D>;
+  constexpr int BM = C::BM, BK = C::BK, LD = C::LD;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  bf16* Qs = sm + C::Q_OFF;
+  bf16* Ds = sm + C::DO_OFF;
+  float* bs = reinterpret_cast<float*>(sm + C::BF_END);    // [2][BK]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int rw = (threadIdx.x / 32) * 16;                   // the warp's first row
+  // blockIdx.x = ((chunks - 1 - c) * BH + bh) * nb + i) * rep + r: the late
+  // (heavy) row chunks of every block first
+  const int nb = N / w, chunks = w / BM;
+  int x = blockIdx.x;
+  const int r = x % rep;
+  x /= rep;
+  const int i = x % nb;
+  x /= nb;
+  const int bh = x % BH, c = chunks - 1 - x / BH;
+  const int b = bh / n_heads;
+  const size_t base = ((size_t)bh * rep + r) * N + (size_t)i * w + c * BM;
+  const int* lv = live + ((size_t)b * nb + i) * 2;
+  const int n_prev = lv[0] != 0 ? w / BK : 0;               // block i-1, every key
+  const int n_self = lv[1] != 0 ? c + 1 : 0;                // block i up to the diagonal
+  const int n_kt = n_prev + n_self;
+
+  const bool row_live = threadIdx.x < BM && lse[base + threadIdx.x] < rt::LSE_HALF;
+  if (!__syncthreads_or(row_live) || n_kt == 0) {           // dq == 0
+    rt::store_zeros(dq + base * D, BM * D);
+    return;
+  }
+  stage_rows<bf16, D, LD>(Qs, q + base * D, BM, BM, C::NT);
+  stage_rows<bf16, D, LD>(Ds, dout + base * D, BM, BM, C::NT);
+  const bf16* kb = k + (size_t)bh * N * D;
+  const bf16* vb = v + (size_t)bh * N * D;
+  const float* biasb = key_bias + (size_t)b * N;
+  auto load_tile = [&](int kt, int buf) {
+    const int j0 = kt < n_prev ? (i - 1) * w + kt * BK : i * w + (kt - n_prev) * BK;
+    stage_rows<bf16, D, LD>(sm + C::K_OFF + buf * BK * LD, kb + (size_t)j0 * D, BK, BK, C::NT);
+    stage_rows<bf16, D, LD>(sm + C::V_OFF + buf * BK * LD, vb + (size_t)j0 * D, BK, BK, C::NT);
+    stage_vals(bs + buf * BK, biasb + j0, BK, BK, rt::NEG_INF, C::NT);
+  };
+
+  float l[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = rw + g + 8 * h;
+    l[h] = lse[base + rr];
+    dl[h] = delta[base + rr];
+  }
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[a][e] = 0.f;
+
+  load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) load_tile(kt + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = sm + C::K_OFF + buf * BK * LD;
+    const bf16* Vt = sm + C::V_OFF + buf * BK * LD;
+    const float* bt = bs + buf * BK;
+    const bool diag = n_self > 0 && kt == n_kt - 1;         // the self half's tile c
+    float st[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int a = 0; a < BK / 8; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[a][e] = dp[a][e] = 0.f;
+    // S = Q K^T, dP = dO V^T over D
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 16) {
+      uint32_t qa[4], da[4];
+      const int aoff = (rw + lane % 16) * LD + d0 + (lane / 16) * 8;
+      rt::ldmatrix_x4(qa, Qs + aoff);
+      rt::ldmatrix_x4(da, Ds + aoff);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        const int boff = (np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 + 8 * ((lane / 8) % 2);
+        uint32_t kf[4], vf[4];
+        rt::ldmatrix_x4(kf, Kt + boff);
+        rt::ldmatrix_x4(vf, Vt + boff);
+        rt::mma_bf16(st[2 * np], qa, kf[0], kf[1]);
+        rt::mma_bf16(st[2 * np + 1], qa, kf[2], kf[3]);
+        rt::mma_bf16(dp[2 * np], da, vf[0], vf[1]);
+        rt::mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
+      }
+    }
+    // dS = P (dP - delta) scale, rounded to bf16 as A fragments (rows x keys);
+    // the diagonal tile sees key <= row (both counted from the chunk start)
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int key = nt * 8 + tig * 2 + (e % 2);
+        float p = 0.f;
+        if (!diag || key <= rw + g + 8 * h)
+          p = rt::p_from_lse_fast(st[nt][e] * scale + bt[key], l[h]);
+        dp[nt][e] = p * (dp[nt][e] - dl[h]) * scale;
+      }
+    }
+    uint32_t sa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      sa[kk][0] = rt::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      sa[kk][1] = rt::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      sa[kk][2] = rt::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      sa[kk][3] = rt::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    }
+    // dQ += dS K over the tile's keys
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int n0 = 0; n0 < D; n0 += 16) {
+        const int boff = (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n0 + 8 * (lane / 16);
+        uint32_t kf[4];
+        rt::ldmatrix_x4_trans(kf, Kt + boff);
+        rt::mma_bf16(dqa[n0 / 8], sa[kk], kf[0], kf[1]);
+        rt::mma_bf16(dqa[n0 / 8 + 1], sa[kk], kf[2], kf[3]);
+      }
+    }
+    __syncthreads();                       // buffer `buf` is free for tile kt+2
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* out = dq + (base + rw + g + 8 * h) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      store2<bf16>(out + nt * 8, dqa[nt][2 * h], dqa[nt][2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tiles, local_dkv (bf16): 4 warps, warp w owns keys 16w..16w+15 of the
+// block's 64; per 32 rows of a staged tile a warp computes S^T and dP^T (16
+// keys x 32 rows), turns them into P^T and dS^T fragments and adds P^T dO
+// and dS^T Q into its dV, dK (16 keys x D, fp32).
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkvMma {
+  static constexpr int BK = 64, BM = D > 64 ? 32 : 64, NT = 128;
+  static constexpr int LD = D + 8;   // bf16 row stride: ldmatrix rows on distinct banks
+  static constexpr int K_OFF = 0, V_OFF = BK * LD, Q_OFF = 2 * BK * LD;
+  static constexpr int DO_OFF = Q_OFF + 2 * BM * LD, BF_END = DO_OFF + 2 * BM * LD;
+  static constexpr size_t SMEM = (size_t)BF_END * 2 + (size_t)(4 * BM + BK) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+local_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const float* __restrict__ key_bias,
+              const int* __restrict__ live, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int rep, int N, int w,
+              int n_heads, float scale) {
+  using C = DkvMma<D>;
+  constexpr int BM = C::BM, BK = C::BK, LD = C::LD;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  bf16* Ks = sm + C::K_OFF;
+  bf16* Vs = sm + C::V_OFF;
+  float* ls = reinterpret_cast<float*>(sm + C::BF_END);   // [2][BM]
+  float* dls = ls + 2 * BM;                                 // [2][BM]
+  float* bs = dls + 2 * BM;                                 // [BK]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int kw = (threadIdx.x / 32) * 16;                   // the warp's first key
+  // blockIdx.x = (c * BH + bh) * nb + i: the early key chunks, which see
+  // the most rows of their own block, first
+  const int nb = N / w;
+  const int i = blockIdx.x % nb, bh = (blockIdx.x / nb) % BH, c = blockIdx.x / (nb * BH);
+  const int b = bh / n_heads;
+  const int j0 = i * w + c * BK;                            // the block's first key
+
+  stage_rows<bf16, D, LD>(Ks, k + ((size_t)bh * N + j0) * D, BK, BK, C::NT);
+  stage_rows<bf16, D, LD>(Vs, v + ((size_t)bh * N + j0) * D, BK, BK, C::NT);
+  bool key_live = false;
+  if (threadIdx.x < BK) {
+    bs[threadIdx.x] = key_bias[(size_t)b * N + j0 + threadIdx.x];
+    key_live = bs[threadIdx.x] > rt::NEG_HALF;
+  }
+  const int* lv = live + ((size_t)b * nb + i) * 2;
+  const bool live_next = i + 1 < nb && lv[2] != 0;          // block i+1's prev flag
+  // per query head: block i's rows from the chunk's first key on (per_a
+  // tiles), then block i+1's rows (per_b); none without a valid key here
+  const int per_a = (w - c * BK) / BM, per_b = live_next ? w / BM : 0;
+  const int per_head = per_a + per_b;
+  const int n_tiles = __syncthreads_or(key_live) && lv[1] != 0 ? rep * per_head : 0;
+  auto tile_t0 = [&](int u) { return u < per_a ? j0 + u * BM : (i + 1) * w + (u - per_a) * BM; };
+  auto load_tile = [&](int it, int buf) {
+    const size_t row0 = ((size_t)bh * rep + it / per_head) * N + tile_t0(it % per_head);
+    stage_rows<bf16, D, LD>(sm + C::Q_OFF + buf * BM * LD, q + row0 * D, BM, BM, C::NT);
+    stage_rows<bf16, D, LD>(sm + C::DO_OFF + buf * BM * LD, dout + row0 * D, BM, BM, C::NT);
+    stage_vals(ls + buf * BM, lse + row0, BM, BM, rt::LSE_EMPTY, C::NT);
+    stage_vals(dls + buf * BM, delta + row0, BM, BM, 0.f, C::NT);
+  };
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[a][e] = dva[a][e] = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) load_tile(it + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    const float* lt = ls + buf * BM;
+    const float* dlt = dls + buf * BM;
+    const bool row_live = threadIdx.x < BM && lt[threadIdx.x] < rt::LSE_HALF;
+    const int u = it % per_head;
+    const int t0 = tile_t0(u);
+    // rows of block i before the chunk's last key: causal, row >= key
+    const bool causal = u < per_a && u * BM < BK;
+    // the tile has a live row, and the warp a key its last row sees
+    if (__syncthreads_or(row_live) && !(causal && j0 + kw > t0 + BM - 1)) {
+      const bf16* Qt = sm + C::Q_OFF + buf * BM * LD;
+      const bf16* Dt = sm + C::DO_OFF + buf * BM * LD;
+      // sub-tiles of 32 rows bound the S^T / dP^T registers
+#pragma unroll 1
+      for (int r0 = 0; r0 < BM; r0 += 32) {
+        float st[4][4], dp[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[a][e] = dp[a][e] = 0.f;
+        // S^T = K Q^T, dP^T = V dO^T over D
+#pragma unroll
+        for (int d0 = 0; d0 < D; d0 += 16) {
+          uint32_t ka[4], va[4];
+          const int aoff = (kw + lane % 16) * LD + d0 + (lane / 16) * 8;
+          rt::ldmatrix_x4(ka, Ks + aoff);
+          rt::ldmatrix_x4(va, Vs + aoff);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            const int boff =
+                (r0 + np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 + 8 * ((lane / 8) % 2);
+            uint32_t qb[4], db[4];
+            rt::ldmatrix_x4(qb, Qt + boff);
+            rt::ldmatrix_x4(db, Dt + boff);
+            rt::mma_bf16(st[2 * np], ka, qb[0], qb[1]);
+            rt::mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
+            rt::mma_bf16(dp[2 * np], va, db[0], db[1]);
+            rt::mma_bf16(dp[2 * np + 1], va, db[2], db[3]);
+          }
+        }
+        // P^T and dS^T, rounded to bf16 as A fragments (keys x rows)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kw + g + 8 * (e / 2);
+            const int row = r0 + nt * 8 + tig * 2 + (e % 2);
+            float p = 0.f;
+            if (!causal || j0 + key <= t0 + row)
+              p = rt::p_from_lse_fast(st[nt][e] * scale + bs[key], lt[row]);
+            dp[nt][e] = p * (dp[nt][e] - dlt[row]) * scale;
+            st[nt][e] = p;
+          }
+        }
+        uint32_t pa[2][4], sa[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          pa[kk][0] = rt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
+          pa[kk][1] = rt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
+          pa[kk][2] = rt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+          pa[kk][3] = rt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+          sa[kk][0] = rt::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+          sa[kk][1] = rt::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+          sa[kk][2] = rt::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+          sa[kk][3] = rt::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+        }
+        // dV += P^T dO, dK += dS^T Q over the sub-tile's rows
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+          for (int n0 = 0; n0 < D; n0 += 16) {
+            const int boff =
+                (r0 + kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n0 + 8 * (lane / 16);
+            uint32_t db[4], qb[4];
+            rt::ldmatrix_x4_trans(db, Dt + boff);
+            rt::ldmatrix_x4_trans(qb, Qt + boff);
+            rt::mma_bf16(dva[n0 / 8], pa[kk], db[0], db[1]);
+            rt::mma_bf16(dva[n0 / 8 + 1], pa[kk], db[2], db[3]);
+            rt::mma_bf16(dka[n0 / 8], sa[kk], qb[0], qb[1]);
+            rt::mma_bf16(dka[n0 / 8 + 1], sa[kk], qb[2], qb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                       // buffer `buf` is free for tile it+2
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t off = ((size_t)bh * N + j0 + kw + g + 8 * h) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      store2<bf16>(dk + off + nt * 8, dka[nt][2 * h], dka[nt][2 * h + 1]);
+      store2<bf16>(dv + off + nt * 8, dva[nt][2 * h], dva[nt][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* key_bias,
               const void* live, const void* dout, const void* lse, const void* delta,
               void* dq, int BH, int rep, int N, int w, int n_heads, cudaStream_t stream) {
   const int chunks = (w + kItems - 1) / kItems;
   const dim3 grid(rep * (N / w) * chunks, BH);
-  local_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  local_dq_lanes<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(key_bias), static_cast<const int*>(live),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -281,7 +626,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* key_bias
                cudaStream_t stream) {
   const int chunks = (w + kItems - 1) / kItems;
   const dim3 grid((N / w) * chunks, BH);
-  local_dkv_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  local_dkv_lanes<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(key_bias), static_cast<const int*>(live),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -290,15 +635,56 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* key_bias
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dq_mma(const void* q, const void* k, const void* v, const void* key_bias,
+                  const void* live, const void* dout, const void* lse, const void* delta,
+                  void* dq, int BH, int rep, int N, int w, int n_heads, cudaStream_t stream) {
+  using C = DqMma<D>;
+  auto kern = local_dq_mma<D>;
+  if (int err = rt::set_smem(kern, C::SMEM)) return err;
+  const unsigned blocks = (unsigned)(w / C::BM) * BH * (N / w) * rep;
+  kern<<<blocks, C::NT, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(key_bias), static_cast<const int*>(live),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), BH, rep, N, w, n_heads,
+      (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_mma(const void* q, const void* k, const void* v, const void* key_bias,
+                   const void* live, const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int BH, int rep, int N, int w, int n_heads,
+                   cudaStream_t stream) {
+  using C = DkvMma<D>;
+  auto kern = local_dkv_mma<D>;
+  if (int err = rt::set_smem(kern, C::SMEM)) return err;
+  const unsigned blocks = (unsigned)(w / C::BK) * BH * (N / w);
+  kern<<<blocks, C::NT, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(key_bias), static_cast<const int*>(live),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH,
+      rep, N, w, n_heads, (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// tiles: 1 = the tiled path (bf16, w a multiple of 64), 0 = the lanes path;
+// kernels/local.py::local_plan picks
 extern "C" int local_dq(const void* q, const void* k, const void* v,
                         const void* key_bias, const void* live, const void* dout,
                         const void* lse, const void* delta, void* dq, int BH, int rep,
-                        int N, int D, int w, int n_heads, int bf16, void* stream) {
+                        int N, int D, int w, int n_heads, int bf16, int tiles, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH == 0 || N == 0) return 0;
+  if (BH == 0 || rep == 0 || N == 0) return 0;
+  if (tiles && (!bf16 || w % 64 != 0)) return (int)cudaErrorInvalidValue;
   RT_DISPATCH_D128(D, {
+    if (tiles)
+      return launch_dq_mma<kD>(q, k, v, key_bias, live, dout, lse, delta, dq, BH, rep, N, w,
+                               n_heads, s);
     return bf16 ? launch_dq<__nv_bfloat16, kD>(q, k, v, key_bias, live, dout, lse, delta,
                                                dq, BH, rep, N, w, n_heads, s)
                 : launch_dq<float, kD>(q, k, v, key_bias, live, dout, lse, delta, dq,
@@ -310,11 +696,15 @@ extern "C" int local_dq(const void* q, const void* k, const void* v,
 extern "C" int local_dkv(const void* q, const void* k, const void* v,
                          const void* key_bias, const void* live, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int BH,
-                         int rep, int N, int D, int w, int n_heads, int bf16,
+                         int rep, int N, int D, int w, int n_heads, int bf16, int tiles,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH == 0 || N == 0) return 0;
+  if (BH == 0 || rep == 0 || N == 0) return 0;
+  if (tiles && (!bf16 || w % 64 != 0)) return (int)cudaErrorInvalidValue;
   RT_DISPATCH_D128(D, {
+    if (tiles)
+      return launch_dkv_mma<kD>(q, k, v, key_bias, live, dout, lse, delta, dk, dv, BH, rep,
+                                N, w, n_heads, s);
     return bf16 ? launch_dkv<__nv_bfloat16, kD>(q, k, v, key_bias, live, dout, lse,
                                                 delta, dk, dv, BH, rep, N, w, n_heads, s)
                 : launch_dkv<float, kD>(q, k, v, key_bias, live, dout, lse, delta, dk,

@@ -74,11 +74,11 @@ SIGNATURES = {
     # q, k, v, key_bias, live, o, lse, BH, rep, N, D, window, n_heads, bf16, stream
     "local_fwd": [P] * 7 + [I] * 6 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dq, BH, rep, N, D, window, n_heads,
-    # bf16, stream
-    "local_dq": [P] * 9 + [I] * 7 + [P],
+    # bf16, tiles, stream
+    "local_dq": [P] * 9 + [I] * 8 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dk, dv, BH, rep, N, D, window,
-    # n_heads, bf16, stream
-    "local_dkv": [P] * 10 + [I] * 7 + [P],
+    # n_heads, bf16, tiles, stream
+    "local_dkv": [P] * 10 + [I] * 8 + [P],
     # pool, rows, out, R, M, row_bytes, stream
     "paged_gather": [P] * 3 + [I] * 3 + [P],
 }

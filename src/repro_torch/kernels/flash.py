@@ -10,14 +10,24 @@ their inputs, the mask code and the recompute of p).
 What bounds them on the H100.  Per visible (row, key) pair the forward
 does 4·D FLOP, ``flash_dq`` 6·D and ``flash_dkv`` 8·D.  In the compression
 branch of ``shapenet-bsa`` (N = 3840 queries against L = 480 pooled keys,
-D 32, fp32) that arithmetic bounds them on the FMA pipes; in the LM's
-train step (B·Hkv 8, rep 8, N 4096 against L 64 pooled keys, D 64, bf16)
-the bytes of Q and dO bound the backward, and parallelism: its 64 keys
-alone give ``flash_dkv`` one block per (batch, KV head).  The TPU carried
-the running softmax state (and the backward's dQ / dK, dV sums) across
-sequential grid steps; Hopper blocks run in no order.  The forward gives a
-block 128 query rows and stages 64-key K/V tiles (32 at D 128).  The
-backward (``csrc/flash_bwd.cu``):
+D 32, fp32) that arithmetic bounds them on the FMA pipes; at the LM
+prefill (one 32,768-token sequence against 512 pooled keys, bf16) the
+bytes of Q and O bound the forward, and in the LM's train step (B·Hkv 8,
+rep 8, N 4096 against L 64 pooled keys, D 64, bf16) the bytes of Q and dO
+bound the backward, and parallelism: its 64 keys alone give ``flash_dkv``
+one block per (batch, KV head).  The TPU carried the running softmax state
+(and the backward's dQ / dK, dV sums) across sequential grid steps; Hopper
+blocks run in no order.
+
+- The forward (``csrc/flash_fwd.cu``, one rule: :func:`flash_fwd_plan`)
+  gives a block 64 positions of one query head and walks the key tiles up
+  to the last one its last position sees (:func:`fwd_walk`), the late
+  (heavy) tiles launched first; a tile that sees no key (block-causal: every
+  position t < ℓ) writes zeros and ``LSE_EMPTY`` and stops.  bf16 runs on
+  the tensor cores (``mma.sync``, the online softmax in the accumulator's
+  registers), fp32 on the FMA pipes in register tiles.
+
+The backward (``csrc/flash_bwd.cu``):
 
 - ``flash_dkv`` runs on (key tiles of 64, B·Hkv, S row splits): a block
   owns one key tile and one range of positions, walks the GQA group's rep
@@ -37,7 +47,7 @@ backward (``csrc/flash_bwd.cu``):
   dK/dV (dQ) sums split over threads by dims.
 
 The ragged last key tile (L = 480) and row tile are masked in the kernels,
-so nothing is padded here.  Query rows the forward skipped (a 128-row tile
+so nothing is padded here.  Query rows the forward skipped (a 64-row tile
 none of whose rows is a valid query, ``q_valid``) carry o = 0 and lse =
 ``LSE_EMPTY``; the backward kernels read that residual, so their dQ is
 exactly 0 and they add nothing to dK, dV.
@@ -51,23 +61,72 @@ The forward returns o like q and lse (B·Hkv, rep, N) fp32.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core.branches import sdpa
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (_counter, check_cuda_inputs, on_cpu,
+from repro_torch.kernels.common import (HEAD_DIMS, _counter, check_cuda_inputs, on_cpu,
                                         p_from_lse, row_delta)
 from repro_torch.numerics import NEG_INF
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_dq", "flash_attention_dkv",
-           "dkv_splits", "dkv_ranges", "FlashAttentionFn", "COUNT", "COUNT_DQ",
-           "COUNT_DKV"]
+           "flash_fwd_plan", "FlashFwdPlan", "fwd_walk", "dkv_splits", "dkv_ranges",
+           "FlashAttentionFn", "COUNT", "COUNT_DQ", "COUNT_DKV"]
 
 COUNT = _counter("flash_fwd")
 COUNT_DQ = _counter("flash_dq")
 COUNT_DKV = _counter("flash_dkv")
+
+
+class FlashFwdPlan(NamedTuple):
+    """How ``flash_fwd`` takes one shape: ``path`` ``"mma"`` (bf16, tensor
+    cores) or ``"fma"`` (fp32, register tiles); ``rows``: positions of one
+    query head a block; ``keys``: keys a staged tile."""
+    path: str
+    rows: int
+    keys: int
+
+
+def flash_fwd_plan(D: int, dtype: torch.dtype) -> FlashFwdPlan:
+    """The path and tiles of ``flash_fwd`` at head dim D: the rule its CUDA
+    entry point applies by dtype, with the constants of
+    ``csrc/flash_fwd.cu`` (``FwdMma``, ``FwdFma``).  bf16 takes the tensor
+    cores, 64 positions against 64-key tiles; fp32 the FMA pipes, 64
+    positions against 32-key tiles (at shapenet's shape faster than one
+    thread a row).  A shape no path takes raises."""
+    if dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["flash_fwd"]:
+        raise ValueError(f"flash_fwd: no path takes D {D}, {dtype} (D in "
+                         f"{HEAD_DIMS['flash_fwd']}; float32 or bfloat16)")
+    if dtype == torch.bfloat16:
+        return FlashFwdPlan("mma", 64, 64)
+    return FlashFwdPlan("fma", 64, 32)
+
+
+def keys_seen(t: int, L: int, *, causal: bool, block_causal: bool, ell: int) -> int:
+    """How many keys (0, 1, …) query position t sees."""
+    if block_causal:
+        return min(L, t // ell)
+    return min(L, t + 1) if causal else L
+
+
+def fwd_walk(N: int, L: int, D: int, dtype: torch.dtype, *, causal: bool = False,
+             block_causal: bool = False, ell: int = 1) -> list[tuple[int, int, int]]:
+    """The tiled forward's walk of one query head, as ``csrc/flash_fwd.cu``
+    (``row_tile``, ``tile_kmax``) runs it: for each tile of positions
+    [t0, t1), the number of key tiles it stages, those up to the one holding
+    the last key its last position sees (0: the tile writes zeros and
+    ``LSE_EMPTY``)."""
+    plan = flash_fwd_plan(D, dtype)
+    kw = dict(causal=causal, block_causal=block_causal, ell=ell)
+    out = []
+    for t0 in range(0, N, plan.rows):
+        t1 = min(N, t0 + plan.rows)
+        out.append((t0, t1, -(-keys_seen(t1 - 1, L, **kw) // plan.keys)))
+    return out
 
 
 # flash_dkv's tiles (csrc/flash_bwd.cu: DkvMma, DkvFma): 64 keys a block,

@@ -12,16 +12,23 @@ What bounds them on the H100: each query row does 4·D FLOP per visible key
 so the arithmetic bounds them at the LM's shapes.  The TPU fetched the prev
 and self key halves with two index maps, skipped dead halves through a
 scalar-prefetched liveness table, and ran the backward in one grid cell per
-block that also fetched the next query block.  Here the forward and
-``local_dq`` give a thread block up to 64–128 rows of one (b·h, query head,
-block), stage each live half through shared memory in 64-key tiles and fold
-every row; ``local_dkv`` gives a block 64 keys of one (b·h, block) and
-walks the rep query heads over the rows that see them (its own block's,
-causally, and the next block's, in full), so no block adds into another's
-output.  The liveness of the two halves, (B, N/w, 2), is computed here
-(``occupancy.local_half_live``), with the packed layout's segment rule
-folded into the prev half; block i's "next" flag is block i+1's prev flag.
-The kernels read no segment ids.
+block that also fetched the next query block.  Here the forward gives a
+thread block up to 128 rows of one (b·h, query head, block), one thread a
+row on the FMA pipes, and stages each live half through shared memory in
+64-key tiles.  The backward is two kernels that each own their outputs (no
+atomics, a fixed order of sums): ``local_dq`` gives a block 64 rows of one
+(b·h, query head, block) and walks the live prev half's key tiles and the
+self half's up to its diagonal tile (:func:`dq_walk`); ``local_dkv`` gives
+a block 64 keys of one (b·h, block) and walks the rep query heads over the
+rows that see them, its own block's from its first key on, causally, and
+the next block's in full (:func:`dkv_walk`).  One rule picks the
+backward's path (:func:`local_plan`): bf16 with a window that is a
+multiple of 64 (the LM's 256) runs on the tensor cores (``mma.sync``,
+tiles staged by ``cp.async``); fp32 and smaller windows keep 4 lanes a row
+or key on the FMA pipes.  The liveness of the two halves, (B, N/w, 2), is
+computed here once a call (``occupancy.local_half_live``), with the packed
+layout's segment rule folded into the prev half; block i's "next" flag is
+block i+1's prev flag.  The kernels read no segment ids.
 
 Layout: q (B·Hkv, rep, N, D); k, v (B·Hkv, N, D); key_bias (B, N) fp32
 (0 valid / NEG_INF padding); blk_seg (B, N/w) int32 per-block segment ids
@@ -33,23 +40,102 @@ is the differentiable op.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core.branches import sdpa
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (_counter, check_cuda_inputs, on_cpu, p_from_lse,
-                                        row_delta)
+from repro_torch.kernels.common import (HEAD_DIMS, _counter, check_cuda_inputs, on_cpu,
+                                        p_from_lse, row_delta)
 from repro_torch.kernels.occupancy import local_half_live
 from repro_torch.numerics import NEG_INF
 
 __all__ = ["local_window_fwd", "local_window_fwd_plain", "local_window_bwd",
-           "local_window_bwd_plain", "local_window_dq", "local_window_dkv",
-           "LocalWindowFn", "COUNT", "COUNT_DQ", "COUNT_DKV"]
+           "local_window_bwd_plain", "local_window_dq", "local_window_dkv", "local_plan",
+           "LocalPlan", "dq_walk", "dkv_walk", "live_map", "LocalWindowFn", "COUNT",
+           "COUNT_DQ", "COUNT_DKV"]
 
 COUNT = _counter("local_fwd")
 COUNT_DQ = _counter("local_dq")
 COUNT_DKV = _counter("local_dkv")
+
+
+class LocalPlan(NamedTuple):
+    """How ``local_dq`` / ``local_dkv`` take one shape: ``path``
+    ``"tiles"`` (tensor cores) or ``"lanes"`` (4 lanes a row or key, FMA
+    pipes); ``rows``: positions a ``local_dq`` block; ``keys``: keys a
+    ``local_dkv`` block; ``key_tile``: keys a staged tile of ``local_dq``;
+    ``row_tile``: rows a staged tile of ``local_dkv``."""
+    path: str
+    rows: int
+    keys: int
+    key_tile: int
+    row_tile: int
+
+
+TILE = 64                   # the tiled path's rows a local_dq block, keys a local_dkv block
+
+
+def local_plan(window: int, D: int, dtype: torch.dtype) -> LocalPlan:
+    """The path and tiles of the backward kernels at this window and head
+    dim (the constants of ``csrc/local_bwd.cu``).  bf16 with a window that
+    is a multiple of 64 takes the tiled path (``DqMma``: 64 rows against
+    64-key tiles; ``DkvMma``: 64 keys against 64-row tiles, 32 at D 128);
+    the rest the lanes path (64 rows or keys a block, staged tiles of 64,
+    ``4096 / D`` at D 128).  A shape no path takes raises."""
+    if (dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["local_dq"]
+            or window < 1):
+        raise ValueError(f"local backward: no path takes window {window}, D {D}, {dtype} "
+                         f"(window ≥ 1; D in {HEAD_DIMS['local_dq']}; float32 or bfloat16)")
+    if dtype == torch.bfloat16 and window % TILE == 0:
+        return LocalPlan("tiles", TILE, TILE, TILE, 32 if D > 64 else 64)
+    staged = 4096 // D if D > 64 else 64
+    return LocalPlan("lanes", 64, 64, staged, staged)
+
+
+def dq_walk(window: int, D: int, dtype: torch.dtype, *, live_prev: bool = True,
+            live_self: bool = True) -> list[tuple[int, int, list[tuple[int, int, bool]]]]:
+    """The tiled ``local_dq``'s walk of one block i (``csrc/local_bwd.cu``:
+    ``local_dq_mma``), positions counted from block i's start: for each
+    block of rows [t0, t1), the key tiles [j0, j1) it stages, block i−1's at
+    −w..0, each with whether it is masked causally (the diagonal tile)."""
+    plan = local_plan(window, D, dtype)
+    if plan.path != "tiles":
+        raise ValueError(f"dq_walk: window {window}, {dtype} takes the lanes path")
+    w, kt = window, plan.key_tile
+    prev = [(j, j + kt, False) for j in range(-w, 0, kt)] if live_prev else []
+    return [(t0, t0 + plan.rows,
+             prev + ([(j, j + kt, j == t0) for j in range(0, t0 + plan.rows, kt)]
+                     if live_self else []))
+            for t0 in range(0, w, plan.rows)]
+
+
+def dkv_walk(window: int, D: int, dtype: torch.dtype, *, live_next: bool = True
+             ) -> list[tuple[int, int, list[tuple[int, int, bool]]]]:
+    """The tiled ``local_dkv``'s walk of one block i and one query head
+    (``csrc/local_bwd.cu``: ``local_dkv_mma``), positions counted from block
+    i's start: for each block of keys [j0, j1), the row tiles [t0, t1) it
+    stages, block i+1's rows at w..2w (when its prev half is live), each
+    with whether it is masked causally."""
+    plan = local_plan(window, D, dtype)
+    if plan.path != "tiles":
+        raise ValueError(f"dkv_walk: window {window}, {dtype} takes the lanes path")
+    w, rt_ = window, plan.row_tile
+    out = []
+    for j0 in range(0, w, plan.keys):
+        tiles = [(t0, t0 + rt_, t0 < j0 + plan.keys) for t0 in range(j0, w, rt_)]
+        if live_next:
+            tiles += [(t0, t0 + rt_, False) for t0 in range(w, 2 * w, rt_)]
+        out.append((j0, j0 + plan.keys, tiles))
+    return out
+
+
+def live_map(key_bias, blk_seg, window: int) -> torch.Tensor:
+    """The kernels' (B, N/w, 2) int32 liveness of each block's two halves
+    (``occupancy.local_half_live``)."""
+    return local_half_live(key_bias, window, blk_seg).to(torch.int32).contiguous()
 
 
 def _check_shapes(name, q, k, v, key_bias, blk_seg, window, n_heads):
@@ -127,7 +213,7 @@ def local_window_fwd(q, k, v, key_bias, blk_seg=None, *, window: int, n_heads: i
         return local_window_fwd_plain(q, k, v, key_bias, blk_seg, window=window,
                                       n_heads=n_heads)
     BH, rep, N, D = q.shape
-    live = local_half_live(key_bias, window, blk_seg).to(torch.int32).contiguous()
+    live = live_map(key_bias, blk_seg, window)
     check_cuda_inputs("local_fwd", data=(q, k, v), f32=(key_bias,), i32=(live,),
                       head_dim=D)
     o = torch.empty_like(q)
@@ -172,48 +258,54 @@ def local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, *, window
     return _unblocks(dq).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_launch(name, outs, q, k, v, key_bias, blk_seg, do, lse, delta, *, window,
-                n_heads):
+def _bwd_launch(name, outs, q, k, v, key_bias, live, do, lse, delta, *, window, n_heads):
     BH, rep, N, D = q.shape
     if do.shape != q.shape or lse.shape != (BH, rep, N) or delta.shape != lse.shape:
         raise ValueError(f"{name}: dO must be {tuple(q.shape)} and lse / delta "
                          f"{(BH, rep, N)}")
-    live = local_half_live(key_bias, window, blk_seg).to(torch.int32).contiguous()
+    if live.shape != (BH // n_heads, N // window, 2):
+        raise ValueError(f"{name}: live must be {(BH // n_heads, N // window, 2)}, "
+                         f"got {tuple(live.shape)}")
     check_cuda_inputs(name, data=(q, k, v, do), f32=(key_bias, lse, delta), i32=(live,),
                       head_dim=D)
+    plan = local_plan(window, D, q.dtype)
     _build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
                   live.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   *(t.data_ptr() for t in outs), BH, rep, N, D, window, n_heads,
-                  int(q.dtype == torch.bfloat16),
+                  int(q.dtype == torch.bfloat16), int(plan.path == "tiles"),
                   torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def local_window_dq(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
-                    n_heads: int):
+                    n_heads: int, live=None):
     """dq from the forward's lse and δ = rowsum(dO·O): the ``local_dq``
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors (``live``: the halves' int32 liveness, computed
+    here when None), the plain version on CPU tensors."""
     kw = dict(window=window, n_heads=n_heads)
     _check_shapes("local_dq", q, k, v, key_bias, blk_seg, window, n_heads)
     side = () if blk_seg is None else (blk_seg,)
     if on_cpu(q, k, v, key_bias, do, lse, delta, *side):
         return local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, **kw)[0]
+    live = live_map(key_bias, blk_seg, window) if live is None else live
     dq = torch.empty_like(q)
-    _bwd_launch("local_dq", (dq,), q, k, v, key_bias, blk_seg, do, lse, delta, **kw)
+    _bwd_launch("local_dq", (dq,), q, k, v, key_bias, live, do, lse, delta, **kw)
     COUNT_DQ.hit()
     return dq
 
 
 def local_window_dkv(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
-                     n_heads: int):
+                     n_heads: int, live=None):
     """(dk, dv) from the forward's lse and δ: the ``local_dkv`` kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors (``live`` as for :func:`local_window_dq`), the plain
+    version on CPU tensors."""
     kw = dict(window=window, n_heads=n_heads)
     _check_shapes("local_dkv", q, k, v, key_bias, blk_seg, window, n_heads)
     side = () if blk_seg is None else (blk_seg,)
     if on_cpu(q, k, v, key_bias, do, lse, delta, *side):
         return local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, **kw)[1:]
+    live = live_map(key_bias, blk_seg, window) if live is None else live
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("local_dkv", (dk, dv), q, k, v, key_bias, blk_seg, do, lse, delta, **kw)
+    _bwd_launch("local_dkv", (dk, dv), q, k, v, key_bias, live, do, lse, delta, **kw)
     COUNT_DKV.hit()
     return dk, dv
 
@@ -221,13 +313,16 @@ def local_window_dkv(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
 def local_window_bwd(q, k, v, key_bias, blk_seg, do, lse, delta, *, window: int,
                      n_heads: int):
     """(dq, dk, dv): the two backward kernels (``local_dq``, ``local_dkv``)
-    on CUDA tensors, the plain version on CPU tensors."""
+    on CUDA tensors, sharing one liveness map, the plain version on CPU
+    tensors."""
     kw = dict(window=window, n_heads=n_heads)
     side = () if blk_seg is None else (blk_seg,)
     if on_cpu(q, k, v, key_bias, do, lse, delta, *side):
         return local_window_bwd_plain(q, k, v, key_bias, blk_seg, do, lse, delta, **kw)
-    return (local_window_dq(q, k, v, key_bias, blk_seg, do, lse, delta, **kw),
-            *local_window_dkv(q, k, v, key_bias, blk_seg, do, lse, delta, **kw))
+    _check_shapes("local_dq", q, k, v, key_bias, blk_seg, window, n_heads)
+    live = live_map(key_bias, blk_seg, window)
+    return (local_window_dq(q, k, v, key_bias, blk_seg, do, lse, delta, live=live, **kw),
+            *local_window_dkv(q, k, v, key_bias, blk_seg, do, lse, delta, live=live, **kw))
 
 
 class LocalWindowFn(torch.autograd.Function):

@@ -7,7 +7,10 @@ Small shapes with rep 2, one padded sample and one fully masked slot (the
 varlen kernels: four clouds packed with a capacity tail and a dead block),
 head_dim 16 and, for the causal LM path's kernels, 128; the flash backward
 at every head dim (16-128) with rep 3 and ``flash_dkv``'s row splits forced
-to 1 and 3.
+to 1 and 3; the tiled ``flash_fwd`` at every head dim and mask mode (ragged
+tiles, skipped ``q_valid`` tiles, block-causal rows that see nothing) and
+the local backward at every head dim and windows 64-256 (bf16: the tiled
+path, with a bit-for-bit determinism check).
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
 version.  The causal LM's kernels: ``local_fwd``, ``local_dq`` and
 ``local_dkv`` with a mask, a dead block, a masked slot and packed segments
@@ -95,6 +98,48 @@ def test_flash_kernel(cuda, dtype, mode, head_dim):
               block_causal=mode == "block_causal", ell=ELL)
     got = flash.flash_attention_fwd(q, k, v, _bias(kv), **kw)
     _check(got, flash.flash_attention_fwd_plain(q, k, v, _bias(kv), **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,ell", [("plain", 8), ("causal", 8), ("block_causal", 8),
+                                      ("block_causal", 64)])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_flash_fwd_tiled_edges(cuda, head_dim, mode, ell, dtype):
+    """The tiled forward (``flash_fwd_plan``: mma in bf16, fma in fp32) at
+    each head dim and mask mode: rep 3, N = 200 positions (a ragged last row
+    tile) against L = 70 keys (a ragged key tile; N in causal mode), a
+    masked key run, and in plain mode ``q_valid`` with a skipped slot and a
+    skipped tail (those rows are unspecified, the rest compared).  In
+    block-causal mode the rows t < ℓ see no key: exact zeros and
+    ``LSE_EMPTY`` (at ℓ 64 whole row tiles, which stop before any key)."""
+    from repro_torch.kernels import flash
+    from repro_torch.kernels.common import LSE_EMPTY
+    rep, n = 3, 200
+    L = n if mode == "causal" else 70
+    q = _rand((B * HKV, rep, n, head_dim), dtype, cuda, 30)
+    k = _rand((B * HKV, L, head_dim), dtype, cuda, 31)
+    v = _rand((B * HKV, L, head_dim), dtype, cuda, 32)
+    kv = torch.ones(B, L, dtype=torch.bool, device=cuda)
+    kv[1, 5:9] = False
+    q_valid = None
+    if mode == "plain":
+        q_valid = torch.ones(B, n, dtype=torch.bool, device=cuda)
+        q_valid[1, 130:] = False                     # a skipped 64-row tile and a ragged one
+        q_valid[2] = False
+    kw = dict(n_heads=HKV, causal=mode == "causal", block_causal=mode == "block_causal",
+              ell=ell)
+    before = flash.COUNT.n
+    o, lse = flash.flash_attention_fwd(q, k, v, _bias(kv), q_valid, **kw)
+    torch.cuda.synchronize()
+    assert flash.COUNT.n == before + 1
+    want = flash.flash_attention_fwd_plain(q, k, v, _bias(kv), q_valid, **kw)
+    rows = (slice(None),) if q_valid is None else \
+        (q_valid.repeat_interleave(HKV, 0)[:, None, :].expand(-1, rep, -1),)
+    _check((o[rows], lse[rows]), (want[0][rows], want[1][rows]), dtype)
+    if q_valid is not None:                          # the skipped slot: zeros, LSE_EMPTY
+        assert bool((o[2 * HKV:] == 0).all()) and bool((lse[2 * HKV:] == LSE_EMPTY).all())
+    if mode == "block_causal":
+        assert bool((o[:, :, :ell] == 0).all()) and bool((lse[:, :, :ell] == LSE_EMPTY).all())
 
 
 # (M rows a group, ℓ keys a block): the warp path at 4·REP rows, the tiled
@@ -461,6 +506,65 @@ def test_local_bwd_kernels(cuda, dtype, window, segmented, head_dim):
     _check(got, local.local_window_bwd_plain(q, k, v, _bias(mask), seg, *rest, **kw),
            dtype)
     assert all(bool((g[2 * HKV:] == 0).all()) for g in got)   # the masked slot
+
+
+def _local_edges_case(dev, dtype, window, head_dim, rep=3):
+    """Four blocks of ``window`` positions a sample, rep 3: sample 0 packed
+    into two segments at block 2, sample 1 with a dead block (block 1
+    wholly masked) and a ragged hole in block 2, sample 2 a masked slot."""
+    n = 4 * window
+    q = _rand((B * HKV, rep, n, head_dim), dtype, dev, 90)
+    k = _rand((B * HKV, n, head_dim), dtype, dev, 91)
+    v = _rand((B * HKV, n, head_dim), dtype, dev, 92)
+    mask = torch.ones(B, n, dtype=torch.bool, device=dev)
+    mask[1, window:2 * window] = False               # a dead block: its halves dead
+    mask[1, 2 * window + 3:2 * window + 40] = False  # a ragged hole
+    mask[2] = False                                  # a fully masked slot
+    seg = torch.tensor([[0, 0, 1, 1], [0, 0, 0, 0], [0, 0, 0, 0]], dtype=torch.int32,
+                       device=dev)
+    return q, k, v, _bias(mask), seg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [64, 128, 256])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_local_bwd_tiled_edges(cuda, head_dim, window, dtype):
+    """``local_dq`` / ``local_dkv`` on the path ``local_plan`` picks (bf16:
+    the tiled path at windows 64–256; fp32: the lanes path) against the
+    plain version: rep 3, packed segments, a dead block, a ragged hole, a
+    masked slot, and a 64-row span of one head set to ``LSE_EMPTY`` (those
+    rows get exact zeros in dq and add nothing to dk, dv).  One launch of
+    each kernel a call."""
+    from repro_torch.kernels import local
+    from repro_torch.kernels.common import LSE_EMPTY
+    q, k, v, kb, seg = _local_edges_case(cuda, dtype, window, head_dim)
+    kw = dict(window=window, n_heads=HKV)
+    o, lse = local.local_window_fwd(q, k, v, kb, seg, **kw)
+    lse[0, 1, 64:128] = LSE_EMPTY
+    o[0, 1, 64:128] = 0
+    rest = _bwd_inputs(o, lse, dtype, 93)
+    before = (local.COUNT_DQ.n, local.COUNT_DKV.n)
+    got = local.local_window_bwd(q, k, v, kb, seg, *rest, **kw)
+    torch.cuda.synchronize()
+    assert (local.COUNT_DQ.n, local.COUNT_DKV.n) == (before[0] + 1, before[1] + 1)
+    _check(got, local.local_window_bwd_plain(q, k, v, kb, seg, *rest, **kw), dtype)
+    assert bool((got[0][0, 1, 64:128] == 0).all())
+    assert all(bool((g[2 * HKV:] == 0).all()) for g in got)   # the masked slot
+
+
+def test_local_bwd_tiles_deterministic(cuda):
+    """The tiled backward sums in a fixed order: two bf16 runs give
+    bit-identical dq, dk, dv."""
+    from repro_torch.kernels import local
+    q, k, v, kb, seg = _local_edges_case(cuda, torch.bfloat16, 256, 64)
+    kw = dict(window=256, n_heads=HKV)
+    assert local.local_plan(256, 64, torch.bfloat16).path == "tiles"
+    o, lse = local.local_window_fwd(q, k, v, kb, seg, **kw)
+    rest = _bwd_inputs(o, lse, torch.bfloat16, 94)
+    first = local.local_window_bwd(q, k, v, kb, seg, *rest, **kw)
+    second = local.local_window_bwd(q, k, v, kb, seg, *rest, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_lm_train_step_grads_match_reference(cuda):

@@ -83,15 +83,18 @@ def test_bta_plain_matches_pallas(dtype):
     assert (_np(to)[2 * HKV:] == 0).all() and (_np(tl)[2 * HKV:] == 1e30).all()
 
 
-@pytest.mark.parametrize("dtype,causal,block_causal,L", [
-    ("float32", False, False, NB),
-    ("bfloat16", False, False, NB),
-    ("float32", True, False, N),
-    ("float32", False, True, NB),
+@pytest.mark.parametrize("dtype,causal,block_causal,L,n,ell", [
+    pytest.param("float32", False, False, NB, N, ELL, id="float32-False-False-16"),
+    pytest.param("bfloat16", False, False, NB, N, ELL, id="bfloat16-False-False-16"),
+    pytest.param("float32", True, False, N, N, ELL, id="float32-True-False-64"),
+    pytest.param("float32", False, True, NB, N, ELL, id="float32-False-True-16"),
+    # the LM's pooled keys: ℓ 64, 512 positions against 8 keys; rows t < ℓ
+    # see no key (zeros and LSE_EMPTY on both sides)
+    pytest.param("bfloat16", False, True, 8, 512, 64, id="bfloat16-False-True-8-ell64"),
 ])
-def test_flash_plain_matches_pallas(dtype, causal, block_causal, L):
+def test_flash_plain_matches_pallas(dtype, causal, block_causal, L, n, ell):
     rng = np.random.default_rng(1)
-    q = rng.standard_normal((B * HKV, REP, N, D), np.float32)
+    q = rng.standard_normal((B * HKV, REP, n, D), np.float32)
     k = rng.standard_normal((B * HKV, L, D), np.float32)
     v = rng.standard_normal((B * HKV, L, D), np.float32)
     kvalid = np.ones((B, L), bool)
@@ -100,16 +103,18 @@ def test_flash_plain_matches_pallas(dtype, causal, block_causal, L):
     kb = _bias(kvalid)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
     tq_tile, tk_tile = 16, 8
-    live = jnp.ones((B, N // tq_tile, L // tk_tile), jnp.int32)
+    live = jnp.ones((B, n // tq_tile, L // tk_tile), jnp.int32)
     jo, jl = j_flash._fwd_call(jq, jk, jv, jnp.asarray(kb), live, n_heads=HKV,
                                tq=tq_tile, tk=tk_tile, causal=causal,
-                               block_causal=block_causal, ell=ELL,
+                               block_causal=block_causal, ell=ell,
                                interpret=True, compute=dtype)
     to, tl = flash.flash_attention_fwd(tq, tk, tv, torch.from_numpy(kb),
                                        n_heads=HKV, causal=causal,
-                                       block_causal=block_causal, ell=ELL)
+                                       block_causal=block_causal, ell=ell)
     _close(to, jo, dtype)
     _close(tl, jl, dtype)
+    if block_causal:
+        assert (_np(to)[:, :, :ell] == 0).all() and (_np(tl)[:, :, :ell] == 1e30).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

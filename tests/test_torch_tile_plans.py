@@ -1,0 +1,213 @@
+"""The walks of the tiled ``flash_fwd`` and local backward kernels, and the
+rules that pick their paths, checked on the CPU.
+
+- :func:`flash.fwd_walk` (the key tiles each row tile of ``flash_fwd``
+  stages) and :func:`local.dq_walk` / :func:`local.dkv_walk` (the key tiles
+  a ``local_dq`` row block stages, the row tiles a ``local_dkv`` key block
+  stages in block i and block i+1) against the plain versions' masks
+  (``flash.visible_keys``, ``local._window_bias``) by brute force: every
+  visible (row, key) pair is covered; in the causal and block-causal modes
+  (and the banded local mask) no staged tile is wholly masked; rows that see
+  no key are the rows a walk reports empty.  Plain, causal and
+  block-causal modes, ℓ 8 and 64, L 480 (a ragged key tile) and 512;
+  windows 64–256, live and dead halves.
+- :func:`flash.flash_fwd_plan` and :func:`local.local_plan` at every
+  configuration the port registers, with their tiles pinned to the
+  constants of ``csrc/flash_fwd.cu`` and ``csrc/local_bwd.cu``.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, list_configs
+from repro_torch.kernels import flash, local
+from repro_torch.numerics import NEG_INF
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _consts(path: Path, struct: str, D: int) -> dict[str, int]:
+    """The first ``static constexpr int`` line of a tile struct, evaluated
+    at head dim D (``a ? b : c`` included)."""
+    body = re.search(r"struct %s \{\n\s*static constexpr int ([^;]*);" % struct,
+                     path.read_text())
+    out = {}
+    for name, expr in re.findall(r"(\w+) = ([^,]+)", body.group(1)):
+        m = re.fullmatch(r"D > (\d+) \? (\d+) : (\d+)", expr.strip())
+        out[name] = ((int(m.group(2)) if D > int(m.group(1)) else int(m.group(3))) if m
+                     else int(expr) if expr.strip().isdigit() else expr.strip())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flash_fwd
+# ---------------------------------------------------------------------------
+
+# (mode, ℓ, L): N = L·ℓ positions block-causal (the pooled keys of N
+# tokens), N = L causal, N = 3840 plain
+FWD_CASES = [("plain", 8, 480), ("causal", 1, 480), ("causal", 1, 512)] + [
+    ("block_causal", ell, L) for ell in (8, 64) for L in (480, 512)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode,ell,L", FWD_CASES)
+def test_flash_fwd_walk_covers_visible_pairs(mode, ell, L, dtype):
+    N = {"plain": 3840, "causal": L, "block_causal": L * ell}[mode]
+    kw = dict(causal=mode == "causal", block_causal=mode == "block_causal", ell=ell)
+    vis = flash.visible_keys(N, L, **kw)
+    vis = torch.ones(N, L, dtype=torch.bool) if vis is None else vis
+    plan = flash.flash_fwd_plan(64, dtype)
+    walk = flash.fwd_walk(N, L, 64, dtype, **kw)
+    assert [t0 for t0, _, _ in walk] == list(range(0, N, plan.rows))
+    assert walk[-1][1] == N
+    covered = torch.zeros(N, L, dtype=torch.bool)
+    reported_empty = torch.zeros(N, dtype=torch.bool)
+    for t0, t1, n_kt in walk:
+        covered[t0:t1, :n_kt * plan.keys] = True
+        reported_empty[t0:t1] = n_kt == 0
+        assert n_kt * plan.keys < L + plan.keys            # never past the last key tile
+        if mode != "plain":                                 # no staged tile wholly masked
+            for kt in range(n_kt):
+                assert vis[t0:t1, kt * plan.keys:(kt + 1) * plan.keys].any(), (t0, kt)
+    assert not (vis & ~covered).any()                       # every visible pair staged
+    sees_none = ~vis.any(1)
+    assert not (reported_empty & ~sees_none).any()          # an empty tile sees nothing
+    if mode == "block_causal" and ell % plan.rows == 0:     # ℓ 64: whole empty tiles
+        assert torch.equal(reported_empty, sees_none)
+        assert reported_empty[:ell].all() and not reported_empty[ell:].any()
+
+
+def test_fwd_walk_stops_at_last_visible_tile():
+    """Block-causal at the prefill shape (32,768 positions, ℓ 64, 512 keys):
+    the 64-row tile ending at t_last stages ⌈⌊t_last / ℓ⌋ / 64⌉ key tiles,
+    none for t < ℓ, and 56% of the 8 on average (a walk over every key
+    would stage all 8)."""
+    walk = flash.fwd_walk(32768, 512, 64, torch.bfloat16, block_causal=True, ell=64)
+    assert len(walk) == 512 and walk[0] == (0, 64, 0) and walk[-1] == (32704, 32768, 8)
+    assert [n for _, _, n in walk] == [-(-((t1 - 1) // 64) // 64) for _, t1, _ in walk]
+    assert sum(n for _, _, n in walk) == 2296                   # of 512 · 8 = 4096
+
+
+# ---------------------------------------------------------------------------
+# local_dq / local_dkv
+# ---------------------------------------------------------------------------
+
+def _block_visibility(window: int, segmented: bool):
+    """Visible pairs of block i = 1 of a 3-block sample (n_heads 1): rows
+    of block i against [block i-1, block i] (w × 2w), and rows of block
+    i+1 against block i (w × w).  ``segmented``: block i-1 and block i+1
+    each lie in another segment than block i, so both prev halves are dead."""
+    w = window
+    key_bias = torch.zeros(1, 3 * w)
+    seg = torch.tensor([[0, 1, 2]], dtype=torch.int32) if segmented else None
+    ok = local._window_bias(key_bias, seg, w, 1)[0, :, 0] > NEG_INF / 2   # (nb, w, 2w)
+    return ok[1], ok[2, :, :w]
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("window", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128])
+def test_local_walks_cover_visible_pairs(D, window, segmented):
+    w = window
+    plan = local.local_plan(w, D, torch.bfloat16)
+    assert plan.path == "tiles"
+    own, nxt = _block_visibility(w, segmented)
+    # local_dq: block i's rows against keys −w..w (block i−1's at −w..0)
+    covered = torch.zeros(w, 2 * w, dtype=torch.bool)
+    for t0, t1, tiles in local.dq_walk(w, D, torch.bfloat16, live_prev=not segmented):
+        assert t1 - t0 == plan.rows
+        for j0, j1, diag in tiles:
+            assert j1 - j0 == plan.key_tile and diag == (j0 == t0)
+            blk = own[t0:t1, w + j0:w + j1]
+            assert blk.any()                                    # never wholly masked
+            assert blk.all() != diag                            # masked iff diagonal
+            covered[t0:t1, w + j0:w + j1] = True
+    assert not (own & ~covered).any()                           # every visible pair staged
+    # local_dkv: block i's keys against the rows of blocks i and i+1
+    vis = torch.cat([own[:, w:], nxt], dim=0)                   # (2w rows, w keys)
+    covered = torch.zeros(2 * w, w, dtype=torch.bool)
+    for j0, j1, tiles in local.dkv_walk(w, D, torch.bfloat16, live_next=not segmented):
+        assert j1 - j0 == plan.keys
+        for t0, t1, causal in tiles:
+            assert t1 - t0 == plan.row_tile
+            blk = vis[t0:t1, j0:j1]
+            assert blk.any()
+            assert blk.all() != causal
+            covered[t0:t1, j0:j1] = True
+    assert not (vis & ~covered).any()
+    assert not covered[w:].any() if segmented else covered[w:].all()
+
+
+def test_local_walk_rows_that_see_nothing():
+    """Block 0 (no prev half) with a dead self half: ``dq_walk`` stages
+    nothing, and its rows see no key in the plain version's mask."""
+    ok = local._window_bias(torch.full((1, 128), NEG_INF), None, 64, 1)[0, 0, 0] > NEG_INF / 2
+    assert not ok.any()
+    assert all(not tiles for _, _, tiles in
+               local.dq_walk(64, 64, torch.bfloat16, live_prev=False, live_self=False))
+
+
+# ---------------------------------------------------------------------------
+# the rules, at the port's configurations, pinned to the CUDA sources
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list_configs())
+def test_plans_for_configs(name):
+    cfg = get_config(name)
+    D, dtype = cfg.resolved_head_dim, getattr(torch, cfg.compute_dtype)
+    fwd = flash.flash_fwd_plan(D, dtype)
+    assert fwd.path == ("mma" if dtype == torch.bfloat16 else "fma")
+    if cfg.bsa.local_window:
+        w = cfg.bsa.effective_local_window
+        plan = local.local_plan(w, D, dtype)
+        assert plan.path == ("tiles" if dtype == torch.bfloat16 and w % 64 == 0 else "lanes")
+    if name == "tinyllama-1.1b":
+        assert tuple(fwd) == ("mma", 64, 64)
+        assert tuple(local.local_plan(256, 64, dtype)) == ("tiles", 64, 64, 64, 64)
+    if name == "shapenet-bsa":
+        assert tuple(fwd) == ("fma", 64, 32)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_plans_match_source_constants(D):
+    fwd_src, bwd_src, common = (CSRC / f for f in ("flash_fwd.cu", "local_bwd.cu",
+                                                   "common.cuh"))
+    for dtype, struct in ((torch.bfloat16, "FwdMma"), (torch.float32, "FwdFma")):
+        plan, c = flash.flash_fwd_plan(D, dtype), _consts(fwd_src, struct, D)
+        assert (plan.rows, plan.keys) == (c["BM"], c["BK"]), struct
+    tiles = local.local_plan(256, D, torch.bfloat16)
+    dq, dkv = _consts(bwd_src, "DqMma", D), _consts(bwd_src, "DkvMma", D)
+    assert (tiles.rows, tiles.key_tile) == (dq["BM"], dq["BK"])
+    assert (tiles.keys, tiles.row_tile) == (dkv["BK"], dkv["BM"])
+    lanes = local.local_plan(32, D, torch.bfloat16)
+    text = bwd_src.read_text()
+    threads = int(re.search(r"kThreads = (\d+);", text).group(1))
+    lanes_a_row = int(re.search(r"kLanes = (\d+);", text).group(1))
+    assert lanes.rows == lanes.keys == threads // lanes_a_row
+    staged = re.search(r"kTileRows = D > 64 \? (\d+) / D : (\d+);", common.read_text())
+    assert lanes.key_tile == lanes.row_tile == (int(staged.group(1)) // D if D > 64
+                                                else int(staged.group(2)))
+
+
+@pytest.mark.parametrize("window,dtype,path", [(256, torch.bfloat16, "tiles"),
+                                               (64, torch.bfloat16, "tiles"),
+                                               (32, torch.bfloat16, "lanes"),
+                                               (96, torch.bfloat16, "lanes"),
+                                               (256, torch.float32, "lanes")])
+def test_local_plan_boundary(window, dtype, path):
+    assert local.local_plan(window, 64, dtype).path == path
+
+
+@pytest.mark.parametrize("call", [lambda: flash.flash_fwd_plan(48, torch.bfloat16),
+                                  lambda: flash.flash_fwd_plan(64, torch.float16),
+                                  lambda: local.local_plan(0, 64, torch.bfloat16),
+                                  lambda: local.local_plan(256, 48, torch.float32),
+                                  lambda: local.dkv_walk(32, 64, torch.bfloat16)],
+                         ids=["fwd-D48", "fwd-fp16", "local-w0", "local-D48", "walk-lanes"])
+def test_plans_raise(call):
+    with pytest.raises(ValueError):
+        call()
