@@ -11,9 +11,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
 1. set-up: the card's name and power limit, the kernels' build (one nvcc
    per CUDA source, all at once; the redesigned kernels, ``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, the tiled selection kernels, ``local_dq``
-   and ``local_dkv``, must build with 0 bytes spilled at head dims 64 and
-   128 in every variant, by ptxas's report: ``NO_SPILL``), TF32 off for
-   every fp32 product;
+   and ``local_dkv`` in every variant and ``local_fwd_mma``, must build
+   with 0 bytes spilled at head dims 64 and 128, by ptxas's report:
+   ``NO_SPILL``), TF32 off for every fp32 product;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16 and, for flash, in its causal modes too (fp32; the
    tiled ``flash_fwd``: register tiles in fp32, tensor cores in bf16); with
@@ -57,25 +57,34 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    of each tensor's largest value (``train_reference_check``).
 
 5. LM kernels: ``local_fwd`` (B = 1, N = 4096, rep 8, D 64, window 256,
-   a padded tail, a hole and a packed-sample boundary) and ``paged_gather``
-   (the serving pool of 65 blocks of 256 rows of 4 × 64, 4096 rows: one
-   decode step's local-window gather of 8 slots) in fp32 and bf16 against
-   their plain versions, and ``flash_fwd`` (block-causal, timed beside SDPA
-   with the dense block-causal mask; the kernels line gives this row as
+   a padded tail, a hole and a packed-sample boundary; bf16 on the tiled
+   path, fp32 on the rows path, ``local.local_plan``) and ``paged_gather``
+   (the serving pool of 65 blocks of 256 rows of 4 × 64: one decode step's
+   local-window gather of 8 slots, 4096 rows from ``paged_step``, as int32
+   and as int64 indices, and its 8 compressed rows, int64; each timed per
+   call with host work, by its device time from the profiler, and beside
+   ``index_select`` on the same rows; a call must launch no other kernel)
+   in fp32 and bf16 against their plain versions, and ``flash_fwd``
+   (block-causal, timed beside SDPA with the dense block-causal mask; the
+   kernels line gives this row as
    ``flash_fwd``'s ``lm_prefill``), ``selection_fwd`` and ``epilogue_fwd``
    at the shapes one 32,768-token sequence of the prefill gives them (32
    query heads on 4 KV heads of 64, ℓ = 64, k* = 16, g = 64, so 512 rows a
    group); then head_dim 128: each kernel of
    the causal path, the two epilogues and ``paged_gather`` in fp32 and bf16
    at phi4-mini's heads (24 query on 8 KV heads of 128, ``LM_BSA``, one
-   4,096-token sequence) against its plain version, timed;
+   4,096-token sequence) against its plain version, timed, with SDPA on the
+   same dense mask beside ``local_fwd``, the local backward and
+   ``flash_fwd``;
 6. prefill: ``make_prefill_step`` on ``tinyllama-1.1b`` at full width and
    depth (22 layers, d_model 2048, 32 / 4 heads of 64, vocabulary 32,000,
    bf16, random weights from seed 0) over B = 2 × N = 32,768 random tokens
    (``prefill_32k``'s sequence length, its global batch of 32 cut to 2 for
-   one card); it must launch exactly 22 each of ``local_fwd``,
+   one card); ``local_fwd`` must take its tiled path (``local_fwd_mma``);
+   it must launch exactly 22 each of ``local_fwd``,
    ``flash_fwd``, ``selection_fwd`` and ``epilogue_fwd`` and no other
-   kernel, and every layer on the kernel path must match the ``reference``
+   kernel (the profile line gives ``local_fwd``'s device time a launch
+   beside its bound at this shape), and every layer on the kernel path must match the ``reference``
    backend given the same layer input within 4e-2 of the layer output's
    largest value (the repository's bf16 tolerance);
 7. decode oracle: ``nsa_causal_decode_paged`` at the full width's heads
@@ -95,7 +104,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    kernel; requests 0, 9 and 10 are also generated by B = 1 lockstep
    ``generate`` (three processes side by side, after the serve) and their
    tokens must equal the served ones, or part at a near-tie (the lockstep
-   top-two logit gap there below 4e-2 of the largest |logit|);
+   top-two logit gap there below 4e-2 of the largest |logit|); three more
+   decode steps are profiled, and three timed with the host time of their
+   ``paged_gather`` calls taken apart (``decode_profile``);
 9. LM backward kernels: ``local_dq`` and ``local_dkv`` against their plain
    version in fp32 (the lanes path) and bf16 (the tiled path on the tensor
    cores, ``local.local_plan``) on the ``local_fwd`` case of phase 5 and at
@@ -261,11 +272,22 @@ D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
 NO_SPILL = {**{name: ((64, 128), ("mma", "fma"))
                for name in ("flash_fwd", "flash_dq", "flash_dkv", "selection_fwd",
                             "selection_dq", "selection_dkv")},
+            "local_fwd": ((64, 128), ("mma",)),
             "local_dq": ((64, 128), ("mma", "lanes")),
             "local_dkv": ((64, 128), ("mma", "lanes"))}
-# a kernel's second row in the kernels line: the LM main path's, beside the
-# shapenet train path's (name -> key, path, dtype, mode)
-LM_ALSO = {"flash_fwd": ("lm_prefill", "prefill", "bfloat16", "lm_block_causal")}
+# a kernel's further rows in the kernels line, beside its main path's (name
+# -> [(key, path whose launches it reports or None, dtype, mode)]): the LM
+# prefill's flash_fwd beside the shapenet train path's, the D 128 rows, and
+# paged_gather on int64 rows beside int32
+LM_ALSO = {"flash_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_block_causal"),
+                         ("d128", None, "bfloat16", "d128_block_causal")],
+           "local_fwd": [("d128", None, "bfloat16", "d128_lm_window")],
+           "paged_gather": [("int64_rows", "serve_lm", "float32", "decode_window_i64"),
+                            ("crow_int64", "serve_lm", "float32", "decode_crow_i64")]}
+
+
+# a kernel row's optional keys, carried into the kernels line
+EXTRA_KEYS = ("device_ms", "library_device_ms", "index", "rows", "path")
 
 
 class CheckFailed(Exception):
@@ -337,12 +359,32 @@ def rand(shape, dtype, dev, seed):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+def device_ms(fn, pattern: str | None = None, reps: int = 20) -> tuple[float, list[str]]:
+    """(mean device time of one launch of the kernels whose name matches
+    ``pattern`` (every kernel when None), the names of every device kernel
+    the calls launched), from the profiler over ``reps`` calls of ``fn``
+    after a warm-up.  Mean over the launches the trace holds: it may miss a
+    few of the first calls' kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in ks if pattern is None or re.search(pattern, e.key)]
+    return (sum(e.device_time_total for e in mine) / 1e3 / max(1, sum(e.count for e in mine)),
+            sorted(e.key for e in ks))
+
+
 def recorder(results: list):
-    def record(name, mode, dtype, err, ok, k_ms, p_ms, b_ms, b_by, lib_ms):
+    def record(name, mode, dtype, err, ok, k_ms, p_ms, b_ms, b_by, lib_ms, **extra):
         row = {"name": name, "mode": mode, "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err, "within_tol": ok, "kernel_ms": k_ms,
                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms}
+               "library_ms": lib_ms, **extra}
         print(json.dumps(row), flush=True)
         results.append(row)
         check(ok, f"{name} [{mode}, {row['dtype']}] disagrees with its plain "
@@ -1105,7 +1147,8 @@ def device_summary(prof) -> dict:
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     ported = {}
     for name, ms, _ in kernels:
-        hit = re.search(r"(" + "|".join(KERNELS) + r")_(?:kernel|mma|fma|reduce)<", name)
+        hit = re.search(r"(" + "|".join(KERNELS) + r")_(?:kernel|mma|fma|rows|lanes|reduce)<",
+                        name)
         if hit:
             ported[hit.group(1)] = ported.get(hit.group(1), 0.0) + ms
     top = sorted(kernels, key=lambda r: -r[1])[:12]
@@ -1214,6 +1257,45 @@ def lm_window_case(dev, n: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
     return key_bias, blk_seg
 
 
+def decode_rows(dev, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """One paged decode step's gather indices at the serving shape, from
+    ``nsa_causal.paged_step``: 8 slots of 1,100–1,600 tokens over a shuffled
+    block table of the pool of 65 blocks of 256 rows.  Returns (win_rows
+    (8, 512) int32, the local window's; crow (8,) int64, the compressed
+    rows'; the pool's rows R)."""
+    n_pages = MAX_LEN // PAGE
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.permutation(SLOTS * n_pages).reshape(SLOTS, n_pages)).to(dev)
+    lengths = torch.from_numpy(rng.integers(1100, 1601, SLOTS)).to(dev)
+    st = nsa_causal.paged_step(table, lengths, cfg=get_config(LM).bsa, page=PAGE)
+    return st.win_rows, st.crow, (SLOTS * n_pages + 1) * PAGE
+
+
+def paged_rows(record, mode: str, pool, rows, dtype) -> None:
+    """``paged_gather`` on ``rows`` against its plain version (exact), with
+    ``ms`` a CUDA-event time around one call (host work included),
+    ``device_ms`` the kernel's own duration (profiler), and
+    ``index_select`` on the same rows beside both; the calls must launch no
+    kernel but their own (no cast, no copy)."""
+    got = paged.paged_gather(pool, rows)
+    want = paged.paged_gather_plain(pool, rows)
+    torch.cuda.synchronize()
+    err, ok = max_err((got,), (want,))
+    n = rows.numel()
+    b_ms, b_by = bound(2 * n * pool[0].numel() * pool.element_size() + n * rows.element_size(),
+                       0.0, dtype)
+    k_dev, names = device_ms(lambda: paged.paged_gather(pool, rows), "paged_gather")
+    check(bool(names) and all("paged_gather" in k for k in names),
+          f"paged_gather [{mode}]: a call launched other kernels than its own: {names}")
+    flat = rows.reshape(-1)
+    lib_dev, _ = device_ms(lambda: torch.index_select(pool, 0, flat))
+    record("paged_gather", mode, dtype, err, ok,
+           median_ms(lambda: paged.paged_gather(pool, rows), reps=50),
+           median_ms(lambda: paged.paged_gather_plain(pool, rows), reps=5),
+           b_ms, b_by, median_ms(lambda: torch.index_select(pool, 0, flat), reps=50),
+           device_ms=k_dev, library_device_ms=lib_dev, index=str(rows.dtype), rows=n)
+
+
 def lm_kernel_phase(dev) -> list[dict]:
     """The two LM kernels against their plain versions, and the three
     forward kernels the LM shares with shapenet at the LM's shapes."""
@@ -1242,6 +1324,9 @@ def lm_kernel_phase(dev) -> list[dict]:
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         # ---- local_fwd
+        check(local.local_plan(LM_W, LM_D, dtype).path ==
+              ("tiles" if dtype == torch.bfloat16 else "lanes"),
+              f"local_fwd [{dtype}]: not on the path local_plan names")
         q = rand((LM_HKV, rep, n, LM_D), dtype, dev, 91)
         k = rand((LM_HKV, n, LM_D), dtype, dev, 92)
         v = rand((LM_HKV, n, LM_D), dtype, dev, 93)
@@ -1261,23 +1346,20 @@ def lm_kernel_phase(dev) -> list[dict]:
                                                               **kw), reps=5),
                b_ms, b_by,
                median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                                attn_mask=dense_ok)))
+                                                                attn_mask=dense_ok)),
+               device_ms=device_ms(lambda: local.local_window_fwd(q, k, v, key_bias, blk_seg,
+                                                                  **kw), "local_fwd")[0],
+               path=local.local_plan(LM_W, LM_D, dtype).path)
         del q, k, v, qs, ks, vs, got, want
 
-        # ---- paged_gather: one decode step's window gather of 8 slots
-        R = (SLOTS * (MAX_LEN // PAGE) + 1) * PAGE
+        # ---- paged_gather: one decode step's window gather of 8 slots (int32
+        # rows, as the decode passes them), the same rows as int64, and the
+        # compressed rows (int64, as the decode passes them)
+        win_rows, crow, R = decode_rows(dev)
         pool = rand((R, LM_HKV, LM_D), dtype, dev, 94)
-        rows = torch.randint(0, R, (SLOTS * 2 * LM_W,), generator=g, device=dev)
-        got = paged.paged_gather(pool, rows)
-        want = paged.paged_gather_plain(pool, rows)
-        torch.cuda.synchronize()
-        err, ok = max_err((got,), (want,))
-        row_bytes = LM_HKV * LM_D * es
-        b_ms, b_by = bound(2 * rows.numel() * row_bytes + 4 * rows.numel(), 0.0, dtype)
-        record("paged_gather", "decode_window", dtype, err, ok,
-               median_ms(lambda: paged.paged_gather(pool, rows)),
-               median_ms(lambda: paged.paged_gather_plain(pool, rows), reps=5),
-               b_ms, b_by, median_ms(lambda: torch.index_select(pool, 0, rows)))
+        paged_rows(record, "decode_window", pool, win_rows, dtype)
+        paged_rows(record, "decode_window_i64", pool, win_rows.long(), dtype)
+        paged_rows(record, "decode_crow_i64", pool, crow, dtype)
         del pool
 
         # ---- flash_fwd, block-causal: 32,768 queries against 512 pooled keys
@@ -1365,6 +1447,7 @@ def head_dim_128_phase(dev) -> list[dict]:
     rep = Hq // Hkv
     key_bias, blk_seg = lm_window_case(dev, n)
     pairs = Hq * local_visible_pairs(key_bias, blk_seg, LM_W)
+    dense_ok = local_dense_mask(key_bias, blk_seg, LM_W)
     nb = n // LM_ELL
     vis = flash.visible_keys(n, nb, causal=False, block_causal=True, ell=LM_ELL, device=dev)
     f_pairs = Hq * float(vis.sum())
@@ -1392,10 +1475,24 @@ def head_dim_128_phase(dev) -> list[dict]:
         err, ok = max_err(got, want)
         side = 4 * n + 4 * 2 * (n // LM_W) + 4 * q.numel() // Dh
         b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es + side, 4.0 * Dh * pairs, dtype)
+        # SDPA with the same dense mask: the library yardstick of the local
+        # forward and (forward + backward − forward) of its backward
+        qs = q.reshape(1, Hq, n, Dh).clone().requires_grad_(True)
+        ks, vs = (t.repeat_interleave(rep, 0)[None].clone().requires_grad_(True) for t in (k, v))
+        with torch.no_grad():
+            lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                       attn_mask=dense_ok))
+        lib_bwd = library_bwd_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                        attn_mask=dense_ok),
+                                 (qs, ks, vs))
+        del qs, ks, vs
         record("local_fwd", "d128_lm_window", dtype, err, ok,
                median_ms(lambda: local.local_window_fwd(q, k, v, key_bias, blk_seg, **lkw)),
                median_ms(lambda: local.local_window_fwd_plain(q, k, v, key_bias, blk_seg, **lkw),
-                         warmup=1, reps=3), b_ms, b_by, None)
+                         warmup=1, reps=3), b_ms, b_by, lib_fwd,
+               device_ms=device_ms(lambda: local.local_window_fwd(q, k, v, key_bias, blk_seg,
+                                                                  **lkw), "local_fwd")[0],
+               path=local.local_plan(LM_W, Dh, dtype).path)
         o, lse = got
         do = rand(o.shape, dtype, dev, 144)
         args = (q, k, v, key_bias, blk_seg, do, lse, row_delta(do, o))
@@ -1410,12 +1507,12 @@ def head_dim_128_phase(dev) -> list[dict]:
         b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side, 6.0 * Dh * pairs, dtype)
         record("local_dq", "d128_lm_window", dtype, err, ok,
                median_ms(lambda: local.local_window_dq(*args, live=live, **lkw)), p_ms, b_ms,
-               b_by, None)
+               b_by, lib_bwd)
         err, ok = rel_err(dkv, want[1:])
         b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side, 8.0 * Dh * pairs, dtype)
         record("local_dkv", "d128_lm_window", dtype, err, ok,
                median_ms(lambda: local.local_window_dkv(*args, live=live, **lkw)), p_ms, b_ms,
-               b_by, None)
+               b_by, lib_bwd)
         del k, v, o, lse, do, args, live, dq, dkv, want, got
 
         # ---- flash_fwd, flash_dq, flash_dkv: block-causal against 64 pooled keys
@@ -1429,10 +1526,14 @@ def head_dim_128_phase(dev) -> list[dict]:
         side = 4 * nb + 4 * q.numel() // Dh
         b_ms, b_by = bound((2 * q.numel() + 2 * kf.numel()) * es + side, 4.0 * Dh * f_pairs,
                            dtype)
+        qs = q.reshape(1, Hq, n, Dh)
+        ks, vs = (t.repeat_interleave(rep, 0)[None] for t in (kf, vf))
         record("flash_fwd", "d128_block_causal", dtype, err, ok,
                median_ms(lambda: flash.flash_attention_fwd(q, kf, vf, zb, None, **fkw)),
                median_ms(lambda: flash.flash_attention_fwd_plain(q, kf, vf, zb, None, **fkw),
-                         warmup=1, reps=3), b_ms, b_by, None)
+                         warmup=1, reps=3), b_ms, b_by,
+               median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis)))
+        del qs, ks, vs
         o, lse = got
         do = rand(o.shape, dtype, dev, 147)
         args = (q, kf, vf, zb, do, lse, row_delta(do, o))
@@ -1492,19 +1593,12 @@ def head_dim_128_phase(dev) -> list[dict]:
                b_ms, b_by, None)
         del os_, gs, args, got, want
 
-        # ---- paged_gather: one decode step's window gather of 8 slots
-        Rp = (SLOTS * (MAX_LEN // PAGE) + 1) * PAGE
+        # ---- paged_gather: one decode step's window gather of 8 slots, int32
+        # and int64 rows
+        win_rows, _, Rp = decode_rows(dev, seed=1)
         pool = rand((Rp, Hkv, Dh), dtype, dev, 159)
-        rows = torch.randint(0, Rp, (SLOTS * 2 * LM_W,), generator=g, device=dev)
-        got = paged.paged_gather(pool, rows)
-        want = paged.paged_gather_plain(pool, rows)
-        torch.cuda.synchronize()
-        err, ok = max_err((got,), (want,))
-        b_ms, b_by = bound(2 * rows.numel() * Hkv * Dh * es + 4 * rows.numel(), 0.0, dtype)
-        record("paged_gather", "d128_decode_window", dtype, err, ok,
-               median_ms(lambda: paged.paged_gather(pool, rows)),
-               median_ms(lambda: paged.paged_gather_plain(pool, rows), reps=5),
-               b_ms, b_by, median_ms(lambda: torch.index_select(pool, 0, rows)))
+        paged_rows(record, "d128_decode_window", pool, win_rows, dtype)
+        paged_rows(record, "d128_decode_window_i64", pool, win_rows.long(), dtype)
         del pool
         torch.cuda.empty_cache()
     return results
@@ -1540,6 +1634,8 @@ def prefill_phase(dev, api, model) -> dict:
     warm-up call, one timed call (its launches checked), the per-layer
     reference check and a profiled call."""
     cfg = api.mcfg
+    check(local.local_plan(LM_W, LM_D, getattr(torch, cfg.compute_dtype)).path == "tiles",
+          "prefill: local_fwd is not on the tiled path (local_fwd_mma)")
     batch = api.make_batch(np.random.default_rng(0), PREFILL_B, PREFILL_N, device=dev)
     step = make_prefill_step(api)
     t0 = time.perf_counter()
@@ -1571,6 +1667,15 @@ def prefill_phase(dev, api, model) -> dict:
         wall = time.perf_counter() - t0
     summary = device_summary(prof)
     summary["profiled_wall_ms"] = wall * 1e3
+    # local_fwd at the prefill shape: its device time a launch beside its bound
+    # (B × N positions, 32 / 4 heads of 64, every token valid)
+    kb = torch.zeros((PREFILL_B, PREFILL_N), device=dev)
+    n_q, n_kv = PREFILL_B * PREFILL_N * LM_HQ * LM_D, PREFILL_B * PREFILL_N * LM_HKV * LM_D
+    b_ms, b_by = bound(2 * 2 * (n_q + n_kv) + 4 * PREFILL_B * PREFILL_N * (1 + LM_HQ),
+                       4.0 * LM_D * LM_HQ * local_visible_pairs(kb, None, LM_W), torch.bfloat16)
+    summary["local_fwd"] = {"device_ms_per_launch":
+                            summary["ported_kernels_ms"].get("local_fwd", 0.0) / cfg.n_layers,
+                            "bound_ms": b_ms, "bound_by": b_by}
     print(json.dumps({"prefill_profile": summary}), flush=True)
     return stats
 
@@ -1820,7 +1925,9 @@ def lockstep_checks(cfg, dev, prompts, served, rids) -> list[dict]:
 
 def profile_decode(eng) -> None:
     """Where three paged decode steps of the serving engine (8 slots, after
-    the serve) spend their time: device kernel time against the wall time."""
+    the serve) spend their time: device kernel time against the wall time;
+    then three unprofiled steps with the host time of every ``paged_gather``
+    call (the wrapper's work and the launch) taken apart."""
     from torch.profiler import ProfilerActivity, profile
     tok = torch.zeros(SLOTS, dtype=torch.int64, device=eng.device)
     table = torch.from_numpy(eng.kv.table.copy()).to(eng.device)
@@ -1835,6 +1942,23 @@ def profile_decode(eng) -> None:
     summary = device_summary(prof)
     summary.update(steps=3, profiled_wall_ms=wall * 1e3,
                    device_busy_share=summary["device_kernel_ms"] / (wall * 1e3))
+    host, real = [], paged.paged_gather
+
+    def timed_gather(pool, rows):
+        t0 = time.perf_counter()
+        out = real(pool, rows)
+        host.append(time.perf_counter() - t0)
+        return out
+    with mock.patch.object(paged, "paged_gather", timed_gather):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng._pstep(eng.model, eng.caches, tok, table, lengths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary.update(step_ms=wall * 1e3 / 3, gather_calls_per_step=len(host) / 3,
+                   gather_host_ms_per_step=sum(host) * 1e3 / 3,
+                   gather_host_share=sum(host) / wall)
     print(json.dumps({"decode_profile": summary}), flush=True)
 
 
@@ -2014,6 +2138,8 @@ def train_lm_phase(dev, api, model, batches) -> dict:
     gradient check against the reference backend and a profiled step."""
     cfg = api.mcfg
     check(cfg.remat, f"{LM} trains with remat on")
+    check(local.local_plan(LM_W, LM_D, getattr(torch, cfg.compute_dtype)).path == "tiles",
+          "LM train: local_fwd is not on the tiled path (local_fwd_mma)")
     opt_state = adamw_init(dict(model.named_parameters()),
                            state_dtype=getattr(torch, cfg.opt_state_dtype))
     step = make_train_step(api, base_lr=1e-3, weight_decay=0.01, total_steps=300,
@@ -2144,6 +2270,41 @@ def lm_train_reference_check(model, cfg, batch) -> dict:
     return stats
 
 
+def kernels_line(rows: list[dict], paths: dict) -> list[dict]:
+    """The kernels line: one entry a kernel with its main path's row and
+    launches, and the further rows of ``LM_ALSO`` under their keys."""
+    summary = []
+    for name, (src, replaces) in KERNELS.items():
+        # the main path's mode and dtype (fp32 and the key-bias flash for the
+        # shapenet kernels, the prefill's bf16 for local_fwd, the engine's fp32
+        # cache for paged_gather, the LM train shapes in bf16 for local_dq and
+        # local_dkv); launches of the main path (the train paths for the
+        # shapenet kernels, packed where it runs them), and of every path
+        main_path, dt, mode = LM_MAIN.get(name, (None, "float32", None))
+        row = next(r for r in rows if r["name"] == name and r["dtype"] == dt
+                   and mode in (None, r["mode"]))
+        by_path = {p: st["launches"][name] for p, st in paths.items()}
+        if main_path is None:
+            main_path = "train_packed" if name in PATHS["train_packed"] else "train_padded"
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": by_path[main_path], "max_abs_err": row["max_abs_err"],
+                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"], "launches_by_path": by_path}
+        entry.update({k: row[k] for k in EXTRA_KEYS if k in row})
+        for key, path, dt, mode in LM_ALSO.get(name, ()):
+            row = next(r for r in rows if r["name"] == name and r["dtype"] == dt
+                       and r["mode"] == mode)
+            entry[key] = {"launches": by_path[path] if path else None,
+                          "max_abs_err": row["max_abs_err"],
+                          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                          "library_ms": row["library_ms"],
+                          **{k: row[k] for k in EXTRA_KEYS if k in row}}
+        summary.append(entry)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
@@ -2219,33 +2380,7 @@ def main() -> int:
                                                              lm_batches_[0]))
     paths["train_lm"] = train_lm_phase(dev, lm_api, lm_model, lm_batches_)
 
-    summary = []
-    for name, (src, replaces) in KERNELS.items():
-        # the main path's mode and dtype (fp32 and the key-bias flash for the
-        # shapenet kernels, the prefill's bf16 for local_fwd, the engine's fp32
-        # cache for paged_gather, the LM train shapes in bf16 for local_dq and
-        # local_dkv); launches of the main path (the train paths for the
-        # shapenet kernels, packed where it runs them), and of every path
-        main_path, dt, mode = LM_MAIN.get(name, (None, "float32", None))
-        row = next(r for r in rows if r["name"] == name and r["dtype"] == dt
-                   and mode in (None, r["mode"]))
-        by_path = {p: st["launches"][name] for p, st in paths.items()}
-        if main_path is None:
-            main_path = "train_packed" if name in PATHS["train_packed"] else "train_padded"
-        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": by_path[main_path], "max_abs_err": row["max_abs_err"],
-                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                 "library_ms": row["library_ms"], "launches_by_path": by_path}
-        if name in LM_ALSO:
-            key, path, dt, mode = LM_ALSO[name]
-            row = next(r for r in rows if r["name"] == name and r["dtype"] == dt
-                       and r["mode"] == mode)
-            entry[key] = {"launches": by_path[path], "max_abs_err": row["max_abs_err"],
-                          "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                          "library_ms": row["library_ms"]}
-        summary.append(entry)
+    summary = kernels_line(rows, paths)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,13 +34,14 @@
 //         S = QK^T and O += PV on the tensor cores (mma.sync m16n8k16, fp32
 //         accumulation), a warp owning 16 rows; the online softmax runs in
 //         registers in the accumulator's layout, exponentials on the MUFU
-//         unit (__expf), and P is rounded to bf16 as PV's A fragment.
+//         unit (__expf), and P is rounded to bf16 as PV's A fragment: the
+//         walk and the tile step are mma_fwd.cuh's, shared with local_fwd_mma.
 //   fma   fp32: the same walk on the FMA pipes, register-tiled (16 key
 //         lanes x NT/16 row lanes, P through shared memory), so no thread
 //         holds a row of D: D 128 builds without spills.  (It replaced one
 //         thread a row over all L keys, which spilled at D 128 and was
 //         slower at shapenet's shape.)
-#include "tiles.cuh"
+#include "mma_fwd.cuh"
 
 namespace {
 
@@ -52,7 +53,7 @@ using rt::Mask;
 using rt::set_smem;
 using rt::stage_rows;
 using rt::stage_vals;
-using rt::store2;
+using rt::write_empty_tile;
 
 // The positions [t0, t0 + n) of query head r of bh that a tiled block owns:
 // blockIdx.x = ((P - 1 - tile) * BH + bh) * rep + r over the P position
@@ -83,18 +84,11 @@ __device__ __forceinline__ int tile_kmax(const uint8_t* q_valid, int b, int N, i
   return min(L, mask.keys_seen(tile.t0 + tile.n - 1));
 }
 
-// n rows that attend nothing: zeros and LSE_EMPTY.
-template <typename T, int D>
-__device__ __forceinline__ void write_empty_tile(T* o, float* lse, int n) {
-  rt::store_zeros(o, n * D);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) lse[i] = rt::LSE_EMPTY;
-}
-
 // ---------------------------------------------------------------------------
 // mma, bf16: tensor cores.  4 warps, warp w owns rows 16w..16w+15 of the
 // block's 64; per staged tile of 64 keys a warp computes S (16 rows x 64
 // keys), folds it into the running max / sum of its rows, and adds P V into
-// its O (16 x D, fp32).
+// its O (16 x D, fp32): rt::mma_fwd_walk.
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdMma {
@@ -117,8 +111,6 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qs = sm + C::Q_OFF;
   float* bs = reinterpret_cast<float*>(sm + C::BF_END);     // [2][BK]
 
-  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
-  const int rw = (threadIdx.x / 32) * 16;                   // the warp's first row
   const RowTile tile = row_tile(BH, rep, N, C::BM);
   const int b = tile.bh / n_heads;
   const size_t base = ((size_t)tile.bh * rep + tile.r) * N + tile.t0;
@@ -127,7 +119,6 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     write_empty_tile<bf16, D>(o + base * D, lse + base, tile.n);
     return;
   }
-  const int n_kt = (kmax + BK - 1) / BK;
   const int seen0 = mask.keys_seen(tile.t0);                // keys the first row sees
 
   stage_rows<bf16, D, LD>(Qs, q + base * D, tile.n, C::BM, C::NT);
@@ -140,122 +131,14 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage_rows<bf16, D, LD>(sm + C::V_OFF + buf * BK * LD, vb + (size_t)j0 * D, n, BK, C::NT);
     stage_vals(bs + buf * BK, biasb + j0, n, BK, rt::NEG_INF, C::NT);
   };
-
-  int t[2];                                                  // rows g, g + 8
-  float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) t[h] = tile.t0 + rw + g + 8 * h;
-  float oa[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oa[i][e] = 0.f;
-
-  load_tile(0, 0);
-  rt::cp_async_commit();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) load_tile(kt + 1, buf ^ 1);
-    rt::cp_async_commit();
-    rt::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = sm + C::K_OFF + buf * BK * LD;
-    const bf16* Vt = sm + C::V_OFF + buf * BK * LD;
-    const float* bt = bs + buf * BK;
-    const int j0 = kt * BK;
-    float st[BK / 8][4];
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[i][e] = 0.f;
-    // S = Q K^T over D
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t qa[4];
-      rt::ldmatrix_x4(qa, Qs + (rw + lane % 16) * LD + d0 + (lane / 16) * 8);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t kf[4];
-        rt::ldmatrix_x4(kf, Kt + (np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 +
-                                8 * ((lane / 8) % 2));
-        rt::mma_bf16(st[2 * np], qa, kf[0], kf[1]);
-        rt::mma_bf16(st[2 * np + 1], qa, kf[2], kf[3]);
-      }
-    }
-    // logits, masked where some row does not see the whole tile; then the
-    // online softmax of rows g (h 0) and g + 8 (h 1), whose 64 keys lie on
-    // the 4 lanes of their quad
-    const bool partial = seen0 < j0 + BK;                    // block-uniform
-    float mx[2] = {rt::NEG_INF, rt::NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = nt * 8 + tig * 2 + (e % 2);
-        float s = st[nt][e] * scale + bt[key];
-        if (partial && !mask.visible(j0 + key, t[e / 2])) s = rt::NEG_INF;
-        st[nt][e] = s;
-        mx[e / 2] = fmaxf(mx[e / 2], s);
-      }
-    float ms[2], alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      ms[h] = fmaxf(m_new, rt::NEG_HALF);
-      alpha[h] = m[h] <= rt::NEG_HALF ? 0.f : __expf(fminf(m[h] - ms[h], 0.f));
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float s = st[nt][e];
-        const float p = s > rt::NEG_HALF ? __expf(s - ms[e / 2]) : 0.f;
-        l[e / 2] += p;
-        st[nt][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oa[i][e] *= alpha[e / 2];
-    // O += P V over the tile's keys, P rounded to bf16 as A fragments
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = rt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = rt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = rt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = rt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-#pragma unroll
-      for (int n0 = 0; n0 < D; n0 += 16) {
-        uint32_t vf[4];
-        rt::ldmatrix_x4_trans(vf, Vt + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD +
-                                      n0 + 8 * (lane / 16));
-        rt::mma_bf16(oa[n0 / 8], pa, vf[0], vf[1]);
-        rt::mma_bf16(oa[n0 / 8 + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();                       // buffer `buf` is free for tile kt+2
-  }
-  rt::cp_async_wait<0>();
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int r = rw + g + 8 * h;
-    if (r >= tile.n) continue;
-    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-    bf16* out = o + (base + r) * D + tig * 2;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      store2<bf16>(out + nt * 8, oa[nt][2 * h] * inv, oa[nt][2 * h + 1] * inv);
-    if (tig == 0)
-      lse[base + r] = l[h] > 0.f ? fmaxf(m[h], rt::NEG_HALF) + logf(fmaxf(l[h], 1e-30f))
-                                 : rt::LSE_EMPTY;
-  }
+  // per element only where some row does not see the whole tile
+  auto masked = [&](int kt, int key, int row) {
+    return seen0 < (kt + 1) * BK && !mask.visible(kt * BK + key, tile.t0 + row);
+  };
+  rt::MmaRows<D> st;
+  rt::mma_fwd_walk<D, BK, LD>(Qs, sm + C::K_OFF, sm + C::V_OFF, bs, (kmax + BK - 1) / BK,
+                              scale, load_tile, masked, st);
+  rt::mma_fwd_store<D>(st, o + base * D, lse + base, tile.n);
 }
 
 // ---------------------------------------------------------------------------

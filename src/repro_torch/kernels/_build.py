@@ -71,19 +71,21 @@ SIGNATURES = {
     # q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta, dk, dv, H,
     # rep, T, L, D, bf16, stream
     "varlen_dkv": [P] * 13 + [I] * 6 + [P],
-    # q, k, v, key_bias, live, o, lse, BH, rep, N, D, window, n_heads, bf16, stream
-    "local_fwd": [P] * 7 + [I] * 6 + [P],
+    # q, k, v, key_bias, live, o, lse, BH, rep, N, D, window, n_heads, bf16, tiles,
+    # stream
+    "local_fwd": [P] * 7 + [I] * 8 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dq, BH, rep, N, D, window, n_heads,
     # bf16, tiles, stream
     "local_dq": [P] * 9 + [I] * 8 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dk, dv, BH, rep, N, D, window,
     # n_heads, bf16, tiles, stream
     "local_dkv": [P] * 10 + [I] * 8 + [P],
-    # pool, rows, out, R, M, row_bytes, stream
-    "paged_gather": [P] * 3 + [I] * 3 + [P],
+    # pool, rows, out, R, M, row_bytes, idx64, stream
+    "paged_gather": [P] * 3 + [I] * 4 + [P],
 }
 
 _lib = None
+_entry: dict = {}            # name -> the loaded entry point, signature declared
 last_build: dict = {}        # {"path", "seconds", "built", "log"} of load()
 
 
@@ -153,6 +155,7 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _entry[name] = fn
         last_build.update(path=str(path), built=built, log=log,
                           seconds=time.perf_counter() - t0)
         _lib = lib
@@ -160,7 +163,13 @@ def load():
 
 
 def launch(name: str, *args) -> None:
-    """Call entry point ``name`` and raise if its launch was refused."""
-    err = getattr(load(), name)(*args)
+    """Call entry point ``name`` and raise if its launch was refused (or if
+    the wrapper passed another number of arguments than its signature)."""
+    if len(args) != len(SIGNATURES[name]):
+        raise TypeError(f"{name}: {len(args)} arguments for a signature of "
+                        f"{len(SIGNATURES[name])}")
+    if not _entry:
+        load()
+    err = _entry[name](*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -122,13 +122,14 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
                      f"CUDA device, got {sorted(kinds)}")
 
 
-def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(),
+def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(), index=(),
                       head_dim: int | None = None) -> None:
     """Raise on anything the CUDA kernel ``name`` does not take.
 
     ``data``: operand tensors that must share one dtype, fp32 or bf16;
-    ``f32`` / ``i32``: side inputs of fixed dtype.  Every tensor must be
-    contiguous, and ``head_dim`` one of ``HEAD_DIMS[name]``."""
+    ``f32`` / ``i32``: side inputs of fixed dtype; ``index``: indices the
+    kernel reads as int32 or int64.  Every tensor must be contiguous, and
+    ``head_dim`` one of ``HEAD_DIMS[name]``."""
     dts = {t.dtype for t in data}
     if len(dts) > 1:
         raise TypeError(f"{name}: operands must share one dtype, got {dts}")
@@ -141,7 +142,10 @@ def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(),
     for t in i32:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: expected an int32 side input, got {t.dtype}")
-    for t in (*data, *f32, *i32):
+    for t in index:
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name}: expected int32 or int64 indices, got {t.dtype}")
+    for t in (*data, *f32, *i32, *index):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     if head_dim is not None and head_dim not in HEAD_DIMS[name]:

@@ -25,7 +25,8 @@ blocks run in no order.
   (heavy) tiles launched first; a tile that sees no key (block-causal: every
   position t < ℓ) writes zeros and ``LSE_EMPTY`` and stops.  bf16 runs on
   the tensor cores (``mma.sync``, the online softmax in the accumulator's
-  registers), fp32 on the FMA pipes in register tiles.
+  registers; the walk and tile step of ``csrc/mma_fwd.cuh``, shared with
+  the tiled ``local_fwd``), fp32 on the FMA pipes in register tiles.
 
 The backward (``csrc/flash_bwd.cu``):
 

@@ -2,8 +2,9 @@
 forward and backward.
 
 Replaces ``repro/kernels/local.py::_fwd_kernel`` and ``::_bwd_kernel``
-(Pallas, TPU).  The CUDA sources are ``csrc/local_fwd.cu`` and
-``csrc/local_bwd.cu`` (``local_dq`` and ``local_dkv``).  Query block i
+(Pallas, TPU).  The CUDA sources are ``csrc/local_fwd.cu``
+(``local_fwd_mma``, ``local_fwd_rows``) and ``csrc/local_bwd.cu``
+(``local_dq`` and ``local_dkv``).  Query block i
 (``window`` = w positions) attends causally within block i and fully to
 block i−1, the blocked equivalent of a sliding window of w..2w keys.
 
@@ -12,20 +13,20 @@ What bounds them on the H100: each query row does 4·D FLOP per visible key
 so the arithmetic bounds them at the LM's shapes.  The TPU fetched the prev
 and self key halves with two index maps, skipped dead halves through a
 scalar-prefetched liveness table, and ran the backward in one grid cell per
-block that also fetched the next query block.  Here the forward gives a
-thread block up to 128 rows of one (b·h, query head, block), one thread a
-row on the FMA pipes, and stages each live half through shared memory in
-64-key tiles.  The backward is two kernels that each own their outputs (no
-atomics, a fixed order of sums): ``local_dq`` gives a block 64 rows of one
-(b·h, query head, block) and walks the live prev half's key tiles and the
-self half's up to its diagonal tile (:func:`dq_walk`); ``local_dkv`` gives
-a block 64 keys of one (b·h, block) and walks the rep query heads over the
-rows that see them, its own block's from its first key on, causally, and
-the next block's in full (:func:`dkv_walk`).  One rule picks the
-backward's path (:func:`local_plan`): bf16 with a window that is a
-multiple of 64 (the LM's 256) runs on the tensor cores (``mma.sync``,
-tiles staged by ``cp.async``); fp32 and smaller windows keep 4 lanes a row
-or key on the FMA pipes.  The liveness of the two halves, (B, N/w, 2), is
+block that also fetched the next query block.  Here the forward and
+``local_dq`` give a block 64 rows of one (b·h, query head, block) that walk
+the live prev half's key tiles and the self half's up to their diagonal
+tile (:func:`dq_walk`, the walk of both); ``local_dkv``
+gives a block 64 keys of one (b·h, block) and walks the rep query heads
+over the rows that see them, its own block's from its first key on,
+causally, and the next block's in full (:func:`dkv_walk`).  The backward's
+two kernels each own their outputs (no atomics, a fixed order of sums).
+One rule picks the path of all three (:func:`local_plan`): bf16 with a
+window that is a multiple of 64 (the LM's 256) runs on the tensor cores
+(``mma.sync``, tiles staged by ``cp.async``; the forward's tile step is
+``flash_fwd``'s); fp32 and smaller windows keep the FMA pipes, the forward
+one thread a row in blocks of 128 rows with 64-key staged tiles, the
+backward 4 lanes a row or key.  The liveness of the two halves, (B, N/w, 2), is
 computed here once a call (``occupancy.local_half_live``), with the packed
 layout's segment rule folded into the prev half; block i's "next" flag is
 block i+1's prev flag.  The kernels read no segment ids.
@@ -63,10 +64,13 @@ COUNT_DKV = _counter("local_dkv")
 
 
 class LocalPlan(NamedTuple):
-    """How ``local_dq`` / ``local_dkv`` take one shape: ``path``
-    ``"tiles"`` (tensor cores) or ``"lanes"`` (4 lanes a row or key, FMA
-    pipes); ``rows``: positions a ``local_dq`` block; ``keys``: keys a
-    ``local_dkv`` block; ``key_tile``: keys a staged tile of ``local_dq``;
+    """How ``local_fwd`` / ``local_dq`` / ``local_dkv`` take one shape:
+    ``path`` ``"tiles"`` (tensor cores: ``local_fwd_mma``, ``local_dq_mma``,
+    ``local_dkv_mma``) or ``"lanes"`` (FMA pipes: ``local_fwd_rows``, one
+    thread a row in blocks of 128, and the backward's 4 lanes a row or
+    key); ``rows``: positions a ``local_dq`` block (and a tiled
+    ``local_fwd`` block); ``keys``: keys a ``local_dkv`` block;
+    ``key_tile``: keys a staged tile of ``local_dq`` and ``local_fwd``;
     ``row_tile``: rows a staged tile of ``local_dkv``."""
     path: str
     rows: int
@@ -79,15 +83,16 @@ TILE = 64                   # the tiled path's rows a local_dq block, keys a loc
 
 
 def local_plan(window: int, D: int, dtype: torch.dtype) -> LocalPlan:
-    """The path and tiles of the backward kernels at this window and head
-    dim (the constants of ``csrc/local_bwd.cu``).  bf16 with a window that
-    is a multiple of 64 takes the tiled path (``DqMma``: 64 rows against
-    64-key tiles; ``DkvMma``: 64 keys against 64-row tiles, 32 at D 128);
-    the rest the lanes path (64 rows or keys a block, staged tiles of 64,
-    ``4096 / D`` at D 128).  A shape no path takes raises."""
+    """The path and tiles of the local kernels at this window and head dim
+    (the constants of ``csrc/local_fwd.cu`` and ``csrc/local_bwd.cu``).
+    bf16 with a window that is a multiple of 64 takes the tiled path
+    (``FwdMma`` and ``DqMma``: 64 rows against 64-key tiles; ``DkvMma``: 64
+    keys against 64-row tiles, 32 at D 128); the rest the lanes path (the
+    backward 64 rows or keys a block, the forward 128 rows; staged tiles of
+    64, ``4096 / D`` at D 128).  A shape no path takes raises."""
     if (dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["local_dq"]
             or window < 1):
-        raise ValueError(f"local backward: no path takes window {window}, D {D}, {dtype} "
+        raise ValueError(f"local kernels: no path takes window {window}, D {D}, {dtype} "
                          f"(window ≥ 1; D in {HEAD_DIMS['local_dq']}; float32 or bfloat16)")
     if dtype == torch.bfloat16 and window % TILE == 0:
         return LocalPlan("tiles", TILE, TILE, TILE, 32 if D > 64 else 64)
@@ -97,10 +102,13 @@ def local_plan(window: int, D: int, dtype: torch.dtype) -> LocalPlan:
 
 def dq_walk(window: int, D: int, dtype: torch.dtype, *, live_prev: bool = True,
             live_self: bool = True) -> list[tuple[int, int, list[tuple[int, int, bool]]]]:
-    """The tiled ``local_dq``'s walk of one block i (``csrc/local_bwd.cu``:
+    """The walk of one block i of the tiled ``local_fwd`` and ``local_dq``
+    (``csrc/local_fwd.cu``: ``local_fwd_mma``; ``csrc/local_bwd.cu``:
     ``local_dq_mma``), positions counted from block i's start: for each
     block of rows [t0, t1), the key tiles [j0, j1) it stages, block i−1's at
-    −w..0, each with whether it is masked causally (the diagonal tile)."""
+    −w..0, each with whether it is masked causally (the diagonal tile).  A
+    row block with no tile (both halves dead) writes zeros (and, forward,
+    ``LSE_EMPTY``) without reading K or V."""
     plan = local_plan(window, D, dtype)
     if plan.path != "tiles":
         raise ValueError(f"dq_walk: window {window}, {dtype} takes the lanes path")
@@ -206,7 +214,8 @@ def local_window_fwd_plain(q, k, v, key_bias, blk_seg=None, *, window: int,
 
 def local_window_fwd(q, k, v, key_bias, blk_seg=None, *, window: int, n_heads: int):
     """(o, lse) of blocked local causal attention: the CUDA kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (on the path :func:`local_plan` picks), the plain version on CPU
+    tensors."""
     _check_shapes("local_fwd", q, k, v, key_bias, blk_seg, window, n_heads)
     side = () if blk_seg is None else (blk_seg,)
     if on_cpu(q, k, v, key_bias, *side):
@@ -216,12 +225,13 @@ def local_window_fwd(q, k, v, key_bias, blk_seg=None, *, window: int, n_heads: i
     live = live_map(key_bias, blk_seg, window)
     check_cuda_inputs("local_fwd", data=(q, k, v), f32=(key_bias,), i32=(live,),
                       head_dim=D)
+    plan = local_plan(window, D, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((BH, rep, N), dtype=torch.float32, device=q.device)
     _build.launch("local_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   key_bias.data_ptr(), live.data_ptr(), o.data_ptr(), lse.data_ptr(),
                   BH, rep, N, D, window, n_heads, int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  int(plan.path == "tiles"), torch.cuda.current_stream(q.device).cuda_stream)
     COUNT.hit()
     return o, lse
 

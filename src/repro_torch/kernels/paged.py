@@ -9,11 +9,13 @@ reads the nearest edge row, so no index reads out of bounds.
 
 What bounds it on the H100: it only moves bytes (each gathered row read once
 and written once), so memory bounds it; the decode step's gathers are small
-(a few hundred to a few thousand rows of Hkv·D elements), so the launch is
-most of their time.  The TPU scalar-prefetched each row index into a
-BlockSpec and pipelined one row DMA per grid cell; here one warp copies one
-row with 16-byte vector loads, neighbouring lanes on neighbouring
-addresses.
+(a few to a few thousand rows of Hkv·D elements), so the call's host work
+and the launch are most of their time.  The TPU scalar-prefetched each row
+index into a BlockSpec and pipelined one row DMA per grid cell; here one
+warp copies one row with 16-byte vector loads, neighbouring lanes on
+neighbouring addresses.  The kernel reads int32 or int64 indices itself,
+and the wrapper neither casts nor reshapes them: a call is one
+``torch.empty`` and one launch.
 """
 
 from __future__ import annotations
@@ -46,19 +48,32 @@ def paged_gather_plain(pool, rows):
     return pool[torch.where(r < 0, r + R, r).clamp(0, R - 1)]
 
 
+_DATA = (torch.float32, torch.bfloat16)
+_INDEX = (torch.int32, torch.int64)
+
+
+def _kernel_takes(pool, rows) -> bool:
+    """The kernel takes these tensors as they are: both on one card, pool
+    (R > 0, Hkv, D) fp32 or bf16, rows int32 or int64, both contiguous.
+    One expression, so that a decode step's calls pay for no more checks."""
+    return (pool.is_cuda and rows.is_cuda and pool.get_device() == rows.get_device()
+            and pool.dim() == 3 and pool.shape[0] > 0 and pool.dtype in _DATA
+            and rows.dtype in _INDEX and pool.is_contiguous() and rows.is_contiguous())
+
+
 def paged_gather(pool, rows):
     """``pool[rows]`` (negative from the end, then clamped): the CUDA kernel
-    on CUDA tensors, the plain version on CPU tensors.  ``rows``: integer
-    tensor of any shape."""
-    _check(pool, rows)
-    if on_cpu(pool, rows):
-        return paged_gather_plain(pool, rows)
-    flat = rows.reshape(-1).to(torch.int32).contiguous()
-    check_cuda_inputs("paged_gather", data=(pool,), i32=(flat,))
+    on CUDA tensors, the plain version on CPU tensors.  ``rows``: int32 or
+    int64 tensor of any shape (contiguous on the card)."""
+    if not _kernel_takes(pool, rows):          # the CPU, or raise on what it does not take
+        _check(pool, rows)
+        if on_cpu(pool, rows):
+            return paged_gather_plain(pool, rows)
+        check_cuda_inputs("paged_gather", data=(pool,), index=(rows,))
     R, H, D = pool.shape
-    out = torch.empty((flat.shape[0], H, D), dtype=pool.dtype, device=pool.device)
-    _build.launch("paged_gather", pool.data_ptr(), flat.data_ptr(), out.data_ptr(),
-                  R, flat.shape[0], H * D * pool.element_size(),
-                  torch.cuda.current_stream(pool.device).cuda_stream)
+    out = torch.empty((*rows.shape, H, D), dtype=pool.dtype, device=pool.device)
+    _build.launch("paged_gather", pool.data_ptr(), rows.data_ptr(), out.data_ptr(), R,
+                  rows.numel(), H * D * pool.element_size(), int(rows.dtype == torch.int64),
+                  torch._C._cuda_getCurrentRawStream(pool.get_device()))
     COUNT.hit()
-    return out.reshape(*rows.shape, H, D)
+    return out

@@ -114,15 +114,21 @@ def test_local_window_cpu_gradient_is_the_plain_versions():
         torch.testing.assert_close(a.grad, b.grad)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_gather_plain_matches_pallas(dtype):
+@pytest.mark.parametrize("dtype,index", [("float32", torch.int32), ("bfloat16", torch.int32),
+                                         ("float32", torch.int64), ("bfloat16", torch.int64)],
+                         ids=["float32", "bfloat16", "float32-int64", "bfloat16-int64"])
+def test_paged_gather_plain_matches_pallas(dtype, index):
+    """int32 and int64 row indices (the decode passes both) against the
+    Pallas kernel in interpret mode, with rows past the end, from the end
+    and before 0."""
     rng = np.random.default_rng(0)
     pool = rng.standard_normal((40, 2, 16)).astype(np.float32)
     rows = rng.integers(0, 40, (3, 7)).astype(np.int32)
     rows[0, :4] = [40, 57, -1, -45]                # past the end, from the end, before 0
+    rows[2, -2:] = [-40, 39]                       # the first row from the end, the last
     jpool = jnp.asarray(pool, getattr(jnp, dtype))
     want = j_ops.paged_gather(jpool, jnp.asarray(rows), interpret=True, force_kernel=True)
-    got = t_paged.paged_gather(_t(pool, getattr(torch, dtype)), _t(rows, torch.int32))
+    got = t_paged.paged_gather(_t(pool, getattr(torch, dtype)), _t(rows, index))
     assert got.shape == (3, 7, 2, 16)
     np.testing.assert_array_equal(_np(got), _np(want))
 

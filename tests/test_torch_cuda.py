@@ -12,10 +12,13 @@ tiles, skipped ``q_valid`` tiles, block-causal rows that see nothing) and
 the local backward at every head dim and windows 64-256 (bf16: the tiled
 path, with a bit-for-bit determinism check).
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
-version.  The causal LM's kernels: ``local_fwd``, ``local_dq`` and
+version.  The tiled ``local_fwd`` at every head dim, windows 64-256 and
+with or without segments (a padded tail, a dead block, a masked slot),
+with the local backward run from its lse.  The causal LM's kernels:
+``local_fwd``, ``local_dq`` and
 ``local_dkv`` with a mask, a dead block, a masked slot and packed segments
 (windows 32 and 256), ``paged_gather`` with out-of-range rows and unaligned
-rows, and a 2-layer smoke tinyllama's forward, paged decode and (with remat)
+rows, int32 and int64 indices, one kernel a call, and a 2-layer smoke tinyllama's forward, paged decode and (with remat)
 gradients against the reference backend.  Tolerance: fp32
 1e-4, bf16 4e-2 (6e-2 for the selection backward, as the JAX suite's bf16
 gradient tolerances); the row gather is exact.
@@ -552,6 +555,48 @@ def test_local_bwd_tiled_edges(cuda, head_dim, window, dtype):
     assert all(bool((g[2 * HKV:] == 0).all()) for g in got)   # the masked slot
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("window", [64, 128, 256])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_local_fwd_tiled_edges(cuda, head_dim, window, segmented, dtype):
+    """``local_fwd`` on the path ``local_plan`` picks (bf16: the tiled
+    ``local_fwd_mma``; fp32: ``local_fwd_rows``) against the plain version,
+    rep 3: a padded tail, a ragged hole, a fully masked slot and a block with
+    both halves dead (its rows: exact zeros and ``LSE_EMPTY``), with and
+    without packed segments; then ``local_dq`` / ``local_dkv`` from the new
+    forward's (o, lse) against their plain version.  One launch a call."""
+    from repro_torch.kernels import local
+    from repro_torch.kernels.common import LSE_EMPTY
+    w, n = window, 4 * window
+    q = _rand((B * HKV, 3, n, head_dim), dtype, cuda, 95)
+    k = _rand((B * HKV, n, head_dim), dtype, cuda, 96)
+    v = _rand((B * HKV, n, head_dim), dtype, cuda, 97)
+    mask = torch.ones(B, n, dtype=torch.bool, device=cuda)
+    mask[0, 3 * w + w // 3:] = False                 # a padded tail
+    mask[1, :2 * w] = False                          # block 1: both halves dead
+    mask[1, 2 * w + 3:2 * w + 40] = False            # a ragged hole
+    mask[2] = False                                  # a fully masked slot
+    seg = (torch.tensor([[0, 0, 1, 1], [0, 1, 1, 2], [0, 0, 0, 0]], dtype=torch.int32,
+                        device=cuda) if segmented else None)
+    kw = dict(window=w, n_heads=HKV)
+    assert local.local_plan(w, head_dim, dtype).path == (
+        "tiles" if dtype == torch.bfloat16 else "lanes")
+    before = local.COUNT.n
+    o, lse = local.local_window_fwd(q, k, v, _bias(mask), seg, **kw)
+    torch.cuda.synchronize()
+    assert local.COUNT.n == before + 1
+    _check((o, lse), local.local_window_fwd_plain(q, k, v, _bias(mask), seg, **kw), dtype)
+    assert bool((o[HKV:2 * HKV, :, :2 * w] == 0).all())             # dead halves
+    assert bool((lse[HKV:2 * HKV, :, :2 * w] == LSE_EMPTY).all())
+    assert bool((o[2 * HKV:] == 0).all()) and bool((lse[2 * HKV:] == LSE_EMPTY).all())
+    rest = _bwd_inputs(o, lse, dtype, 98)
+    got = local.local_window_bwd(q, k, v, _bias(mask), seg, *rest, **kw)
+    torch.cuda.synchronize()
+    _check(got, local.local_window_bwd_plain(q, k, v, _bias(mask), seg, *rest, **kw),
+           dtype)
+
+
 def test_local_bwd_tiles_deterministic(cuda):
     """The tiled backward sums in a fixed order: two bf16 runs give
     bit-identical dq, dk, dv."""
@@ -601,18 +646,33 @@ def test_lm_train_step_grads_match_reference(cuda):
         torch.testing.assert_close(grads["auto"][name], want, atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (40, 2, 16)),
                                          (torch.bfloat16, (40, 2, 16)),
                                          (torch.float32, (40, 1, 3)),     # 4-byte words
                                          (torch.bfloat16, (40, 1, 3))])   # bytes
-def test_paged_gather_kernel(cuda, dtype, shape):
+def test_paged_gather_kernel(cuda, dtype, shape, index):
+    """int32 and int64 rows, exact, past the end, from the end and before 0;
+    one call is one kernel on the card (the profiler's trace), whatever the
+    index type."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import paged
     pool = _rand(shape, dtype, cuda, 85)
-    rows = torch.randint(0, 40, (5, 9), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rows = torch.randint(0, 40, (5, 9), generator=g, device=cuda).to(index)
     rows[0, :4] = torch.tensor([40, 57, -1, -45])  # past the end, from the end, before 0
     got = paged.paged_gather(pool, rows)
     assert got.shape == (5, 9) + shape[1:]
     torch.testing.assert_close(got, paged.paged_gather_plain(pool, rows), atol=0, rtol=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        paged.paged_gather(pool, rows)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert [e.name for e in kernels if "paged_gather" in e.name] == \
+        [e.name for e in kernels] and len(kernels) == 1, [e.name for e in kernels]
 
 
 def test_lm_kernels_match_reference(cuda):

@@ -11,10 +11,13 @@
   kernels' plain versions, equal to the reference backend; the built-in
   ``kernels`` / ``auto`` backends answer the packed-varlen ops with their
   own methods, never with the reference's.
+* The kernel library's ctypes signatures match the C entry points of
+  ``csrc/*.cu`` one for one.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +25,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.kernels._build import SIGNATURES
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -192,6 +197,29 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "kernels").exists()
+
+
+def _c_entry_points() -> dict[str, list[str]]:
+    from repro_torch.kernels import _build
+    text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    return {m.group(1): [a.strip() for a in m.group(2).split(",")]
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text)}
+
+
+@pytest.mark.parametrize("name", sorted(SIGNATURES))
+def test_build_signatures_match_the_c_entry_points(name):
+    """Each ctypes signature names the C entry point's parameters one for
+    one (a pointer as c_void_p, an int as c_int): a missing int shifts the
+    stream pointer into an int and crashes only on the card."""
+    import ctypes
+
+    params = _c_entry_points()[name]
+    assert SIGNATURES[name] == [ctypes.c_void_p if "*" in a else ctypes.c_int
+                                       for a in params], params
+
+
+def test_every_c_entry_point_has_a_signature():
+    assert sorted(_c_entry_points()) == sorted(SIGNATURES)
 
 
 def test_wrappers_refuse_mixed_or_odd_devices():

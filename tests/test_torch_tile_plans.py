@@ -1,19 +1,24 @@
-"""The walks of the tiled ``flash_fwd`` and local backward kernels, and the
-rules that pick their paths, checked on the CPU.
+"""The walks of the tiled ``flash_fwd`` and local kernels, and the rules
+that pick their paths, checked on the CPU.
 
 - :func:`flash.fwd_walk` (the key tiles each row tile of ``flash_fwd``
   stages) and :func:`local.dq_walk` / :func:`local.dkv_walk` (the key tiles
-  a ``local_dq`` row block stages, the row tiles a ``local_dkv`` key block
-  stages in block i and block i+1) against the plain versions' masks
+  a tiled ``local_fwd`` or ``local_dq`` row block stages, the forward's
+  driven by the liveness map the wrapper computes over masks with holes,
+  padded tails, dead halves and rows that see nothing; the row tiles a
+  ``local_dkv`` key block stages in block i and block i+1) against the
+  plain versions' masks
   (``flash.visible_keys``, ``local._window_bias``) by brute force: every
   visible (row, key) pair is covered; in the causal and block-causal modes
   (and the banded local mask) no staged tile is wholly masked; rows that see
   no key are the rows a walk reports empty.  Plain, causal and
   block-causal modes, ℓ 8 and 64, L 480 (a ragged key tile) and 512;
   windows 64–256, live and dead halves.
-- :func:`flash.flash_fwd_plan` and :func:`local.local_plan` at every
-  configuration the port registers, with their tiles pinned to the
-  constants of ``csrc/flash_fwd.cu`` and ``csrc/local_bwd.cu``.
+- :func:`flash.flash_fwd_plan` and :func:`local.local_plan` (the path of
+  ``local_fwd``, ``local_dq`` and ``local_dkv``) at every configuration
+  the port registers and at the windows' and dtypes' boundaries, with
+  their tiles pinned to the constants of ``csrc/flash_fwd.cu``,
+  ``csrc/local_fwd.cu`` and ``csrc/local_bwd.cu``.
 """
 
 import re
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.configs import get_config, list_configs
 from repro_torch.kernels import flash, local
+from repro_torch.kernels.occupancy import local_half_live
 from repro_torch.numerics import NEG_INF
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
@@ -151,6 +157,67 @@ def test_local_walk_rows_that_see_nothing():
                local.dq_walk(64, 64, torch.bfloat16, live_prev=False, live_self=False))
 
 
+# (name, masked positions of a 3-block sample as slices in units of w/64,
+# segment ids of the blocks or None)
+FWD_LOCAL_MASKS = {
+    "full": ([], None),
+    "segmented": ([], [0, 1, 2]),
+    "hole": ([(65, 104)], None),                 # a ragged hole in block 1
+    "padded_tail": ([(145, 192)], None),         # block 2's last 47 positions
+    "dead_block": ([(64, 128)], None),           # block 1: self half dead
+    "dead_halves": ([(0, 128)], None),           # block 1: both halves dead
+    "masked_lead": ([(0, 100)], None),           # rows that see nothing, walked
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_LOCAL_MASKS))
+@pytest.mark.parametrize("window", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128])
+def test_local_fwd_walk_covers_visible_pairs(D, window, case):
+    """Every block of a 3-block sample, walked as ``local_fwd_mma`` walks it
+    (:func:`local.dq_walk` with the halves' liveness the wrapper computes),
+    against the plain version's (w, 2w) mask: every visible pair staged, only
+    the diagonal tile index-masked, and a row block that stages nothing
+    holds rows that see nothing; rows that see nothing inside a walked block
+    finish with l = 0 (zeros and ``LSE_EMPTY``) in the kernel."""
+    w = window
+    spans, seg = FWD_LOCAL_MASKS[case]
+    valid = torch.ones(1, 3 * w, dtype=torch.bool)
+    for a, b in spans:
+        valid[0, a * w // 64:b * w // 64] = False
+    key_bias = torch.where(valid, 0.0, NEG_INF)
+    blk_seg = None if seg is None else torch.tensor([seg], dtype=torch.int32)
+    plan = local.local_plan(w, D, torch.bfloat16)
+    assert plan.path == "tiles"
+    ok = local._window_bias(key_bias, blk_seg, w, 1)[0, :, 0] > NEG_INF / 2  # (3, w, 2w)
+    index_ok = local._window_bias(torch.zeros(1, 3 * w), None, w, 1)[0, 1, 0] > NEG_INF / 2
+    live = local_half_live(key_bias, w, blk_seg)[0]
+    sees_nothing, walked_nothing = 0, 0
+    for i in range(3):
+        vis = ok[i]
+        walk = local.dq_walk(w, D, torch.bfloat16, live_prev=bool(live[i, 0]),
+                             live_self=bool(live[i, 1]))
+        assert [t0 for t0, _, _ in walk] == list(range(0, w, plan.rows))
+        covered = torch.zeros(w, 2 * w, dtype=torch.bool)
+        for t0, t1, tiles in walk:
+            nothing = ~vis[t0:t1].any(1)
+            if not tiles:                                       # zeros, LSE_EMPTY
+                assert nothing.all()
+            walked_nothing += int(nothing.sum()) if tiles else 0
+            for j0, j1, diag in tiles:
+                assert j1 - j0 == plan.key_tile and diag == (j0 == t0)
+                blk = index_ok[t0:t1, w + j0:w + j1]
+                assert blk.any() and blk.all() != diag          # masked iff diagonal
+                covered[t0:t1, w + j0:w + j1] = True
+        assert not (vis & ~covered).any()                       # every visible pair staged
+        sees_nothing += int((~vis.any(1)).sum())
+    # dead_halves: blocks 0 and 1 see nothing and stage nothing; masked_lead:
+    # block 0 stages nothing, block 1's first 36/64 of w rows are walked
+    # (its self half is live) and see nothing
+    assert sees_nothing == {"dead_halves": 2 * w, "masked_lead": 100 * w // 64}.get(case, 0)
+    assert walked_nothing == (36 * w // 64 if case == "masked_lead" else 0)
+
+
 # ---------------------------------------------------------------------------
 # the rules, at the port's configurations, pinned to the CUDA sources
 # ---------------------------------------------------------------------------
@@ -163,7 +230,7 @@ def test_plans_for_configs(name):
     assert fwd.path == ("mma" if dtype == torch.bfloat16 else "fma")
     if cfg.bsa.local_window:
         w = cfg.bsa.effective_local_window
-        plan = local.local_plan(w, D, dtype)
+        plan = local.local_plan(w, D, dtype)            # local_fwd's path and the backward's
         assert plan.path == ("tiles" if dtype == torch.bfloat16 and w % 64 == 0 else "lanes")
     if name == "tinyllama-1.1b":
         assert tuple(fwd) == ("mma", 64, 64)
@@ -182,6 +249,10 @@ def test_plans_match_source_constants(D):
     tiles = local.local_plan(256, D, torch.bfloat16)
     dq, dkv = _consts(bwd_src, "DqMma", D), _consts(bwd_src, "DkvMma", D)
     assert (tiles.rows, tiles.key_tile) == (dq["BM"], dq["BK"])
+    lfwd_src = CSRC / "local_fwd.cu"
+    lfwd = _consts(lfwd_src, "FwdMma", D)              # local_fwd_mma: 64 rows, 64-key tiles
+    assert (tiles.rows, tiles.key_tile) == (lfwd["BM"], lfwd["BK"]) == (64, 64)
+    assert int(re.search(r"kRows = (\d+);", lfwd_src.read_text()).group(1)) == 128
     assert (tiles.keys, tiles.row_tile) == (dkv["BK"], dkv["BM"])
     lanes = local.local_plan(32, D, torch.bfloat16)
     text = bwd_src.read_text()
@@ -200,6 +271,26 @@ def test_plans_match_source_constants(D):
                                                (256, torch.float32, "lanes")])
 def test_local_plan_boundary(window, dtype, path):
     assert local.local_plan(window, 64, dtype).path == path
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [32, 64, 256])
+@pytest.mark.parametrize("D", [64, 128])
+def test_local_fwd_plan_boundaries(D, window, dtype):
+    """The forward's path at windows 32 / 64 / 256 × fp32 / bf16: the tiled
+    ``local_fwd_mma`` for bf16 at a multiple of 64, ``local_fwd_rows``
+    otherwise (whose walk the tiled mirror refuses)."""
+    plan = local.local_plan(window, D, dtype)
+    tiles = dtype == torch.bfloat16 and window % 64 == 0
+    assert plan.path == ("tiles" if tiles else "lanes")
+    if tiles:
+        walk = local.dq_walk(window, D, dtype)
+        assert len(walk) == window // 64
+        assert [len(t) for _, _, t in walk] == [window // 64 + c + 1
+                                                for c in range(window // 64)]
+    else:
+        with pytest.raises(ValueError):
+            local.dq_walk(window, D, dtype)
 
 
 @pytest.mark.parametrize("call", [lambda: flash.flash_fwd_plan(48, torch.bfloat16),
