@@ -12,13 +12,17 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    per CUDA source, all at once; the redesigned kernels, ``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, the tiled selection kernels, ``local_dq``
    and ``local_dkv`` in every variant and ``local_fwd_mma``, must build
-   with 0 bytes spilled at head dims 64 and 128, by ptxas's report:
-   ``NO_SPILL``), TF32 off for every fp32 product;
+   with 0 bytes spilled at head dims 64 and 128, and ``bta_fwd_fma`` /
+   ``bta_bwd_fma`` at 16 and 32, by ptxas's report: ``NO_SPILL``), TF32 off
+   for every fp32 product;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16 and, for flash, in its causal modes too (fp32; the
    tiled ``flash_fwd``: register tiles in fp32, tensor cores in bf16); with
    the median time of kernel, plain version and (where one exists) the
    library call, and the least time the H100 could take for the same work.
+   The ball kernels' rows also give the kernel's own device time from the
+   profiler, SDPA's (forward, or forward + backward − forward) and the path
+   ``bta.bta_plan`` picks (``fma`` in fp32, ``rows`` in bf16).
    The four padded forward kernels run at the shapes serving
    ``shapenet-bsa`` gives them (8 slots of 3840 points, sample 0 padded
    from a 3586-point cloud, the others 2800–3586 points, 8 heads of 32);
@@ -34,7 +38,8 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    ``varlen_dkv`` at the packed train batch's;
 3. serve, padded then packed: ``shapenet-bsa`` at full width (18 layers,
    random weights from a seed) serves 16 synthetic clouds of 2800–3586
-   points through ``GeometryEngine(batch_slots=8)``, ``layout="padded"``
+   points through ``GeometryEngine(batch_slots=8)`` (the ball kernels on
+   their ``fma`` path, ``bta.bta_plan``), ``layout="padded"``
    with ``pad_to=3840`` and ``layout="packed"`` with ``pad_to=30720`` (the
    same capacity), each after a warm-up batch; each forward kernel of the
    layout's path must have launched 18 times per batch (and no other
@@ -44,7 +49,8 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    and padded outputs are compared (information: top-k near-ties may
    flip);
 4. train, padded then packed: ``shapenet-bsa`` at full width and depth
-   (18 layers, fp32) takes one warm-up step and then five timed steps of
+   (18 layers, fp32; the ball kernels on their ``fma`` path) takes one
+   warm-up step and then five timed steps of
    ``make_train_step`` (masked MSE, backward, clipping at 1.0, AdamW at lr
    1e-3 with warm-up and cosine decay over 300 steps, weight decay 0.01),
    padded on batches of 8 ShapeNet-Car train clouds padded to 3840, packed
@@ -268,13 +274,15 @@ LM_GRAD_FLOOR = 1e-4
 D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
 # the redesigned kernels must build without spills at these head dims, every
 # variant: mma (bf16 tensor cores), fma (fp32 register tiles) and, for the
-# local backward, lanes (fp32 and small windows, both dtypes)
+# local backward, lanes (fp32 and small windows, both dtypes); the ball
+# kernels' fma variants at the head dims their fma path takes (16, 32)
 NO_SPILL = {**{name: ((64, 128), ("mma", "fma"))
                for name in ("flash_fwd", "flash_dq", "flash_dkv", "selection_fwd",
                             "selection_dq", "selection_dkv")},
             "local_fwd": ((64, 128), ("mma",)),
             "local_dq": ((64, 128), ("mma", "lanes")),
-            "local_dkv": ((64, 128), ("mma", "lanes"))}
+            "local_dkv": ((64, 128), ("mma", "lanes")),
+            **{name: (bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")}}
 # a kernel's further rows in the kernels line, beside its main path's (name
 # -> [(key, path whose launches it reports or None, dtype, mode)]): the LM
 # prefill's flash_fwd beside the shapenet train path's, the D 128 rows, and
@@ -359,23 +367,31 @@ def rand(shape, dtype, dev, seed):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def device_ms(fn, pattern: str | None = None, reps: int = 20) -> tuple[float, list[str]]:
+def device_ms(fn, pattern: str | None = None, reps: int = 20,
+              per_call: bool = False) -> tuple[float, list[str]]:
     """(mean device time of one launch of the kernels whose name matches
     ``pattern`` (every kernel when None), the names of every device kernel
     the calls launched), from the profiler over ``reps`` calls of ``fn``
     after a warm-up.  Mean over the launches the trace holds: it may miss a
-    few of the first calls' kernels."""
+    few of the first calls' kernels, and now and then a trace holds no
+    device kernel at all, so an empty one is taken again (up to three
+    times).  ``per_call``: their device time a call instead (a library call
+    may launch several kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if ks:
+            break
     mine = [e for e in ks if pattern is None or re.search(pattern, e.key)]
-    return (sum(e.device_time_total for e in mine) / 1e3 / max(1, sum(e.count for e in mine)),
+    total = sum(e.device_time_total for e in mine) / 1e3
+    return (total / reps if per_call else total / max(1, sum(e.count for e in mine)),
             sorted(e.key for e in ks))
 
 
@@ -405,6 +421,21 @@ def library_bwd_ms(fn, leaves, warmup: int = 3, reps: int = 15) -> float:
     with torch.no_grad():
         f_ms = median_ms(fn, warmup, reps)
     return median_ms(fwd_bwd, warmup, reps) - f_ms
+
+
+def library_bwd_device_ms(fn, leaves) -> float:
+    """Device time of one library call's backward: the kernels of a forward
+    + backward call minus those of a forward call, a call each."""
+    out = fn()
+    g = torch.randn_like(out)
+
+    def fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        fn().backward(g)
+    with torch.no_grad():
+        f_ms = device_ms(fn, per_call=True)[0]
+    return device_ms(fwd_bwd, per_call=True)[0] - f_ms
 
 
 def selection_dense_case(qg, kb, vb, idx, tok_bias):
@@ -545,13 +576,16 @@ def kernel_phase(dev) -> list[dict]:
         qs, ks, vs = (t.reshape(B, H, N // BALL, BALL, D).transpose(1, 2)
                       .reshape(B * (N // BALL), H, BALL, D).contiguous() for t in (q, k, v))
         bmask = mask.reshape(B * (N // BALL), 1, 1, BALL)
+        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bmask)  # noqa: E731
         record("bta_fwd", "ball", dtype, err, ok,
                median_ms(lambda: bta.ball_attention_fwd(q, k, v, key_bias, **kw)),
                median_ms(lambda: bta.ball_attention_fwd_plain(q, k, v, key_bias, **kw),
                          reps=5),
-               b_ms, b_by,
-               median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                                attn_mask=bmask)))
+               b_ms, b_by, median_ms(lib),
+               device_ms=device_ms(lambda: bta.ball_attention_fwd(q, k, v, key_bias, **kw),
+                                   "bta_fwd")[0],
+               library_device_ms=device_ms(lib, per_call=True)[0],
+               path=bta.bta_plan(BALL, D, 1, dtype).path)
 
         # ---- flash: N queries against L = N/ℓ pooled keys
         k = rand((B * H, NB, D), dtype, dev, 4)
@@ -705,12 +739,14 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
                       .reshape(B * (N // BALL), H, BALL, D).contiguous()
                       .requires_grad_(True) for t in (q, k, v))
         bmask = mask.reshape(B * (N // BALL), 1, 1, BALL)
+        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bmask)  # noqa: E731
         record("bta_bwd", "ball", dtype, err, ok,
                median_ms(lambda: bta.ball_attention_bwd(*args, **kw)),
                median_ms(lambda: bta.ball_attention_bwd_plain(*args, **kw), reps=5),
-               b_ms, b_by,
-               library_bwd_ms(lambda: F.scaled_dot_product_attention(
-                   qs, ks, vs, attn_mask=bmask), (qs, ks, vs)))
+               b_ms, b_by, library_bwd_ms(lib, (qs, ks, vs)),
+               device_ms=device_ms(lambda: bta.ball_attention_bwd(*args, **kw), "bta_bwd")[0],
+               library_device_ms=library_bwd_device_ms(lib, (qs, ks, vs)),
+               path=bta.bta_plan(BALL, D, 1, dtype).path)
 
         # ---- flash: N queries against L = N/ℓ pooled keys; the q_valid skip
         # in key-bias mode (the path's mode), the causal modes in fp32
@@ -934,10 +970,18 @@ def check_launches(launches: dict, path: str, per_kernel: int,
         check(n == want, f"{name} launched {n} times on {path}, expected {want}")
 
 
+def check_ball_path(cfg, what: str) -> None:
+    """The paper's shape takes the ball kernels' register-tiled path."""
+    plan = bta.bta_plan(cfg.bsa.ball_size, cfg.resolved_head_dim,
+                        cfg.n_heads // cfg.n_kv_heads, getattr(torch, cfg.compute_dtype))
+    check(plan.path == "fma", f"{what}: bta_fwd / bta_bwd not on the fma path: {plan}")
+
+
 def serve_phase(dev, api, model, clouds, layout: str) -> tuple[dict, list]:
     """Serve ``clouds`` in batches of 8 through ``GeometryEngine`` in
     ``layout`` at the capacity of 8 × 3840 rows."""
     cfg = api.mcfg
+    check_ball_path(cfg, f"serve {layout}")
     pad_to = N if layout == "padded" else CAPACITY
 
     def engine(backend=None):
@@ -1023,6 +1067,7 @@ def packed_train_batches(dev) -> list[dict]:
 
 def train_phase(dev, batches, layout: str) -> dict:
     cfg = get_config("shapenet-bsa")
+    check_ball_path(cfg, f"train {layout}")
     api = model_api(cfg)
     model = api.init(seed=0, device=dev)
     opt_state = adamw_init(dict(model.named_parameters()))

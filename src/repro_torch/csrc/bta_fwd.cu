@@ -5,30 +5,44 @@
 //
 // Layout (GQA-native, as on the TPU): q (B*Hkv, rep, N, D), k/v (B*Hkv, N, D),
 // key_bias (B, N) fp32, live (B, N/m) int32 -> o like q, lse (B*Hkv, rep, N).
-// The rep query heads of a KV head share the block's K/V tile.
-//
-// Design.  One thread block per (batch*KV-head, ball, tile of query rows):
-// the ball's K and V are staged once into shared memory as fp32 (m = 256,
-// D = 32: 64 KB) and every thread carries one query row through an online
-// softmax over the ball's keys (rt::fold_keys), reading keys as shared-memory
-// broadcasts.  A dead ball (no valid key, `live` = 0) skips the loads and the
-// arithmetic and writes zeros with lse = LSE_EMPTY, as the TPU kernel does.
+// The rep query heads of a KV head share the ball's keys.
 //
 // Bound on the H100: at the paper's shapes (m = 256, D = 32, fp32) the work
 // is 4*m*D FLOP per query row against 2*D*4 bytes of q/o per row, so the
-// fp32 FMA rate bounds it, not memory.  This first kernel runs on the fp32
-// pipes (no tensor cores); mma.sync/wgmma tiles are a later PR's work.
-#include "common.cuh"
+// fp32 FMA rate bounds it, not memory.
+//
+// Design.  Two paths, one rule (kernels/bta.py::bta_plan):
+//   fma   fp32, m a multiple of 64 up to 256, D 16 or 32 (shapenet): one
+//         block per (batch*KV-head, ball, tile of 64 of the ball's rep*m
+//         rows) walks the ball's m/32 key tiles, staged by cp.async and
+//         double-buffered, with flash_fwd_fma's register-tiled step
+//         (fma_fwd.cuh): 8 key lanes x 16 row lanes, a thread holding 4 rows
+//         x 4 keys of S (eight float4 loads a step feed 64 FMAs; 16 key
+//         lanes would need ten) and 4 rows x D/8 dims of O.  No index mask:
+//         the key bias alone masks.
+//   rows  bf16 and the other shapes: one thread per query row carries an
+//         online softmax over the ball's keys (rt::fold_keys), K and V staged
+//         whole as fp32 (m = 256, D = 32: 64 KB) and read as broadcasts.
+// A dead ball (no valid key, `live` = 0) skips the loads and the arithmetic
+// and writes zeros with lse = LSE_EMPTY, as the TPU kernel does; a walked row
+// whose keys are all masked ends with l = 0 and gets the same.
+#include "fma_fwd.cuh"
 
 namespace {
 
+using rt::set_smem;
+using rt::stage_rows;
+using rt::stage_vals;
+
+// ---------------------------------------------------------------------------
+// rows: one thread a query row, the ball's K and V staged whole.
+// ---------------------------------------------------------------------------
 template <typename T, int D>
-__global__ void bta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const float* __restrict__ key_bias,
-                               const int* __restrict__ live, T* __restrict__ o,
-                               float* __restrict__ lse, int rep, int N, int m,
-                               int n_heads, float scale) {
+__global__ void bta_fwd_rows(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const float* __restrict__ key_bias,
+                             const int* __restrict__ live, T* __restrict__ o,
+                             float* __restrict__ lse, int rep, int N, int m, int n_heads,
+                             float scale) {
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + m * D;
@@ -62,39 +76,117 @@ __global__ void bta_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   rt::write_row<T, D>(st, o + qrow * D, lse + qrow);
 }
 
+// ---------------------------------------------------------------------------
+// fma, fp32: register tiles on the FMA pipes.  blockIdx.x: the row tile of
+// the ball's rep*m rows (64 rows of one query head, since 64 divides m).
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdFma {
+  static constexpr int BM = 64, BK = 32, KX = 8, NT = 128;
+  static constexpr int RY = NT / KX, RPT = BM / RY, KPT = BK / KX, DPT = D / KX;
+  static constexpr int LD = D + 4, LS = BK + 8;
+  static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
+  static constexpr int P_OFF = V_OFF + 2 * BK * LD, B_OFF = P_OFF + BM * LS;
+  static constexpr size_t SMEM = (size_t)(B_OFF + 2 * BK) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdFma<D>::NT)
+bta_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ key_bias,
+            const int* __restrict__ live, float* __restrict__ o, float* __restrict__ lse,
+            int rep, int N, int m, int n_heads, float scale) {
+  using C = FwdFma<D>;
+  constexpr int BK = C::BK, LD = C::LD;
+  float* sm = reinterpret_cast<float*>(rt::dyn_smem());
+  float* bs = sm + C::B_OFF;                                // [2][BK]
+
+  const int bh = blockIdx.z, ball = blockIdx.y;
+  const int b = bh / n_heads;
+  const int row0 = blockIdx.x * C::BM;                      // in the ball's rep*m rows
+  const size_t base = ((size_t)bh * rep + row0 / m) * N + (size_t)ball * m + row0 % m;
+  if (live[b * (N / m) + ball] == 0) {      // all keys masked: exact zeros
+    rt::write_empty_tile<float, D>(o + base * D, lse + base, C::BM);
+    return;
+  }
+  stage_rows<float, D, LD>(sm + C::Q_OFF, q + base * D, C::BM, C::BM, C::NT);
+  const float* kb = k + ((size_t)bh * N + (size_t)ball * m) * D;
+  const float* vb = v + ((size_t)bh * N + (size_t)ball * m) * D;
+  const float* biasb = key_bias + (size_t)b * N + (size_t)ball * m;
+  auto load_tile = [&](int kt, int buf) {
+    const int j0 = kt * BK;
+    stage_rows<float, D, LD>(sm + C::K_OFF + buf * BK * LD, kb + (size_t)j0 * D, BK, BK, C::NT);
+    stage_rows<float, D, LD>(sm + C::V_OFF + buf * BK * LD, vb + (size_t)j0 * D, BK, BK, C::NT);
+    stage_vals(bs + buf * BK, biasb + j0, BK, BK, rt::NEG_INF, C::NT);
+  };
+  rt::FmaRows<C::RPT, C::DPT> st;
+  rt::fma_fwd_walk<C, D>(sm + C::Q_OFF, sm + C::K_OFF, sm + C::V_OFF, bs, sm + C::P_OFF,
+                         m / BK, scale, load_tile, [](int, int, int) { return false; }, st);
+  rt::fma_fwd_store<C, D>(st, o + base * D, lse + base, C::BM);
+}
+
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* key_bias,
-           const void* live, void* o, void* lse, int BH, int rep, int N, int m,
-           int n_heads, cudaStream_t stream) {
+int launch_rows(const void* q, const void* k, const void* v, const void* key_bias,
+                const void* live, void* o, void* lse, int BH, int rep, int N, int m,
+                int n_heads, float scale, cudaStream_t stream) {
   const int rows = rep * m;
   const int threads = rows < 256 ? ((rows + 31) / 32) * 32 : 256;
   const dim3 grid((rows + threads - 1) / threads, N / m, BH);
   const size_t smem = (size_t)(2 * m * D + m) * sizeof(float);
-  auto kern = bta_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  auto kern = bta_fwd_rows<T, D>;
+  if (int err = set_smem(kern, smem)) return err;
   kern<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(key_bias), static_cast<const int*>(live),
-      static_cast<T*>(o), static_cast<float*>(lse), rep, N, m, n_heads,
-      (float)(1.0 / sqrt((double)D)));
+      static_cast<T*>(o), static_cast<float*>(lse), rep, N, m, n_heads, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, const void* key_bias,
+               const void* live, void* o, void* lse, int BH, int rep, int N, int m,
+               int n_heads, float scale, cudaStream_t stream) {
+  using C = FwdFma<D>;
+  if (m % C::BM != 0) return (int)cudaErrorInvalidValue;
+  auto kern = bta_fwd_fma<D>;
+  if (int err = set_smem(kern, C::SMEM)) return err;
+  const dim3 grid(rep * m / C::BM, N / m, BH);
+  kern<<<grid, C::NT, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(key_bias),
+      static_cast<const int*>(live), static_cast<float*>(o), static_cast<float*>(lse), rep,
+      N, m, n_heads, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// tiles: kernels/bta.py::bta_plan's path ("fma" = 1: fp32, D 16 or 32)
 extern "C" int bta_fwd(const void* q, const void* k, const void* v,
                        const void* key_bias, const void* live, void* o, void* lse,
                        int BH, int rep, int N, int D, int m, int n_heads, int bf16,
-                       void* stream) {
+                       int tiles, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N % m != 0) return (int)cudaErrorInvalidValue;
+  if (BH == 0 || rep == 0 || N == 0) return 0;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  if (tiles) {
+    if (bf16) return (int)cudaErrorInvalidValue;
+    switch (D) {
+      case 16: return launch_fma<16>(q, k, v, key_bias, live, o, lse, BH, rep, N, m, n_heads,
+                                     scale, s);
+      case 32: return launch_fma<32>(q, k, v, key_bias, live, o, lse, BH, rep, N, m, n_heads,
+                                     scale, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   RT_DISPATCH_D(D, {
-    return bf16 ? launch<__nv_bfloat16, kD>(q, k, v, key_bias, live, o, lse, BH,
-                                            rep, N, m, n_heads, s)
-                : launch<float, kD>(q, k, v, key_bias, live, o, lse, BH, rep, N,
-                                    m, n_heads, s);
+    return bf16 ? launch_rows<__nv_bfloat16, kD>(q, k, v, key_bias, live, o, lse, BH, rep,
+                                                 N, m, n_heads, scale, s)
+                : launch_rows<float, kD>(q, k, v, key_bias, live, o, lse, BH, rep, N, m,
+                                         n_heads, scale, s);
   });
   return 0;
 }

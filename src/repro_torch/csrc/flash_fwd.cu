@@ -36,19 +36,18 @@
 //         registers in the accumulator's layout, exponentials on the MUFU
 //         unit (__expf), and P is rounded to bf16 as PV's A fragment: the
 //         walk and the tile step are mma_fwd.cuh's, shared with local_fwd_mma.
-//   fma   fp32: the same walk on the FMA pipes, register-tiled (16 key
-//         lanes x NT/16 row lanes, P through shared memory), so no thread
-//         holds a row of D: D 128 builds without spills.  (It replaced one
+//   fma   fp32: the same walk on the FMA pipes, register-tiled (8 key lanes
+//         x 16 row lanes, 16 x 16 at D 128; P through shared memory), so no
+//         thread holds a row of D: D 128 builds without spills.  The tile
+//         step and walk are fma_fwd.cuh's, shared with bta_fwd_fma.  (It replaced one
 //         thread a row over all L keys, which spilled at D 128 and was
 //         slower at shapenet's shape.)
+#include "fma_fwd.cuh"
 #include "mma_fwd.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using rt::dot4;
-using rt::lane_of;
-using rt::load_vec;
 using rt::Mask;
 using rt::set_smem;
 using rt::stage_rows;
@@ -142,16 +141,17 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fma, fp32: FMA pipes, register-tiled.  NT threads as 16 key lanes (kx) x
-// RY row lanes (ry).  S of a staged key tile: a thread holds rows ry+RY*j
-// (j < 64/RY) x keys kx+16i (i < BK/16); a row's max and sum run over its 16
-// key lanes (one half-warp) by shuffles.  P goes to shared memory; then the
-// thread adds P V into O of its rows x D/16 dims.
+// fma, fp32: FMA pipes, register-tiled.  NT threads as KX key lanes x NT/KX
+// row lanes (8 x 16; 16 x 16 at D 128, where a thread's O would otherwise
+// hold 4 rows x 16 dims); per staged tile of 32 keys a thread folds its 4
+// rows x 4 keys of S into its rows' online softmax and adds P V into O of
+// its rows x D/KX dims: rt::fma_fwd_walk, the tile step shared with
+// bta_fwd_fma.
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdFma {
-  static constexpr int BM = 64, BK = 32, NT = D > 64 ? 256 : 128;
-  static constexpr int RY = NT / 16, RPT = BM / RY, KPT = BK / 16, DPT = D / 16;
+  static constexpr int BM = 64, BK = 32, KX = D > 64 ? 16 : 8, NT = D > 64 ? 256 : 128;
+  static constexpr int RY = NT / KX, RPT = BM / RY, KPT = BK / KX, DPT = D / KX;
   static constexpr int LD = D + 4, LS = BK + 4;
   static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
   static constexpr int P_OFF = V_OFF + 2 * BK * LD, B_OFF = P_OFF + BM * LS;
@@ -166,14 +166,10 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ lse, int BH, int rep, int N, int L, int n_heads,
               Mask mask, float scale) {
   using C = FwdFma<D>;
-  constexpr int BK = C::BK, LD = C::LD, LS = C::LS, RY = C::RY, RPT = C::RPT;
-  constexpr int KPT = C::KPT, DPT = C::DPT;
+  constexpr int BK = C::BK, LD = C::LD;
   float* sm = reinterpret_cast<float*>(rt::dyn_smem());
-  float* Qs = sm + C::Q_OFF;
-  float* Ps = sm + C::P_OFF;
   float* bs = sm + C::B_OFF;                                // [2][BK]
 
-  const int kx = threadIdx.x % 16, ry = threadIdx.x / 16;
   const RowTile tile = row_tile(BH, rep, N, C::BM);
   const int b = tile.bh / n_heads;
   const size_t base = ((size_t)tile.bh * rep + tile.r) * N + tile.t0;
@@ -182,10 +178,9 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
     write_empty_tile<float, D>(o + base * D, lse + base, tile.n);
     return;
   }
-  const int n_kt = (kmax + BK - 1) / BK;
-  const int seen0 = mask.keys_seen(tile.t0);
+  const int seen0 = mask.keys_seen(tile.t0);                // keys the first row sees
 
-  stage_rows<float, D, LD>(Qs, q + base * D, tile.n, C::BM, C::NT);
+  stage_rows<float, D, LD>(sm + C::Q_OFF, q + base * D, tile.n, C::BM, C::NT);
   const float* kb = k + (size_t)tile.bh * L * D;
   const float* vb = v + (size_t)tile.bh * L * D;
   const float* biasb = key_bias + (size_t)b * L;
@@ -195,113 +190,14 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
     stage_rows<float, D, LD>(sm + C::V_OFF + buf * BK * LD, vb + (size_t)j0 * D, n, BK, C::NT);
     stage_vals(bs + buf * BK, biasb + j0, n, BK, rt::NEG_INF, C::NT);
   };
-
-  float m[RPT], l[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    m[j] = rt::NEG_INF;
-    l[j] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DPT; ++d) acc[j][d] = 0.f;
-  }
-
-  load_tile(0, 0);
-  rt::cp_async_commit();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) load_tile(kt + 1, buf ^ 1);
-    rt::cp_async_commit();
-    rt::cp_async_wait<1>();
-    __syncthreads();
-    const float* Kt = sm + C::K_OFF + buf * BK * LD;
-    const float* Vt = sm + C::V_OFF + buf * BK * LD;
-    const float* bt = bs + buf * BK;
-    const int j0 = kt * BK;
-    const bool partial = seen0 < j0 + BK;                    // block-uniform
-    float st[RPT][KPT];
-#pragma unroll
-    for (int j = 0; j < RPT; ++j)
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) st[j][i] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 kk[KPT];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i)
-        kk[i] = *reinterpret_cast<const float4*>(Kt + (kx + 16 * i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const float4 qq = *reinterpret_cast<const float4*>(Qs + (ry + RY * j) * LD + d);
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) st[j][i] = dot4(qq, kk[i], st[j][i]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int t = tile.t0 + ry + RY * j;
-      float mx = rt::NEG_INF;
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        const int key = kx + 16 * i;
-        float s = st[j][i] * scale + bt[key];
-        if (partial && !mask.visible(j0 + key, t)) s = rt::NEG_INF;
-        st[j][i] = s;
-        mx = fmaxf(mx, s);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[j], mx);
-      const float ms = fmaxf(m_new, rt::NEG_HALF);
-      const float alpha = m[j] <= rt::NEG_HALF ? 0.f : expf(fminf(m[j] - ms, 0.f));
-      m[j] = m_new;
-      l[j] *= alpha;
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        const float p = st[j][i] > rt::NEG_HALF ? expf(st[j][i] - ms) : 0.f;
-        l[j] += p;
-        Ps[(ry + RY * j) * LS + kx + 16 * i] = p;
-      }
-#pragma unroll
-      for (int d = 0; d < DPT; ++d) acc[j][d] *= alpha;
-    }
-    __syncthreads();
-    // O += P V: rows ry+RY*j, dims kx*DPT..
-#pragma unroll 2
-    for (int c0 = 0; c0 < BK; c0 += 4) {
-      float4 pp[RPT];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j)
-        pp[j] = *reinterpret_cast<const float4*>(Ps + (ry + RY * j) * LS + c0);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float vd[DPT];
-        load_vec<DPT>(vd, Vt + (c0 + c) * LD + kx * DPT);
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const float pv = lane_of(pp[j], c);
-#pragma unroll
-          for (int d = 0; d < DPT; ++d) acc[j][d] = fmaf(pv, vd[d], acc[j][d]);
-        }
-      }
-    }
-    __syncthreads();                       // buffers free for the next loads
-  }
-  rt::cp_async_wait<0>();
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1) l[j] += __shfl_xor_sync(0xffffffffu, l[j], off);
-    const int row = ry + RY * j;
-    if (row >= tile.n) continue;
-    const float inv = l[j] > 0.f ? 1.f / l[j] : 0.f;
-    float* out = o + (base + row) * D + kx * DPT;
-#pragma unroll
-    for (int d = 0; d < DPT; ++d) out[d] = acc[j][d] * inv;
-    if (kx == 0)
-      lse[base + row] = l[j] > 0.f ? fmaxf(m[j], rt::NEG_HALF) + logf(fmaxf(l[j], 1e-30f))
-                                   : rt::LSE_EMPTY;
-  }
+  // per element only where some row does not see the whole tile
+  auto masked = [&](int kt, int key, int row) {
+    return seen0 < (kt + 1) * BK && !mask.visible(kt * BK + key, tile.t0 + row);
+  };
+  rt::FmaRows<C::RPT, C::DPT> st;
+  rt::fma_fwd_walk<C, D>(sm + C::Q_OFF, sm + C::K_OFF, sm + C::V_OFF, bs, sm + C::P_OFF,
+                         (kmax + BK - 1) / BK, scale, load_tile, masked, st);
+  rt::fma_fwd_store<C, D>(st, o + base * D, lse + base, tile.n);
 }
 
 // ---------------------------------------------------------------------------

@@ -171,11 +171,4 @@ __device__ __forceinline__ void mma_fwd_store(MmaRows<D>& st, __nv_bfloat16* o, 
   }
 }
 
-// n rows that attend nothing: zeros and LSE_EMPTY (o, lse at the first row).
-template <typename T, int D>
-__device__ __forceinline__ void write_empty_tile(T* o, float* lse, int n) {
-  store_zeros(o, n * D);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) lse[i] = LSE_EMPTY;
-}
-
 }  // namespace rt

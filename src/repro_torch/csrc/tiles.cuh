@@ -76,6 +76,13 @@ __device__ __forceinline__ void load_vec(float (&x)[N], const float* p) {
   }
 }
 
+// n rows that attend nothing: zeros and LSE_EMPTY (o, lse at the first row).
+template <typename T, int D>
+__device__ __forceinline__ void write_empty_tile(T* o, float* lse, int n) {
+  store_zeros(o, n * D);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) lse[i] = LSE_EMPTY;
+}
+
 // Allow a kernel `bytes` of dynamic shared memory (above 48 KB it must ask).
 template <typename K>
 int set_smem(K kern, size_t bytes) {

@@ -33,8 +33,9 @@ I = ctypes.c_int
 # carrying cudaGetLastError() (or cudaErrorInvalidValue for a head_dim
 # that has no instantiation)
 SIGNATURES = {
-    # q, k, v, key_bias, live, o, lse, BH, rep, N, D, ball, n_heads, bf16, stream
-    "bta_fwd": [P] * 7 + [I] * 7 + [P],
+    # q, k, v, key_bias, live, o, lse, BH, rep, N, D, ball, n_heads, bf16, tiles,
+    # stream
+    "bta_fwd": [P] * 7 + [I] * 8 + [P],
     # q, k, v, key_bias, q_valid, o, lse, BH, rep, N, L, D, n_heads,
     # causal, block_causal, ell, bf16, stream
     "flash_fwd": [P] * 7 + [I] * 10 + [P],
@@ -44,8 +45,8 @@ SIGNATURES = {
     # o1, o2, o3, g1, g2, g3, m, out, R, D, bf16, stream
     "epilogue_fwd": [P] * 8 + [I] * 3 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dq, dk, dv, BH, rep, N, D, ball,
-    # n_heads, bf16, stream
-    "bta_bwd": [P] * 11 + [I] * 7 + [P],
+    # n_heads, bf16, tiles, stream
+    "bta_bwd": [P] * 11 + [I] * 8 + [P],
     # q, k, v, key_bias, do, lse, delta, dq, BH, rep, N, L, D, n_heads, causal,
     # block_causal, ell, bf16, stream
     "flash_dq": [P] * 8 + [I] * 10 + [P],

@@ -2,44 +2,127 @@
 backward.
 
 Replaces ``repro/kernels/bta.py::_fwd_kernel`` and ``::_bwd_kernel``
-(Pallas, TPU).  The CUDA sources are ``csrc/bta_fwd.cu`` and
-``csrc/bta_bwd.cu``.
+(Pallas, TPU).  The CUDA sources are ``csrc/bta_fwd.cu`` (``bta_fwd_fma``,
+``bta_fwd_rows``) and ``csrc/bta_bwd.cu`` (``bta_bwd_fma``,
+``bta_bwd_rows``).
 
-What bounds them on the H100: at the paper's shapes (ball m = 256, D = 32)
-the forward does 4·m·D FLOP per query row and the backward 10·m·D (five
-products) against a few D-wide rows of bytes, so the arithmetic bounds both.
-The forward stages one ball's K and V (64 KB in fp32) into shared memory
-once per block and runs every query row of the ball against it with fp32
-FMAs (no tensor cores yet).  The backward is single-pass per ball, as on the
-TPU (the ball is the tile, so a ball's dQ, dK, dV depend on that ball
-alone): one block first runs each query row against the staged K/V for dQ,
-then stages the ball's Q and dO rows and runs each key against them for dK
-and dV, summing the GQA group's rep query heads in that loop.  A ball with no
-valid key skips everything and writes zeros (lse = ``LSE_EMPTY`` forward,
-zero gradients backward).
+What bounds them on the H100: at the paper's shapes (ball m = 256, D = 32,
+fp32) the forward does 4·m·D FLOP per query row and the backward 10·m·D
+(five products) against a few D-wide rows of bytes, so the fp32 FMA rate
+bounds both.  One rule picks the path of both (:func:`bta_plan`, a pure
+function of the ball size, head dim, rep and dtype; a CUDA tensor never goes
+to the plain version):
+
+- ``fma`` for fp32 with D 16 or 32 and a ball that is a multiple of 64 keys
+  up to 256 (shapenet): register tiles on the FMA pipes, tiles staged by
+  ``cp.async``.  The forward gives a block 64 of a ball's rep·m rows and
+  walks the ball's 32-key tiles with ``flash_fwd_fma``'s tile step
+  (``csrc/fma_fwd.cuh``); the backward gives a block one ball, as on the TPU
+  (the ball is the tile, so a ball's dQ, dK, dV depend on that ball alone):
+  it stages the ball's K and V once, keeps the ball's dK and dV in
+  registers, and walks the rep·m query rows in 32-row tiles, each computing
+  Sᵀ and dPᵀ, P and dS, dV += PᵀdO, dK += dSᵀQ and its dQ = dS·K — five
+  products, none recomputed, no atomics (:func:`bwd_walk`).
+- ``rows`` for the rest (bf16, the tests' and the smoke config's small
+  balls, D 64): one thread a query row over the ball's keys staged whole,
+  and a backward that runs each query row for dQ and then each key for dK
+  and dV (summing the GQA group's rep heads in that loop).
+
+A ball with no valid key skips everything and writes zeros (lse =
+``LSE_EMPTY`` forward, zero gradients backward).
 
 Layout (GQA-native, as the TPU kernel): q (B·Hkv, rep, N, D); k, v
 (B·Hkv, N, D); key_bias (B, N) fp32 additive (0 / NEG_INF).  The forward
 returns o like q and lse (B·Hkv, rep, N) fp32.  :class:`BallAttentionFn` is
 the differentiable op, as ``jax.custom_vjp`` wraps the Pallas pair.
 """
-
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core.branches import sdpa
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (_counter, check_cuda_inputs, on_cpu,
+from repro_torch.kernels.common import (HEAD_DIMS, _counter, check_cuda_inputs, on_cpu,
                                         p_from_lse, row_delta)
 from repro_torch.kernels.occupancy import key_tile_live
 
 __all__ = ["ball_attention_fwd", "ball_attention_fwd_plain", "ball_attention_bwd",
-           "ball_attention_bwd_plain", "BallAttentionFn", "COUNT", "COUNT_BWD"]
+           "ball_attention_bwd_plain", "bta_plan", "BtaPlan", "fwd_walk", "bwd_walk",
+           "BallAttentionFn", "COUNT", "COUNT_BWD"]
 
 COUNT = _counter("bta_fwd")
 COUNT_BWD = _counter("bta_bwd")
+
+
+class BtaPlan(NamedTuple):
+    """How ``bta_fwd`` / ``bta_bwd`` take one shape: ``path`` ``"fma"``
+    (register tiles: ``bta_fwd_fma``, ``bta_bwd_fma``) or ``"rows"`` (one
+    thread a row or key: ``bta_fwd_rows``, ``bta_bwd_rows``); ``rows``:
+    query rows a forward block (the rows path: up to 256, one a thread);
+    ``key_tile``: keys a staged tile of the forward (the rows path: the
+    ball); ``row_tile``: query rows a staged tile of the backward (the rows
+    path: one rep head's m)."""
+    path: str
+    rows: int
+    key_tile: int
+    row_tile: int
+
+
+FMA_TILE = 64               # the fma path's ball sizes: multiples of 64 ...
+FMA_MAX_BALL = 256          # ... up to the keys whose dK, dV a bta_bwd_fma block holds
+FMA_DIMS = (16, 32)         # D 64 would hold 128 floats of dK, dV a thread
+
+
+def bta_plan(m: int, D: int, rep: int, dtype: torch.dtype) -> BtaPlan:
+    """The path and tiles of the ball kernels for balls of m keys at head
+    dim D with rep query heads a KV head (the constants of
+    ``csrc/bta_fwd.cu``'s ``FwdFma`` and ``csrc/bta_bwd.cu``'s ``BwdFma``).
+    fp32 with D 16 or 32 and m a multiple of 64 up to 256 (shapenet's 256 ×
+    32) takes the fma path: 64 rows a forward block against 32-key tiles, a
+    backward block a ball walking 32-row tiles.  The rest (bf16, smaller or
+    larger balls, D 64) takes the rows path.  A shape no path takes raises."""
+    if (dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["bta_fwd"]
+            or m < 1 or rep < 1):
+        raise ValueError(f"bta: no path takes ball {m}, D {D}, rep {rep}, {dtype} "
+                         f"(ball ≥ 1; rep ≥ 1; D in {HEAD_DIMS['bta_fwd']}; float32 or "
+                         f"bfloat16)")
+    if (dtype == torch.float32 and D in FMA_DIMS and m % FMA_TILE == 0
+            and m <= FMA_MAX_BALL):
+        return BtaPlan("fma", 64, 32, 32)
+    return BtaPlan("rows", min(256, -(-rep * m // 32) * 32), m, m)
+
+
+def fwd_walk(m: int, D: int, rep: int, dtype: torch.dtype
+             ) -> list[tuple[int, int, list[tuple[int, int]]]]:
+    """The fma forward's blocks of one live ball (``csrc/bta_fwd.cu``:
+    ``bta_fwd_fma``): for each block of the ball's rep·m rows [t0, t1)
+    (row r·m + i is query head r's position i of the ball), the key tiles
+    [j0, j1) it stages, in order."""
+    plan = bta_plan(m, D, rep, dtype)
+    if plan.path != "fma":
+        raise ValueError(f"fwd_walk: ball {m}, D {D}, {dtype} takes the rows path")
+    keys = [(j, j + plan.key_tile) for j in range(0, m, plan.key_tile)]
+    return [(t0, t0 + plan.rows, keys) for t0 in range(0, rep * m, plan.rows)]
+
+
+BWD_KEY_WARP = 32           # keys of S^T, dP^T a warp computes (BwdFma's key warps)
+
+
+def bwd_walk(m: int, D: int, rep: int, dtype: torch.dtype
+             ) -> list[tuple[int, int, list[tuple[int, int]]]]:
+    """The fma backward's walk of one live ball (``csrc/bta_bwd.cu``:
+    ``bta_bwd_fma``): for each staged tile of the ball's rep·m rows [t0, t1)
+    (one query head's, since the tile divides m), the key ranges [j0, j1)
+    whose Sᵀ and dPᵀ the block's key warps compute against it (each pair's
+    P and dS then feed dV, dK and the tile's dQ)."""
+    plan = bta_plan(m, D, rep, dtype)
+    if plan.path != "fma":
+        raise ValueError(f"bwd_walk: ball {m}, D {D}, {dtype} takes the rows path")
+    keys = [(j, j + BWD_KEY_WARP) for j in range(0, m, BWD_KEY_WARP)]
+    return [(t0, t0 + plan.row_tile, keys) for t0 in range(0, rep * m, plan.row_tile)]
 
 
 def _check_shapes(name, q, k, v, key_bias, ball_size, n_heads):
@@ -73,9 +156,10 @@ def ball_attention_fwd_plain(q, k, v, key_bias, *, ball_size: int, n_heads: int)
 
 def ball_attention_fwd(q, k, v, key_bias, *, ball_size: int, n_heads: int,
                        live=None):
-    """(o, lse) of ball attention: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors.  ``live``: the (B, N/m) int32 ball liveness of
-    ``key_bias`` when the caller already has it."""
+    """(o, lse) of ball attention: the CUDA kernel on CUDA tensors (on the
+    path :func:`bta_plan` picks; one launch), the plain version on CPU
+    tensors.  ``live``: the (B, N/m) int32 ball liveness of ``key_bias``
+    when the caller already has it."""
     BH, rep, N, D = q.shape
     _check_shapes("bta_fwd", q, k, v, key_bias, ball_size, n_heads)
     if on_cpu(q, k, v, key_bias):
@@ -84,13 +168,14 @@ def ball_attention_fwd(q, k, v, key_bias, *, ball_size: int, n_heads: int,
     live = _live(key_bias, ball_size) if live is None else live
     check_cuda_inputs("bta_fwd", data=(q, k, v), f32=(key_bias,), i32=(live,),
                       head_dim=D)
+    plan = bta_plan(ball_size, D, rep, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((BH, rep, N), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch("bta_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   key_bias.data_ptr(), live.data_ptr(), o.data_ptr(),
                   lse.data_ptr(), BH, rep, N, D, ball_size, n_heads,
-                  int(q.dtype == torch.bfloat16), stream)
+                  int(q.dtype == torch.bfloat16), int(plan.path == "fma"), stream)
     COUNT.hit()
     return o, lse
 
@@ -129,8 +214,8 @@ def ball_attention_bwd_plain(q, k, v, key_bias, do, lse, delta, *, ball_size: in
 def ball_attention_bwd(q, k, v, key_bias, do, lse, delta, *, ball_size: int,
                        n_heads: int, live=None):
     """(dq, dk, dv) of ball attention from the forward's lse and
-    δ = rowsum(dO·O): the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    δ = rowsum(dO·O): the CUDA kernel on CUDA tensors (on the path
+    :func:`bta_plan` picks; one launch), the plain version on CPU tensors."""
     BH, rep, N, D = q.shape
     _check_shapes("bta_bwd", q, k, v, key_bias, ball_size, n_heads)
     if do.shape != q.shape or lse.shape != (BH, rep, N) or delta.shape != lse.shape:
@@ -142,13 +227,14 @@ def ball_attention_bwd(q, k, v, key_bias, do, lse, delta, *, ball_size: int,
     live = _live(key_bias, ball_size) if live is None else live
     check_cuda_inputs("bta_bwd", data=(q, k, v, do), f32=(key_bias, lse, delta),
                       i32=(live,), head_dim=D)
+    plan = bta_plan(ball_size, D, rep, q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch("bta_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   key_bias.data_ptr(), live.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), BH, rep, N, D, ball_size, n_heads,
-                  int(q.dtype == torch.bfloat16), stream)
+                  int(q.dtype == torch.bfloat16), int(plan.path == "fma"), stream)
     COUNT_BWD.hit()
     return dq, dk, dv
 

@@ -12,8 +12,12 @@ tiles, skipped ``q_valid`` tiles, block-causal rows that see nothing) and
 the local backward at every head dim and windows 64-256 (bf16: the tiled
 path, with a bit-for-bit determinism check).
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
-version.  The tiled ``local_fwd`` at every head dim, windows 64-256 and
-with or without segments (a padded tail, a dead block, a masked slot),
+version.  The ball kernels on both paths of ``bta_plan`` at ball 256 (fp32
+D 16 and 32 on the register-tiled path, D 64 and bf16 on the row kernels;
+rep 1 and 2; a ball with 2 valid keys, a dead ball, rows that see no key),
+with a bit-for-bit determinism check of the fused backward; the BALL 16
+cases run the row kernels.  The tiled ``local_fwd`` at every head dim,
+windows 64-256 and with or without segments (a padded tail, a dead block, a masked slot),
 with the local backward run from its lse.  The causal LM's kernels:
 ``local_fwd``, ``local_dq`` and
 ``local_dkv`` with a mask, a dead block, a masked slot and packed segments
@@ -243,6 +247,66 @@ def test_bta_bwd_kernel(cuda, dtype):
     assert bta.COUNT_BWD.n == before + 1
     _check(got, bta.ball_attention_bwd_plain(q, k, v, kb, *rest, **kw), dtype)
     assert all(bool((g.reshape(B, -1)[2] == 0).all()) for g in got)   # dead slot
+
+
+# balls of 256 (shapenet's): sample 0 holds 258 valid keys of 768, so ball 1
+# is live with 2 valid keys (the padded train batch's last ball) and ball 2
+# is dead; sample 1 has a hole in ball 0
+BTA_BALL, BTA_N = 256, 768
+
+
+def _bta_case(dev, dtype, head_dim, rep, seed):
+    Hkv = 2
+    q = _rand((2 * Hkv, rep, BTA_N, head_dim), dtype, dev, seed)
+    k = _rand((2 * Hkv, BTA_N, head_dim), dtype, dev, seed + 1)
+    v = _rand((2 * Hkv, BTA_N, head_dim), dtype, dev, seed + 2)
+    valid = torch.ones(2, BTA_N, dtype=torch.bool, device=dev)
+    valid[0, 258:] = False
+    valid[1, 5:40] = False
+    return q, k, v, _bias(valid), dict(ball_size=BTA_BALL, n_heads=Hkv)
+
+
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("dtype,head_dim,path", [(torch.float32, 16, "fma"),
+                                                 (torch.float32, 32, "fma"),
+                                                 (torch.float32, 64, "rows"),
+                                                 (torch.bfloat16, 32, "rows")])
+def test_bta_tiled_edges(cuda, dtype, head_dim, path, rep):
+    """Both paths of ``bta_plan`` at ball 256 against the plain versions:
+    forward and backward (from the kernel's own lse) one launch each, a live
+    ball with 2 valid keys, a dead ball (zeros, ``LSE_EMPTY``, gradients
+    exactly 0) and, with ``live`` forced to 1 there, rows whose keys are all
+    masked walked by the kernel (the same zeros and ``LSE_EMPTY``)."""
+    from repro_torch.kernels import bta
+    from repro_torch.kernels.common import LSE_EMPTY
+    q, k, v, kb, kw = _bta_case(cuda, dtype, head_dim, rep, 40)
+    assert bta.bta_plan(BTA_BALL, head_dim, rep, dtype).path == path
+    live = bta._live(kb, BTA_BALL)
+    assert live.tolist() == [[1, 1, 0], [1, 1, 1]]
+    for lv in (live, torch.ones_like(live)):
+        n0, n1 = bta.COUNT.n, bta.COUNT_BWD.n
+        o, lse = bta.ball_attention_fwd(q, k, v, kb, live=lv, **kw)
+        rest = _bwd_inputs(o, lse, dtype, 41)
+        got = bta.ball_attention_bwd(q, k, v, kb, *rest, live=lv, **kw)
+        torch.cuda.synchronize()
+        assert (bta.COUNT.n, bta.COUNT_BWD.n) == (n0 + 1, n1 + 1)
+        _check((o, lse), bta.ball_attention_fwd_plain(q, k, v, kb, **kw), dtype)
+        _check(got, bta.ball_attention_bwd_plain(q, k, v, kb, *rest, **kw), dtype)
+        dead = slice(2 * BTA_BALL, 3 * BTA_BALL)            # sample 0's ball 2
+        assert (o[:2, :, dead] == 0).all() and (lse[:2, :, dead] == LSE_EMPTY).all()
+        assert all((g[:2, ..., dead, :] == 0).all() for g in got)
+
+
+def test_bta_bwd_fma_deterministic(cuda):
+    """The fused backward owns each ball's gradients: identical bits on two
+    calls."""
+    from repro_torch.kernels import bta
+    q, k, v, kb, kw = _bta_case(cuda, torch.float32, 32, 2, 50)
+    o, lse = bta.ball_attention_fwd(q, k, v, kb, **kw)
+    rest = _bwd_inputs(o, lse, torch.float32, 51)
+    first = bta.ball_attention_bwd(q, k, v, kb, *rest, **kw)
+    second = bta.ball_attention_bwd(q, k, v, kb, *rest, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("splits", [1, 3])

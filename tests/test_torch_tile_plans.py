@@ -14,11 +14,16 @@ that pick their paths, checked on the CPU.
   no key are the rows a walk reports empty.  Plain, causal and
   block-causal modes, ℓ 8 and 64, L 480 (a ragged key tile) and 512;
   windows 64–256, live and dead halves.
-- :func:`flash.flash_fwd_plan` and :func:`local.local_plan` (the path of
-  ``local_fwd``, ``local_dq`` and ``local_dkv``) at every configuration
-  the port registers and at the windows' and dtypes' boundaries, with
-  their tiles pinned to the constants of ``csrc/flash_fwd.cu``,
-  ``csrc/local_fwd.cu`` and ``csrc/local_bwd.cu``.
+- :func:`bta.fwd_walk` and :func:`bta.bwd_walk` (the row blocks and key
+  tiles of the register-tiled ball kernels) over a live ball: every
+  (row, key) pair visited exactly once, at balls 64–256 and rep 1–2.
+- :func:`flash.flash_fwd_plan`, :func:`local.local_plan` (the path of
+  ``local_fwd``, ``local_dq`` and ``local_dkv``) and :func:`bta.bta_plan`
+  (the path of ``bta_fwd`` and ``bta_bwd``) at every configuration the port
+  registers and at the windows', balls', head dims' and dtypes' boundaries,
+  with their tiles pinned to the constants of ``csrc/flash_fwd.cu``,
+  ``csrc/local_fwd.cu``, ``csrc/local_bwd.cu``, ``csrc/bta_fwd.cu`` and
+  ``csrc/bta_bwd.cu``.
 """
 
 import re
@@ -28,7 +33,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, list_configs
-from repro_torch.kernels import flash, local
+from repro_torch.kernels import bta, flash, local
 from repro_torch.kernels.occupancy import local_half_live
 from repro_torch.numerics import NEG_INF
 
@@ -219,6 +224,45 @@ def test_local_fwd_walk_covers_visible_pairs(D, window, case):
 
 
 # ---------------------------------------------------------------------------
+# bta_fwd / bta_bwd (the fma path)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("m", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32])
+def test_bta_walks_visit_each_pair_once(D, m, rep):
+    """The fma forward's row blocks × key tiles and the fused backward's
+    row tiles × key warps over one live ball: every (row, key) pair of the
+    ball's rep·m rows and m keys exactly once, each row block or tile inside
+    one query head (it divides m), in order."""
+    plan = bta.bta_plan(m, D, rep, torch.float32)
+    assert plan.path == "fma"
+    for walk, rows in ((bta.fwd_walk(m, D, rep, torch.float32), plan.rows),
+                       (bta.bwd_walk(m, D, rep, torch.float32), plan.row_tile)):
+        seen = torch.zeros(rep * m, m, dtype=torch.int32)
+        assert [t0 for t0, _, _ in walk] == list(range(0, rep * m, rows))
+        for t0, t1, keys in walk:
+            assert t1 - t0 == rows and t0 // m == (t1 - 1) // m     # one query head
+            assert keys[0][0] == 0 and keys[-1][1] == m
+            assert all(a[1] == b[0] for a, b in zip(keys, keys[1:]))
+            for j0, j1 in keys:
+                seen[t0:t1, j0:j1] += 1
+        assert bool((seen == 1).all())
+
+
+def test_bta_bwd_walk_paper_shape():
+    """shapenet's ball (256 keys, D 32, rep 1): the fused backward walks 8
+    row tiles of 32, each against the ball's 8 key warps of 32 keys, and the
+    forward 4 blocks of 64 rows, each over 8 key tiles of 32."""
+    assert [(t0, t1, len(keys)) for t0, t1, keys in bta.bwd_walk(256, 32, 1, torch.float32)] \
+        == [(t, t + 32, 8) for t in range(0, 256, 32)]
+    assert [(t0, t1, len(keys)) for t0, t1, keys in bta.fwd_walk(256, 32, 1, torch.float32)] \
+        == [(t, t + 64, 8) for t in range(0, 256, 64)]
+    with pytest.raises(ValueError):
+        bta.bwd_walk(256, 32, 1, torch.bfloat16)                     # the rows path
+
+
+# ---------------------------------------------------------------------------
 # the rules, at the port's configurations, pinned to the CUDA sources
 # ---------------------------------------------------------------------------
 
@@ -237,6 +281,13 @@ def test_plans_for_configs(name):
         assert tuple(local.local_plan(256, 64, dtype)) == ("tiles", 64, 64, 64, 64)
     if name == "shapenet-bsa":
         assert tuple(fwd) == ("fma", 64, 32)
+    if cfg.attention == "bsa":
+        m, rep = cfg.bsa.ball_size, cfg.n_heads // cfg.n_kv_heads
+        ball = bta.bta_plan(m, D, rep, dtype)           # bta_fwd's path and bta_bwd's
+        fma = dtype == torch.float32 and D in (16, 32) and m % 64 == 0 and m <= 256
+        assert ball.path == ("fma" if fma else "rows")
+        if name == "shapenet-bsa":
+            assert tuple(ball) == ("fma", 64, 32, 32)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -262,6 +313,43 @@ def test_plans_match_source_constants(D):
     staged = re.search(r"kTileRows = D > 64 \? (\d+) / D : (\d+);", common.read_text())
     assert lanes.key_tile == lanes.row_tile == (int(staged.group(1)) // D if D > 64
                                                 else int(staged.group(2)))
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_bta_plan_matches_source_constants(D):
+    """The fma path's tiles are ``FwdFma``'s (``csrc/bta_fwd.cu``: 64 rows a
+    block, 32-key tiles) and ``BwdFma``'s (``csrc/bta_bwd.cu``: 32-row
+    tiles, balls up to MMAX keys); the rows path's forward block is one
+    thread a row, up to 256."""
+    fwd = _consts(CSRC / "bta_fwd.cu", "FwdFma", D)
+    bwd = _consts(CSRC / "bta_bwd.cu", "BwdFma", D)
+    assert bwd["MMAX"] == bta.FMA_MAX_BALL
+    for m in (64, 256):
+        plan = bta.bta_plan(m, D, 1, torch.float32)
+        if D == 64:                                     # dK, dV would not fit the registers
+            assert plan == ("rows", min(256, m), m, m)
+        else:
+            assert (plan.rows, plan.key_tile, plan.row_tile) == (fwd["BM"], fwd["BK"], bwd["BM"])
+    text = (CSRC / "bta_bwd.cu").read_text()
+    assert "atomicAdd" not in text                      # each ball's gradients owned by a block
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [16, 32, 64, 256])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_bta_plan_boundaries(D, m, dtype):
+    """fp32 at D 16 / 32 with a ball that is a multiple of 64 takes the fma
+    path (both kernels); bf16, the small balls (the tests' 16, the smoke
+    config's 32) and D 64 take the rows path, whose walks the mirrors
+    refuse."""
+    plan = bta.bta_plan(m, D, 2, dtype)
+    fma = dtype == torch.float32 and D != 64 and m % 64 == 0
+    assert plan.path == ("fma" if fma else "rows")
+    if not fma:
+        assert plan.rows == min(256, 2 * m) and plan.key_tile == plan.row_tile == m
+        with pytest.raises(ValueError):
+            bta.bwd_walk(m, D, 2, dtype)
+    assert bta.bta_plan(512, D, 1, dtype).path == "rows"    # over a block's registers
 
 
 @pytest.mark.parametrize("window,dtype,path", [(256, torch.bfloat16, "tiles"),
@@ -297,8 +385,14 @@ def test_local_fwd_plan_boundaries(D, window, dtype):
                                   lambda: flash.flash_fwd_plan(64, torch.float16),
                                   lambda: local.local_plan(0, 64, torch.bfloat16),
                                   lambda: local.local_plan(256, 48, torch.float32),
-                                  lambda: local.dkv_walk(32, 64, torch.bfloat16)],
-                         ids=["fwd-D48", "fwd-fp16", "local-w0", "local-D48", "walk-lanes"])
+                                  lambda: local.dkv_walk(32, 64, torch.bfloat16),
+                                  lambda: bta.bta_plan(256, 48, 1, torch.float32),
+                                  lambda: bta.bta_plan(256, 128, 1, torch.float32),
+                                  lambda: bta.bta_plan(256, 32, 1, torch.float16),
+                                  lambda: bta.bta_plan(0, 32, 1, torch.float32),
+                                  lambda: bta.fwd_walk(32, 32, 1, torch.float32)],
+                         ids=["fwd-D48", "fwd-fp16", "local-w0", "local-D48", "walk-lanes",
+                              "bta-D48", "bta-D128", "bta-fp16", "bta-m0", "bta-walk-rows"])
 def test_plans_raise(call):
     with pytest.raises(ValueError):
         call()
