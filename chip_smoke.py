@@ -12,9 +12,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    per CUDA source, all at once; the redesigned kernels, ``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, the tiled selection kernels, ``local_dq``
    and ``local_dkv`` in every variant and ``local_fwd_mma``, must build
-   with 0 bytes spilled at head dims 64 and 128, and ``bta_fwd_fma`` /
-   ``bta_bwd_fma`` at 16 and 32, by ptxas's report: ``NO_SPILL``), TF32 off
-   for every fp32 product;
+   with 0 bytes spilled at head dims 64 and 128, ``bta_fwd_fma`` /
+   ``bta_bwd_fma`` at 16 and 32, and ``varlen_dkv_fma`` at 16, 32 and 64,
+   by ptxas's report: ``NO_SPILL``), TF32 off for every fp32 product;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16 and, for flash, in its causal modes too (fp32; the
    tiled ``flash_fwd``: register tiles in fp32, tensor cores in bf16); with
@@ -31,11 +31,17 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    gradient zero on padded query rows as the combine gives it; the
    selection backward on each layer's own top-k picks in the model's first
    train step (mode ``topk``, the main path's traffic) and on uniform
-   random picks.  The three packed-varlen kernels: ``varlen_fwd`` at the
-   shapes packed serving gives the compression branch (the first 8 serving
-   clouds packed to a capacity of 30,720 rows, queries against the 3840
-   pooled keys, ``k_offsets = offsets / 8``), ``varlen_dq`` and
-   ``varlen_dkv`` at the packed train batch's;
+   random picks; its warp path (``selection_bwd``) must give identical
+   bits on two calls, and a ``selection_bwd_warp`` line gives its device
+   time by pass (the rank pass, the kernel, the reduce), the whole call's
+   and the selections each block received (max, mean).  The three
+   packed-varlen kernels: ``varlen_fwd`` at the shapes packed serving gives
+   the compression branch (the first 8 serving clouds packed to a capacity
+   of 30,720 rows, queries against the 3840 pooled keys, ``k_offsets =
+   offsets / 8``), ``varlen_dq`` and ``varlen_dkv`` at the packed train
+   batch's (``varlen_dkv`` on its planned fp32 walk, ``varlen.varlen_plan``,
+   identical bits on two calls: the ``varlen_dkv_repro`` line), with their
+   device times and paths;
 3. serve, padded then packed: ``shapenet-bsa`` at full width (18 layers,
    random weights from a seed) serves 16 synthetic clouds of 2800–3586
    points through ``GeometryEngine(batch_slots=8)`` (the ball kernels on
@@ -172,9 +178,10 @@ from repro_torch.data.lm import lm_batches  # noqa: E402
 from repro_torch.data.shapenet import N_POINTS, ShapeNetCarDataset, make_clouds  # noqa: E402
 from repro_torch.kernels import (_build, bta, epilogue, flash, local, paged,  # noqa: E402
                                  selection, varlen)
-from repro_torch.kernels.common import COUNTERS, reset_counters, row_delta  # noqa: E402
+from repro_torch.kernels.common import (COUNTERS, HEAD_DIMS, reset_counters,  # noqa: E402
+                                        row_delta)
 from repro_torch.kernels.occupancy import (ranges_live_map, tile_seg_ranges,  # noqa: E402
-                                           varlen_maps)
+                                           varlen_dkv_tiles, varlen_maps)
 from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
 from repro_torch.layers.losses import masked_mean_nll  # noqa: E402
 from repro_torch.layers.nn import dense, embed, rmsnorm  # noqa: E402
@@ -282,7 +289,8 @@ NO_SPILL = {**{name: ((64, 128), ("mma", "fma"))
             "local_fwd": ((64, 128), ("mma",)),
             "local_dq": ((64, 128), ("mma", "lanes")),
             "local_dkv": ((64, 128), ("mma", "lanes")),
-            **{name: (bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")}}
+            **{name: (bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")},
+            "varlen_dkv": (HEAD_DIMS["varlen_dkv"], ("fma",))}
 # a kernel's further rows in the kernels line, beside its main path's (name
 # -> [(key, path whose launches it reports or None, dtype, mode)]): the LM
 # prefill's flash_fwd beside the shapenet train path's, the D 128 rows, and
@@ -377,6 +385,17 @@ def device_ms(fn, pattern: str | None = None, reps: int = 20,
     device kernel at all, so an empty one is taken again (up to three
     times).  ``per_call``: their device time a call instead (a library call
     may launch several kernels)."""
+    ks = device_trace(fn, reps)
+    mine = [e for e in ks if pattern is None or re.search(pattern, e.key)]
+    total = sum(e.device_time_total for e in mine) / 1e3
+    return (total / reps if per_call else total / max(1, sum(e.count for e in mine)),
+            sorted(e.key for e in ks))
+
+
+def device_trace(fn, reps: int) -> list:
+    """The device kernels' profiler averages over ``reps`` calls of ``fn``
+    after a warm-up call (an empty trace is taken again, up to three
+    times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -388,11 +407,15 @@ def device_ms(fn, pattern: str | None = None, reps: int = 20,
             torch.cuda.synchronize()
         ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if ks:
-            break
-    mine = [e for e in ks if pattern is None or re.search(pattern, e.key)]
-    total = sum(e.device_time_total for e in mine) / 1e3
-    return (total / reps if per_call else total / max(1, sum(e.count for e in mine)),
-            sorted(e.key for e in ks))
+            return ks
+    return ks
+
+
+def per_call_ms(ks, reps: int, pattern: str | None = None) -> float:
+    """Device time a call of the kernels in ``ks`` whose name matches
+    ``pattern`` (every kernel when None)."""
+    return sum(e.device_time_total for e in ks
+               if pattern is None or re.search(pattern, e.key)) / 1e3 / reps
 
 
 def recorder(results: list):
@@ -815,17 +838,24 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
         do = rand((B, H, NB, M, D), dtype, dev, 42)
         do = torch.where(mask.reshape(B, 1, NB, M, 1), do, torch.zeros_like(do))
         for mode, idxs in (("topk", picks), ("random", [idx])):
-            errs, oks, k_ms, p_ms, b_ms = [], [], [], [], []
+            errs, oks, k_ms, p_ms, b_ms, d_ms, c_ms, r_ms, same = ([] for _ in range(9))
             lib_ms = selection_library_ms(qg, kb, vb, idxs[0], tok_bias, backward=True)
             for idx in idxs:
                 o, lse = selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)
                 args = (qg, kb, vb, idx, tok_bias, do, lse, row_delta(do, o))
                 got = selection.selection_attention_bwd(*args)
+                again = selection.selection_attention_bwd(*args)
                 want = selection.selection_attention_bwd_plain(*args)
                 torch.cuda.synchronize()
                 err, ok = max_err(got, want, tol_table=SEL_BWD_TOL)
                 errs.append(err)
                 oks.append(ok)
+                same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
+                ks = device_trace(lambda: selection.selection_attention_bwd(*args), 5)
+                d_ms.append(per_call_ms(ks, 5, "selection_bwd"))
+                c_ms.append(per_call_ms(ks, 5))
+                r_ms.append([per_call_ms(ks, 5, "selection_bwd_" + part)
+                             for part in ("ranks", "kernel", "reduce")])
                 valid_sel = int((idx >= 0).sum())
                 used = torch.zeros(B, H, NB, dtype=torch.bool, device=dev)
                 used.scatter_(2, idx.clamp(min=0).reshape(B, H, -1).long(),
@@ -837,10 +867,31 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
                 k_ms.append(median_ms(lambda: selection.selection_attention_bwd(*args)))
                 p_ms.append(median_ms(lambda: selection.selection_attention_bwd_plain(*args),
                                       reps=5))
+            valid = torch.stack(idxs) >= 0
+            per_block = torch.zeros(len(idxs) * B * H * NB + 1, dtype=torch.long, device=dev)
+            flat = (torch.arange(len(idxs) * B * H, device=dev).reshape(len(idxs), B, H, 1, 1)
+                    * NB + torch.stack(idxs).long())
+            per_block.index_add_(0, torch.where(valid, flat, per_block.numel() - 1).reshape(-1),
+                                 torch.ones(valid.numel(), dtype=torch.long, device=dev))
+            per_block = per_block[:-1].float()
+            print(json.dumps({"selection_bwd_warp": {
+                "mode": mode, "dtype": str(dtype).replace("torch.", ""),
+                "bit_identical": all(same), "device_ms": statistics.fmean(d_ms),
+                "call_device_ms": statistics.fmean(c_ms),
+                **{f"{part}_device_ms": statistics.fmean(r[i] for r in r_ms)
+                   for i, part in enumerate(("ranks", "kernel", "reduce"))},
+                "selections_per_block_max": int(per_block.max()),
+                "selections_per_block_mean": float(per_block.mean()),
+                "selections_per_picked_block_mean": float(per_block[per_block > 0].mean()),
+                "staging_bytes": 2 * 4 * B * H * NB * KSTAR * ELL * D}}), flush=True)
+            check(all(same), f"selection_bwd [{mode}, {dtype}]: two calls on the same "
+                             "inputs differ")
             record("selection_bwd", mode, dtype,
                    max(errs) if all(math.isfinite(e) for e in errs) else math.nan, all(oks),
                    statistics.fmean(k_ms), statistics.fmean(p_ms),
-                   statistics.fmean(t for t, _ in b_ms), b_ms[0][1], lib_ms)
+                   statistics.fmean(t for t, _ in b_ms), b_ms[0][1], lib_ms,
+                   device_ms=statistics.fmean(d_ms),
+                   path=selection.selection_plan(M, ELL, D, dtype).path)
 
         # ---- epilogue: R = B·N·H rows of D
         R = B * N * H
@@ -931,10 +982,24 @@ def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dic
         row_ok = torch.from_numpy(mask).to(dev)[None, None, :, None]
         do = torch.where(row_ok, do, torch.zeros_like(do))
         rest = (do, lse, row_delta(do, o))
+        kv_off = dict(offsets=(offsets, offsets // ELL))
         dq = varlen.flash_attention_varlen_dq(*args, *rest)
-        dkv = varlen.flash_attention_varlen_dkv(*args, *rest)
+        dkv = varlen.flash_attention_varlen_dkv(*args, *rest, **kv_off)
+        again = varlen.flash_attention_varlen_dkv(*args, *rest, **kv_off)
         want = varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest)
         torch.cuda.synchronize()
+        plan = varlen.varlen_plan(D, dtype)
+        same = all(torch.equal(a, b) for a, b in zip(dkv, again))
+        line = {"dtype": str(dtype).replace("torch.", ""), "path": plan.path,
+                "bit_identical": same}
+        if plan.path == "fma":
+            tiles = varlen_dkv_tiles(offsets, offsets // ELL, T, k.shape[1], dev,
+                                     keys=plan.keys, rows=plan.rows, heads=H,
+                                     sms=torch.cuda.get_device_properties(dev)
+                                     .multi_processor_count)
+            line.update(key_tiles=tiles.table.shape[0], splits=tiles.splits)
+        print(json.dumps({"varlen_dkv_repro": line}), flush=True)
+        check(same, f"varlen_dkv [{dtype}]: two calls on the same inputs differ")
         pairs = H * same_segment_pairs(offsets, mask)
         side = 2 * 4 * q.numel() // D + 4 * 3 * k.shape[1] + 4 * T
         p_ms = median_ms(lambda: varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest),
@@ -946,15 +1011,18 @@ def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dic
         err, ok = max_err((dq,), want[:1])
         b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side, 6.0 * D * pairs,
                            dtype)
-        record("varlen_dq", "packed_train", dtype, err, ok,
-               median_ms(lambda: varlen.flash_attention_varlen_dq(*args, *rest)), p_ms,
-               b_ms, b_by, lib_ms)
+        dq_call = lambda: varlen.flash_attention_varlen_dq(*args, *rest)  # noqa: E731
+        record("varlen_dq", "packed_train", dtype, err, ok, median_ms(dq_call), p_ms,
+               b_ms, b_by, lib_ms, device_ms=device_ms(dq_call, "varlen_dq")[0],
+               path="rows")
         err, ok = max_err(dkv, want[1:])
         b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side, 8.0 * D * pairs,
                            dtype)
-        record("varlen_dkv", "packed_train", dtype, err, ok,
-               median_ms(lambda: varlen.flash_attention_varlen_dkv(*args, *rest)), p_ms,
-               b_ms, b_by, lib_ms)
+        dkv_call = lambda: varlen.flash_attention_varlen_dkv(*args, *rest, **kv_off)  # noqa: E731
+        record("varlen_dkv", "packed_train", dtype, err, ok, median_ms(dkv_call), p_ms,
+               b_ms, b_by, lib_ms,
+               device_ms=device_ms(dkv_call, "varlen_dkv", per_call=True)[0],
+               path=plan.path)
     return results
 
 
@@ -1192,8 +1260,8 @@ def device_summary(prof) -> dict:
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     ported = {}
     for name, ms, _ in kernels:
-        hit = re.search(r"(" + "|".join(KERNELS) + r")_(?:kernel|mma|fma|rows|lanes|reduce)<",
-                        name)
+        hit = re.search(r"(" + "|".join(KERNELS)
+                        + r")_(?:(?:kernel|mma|fma|rows|lanes|reduce)<|ranks\()", name)
         if hit:
             ported[hit.group(1)] = ported.get(hit.group(1), 0.0) + ms
     top = sorted(kernels, key=lambda r: -r[1])[:12]

@@ -43,7 +43,8 @@
 //     fp32  the FMA pipes, register-tiled: a thread holds a micro-tile of
 //           keys x rows of S and dP (four float4 operands a step), P and dS
 //           go through shared memory, and each thread adds into dK/dV (dQ)
-//           of its keys (rows) x D/RY dims.  3xTF32 on the tensor cores was
+//           of its keys (rows) x D/RY dims.  flash_dkv's block is
+//           csrc/fma_bwd.cuh's, shared with varlen_dkv_fma.  3xTF32 on the tensor cores was
 //           tried: it holds the kernel checks' 1e-4 but, an error of 2^-22
 //           a product against fp32's 2^-24, not shapenet's train check on
 //           phi_k.pos, whose gradient is a near-cancelling sum over keys.
@@ -54,11 +55,12 @@
 // nothing to dK, dV.  The ragged key edge (L = 480) and the ragged row edge
 // are masked here: staged rows past the edge are zeros, keys past L carry
 // NEG_INF bias.
-#include "tiles.cuh"
+#include "fma_bwd.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using rt::DkvFma;
 using rt::dot4;
 using rt::lane_of;
 using rt::load_vec;
@@ -255,23 +257,12 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// flash_dkv, fp32: FMA pipes, register-tiled.  NT threads as 16 key lanes
-// (kx) x RY row lanes (ry).  S^T and dP^T of a staged tile: a thread holds
-// keys kx+16i (i < 4) x rows ry+RY*j (j < BM/RY).  P^T and dS^T go to
-// shared memory; then the thread adds into dV, dK of its 4 keys x D/RY dims.
+// flash_dkv, fp32: FMA pipes, register-tiled, the block of csrc/fma_bwd.cuh
+// (shared with varlen_dkv_fma): NT threads as 16 key lanes x RY row lanes,
+// S^T and dP^T of a staged tile as 4 keys x BM/RY rows a thread, P^T and
+// dS^T through shared memory, dV, dK as 4 keys x D/RY dims a thread.  The
+// index mask is the visibility test.
 // ---------------------------------------------------------------------------
-template <int D>
-struct DkvFma {
-  static constexpr int BK = 64, BM = D > 64 ? 32 : 64, NT = D > 64 ? 256 : 128;
-  static constexpr int RY = NT / 16, RPT = BM / RY, DPT = D / RY;
-  static constexpr int LD = D + 4, LP = BM + 4;
-  static constexpr int K_OFF = 0, V_OFF = BK * LD, Q_OFF = 2 * BK * LD;
-  static constexpr int DO_OFF = Q_OFF + 2 * BM * LD, P_OFF = DO_OFF + 2 * BM * LD;
-  static constexpr int S_OFF = P_OFF + BK * LP, L_OFF = S_OFF + BK * LP;
-  static constexpr int DL_OFF = L_OFF + 2 * BM, B_OFF = DL_OFF + 2 * BM;
-  static constexpr size_t SMEM = (size_t)(B_OFF + BK) * 4;
-};
-
 template <int D>
 __global__ void __launch_bounds__(DkvFma<D>::NT, 1)
 flash_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
@@ -280,143 +271,13 @@ flash_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ delta, float* __restrict__ dk,
               float* __restrict__ dv, float* __restrict__ ws, int S, int rep, int N,
               int L, int n_heads, Mask mask, float scale) {
-  using C = DkvFma<D>;
-  constexpr int BM = C::BM, LD = C::LD, LP = C::LP, RY = C::RY, RPT = C::RPT, DPT = C::DPT;
-  float* sm = reinterpret_cast<float*>(rt::dyn_smem());
-  float* Ks = sm + C::K_OFF;
-  float* Vs = sm + C::V_OFF;
-  float* Ps = sm + C::P_OFF;
-  float* Ss = sm + C::S_OFF;
-  float* ls = sm + C::L_OFF;
-  float* dls = sm + C::DL_OFF;
-  float* bs = sm + C::B_OFF;
-
-  const int kx = threadIdx.x % 16, ry = threadIdx.x / 16;
-  const int j0 = blockIdx.x * C::BK, bh = blockIdx.y, s = blockIdx.z;
+  const int j0 = blockIdx.x * DkvFma<D>::BK, bh = blockIdx.y, s = blockIdx.z;
   const int b = bh / n_heads;
-  const int nk = min(C::BK, L - j0);
-
-  stage_rows<float, D, LD>(Ks, k + ((size_t)bh * L + j0) * D, nk, C::BK, C::NT);
-  stage_rows<float, D, LD>(Vs, v + ((size_t)bh * L + j0) * D, nk, C::BK, C::NT);
-  for (int i = threadIdx.x; i < C::BK; i += C::NT)
-    bs[i] = i < nk ? key_bias[(size_t)b * L + j0 + i] : rt::NEG_INF;
-
-  const int2 range = split_range(mask.first_t(j0), N, S, s, BM);
-  const int per_head = (range.y - range.x + BM - 1) / BM;
-  const int n_tiles = rep * per_head;
-  const size_t rows0 = (size_t)bh * rep * N;
-  auto load_tile = [&](int it, int buf) {
-    const int t0 = range.x + (it % per_head) * BM;
-    const int n = min(BM, range.y - t0);
-    const size_t row0 = rows0 + (size_t)(it / per_head) * N + t0;
-    stage_rows<float, D, LD>(sm + C::Q_OFF + buf * BM * LD, q + row0 * D, n, BM, C::NT);
-    stage_rows<float, D, LD>(sm + C::DO_OFF + buf * BM * LD, dout + row0 * D, n, BM, C::NT);
-    stage_vals(ls + buf * BM, lse + row0, n, BM, rt::LSE_EMPTY, C::NT);
-    stage_vals(dls + buf * BM, delta + row0, n, BM, 0.f, C::NT);
-  };
-
-  float dka[4][DPT], dva[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int m = 0; m < DPT; ++m) dka[i][m] = dva[i][m] = 0.f;
-
-  if (n_tiles > 0) load_tile(0, 0);
-  rt::cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) load_tile(it + 1, buf ^ 1);
-    rt::cp_async_commit();
-    rt::cp_async_wait<1>();
-    const float* lt = ls + buf * BM;
-    const float* dlt = dls + buf * BM;
-    const bool row_live = threadIdx.x < BM && lt[threadIdx.x] < rt::LSE_HALF;
-    if (__syncthreads_or(row_live)) {      // block-uniform
-      const float* Qt = sm + C::Q_OFF + buf * BM * LD;
-      const float* Dt = sm + C::DO_OFF + buf * BM * LD;
-      const int t0 = range.x + (it % per_head) * BM;
-      float st[4][RPT], dp[4][RPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) st[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
-        float4 kk[4], vv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = *reinterpret_cast<const float4*>(Ks + (kx + 16 * i) * LD + d);
-          vv[i] = *reinterpret_cast<const float4*>(Vs + (kx + 16 * i) * LD + d);
-        }
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const float4 qq = *reinterpret_cast<const float4*>(Qt + (ry + RY * j) * LD + d);
-          const float4 oo = *reinterpret_cast<const float4*>(Dt + (ry + RY * j) * LD + d);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            st[i][j] = dot4(kk[i], qq, st[i][j]);
-            dp[i][j] = dot4(vv[i], oo, dp[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = kx + 16 * i;
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const int row = ry + RY * j;
-          float p = 0.f;
-          if (mask.visible(j0 + key, t0 + row))
-            p = rt::p_from_lse(st[i][j] * scale + bs[key], lt[row]);
-          Ps[key * LP + row] = p;
-          Ss[key * LP + row] = p * (dp[i][j] - dlt[row]) * scale;
-        }
-      }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: keys kx+16i, dims ry*DPT..
-#pragma unroll 2
-      for (int r = 0; r < BM; r += 4) {
-        float4 pp[4], ss[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pp[i] = *reinterpret_cast<const float4*>(Ps + (kx + 16 * i) * LP + r);
-          ss[i] = *reinterpret_cast<const float4*>(Ss + (kx + 16 * i) * LP + r);
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float od[DPT], qd[DPT];
-          load_vec<DPT>(od, Dt + (r + c) * LD + ry * DPT);
-          load_vec<DPT>(qd, Qt + (r + c) * LD + ry * DPT);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pv = lane_of(pp[i], c), sv = lane_of(ss[i], c);
-#pragma unroll
-            for (int m = 0; m < DPT; ++m) {
-              dva[i][m] = fmaf(pv, od[m], dva[i][m]);
-              dka[i][m] = fmaf(sv, qd[m], dka[i][m]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();                       // buffers free for the next loads
-  }
-  rt::cp_async_wait<0>();
-
-  const size_t slab = (size_t)gridDim.y * L * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = kx + 16 * i;
-    if (key >= nk) continue;
-    const size_t off = ((size_t)bh * L + j0 + key) * D + ry * DPT;
-    float* outk = S == 1 ? dk + off : ws + (size_t)s * slab + off;
-    float* outv = S == 1 ? dv + off : ws + (size_t)(S + s) * slab + off;
-#pragma unroll
-    for (int m = 0; m < DPT; ++m) {
-      outk[m] = dka[i][m];
-      outv[m] = dva[i][m];
-    }
-  }
+  const int nk = min(DkvFma<D>::BK, L - j0);
+  const int2 range = split_range(mask.first_t(j0), N, S, s, DkvFma<D>::BM);
+  rt::fma_dkv_block<D>(q, k, v, key_bias + (size_t)b * L + j0, dout, lse, delta, dk, dv, ws,
+                       bh, gridDim.y, j0, nk, range, rep, N, L, s, S, scale,
+                       [&](int key, int t) { return mask.visible(key, t); });
 }
 
 // Sum the S row-split partials of dK and dV in split order and cast.
@@ -425,17 +286,7 @@ __global__ void __launch_bounds__(256)
 flash_dkv_reduce(const float* __restrict__ ws, T* __restrict__ dk, T* __restrict__ dv,
                  int S, size_t n4) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n4) return;
-  const int which = blockIdx.y;                             // 0: dK, 1: dV
-  const float4* src = reinterpret_cast<const float4*>(ws) + (size_t)which * S * n4 + e;
-  float4 a = src[0];
-  for (int s = 1; s < S; ++s) {
-    const float4 x = src[(size_t)s * n4];
-    a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
-  }
-  T* out = (which == 0 ? dk : dv) + 4 * e;
-  store2<T>(out, a.x, a.y);
-  store2<T>(out + 2, a.z, a.w);
+  if (e < n4) rt::dkv_reduce_elem<T>(ws, dk, dv, S, n4, e, blockIdx.y);
 }
 
 // ---------------------------------------------------------------------------

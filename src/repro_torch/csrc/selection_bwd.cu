@@ -23,10 +23,18 @@
 //          selection_bwd.  One warp owns one (b, h, group): lanes are (8
 //          rows) x (4 lanes per row), each lane holds D/4 dims of its row's
 //          q, dO and dq; a row's dot products are summed over its 4 lanes by
-//          shuffles.  Each selection's dk, dv (summed over the 8 row groups
-//          of lanes by shuffles) is added atomically into fp32 buffers the
-//          caller zeroed: one atomic per element and selection, in a
-//          run-to-run order.
+//          shuffles.  Each selection's dk, dv is summed over the 8 row
+//          groups of lanes by a shuffle reduce-scatter (one dim a lane at
+//          D 32) and stored, fp32 and coalesced, into the staging buffer ws
+//          (2, B*Hkv*G*k*, ell, D) at slot rank[item*k* + j].  rank comes
+//          from a first pass (selection_bwd_ranks): a stable counting sort
+//          of each head's selections by block, the order of scatter_plan
+//          below, a head's slots starting at its first selection's flat
+//          position.  A last pass (selection_bwd_reduce) sums each block's
+//          slots in that order and casts.  No atomics: the sums run in a
+//          fixed order, so the backward is bit-reproducible.  Groups of 9-15
+//          rows take two passes; the second adds into the slots its own
+//          lanes stored.
 //   tiles  M >= 16 (the LM: 512 rows, ell = 64), the TPU's own split into
 //          two entry points, no atomics:
 //     selection_dq   on the forward's grid (b, h, group, tile of 64 rows):
@@ -65,12 +73,54 @@ using rt::stage_vals;
 using rt::store2;
 
 // ---------------------------------------------------------------------------
-// warp: one warp a (b, h, group), 8 rows a pass, atomics per key.
+// warp: one warp a (b, h, group), 8 rows a pass; each selection's dK, dV
+// stored into its staging slot, no atomics.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;          // (b, h, group) items per block
 constexpr int kLanesPerRow = 4;
 constexpr int kRowsPerPass = 32 / kLanesPerRow;
+
+// v[0..N): a lane's partials of N dims of its row.  Sum them over the 8 row
+// groups of lanes (lane bits O = 16, 8, 4) and scatter the sums: each level
+// halves the values a lane keeps (the upper half where its bit O is set) and
+// adds its partner's half by one shuffle each; once one value is left, a
+// level is a plain shuffle sum.  On return v[0..max(1, N/8)) hold the sums of
+// the dims scatter_dims names (N = 8: one dim a lane, 7 shuffles where a
+// butterfly over every dim takes 24).
+template <int N, int O>
+__device__ __forceinline__ void sum_scatter_rows(float* v, int lane) {
+  if constexpr (O >= kLanesPerRow) {
+    const bool hi = (lane & O) != 0;
+    constexpr int H = N >= 2 ? N / 2 : 1;
+    if constexpr (N >= 2) {
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = hi ? v[i] : v[i + H];
+        const float keep = hi ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+    }
+    sum_scatter_rows<H, O / 2>(v, lane);
+  }
+}
+
+// Which sums sum_scatter_rows<N, O> leaves with a lane: those of its dims
+// first.. ; of lanes left with equal sums (N < 8) only the owner stores them.
+template <int N, int O>
+__device__ __forceinline__ void scatter_dims(int lane, int& first, bool& owner) {
+  if constexpr (O >= kLanesPerRow) {
+    const bool hi = (lane & O) != 0;
+    if constexpr (N >= 2) {
+      if (hi) first += N / 2;
+    } else {
+      owner = owner && !hi;
+    }
+    scatter_dims<(N >= 2 ? N / 2 : 1), O / 2>(lane, first, owner);
+  }
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -78,10 +128,11 @@ selection_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
                      const T* __restrict__ vb, const int* __restrict__ idx,
                      const float* __restrict__ tok_bias, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dq, float* __restrict__ dkb,
-                     float* __restrict__ dvb, int Hkv, int G, int M, int NB, int ell,
-                     int k_star, int n_items, float scale) {
+                     const int* __restrict__ rank, T* __restrict__ dq,
+                     float* __restrict__ ws, int Hkv, int G, int M, int NB, int ell,
+                     int k_star, int n_items, int n_slots, float scale) {
   constexpr int DPL = D / kLanesPerRow;      // dims per lane
+  constexpr int KEEP = DPL >= kRowsPerPass ? DPL / kRowsPerPass : 1;
   const int item = blockIdx.x * kWarps + threadIdx.x / 32;
   if (item >= n_items) return;               // warp-uniform
   const int lane = threadIdx.x % 32;
@@ -90,6 +141,10 @@ selection_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
   const int bh = item / G;                   // b * Hkv + h
   const int b = bh / Hkv;
   const int* sel = idx + (size_t)item * k_star;
+  const size_t slab = (size_t)n_slots * ell * D;             // ws: (2, n_slots, ell, D)
+  int first = 0;                             // the dims this lane stores: d0 + first..
+  bool owner = true;
+  scatter_dims<DPL, 16>(lane, first, owner);
 
   for (int r0 = 0; r0 < M; r0 += kRowsPerPass) {
     const int row = r0 + rsub;
@@ -107,13 +162,20 @@ selection_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
 
     for (int j = 0; j < k_star; ++j) {
       const int blk = sel[j];                // same for every lane
-      if (blk < 0 || blk >= NB) continue;
+      if (blk < 0 || blk >= NB) continue;    // neither staged nor summed
       const size_t blk0 = ((size_t)bh * NB + blk) * ell;
       const T* kp = kb + blk0 * D;
       const T* vp = vb + blk0 * D;
       const float* tb = tok_bias + ((size_t)b * NB + blk) * ell;
+      float* wk = ws + (size_t)rank[(size_t)item * k_star + j] * ell * D + d0 + first;
       for (int c = 0; c < ell; ++c) {
-        if (tb[c] <= rt::NEG_HALF) continue;  // masked key: p == 0 on every row
+        float gk[DPL], gv[DPL];
+        if (tb[c] <= rt::NEG_HALF) {         // masked key: p == 0 on every row
+          if (r0 > 0 || !owner) continue;
+#pragma unroll
+          for (int i = 0; i < KEEP; ++i) wk[c * D + i] = wk[slab + c * D + i] = 0.f;
+          continue;
+        }
         float kc[DPL], sp = 0.f, dpp = 0.f;
 #pragma unroll
         for (int d = 0; d < DPL; ++d) {
@@ -126,22 +188,21 @@ selection_bwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
         const float p = rt::p_from_lse(sp * scale + tb[c], l);
         const float dsa = rt::pv_operand<T>(p * (dpp - dl) * scale);
         const float pa = rt::pv_operand<T>(p);
-        float* dkp = dkb + (blk0 + c) * D + d0;
-        float* dvp = dvb + (blk0 + c) * D + d0;
 #pragma unroll
         for (int d = 0; d < DPL; ++d) {
           acc[d] = fmaf(dsa, kc[d], acc[d]);
-          // sum over the 8 row groups of lanes (lane bits 2..4)
-          float gk = dsa * qv[d], gv = pa * dov[d];
+          gk[d] = dsa * qv[d];
+          gv[d] = pa * dov[d];
+        }
+        sum_scatter_rows<DPL, 16>(gk, lane);
+        sum_scatter_rows<DPL, 16>(gv, lane);
+        if (!owner) continue;
+        float* pk = wk + c * D;
+        float* pv = pk + slab;
 #pragma unroll
-          for (int o = kLanesPerRow; o < 32; o <<= 1) {
-            gk += __shfl_xor_sync(0xffffffffu, gk, o);
-            gv += __shfl_xor_sync(0xffffffffu, gv, o);
-          }
-          if (d % kRowsPerPass == rsub) {    // one lane adds each dim
-            atomicAdd(dkp + d, gk);
-            atomicAdd(dvp + d, gv);
-          }
+        for (int i = 0; i < KEEP; ++i) {     // a later pass adds to its own stores
+          pk[i] = r0 > 0 ? pk[i] + gk[i] : gk[i];
+          pv[i] = r0 > 0 ? pv[i] + gv[i] : gv[i];
         }
       }
     }
@@ -782,25 +843,123 @@ selection_dkv_fma(const float* __restrict__ q, const float* __restrict__ kb,
   }
 }
 
-// Each block's dK and dV: the sum of its staged slots [offsets[i],
-// offsets[i+1]) in slot order, cast; zeros for a block no group selected.
+// Float4 e of the blocked dK (which 0) or dV (which 1), (n_blocks, ell*D/4)
+// float4s: the sum of its block's staged slots [lo, hi) in slot order, cast;
+// zeros for a block no group selected.  The tiled path's offsets have one
+// entry a block and one more (lo = offsets[blk], hi = offsets[blk + 1]); the
+// warp path's NB + 1 a head (head_pad 1: block blk of the flat index reads
+// entry blk + blk / NB).
 template <typename T>
-__global__ void __launch_bounds__(256)
-selection_dkv_reduce(const float* __restrict__ ws, const int* __restrict__ offsets,
-                     T* __restrict__ dkb, T* __restrict__ dvb, int n_slots, int per_blk4) {
-  const int e = blockIdx.y * blockDim.x + threadIdx.x;      // float4 within the block
-  if (e >= per_blk4) return;
-  const int blk = blockIdx.x, which = blockIdx.z;           // which 0: dK, 1: dV
-  const int lo = offsets[blk], hi = offsets[blk + 1];
-  const float4* src = reinterpret_cast<const float4*>(ws) + (size_t)which * n_slots * per_blk4 + e;
+__device__ __forceinline__ void reduce_slots(const float* __restrict__ ws,
+                                             const int* __restrict__ offsets,
+                                             T* __restrict__ dkb, T* __restrict__ dvb,
+                                             int n_slots, int per_blk4, int NB, int head_pad,
+                                             size_t e, int which) {
+  const int blk = (int)(e / per_blk4), within = (int)(e % per_blk4);
+  const int o = blk + head_pad * (blk / NB);
+  const int lo = offsets[o], hi = offsets[o + 1];
+  const float4* src =
+      reinterpret_cast<const float4*>(ws) + (size_t)which * n_slots * per_blk4 + within;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
   for (int s = lo; s < hi; ++s) {
     const float4 x = src[(size_t)s * per_blk4];
     a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
   }
-  T* out = (which == 0 ? dkb : dvb) + ((size_t)blk * per_blk4 + e) * 4;
+  T* out = (which == 0 ? dkb : dvb) + e * 4;
   store2<T>(out, a.x, a.y);
   store2<T>(out + 2, a.z, a.w);
+}
+
+// The tiled path's second pass (selection_dkv's staging buffer).
+template <typename T>
+__global__ void __launch_bounds__(256)
+selection_dkv_reduce(const float* __restrict__ ws, const int* __restrict__ offsets,
+                     T* __restrict__ dkb, T* __restrict__ dvb, int n_slots, int per_blk4,
+                     size_t n4) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n4) reduce_slots<T>(ws, offsets, dkb, dvb, n_slots, per_blk4, 1, 0, e, blockIdx.y);
+}
+
+// The warp path's second pass (selection_bwd_kernel's staging buffer).
+template <typename T>
+__global__ void __launch_bounds__(256)
+selection_bwd_reduce(const float* __restrict__ ws, const int* __restrict__ offsets,
+                     T* __restrict__ dkb, T* __restrict__ dvb, int n_slots, int per_blk4,
+                     int NB, size_t n4) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n4) reduce_slots<T>(ws, offsets, dkb, dvb, n_slots, per_blk4, NB, 1, e, blockIdx.y);
+}
+
+// The warp path's slots (what scatter_plan's inverse index is to the tiled
+// path), one warp a (b, h) head, no atomics: the head's n = G*k* selections
+// are walked in (g, j) order twice, 32 at a time (RUN chunks loaded ahead).
+// Lanes that pick one block find each other by __match_any_sync, and the
+// lowest of them updates the block's counter in shared memory, so no two
+// lanes write one counter.  Pass 1 counts each block's valid selections; an
+// exclusive scan gives offsets[bh][blk] = bh*n + (the head's valid
+// selections of blocks before blk) and offsets[bh][NB] the end of the
+// head's; pass 2 gives each valid selection its slot rank = offsets[bh][blk]
+// + (its block's earlier selections in (g, j) order), the stable order of
+// scatter_plan, head by head, and an invalid one -1 (never staged).  A head's
+// slots start at bh*n, so no head waits for another's count.  Dynamic shared
+// memory: NB ints.
+constexpr int kRankRun = 16;
+
+__global__ void __launch_bounds__(32)
+selection_bwd_ranks(const int* __restrict__ idx, int* __restrict__ rank,
+                    int* __restrict__ offsets, int n, int NB) {
+  int* cnt = reinterpret_cast<int*>(rt::dyn_smem());
+  const int lane = threadIdx.x;
+  const size_t head = blockIdx.x;
+  const int* sel = idx + head * n;
+  int* rk = rank + head * n;
+  int* off = offsets + head * (NB + 1);
+  const unsigned below = (1u << lane) - 1u;
+  for (int i = lane; i < NB; i += 32) cnt[i] = 0;
+  __syncwarp();
+  // walk(f): f(p, blk, valid, group) for every selection p, chunk by chunk
+  auto walk = [&](auto f) {
+    for (int c0 = 0; c0 < n; c0 += 32 * kRankRun) {
+      int blk[kRankRun];
+#pragma unroll
+      for (int u = 0; u < kRankRun; ++u) {
+        const int p = c0 + 32 * u + lane;
+        blk[u] = p < n ? sel[p] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kRankRun; ++u) {
+        const int p = c0 + 32 * u + lane;
+        const bool valid = blk[u] >= 0 && blk[u] < NB;
+        const unsigned group = __match_any_sync(0xffffffffu, valid ? blk[u] : -1);
+        f(p, blk[u], valid, group);
+        __syncwarp();
+      }
+    }
+  };
+  walk([&](int, int b, bool valid, unsigned group) {
+    if (valid && (group & below) == 0) cnt[b] += __popc(group);
+  });
+  int carry = (int)(head * n);
+  for (int i0 = 0; i0 < NB; i0 += 32) {
+    const int i = i0 + lane;
+    const int c = i < NB ? cnt[i] : 0;
+    int x = c;                                      // inclusive scan over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (i < NB) cnt[i] = off[i] = carry + x - c;
+    carry += __shfl_sync(0xffffffffu, x, 31);
+  }
+  if (lane == 0) off[NB] = carry;
+  __syncwarp();
+  walk([&](int p, int b, bool valid, unsigned group) {
+    if (p < n) rk[p] = valid ? cnt[b] + __popc(group & below) : -1;
+    __syncwarp();
+    if (valid && (group & below) == 0) cnt[b] += __popc(group);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -808,18 +967,33 @@ selection_dkv_reduce(const float* __restrict__ ws, const int* __restrict__ offse
 template <typename T, int D>
 int launch_warp(const void* q, const void* kb, const void* vb, const void* idx,
                 const void* tok_bias, const void* dout, const void* lse, const void* delta,
-                void* dq, void* dkb, void* dvb, int B, int Hkv, int G, int M, int NB,
-                int ell, int k_star, cudaStream_t stream) {
-  const int n_items = B * Hkv * G;
+                void* rank, void* offsets, void* ws, void* dq, void* dkb, void* dvb, int B,
+                int Hkv, int G, int M, int NB, int ell, int k_star, cudaStream_t stream) {
+  const int n_items = B * Hkv * G, n_slots = n_items * k_star;
+  const size_t smem = (size_t)NB * sizeof(int);
+  if (int err = set_smem(selection_bwd_ranks, smem)) return err;
+  selection_bwd_ranks<<<B * Hkv, 32, smem, stream>>>(static_cast<const int*>(idx),
+                                                      static_cast<int*>(rank),
+                                                      static_cast<int*>(offsets), G * k_star,
+                                                      NB);
+  if (int err = (int)cudaGetLastError()) return err;
   const int blocks = (n_items + kWarps - 1) / kWarps;
-  if (blocks == 0) return 0;
-  selection_bwd_kernel<T, D><<<blocks, 32 * kWarps, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kb), static_cast<const T*>(vb),
-      static_cast<const int*>(idx), static_cast<const float*>(tok_bias),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq),
-      static_cast<float*>(dkb), static_cast<float*>(dvb), Hkv, G, M, NB, ell,
-      k_star, n_items, (float)(1.0 / sqrt((double)D)));
+  if (blocks > 0) {
+    selection_bwd_kernel<T, D><<<blocks, 32 * kWarps, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kb), static_cast<const T*>(vb),
+        static_cast<const int*>(idx), static_cast<const float*>(tok_bias),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<const int*>(rank),
+        static_cast<T*>(dq), static_cast<float*>(ws), Hkv, G, M, NB, ell, k_star, n_items,
+        n_slots, (float)(1.0 / sqrt((double)D)));
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  const int per_blk4 = ell * D / 4;
+  const size_t n4 = (size_t)B * Hkv * NB * per_blk4;
+  const dim3 rgrid((unsigned)((n4 + 255) / 256), 2);
+  selection_bwd_reduce<T><<<rgrid, 256, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const int*>(offsets), static_cast<T*>(dkb),
+      static_cast<T*>(dvb), n_slots, per_blk4, NB, n4);
   return (int)cudaGetLastError();
 }
 
@@ -894,28 +1068,34 @@ int launch_dkv(const void* q, const void* kb, const void* vb, const void* idx,
     if (int err = (int)cudaGetLastError()) return err;
   }
   const int per_blk4 = ell * D / 4;
-  const dim3 rgrid(n_blocks, (per_blk4 + 255) / 256, 2);
+  const size_t n4 = (size_t)n_blocks * per_blk4;
+  const dim3 rgrid((unsigned)((n4 + 255) / 256), 2);
   selection_dkv_reduce<T><<<rgrid, 256, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<const int*>(offsets), static_cast<T*>(dkb),
-      static_cast<T*>(dvb), n_slots, per_blk4);
+      static_cast<T*>(dvb), n_slots, per_blk4, n4);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The warp path: dkb, dvb fp32, zeroed by the caller.
+// The warp path: rank (B*Hkv*G*k*) and offsets (B*Hkv, NB+1) int32 scratch
+// that selection_bwd_ranks fills, ws (2, B*Hkv*G*k*, ell, D) fp32 staging;
+// dkb, dvb like kb, written whole.
 extern "C" int selection_bwd(const void* q, const void* kb, const void* vb,
                              const void* idx, const void* tok_bias, const void* dout,
-                             const void* lse, const void* delta, void* dq, void* dkb,
-                             void* dvb, int B, int Hkv, int G, int M, int NB, int ell,
-                             int k_star, int D, int bf16, void* stream) {
+                             const void* lse, const void* delta, void* rank, void* offsets,
+                             void* ws, void* dq, void* dkb, void* dvb, int B, int Hkv, int G,
+                             int M, int NB, int ell, int k_star, int D, int bf16,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * Hkv * NB == 0) return 0;
   RT_DISPATCH_D128(D, {
     return bf16 ? launch_warp<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, dout, lse,
-                                                 delta, dq, dkb, dvb, B, Hkv, G, M, NB,
-                                                 ell, k_star, s)
-                : launch_warp<float, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta, dq,
-                                         dkb, dvb, B, Hkv, G, M, NB, ell, k_star, s);
+                                                 delta, rank, offsets, ws, dq, dkb, dvb, B,
+                                                 Hkv, G, M, NB, ell, k_star, s)
+                : launch_warp<float, kD>(q, kb, vb, idx, tok_bias, dout, lse, delta, rank,
+                                         offsets, ws, dq, dkb, dvb, B, Hkv, G, M, NB, ell,
+                                         k_star, s);
   });
   return 0;
 }

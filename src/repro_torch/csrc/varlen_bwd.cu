@@ -1,6 +1,5 @@
 // Packed-varlen streaming-softmax attention backward, recomputed from the
-// forward's lse: two kernels that share their inputs, the segment test and
-// the recompute of p.
+// forward's lse: the kernels share their inputs and the recompute of p.
 //
 // Replaces repro/kernels/varlen.py::_dq_kernel (varlen_dq) and ::_dkv_kernel
 // (varlen_dkv) (Pallas, TPU).
@@ -11,44 +10,56 @@
 // rowsum(dO*O) (Hkv, rep, T) fp32 -> dq like q (varlen_dq), dk/dv like k
 // (varlen_dkv).
 //
+// Bound on the H100: 10*D FLOP per same-segment (row, key) pair for the
+// whole backward (8*D of them in varlen_dkv), so the fp32 FMA rate bounds it.
+//
 // Design.  The TPU kernels walk the full grids (dQ over K tiles, dK/dV over
-// Q tiles) and skip cells whose segment ranges do not overlap.  Here, as in
-// varlen_fwd.cu, the skip is an interval, and each sum is a loop inside one
-// block (Hopper blocks run in no order):
+// Q tiles) and skip cells whose segment ranges do not overlap.  Here each sum
+// is a loop inside one block (Hopper blocks run in no order), or a loop plus
+// a fixed-order second pass:
 //   varlen_dq   the forward's grid: a block owns 128 query rows of one (KV
 //               head, query head), folds only the keys of its rows'
 //               segments [k_bounds[s_first], k_bounds[s_last+1]) in tiles of
 //               64: p = exp(s - lse), dS = p*(dO.v - delta)*scale,
-//               dq += dS*k.
-//   varlen_dkv  the transposed grid: a block owns 32 keys (one a thread, with
-//               k, v, dk, dv in registers), stages tiles of 64 query rows
-//               (Q, dO, lse, delta, segment ids) of its keys' segments
-//               [q_bounds[s_first], q_bounds[s_last+1]) for each of the rep
-//               query heads of the group and folds them: dv += p*dO,
-//               dk += dS*q -- the GQA group's sum is this loop, so no other
-//               block touches the key's gradient.
-// A (row, key) pair of two segments is masked like a masked key.  p and dS
-// are rounded to the operand dtype before their products.  Rows with
-// lse = LSE_EMPTY (they saw no valid key) give p = 0: a 128-row tile of
+//               dq += dS*k; a (row, key) pair of two segments is masked like
+//               a masked key.
+//   varlen_dkv  two paths (kernels/varlen.py::varlen_plan):
+//     fma   fp32.  A host plan (kernels/occupancy.py::varlen_dkv_tiles)
+//           cuts each segment's keys into tiles of 64 (the segment's last
+//           tile ragged; no tile crosses a segment boundary) and gives each
+//           tile its segment's rows cut into S splits of whole 64-row tiles:
+//           an int32 table (tiles, S, 4) of (first key, keys, first row, end
+//           row).  Grid (tiles, Hkv, S): a block runs flash_dkv_fma's
+//           register-tiled block (csrc/fma_bwd.cuh) on its keys and rows,
+//           the rep query heads of the group summed in its walk.  Every pair
+//           it visits is of one segment, so no segment test is left: the key
+//           bias and lse = LSE_EMPTY mask the rest.  A tile with no valid key
+//           (the capacity tail's) writes zeros and walks nothing.  With
+//           S > 1 the splits write fp32 partials into ws (2, S, Hkv, L, D)
+//           and varlen_dkv_reduce sums them in split order and casts: no
+//           atomics, bit-reproducible.
+//     rows  bf16 (no main path runs it).  A block owns 32 keys (one a
+//           thread, with k, v, dk, dv in registers) and stages tiles of 64
+//           query rows (Q, dO, lse, delta, segment ids) of its keys'
+//           segments [q_bounds[s_first], q_bounds[s_last+1]) for each of the
+//           rep query heads and folds them: dv += p*dO, dk += dS*q; a pair
+//           of two segments is masked like a masked key.
+// p and dS are rounded to the operand dtype before their products.  Rows
+// with lse = LSE_EMPTY (they saw no valid key) give p = 0: a 128-row tile of
 // such rows writes zeros and stops, and such rows are skipped in
 // varlen_dkv; a key block with no valid key writes zeros and stops.
-//
-// Bound on the H100: 10*D FLOP per same-segment (row, key) pair for the
-// whole backward, so the fp32 FMA rate bounds it.  This first version
-// recomputes s and dO.v in both kernels and uses the fp32 pipes only;
-// varlen_dkv, one thread a key, keeps flash_dkv's low parallelism.
-#include "common.cuh"
+#include "fma_bwd.cuh"
 
 namespace {
 
 constexpr int kRows = 128;   // varlen_dq: query rows (threads) per block
 constexpr int kTile = 64;    // varlen_dq: keys per staged tile
-// varlen_dkv: keys (threads) per block.  32, not 64: the pooled key axis's
-// segment boundaries fall at multiples of ball/ell (32 for ball 256, ell 8),
-// and a block that straddles one walks the query rows of both segments;
-// every block runs in one wave, so the slowest block sets the kernel's time
+// varlen_dkv_rows: keys (threads) per block.  32, not 64: the pooled key
+// axis's segment boundaries fall at multiples of ball/ell (32 for ball 256,
+// ell 8), and a block that straddles one walks the query rows of both
+// segments
 constexpr int kKeys = 32;
-constexpr int kQTile = 64;   // varlen_dkv: query rows per staged tile
+constexpr int kQTile = 64;   // varlen_dkv_rows: query rows per staged tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
@@ -115,7 +126,7 @@ varlen_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kKeys)
-varlen_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+varlen_dkv_rows(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ key_bias,
                   const int* __restrict__ qseg, const int* __restrict__ kseg,
                   const int* __restrict__ q_bounds, const T* __restrict__ dout,
@@ -178,6 +189,34 @@ varlen_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// varlen_dkv, fp32: the block of csrc/fma_bwd.cuh on one planned (key tile,
+// split).  tiles: (n_tiles, S) int4 of (first key, keys, first row, end row).
+template <int D>
+__global__ void __launch_bounds__(rt::DkvFma<D>::NT, 1)
+varlen_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ key_bias,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, const int4* __restrict__ tiles,
+               float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ ws,
+               int S, int rep, int Tq, int L, float scale) {
+  static_assert(rt::DkvFma<D>::NT >= rt::DkvFma<D>::BK, "one thread per key for the dead-tile test");
+  const int4 t = tiles[(size_t)blockIdx.x * S + blockIdx.z];
+  const bool live_key = (int)threadIdx.x < t.y && key_bias[t.x + threadIdx.x] > rt::NEG_HALF;
+  const int2 range = make_int2(t.z, __syncthreads_or(live_key) ? t.w : t.z);
+  rt::fma_dkv_block<D>(q, k, v, key_bias + t.x, dout, lse, delta, dk, dv, ws, blockIdx.y,
+                       gridDim.y, t.x, t.y, range, rep, Tq, L, blockIdx.z, S, scale,
+                       [](int, int) { return true; });
+}
+
+// Sum the S row-split partials of dK and dV in split order and cast.
+template <typename T>
+__global__ void __launch_bounds__(256)
+varlen_dkv_reduce(const float* __restrict__ ws, T* __restrict__ dk, T* __restrict__ dv,
+                  int S, size_t n4) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n4) rt::dkv_reduce_elem<T>(ws, dk, dv, S, n4, e, blockIdx.y);
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* key_bias,
               const void* qseg, const void* kseg, const void* k_bounds,
@@ -194,19 +233,47 @@ int launch_dq(const void* q, const void* k, const void* v, const void* key_bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* key_bias,
-               const void* qseg, const void* kseg, const void* q_bounds,
-               const void* dout, const void* lse, const void* delta, void* dk,
-               void* dv, int H, int rep, int Tq, int L, cudaStream_t stream) {
+template <int D>
+int launch_dkv_rows(const void* q, const void* k, const void* v, const void* key_bias,
+                    const void* qseg, const void* kseg, const void* q_bounds,
+                    const void* dout, const void* lse, const void* delta, void* dk,
+                    void* dv, int H, int rep, int Tq, int L, cudaStream_t stream) {
+  using T = __nv_bfloat16;
   const dim3 grid((L + kKeys - 1) / kKeys, H);
-  varlen_dkv_kernel<T, D><<<grid, kKeys, 0, stream>>>(
+  varlen_dkv_rows<T, D><<<grid, kKeys, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(key_bias), static_cast<const int*>(qseg),
       static_cast<const int*>(kseg), static_cast<const int*>(q_bounds),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), rep,
       Tq, L, (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_fma(const void* q, const void* k, const void* v, const void* key_bias,
+                   const void* dout, const void* lse, const void* delta, const void* tiles,
+                   void* ws, void* dk, void* dv, int H, int rep, int Tq, int L, int n_tiles,
+                   int S, cudaStream_t stream) {
+  using C = rt::DkvFma<D>;
+  auto kern = varlen_dkv_fma<D>;
+  if (int err = rt::set_smem(kern, C::SMEM)) return err;
+  const dim3 grid(n_tiles, H, S);
+  kern<<<grid, C::NT, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(key_bias),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int4*>(tiles),
+      static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(ws), S, rep, Tq,
+      L, (float)(1.0 / sqrt((double)D)));
+  if (int err = (int)cudaGetLastError()) return err;
+  if (S > 1) {
+    const size_t n4 = (size_t)H * L * D / 4;
+    const dim3 rgrid((unsigned)((n4 + 255) / 256), 2);
+    varlen_dkv_reduce<float><<<rgrid, 256, 0, stream>>>(static_cast<const float*>(ws),
+                                                        static_cast<float*>(dk),
+                                                        static_cast<float*>(dv), S, n4);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -228,19 +295,26 @@ extern "C" int varlen_dq(const void* q, const void* k, const void* v,
   return 0;
 }
 
+// fp32 (the fma path): tiles the (n_tiles, S, 4) int32 plan of
+// kernels/occupancy.py::varlen_dkv_tiles, whose tiles cover [0, L); ws
+// (2, S, H, L, D) fp32 partials when S > 1 (unused, may be NULL, when
+// S == 1).  bf16 (the rows path): tiles, ws, n_tiles and S unused.
 extern "C" int varlen_dkv(const void* q, const void* k, const void* v,
                           const void* key_bias, const void* qseg, const void* kseg,
                           const void* q_bounds, const void* k_bounds, const void* dout,
-                          const void* lse, const void* delta, void* dk, void* dv, int H,
-                          int rep, int Tq, int L, int D, int bf16, void* stream) {
+                          const void* lse, const void* delta, const void* tiles, void* ws,
+                          void* dk, void* dv, int H, int rep, int Tq, int L, int n_tiles,
+                          int S, int D, int bf16, void* stream) {
   (void)k_bounds;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == 0 || L == 0) return 0;
+  if (!bf16 && (tiles == nullptr || n_tiles < 1 || S < 1 || (S > 1 && ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
   RT_DISPATCH_D(D, {
-    return bf16 ? launch_dkv<__nv_bfloat16, kD>(q, k, v, key_bias, qseg, kseg,
-                                                q_bounds, dout, lse, delta, dk, dv, H,
-                                                rep, Tq, L, s)
-                : launch_dkv<float, kD>(q, k, v, key_bias, qseg, kseg, q_bounds, dout,
-                                        lse, delta, dk, dv, H, rep, Tq, L, s);
+    return bf16 ? launch_dkv_rows<kD>(q, k, v, key_bias, qseg, kseg, q_bounds, dout, lse,
+                                      delta, dk, dv, H, rep, Tq, L, s)
+                : launch_dkv_fma<kD>(q, k, v, key_bias, dout, lse, delta, tiles, ws, dk,
+                                     dv, H, rep, Tq, L, n_tiles, S, s);
   });
   return 0;
 }

@@ -53,9 +53,9 @@ SIGNATURES = {
     # q, k, v, key_bias, do, lse, delta, dk, dv, ws, BH, rep, N, L, D, n_heads,
     # causal, block_causal, ell, S, bf16, stream
     "flash_dkv": [P] * 10 + [I] * 11 + [P],
-    # q, kb, vb, idx, tok_bias, do, lse, delta, dq, dkb, dvb, B, Hkv, G, M, NB,
-    # ell, k_star, D, bf16, stream
-    "selection_bwd": [P] * 11 + [I] * 9 + [P],
+    # q, kb, vb, idx, tok_bias, do, lse, delta, rank, offsets, ws, dq, dkb, dvb, B,
+    # Hkv, G, M, NB, ell, k_star, D, bf16, stream
+    "selection_bwd": [P] * 14 + [I] * 9 + [P],
     # q, kb, vb, idx, tok_bias, do, lse, delta, dq, B, Hkv, G, M, NB, ell, k_star,
     # D, bf16, stream
     "selection_dq": [P] * 9 + [I] * 9 + [P],
@@ -69,9 +69,9 @@ SIGNATURES = {
     # q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta, dq, H, rep,
     # T, L, D, bf16, stream
     "varlen_dq": [P] * 12 + [I] * 6 + [P],
-    # q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta, dk, dv, H,
-    # rep, T, L, D, bf16, stream
-    "varlen_dkv": [P] * 13 + [I] * 6 + [P],
+    # q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta, tiles, ws,
+    # dk, dv, H, rep, T, L, n_tiles, S, D, bf16, stream
+    "varlen_dkv": [P] * 15 + [I] * 8 + [P],
     # q, k, v, key_bias, live, o, lse, BH, rep, N, D, window, n_heads, bf16, tiles,
     # stream
     "local_fwd": [P] * 7 + [I] * 8 + [P],

@@ -39,7 +39,8 @@ The backward (``csrc/flash_bwd.cu``):
   S > 1 the splits write fp32 partials into a (2, S, B·Hkv, L, D)
   workspace that this wrapper allocates, and a second pass behind the same
   entry point sums them in split order and casts (no atomics,
-  deterministic).
+  deterministic).  Its fp32 block (``csrc/fma_bwd.cuh``) is shared with
+  the packed-varlen ``varlen_dkv``.
 - ``flash_dq`` gives a block 64 query rows and stages only the key tiles
   its last row can see.
 - Tiles are staged by ``cp.async``, double-buffered, in the operand dtype;

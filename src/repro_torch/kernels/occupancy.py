@@ -12,6 +12,9 @@ device tensors the varlen kernels read (per-position segment ids and the
 segment boundaries), built once per distinct offsets and device and cached
 on the offsets' values, so the 18 layers of a batch (and its backward)
 reuse one build and never read offsets back from the card.
+:func:`varlen_dkv_tiles` plans the fp32 ``varlen_dkv``'s walk from the same
+host offsets: key tiles that never cross a segment, each with its
+segment's rows cut into splits.
 :func:`tile_seg_ranges` / :func:`ranges_live_map` say which (query tile,
 key tile) pairs share a segment: what the kernels visit.
 """
@@ -28,7 +31,7 @@ from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
 
 __all__ = ["key_tile_live", "local_half_live", "group_live", "invalidate_dead_groups",
            "offsets_key", "segment_ids", "VarlenMaps", "varlen_maps",
-           "tile_seg_ranges", "ranges_live_map"]
+           "VarlenDkvTiles", "varlen_dkv_tiles", "tile_seg_ranges", "ranges_live_map"]
 
 
 def key_tile_live(key_bias: torch.Tensor, tile: int) -> torch.Tensor:
@@ -91,14 +94,18 @@ def offsets_key(offsets) -> tuple:
     return tuple(int(x) for x in np.asarray(offsets).reshape(-1))
 
 
-@functools.lru_cache(maxsize=128)
-def _segment_tables(key: tuple, length: int, device: torch.device):
+def _check_offsets(key: tuple, length: int) -> None:
     # the kernels read rows [bounds[s], bounds[s+1]): bounds outside the axis
     # would read past it
     if not key or key[0] < 0 or key[-1] > length or any(
             a > b for a, b in zip(key[:-1], key[1:])):
         raise ValueError(f"offsets {list(key)} must be non-decreasing, start at "
                          f"≥ 0 and end at ≤ the axis length {length}")
+
+
+@functools.lru_cache(maxsize=128)
+def _segment_tables(key: tuple, length: int, device: torch.device):
+    _check_offsets(key, length)
     seg = segment_ids_from_offsets(torch.tensor(key, dtype=torch.int32), length)
     # segment s owns positions [bounds[s], bounds[s+1]); the tail S ends at length
     bounds = torch.tensor(key + (length,), dtype=torch.int32)
@@ -134,6 +141,61 @@ def varlen_maps(q_offsets, k_offsets, T: int, L: int, device) -> VarlenMaps:
     qseg, q_bounds = _segment_tables(qk, T, device)
     kseg, k_bounds = _segment_tables(kk, L, device)
     return VarlenMaps(qseg, kseg, q_bounds, k_bounds)
+
+
+class VarlenDkvTiles(NamedTuple):
+    """The walk of ``varlen_dkv`` on its fma path: ``table`` (tiles, S, 4)
+    int32 on the device, for each key tile and split the tile's first key,
+    its number of keys, and the first and end row of the split; ``splits``
+    S, the row splits of every tile."""
+    table: torch.Tensor
+    splits: int
+
+
+def _segments(key: tuple, length: int) -> list[tuple[int, int]]:
+    """[start, end) of segments 0..S of an axis, as
+    ``segment_ids_from_offsets`` numbers its positions: segment 0 starts at
+    0, segment S (the capacity tail) ends at the axis length."""
+    return list(zip((0,) + key[1:], key[1:] + (length,)))
+
+
+def varlen_dkv_tiles(q_offsets, k_offsets, T: int, L: int, device, *, keys: int,
+                     rows: int, heads: int, sms: int = 132) -> VarlenDkvTiles:
+    """Plan ``varlen_dkv``'s fma walk from host offsets, cached on their
+    values: each segment's keys (the capacity tail's too) cut into tiles of
+    ``keys`` (its last tile ragged, none crossing a segment boundary), each
+    tile given its segment's rows cut into S splits of whole ``rows``-row
+    tiles (:func:`repro_torch.kernels.flash.dkv_ranges`'s rule; trailing
+    splits may be empty).  S gives about four blocks of (tile, head, split)
+    on each of ``sms`` SMs, never more than the longest segment has row
+    tiles, at least 1."""
+    qk, kk = offsets_key(q_offsets), offsets_key(k_offsets)
+    if len(qk) != len(kk):
+        raise ValueError(f"q_offsets and k_offsets must have one length, got "
+                         f"{len(qk)} and {len(kk)}")
+    return _dkv_tiles(qk, kk, T, L, torch.device(device), keys, rows, heads, sms)
+
+
+@functools.lru_cache(maxsize=128)
+def _dkv_tiles(qk: tuple, kk: tuple, T: int, L: int, device: torch.device, keys: int,
+               rows: int, heads: int, sms: int) -> VarlenDkvTiles:
+    _check_offsets(qk, T)
+    _check_offsets(kk, L)
+    tiles = [(j0, min(keys, k1 - j0), r0, r1)
+             for (r0, r1), (k0, k1) in zip(_segments(qk, T), _segments(kk, L))
+             for j0 in range(k0, k1, keys)]
+    longest = max((r1 - r0 for *_, r0, r1 in tiles), default=0)
+    S = max(1, min(-(-4 * sms // max(1, len(tiles) * heads)), -(-longest // rows)))
+    table = []
+    for j0, nk, r0, r1 in tiles:
+        chunk = -(-(-(-(r1 - r0) // S)) // rows) * rows
+        splits = []
+        for s in range(S):
+            lo = min(r1, r0 + s * chunk)
+            splits.append((j0, nk, lo, min(r1, lo + chunk)))
+        table.append(splits)
+    t = torch.tensor(table, dtype=torch.int32).reshape(len(tiles), S, 4)
+    return VarlenDkvTiles(t.to(device), S)
 
 
 def tile_seg_ranges(seg: torch.Tensor, tile: int) -> torch.Tensor:

@@ -165,7 +165,8 @@ def flash_attention_varlen(q, k, v, q_offsets, k_offsets, *, key_valid=None):
                           device=q.device)
     o = varlen.VarlenAttentionFn.apply(
         _to_grouped(q[None], Hkv), _to_bh(k[None]), _to_bh(v[None]), kb,
-        maps.qseg[None], maps.kseg[None], maps.q_bounds, maps.k_bounds)
+        maps.qseg[None], maps.kseg[None], maps.q_bounds, maps.k_bounds,
+        (q_offsets, k_offsets))
     return _from_grouped(o, 1, Hkv)[0]
 
 

@@ -22,9 +22,15 @@ plain version):
   tensor-core tile half at best): one warp owns one (batch, KV head,
   group), 8 rows × 4 lanes, D/4 dims a lane, shuffles sum a row's dot
   products.  Its backward (``selection_bwd``) accumulates dQ in registers
-  and adds each selection's dK, dV (summed over the group's rows by
-  shuffles) atomically into fp32 (B, Hkv, NB, ℓ, D) buffers: one atomic
-  per element and selection, summed in a run-to-run order.
+  and stores each selection's dK, dV (summed over the group's rows by a
+  shuffle reduce-scatter), fp32 and coalesced, into a staging buffer
+  (2, B·Hkv·G·k*, ℓ, D) at the selection's slot; a first pass gives the
+  slots (a stable counting sort of each head's selections by block, one
+  warp a head: :func:`scatter_ranks` is its plain version) and a last pass
+  sums each block's slots in that order and casts, all behind the one
+  entry point: no atomics, bit-reproducible.  The buffer is 252 MB at
+  shapenet's train shape (B 8 × Hkv 8 × G 480 × k* 4 = 122,880 slots of
+  8 × 32 fp32, for dK and dV; packed, B 1 × G 3,840, the same count).
 - ``tiles`` for M ≥ 16: a block owns 64 rows of one group and walks the
   group's valid selections in staged chunks of keys (``cp.async``,
   double-buffered); bf16 on the tensor cores (``mma.sync`` m16n8k16, fp32
@@ -65,7 +71,8 @@ from repro_torch.numerics import NEG_INF
 __all__ = ["selection_attention_fwd", "selection_attention_fwd_plain",
            "selection_attention_bwd", "selection_attention_bwd_plain",
            "selection_attention_dq", "selection_attention_dkv", "selection_plan",
-           "SelectionPlan", "scatter_plan", "reduce_staged_plain", "SelectionAttentionFn",
+           "SelectionPlan", "scatter_plan", "scatter_ranks", "reduce_staged_plain",
+           "SelectionAttentionFn",
            "COUNT", "COUNT_BWD", "COUNT_DQ", "COUNT_DKV"]
 
 COUNT = _counter("selection_fwd")
@@ -125,18 +132,51 @@ def scatter_plan(idx: torch.Tensor, NB: int) -> tuple[torch.Tensor, torch.Tensor
     return order.to(torch.int32), offsets.to(torch.int32)
 
 
+def scatter_ranks(idx: torch.Tensor, NB: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the warp path's first pass (``selection_bwd_ranks``
+    in ``csrc/selection_bwd.cu``): where ``selection_bwd`` stages each
+    selection.  ``rank`` (B·Hkv·G·k*,) int32: a valid selection (b, h, g, j)
+    goes to slot ``rank[flat position]``, an invalid one gets −1 and is
+    never staged; ``offsets`` (B·Hkv, NB + 1) int32: block blk of head bh
+    owns slots ``[offsets[bh, blk], offsets[bh, blk + 1])``.  Each head's
+    selections are sorted by block, stably ((g, j) order within a block, as
+    :func:`scatter_plan`), and a head's slots start at its first
+    selection's flat position bh·G·k*."""
+    B, Hkv, G, k_star = idx.shape
+    n = G * k_star
+    flat = idx.reshape(B * Hkv, n)
+    valid = (flat >= 0) & (flat < NB)
+    sorted_key, order = torch.sort(torch.where(valid, flat.long(), NB), dim=1, stable=True)
+    base = torch.arange(B * Hkv, device=idx.device)[:, None] * n
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, base + torch.arange(n, device=idx.device))
+    offsets = base + torch.searchsorted(
+        sorted_key, torch.arange(NB + 1, device=idx.device).repeat(B * Hkv, 1))
+    return (torch.where(valid, rank, -1).reshape(-1).to(torch.int32),
+            offsets.to(torch.int32))
+
+
 def reduce_staged_plain(staged: torch.Tensor, offsets: torch.Tensor,
                         shape: tuple[int, ...]) -> torch.Tensor:
-    """Plain PyTorch version of ``selection_dkv``'s second pass: block i of
-    the (B, Hkv, NB, ℓ, D) result is the sum of staged tiles
-    ``[offsets[i], offsets[i+1])`` (``staged`` (slots, ℓ, D) fp32, in
-    :func:`scatter_plan` order), zeros where a block has none."""
-    n_blocks = offsets.numel() - 1
-    counts = (offsets[1:] - offsets[:-1]).long()
+    """Plain version of the second pass of ``selection_dkv`` and of the warp
+    path's ``selection_bwd``: block i of the (B, Hkv, NB, ℓ, D) result is
+    the sum of its staged tiles (``staged`` (slots, ℓ, D) fp32), zeros
+    where a block has none.  ``offsets`` (n_blocks + 1,) as
+    :func:`scatter_plan` gives them (block i's tiles at
+    ``[offsets[i], offsets[i+1])``), or (B·Hkv, NB + 1) as
+    :func:`scatter_ranks` gives them (a head's row of ranges)."""
+    if offsets.dim() == 2:
+        lo, hi = offsets[:, :-1].reshape(-1), offsets[:, 1:].reshape(-1)
+    else:
+        lo, hi = offsets[:-1], offsets[1:]
+    counts = (hi - lo).long()
+    n_blocks = counts.numel()
     target = torch.repeat_interleave(torch.arange(n_blocks, device=staged.device), counts)
+    starts = torch.repeat_interleave(lo.long() - (torch.cumsum(counts, 0) - counts), counts)
+    src = starts + torch.arange(target.numel(), device=staged.device)
     out = torch.zeros((n_blocks,) + tuple(staged.shape[1:]), dtype=torch.float32,
                       device=staged.device)
-    out.index_add_(0, target, staged[:target.numel()].float())
+    out.index_add_(0, target, staged[src].float())
     return out.reshape(shape)
 
 
@@ -290,13 +330,17 @@ def selection_attention_bwd(q, kb, vb, idx, tok_bias, do, lse, delta):
     if plan.path == "tiles":
         return (selection_attention_dq(q, kb, vb, idx, tok_bias, do, lse, delta),
                 *selection_attention_dkv(q, kb, vb, idx, tok_bias, do, lse, delta))
-    dq = torch.empty_like(q)
-    dkb = torch.zeros(kb.shape, dtype=torch.float32, device=q.device)
-    dvb = torch.zeros(vb.shape, dtype=torch.float32, device=q.device)
-    _build.launch("selection_bwd", *ptrs, dq.data_ptr(), dkb.data_ptr(), dvb.data_ptr(),
-                  *shape, stream)
+    B, Hkv, G, _, NB, ell, k_star, D, _ = shape
+    n_slots = B * Hkv * G * k_star
+    # the kernel's first pass fills rank and offsets (scatter_ranks' layout)
+    rank = torch.empty((n_slots,), dtype=torch.int32, device=q.device)
+    offsets = torch.empty((B * Hkv, NB + 1), dtype=torch.int32, device=q.device)
+    ws = torch.empty((2, n_slots, ell, D), dtype=torch.float32, device=q.device)
+    dq, dkb, dvb = torch.empty_like(q), torch.empty_like(kb), torch.empty_like(vb)
+    _build.launch("selection_bwd", *ptrs, rank.data_ptr(), offsets.data_ptr(), ws.data_ptr(),
+                  dq.data_ptr(), dkb.data_ptr(), dvb.data_ptr(), *shape, stream)
     COUNT_BWD.hit()
-    return dq, dkb.to(kb.dtype), dvb.to(vb.dtype)
+    return dq, dkb, dvb
 
 
 class SelectionAttentionFn(torch.autograd.Function):

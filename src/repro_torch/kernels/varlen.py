@@ -19,12 +19,24 @@ reads the segment ids of its first and last row and folds only the keys of
 those segments, ``[k_bounds[s_first], k_bounds[s_last + 1])``, so it does
 Σᵢ Tᵢ·Lᵢ work and not T·L; inside that range a per-(row, key) test
 ``qseg == kseg`` on top of the key bias masks the keys of a neighbouring
-segment.  ``varlen_dq`` runs on the forward's grid; ``varlen_dkv`` on the
-transposed one, a block owning 32 keys (so that no block straddles a
-segment boundary at ball 256, ℓ 8: all blocks run in one wave, and a
-straddling block would walk two segments' rows) and folding only the query
-rows of their segments, with the GQA group's rep query heads summed in that
-loop.
+segment.  ``varlen_dq`` runs on the forward's grid.  ``varlen_dkv`` has two
+paths, one rule (:func:`varlen_plan`):
+
+- ``fma`` (fp32, the main path's dtype): a host plan
+  (:func:`repro_torch.kernels.occupancy.varlen_dkv_tiles`, from the host
+  offsets, cached) cuts each segment's keys into tiles of 64 that never
+  cross a segment boundary and each tile's segment rows into S splits of
+  whole 64-row tiles (about four blocks an SM); a block runs
+  ``flash_dkv_fma``'s register-tiled block (``csrc/fma_bwd.cuh``) on one
+  (tile, KV head, split), the GQA group's rep query heads summed in its
+  walk, and no segment test is left inside it.  With S > 1 the splits
+  write fp32 partials into a (2, S, Hkv, L, D) workspace this wrapper
+  allocates, summed in split order by a second pass behind the same entry
+  point: no atomics, bit-reproducible.
+- ``rows`` (bf16; no main path runs it): a block owns 32 keys, one a
+  thread, and folds only the query rows of their segments, with the GQA
+  group's rep query heads summed in that loop.
+
 Key tiles with no valid key are skipped, and rows that saw no valid key
 (o = 0, lse = ``LSE_EMPTY``, e.g. the capacity tail of the compression
 branch) are skipped by the backward.
@@ -34,24 +46,29 @@ Layout (GQA-native, as the TPU kernel): q (Hkv, rep, T, D); k, v
 int32 segment ids; q_bounds / k_bounds (S+2,) int32 segment boundaries
 (``kernels/occupancy.py::varlen_maps``).  The forward returns o like q and
 lse (Hkv, rep, T) fp32.  :class:`VarlenAttentionFn` is the differentiable
-op; segment ids, boundaries and the key bias take no gradient.
+op; segment ids, boundaries and the key bias take no gradient, and the host
+offsets ride along for ``varlen_dkv``'s plan.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core.branches import sdpa
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (_counter, check_cuda_inputs, on_cpu,
+from repro_torch.kernels.common import (HEAD_DIMS, _counter, check_cuda_inputs, on_cpu,
                                         p_from_lse, row_delta)
+from repro_torch.kernels.occupancy import varlen_dkv_tiles
 from repro_torch.numerics import mask_to_bias
 
 __all__ = ["flash_attention_varlen_fwd", "flash_attention_varlen_fwd_plain",
            "flash_attention_varlen_bwd", "flash_attention_varlen_bwd_plain",
-           "flash_attention_varlen_dq", "flash_attention_varlen_dkv",
-           "VarlenAttentionFn", "COUNT", "COUNT_DQ", "COUNT_DKV", "PLAIN_CHUNK"]
+           "flash_attention_varlen_dq", "flash_attention_varlen_dkv", "varlen_plan",
+           "VarlenPlan", "VarlenAttentionFn", "COUNT", "COUNT_DQ", "COUNT_DKV",
+           "PLAIN_CHUNK"]
 
 COUNT = _counter("varlen_fwd")
 COUNT_DQ = _counter("varlen_dq")
@@ -60,6 +77,29 @@ COUNT_DKV = _counter("varlen_dkv")
 # query rows per chunk of the plain versions: they hold (Hkv, rep, chunk, L)
 # logits at once, not (Hkv, rep, T, L)
 PLAIN_CHUNK = 2048
+
+
+class VarlenPlan(NamedTuple):
+    """How ``varlen_dkv`` takes one shape: ``path`` ``"fma"`` (fp32,
+    register tiles on a planned walk) or ``"rows"`` (bf16, one thread a
+    key); ``keys``: keys a block; ``rows``: query rows a staged tile."""
+    path: str
+    keys: int
+    rows: int
+
+
+def varlen_plan(D: int, dtype: torch.dtype) -> VarlenPlan:
+    """The path and tiles of ``varlen_dkv`` at head dim D: the rule its CUDA
+    entry point applies by dtype, with the constants of
+    ``csrc/fma_bwd.cuh`` (``DkvFma``: 64 keys, 64-row tiles at D ≤ 64) and
+    ``csrc/varlen_bwd.cu`` (``kKeys`` 32, ``kQTile`` 64).  fp32 takes the
+    fma path, bf16 the rows path; a shape no path takes raises."""
+    if dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["varlen_dkv"]:
+        raise ValueError(f"varlen_dkv: no path takes D {D}, {dtype} (D in "
+                         f"{HEAD_DIMS['varlen_dkv']}; float32 or bfloat16)")
+    if dtype == torch.float32:
+        return VarlenPlan("fma", 64, 64)
+    return VarlenPlan("rows", 32, 64)
 
 
 def _check_shapes(name, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds):
@@ -148,20 +188,15 @@ def flash_attention_varlen_bwd_plain(q, k, v, key_bias, qseg, kseg, do, lse, del
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_launch(name, outs, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do,
-                lse, delta):
+def _bwd_check(name, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta):
     H, rep, T, D = q.shape
     if do.shape != q.shape or lse.shape != (H, rep, T) or delta.shape != lse.shape:
         raise ValueError(f"{name}: dO must be {tuple(q.shape)} and lse / delta "
                          f"{(H, rep, T)}")
     check_cuda_inputs(name, data=(q, k, v, do), f32=(key_bias, lse, delta),
                       i32=(qseg, kseg, q_bounds, k_bounds), head_dim=D)
-    _build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-                  qseg.data_ptr(), kseg.data_ptr(), q_bounds.data_ptr(),
-                  k_bounds.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  *(t.data_ptr() for t in outs), H, rep, T, k.shape[1], D,
-                  int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    return [t.data_ptr() for t in (q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do,
+                                   lse, delta)]
 
 
 def flash_attention_varlen_dq(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do,
@@ -173,47 +208,77 @@ def flash_attention_varlen_dq(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds,
     if on_cpu(*args, do, lse, delta):
         return flash_attention_varlen_bwd_plain(q, k, v, key_bias, qseg, kseg, do,
                                                 lse, delta)[0]
+    ptrs = _bwd_check("varlen_dq", *args, do, lse, delta)
+    H, rep, T, D = q.shape
     dq = torch.empty_like(q)
-    _bwd_launch("varlen_dq", (dq,), *args, do, lse, delta)
+    _build.launch("varlen_dq", *ptrs, dq.data_ptr(), H, rep, T, k.shape[1], D,
+                  int(q.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     COUNT_DQ.hit()
     return dq
 
 
 def flash_attention_varlen_dkv(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do,
-                               lse, delta):
+                               lse, delta, *, offsets=None):
     """(dk, dv) from the forward's lse and δ: the ``varlen_dkv`` kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors.  ``offsets``: the host
+    (q_offsets, k_offsets) the maps were built from; the fma path (fp32)
+    plans its walk from them (:func:`varlen_dkv_tiles`, splits for the
+    card's SM count) and raises without them."""
     args = (q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds)
     _check_shapes("varlen_dkv", *args)
     if on_cpu(*args, do, lse, delta):
         return flash_attention_varlen_bwd_plain(q, k, v, key_bias, qseg, kseg, do,
                                                 lse, delta)[1:]
+    ptrs = _bwd_check("varlen_dkv", *args, do, lse, delta)
+    H, rep, T, D = q.shape
+    L = k.shape[1]
+    plan = varlen_plan(D, q.dtype)
+    table, ws, S = None, None, 0
+    if plan.path == "fma":
+        if offsets is None:
+            raise ValueError("varlen_dkv: the fp32 path plans its walk from the host "
+                             "offsets; pass offsets=(q_offsets, k_offsets)")
+        tiles = varlen_dkv_tiles(*offsets, T, L, q.device, keys=plan.keys, rows=plan.rows,
+                                 heads=H, sms=torch.cuda.get_device_properties(
+                                     q.device).multi_processor_count)
+        table, S = tiles.table, tiles.splits
+        if S > 1:
+            ws = torch.empty((2, S, H, L, D), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("varlen_dkv", (dk, dv), *args, do, lse, delta)
+    _build.launch("varlen_dkv", *ptrs, None if table is None else table.data_ptr(),
+                  None if ws is None else ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), H,
+                  rep, T, L, 0 if table is None else table.shape[0], S, D,
+                  int(q.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     COUNT_DKV.hit()
     return dk, dv
 
 
 def flash_attention_varlen_bwd(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do,
-                               lse, delta):
-    """(dq, dk, dv): the two backward kernels on CUDA tensors, the plain
-    version on CPU tensors."""
+                               lse, delta, *, offsets=None):
+    """(dq, dk, dv): the two backward kernels on CUDA tensors (``offsets``
+    as :func:`flash_attention_varlen_dkv` takes them), the plain version on
+    CPU tensors."""
     args = (q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta)
     if on_cpu(*args):
         return flash_attention_varlen_bwd_plain(q, k, v, key_bias, qseg, kseg, do,
                                                 lse, delta)
-    return (flash_attention_varlen_dq(*args), *flash_attention_varlen_dkv(*args))
+    return (flash_attention_varlen_dq(*args),
+            *flash_attention_varlen_dkv(*args, offsets=offsets))
 
 
 class VarlenAttentionFn(torch.autograd.Function):
     """Differentiable packed-varlen attention in q, k, v (the key bias,
-    segment ids and boundaries take no gradient)."""
+    segment ids and boundaries take no gradient; ``offsets``, the host
+    (q_offsets, k_offsets), go to the backward's plan)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds):
+    def forward(ctx, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, offsets=None):
         o, lse = flash_attention_varlen_fwd(q, k, v, key_bias, qseg, kseg,
                                             q_bounds, k_bounds)
         ctx.save_for_backward(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, o, lse)
+        ctx.offsets = offsets
         return o
 
     @staticmethod
@@ -222,5 +287,6 @@ class VarlenAttentionFn(torch.autograd.Function):
         q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, o, lse = ctx.saved_tensors
         do = do.contiguous()
         dq, dk, dv = flash_attention_varlen_bwd(q, k, v, key_bias, qseg, kseg, q_bounds,
-                                                k_bounds, do, lse, row_delta(do, o))
-        return dq, dk, dv, None, None, None, None, None
+                                                k_bounds, do, lse, row_delta(do, o),
+                                                offsets=ctx.offsets)
+        return dq, dk, dv, None, None, None, None, None, None

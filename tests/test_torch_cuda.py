@@ -391,6 +391,34 @@ def test_selection_bwd_tiles_deterministic(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("M", [4 * REP, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selection_bwd_warp_hot_block(cuda, dtype, M):
+    """The warp path stages each selection's dK, dV and sums every block's
+    in a fixed order: with every live group picking block 0 (and block 0
+    twice in some groups, −1 and out-of-range picks beside), groups of 8
+    rows (one pass) and 12 (two passes, the second adding to the first),
+    it matches the plain version and gives identical bits on two calls."""
+    from repro_torch.kernels import selection
+    q, kb, vb, idx, tok = _selection_case(cuda, dtype, M, ELL, D, ks=3)
+    idx[:2, :, :, 0] = 0                                # every live group (slot 2 is dead)
+    idx[0, 1, :3, 2] = 0                                # block 0 twice in a group
+    assert selection.selection_plan(M, ELL, D, dtype).path == "warp"
+    o, lse = selection.selection_attention_fwd(q, kb, vb, idx, tok)
+    rest = _bwd_inputs(o, lse, dtype, 15)
+    before = selection.COUNT_BWD.n
+    first = selection.selection_attention_bwd(q, kb, vb, idx, tok, *rest)
+    second = selection.selection_attention_bwd(q, kb, vb, idx, tok, *rest)
+    torch.cuda.synchronize()
+    assert selection.COUNT_BWD.n == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    tol = {torch.float32: TOL[torch.float32],
+           torch.bfloat16: dict(atol=6e-2, rtol=6e-2)}[dtype]
+    plain_idx = torch.where(idx < NB, idx, -1)
+    _check(first, selection.selection_attention_bwd_plain(q, kb, vb, plain_idx, tok, *rest),
+           dtype, tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_epilogue_bwd_kernel(cuda, dtype):
     from repro_torch.kernels import epilogue
@@ -440,27 +468,29 @@ def test_train_step_grads_match_reference(cuda):
 # k_offsets = offsets / ℓ as in the compression branch
 # ---------------------------------------------------------------------------
 
-def _varlen_case(dtype, dev, seed):
+def _varlen_case(dtype, dev, seed, sizes=(20, 45, 33, 11), pad_to=160, rep=REP,
+                 dead_block=2):
+    """Packed-varlen inputs and the host offsets (q_offsets, k_offsets) of
+    clouds of ``sizes`` points packed at ball 16 to ``pad_to`` rows."""
     from repro_torch.core.balltree import pack_varlen
     from repro_torch.kernels.occupancy import varlen_maps
-    sizes = (20, 45, 33, 11)
-    _, offsets, mask = pack_varlen([np.zeros((n, 1)) for n in sizes], BALL, pad_to=160,
-                                   max_samples=5)
-    T, L = 160, 160 // ELL
+    _, offsets, mask = pack_varlen([np.zeros((n, 1)) for n in sizes], BALL, pad_to=pad_to,
+                                   max_samples=len(sizes) + 1)
+    T, L = pad_to, pad_to // ELL
     maps = varlen_maps(offsets, offsets // ELL, T, L, dev)
     blk = torch.from_numpy(mask.reshape(L, ELL).any(-1)).to(dev)
-    blk[2] = False                            # a dead block inside a segment
-    q = _rand((HKV, REP, T, D), dtype, dev, seed)
+    blk[dead_block] = False                   # a dead block inside a segment
+    q = _rand((HKV, rep, T, D), dtype, dev, seed)
     k = _rand((HKV, L, D), dtype, dev, seed + 1)
     v = _rand((HKV, L, D), dtype, dev, seed + 2)
-    return (q, k, v, _bias(blk)[None], maps.qseg[None], maps.kseg[None], maps.q_bounds,
-            maps.k_bounds)
+    return ((q, k, v, _bias(blk)[None], maps.qseg[None], maps.kseg[None], maps.q_bounds,
+             maps.k_bounds), (offsets, offsets // ELL))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_varlen_kernel(cuda, dtype):
     from repro_torch.kernels import varlen
-    args = _varlen_case(dtype, cuda, 20)
+    args, _ = _varlen_case(dtype, cuda, 20)
     before = varlen.COUNT.n
     got = varlen.flash_attention_varlen_fwd(*args)
     torch.cuda.synchronize()
@@ -472,16 +502,56 @@ def test_varlen_kernel(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_varlen_bwd_kernels(cuda, dtype):
     from repro_torch.kernels import varlen
-    args = _varlen_case(dtype, cuda, 23)
+    args, offsets = _varlen_case(dtype, cuda, 23)
     o, lse = varlen.flash_attention_varlen_fwd(*args)
     rest = _bwd_inputs(o, lse, dtype, 26)
     before = (varlen.COUNT_DQ.n, varlen.COUNT_DKV.n)
-    got = varlen.flash_attention_varlen_bwd(*args, *rest)
+    got = varlen.flash_attention_varlen_bwd(*args, *rest, offsets=offsets)
     torch.cuda.synchronize()
     assert (varlen.COUNT_DQ.n, varlen.COUNT_DKV.n) == (before[0] + 1, before[1] + 1)
     _check(got, varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest), dtype)
     assert bool((got[0][..., 144:, :] == 0).all())       # tail rows: exact zeros
     assert bool((got[1][:, 2] == 0).all())               # the dead block
+    if dtype == torch.float32:                           # the fma path needs the offsets
+        with pytest.raises(ValueError, match="offsets"):
+            varlen.flash_attention_varlen_dkv(*args, *rest)
+
+
+@pytest.mark.parametrize("sms", [0, 10, 1000])
+@pytest.mark.parametrize("rep", [1, 3])
+def test_varlen_dkv_fma_edges(cuda, rep, sms, monkeypatch):
+    """The fp32 ``varlen_dkv`` on its planned walk: segments of 76, 8 and 136
+    pooled keys (ragged 64-key tiles; the 8-key segment has 32 rows, under
+    one 64-row tile), a capacity tail of 20 keys with no valid key, a dead
+    key block, every row of segment 1 set to LSE_EMPTY (a segment whose rows
+    are all padding), rep 1 and 3, the row splits at 1, 3 and 9 (``sms``);
+    against the plain version, with exact zeros on the tail's keys and on
+    segment 1's, and identical bits on a second call."""
+    from repro_torch.kernels import occupancy, varlen
+    from repro_torch.kernels.common import LSE_EMPTY
+    args, offsets = _varlen_case(torch.float32, cuda, 40, sizes=(300, 20, 530), pad_to=960,
+                                 rep=rep, dead_block=5)
+    plan = occupancy.varlen_dkv_tiles(*offsets, 960, 240, cuda, keys=64, rows=64,
+                                      heads=HKV, sms=sms)
+    assert plan.splits == {0: 1, 10: 3, 1000: 9}[sms] and plan.table.shape[0] == 7
+    orig = occupancy.varlen_dkv_tiles
+    monkeypatch.setattr(varlen, "varlen_dkv_tiles",
+                        lambda *a, **kw: orig(*a, **{**kw, "sms": sms}))
+    o, lse = varlen.flash_attention_varlen_fwd(*args)
+    q0, q1 = int(offsets[0][1]), int(offsets[0][2])      # segment 1's rows
+    lse[:, :, q0:q1] = LSE_EMPTY
+    o[:, :, q0:q1] = 0
+    rest = _bwd_inputs(o, lse, torch.float32, 41)
+    before = varlen.COUNT_DKV.n
+    got = varlen.flash_attention_varlen_dkv(*args, *rest, offsets=offsets)
+    again = varlen.flash_attention_varlen_dkv(*args, *rest, offsets=offsets)
+    torch.cuda.synchronize()
+    assert varlen.COUNT_DKV.n == before + 2
+    _check(got, varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest)[1:], torch.float32)
+    k0, k1, tail = int(offsets[1][1]), int(offsets[1][2]), int(offsets[1][-1])
+    assert all(bool((g[:, k0:k1] == 0).all()) and bool((g[:, tail:] == 0).all())
+               for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_packed_model_matches_reference(cuda):

@@ -9,7 +9,9 @@ versions at a group of the LM's kind, against the JAX package.
 - The tiled backward's scatter step: :func:`selection.scatter_plan`'s
   inverse index and :func:`selection.reduce_staged_plain` (the plain version
   of ``selection_dkv``'s second pass) against
-  ``repro.kernels.selection._scatter_blocks`` on numpy inputs.
+  ``repro.kernels.selection._scatter_blocks`` on numpy inputs; the warp
+  path's at M = 8 (:func:`selection.scatter_ranks`' slots, the same
+  reduce) against the plain backward and ``_scatter_blocks``.
 - The plain forward and backward (what the wrappers run on CPU tensors and
   what ``chip_smoke.py`` holds the CUDA kernels to) against the Pallas
   kernel in interpret mode (``_fwd_call`` and ``jax.vjp`` through
@@ -31,7 +33,9 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.kernels import selection as j_sel
 from repro_torch.configs import get_config
+from repro_torch.core.branches import sdpa
 from repro_torch.kernels import selection
+from repro_torch.kernels.common import row_delta
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 TOL = {"float32": dict(atol=1e-3, rtol=1e-3), "bfloat16": dict(atol=4e-2, rtol=4e-2)}
@@ -139,6 +143,68 @@ def test_scatter_plan_matches_jax_scatter_blocks(kind):
     staged = torch.from_numpy(d_sel).reshape(-1, ell, D)[order.long()]
     got = selection.reduce_staged_plain(staged, offsets, (B, Hkv, NB, ell, D))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "every_group_one_block", "random"])
+def test_warp_rank_staging_matches_plain_and_jax(kind):
+    """The warp path's backward at groups of M = 8 rows: each selection's dK,
+    dV tile (autograd of the plain forward through the gathered blocks)
+    stored at slot ``rank[flat position]`` (:func:`selection.scatter_ranks`,
+    the plain version of the kernel's first pass) and summed by
+    :func:`selection.reduce_staged_plain` equals the plain backward's dkb,
+    dvb and JAX's ``_scatter_blocks``; duplicate picks within a group, −1
+    picks, a block picked by every group and a head with nothing valid
+    (``_scatter_case``).  Each block's slots hold its selections in
+    :func:`selection.scatter_plan`'s order; invalid selections get −1 and
+    their slots (NaN here) are never read."""
+    rng = np.random.default_rng(10 + ["duplicates", "every_group_one_block",
+                                      "random"].index(kind))
+    idx, NB = _scatter_case(kind, rng)
+    B, Hkv, G, k_star = idx.shape
+    M, ell, D = 8, 4, 16
+    assert selection.selection_plan(M, ell, D, torch.float32).path == "warp"
+    q, do = (torch.from_numpy(rng.standard_normal((B, Hkv, G, M, D)).astype(np.float32))
+             for _ in range(2))
+    kb, vb = (torch.from_numpy(rng.standard_normal((B, Hkv, NB, ell, D)).astype(np.float32))
+              for _ in range(2))
+    tok = np.zeros((B, NB, ell), np.float32)
+    tok[0, 2, 1:] = -1e30                                # masked keys
+    tok = torch.from_numpy(tok)
+    tidx = torch.from_numpy(idx)
+    kg, vg, bias, _ = selection._gather(kb, vb, tidx, tok)
+    kg, vg = kg.requires_grad_(True), vg.requires_grad_(True)
+    o, lse = sdpa(q, kg, vg, bias, return_lse=True)
+    o.backward(do)
+    d_sel = [g.reshape(B, Hkv, G, k_star, ell, D) for g in (kg.grad, vg.grad)]
+
+    rank, offsets = selection.scatter_ranks(tidx, NB)
+    order, flat_offsets = selection.scatter_plan(tidx, NB)
+    assert rank.dtype == offsets.dtype == torch.int32 and offsets.shape == (B * Hkv, NB + 1)
+    valid = torch.from_numpy(((idx >= 0) & (idx < NB)).reshape(-1))
+    n = G * k_star
+    assert bool((rank[~valid] == -1).all()) and len(set(rank[valid].tolist())) == int(valid.sum())
+    head = torch.arange(rank.numel()) // n
+    assert bool((rank[valid] // n == head[valid]).all())      # a head's slots are its own
+    # per block the same selections in the same (g, j) order as scatter_plan's
+    counts = flat_offsets[1:] - flat_offsets[:-1]
+    assert torch.equal(offsets[:, 1:] - offsets[:, :-1], counts.reshape(B * Hkv, NB))
+    by_slot = torch.full((rank.numel(),), -1, dtype=torch.long)
+    by_slot[rank[valid].long()] = torch.arange(rank.numel())[valid]
+    for i, (lo, hi) in enumerate(zip(offsets[:, :-1].reshape(-1).tolist(),
+                                     offsets[:, 1:].reshape(-1).tolist())):
+        own = order[flat_offsets[i]:flat_offsets[i + 1]].long()
+        assert torch.equal(by_slot[lo:hi], own)
+    want = selection.selection_attention_bwd_plain(q, kb, vb, tidx, tok, do, lse.detach(),
+                                                   row_delta(do, o.detach()))[1:]
+    for d, w in zip(d_sel, want):
+        staged = torch.full((rank.numel(), ell, D), float("nan"))   # unwritten slots
+        flat = d.reshape(-1, ell, D).detach()
+        staged[rank[valid].long()] = flat[valid]
+        got = selection.reduce_staged_plain(staged, offsets, (B, Hkv, NB, ell, D))
+        jax_want = np.asarray(j_sel._scatter_blocks(jnp.asarray(d.detach().numpy()),
+                                                    jnp.asarray(idx), NB))
+        np.testing.assert_allclose(got.numpy(), w.numpy(), **BWD_TOL["float32"])
+        np.testing.assert_allclose(got.numpy(), jax_want, atol=1e-5, rtol=1e-5)
 
 
 def _lm_group_case(seed):

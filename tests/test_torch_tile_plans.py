@@ -24,18 +24,28 @@ that pick their paths, checked on the CPU.
   with their tiles pinned to the constants of ``csrc/flash_fwd.cu``,
   ``csrc/local_fwd.cu``, ``csrc/local_bwd.cu``, ``csrc/bta_fwd.cu`` and
   ``csrc/bta_bwd.cu``.
+- :func:`occupancy.varlen_dkv_tiles` (the fp32 ``varlen_dkv``'s walk) on
+  offsets from ``pack_varlen``: every pooled key of every segment, the
+  capacity tail's too, in exactly one tile that lies in one segment, each
+  tile's splits covering that segment's rows in whole row tiles and in
+  order; ragged segments, a segment shorter than one row tile, empty
+  segments, and the paper's ball 256 / ℓ 8 at shapenet's packed batch.
+  :func:`varlen.varlen_plan` at its boundaries, pinned to ``DkvFma``
+  (``csrc/fma_bwd.cuh``) and ``csrc/varlen_bwd.cu``'s row kernel.
 """
 
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config, list_configs
-from repro_torch.kernels import bta, flash, local
-from repro_torch.kernels.occupancy import local_half_live
-from repro_torch.numerics import NEG_INF
+from repro_torch.core.balltree import pack_varlen
+from repro_torch.kernels import bta, flash, local, varlen
+from repro_torch.kernels.occupancy import local_half_live, varlen_dkv_tiles
+from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 DTYPES = [torch.bfloat16, torch.float32]
@@ -381,6 +391,78 @@ def test_local_fwd_plan_boundaries(D, window, dtype):
             local.dq_walk(window, D, dtype)
 
 
+# ---------------------------------------------------------------------------
+# varlen_dkv's planned walk
+# ---------------------------------------------------------------------------
+
+# (cloud sizes, ball, ℓ, capacity): ragged segments with an empty one; a
+# segment shorter than one 64-row tile; shapenet's packed train batch (8
+# clouds of 2800–3586 points at ball 256, ℓ 8, capacity 30,720)
+VARLEN_LAYOUTS = {
+    "ragged": ((300, 20, 530, 0, 97), 16, 4, 1280),
+    "short": ((40, 700, 12), 16, 8, 1024),
+    "paper": ((3586, 2800, 3100, 3333, 2950, 3500, 3010, 2871), 256, 8, 30720),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [1, 8])
+@pytest.mark.parametrize("layout", list(VARLEN_LAYOUTS))
+def test_varlen_dkv_tiles_cover_each_key_once(layout, heads, dtype):
+    sizes, ball, ell, T = VARLEN_LAYOUTS[layout]
+    _, offsets, _ = pack_varlen([np.zeros((n, 1)) for n in sizes], ball, pad_to=T,
+                                max_samples=len(sizes))
+    L = T // ell
+    plan = varlen.varlen_plan(32, torch.float32)
+    tiles = varlen_dkv_tiles(offsets, offsets // ell, T, L, "cpu", keys=plan.keys,
+                             rows=plan.rows, heads=heads)
+    table, S = tiles.table, tiles.splits
+    assert table.dtype == torch.int32 and table.shape[1:] == (S, 4)
+    qseg = segment_ids_from_offsets(torch.from_numpy(offsets), T)
+    kseg = segment_ids_from_offsets(torch.from_numpy(offsets // ell), L)
+    seen = torch.zeros(L, dtype=torch.long)
+    longest = 0
+    for t in table.tolist():
+        j0, nk = t[0][:2]
+        assert all(sp[:2] == [j0, nk] for sp in t) and 1 <= nk <= plan.keys
+        seen[j0:j0 + nk] += 1
+        seg = int(kseg[j0])
+        assert bool((kseg[j0:j0 + nk] == seg).all())              # one segment
+        assert nk == plan.keys or j0 + nk == L or int(kseg[j0 + nk]) != seg  # ragged: last
+        rows = (qseg == seg).nonzero().flatten()
+        r0, r1 = (int(rows[0]), int(rows[-1]) + 1) if rows.numel() else (t[0][2],) * 2
+        assert r1 - r0 == rows.numel()                            # the segment's rows
+        longest = max(longest, r1 - r0)
+        assert t[0][2] == r0 and t[-1][3] == r1                   # covered, in order
+        for a, b in zip(t[:-1], t[1:]):
+            assert a[3] == b[2] and a[2] <= a[3]
+            assert (a[3] - a[2]) % plan.rows == 0 or b[2] == b[3] == r1
+    assert bool((seen == 1).all())                                # each key once
+    blocks = table.shape[0] * heads
+    assert S == max(1, min(-(-4 * 132 // blocks), -(-longest // plan.rows)))
+    if layout == "paper":             # 62 tiles, 4 of them ragged: 2 splits for 8 heads
+        assert (table.shape[0], S) == (62, {1: 9, 8: 2}[heads])
+        assert int((table[:, 0, 1] < plan.keys).sum()) == 4
+    if dtype == torch.bfloat16:
+        assert varlen.varlen_plan(32, dtype).path == "rows"
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_varlen_plan_matches_source_constants(D):
+    """fp32 takes the fma path with ``DkvFma``'s 64 keys and 64-row tiles
+    (``csrc/fma_bwd.cuh``, shared with ``flash_dkv``); bf16 the rows path's
+    ``kKeys`` keys a block and ``kQTile``-row tiles."""
+    fma = varlen.varlen_plan(D, torch.float32)
+    c = _consts(CSRC / "fma_bwd.cuh", "DkvFma", D)
+    assert fma == ("fma", c["BK"], c["BM"]) == ("fma", 64, 64)
+    rows = varlen.varlen_plan(D, torch.bfloat16)
+    text = (CSRC / "varlen_bwd.cu").read_text()
+    assert rows == ("rows", int(re.search(r"kKeys = (\d+);", text).group(1)),
+                    int(re.search(r"kQTile = (\d+);", text).group(1)))
+    assert "varlen_dkv_fma" in text and "atomicAdd" not in text
+    assert "rt::fma_dkv_block" in (CSRC / "flash_bwd.cu").read_text()   # one shared step
+
+
 @pytest.mark.parametrize("call", [lambda: flash.flash_fwd_plan(48, torch.bfloat16),
                                   lambda: flash.flash_fwd_plan(64, torch.float16),
                                   lambda: local.local_plan(0, 64, torch.bfloat16),
@@ -390,9 +472,13 @@ def test_local_fwd_plan_boundaries(D, window, dtype):
                                   lambda: bta.bta_plan(256, 128, 1, torch.float32),
                                   lambda: bta.bta_plan(256, 32, 1, torch.float16),
                                   lambda: bta.bta_plan(0, 32, 1, torch.float32),
-                                  lambda: bta.fwd_walk(32, 32, 1, torch.float32)],
+                                  lambda: bta.fwd_walk(32, 32, 1, torch.float32),
+                                  lambda: varlen.varlen_plan(128, torch.float32),
+                                  lambda: varlen.varlen_plan(48, torch.bfloat16),
+                                  lambda: varlen.varlen_plan(32, torch.float16)],
                          ids=["fwd-D48", "fwd-fp16", "local-w0", "local-D48", "walk-lanes",
-                              "bta-D48", "bta-D128", "bta-fp16", "bta-m0", "bta-walk-rows"])
+                              "bta-D48", "bta-D128", "bta-fp16", "bta-m0", "bta-walk-rows",
+                              "varlen-D128", "varlen-D48", "varlen-fp16"])
 def test_plans_raise(call):
     with pytest.raises(ValueError):
         call()

@@ -3,7 +3,9 @@
 All clouds of a batch on one token axis with an ``offsets`` boundary array:
 ``numerics.segment_ids_from_offsets``, ``balltree.pack_varlen`` /
 ``unpack_varlen``, the varlen maps, the varlen kernel's plain versions
-(forward and backward, against the Pallas kernel in interpret mode),
+(forward and backward, against the Pallas kernel in interpret mode), a
+plain walk of the fp32 ``varlen_dkv``'s planned key tiles and row splits
+(against the plain backward and the Pallas ``_dkv_kernel``),
 ``ops.flash_attention_varlen``, ``bsa_attention_varlen`` (branch by branch
 and its gradients), ``pc_apply`` with offsets, a 2-layer packed train step
 and ``GeometryEngine`` in its default (packed) layout.  The same numpy
@@ -43,7 +45,7 @@ from repro_torch.core.config import BSAConfig
 from repro_torch.kernels import occupancy as t_occ
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import varlen as t_varlen
-from repro_torch.kernels.common import row_delta
+from repro_torch.kernels.common import p_from_lse, row_delta
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import pointcloud as t_pc
 from repro_torch.models.api import model_api
@@ -248,6 +250,62 @@ def test_varlen_bwd_plain_matches_pallas(sizes, dtype):
         assert g.dtype == getattr(torch, dtype)
         np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **TOL[dtype])
     assert (_np(got[0])[..., offsets[-1]:, :] == 0).all()  # tail rows: exact zeros
+
+
+def _planned_dkv_walk(q, k, v, key_bias, do, lse, delta, tiles):
+    """A plain-PyTorch walk of ``varlen_dkv``'s fma plan: each (key tile,
+    split) block's dK, dV partials over its rows (no segment test: a tile's
+    rows are its segment's), summed in split order, as the kernel and its
+    second pass sum them."""
+    H, rep, T, D = q.shape
+    scale = D ** -0.5
+    S = tiles.splits
+    parts = torch.zeros((2, S) + tuple(k.shape))
+    for t in tiles.table.tolist():
+        for s, (j0, nk, lo, hi) in enumerate(t):
+            keys = slice(j0, j0 + nk)
+            qf, dof = q[:, :, lo:hi].float(), do[:, :, lo:hi].float()
+            logits = (torch.matmul(qf, k[:, None, keys].float().transpose(-1, -2)) * scale
+                      + key_bias[0, keys])
+            p = p_from_lse(logits, lse[:, :, lo:hi, None])
+            dp = torch.matmul(dof, v[:, None, keys].float().transpose(-1, -2))
+            ds = p * (dp - delta[:, :, lo:hi, None]) * scale
+            parts[1, s, :, keys] = torch.einsum("hrnl,hrnd->hld", p, dof)
+            parts[0, s, :, keys] = torch.einsum("hrnl,hrnd->hld", ds, qf)
+    out = parts[:, 0]
+    for s in range(1, S):
+        out = out + parts[:, s]
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("keys,rows", [(64, 64), (4, 16)], ids=["kernel", "small"])
+@pytest.mark.parametrize("sizes", MIXES)
+def test_varlen_dkv_planned_walk_matches_plain_and_pallas(sizes, keys, rows):
+    """The fp32 ``varlen_dkv``'s planned walk (``occupancy.varlen_dkv_tiles``
+    at the kernel's 64 keys / 64 rows, and at 4 keys / 16 rows for many
+    tiles and splits a segment) summed in split order equals the plain
+    backward's dk, dv and JAX's ``_dkv_kernel`` in interpret mode (fp32,
+    1e-4), capacity tail and empty segments included."""
+    arrays, offsets = _kernel_case(sizes, 7, "float32")
+    q, k, v, kb = arrays
+    T, L = q.shape[2], k.shape[1]
+    args = _torch_args(arrays, offsets, "float32")
+    o, lse = t_varlen.flash_attention_varlen_fwd_plain(*args[:6])
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal(q.shape).astype(np.float32))
+    delta = row_delta(do, o)
+    tiles = t_occ.varlen_dkv_tiles(offsets, offsets // ELL, T, L, "cpu", keys=keys, rows=rows,
+                                   heads=HKV, sms=1000)
+    assert tiles.splits > 1 or keys == 64
+    got = _planned_dkv_walk(*args[:4], do, lse, delta, tiles)
+    want = t_varlen.flash_attention_varlen_bwd_plain(*args[:6], do, lse, delta)[1:]
+    qseg, kseg, qrng, krng = _jax_maps(offsets, T, L)
+    jax_dkv = j_varlen._bwd_calls(
+        *(jnp.asarray(a) for a in (q, k, v, kb)), qseg[None], kseg[None], qrng, krng,
+        jnp.asarray(do.numpy()), jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy()),
+        tq=min(64, T), tk=min(16, L), interpret=True, compute="float32")[1:]
+    for g, w, j, name in zip(got, want, jax_dkv, ("dk", "dv")):
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **TOL["float32"])
+        np.testing.assert_allclose(_np(g), _np(j), err_msg=name, **TOL["float32"])
 
 
 def test_varlen_bwd_plain_is_autograd_of_forward():
