@@ -13,8 +13,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    ``flash_dq``, ``flash_dkv``, the tiled selection kernels, ``local_dq``
    and ``local_dkv`` in every variant and ``local_fwd_mma``, must build
    with 0 bytes spilled at head dims 64 and 128, ``bta_fwd_fma`` /
-   ``bta_bwd_fma`` at 16 and 32, and ``varlen_dkv_fma`` at 16, 32 and 64,
-   by ptxas's report: ``NO_SPILL``), TF32 off for every fp32 product;
+   ``bta_bwd_fma`` at 16 and 32, and ``varlen_fwd_fma``, ``varlen_dq_fma``
+   and ``varlen_dkv_fma`` at 16, 32 and 64, by ptxas's report:
+   ``NO_SPILL``), TF32 off for every fp32 product;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16 and, for flash, in its causal modes too (fp32; the
    tiled ``flash_fwd``: register tiles in fp32, tensor cores in bf16); with
@@ -39,9 +40,14 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    the compression branch (the first 8 serving clouds packed to a capacity
    of 30,720 rows, queries against the 3840 pooled keys, ``k_offsets =
    offsets / 8``), ``varlen_dq`` and ``varlen_dkv`` at the packed train
-   batch's (``varlen_dkv`` on its planned fp32 walk, ``varlen.varlen_plan``,
-   identical bits on two calls: the ``varlen_dkv_repro`` line), with their
-   device times and paths;
+   batch's (fp32 on the planned walks, ``varlen.varlen_plan``: the row
+   tiles of ``occupancy.varlen_row_tiles`` for the forward and dQ, the key
+   tiles and splits of ``occupancy.varlen_dkv_tiles`` for dK/dV; each of
+   the three kernels gives identical bits on two calls: the
+   ``varlen_repro`` lines), with their device times and paths; then the
+   ``output_hashes`` line: hashes of ``flash_fwd``'s and ``flash_dq``'s
+   outputs on seeded inputs, which hold a change that moves their code to
+   its parent's bits;
 3. serve, padded then packed: ``shapenet-bsa`` at full width (18 layers,
    random weights from a seed) serves 16 synthetic clouds of 2800–3586
    points through ``GeometryEngine(batch_slots=8)`` (the ball kernels on
@@ -153,6 +159,7 @@ non-zero before the result lines.  On success the last line is
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -181,7 +188,8 @@ from repro_torch.kernels import (_build, bta, epilogue, flash, local, paged,  # 
 from repro_torch.kernels.common import (COUNTERS, HEAD_DIMS, reset_counters,  # noqa: E402
                                         row_delta)
 from repro_torch.kernels.occupancy import (ranges_live_map, tile_seg_ranges,  # noqa: E402
-                                           varlen_dkv_tiles, varlen_maps)
+                                           varlen_dkv_tiles, varlen_maps,
+                                           varlen_row_tiles)
 from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
 from repro_torch.layers.losses import masked_mean_nll  # noqa: E402
 from repro_torch.layers.nn import dense, embed, rmsnorm  # noqa: E402
@@ -282,7 +290,8 @@ D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
 # the redesigned kernels must build without spills at these head dims, every
 # variant: mma (bf16 tensor cores), fma (fp32 register tiles) and, for the
 # local backward, lanes (fp32 and small windows, both dtypes); the ball
-# kernels' fma variants at the head dims their fma path takes (16, 32)
+# kernels' fma variants at the head dims their fma path takes (16, 32), the
+# varlen kernels' at theirs (16, 32, 64)
 NO_SPILL = {**{name: ((64, 128), ("mma", "fma"))
                for name in ("flash_fwd", "flash_dq", "flash_dkv", "selection_fwd",
                             "selection_dq", "selection_dkv")},
@@ -290,7 +299,8 @@ NO_SPILL = {**{name: ((64, 128), ("mma", "fma"))
             "local_dq": ((64, 128), ("mma", "lanes")),
             "local_dkv": ((64, 128), ("mma", "lanes")),
             **{name: (bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")},
-            "varlen_dkv": (HEAD_DIMS["varlen_dkv"], ("fma",))}
+            **{name: (HEAD_DIMS[name], ("fma",))
+               for name in ("varlen_fwd", "varlen_dq", "varlen_dkv")}}
 # a kernel's further rows in the kernels line, beside its main path's (name
 # -> [(key, path whose launches it reports or None, dtype, mode)]): the LM
 # prefill's flash_fwd beside the shapenet train path's, the D 128 rows, and
@@ -936,33 +946,53 @@ def varlen_case(dev, offsets, mask, dtype, seed):
     return args, dense_mask
 
 
+def varlen_repro(name, dtype, calls, **plan) -> None:
+    """Two calls of a varlen kernel on the same inputs: the ``varlen_repro``
+    line, and a failed check unless their bits are equal."""
+    first, second = calls(), calls()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    line = {"name": name, "dtype": str(dtype).replace("torch.", ""), "bit_identical": same}
+    print(json.dumps({"varlen_repro": {**line, **plan}}), flush=True)
+    check(same, f"{name} [{dtype}]: two calls on the same inputs differ")
+
+
 def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dict]:
     """The three varlen kernels against their plain versions: the forward at
     packed serving's shapes, the backward at the packed train batch's, with
-    an upstream gradient that is zero on padded query rows."""
+    an upstream gradient that is zero on padded query rows; the host
+    offsets go to every call, as ``VarlenAttentionFn`` passes them."""
     results = []
     record = recorder(results)
     T = CAPACITY
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
+        plan = varlen.varlen_plan(D, dtype)
         # ---- forward: the first 8 serving clouds packed to 30,720 rows
         args, dense = varlen_case(dev, serve_offsets, serve_mask, dtype, 60)
         q, k, v = args[:3]
-        got = varlen.flash_attention_varlen_fwd(*args)
+        off = dict(offsets=(serve_offsets, serve_offsets // ELL))
+        fwd_call = lambda: varlen.flash_attention_varlen_fwd(*args, **off)  # noqa: E731
+        got = fwd_call()
         want = varlen.flash_attention_varlen_fwd_plain(*args[:6])
         torch.cuda.synchronize()
         err, ok = max_err(got, want)
+        row_plan = {}
+        if plan.path == "fma":
+            row_plan = dict(row_tiles=varlen_row_tiles(*off["offsets"], T, k.shape[1], dev,
+                                                       rows=plan.rows).shape[0])
+        varlen_repro("varlen_fwd", dtype, fwd_call, path=plan.path, **row_plan)
         pairs = H * same_segment_pairs(serve_offsets, serve_mask)
         nbytes = (2 * q.numel() + 2 * k.numel()) * es + 4 * 3 * k.shape[1] + 4 * T \
             + 4 * q.numel() // D
         b_ms, b_by = bound(nbytes, 4.0 * D * pairs, dtype)
         qs, ks, vs = q.reshape(1, H, T, D), k[None], v[None]
-        record("varlen_fwd", "packed_serve", dtype, err, ok,
-               median_ms(lambda: varlen.flash_attention_varlen_fwd(*args)),
+        record("varlen_fwd", "packed_serve", dtype, err, ok, median_ms(fwd_call),
                median_ms(lambda: varlen.flash_attention_varlen_fwd_plain(*args[:6]), reps=5),
                b_ms, b_by,
                median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                                attn_mask=dense)))
+                                                                attn_mask=dense)),
+               device_ms=device_ms(fwd_call, "varlen_fwd")[0], path=plan.path)
         if dtype == torch.float32:
             qrng, krng = tile_seg_ranges(args[4][0], 128), tile_seg_ranges(args[5][0], 64)
             live = ranges_live_map(qrng, krng)
@@ -977,29 +1007,28 @@ def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dic
         mask = train_batch["mask"][0].cpu().numpy()
         args, dense = varlen_case(dev, offsets, mask, dtype, 70)
         q, k, v = args[:3]
-        o, lse = varlen.flash_attention_varlen_fwd(*args)
+        off = dict(offsets=(offsets, offsets // ELL))
+        o, lse = varlen.flash_attention_varlen_fwd(*args, **off)
         do = rand(o.shape, dtype, dev, 73)
         row_ok = torch.from_numpy(mask).to(dev)[None, None, :, None]
         do = torch.where(row_ok, do, torch.zeros_like(do))
         rest = (do, lse, row_delta(do, o))
-        kv_off = dict(offsets=(offsets, offsets // ELL))
-        dq = varlen.flash_attention_varlen_dq(*args, *rest)
-        dkv = varlen.flash_attention_varlen_dkv(*args, *rest, **kv_off)
-        again = varlen.flash_attention_varlen_dkv(*args, *rest, **kv_off)
+        dq_call = lambda: (varlen.flash_attention_varlen_dq(*args, *rest, **off),)  # noqa: E731
+        dkv_call = lambda: varlen.flash_attention_varlen_dkv(*args, *rest, **off)  # noqa: E731
+        dq, dkv = dq_call()[0], dkv_call()
         want = varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest)
         torch.cuda.synchronize()
-        plan = varlen.varlen_plan(D, dtype)
-        same = all(torch.equal(a, b) for a, b in zip(dkv, again))
-        line = {"dtype": str(dtype).replace("torch.", ""), "path": plan.path,
-                "bit_identical": same}
+        dq_plan, dkv_plan = {}, {}
         if plan.path == "fma":
-            tiles = varlen_dkv_tiles(offsets, offsets // ELL, T, k.shape[1], dev,
-                                     keys=plan.keys, rows=plan.rows, heads=H,
+            dq_plan = dict(row_tiles=varlen_row_tiles(*off["offsets"], T, k.shape[1], dev,
+                                                      rows=plan.rows).shape[0])
+            tiles = varlen_dkv_tiles(*off["offsets"], T, k.shape[1], dev, keys=plan.keys,
+                                     rows=plan.row_tile, heads=H,
                                      sms=torch.cuda.get_device_properties(dev)
                                      .multi_processor_count)
-            line.update(key_tiles=tiles.table.shape[0], splits=tiles.splits)
-        print(json.dumps({"varlen_dkv_repro": line}), flush=True)
-        check(same, f"varlen_dkv [{dtype}]: two calls on the same inputs differ")
+            dkv_plan = dict(key_tiles=tiles.table.shape[0], splits=tiles.splits)
+        varlen_repro("varlen_dq", dtype, dq_call, path=plan.path, **dq_plan)
+        varlen_repro("varlen_dkv", dtype, dkv_call, path=plan.path, **dkv_plan)
         pairs = H * same_segment_pairs(offsets, mask)
         side = 2 * 4 * q.numel() // D + 4 * 3 * k.shape[1] + 4 * T
         p_ms = median_ms(lambda: varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest),
@@ -1011,19 +1040,54 @@ def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dic
         err, ok = max_err((dq,), want[:1])
         b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side, 6.0 * D * pairs,
                            dtype)
-        dq_call = lambda: varlen.flash_attention_varlen_dq(*args, *rest)  # noqa: E731
         record("varlen_dq", "packed_train", dtype, err, ok, median_ms(dq_call), p_ms,
                b_ms, b_by, lib_ms, device_ms=device_ms(dq_call, "varlen_dq")[0],
-               path="rows")
+               path=plan.path)
         err, ok = max_err(dkv, want[1:])
         b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side, 8.0 * D * pairs,
                            dtype)
-        dkv_call = lambda: varlen.flash_attention_varlen_dkv(*args, *rest, **kv_off)  # noqa: E731
         record("varlen_dkv", "packed_train", dtype, err, ok, median_ms(dkv_call), p_ms,
                b_ms, b_by, lib_ms,
                device_ms=device_ms(dkv_call, "varlen_dkv", per_call=True)[0],
                path=plan.path)
     return results
+
+
+# output_hashes: (B*Hkv, n_heads, rep, N, L, D, mask) of shapenet's compression
+# branch, the LM's block-causal pooled keys and causal D 128
+HASH_CASES = {"shapenet_cmp": (64, 8, 1, 3840, 480, 32, {}),
+              "lm_block_causal": (8, 4, 8, 4096, 64, 64, dict(block_causal=True, ell=64)),
+              "causal_d128": (8, 8, 3, 1024, 1024, 128, dict(causal=True))}
+
+
+def output_hashes(dev) -> dict:
+    """sha256 (16 hex digits) of ``flash_fwd``'s (o, lse) and ``flash_dq``'s
+    dq in fp32 and bf16 on inputs drawn from fixed seeds (``HASH_CASES``,
+    about a sixth of the keys dead): equal hashes from two trees mean equal
+    bits, so a change that moves a kernel's code can be held to its parent."""
+    def draw(shape, seed, dtype):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def digest(*ts):
+        m = hashlib.sha256()
+        for t in ts:
+            m.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return m.hexdigest()[:16]
+
+    out = {}
+    for name, (BH, nh, rep, n, L, d, mode) in HASH_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (draw(shape, seed, dtype) for shape, seed in
+                       (((BH, rep, n, d), 1), ((BH, L, d), 2), ((BH, L, d), 3)))
+            kb = torch.where(draw((BH // nh, L), 4, torch.float32) > -1.0, 0.0, -1e30).float()
+            o, lse = flash.flash_attention_fwd(q, k, v, kb, n_heads=nh, **mode)
+            do = draw(o.shape, 5, dtype)
+            dq = flash.flash_attention_dq(q, k, v, kb, do, lse, row_delta(do, o), n_heads=nh,
+                                          **mode)
+            out[f"{name}/{str(dtype).replace('torch.', '')}"] = {
+                "flash_fwd": digest(o, lse), "flash_dq": digest(dq)}
+    return out
 
 
 def check_launches(launches: dict, path: str, per_kernel: int,
@@ -2459,6 +2523,7 @@ def main() -> int:
         pad_to=CAPACITY, max_samples=B)
     rows = (kernel_phase(dev) + backward_kernel_phase(dev, batches[0])
             + varlen_kernel_phase(dev, serve_offsets, serve_mask, packed_batches[0]))
+    print(json.dumps({"output_hashes": output_hashes(dev)}), flush=True)
 
     api = model_api(get_config("shapenet-bsa"))
     model = api.init(seed=0, device=dev)

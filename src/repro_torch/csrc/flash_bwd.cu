@@ -43,8 +43,9 @@
 //     fp32  the FMA pipes, register-tiled: a thread holds a micro-tile of
 //           keys x rows of S and dP (four float4 operands a step), P and dS
 //           go through shared memory, and each thread adds into dK/dV (dQ)
-//           of its keys (rows) x D/RY dims.  flash_dkv's block is
-//           csrc/fma_bwd.cuh's, shared with varlen_dkv_fma.  3xTF32 on the tensor cores was
+//           of its keys (rows) x D/RY dims.  Both blocks are
+//           csrc/fma_bwd.cuh's, flash_dkv's shared with varlen_dkv_fma and
+//           flash_dq's with varlen_dq_fma.  3xTF32 on the tensor cores was
 //           tried: it holds the kernel checks' 1e-4 but, an error of 2^-22
 //           a product against fp32's 2^-24, not shapenet's train check on
 //           phi_k.pos, whose gradient is a near-cancelling sum over keys.
@@ -61,9 +62,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using rt::DkvFma;
-using rt::dot4;
-using rt::lane_of;
-using rt::load_vec;
+using rt::DqFma;
 using rt::Mask;
 using rt::set_smem;
 using rt::stage_rows;
@@ -448,24 +447,13 @@ flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// flash_dq, fp32: FMA pipes, register-tiled.  NT threads as 16 key lanes
-// (kx) x RY row lanes (ry).  S and dP of a staged key tile: a thread holds
-// rows ry+RY*j (j < 64/RY) x keys kx+16i (i < BK/16).  dS goes to shared
-// memory; then the thread adds dS K into dQ of its rows x D/16 dims.
+// flash_dq, fp32: FMA pipes, register-tiled, the block of csrc/fma_bwd.cuh
+// (shared with varlen_dq_fma): NT threads as 16 key lanes x RY row lanes, S
+// and dP of a staged key tile as BM/RY rows x 2 keys a thread, dS through
+// shared memory, dQ as BM/RY rows x D/16 dims a thread.  The block's rows
+// are 64 of the flattened (rep, N) row axis; it stages the key tiles its last
+// row can see, and the index mask is the visibility test.
 // ---------------------------------------------------------------------------
-template <int D>
-struct DqFma {
-  static constexpr int BM = 64, BK = 32, NT = D > 64 ? 256 : 128;
-  // three blocks an SM where the registers allow it without spills
-  static constexpr int MIN_BLOCKS = D > 64 ? 1 : 3;
-  static constexpr int RY = NT / 16, RPT = BM / RY, KPT = BK / 16, DPT = D / 16;
-  static constexpr int LD = D + 4, LS = BK + 4;
-  static constexpr int Q_OFF = 0, DO_OFF = BM * LD, K_OFF = 2 * BM * LD;
-  static constexpr int V_OFF = K_OFF + 2 * BK * LD, S_OFF = V_OFF + 2 * BK * LD;
-  static constexpr int L_OFF = S_OFF + BM * LS, DL_OFF = L_OFF + BM, B_OFF = DL_OFF + BM;
-  static constexpr size_t SMEM = (size_t)(B_OFF + 2 * BK) * 4;
-};
-
 template <int D>
 __global__ void __launch_bounds__(DqFma<D>::NT, DqFma<D>::MIN_BLOCKS)
 flash_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
@@ -473,130 +461,15 @@ flash_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, float* __restrict__ dq, int rep, int N,
              int L, int n_heads, Mask mask, float scale) {
-  using C = DqFma<D>;
-  constexpr int BK = C::BK, LD = C::LD, LS = C::LS, RY = C::RY, RPT = C::RPT;
-  constexpr int KPT = C::KPT, DPT = C::DPT;
-  float* sm = reinterpret_cast<float*>(rt::dyn_smem());
-  float* Qs = sm + C::Q_OFF;
-  float* Ds = sm + C::DO_OFF;
-  float* Ss = sm + C::S_OFF;
-  float* ls = sm + C::L_OFF;
-  float* dls = sm + C::DL_OFF;
-  float* bs = sm + C::B_OFF;                                // [2][BK]
-
-  const int kx = threadIdx.x % 16, ry = threadIdx.x / 16;
   const int bh = blockIdx.y, b = bh / n_heads;
-  const int rows = rep * N, row0 = blockIdx.x * C::BM;
-  const int nrows = min(C::BM, rows - row0);
+  const int rows = rep * N, row0 = blockIdx.x * DqFma<D>::BM;
+  const int nrows = min(DqFma<D>::BM, rows - row0);
   const size_t base = (size_t)bh * rows + row0;
-
-  const bool live = threadIdx.x < nrows && lse[base + threadIdx.x] < rt::LSE_HALF;
-  if (!__syncthreads_or(live)) {           // every row empty: dq == 0
-    rt::store_zeros(dq + base * D, nrows * D);
-    return;
-  }
   const int kmax = min(L, mask.keys_seen(last_position(row0, nrows, N)));
-  const int n_kt = (kmax + BK - 1) / BK;
-
-  stage_rows<float, D, LD>(Qs, q + base * D, nrows, C::BM, C::NT);
-  stage_rows<float, D, LD>(Ds, dout + base * D, nrows, C::BM, C::NT);
-  stage_vals(ls, lse + base, nrows, C::BM, rt::LSE_EMPTY, C::NT);
-  stage_vals(dls, delta + base, nrows, C::BM, 0.f, C::NT);
-  const float* kb = k + (size_t)bh * L * D;
-  const float* vb = v + (size_t)bh * L * D;
-  const float* biasb = key_bias + (size_t)b * L;
-  auto load_tile = [&](int kt, int buf) {
-    const int j0 = kt * BK, n = min(BK, L - j0);
-    stage_rows<float, D, LD>(sm + C::K_OFF + buf * BK * LD, kb + (size_t)j0 * D, n, BK, C::NT);
-    stage_rows<float, D, LD>(sm + C::V_OFF + buf * BK * LD, vb + (size_t)j0 * D, n, BK, C::NT);
-    stage_vals(bs + buf * BK, biasb + j0, n, BK, rt::NEG_INF, C::NT);
-  };
-
-  float dqa[RPT][DPT];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j)
-#pragma unroll
-    for (int m = 0; m < DPT; ++m) dqa[j][m] = 0.f;
-
-  if (n_kt > 0) load_tile(0, 0);
-  rt::cp_async_commit();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) load_tile(kt + 1, buf ^ 1);
-    rt::cp_async_commit();
-    rt::cp_async_wait<1>();
-    __syncthreads();
-    const float* Kt = sm + C::K_OFF + buf * BK * LD;
-    const float* Vt = sm + C::V_OFF + buf * BK * LD;
-    const float* bt = bs + buf * BK;
-    const int j0 = kt * BK;
-    float st[RPT][KPT], dp[RPT][KPT];
-#pragma unroll
-    for (int j = 0; j < RPT; ++j)
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) st[j][i] = dp[j][i] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 kk[KPT], vv[KPT];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        kk[i] = *reinterpret_cast<const float4*>(Kt + (kx + 16 * i) * LD + d);
-        vv[i] = *reinterpret_cast<const float4*>(Vt + (kx + 16 * i) * LD + d);
-      }
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const float4 qq = *reinterpret_cast<const float4*>(Qs + (ry + RY * j) * LD + d);
-        const float4 oo = *reinterpret_cast<const float4*>(Ds + (ry + RY * j) * LD + d);
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-          st[j][i] = dot4(qq, kk[i], st[j][i]);
-          dp[j][i] = dot4(oo, vv[i], dp[j][i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int row = ry + RY * j;
-      const int t = (row0 + row) % N;
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        const int key = kx + 16 * i;
-        float p = 0.f;
-        if (mask.visible(j0 + key, t)) p = rt::p_from_lse(st[j][i] * scale + bt[key], ls[row]);
-        Ss[row * LS + key] = p * (dp[j][i] - dls[row]) * scale;
-      }
-    }
-    __syncthreads();
-    // dQ += dS K: rows ry+RY*j, dims kx*DPT..
-#pragma unroll 2
-    for (int c0 = 0; c0 < BK; c0 += 4) {
-      float4 dd[RPT];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j)
-        dd[j] = *reinterpret_cast<const float4*>(Ss + (ry + RY * j) * LS + c0);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float kd[DPT];
-        load_vec<DPT>(kd, Kt + (c0 + c) * LD + kx * DPT);
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const float sv = lane_of(dd[j], c);
-#pragma unroll
-          for (int m = 0; m < DPT; ++m) dqa[j][m] = fmaf(sv, kd[m], dqa[j][m]);
-        }
-      }
-    }
-    __syncthreads();                       // buffers free for the next loads
-  }
-  rt::cp_async_wait<0>();
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int row = ry + RY * j;
-    if (row >= nrows) continue;
-    float* out = dq + (base + row) * D + kx * DPT;
-#pragma unroll
-    for (int m = 0; m < DPT; ++m) out[m] = dqa[j][m];
-  }
+  rt::fma_dq_block<D>(q + base * D, dout + base * D, lse + base, delta + base, dq + base * D,
+                      nrows, k + (size_t)bh * L * D, v + (size_t)bh * L * D,
+                      key_bias + (size_t)b * L, kmax, scale,
+                      [&](int key, int row) { return mask.visible(key, (row0 + row) % N); });
 }
 
 // ---------------------------------------------------------------------------

@@ -38,16 +38,18 @@
 //         walk and the tile step are mma_fwd.cuh's, shared with local_fwd_mma.
 //   fma   fp32: the same walk on the FMA pipes, register-tiled (8 key lanes
 //         x 16 row lanes, 16 x 16 at D 128; P through shared memory), so no
-//         thread holds a row of D: D 128 builds without spills.  The tile
-//         step and walk are fma_fwd.cuh's, shared with bta_fwd_fma.  (It replaced one
-//         thread a row over all L keys, which spilled at D 128 and was
-//         slower at shapenet's shape.)
+//         thread holds a row of D: D 128 builds without spills.  The tiles
+//         (FwdFma), tile step and walk are fma_fwd.cuh's, shared with
+//         varlen_fwd_fma (bta_fwd_fma shares the step and walk).  (It
+//         replaced one thread a row over all L keys, which spilled at D 128
+//         and was slower at shapenet's shape.)
 #include "fma_fwd.cuh"
 #include "mma_fwd.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using rt::FwdFma;
 using rt::Mask;
 using rt::set_smem;
 using rt::stage_rows;
@@ -141,23 +143,10 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fma, fp32: FMA pipes, register-tiled.  NT threads as KX key lanes x NT/KX
-// row lanes (8 x 16; 16 x 16 at D 128, where a thread's O would otherwise
-// hold 4 rows x 16 dims); per staged tile of 32 keys a thread folds its 4
-// rows x 4 keys of S into its rows' online softmax and adds P V into O of
-// its rows x D/KX dims: rt::fma_fwd_walk, the tile step shared with
-// bta_fwd_fma.
+// fma, fp32: FMA pipes, register-tiled, on the tiles of rt::FwdFma
+// (csrc/fma_fwd.cuh, shared with varlen_fwd_fma): rt::fma_fwd_walk, the tile
+// step shared with bta_fwd_fma and varlen_fwd_fma.
 // ---------------------------------------------------------------------------
-template <int D>
-struct FwdFma {
-  static constexpr int BM = 64, BK = 32, KX = D > 64 ? 16 : 8, NT = D > 64 ? 256 : 128;
-  static constexpr int RY = NT / KX, RPT = BM / RY, KPT = BK / KX, DPT = D / KX;
-  static constexpr int LD = D + 4, LS = BK + 4;
-  static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
-  static constexpr int P_OFF = V_OFF + 2 * BK * LD, B_OFF = P_OFF + BM * LS;
-  static constexpr size_t SMEM = (size_t)(B_OFF + 2 * BK) * 4;
-};
-
 template <int D>
 __global__ void __launch_bounds__(FwdFma<D>::NT, 1)
 flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,

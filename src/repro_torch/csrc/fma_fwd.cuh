@@ -1,10 +1,11 @@
 // The forward step of the fp32 register-tiled attention kernels
-// (flash_fwd_fma in flash_fwd.cu, bta_fwd_fma in bta_fwd.cu): a walk over
-// staged key tiles that folds each into the block's query rows by
-// S = QK^T -> online softmax -> O += PV on the FMA pipes, and the store of
-// (o, lse) at its end.
+// (flash_fwd_fma in flash_fwd.cu, varlen_fwd_fma in varlen_fwd.cu, bta_fwd_fma
+// in bta_fwd.cu): a walk over staged key tiles that folds each into the
+// block's query rows by S = QK^T -> online softmax -> O += PV on the FMA
+// pipes, and the store of (o, lse) at its end.
 //
-// The tile shapes come from a struct C of the calling kernel: BM staged query
+// The tile shapes come from a struct C (FwdFma below for flash_fwd_fma and
+// varlen_fwd_fma; bta_fwd.cu has its own): BM staged query
 // rows, BK keys a staged tile, NT threads as KX key lanes (kx) x RY = NT/KX
 // row lanes (ry).  S of a tile: a thread holds rows ry + RY*j (j < RPT) x
 // keys kx + KX*i (i < KPT) in registers, reading Q and K as float4; a row's
@@ -19,6 +20,22 @@
 #include "tiles.cuh"
 
 namespace rt {
+
+// The tiles of flash_fwd_fma and varlen_fwd_fma: NT threads as KX key lanes
+// x NT/KX row lanes (8 x 16; 16 x 16 at D 128, where a thread's O would
+// otherwise hold 4 rows x 16 dims); per staged tile of 32 keys a thread folds
+// its 4 rows x 4 keys of S into its rows' online softmax and adds P V into O
+// of its rows x D/KX dims.  Shared memory: Q (BM rows), K and V (two buffers
+// of BK rows each), P (BM x LS), the key bias (two buffers of BK).
+template <int D>
+struct FwdFma {
+  static constexpr int BM = 64, BK = 32, KX = D > 64 ? 16 : 8, NT = D > 64 ? 256 : 128;
+  static constexpr int RY = NT / KX, RPT = BM / RY, KPT = BK / KX, DPT = D / KX;
+  static constexpr int LD = D + 4, LS = BK + 4;
+  static constexpr int Q_OFF = 0, K_OFF = BM * LD, V_OFF = K_OFF + 2 * BK * LD;
+  static constexpr int P_OFF = V_OFF + 2 * BK * LD, B_OFF = P_OFF + BM * LS;
+  static constexpr size_t SMEM = (size_t)(B_OFF + 2 * BK) * 4;
+};
 
 // Online-softmax state of a thread's RPT rows: running max m, running sum l
 // over the thread's keys (the lane group's sum is taken at the store), and

@@ -11,49 +11,60 @@
 // (varlen_dkv).
 //
 // Bound on the H100: 10*D FLOP per same-segment (row, key) pair for the
-// whole backward (8*D of them in varlen_dkv), so the fp32 FMA rate bounds it.
+// whole backward (6*D of them in varlen_dq, 8*D in varlen_dkv), so the fp32
+// FMA rate bounds it.
 //
 // Design.  The TPU kernels walk the full grids (dQ over K tiles, dK/dV over
 // Q tiles) and skip cells whose segment ranges do not overlap.  Here each sum
 // is a loop inside one block (Hopper blocks run in no order), or a loop plus
-// a fixed-order second pass:
-//   varlen_dq   the forward's grid: a block owns 128 query rows of one (KV
-//               head, query head), folds only the keys of its rows'
-//               segments [k_bounds[s_first], k_bounds[s_last+1]) in tiles of
-//               64: p = exp(s - lse), dS = p*(dO.v - delta)*scale,
-//               dq += dS*k; a (row, key) pair of two segments is masked like
-//               a masked key.
-//   varlen_dkv  two paths (kernels/varlen.py::varlen_plan):
-//     fma   fp32.  A host plan (kernels/occupancy.py::varlen_dkv_tiles)
-//           cuts each segment's keys into tiles of 64 (the segment's last
-//           tile ragged; no tile crosses a segment boundary) and gives each
-//           tile its segment's rows cut into S splits of whole 64-row tiles:
-//           an int32 table (tiles, S, 4) of (first key, keys, first row, end
-//           row).  Grid (tiles, Hkv, S): a block runs flash_dkv_fma's
-//           register-tiled block (csrc/fma_bwd.cuh) on its keys and rows,
-//           the rep query heads of the group summed in its walk.  Every pair
-//           it visits is of one segment, so no segment test is left: the key
-//           bias and lse = LSE_EMPTY mask the rest.  A tile with no valid key
-//           (the capacity tail's) writes zeros and walks nothing.  With
-//           S > 1 the splits write fp32 partials into ws (2, S, Hkv, L, D)
-//           and varlen_dkv_reduce sums them in split order and casts: no
-//           atomics, bit-reproducible.
-//     rows  bf16 (no main path runs it).  A block owns 32 keys (one a
-//           thread, with k, v, dk, dv in registers) and stages tiles of 64
-//           query rows (Q, dO, lse, delta, segment ids) of its keys'
-//           segments [q_bounds[s_first], q_bounds[s_last+1]) for each of the
-//           rep query heads and folds them: dv += p*dO, dk += dS*q; a pair
-//           of two segments is masked like a masked key.
+// a fixed-order second pass.  Two paths each (kernels/varlen.py::varlen_plan):
+//   fma   fp32.  Host plans from the offsets cut the segments into tiles that
+//         never cross a segment boundary, so every pair a block visits is of
+//         one segment and no segment test is left: the key bias and
+//         lse = LSE_EMPTY mask the rest.
+//     varlen_dq   the forward's plan (kernels/occupancy.py::varlen_row_tiles:
+//                 each segment's rows in tiles of 64, the last ragged, each
+//                 with its segment's keys; an int32 table (tiles, 4) of
+//                 (first row, rows, first key, end key)).  Grid (tiles, rep,
+//                 Hkv): a block runs flash_dq_fma's register-tiled block
+//                 (csrc/fma_bwd.cuh) on its rows against its keys in 32-key
+//                 tiles; each row's dQ is summed by its own threads in key
+//                 order.  A tile whose rows are all LSE_EMPTY (the capacity
+//                 tail's) writes zeros and stages nothing.
+//     varlen_dkv  kernels/occupancy.py::varlen_dkv_tiles cuts each segment's
+//                 keys into tiles of 64 (the segment's last tile ragged) and
+//                 gives each tile its segment's rows cut into S splits of
+//                 whole 64-row tiles: an int32 table (tiles, S, 4) of (first
+//                 key, keys, first row, end row).  Grid (tiles, Hkv, S): a
+//                 block runs flash_dkv_fma's register-tiled block
+//                 (csrc/fma_bwd.cuh) on its keys and rows, the rep query
+//                 heads of the group summed in its walk.  A tile with no
+//                 valid key (the capacity tail's) writes zeros and walks
+//                 nothing.  With S > 1 the splits write fp32 partials into ws
+//                 (2, S, Hkv, L, D) and varlen_dkv_reduce sums them in split
+//                 order and casts: no atomics, bit-reproducible.
+//   rows  bf16 (no main path runs it).
+//     varlen_dq   a block owns 128 query rows (one a thread) of one (KV
+//                 head, query head), folds only the keys of its rows'
+//                 segments [k_bounds[s_first], k_bounds[s_last+1]) in tiles
+//                 of 64: p = exp(s - lse), dS = p*(dO.v - delta)*scale,
+//                 dq += dS*k.
+//     varlen_dkv  a block owns 32 keys (one a thread, with k, v, dk, dv in
+//                 registers) and stages tiles of 64 query rows (Q, dO, lse,
+//                 delta, segment ids) of its keys' segments
+//                 [q_bounds[s_first], q_bounds[s_last+1]) for each of the rep
+//                 query heads and folds them: dv += p*dO, dk += dS*q.
+//     A pair of two segments is masked like a masked key.
 // p and dS are rounded to the operand dtype before their products.  Rows
-// with lse = LSE_EMPTY (they saw no valid key) give p = 0: a 128-row tile of
+// with lse = LSE_EMPTY (they saw no valid key) give p = 0: a row tile of
 // such rows writes zeros and stops, and such rows are skipped in
 // varlen_dkv; a key block with no valid key writes zeros and stops.
 #include "fma_bwd.cuh"
 
 namespace {
 
-constexpr int kRows = 128;   // varlen_dq: query rows (threads) per block
-constexpr int kTile = 64;    // varlen_dq: keys per staged tile
+constexpr int kRows = 128;   // varlen_dq_rows: query rows (threads) per block
+constexpr int kTile = 64;    // varlen_dq_rows: keys per staged tile
 // varlen_dkv_rows: keys (threads) per block.  32, not 64: the pooled key
 // axis's segment boundaries fall at multiples of ball/ell (32 for ball 256,
 // ell 8), and a block that straddles one walks the query rows of both
@@ -63,7 +74,7 @@ constexpr int kQTile = 64;   // varlen_dkv_rows: query rows per staged tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
-varlen_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+varlen_dq_rows(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ key_bias,
                  const int* __restrict__ qseg, const int* __restrict__ kseg,
                  const int* __restrict__ k_bounds, const T* __restrict__ dout,
@@ -189,6 +200,23 @@ varlen_dkv_rows(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// varlen_dq, fp32: the dQ block of csrc/fma_bwd.cuh on one planned row tile.
+// tiles: (n_tiles) int4 of (first row, rows, first key, end key).
+template <int D>
+__global__ void __launch_bounds__(rt::DqFma<D>::NT, rt::DqFma<D>::MIN_BLOCKS)
+varlen_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ key_bias,
+              const float* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, const int4* __restrict__ tiles,
+              float* __restrict__ dq, int rep, int Tq, int L, float scale) {
+  const int4 t = tiles[blockIdx.x];
+  const size_t base = ((size_t)blockIdx.z * rep + blockIdx.y) * Tq + t.x;
+  const size_t kv = ((size_t)blockIdx.z * L + t.z) * D;
+  rt::fma_dq_block<D>(q + base * D, dout + base * D, lse + base, delta + base, dq + base * D,
+                      t.y, k + kv, v + kv, key_bias + t.z, t.w - t.z, scale,
+                      [](int, int) { return true; });
+}
+
 // varlen_dkv, fp32: the block of csrc/fma_bwd.cuh on one planned (key tile,
 // split).  tiles: (n_tiles, S) int4 of (first key, keys, first row, end row).
 template <int D>
@@ -217,19 +245,37 @@ varlen_dkv_reduce(const float* __restrict__ ws, T* __restrict__ dk, T* __restric
   if (e < n4) rt::dkv_reduce_elem<T>(ws, dk, dv, S, n4, e, blockIdx.y);
 }
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* key_bias,
-              const void* qseg, const void* kseg, const void* k_bounds,
-              const void* dout, const void* lse, const void* delta, void* dq, int H,
-              int rep, int Tq, int L, cudaStream_t stream) {
+template <int D>
+int launch_dq_rows(const void* q, const void* k, const void* v, const void* key_bias,
+                   const void* qseg, const void* kseg, const void* k_bounds,
+                   const void* dout, const void* lse, const void* delta, void* dq, int H,
+                   int rep, int Tq, int L, cudaStream_t stream) {
+  using T = __nv_bfloat16;
   const dim3 grid((Tq + kRows - 1) / kRows, rep, H);
-  varlen_dq_kernel<T, D><<<grid, kRows, 0, stream>>>(
+  varlen_dq_rows<T, D><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(key_bias), static_cast<const int*>(qseg),
       static_cast<const int*>(kseg), static_cast<const int*>(k_bounds),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), rep, Tq, L,
       (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_fma(const void* q, const void* k, const void* v, const void* key_bias,
+                  const void* dout, const void* lse, const void* delta, const void* tiles,
+                  void* dq, int H, int rep, int Tq, int L, int n_tiles, cudaStream_t stream) {
+  using C = rt::DqFma<D>;
+  auto kern = varlen_dq_fma<D>;
+  if (int err = rt::set_smem(kern, C::SMEM)) return err;
+  const dim3 grid(n_tiles, rep, H);
+  kern<<<grid, C::NT, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(key_bias),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int4*>(tiles),
+      static_cast<float*>(dq), rep, Tq, L, (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
@@ -279,18 +325,25 @@ int launch_dkv_fma(const void* q, const void* k, const void* v, const void* key_
 
 }  // namespace
 
+// fp32 (the fma path): tiles the (n_tiles, 4) int32 plan of
+// kernels/occupancy.py::varlen_row_tiles, whose tiles cover [0, T); qseg,
+// kseg and the bounds unused.  bf16 (the rows path): tiles and n_tiles
+// unused.
 extern "C" int varlen_dq(const void* q, const void* k, const void* v,
                          const void* key_bias, const void* qseg, const void* kseg,
                          const void* q_bounds, const void* k_bounds, const void* dout,
-                         const void* lse, const void* delta, void* dq, int H, int rep,
-                         int Tq, int L, int D, int bf16, void* stream) {
+                         const void* lse, const void* delta, const void* tiles, void* dq,
+                         int H, int rep, int Tq, int L, int n_tiles, int D, int bf16,
+                         void* stream) {
   (void)q_bounds;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == 0 || rep == 0 || Tq == 0) return 0;
+  if (!bf16 && (tiles == nullptr || n_tiles < 1)) return (int)cudaErrorInvalidValue;
   RT_DISPATCH_D(D, {
-    return bf16 ? launch_dq<__nv_bfloat16, kD>(q, k, v, key_bias, qseg, kseg, k_bounds,
-                                               dout, lse, delta, dq, H, rep, Tq, L, s)
-                : launch_dq<float, kD>(q, k, v, key_bias, qseg, kseg, k_bounds, dout,
-                                       lse, delta, dq, H, rep, Tq, L, s);
+    return bf16 ? launch_dq_rows<kD>(q, k, v, key_bias, qseg, kseg, k_bounds, dout, lse,
+                                     delta, dq, H, rep, Tq, L, s)
+                : launch_dq_fma<kD>(q, k, v, key_bias, dout, lse, delta, tiles, dq, H, rep,
+                                    Tq, L, n_tiles, s);
   });
   return 0;
 }

@@ -12,9 +12,10 @@ device tensors the varlen kernels read (per-position segment ids and the
 segment boundaries), built once per distinct offsets and device and cached
 on the offsets' values, so the 18 layers of a batch (and its backward)
 reuse one build and never read offsets back from the card.
-:func:`varlen_dkv_tiles` plans the fp32 ``varlen_dkv``'s walk from the same
-host offsets: key tiles that never cross a segment, each with its
-segment's rows cut into splits.
+:func:`varlen_row_tiles` and :func:`varlen_dkv_tiles` plan the fp32 varlen
+kernels' walks from the same host offsets: row tiles (``varlen_fwd``,
+``varlen_dq``) and key tiles (``varlen_dkv``, each with its segment's rows
+cut into splits) that never cross a segment.
 :func:`tile_seg_ranges` / :func:`ranges_live_map` say which (query tile,
 key tile) pairs share a segment: what the kernels visit.
 """
@@ -31,7 +32,8 @@ from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
 
 __all__ = ["key_tile_live", "local_half_live", "group_live", "invalidate_dead_groups",
            "offsets_key", "segment_ids", "VarlenMaps", "varlen_maps",
-           "VarlenDkvTiles", "varlen_dkv_tiles", "tile_seg_ranges", "ranges_live_map"]
+           "varlen_row_tiles", "VarlenDkvTiles", "varlen_dkv_tiles", "tile_seg_ranges",
+           "ranges_live_map"]
 
 
 def key_tile_live(key_bias: torch.Tensor, tile: int) -> torch.Tensor:
@@ -118,6 +120,14 @@ def segment_ids(offsets, length: int, device) -> torch.Tensor:
     return _segment_tables(offsets_key(offsets), length, torch.device(device))[0]
 
 
+def _offset_keys(q_offsets, k_offsets) -> tuple[tuple, tuple]:
+    qk, kk = offsets_key(q_offsets), offsets_key(k_offsets)
+    if len(qk) != len(kk):
+        raise ValueError(f"q_offsets and k_offsets must have one length, got "
+                         f"{len(qk)} and {len(kk)}")
+    return qk, kk
+
+
 class VarlenMaps(NamedTuple):
     """What the varlen kernels read about the packed layout: segment ids of
     the query and key positions, (T,) / (L,) int32, and the segment
@@ -133,10 +143,7 @@ def varlen_maps(q_offsets, k_offsets, T: int, L: int, device) -> VarlenMaps:
     """The varlen kernels' maps for host offsets of the query axis (length
     T) and key axis (length L), as device tensors, cached on the offsets'
     values and the device."""
-    qk, kk = offsets_key(q_offsets), offsets_key(k_offsets)
-    if len(qk) != len(kk):
-        raise ValueError(f"q_offsets and k_offsets must have one length, got "
-                         f"{len(qk)} and {len(kk)}")
+    qk, kk = _offset_keys(q_offsets, k_offsets)
     device = torch.device(device)
     qseg, q_bounds = _segment_tables(qk, T, device)
     kseg, k_bounds = _segment_tables(kk, L, device)
@@ -159,6 +166,30 @@ def _segments(key: tuple, length: int) -> list[tuple[int, int]]:
     return list(zip((0,) + key[1:], key[1:] + (length,)))
 
 
+def varlen_row_tiles(q_offsets, k_offsets, T: int, L: int, device, *,
+                     rows: int) -> torch.Tensor:
+    """Plan the walk of the fp32 ``varlen_fwd`` and ``varlen_dq`` from host
+    offsets, cached on their values: each segment's rows (the capacity
+    tail's too) cut into tiles of ``rows`` (its last tile ragged, none
+    crossing a segment boundary), each given its segment's keys.  Returns
+    an int32 (tiles, 4) table on ``device`` of (first row, rows, first key,
+    end key); a segment with no rows gives no tile, one with no keys a tile
+    with an empty key range.  Every row of [0, T) lies in exactly one tile."""
+    qk, kk = _offset_keys(q_offsets, k_offsets)
+    return _row_tiles(qk, kk, T, L, torch.device(device), rows)
+
+
+@functools.lru_cache(maxsize=128)
+def _row_tiles(qk: tuple, kk: tuple, T: int, L: int, device: torch.device,
+               rows: int) -> torch.Tensor:
+    _check_offsets(qk, T)
+    _check_offsets(kk, L)
+    tiles = [(t0, min(rows, r1 - t0), k0, k1)
+             for (r0, r1), (k0, k1) in zip(_segments(qk, T), _segments(kk, L))
+             for t0 in range(r0, r1, rows)]
+    return torch.tensor(tiles, dtype=torch.int32).reshape(len(tiles), 4).to(device)
+
+
 def varlen_dkv_tiles(q_offsets, k_offsets, T: int, L: int, device, *, keys: int,
                      rows: int, heads: int, sms: int = 132) -> VarlenDkvTiles:
     """Plan ``varlen_dkv``'s fma walk from host offsets, cached on their
@@ -169,10 +200,7 @@ def varlen_dkv_tiles(q_offsets, k_offsets, T: int, L: int, device, *, keys: int,
     splits may be empty).  S gives about four blocks of (tile, head, split)
     on each of ``sms`` SMs, never more than the longest segment has row
     tiles, at least 1."""
-    qk, kk = offsets_key(q_offsets), offsets_key(k_offsets)
-    if len(qk) != len(kk):
-        raise ValueError(f"q_offsets and k_offsets must have one length, got "
-                         f"{len(qk)} and {len(kk)}")
+    qk, kk = _offset_keys(q_offsets, k_offsets)
     return _dkv_tiles(qk, kk, T, L, torch.device(device), keys, rows, heads, sms)
 
 

@@ -14,32 +14,39 @@ What bounds them on the H100: the work is Σᵢ Tᵢ·Lᵢ (row, key) pairs of
 4·D FLOP forward and 10·D backward, a few D-wide rows of bytes each, so the
 arithmetic bounds them.  The TPU kernel runs the whole (q-tile, k-tile)
 grid and skips the cells whose per-tile segment ranges do not overlap.
-Here a block of 128 query rows (one KV head, one of its rep query heads)
-reads the segment ids of its first and last row and folds only the keys of
-those segments, ``[k_bounds[s_first], k_bounds[s_last + 1])``, so it does
-Σᵢ Tᵢ·Lᵢ work and not T·L; inside that range a per-(row, key) test
-``qseg == kseg`` on top of the key bias masks the keys of a neighbouring
-segment.  ``varlen_dq`` runs on the forward's grid.  ``varlen_dkv`` has two
-paths, one rule (:func:`varlen_plan`):
+Here every kernel has two paths, one rule by dtype (:func:`varlen_plan`):
 
-- ``fma`` (fp32, the main path's dtype): a host plan
-  (:func:`repro_torch.kernels.occupancy.varlen_dkv_tiles`, from the host
-  offsets, cached) cuts each segment's keys into tiles of 64 that never
-  cross a segment boundary and each tile's segment rows into S splits of
-  whole 64-row tiles (about four blocks an SM); a block runs
-  ``flash_dkv_fma``'s register-tiled block (``csrc/fma_bwd.cuh``) on one
-  (tile, KV head, split), the GQA group's rep query heads summed in its
-  walk, and no segment test is left inside it.  With S > 1 the splits
-  write fp32 partials into a (2, S, Hkv, L, D) workspace this wrapper
-  allocates, summed in split order by a second pass behind the same entry
-  point: no atomics, bit-reproducible.
-- ``rows`` (bf16; no main path runs it): a block owns 32 keys, one a
-  thread, and folds only the query rows of their segments, with the GQA
-  group's rep query heads summed in that loop.
+- ``fma`` (fp32, the main path's dtype): host plans from the offsets
+  (cached on their values) cut the segments into tiles that never cross a
+  segment boundary, so a block does Σᵢ Tᵢ·Lᵢ work, not T·L, and no segment
+  test is left inside it: the key bias and lse = ``LSE_EMPTY`` mask the
+  rest.  ``varlen_fwd`` and ``varlen_dq`` walk
+  :func:`repro_torch.kernels.occupancy.varlen_row_tiles` (each segment's
+  rows in tiles of 64, each with its segment's keys): a block runs
+  ``flash_fwd_fma``'s block (``csrc/fma_fwd.cuh``) or ``flash_dq_fma``'s
+  (``csrc/fma_bwd.cuh``) on one (row tile, query head of the group, KV
+  head).  ``varlen_dkv`` walks
+  :func:`repro_torch.kernels.occupancy.varlen_dkv_tiles` (each segment's
+  keys in tiles of 64, each tile's segment rows cut into S splits of whole
+  64-row tiles, about four blocks an SM): a block runs ``flash_dkv_fma``'s
+  block (``csrc/fma_bwd.cuh``) on one (tile, KV head, split), the GQA
+  group's rep query heads summed in its walk.  With S > 1 the splits write
+  fp32 partials into a (2, S, Hkv, L, D) workspace this wrapper allocates,
+  summed in split order by a second pass behind the same entry point: no
+  atomics, bit-reproducible.  The fp32 CUDA path needs the host offsets
+  (``offsets=(q_offsets, k_offsets)``) and raises without them.
+- ``rows`` (bf16; no main path runs it): ``varlen_fwd`` and ``varlen_dq``
+  run a block of 128 query rows (one KV head, one of its rep query heads,
+  one thread a row) that reads the segment ids of its first and last row
+  and folds only the keys of those segments, ``[k_bounds[s_first],
+  k_bounds[s_last + 1])``, with a per-(row, key) test ``qseg == kseg`` on
+  top of the key bias; ``varlen_dkv`` a block of 32 keys, one a thread,
+  that folds only the query rows of their segments, with the GQA group's
+  rep query heads summed in that loop.
 
-Key tiles with no valid key are skipped, and rows that saw no valid key
-(o = 0, lse = ``LSE_EMPTY``, e.g. the capacity tail of the compression
-branch) are skipped by the backward.
+Tiles whose key range holds no valid key are skipped, and rows that saw no
+valid key (o = 0, lse = ``LSE_EMPTY``, e.g. the capacity tail of the
+compression branch) are skipped by the backward.
 
 Layout (GQA-native, as the TPU kernel): q (Hkv, rep, T, D); k, v
 (Hkv, L, D); key_bias (1, L) fp32 additive; qseg (1, T) / kseg (1, L)
@@ -47,7 +54,7 @@ int32 segment ids; q_bounds / k_bounds (S+2,) int32 segment boundaries
 (``kernels/occupancy.py::varlen_maps``).  The forward returns o like q and
 lse (Hkv, rep, T) fp32.  :class:`VarlenAttentionFn` is the differentiable
 op; segment ids, boundaries and the key bias take no gradient, and the host
-offsets ride along for ``varlen_dkv``'s plan.
+offsets ride along for the plans.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ from repro_torch.core.branches import sdpa
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (HEAD_DIMS, _counter, check_cuda_inputs, on_cpu,
                                         p_from_lse, row_delta)
-from repro_torch.kernels.occupancy import varlen_dkv_tiles
+from repro_torch.kernels.occupancy import varlen_dkv_tiles, varlen_row_tiles
 from repro_torch.numerics import mask_to_bias
 
 __all__ = ["flash_attention_varlen_fwd", "flash_attention_varlen_fwd_plain",
@@ -80,26 +87,51 @@ PLAIN_CHUNK = 2048
 
 
 class VarlenPlan(NamedTuple):
-    """How ``varlen_dkv`` takes one shape: ``path`` ``"fma"`` (fp32,
-    register tiles on a planned walk) or ``"rows"`` (bf16, one thread a
-    key); ``keys``: keys a block; ``rows``: query rows a staged tile."""
+    """How the varlen kernels take one shape: ``path`` ``"fma"`` (fp32,
+    register tiles on planned walks: ``varlen_fwd_fma``, ``varlen_dq_fma``,
+    ``varlen_dkv_fma``) or ``"rows"`` (bf16, one thread a row or key:
+    ``varlen_fwd_rows``, ``varlen_dq_rows``, ``varlen_dkv_rows``);
+    ``rows``: query rows a ``varlen_fwd`` / ``varlen_dq`` block (the row
+    tile of :func:`varlen_row_tiles`); ``keys``: keys a ``varlen_dkv``
+    block; ``key_tile``: keys a staged tile of ``varlen_fwd`` /
+    ``varlen_dq``; ``row_tile``: query rows a staged tile of
+    ``varlen_dkv``."""
     path: str
-    keys: int
     rows: int
+    keys: int
+    key_tile: int
+    row_tile: int
 
 
 def varlen_plan(D: int, dtype: torch.dtype) -> VarlenPlan:
-    """The path and tiles of ``varlen_dkv`` at head dim D: the rule its CUDA
-    entry point applies by dtype, with the constants of
-    ``csrc/fma_bwd.cuh`` (``DkvFma``: 64 keys, 64-row tiles at D ≤ 64) and
-    ``csrc/varlen_bwd.cu`` (``kKeys`` 32, ``kQTile`` 64).  fp32 takes the
-    fma path, bf16 the rows path; a shape no path takes raises."""
-    if dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["varlen_dkv"]:
-        raise ValueError(f"varlen_dkv: no path takes D {D}, {dtype} (D in "
-                         f"{HEAD_DIMS['varlen_dkv']}; float32 or bfloat16)")
+    """The path and tiles of ``varlen_fwd``, ``varlen_dq`` and
+    ``varlen_dkv`` at head dim D: the rule their CUDA entry points apply by
+    dtype.  fp32 takes the fma path, with the constants of
+    ``csrc/fma_fwd.cuh`` / ``csrc/fma_bwd.cuh`` (``FwdFma`` and ``DqFma``:
+    64 rows against 32-key tiles; ``DkvFma``: 64 keys against 64-row tiles
+    at D ≤ 64); bf16 the rows path, with those of ``csrc/varlen_fwd.cu`` /
+    ``csrc/varlen_bwd.cu`` (``kRows`` 128 rows against ``kTile`` 64-key
+    tiles; ``kKeys`` 32 keys against ``kQTile`` 64-row tiles).  A shape no
+    path takes raises."""
+    if dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["varlen_fwd"]:
+        raise ValueError(f"varlen kernels: no path takes D {D}, {dtype} (D in "
+                         f"{HEAD_DIMS['varlen_fwd']}; float32 or bfloat16)")
     if dtype == torch.float32:
-        return VarlenPlan("fma", 64, 64)
-    return VarlenPlan("rows", 32, 64)
+        return VarlenPlan("fma", 64, 64, 32, 64)
+    return VarlenPlan("rows", 128, 32, 64, 64)
+
+
+def _row_plan(name, q, k, offsets):
+    """The fma path's row plan (tiles, 4) of this call, None on the rows
+    path."""
+    T, L = q.shape[2], k.shape[1]
+    plan = varlen_plan(q.shape[3], q.dtype)
+    if plan.path != "fma":
+        return None
+    if offsets is None:
+        raise ValueError(f"{name}: the fp32 path plans its walk from the host offsets; "
+                         "pass offsets=(q_offsets, k_offsets)")
+    return varlen_row_tiles(*offsets, T, L, q.device, rows=plan.rows)
 
 
 def _check_shapes(name, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds):
@@ -139,9 +171,13 @@ def flash_attention_varlen_fwd_plain(q, k, v, key_bias, qseg, kseg, *,
     return torch.cat(outs, 2), torch.cat(lses, 2)
 
 
-def flash_attention_varlen_fwd(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds):
+def flash_attention_varlen_fwd(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, *,
+                               offsets=None):
     """(o, lse) of packed-varlen attention: the ``varlen_fwd`` kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors.  ``offsets``: the host
+    (q_offsets, k_offsets) the maps were built from; the fma path (fp32)
+    plans its walk from them (:func:`varlen_row_tiles`) and raises without
+    them."""
     _check_shapes("varlen_fwd", q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds)
     if on_cpu(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds):
         return flash_attention_varlen_fwd_plain(q, k, v, key_bias, qseg, kseg)
@@ -149,12 +185,14 @@ def flash_attention_varlen_fwd(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds
     L = k.shape[1]
     check_cuda_inputs("varlen_fwd", data=(q, k, v), f32=(key_bias,),
                       i32=(qseg, kseg, k_bounds), head_dim=D)
+    table = _row_plan("varlen_fwd", q, k, offsets)
     o = torch.empty_like(q)
     lse = torch.empty((H, rep, T), dtype=torch.float32, device=q.device)
     _build.launch("varlen_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   key_bias.data_ptr(), qseg.data_ptr(), kseg.data_ptr(),
-                  k_bounds.data_ptr(), o.data_ptr(), lse.data_ptr(), H, rep, T, L, D,
-                  int(q.dtype == torch.bfloat16),
+                  k_bounds.data_ptr(), None if table is None else table.data_ptr(),
+                  o.data_ptr(), lse.data_ptr(), H, rep, T, L,
+                  0 if table is None else table.shape[0], D, int(q.dtype == torch.bfloat16),
                   torch.cuda.current_stream(q.device).cuda_stream)
     COUNT.hit()
     return o, lse
@@ -200,9 +238,10 @@ def _bwd_check(name, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse,
 
 
 def flash_attention_varlen_dq(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do,
-                              lse, delta):
+                              lse, delta, *, offsets=None):
     """dq from the forward's lse and δ = rowsum(dO·O): the ``varlen_dq``
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors, the plain version on CPU tensors.  ``offsets``
+    as :func:`flash_attention_varlen_fwd` takes them (the same row plan)."""
     args = (q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds)
     _check_shapes("varlen_dq", *args)
     if on_cpu(*args, do, lse, delta):
@@ -210,9 +249,11 @@ def flash_attention_varlen_dq(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds,
                                                 lse, delta)[0]
     ptrs = _bwd_check("varlen_dq", *args, do, lse, delta)
     H, rep, T, D = q.shape
+    table = _row_plan("varlen_dq", q, k, offsets)
     dq = torch.empty_like(q)
-    _build.launch("varlen_dq", *ptrs, dq.data_ptr(), H, rep, T, k.shape[1], D,
-                  int(q.dtype == torch.bfloat16),
+    _build.launch("varlen_dq", *ptrs, None if table is None else table.data_ptr(),
+                  dq.data_ptr(), H, rep, T, k.shape[1], 0 if table is None else table.shape[0],
+                  D, int(q.dtype == torch.bfloat16),
                   torch.cuda.current_stream(q.device).cuda_stream)
     COUNT_DQ.hit()
     return dq
@@ -239,8 +280,9 @@ def flash_attention_varlen_dkv(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds
         if offsets is None:
             raise ValueError("varlen_dkv: the fp32 path plans its walk from the host "
                              "offsets; pass offsets=(q_offsets, k_offsets)")
-        tiles = varlen_dkv_tiles(*offsets, T, L, q.device, keys=plan.keys, rows=plan.rows,
-                                 heads=H, sms=torch.cuda.get_device_properties(
+        tiles = varlen_dkv_tiles(*offsets, T, L, q.device, keys=plan.keys,
+                                 rows=plan.row_tile, heads=H,
+                                 sms=torch.cuda.get_device_properties(
                                      q.device).multi_processor_count)
         table, S = tiles.table, tiles.splits
         if S > 1:
@@ -258,25 +300,24 @@ def flash_attention_varlen_dkv(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds
 def flash_attention_varlen_bwd(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do,
                                lse, delta, *, offsets=None):
     """(dq, dk, dv): the two backward kernels on CUDA tensors (``offsets``
-    as :func:`flash_attention_varlen_dkv` takes them), the plain version on
-    CPU tensors."""
+    as they take them), the plain version on CPU tensors."""
     args = (q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, do, lse, delta)
     if on_cpu(*args):
         return flash_attention_varlen_bwd_plain(q, k, v, key_bias, qseg, kseg, do,
                                                 lse, delta)
-    return (flash_attention_varlen_dq(*args),
+    return (flash_attention_varlen_dq(*args, offsets=offsets),
             *flash_attention_varlen_dkv(*args, offsets=offsets))
 
 
 class VarlenAttentionFn(torch.autograd.Function):
     """Differentiable packed-varlen attention in q, k, v (the key bias,
     segment ids and boundaries take no gradient; ``offsets``, the host
-    (q_offsets, k_offsets), go to the backward's plan)."""
+    (q_offsets, k_offsets), go to the kernels' plans)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, offsets=None):
         o, lse = flash_attention_varlen_fwd(q, k, v, key_bias, qseg, kseg,
-                                            q_bounds, k_bounds)
+                                            q_bounds, k_bounds, offsets=offsets)
         ctx.save_for_backward(q, k, v, key_bias, qseg, kseg, q_bounds, k_bounds, o, lse)
         ctx.offsets = offsets
         return o

@@ -4,7 +4,10 @@ Marked ``gpu``: without a card every test here skips (decided inside the
 fixture, never at import).  On a machine with an H100 run them with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 Small shapes with rep 2, one padded sample and one fully masked slot (the
-varlen kernels: four clouds packed with a capacity tail and a dead block),
+varlen kernels: four clouds packed with a capacity tail and a dead block;
+the fp32 ``varlen_fwd`` / ``varlen_dq`` on their planned row tiles also
+with ragged tiles, a dead tail and a segment with no key, bit-for-bit on
+two calls),
 head_dim 16 and, for the causal LM path's kernels, 128; the flash backward
 at every head dim (16-128) with rep 3 and ``flash_dkv``'s row splits forced
 to 1 and 3; the tiled ``flash_fwd`` at every head dim and mask mode (ragged
@@ -490,9 +493,9 @@ def _varlen_case(dtype, dev, seed, sizes=(20, 45, 33, 11), pad_to=160, rep=REP,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_varlen_kernel(cuda, dtype):
     from repro_torch.kernels import varlen
-    args, _ = _varlen_case(dtype, cuda, 20)
+    args, offsets = _varlen_case(dtype, cuda, 20)
     before = varlen.COUNT.n
-    got = varlen.flash_attention_varlen_fwd(*args)
+    got = varlen.flash_attention_varlen_fwd(*args, offsets=offsets)
     torch.cuda.synchronize()
     assert varlen.COUNT.n == before + 1
     _check(got, varlen.flash_attention_varlen_fwd_plain(*args[:6]), dtype)
@@ -503,7 +506,7 @@ def test_varlen_kernel(cuda, dtype):
 def test_varlen_bwd_kernels(cuda, dtype):
     from repro_torch.kernels import varlen
     args, offsets = _varlen_case(dtype, cuda, 23)
-    o, lse = varlen.flash_attention_varlen_fwd(*args)
+    o, lse = varlen.flash_attention_varlen_fwd(*args, offsets=offsets)
     rest = _bwd_inputs(o, lse, dtype, 26)
     before = (varlen.COUNT_DQ.n, varlen.COUNT_DKV.n)
     got = varlen.flash_attention_varlen_bwd(*args, *rest, offsets=offsets)
@@ -513,8 +516,9 @@ def test_varlen_bwd_kernels(cuda, dtype):
     assert bool((got[0][..., 144:, :] == 0).all())       # tail rows: exact zeros
     assert bool((got[1][:, 2] == 0).all())               # the dead block
     if dtype == torch.float32:                           # the fma path needs the offsets
-        with pytest.raises(ValueError, match="offsets"):
-            varlen.flash_attention_varlen_dkv(*args, *rest)
+        for fn in (varlen.flash_attention_varlen_dq, varlen.flash_attention_varlen_dkv):
+            with pytest.raises(ValueError, match="offsets"):
+                fn(*args, *rest)
 
 
 @pytest.mark.parametrize("sms", [0, 10, 1000])
@@ -537,7 +541,7 @@ def test_varlen_dkv_fma_edges(cuda, rep, sms, monkeypatch):
     orig = occupancy.varlen_dkv_tiles
     monkeypatch.setattr(varlen, "varlen_dkv_tiles",
                         lambda *a, **kw: orig(*a, **{**kw, "sms": sms}))
-    o, lse = varlen.flash_attention_varlen_fwd(*args)
+    o, lse = varlen.flash_attention_varlen_fwd(*args, offsets=offsets)
     q0, q1 = int(offsets[0][1]), int(offsets[0][2])      # segment 1's rows
     lse[:, :, q0:q1] = LSE_EMPTY
     o[:, :, q0:q1] = 0
@@ -552,6 +556,66 @@ def test_varlen_dkv_fma_edges(cuda, rep, sms, monkeypatch):
     assert all(bool((g[:, k0:k1] == 0).all()) and bool((g[:, tail:] == 0).all())
                for g in got)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _varlen_no_keys_case(dev, rep):
+    """Hand-made offsets: segment 0 owns rows [0, 32) and no key, segment 1
+    rows [32, 96) and keys [0, 24) (key 5 dead), the capacity tail rows
+    [96, 128) and keys [24, 32), all dead."""
+    from repro_torch.kernels.occupancy import varlen_maps
+    offsets = (np.array([0, 32, 96]), np.array([0, 0, 24]))
+    T, L = 128, 32
+    maps = varlen_maps(*offsets, T, L, dev)
+    live = torch.arange(L, device=dev) < 24
+    live[5] = False
+    q = _rand((HKV, rep, T, D), torch.float32, dev, 60)
+    k = _rand((HKV, L, D), torch.float32, dev, 61)
+    v = _rand((HKV, L, D), torch.float32, dev, 62)
+    return ((q, k, v, _bias(live)[None], maps.qseg[None], maps.kseg[None], maps.q_bounds,
+             maps.k_bounds), offsets)
+
+
+@pytest.mark.parametrize("case", ["packed", "no-keys"])
+@pytest.mark.parametrize("rep", [1, 3])
+def test_varlen_fwd_dq_fma_edges(cuda, rep, case):
+    """The fp32 ``varlen_fwd`` and ``varlen_dq`` on their planned row walk.
+    ``packed``: clouds of 300, 20 and 530 points packed to 960 rows
+    (segments of 304, 32 and 544 rows: ragged 64-row tiles, a segment under
+    one tile, key ranges that start off a multiple of 32), a capacity tail
+    of 80 rows whose 20 keys hold no valid key, a dead key block.
+    ``no-keys``: a segment with rows and an empty key range, a dead tail.
+    rep 1 and 3; against the plain versions, with zeros, ``LSE_EMPTY`` and
+    a zero dq on the rows that see no valid key, identical bits on a second
+    call, and a ``ValueError`` without ``offsets``."""
+    from repro_torch.kernels import occupancy, varlen
+    from repro_torch.kernels.common import LSE_EMPTY
+    if case == "packed":
+        args, offsets = _varlen_case(torch.float32, cuda, 50, sizes=(300, 20, 530),
+                                     pad_to=960, rep=rep, dead_block=5)
+        T, L, n_tiles, empty = 960, 240, 17, slice(880, 960)
+    else:
+        args, offsets = _varlen_no_keys_case(cuda, rep)
+        T, L, n_tiles, empty = 128, 32, 3, [*range(32), *range(96, 128)]
+    plan = occupancy.varlen_row_tiles(*offsets, T, L, cuda, rows=64)
+    assert plan.shape == (n_tiles, 4)
+    before = (varlen.COUNT.n, varlen.COUNT_DQ.n)
+    o, lse = varlen.flash_attention_varlen_fwd(*args, offsets=offsets)
+    again = varlen.flash_attention_varlen_fwd(*args, offsets=offsets)
+    rest = _bwd_inputs(o, lse, torch.float32, 51)
+    dq = varlen.flash_attention_varlen_dq(*args, *rest, offsets=offsets)
+    dq_again = varlen.flash_attention_varlen_dq(*args, *rest, offsets=offsets)
+    torch.cuda.synchronize()
+    assert (varlen.COUNT.n, varlen.COUNT_DQ.n) == (before[0] + 2, before[1] + 2)
+    _check((o, lse), varlen.flash_attention_varlen_fwd_plain(*args[:6]), torch.float32)
+    _check((dq,), varlen.flash_attention_varlen_bwd_plain(*args[:6], *rest)[:1],
+           torch.float32)
+    assert bool((lse[..., empty] == LSE_EMPTY).all())
+    assert bool((o[..., empty, :] == 0).all()) and bool((dq[..., empty, :] == 0).all())
+    assert all(torch.equal(a, b) for a, b in zip((o, lse, dq), (*again, dq_again)))
+    for fn, extra in ((varlen.flash_attention_varlen_fwd, ()),
+                      (varlen.flash_attention_varlen_dq, rest)):
+        with pytest.raises(ValueError, match="offsets"):
+            fn(*args, *extra)
 
 
 def test_packed_model_matches_reference(cuda):

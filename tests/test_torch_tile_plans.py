@@ -30,8 +30,14 @@ that pick their paths, checked on the CPU.
   tile's splits covering that segment's rows in whole row tiles and in
   order; ragged segments, a segment shorter than one row tile, empty
   segments, and the paper's ball 256 / ℓ 8 at shapenet's packed batch.
-  :func:`varlen.varlen_plan` at its boundaries, pinned to ``DkvFma``
-  (``csrc/fma_bwd.cuh``) and ``csrc/varlen_bwd.cu``'s row kernel.
+  :func:`occupancy.varlen_row_tiles` (the fp32 ``varlen_fwd`` / ``varlen_dq``'s
+  walk) on the same offsets and on hand-made ones: every row, the capacity
+  tail's too, in exactly one tile that lies in one segment and carries
+  exactly that segment's keys; empty segments, a segment with no keys, the
+  cache.  :func:`varlen.varlen_plan` at its boundaries, pinned to
+  ``FwdFma`` (``csrc/fma_fwd.cuh``), ``DqFma`` and ``DkvFma``
+  (``csrc/fma_bwd.cuh``) and the row kernels of ``csrc/varlen_fwd.cu`` and
+  ``csrc/varlen_bwd.cu``.
 """
 
 import re
@@ -44,7 +50,8 @@ import torch
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core.balltree import pack_varlen
 from repro_torch.kernels import bta, flash, local, varlen
-from repro_torch.kernels.occupancy import local_half_live, varlen_dkv_tiles
+from repro_torch.kernels.occupancy import (local_half_live, varlen_dkv_tiles,
+                                            varlen_row_tiles)
 from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
@@ -304,8 +311,9 @@ def test_plans_for_configs(name):
 def test_plans_match_source_constants(D):
     fwd_src, bwd_src, common = (CSRC / f for f in ("flash_fwd.cu", "local_bwd.cu",
                                                    "common.cuh"))
-    for dtype, struct in ((torch.bfloat16, "FwdMma"), (torch.float32, "FwdFma")):
-        plan, c = flash.flash_fwd_plan(D, dtype), _consts(fwd_src, struct, D)
+    for dtype, src, struct in ((torch.bfloat16, fwd_src, "FwdMma"),
+                               (torch.float32, CSRC / "fma_fwd.cuh", "FwdFma")):
+        plan, c = flash.flash_fwd_plan(D, dtype), _consts(src, struct, D)
         assert (plan.rows, plan.keys) == (c["BM"], c["BK"]), struct
     tiles = local.local_plan(256, D, torch.bfloat16)
     dq, dkv = _consts(bwd_src, "DqMma", D), _consts(bwd_src, "DkvMma", D)
@@ -415,7 +423,7 @@ def test_varlen_dkv_tiles_cover_each_key_once(layout, heads, dtype):
     L = T // ell
     plan = varlen.varlen_plan(32, torch.float32)
     tiles = varlen_dkv_tiles(offsets, offsets // ell, T, L, "cpu", keys=plan.keys,
-                             rows=plan.rows, heads=heads)
+                             rows=plan.row_tile, heads=heads)
     table, S = tiles.table, tiles.splits
     assert table.dtype == torch.int32 and table.shape[1:] == (S, 4)
     qseg = segment_ids_from_offsets(torch.from_numpy(offsets), T)
@@ -436,10 +444,10 @@ def test_varlen_dkv_tiles_cover_each_key_once(layout, heads, dtype):
         assert t[0][2] == r0 and t[-1][3] == r1                   # covered, in order
         for a, b in zip(t[:-1], t[1:]):
             assert a[3] == b[2] and a[2] <= a[3]
-            assert (a[3] - a[2]) % plan.rows == 0 or b[2] == b[3] == r1
+            assert (a[3] - a[2]) % plan.row_tile == 0 or b[2] == b[3] == r1
     assert bool((seen == 1).all())                                # each key once
     blocks = table.shape[0] * heads
-    assert S == max(1, min(-(-4 * 132 // blocks), -(-longest // plan.rows)))
+    assert S == max(1, min(-(-4 * 132 // blocks), -(-longest // plan.row_tile)))
     if layout == "paper":             # 62 tiles, 4 of them ragged: 2 splits for 8 heads
         assert (table.shape[0], S) == (62, {1: 9, 8: 2}[heads])
         assert int((table[:, 0, 1] < plan.keys).sum()) == 4
@@ -447,20 +455,91 @@ def test_varlen_dkv_tiles_cover_each_key_once(layout, heads, dtype):
         assert varlen.varlen_plan(32, dtype).path == "rows"
 
 
+@pytest.mark.parametrize("rows", [64, 16])
+@pytest.mark.parametrize("layout", list(VARLEN_LAYOUTS))
+def test_varlen_row_tiles_cover_each_row_once(layout, rows):
+    """Every row of [0, T), the capacity tail's too, lies in exactly one
+    tile of at most ``rows`` rows inside one segment (only a segment's last
+    tile ragged, the tiles in order), and each tile carries exactly its
+    segment's keys; an empty segment gives no tile; equal offsets give the
+    cached table back."""
+    sizes, ball, ell, T = VARLEN_LAYOUTS[layout]
+    _, offsets, _ = pack_varlen([np.zeros((n, 1)) for n in sizes], ball, pad_to=T,
+                                max_samples=len(sizes))
+    L = T // ell
+    table = varlen_row_tiles(offsets, offsets // ell, T, L, "cpu", rows=rows)
+    assert table.dtype == torch.int32 and table.shape[1] == 4
+    qseg = segment_ids_from_offsets(torch.from_numpy(offsets), T)
+    kseg = segment_ids_from_offsets(torch.from_numpy(offsets // ell), L)
+    seen = torch.zeros(T, dtype=torch.long)
+    segs = []
+    for t0, n, k0, k1 in table.tolist():
+        assert 1 <= n <= rows
+        seen[t0:t0 + n] += 1
+        seg = int(qseg[t0])
+        assert bool((qseg[t0:t0 + n] == seg).all())                 # one segment
+        assert n == rows or t0 + n == T or int(qseg[t0 + n]) != seg  # ragged: the last
+        keys = (kseg == seg).nonzero().flatten()
+        assert k1 - k0 == keys.numel() and k0 == int(keys[0])        # exactly its keys
+        segs.append(seg)
+    assert bool((seen == 1).all())                                    # each row once
+    assert segs == sorted(segs)
+    counts = torch.bincount(qseg, minlength=len(offsets)).tolist()
+    assert len(table) == sum(-(-c // rows) for c in counts)           # none for an empty one
+    if layout == "paper":             # every segment a multiple of 64 rows: 480 tiles
+        assert len(table) == T // rows
+    again = varlen_row_tiles(list(offsets), torch.from_numpy(offsets // ell), T, L, "cpu",
+                             rows=rows)
+    assert again is table
+
+
+@pytest.mark.parametrize("q_offsets,k_offsets,T,L,want", [
+    # segment 0 has rows but no keys; segment 1 none of either; the tail has both
+    ([0, 16, 16], [0, 0, 0], 40, 6, [(0, 16, 0, 0), (16, 16, 0, 6), (32, 8, 0, 6)]),
+    # no capacity tail; segment 0 empty; a tail of keys with no rows
+    ([0, 0, 20], [0, 0, 3], 20, 5, [(0, 16, 0, 3), (16, 4, 0, 3)]),
+    # an empty axis gives no tile
+    ([0, 0], [0, 0], 0, 0, []),
+], ids=["no-keys", "no-tail", "empty"])
+def test_varlen_row_tiles_edges(q_offsets, k_offsets, T, L, want):
+    """Hand-made offsets: a segment with rows and no keys gets a tile with an
+    empty key range (the kernels write zeros and ``LSE_EMPTY`` for it), a
+    segment with no rows gets no tile, whatever its keys."""
+    table = varlen_row_tiles(q_offsets, k_offsets, T, L, "cpu", rows=16)
+    assert [tuple(t) for t in table.tolist()] == want and table.shape == (len(want), 4)
+
+
 @pytest.mark.parametrize("D", [16, 32, 64])
 def test_varlen_plan_matches_source_constants(D):
-    """fp32 takes the fma path with ``DkvFma``'s 64 keys and 64-row tiles
-    (``csrc/fma_bwd.cuh``, shared with ``flash_dkv``); bf16 the rows path's
-    ``kKeys`` keys a block and ``kQTile``-row tiles."""
+    """fp32 takes the fma path of all three kernels with the tiles of the
+    shared blocks: ``FwdFma`` (``csrc/fma_fwd.cuh``, shared with
+    ``flash_fwd_fma``) and ``DqFma`` (``csrc/fma_bwd.cuh``, shared with
+    ``flash_dq_fma``), 64 rows against 32-key tiles, one row plan for both;
+    ``DkvFma``'s 64 keys against 64-row tiles.  bf16 takes the rows path:
+    ``kRows`` rows against ``kTile``-key tiles (``csrc/varlen_fwd.cu`` and
+    ``csrc/varlen_bwd.cu`` alike), ``kKeys`` keys against ``kQTile``-row
+    tiles.  Each tile struct lives once, in its shared header."""
     fma = varlen.varlen_plan(D, torch.float32)
-    c = _consts(CSRC / "fma_bwd.cuh", "DkvFma", D)
-    assert fma == ("fma", c["BK"], c["BM"]) == ("fma", 64, 64)
+    fwd = _consts(CSRC / "fma_fwd.cuh", "FwdFma", D)
+    dq = _consts(CSRC / "fma_bwd.cuh", "DqFma", D)
+    dkv = _consts(CSRC / "fma_bwd.cuh", "DkvFma", D)
+    assert fma == ("fma", fwd["BM"], dkv["BK"], fwd["BK"], dkv["BM"]) == ("fma", 64, 64, 32, 64)
+    assert (dq["BM"], dq["BK"]) == (fwd["BM"], fwd["BK"])
     rows = varlen.varlen_plan(D, torch.bfloat16)
-    text = (CSRC / "varlen_bwd.cu").read_text()
-    assert rows == ("rows", int(re.search(r"kKeys = (\d+);", text).group(1)),
-                    int(re.search(r"kQTile = (\d+);", text).group(1)))
-    assert "varlen_dkv_fma" in text and "atomicAdd" not in text
-    assert "rt::fma_dkv_block" in (CSRC / "flash_bwd.cu").read_text()   # one shared step
+    fwd_src, bwd_src = ((CSRC / f).read_text() for f in ("varlen_fwd.cu", "varlen_bwd.cu"))
+
+    def const(text, name):
+        return int(re.search(r"%s = (\d+);" % name, text).group(1))
+
+    for text in (fwd_src, bwd_src):
+        assert (rows.rows, rows.key_tile) == (const(text, "kRows"), const(text, "kTile"))
+    assert rows == ("rows", 128, const(bwd_src, "kKeys"), 64, const(bwd_src, "kQTile"))
+    assert "rt::fma_fwd_walk" in fwd_src and "atomicAdd" not in fwd_src + bwd_src
+    flash_fwd, flash_bwd = ((CSRC / f).read_text() for f in ("flash_fwd.cu", "flash_bwd.cu"))
+    for block, users in (("rt::fma_dkv_block", (flash_bwd, bwd_src)),
+                         ("rt::fma_dq_block", (flash_bwd, bwd_src))):
+        assert all(block in text for text in users)                  # one shared block
+    assert not re.search(r"struct (FwdFma|DqFma|DkvFma)\b", flash_fwd + flash_bwd)
 
 
 @pytest.mark.parametrize("call", [lambda: flash.flash_fwd_plan(48, torch.bfloat16),
@@ -475,10 +554,15 @@ def test_varlen_plan_matches_source_constants(D):
                                   lambda: bta.fwd_walk(32, 32, 1, torch.float32),
                                   lambda: varlen.varlen_plan(128, torch.float32),
                                   lambda: varlen.varlen_plan(48, torch.bfloat16),
-                                  lambda: varlen.varlen_plan(32, torch.float16)],
+                                  lambda: varlen.varlen_plan(32, torch.float16),
+                                  lambda: varlen_row_tiles([0, 8], [0, 1, 2], 8, 2, "cpu",
+                                                           rows=64),
+                                  lambda: varlen_row_tiles([0, 48, 32], [0, 6, 4], 64, 8,
+                                                           "cpu", rows=64)],
                          ids=["fwd-D48", "fwd-fp16", "local-w0", "local-D48", "walk-lanes",
                               "bta-D48", "bta-D128", "bta-fp16", "bta-m0", "bta-walk-rows",
-                              "varlen-D128", "varlen-D48", "varlen-fp16"])
+                              "varlen-D128", "varlen-D48", "varlen-fp16", "rows-lengths",
+                              "rows-order"])
 def test_plans_raise(call):
     with pytest.raises(ValueError):
         call()

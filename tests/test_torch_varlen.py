@@ -5,7 +5,9 @@ All clouds of a batch on one token axis with an ``offsets`` boundary array:
 ``unpack_varlen``, the varlen maps, the varlen kernel's plain versions
 (forward and backward, against the Pallas kernel in interpret mode), a
 plain walk of the fp32 ``varlen_dkv``'s planned key tiles and row splits
-(against the plain backward and the Pallas ``_dkv_kernel``),
+(against the plain backward and the Pallas ``_dkv_kernel``), one of the
+fp32 ``varlen_fwd`` / ``varlen_dq``'s planned row tiles (against the plain
+versions and the Pallas ``_fwd_kernel`` / ``_dq_kernel``),
 ``ops.flash_attention_varlen``, ``bsa_attention_varlen`` (branch by branch
 and its gradients), ``pc_apply`` with offsets, a 2-layer packed train step
 and ``GeometryEngine`` in its default (packed) layout.  The same numpy
@@ -45,12 +47,12 @@ from repro_torch.core.config import BSAConfig
 from repro_torch.kernels import occupancy as t_occ
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import varlen as t_varlen
-from repro_torch.kernels.common import p_from_lse, row_delta
+from repro_torch.kernels.common import LSE_EMPTY, p_from_lse, row_delta
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import pointcloud as t_pc
 from repro_torch.models.api import model_api
 from repro_torch.models.attention_layer import attention_layer_apply
-from repro_torch.numerics import segment_ids_from_offsets
+from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
 from repro_torch.optim import adamw_init
 from repro_torch.serving.engine import GeometryEngine
 
@@ -306,6 +308,76 @@ def test_varlen_dkv_planned_walk_matches_plain_and_pallas(sizes, keys, rows):
     for g, w, j, name in zip(got, want, jax_dkv, ("dk", "dv")):
         np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **TOL["float32"])
         np.testing.assert_allclose(_np(g), _np(j), err_msg=name, **TOL["float32"])
+
+
+def _planned_row_walk(q, k, v, key_bias, do, table):
+    """A plain-PyTorch walk of the fp32 ``varlen_fwd`` / ``varlen_dq``'s plan
+    (``occupancy.varlen_row_tiles``): each row tile against its key range
+    with the key bias only (no segment test).  The forward ends each row's
+    softmax as the kernel's store does (zeros and ``LSE_EMPTY`` for a row
+    that sees no valid key, or a tile with no key); dq comes from that lse
+    and δ.  Returns (o, lse, dq), NaN where no tile wrote."""
+    H, rep, T, D = q.shape
+    scale = D ** -0.5
+    o, dq = torch.full(q.shape, float("nan")), torch.full(q.shape, float("nan"))
+    lse = torch.full((H, rep, T), float("nan"))
+    tiles = [(slice(t0, t0 + n), slice(k0, k1)) for t0, n, k0, k1 in table.tolist()]
+    for rows, keys in tiles:
+        logits = (torch.matmul(q[:, :, rows], k[:, None, keys].transpose(-1, -2)) * scale
+                  + key_bias[0, keys])
+        live = logits > NEG_INF / 2
+        m = logits.amax(-1, keepdim=True) if keys.stop > keys.start else 0.0
+        p = torch.where(live, torch.exp(logits - m), 0.0)
+        l = p.sum(-1, keepdim=True)
+        o[:, :, rows] = torch.where(l > 0, torch.matmul(p, v[:, None, keys]) / l, 0.0)
+        lse[:, :, rows] = torch.where(l > 0, m + torch.log(l), LSE_EMPTY)[..., 0]
+    delta = row_delta(do, o)
+    for rows, keys in tiles:
+        logits = (torch.matmul(q[:, :, rows], k[:, None, keys].transpose(-1, -2)) * scale
+                  + key_bias[0, keys])
+        p = p_from_lse(logits, lse[:, :, rows, None])
+        dp = torch.matmul(do[:, :, rows], v[:, None, keys].transpose(-1, -2))
+        ds = p * (dp - delta[:, :, rows, None]) * scale
+        dq[:, :, rows] = torch.matmul(ds, k[:, None, keys])
+    return o, lse, dq
+
+
+@pytest.mark.parametrize("rows", [64, 16], ids=["kernel", "small"])
+@pytest.mark.parametrize("sizes", MIXES)
+def test_varlen_row_walk_matches_plain_and_pallas(sizes, rows):
+    """The fp32 ``varlen_fwd`` and ``varlen_dq``'s planned walk
+    (``occupancy.varlen_row_tiles`` at the kernels' 64 rows, and at 16 for
+    many tiles that end at segment boundaries off a multiple of 64) equals
+    the plain versions' (o, lse) and dq and JAX's ``_fwd_kernel`` /
+    ``_dq_kernel`` in interpret mode (fp32, 1e-4), capacity tail and empty
+    segments included; every row is written, and the tail's rows end with
+    lse = ``LSE_EMPTY`` and dq = 0."""
+    arrays, offsets = _kernel_case(sizes, 9, "float32")
+    q, k, v, kb = arrays
+    T, L = q.shape[2], k.shape[1]
+    args = _torch_args(arrays, offsets, "float32")
+    table = t_occ.varlen_row_tiles(offsets, offsets // ELL, T, L, "cpu", rows=rows)
+    do = torch.from_numpy(np.random.default_rng(10).standard_normal(q.shape).astype(np.float32))
+    got = _planned_row_walk(*args[:4], do, table)
+    o, lse = t_varlen.flash_attention_varlen_fwd_plain(*args[:6])
+    dq = t_varlen.flash_attention_varlen_bwd_plain(*args[:6], do, lse, row_delta(do, o))[0]
+    qseg, kseg, qrng, krng = _jax_maps(offsets, T, L)
+    jargs = [jnp.asarray(a) for a in (q, k, v, kb)] + [qseg[None], kseg[None], qrng, krng]
+    kw = dict(tq=min(64, T), tk=min(16, L), interpret=True, compute="float32")
+    jo, jlse = j_varlen._fwd_call(*jargs, **kw)
+    jdq = j_varlen._bwd_calls(*jargs, jnp.asarray(do.numpy()), jlse,
+                              jnp.asarray(row_delta(do, o).numpy()), **kw)[0]
+    assert not any(bool(torch.isnan(g).any()) for g in got)          # every row written
+    empty = np.asarray(jlse) >= 5e29
+    assert empty[..., offsets[-1]:].all()
+    np.testing.assert_array_equal(_np(got[1]) >= 5e29, empty)
+    np.testing.assert_array_equal(_np(got[1])[empty], np.float32(LSE_EMPTY))
+    for g, want, j, name in ((got[0], o, jo, "o"), (got[2], dq, jdq, "dq")):
+        np.testing.assert_allclose(_np(g), _np(want), err_msg=name, **TOL["float32"])
+        np.testing.assert_allclose(_np(g), _np(j), err_msg=name, **TOL["float32"])
+    for want in (lse, jlse):
+        np.testing.assert_allclose(_np(got[1])[~empty], _np(want)[~empty], **TOL["float32"])
+    assert (_np(got[2])[..., offsets[-1]:, :] == 0).all()
 
 
 def test_varlen_bwd_plain_is_autograd_of_forward():
