@@ -14,8 +14,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    and ``local_dkv`` in every variant and ``local_fwd_mma``, must build
    with 0 bytes spilled at head dims 64 and 128, ``bta_fwd_fma`` /
    ``bta_bwd_fma`` at 16 and 32, and ``varlen_fwd_fma``, ``varlen_dq_fma``
-   and ``varlen_dkv_fma`` at 16, 32 and 64, by ptxas's report:
-   ``NO_SPILL``), TF32 off for every fp32 product;
+   and ``varlen_dkv_fma`` at 16, 32 and 64, ``selection_fwd_groups`` at
+   16, 32 and 64 and ``epilogue_bwd_vec`` at every lanes count, by ptxas's
+   report: ``NO_SPILL``), TF32 off for every fp32 product;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in fp32 and bf16 and, for flash, in its causal modes too (fp32; the
    tiled ``flash_fwd``: register tiles in fp32, tensor cores in bf16); with
@@ -45,9 +46,16 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    tiles and splits of ``occupancy.varlen_dkv_tiles`` for dK/dV; each of
    the three kernels gives identical bits on two calls: the
    ``varlen_repro`` lines), with their device times and paths; then the
-   ``output_hashes`` line: hashes of ``flash_fwd``'s and ``flash_dq``'s
-   outputs on seeded inputs, which hold a change that moves their code to
-   its parent's bits;
+   ``output_hashes`` line: hashes of every kernel's outputs on seeded
+   inputs, which hold a change that moves a kernel's code to its parent's
+   bits.  ``selection_fwd`` (shapenet's groups of 8 rows: the ``groups``
+   path in fp32, ``selection.selection_plan``) runs on random picks and on
+   each layer's own picks in the model's first train step (mode ``topk``),
+   both with its device time, its path and identical bits on two calls;
+   the epilogues give their device time at every shape they run (shapenet,
+   the LM, D 128), and ``epilogue_bwd`` identical bits on two calls and
+   the kernel ``epilogue.epilogue_bwd_plan`` names (``vec`` at every
+   shape here);
 3. serve, padded then packed: ``shapenet-bsa`` at full width (18 layers,
    random weights from a seed) serves 16 synthetic clouds of 2800–3586
    points through ``GeometryEngine(batch_slots=8)`` (the ball kernels on
@@ -159,6 +167,7 @@ non-zero before the result lines.  On success the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -288,32 +297,42 @@ LM_GRAD_FLOOR = 1e-4
 # head_dim 128: phi4-mini-3.8b's heads (24 query on 8 KV heads of 128), LM_BSA
 D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
 # the redesigned kernels must build without spills at these head dims, every
-# variant: mma (bf16 tensor cores), fma (fp32 register tiles) and, for the
-# local backward, lanes (fp32 and small windows, both dtypes); the ball
+# variant named: mma (bf16 tensor cores), fma (fp32 register tiles) and, for
+# the local backward, lanes (fp32 and small windows, both dtypes); the ball
 # kernels' fma variants at the head dims their fma path takes (16, 32), the
-# varlen kernels' at theirs (16, 32, 64)
-NO_SPILL = {**{name: ((64, 128), ("mma", "fma"))
-               for name in ("flash_fwd", "flash_dq", "flash_dkv", "selection_fwd",
-                            "selection_dq", "selection_dkv")},
-            "local_fwd": ((64, 128), ("mma",)),
-            "local_dq": ((64, 128), ("mma", "lanes")),
-            "local_dkv": ((64, 128), ("mma", "lanes")),
-            **{name: (bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")},
-            **{name: (HEAD_DIMS[name], ("fma",))
-               for name in ("varlen_fwd", "varlen_dq", "varlen_dkv")}}
+# varlen kernels' at theirs (16, 32, 64), selection_fwd's groups variant at
+# its (16, 32, 64); epilogue_bwd's vec variant at every lanes count (in
+# place of a head dim), fp32 and bf16.  (kernel, head dims, variants)
+NO_SPILL = [*((name, (64, 128), ("mma", "fma"))
+              for name in ("flash_fwd", "flash_dq", "flash_dkv", "selection_fwd",
+                           "selection_dq", "selection_dkv")),
+            ("selection_fwd", selection.GROUPS_DIMS, ("groups",)),
+            ("local_fwd", (64, 128), ("mma",)),
+            ("local_dq", (64, 128), ("mma", "lanes")),
+            ("local_dkv", (64, 128), ("mma", "lanes")),
+            *((name, bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")),
+            *((name, HEAD_DIMS[name], ("fma",))
+              for name in ("varlen_fwd", "varlen_dq", "varlen_dkv")),
+            ("epilogue_bwd", (1, 2, 4, 8, 16, 32), ("vec",))]
 # a kernel's further rows in the kernels line, beside its main path's (name
 # -> [(key, path whose launches it reports or None, dtype, mode)]): the LM
-# prefill's flash_fwd beside the shapenet train path's, the D 128 rows, and
-# paged_gather on int64 rows beside int32
+# prefill's flash_fwd beside the shapenet train path's, selection_fwd on the
+# model's picks beside random ones, the epilogues at the LM's shapes, the
+# D 128 rows, and paged_gather on int64 rows beside int32
 LM_ALSO = {"flash_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_block_causal"),
                          ("d128", None, "bfloat16", "d128_block_causal")],
+           "selection_fwd": [("topk", "train_padded", "float32", "topk")],
+           "epilogue_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_rows"),
+                            ("d128", None, "bfloat16", "d128_rows")],
+           "epilogue_bwd": [("lm_train", "train_lm", "bfloat16", "lm_train_rows"),
+                            ("d128", None, "bfloat16", "d128_rows")],
            "local_fwd": [("d128", None, "bfloat16", "d128_lm_window")],
            "paged_gather": [("int64_rows", "serve_lm", "float32", "decode_window_i64"),
                             ("crow_int64", "serve_lm", "float32", "decode_crow_i64")]}
 
 
 # a kernel row's optional keys, carried into the kernels line
-EXTRA_KEYS = ("device_ms", "library_device_ms", "index", "rows", "path")
+EXTRA_KEYS = ("device_ms", "library_device_ms", "index", "rows", "path", "bit_identical")
 
 
 class CheckFailed(Exception):
@@ -386,26 +405,33 @@ def rand(shape, dtype, dev, seed):
 
 
 def device_ms(fn, pattern: str | None = None, reps: int = 20,
-              per_call: bool = False) -> tuple[float, list[str]]:
+              per_call: bool = False) -> tuple[float | None, list[str]]:
     """(mean device time of one launch of the kernels whose name matches
     ``pattern`` (every kernel when None), the names of every device kernel
     the calls launched), from the profiler over ``reps`` calls of ``fn``
     after a warm-up.  Mean over the launches the trace holds: it may miss a
     few of the first calls' kernels, and now and then a trace holds no
-    device kernel at all, so an empty one is taken again (up to three
-    times).  ``per_call``: their device time a call instead (a library call
-    may launch several kernels)."""
-    ks = device_trace(fn, reps)
+    device kernel of ``fn`` at all, so such a one is taken again (up to
+    three times; then the time is None, not measured, and a
+    ``device_ms_missing`` line names what the trace held).  ``per_call``:
+    their device time a call instead (a library call may launch several
+    kernels)."""
+    ks = device_trace(fn, reps, pattern)
     mine = [e for e in ks if pattern is None or re.search(pattern, e.key)]
+    if pattern is not None and not mine:
+        print(json.dumps({"device_ms_missing": {"pattern": pattern,
+                                                "trace": sorted(e.key[:80] for e in ks)}}),
+              flush=True)
+        return None, sorted(e.key for e in ks)
     total = sum(e.device_time_total for e in mine) / 1e3
     return (total / reps if per_call else total / max(1, sum(e.count for e in mine)),
             sorted(e.key for e in ks))
 
 
-def device_trace(fn, reps: int) -> list:
+def device_trace(fn, reps: int, pattern: str | None = None) -> list:
     """The device kernels' profiler averages over ``reps`` calls of ``fn``
-    after a warm-up call (an empty trace is taken again, up to three
-    times)."""
+    after a warm-up call (a trace with no kernel, or none whose name matches
+    ``pattern``, is taken again, up to three times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -416,7 +442,7 @@ def device_trace(fn, reps: int) -> list:
                 fn()
             torch.cuda.synchronize()
         ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if ks:
+        if any(pattern is None or re.search(pattern, e.key) for e in ks):
             return ks
     return ks
 
@@ -584,6 +610,53 @@ def selection_tiled_rows(record, mode, qg, kb, vb, idxs, tok_bias, do) -> None:
     print(json.dumps({"selection_backward": line}), flush=True)
 
 
+def selection_fwd_bound(qg, idx, tok_bias) -> tuple[float, str]:
+    """``selection_fwd``'s bound on these picks: Q read and O written once,
+    each block some group picked read once (K and V), the picks, the token
+    bias and lse; 4·M·ℓ·D FLOP a valid pick."""
+    Bc, Hkv, G, M, Dh = qg.shape
+    nb, ell = tok_bias.shape[1], tok_bias.shape[2]
+    es = qg.element_size()
+    valid = (idx >= 0) & (idx < nb)
+    used = torch.zeros(Bc, Hkv, nb, dtype=torch.bool, device=qg.device)
+    used.scatter_(2, idx.clamp(0, nb - 1).reshape(Bc, Hkv, -1).long(),
+                  valid.reshape(Bc, Hkv, -1))
+    nbytes = (2 * qg.numel() + 2 * int(used.sum()) * ell * Dh) * es \
+        + 4 * idx.numel() + 4 * tok_bias.numel() + 4 * qg.numel() // Dh
+    return bound(nbytes, 4.0 * M * ell * Dh * int(valid.sum()), qg.dtype)
+
+
+def selection_fwd_repro(mode, dtype, call) -> bool:
+    """Two calls of ``selection_fwd`` on the same inputs: a failed check
+    unless their bits are equal."""
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(same, f"selection_fwd [{mode}, {dtype}]: two calls on the same inputs differ")
+    return same
+
+
+def epilogue_bwd_row(record, mode, args, err_fn=max_err) -> None:
+    """``epilogue_bwd`` on ``args`` (o₁..o₃, g₁..g₃, m, dO) against its plain
+    version (by ``err_fn``), its bits equal on two calls, timed per call and
+    on the device, with the kernel :func:`epilogue.epilogue_bwd_plan`
+    names."""
+    R, Dh = args[0].shape
+    dtype, es = args[0].dtype, args[0].element_size()
+    call = lambda: epilogue.gated_combine_bwd(*args)            # noqa: E731
+    got, again = call(), call()
+    want = epilogue.gated_combine_bwd_plain(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, f"epilogue_bwd [{mode}, {dtype}]: two calls on the same inputs differ")
+    err, ok = err_fn(got, want)
+    b_ms, b_by = bound(7 * R * Dh * es + 7 * 4 * R, 10.0 * R * Dh, torch.float32)
+    record("epilogue_bwd", mode, dtype, err, ok, median_ms(call),
+           median_ms(lambda: epilogue.gated_combine_bwd_plain(*args), reps=5),
+           b_ms, b_by, None, device_ms=device_ms(call, "epilogue_bwd")[0],
+           bit_identical=same, path=epilogue.epilogue_bwd_plan(Dh, dtype).path)
+
+
 def kernel_phase(dev) -> list[dict]:
     mask = slice_mask(dev)
     key_bias = torch.where(mask, 0.0, NEG_INF).float()
@@ -677,19 +750,15 @@ def kernel_phase(dev) -> list[dict]:
         want = selection.selection_attention_fwd_plain(qg, kb, vb, idx, tok_bias)
         torch.cuda.synchronize()
         err, ok = max_err(got, want)
-        valid_sel = int((idx >= 0).sum())
-        used = torch.zeros(B, H, NB, dtype=torch.bool, device=dev)
-        used.scatter_(2, idx.clamp(min=0).reshape(B, H, -1).long(),
-                      (idx >= 0).reshape(B, H, -1))
-        nbytes = (2 * qg.numel() + 2 * int(used.sum()) * ELL * D) * es \
-            + 4 * idx.numel() + 4 * tok_bias.numel() + 4 * qg.numel() // D
-        b_ms, b_by = bound(nbytes, 4.0 * M * ELL * D * valid_sel, dtype)
-        record("selection_fwd", "groups", dtype, err, ok,
-               median_ms(lambda: selection.selection_attention_fwd(qg, kb, vb, idx,
-                                                                   tok_bias)),
+        b_ms, b_by = selection_fwd_bound(qg, idx, tok_bias)
+        call = lambda: selection.selection_attention_fwd(qg, kb, vb, idx, tok_bias)  # noqa: E731
+        same = selection_fwd_repro("groups", dtype, call)
+        record("selection_fwd", "groups", dtype, err, ok, median_ms(call),
                median_ms(lambda: selection.selection_attention_fwd_plain(
                    qg, kb, vb, idx, tok_bias), reps=5),
-               b_ms, b_by, selection_library_ms(qg, kb, vb, idx, tok_bias))
+               b_ms, b_by, selection_library_ms(qg, kb, vb, idx, tok_bias),
+               device_ms=device_ms(call, "selection_fwd")[0], bit_identical=same,
+               path=selection.selection_plan(M, ELL, D, dtype, KSTAR).path)
 
         # ---- epilogue: R = B·N·H rows of D
         R = B * N * H
@@ -704,7 +773,9 @@ def kernel_phase(dev) -> list[dict]:
         record("epilogue_fwd", "rows", dtype, err, ok,
                median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
                median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
-               b_ms, b_by, None)
+               b_ms, b_by, None,
+               device_ms=device_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m),
+                                   "epilogue_fwd")[0])
     return results
 
 
@@ -847,6 +918,32 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
         tok_bias = key_bias.reshape(B, NB, ELL).contiguous()
         do = rand((B, H, NB, M, D), dtype, dev, 42)
         do = torch.where(mask.reshape(B, 1, NB, M, 1), do, torch.zeros_like(do))
+        # the forward on each layer's own picks (the main path's traffic):
+        # errors the worst over the layers, times and bounds their mean
+        errs, oks, k_ms, d_ms, p_ms, b_ms = ([] for _ in range(6))
+        for layer_idx in picks:
+            call = functools.partial(selection.selection_attention_fwd, qg, kb, vb, layer_idx,
+                                     tok_bias)
+            got = call()
+            want = selection.selection_attention_fwd_plain(qg, kb, vb, layer_idx, tok_bias)
+            torch.cuda.synchronize()
+            err, ok = max_err(got, want)
+            errs.append(err)
+            oks.append(ok and selection_fwd_repro("topk", dtype, call))
+            k_ms.append(median_ms(call))
+            t = device_ms(call, "selection_fwd")[0]
+            if t is not None:
+                d_ms.append(t)
+            p_ms.append(median_ms(functools.partial(selection.selection_attention_fwd_plain,
+                                                    qg, kb, vb, layer_idx, tok_bias), reps=3))
+            b_ms.append(selection_fwd_bound(qg, layer_idx, tok_bias))
+        record("selection_fwd", "topk", dtype,
+               max(errs) if all(math.isfinite(e) for e in errs) else math.nan, all(oks),
+               statistics.fmean(k_ms), statistics.fmean(p_ms),
+               statistics.fmean(t for t, _ in b_ms), b_ms[0][1],
+               selection_library_ms(qg, kb, vb, picks[0], tok_bias),
+               device_ms=statistics.fmean(d_ms) if d_ms else None, bit_identical=True,
+               path=selection.selection_plan(M, ELL, D, dtype, KSTAR).path)
         for mode, idxs in (("topk", picks), ("random", [idx])):
             errs, oks, k_ms, p_ms, b_ms, d_ms, c_ms, r_ms, same = ([] for _ in range(9))
             lib_ms = selection_library_ms(qg, kb, vb, idxs[0], tok_bias, backward=True)
@@ -908,17 +1005,7 @@ def backward_kernel_phase(dev, batch) -> list[dict]:
         os_ = [rand((R, D), dtype, dev, 43 + i) for i in range(3)]
         gs = [torch.sigmoid(rand((R,), torch.float32, dev, 46 + i)) for i in range(3)]
         m = mask[:, :, None].expand(B, N, H).reshape(R).float()
-        do = rand((R, D), dtype, dev, 49)
-        args = (*os_, *gs, m, do)
-        got = epilogue.gated_combine_bwd(*args)
-        want = epilogue.gated_combine_bwd_plain(*args)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, want)
-        b_ms, b_by = bound(7 * R * D * es + 7 * 4 * R, 10.0 * R * D, torch.float32)
-        record("epilogue_bwd", "rows", dtype, err, ok,
-               median_ms(lambda: epilogue.gated_combine_bwd(*args)),
-               median_ms(lambda: epilogue.gated_combine_bwd_plain(*args), reps=5),
-               b_ms, b_by, None)
+        epilogue_bwd_row(record, "rows", (*os_, *gs, m, rand((R, D), dtype, dev, 49)))
     return results
 
 
@@ -1058,13 +1145,25 @@ def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dic
 HASH_CASES = {"shapenet_cmp": (64, 8, 1, 3840, 480, 32, {}),
               "lm_block_causal": (8, 4, 8, 4096, 64, 64, dict(block_causal=True, ell=64)),
               "causal_d128": (8, 8, 3, 1024, 1024, 128, dict(causal=True))}
+# the packed case of output_hashes: three clouds packed to 3,072 rows
+HASH_OFFSETS = np.array([0, 1024, 2304, 2816, 3072], np.int32)
 
 
 def output_hashes(dev) -> dict:
-    """sha256 (16 hex digits) of ``flash_fwd``'s (o, lse) and ``flash_dq``'s
-    dq in fp32 and bf16 on inputs drawn from fixed seeds (``HASH_CASES``,
-    about a sixth of the keys dead): equal hashes from two trees mean equal
-    bits, so a change that moves a kernel's code can be held to its parent."""
+    """sha256 (16 hex digits) of every kernel's outputs in fp32 and bf16 on
+    inputs drawn from fixed seeds, on the paths the main paths take: equal
+    hashes from two trees mean equal bits, so a change that moves a kernel's
+    code can be held to its parent.  ``flash_fwd`` / ``flash_dq`` on
+    ``HASH_CASES`` (about a sixth of the keys dead), ``flash_dkv`` beside
+    them; ``bta_fwd`` / ``bta_bwd`` on 16 heads of 1,024 positions (balls of
+    256, D 32, a padded tail); ``selection_fwd`` on groups of 8 rows (ℓ 8,
+    D 32, k* 4: shapenet's) and of 64 rows (ℓ 64, D 64), ``selection_bwd``
+    on the former, ``selection_dq`` / ``selection_dkv`` on the latter; the
+    epilogues on 8,192 rows of 32 and 64; the varlen kernels on three clouds
+    packed to 3,072 rows (``HASH_OFFSETS``); the local kernels on
+    ``lm_window_case(dev, 2048)``; ``paged_gather`` on one decode step's
+    rows.  Every backward kernel gets its inputs from the plain forward, so
+    its hash holds only its own code."""
     def draw(shape, seed, dtype):
         g = torch.Generator(device=dev).manual_seed(seed)
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -1085,8 +1184,82 @@ def output_hashes(dev) -> dict:
             do = draw(o.shape, 5, dtype)
             dq = flash.flash_attention_dq(q, k, v, kb, do, lse, row_delta(do, o), n_heads=nh,
                                           **mode)
+            dkv = flash.flash_attention_dkv(q, k, v, kb, do, lse, row_delta(do, o),
+                                            n_heads=nh, **mode)
             out[f"{name}/{str(dtype).replace('torch.', '')}"] = {
-                "flash_fwd": digest(o, lse), "flash_dq": digest(dq)}
+                "flash_fwd": digest(o, lse), "flash_dq": digest(dq), "flash_dkv": digest(*dkv)}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt, row = str(dtype).replace("torch.", ""), {}
+        # bta: 2 samples × 8 heads of 1,024 positions, the second padded from 700
+        ok = torch.arange(1024, device=dev)[None] < torch.tensor([[1024], [700]], device=dev)
+        kbias = torch.where(ok, 0.0, NEG_INF).float()
+        q, k, v = (draw(sh, s, dtype) for sh, s in (((16, 1, 1024, 32), 10),
+                                                    ((16, 1024, 32), 11), ((16, 1024, 32), 12)))
+        kw = dict(ball_size=BALL, n_heads=8)
+        o, lse = bta.ball_attention_fwd(q, k, v, kbias, **kw)
+        row["bta_fwd"] = digest(o, lse)
+        o, lse = bta.ball_attention_fwd_plain(q, k, v, kbias, **kw)
+        do = draw(o.shape, 13, dtype)
+        row["bta_bwd"] = digest(*bta.ball_attention_bwd(q, k, v, kbias, do, lse,
+                                                        row_delta(do, o), **kw))
+        # selection: groups of 8 rows (shapenet's), of 64 rows (the tiled path)
+        for tag, (G, M, NB_, ell, d) in (("m8", (48, 8, 48, 8, 32)),
+                                         ("m64", (8, 64, 16, 64, 64))):
+            qg = draw((2, 2, G, M, d), 20, dtype)
+            kb_, vb_ = draw((2, 2, NB_, ell, d), 21, dtype), draw((2, 2, NB_, ell, d), 22, dtype)
+            g = torch.Generator(device=dev).manual_seed(23)
+            idx = torch.randint(-1, NB_, (2, 2, G, 4), generator=g, device=dev).int()
+            tok = torch.where(draw((2, NB_, ell), 24, torch.float32) > -1.5, 0.0,
+                              NEG_INF).float()
+            o, lse = selection.selection_attention_fwd(qg, kb_, vb_, idx, tok)
+            row[f"selection_fwd/{tag}"] = digest(o, lse)
+            o, lse = selection.selection_attention_fwd_plain(qg, kb_, vb_, idx, tok)
+            do = draw(o.shape, 25, dtype)
+            args = (qg, kb_, vb_, idx, tok, do, lse, row_delta(do, o))
+            if tag == "m8":
+                row["selection_bwd"] = digest(*selection.selection_attention_bwd(*args))
+            else:
+                row["selection_dq"] = digest(selection.selection_attention_dq(*args))
+                row["selection_dkv"] = digest(*selection.selection_attention_dkv(*args))
+        # epilogues: 8,192 rows of 32 and of 64
+        for d in (32, 64):
+            os_ = [draw((8192, d), 30 + i, dtype) for i in range(3)]
+            gs = [torch.sigmoid(draw((8192,), 33 + i, torch.float32)) for i in range(3)]
+            m = (draw((8192,), 36, torch.float32) > -1.0).float()
+            row[f"epilogue_fwd/d{d}"] = digest(epilogue.gated_combine_fwd(*os_, *gs, m))
+            row[f"epilogue_bwd/d{d}"] = digest(*epilogue.gated_combine_bwd(
+                *os_, *gs, m, draw((8192, d), 37, dtype)))
+        # varlen: three clouds packed to 3,072 rows (and a capacity tail)
+        T = int(HASH_OFFSETS[-1]) + 512
+        vmask = np.zeros(T, bool)
+        for a, b in zip(HASH_OFFSETS[:-1], HASH_OFFSETS[1:]):
+            vmask[a:b - 100] = True
+        args, _ = varlen_case(dev, HASH_OFFSETS, vmask, dtype, 40)
+        off = dict(offsets=(HASH_OFFSETS, HASH_OFFSETS // ELL))
+        row["varlen_fwd"] = digest(*varlen.flash_attention_varlen_fwd(*args, **off))
+        o, lse = varlen.flash_attention_varlen_fwd_plain(*args[:6])
+        do = draw(o.shape, 43, dtype)
+        rest = (do, lse, row_delta(do, o))
+        row["varlen_dq"] = digest(varlen.flash_attention_varlen_dq(*args, *rest, **off))
+        row["varlen_dkv"] = digest(*varlen.flash_attention_varlen_dkv(*args, *rest, **off))
+        # local: one 2,048-token sequence (a tail, a hole, a sample boundary)
+        key_bias, blk_seg = lm_window_case(dev, 2048)
+        q = draw((LM_HKV, LM_HQ // LM_HKV, 2048, LM_D), 50, dtype)
+        k, v = draw((LM_HKV, 2048, LM_D), 51, dtype), draw((LM_HKV, 2048, LM_D), 52, dtype)
+        lkw = dict(window=LM_W, n_heads=LM_HKV)
+        row["local_fwd"] = digest(*local.local_window_fwd(q, k, v, key_bias, blk_seg, **lkw))
+        o, lse = local.local_window_fwd_plain(q, k, v, key_bias, blk_seg, **lkw)
+        do = draw(o.shape, 53, dtype)
+        args = (q, k, v, key_bias, blk_seg, do, lse, row_delta(do, o))
+        live = local.live_map(key_bias, blk_seg, LM_W)
+        row["local_dq"] = digest(local.local_window_dq(*args, live=live, **lkw))
+        row["local_dkv"] = digest(*local.local_window_dkv(*args, live=live, **lkw))
+        # paged_gather: one decode step's window rows and compressed rows
+        win_rows, crow, R = decode_rows(dev)
+        pool = draw((R, LM_HKV, LM_D), 60, dtype)
+        row["paged_gather"] = digest(paged.paged_gather(pool, win_rows),
+                                     paged.paged_gather(pool, crow))
+        out[f"kernels/{dt}"] = row
     return out
 
 
@@ -1325,7 +1498,8 @@ def device_summary(prof) -> dict:
     ported = {}
     for name, ms, _ in kernels:
         hit = re.search(r"(" + "|".join(KERNELS)
-                        + r")_(?:(?:kernel|mma|fma|rows|lanes|reduce)<|ranks\()", name)
+                        + r")_(?:(?:kernel|mma|fma|rows|lanes|reduce|groups|warp|vec)<|ranks\()",
+                        name)
         if hit:
             ported[hit.group(1)] = ported.get(hit.group(1), 0.0) + ms
     top = sorted(kernels, key=lambda r: -r[1])[:12]
@@ -1602,7 +1776,9 @@ def lm_kernel_phase(dev) -> list[dict]:
         record("epilogue_fwd", "lm_rows", dtype, err, ok,
                median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
                median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
-               b_ms, b_by, None)
+               b_ms, b_by, None,
+               device_ms=device_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m),
+                                   "epilogue_fwd")[0])
         del os_, gs, got, want
         torch.cuda.empty_cache()
     return results
@@ -1756,19 +1932,12 @@ def head_dim_128_phase(dev) -> list[dict]:
         record("epilogue_fwd", "d128_rows", dtype, err, ok,
                median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
                median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
-               b_ms, b_by, None)
-        do = rand((R, Dh), dtype, dev, 158)
-        args = (*os_, *gs, m, do)
-        got = epilogue.gated_combine_bwd(*args)
-        want = epilogue.gated_combine_bwd_plain(*args)
-        torch.cuda.synchronize()
-        err, ok = rel_err(got, want)
-        b_ms, b_by = bound(7 * R * Dh * es + 7 * 4 * R, 10.0 * R * Dh, torch.float32)
-        record("epilogue_bwd", "d128_rows", dtype, err, ok,
-               median_ms(lambda: epilogue.gated_combine_bwd(*args)),
-               median_ms(lambda: epilogue.gated_combine_bwd_plain(*args), reps=5),
-               b_ms, b_by, None)
-        del os_, gs, args, got, want
+               b_ms, b_by, None,
+               device_ms=device_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m),
+                                   "epilogue_fwd")[0])
+        epilogue_bwd_row(record, "d128_rows", (*os_, *gs, m, rand((R, Dh), dtype, dev, 158)),
+                         rel_err)
+        del os_, gs, got, want
 
         # ---- paged_gather: one decode step's window gather of 8 slots, int32
         # and int64 rows
@@ -1783,13 +1952,15 @@ def head_dim_128_phase(dev) -> list[dict]:
 
 def ptxas_table(log: str) -> list[dict]:
     """Registers and spill bytes of each instantiation of the kernels in
-    ``NO_SPILL`` in the nvcc -Xptxas=-v log: kernel, variant, head dim."""
+    ``NO_SPILL`` in the nvcc -Xptxas=-v log: kernel, variant, head dim (for
+    ``epilogue_bwd_vec``, lanes a row)."""
     out, cur = [], None
-    names = "|".join(NO_SPILL)
+    names = "|".join(sorted({name for name, _, _ in NO_SPILL}))
+    variants = "|".join(sorted({v for _, _, vs in NO_SPILL for v in vs}))
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(%s)_(mma|fma|lanes)I\w*?Li(\d+)E" % names, m.group(1))
+            k = re.search(r"(%s)_(%s)I\w*?Li(\d+)E" % (names, variants), m.group(1))
             cur = None
             if k:
                 cur = {"kernel": k.group(1), "variant": k.group(2), "head_dim": int(k.group(3))}
@@ -2292,18 +2463,9 @@ def lm_backward_kernel_phase(dev, picks) -> list[dict]:
     os_ = [rand((R, LM_D), dtype, dev, 128 + i) for i in range(3)]
     gs = [torch.sigmoid(rand((R,), torch.float32, dev, 131 + i)) for i in range(3)]
     m = torch.ones(R, dtype=torch.float32, device=dev)
-    do = rand((R, LM_D), dtype, dev, 134)
-    args = (*os_, *gs, m, do)
-    got = epilogue.gated_combine_bwd(*args)
-    want = epilogue.gated_combine_bwd_plain(*args)
-    torch.cuda.synchronize()
-    err, ok = rel_err(got, want)
-    b_ms, b_by = bound(7 * R * LM_D * es + 7 * 4 * R, 10.0 * R * LM_D, torch.float32)
-    record("epilogue_bwd", "lm_train_rows", dtype, err, ok,
-           median_ms(lambda: epilogue.gated_combine_bwd(*args)),
-           median_ms(lambda: epilogue.gated_combine_bwd_plain(*args), reps=5),
-           b_ms, b_by, None)
-    del os_, gs, args, got, want
+    epilogue_bwd_row(record, "lm_train_rows", (*os_, *gs, m, rand((R, LM_D), dtype, dev, 134)),
+                     rel_err)
+    del os_, gs
     torch.cuda.empty_cache()
     return results
 
@@ -2503,9 +2665,10 @@ def main() -> int:
     if info["built"]:                      # the log of this build: no spills where it matters
         table = ptxas_table(info["log"])
         print(json.dumps({"ptxas_no_spill": table}), flush=True)
-        for name, (dims, variants) in NO_SPILL.items():
+        for name, dims, variants in NO_SPILL:
             for d in dims:
-                got = [r for r in table if r["kernel"] == name and r["head_dim"] == d]
+                got = [r for r in table if r["kernel"] == name and r["head_dim"] == d
+                       and r["variant"] in variants]
                 check({r["variant"] for r in got} == set(variants),
                       f"ptxas: {name} at D {d}: variants {[r['variant'] for r in got]}, "
                       f"expected {variants}")

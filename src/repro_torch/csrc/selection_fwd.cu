@@ -16,14 +16,26 @@
 // cores to get near its bound.
 //
 // Design.  The TPU scalar-prefetches idx so that its BlockSpecs fetch the
-// selected blocks; here a block loads its own group's indices.  Two paths,
+// selected blocks; here a block loads its own group's indices.  Three paths,
 // chosen by kernels/selection.py::selection_plan (the wrapper passes
-// `tiles`):
-//   warp   M < 16 (shapenet: 8 rows against 8 keys, far below a tensor-core
-//          tile).  One warp owns one (b, h, group): lanes are (8 rows) x (4
-//          lanes per row), each lane holds D/4 dims of its row's query and
-//          accumulator, and a row's dot products are summed across its 4
-//          lanes by shuffles; the k* loop runs inside the warp.
+// `path`):
+//   groups fp32, M < 16, D <= 64, k*ell <= 32 (shapenet: 8 rows against 4
+//          blocks of 8 keys).  A block is one warp and owns one group: it
+//          stages the group's valid selections, their K and V rows and
+//          token bias and 8 rows of Q into its shared memory (cp.async, 16
+//          bytes a copy), then scores all of the group's keys in one pass:
+//          one max and one sum a row, no rescale.  S is register-tiled (a
+//          lane holds 2 rows x 4 keys, float4 reads of Q and K), P goes
+//          through shared memory, and a lane adds P V into 2 rows x D/8
+//          dims.  What bounds it is how many groups an SM holds in flight
+//          (each waits on an L2 round trip for its picks, then for its
+//          rows): 9.6 KB a group at D 32 (unpadded, swizzled rows; P over
+//          Q), and a one-warp block frees its memory as soon as it ends.
+//   warp   the other M < 16 shapes (bf16, D 128, more keys).  One warp owns
+//          one (b, h, group): lanes are (8 rows) x (4 lanes per row), each
+//          lane holds D/4 dims of its row's query and accumulator, and a
+//          row's dot products are summed across its 4 lanes by shuffles;
+//          the k* loop runs inside the warp, keys read from L2.
 //   tiles  M >= 16.  One block owns one (b, h, group, tile of 64 rows): it
 //          stages its rows of Q once, collects the group's valid selections
 //          and walks them in staged chunks of BK keys (cp.async,
@@ -53,7 +65,7 @@ using rt::stage_rows;
 using rt::store2;
 
 // ---------------------------------------------------------------------------
-// warp: one warp a (b, h, group), 8 rows a pass.
+// warp: one warp a (b, h, group), 8 rows a pass, keys read from L2.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;          // (b, h, group) items per block
@@ -63,11 +75,11 @@ constexpr int kChunk = 8;          // keys scored per online-softmax step
 
 template <typename T, int D>
 __global__ void __launch_bounds__(32 * kWarps)
-selection_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
-                     const T* __restrict__ vb, const int* __restrict__ idx,
-                     const float* __restrict__ tok_bias, T* __restrict__ o,
-                     float* __restrict__ lse, int Hkv, int G, int M, int NB,
-                     int ell, int k_star, int n_items, float scale) {
+selection_fwd_warp(const T* __restrict__ q, const T* __restrict__ kb,
+                   const T* __restrict__ vb, const int* __restrict__ idx,
+                   const float* __restrict__ tok_bias, T* __restrict__ o,
+                   float* __restrict__ lse, int Hkv, int G, int M, int NB, int ell,
+                   int k_star, int n_items, float scale) {
   constexpr int DPL = D / kLanesPerRow;      // dims per lane
   const int item = blockIdx.x * kWarps + threadIdx.x / 32;
   if (item >= n_items) return;               // warp-uniform
@@ -141,6 +153,237 @@ selection_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kb,
     if (d0 == 0) {
       const float m_safe = fmaxf(m, rt::NEG_HALF);
       lse[qrow] = l > 0.f ? m_safe + logf(fmaxf(l, 1e-30f)) : rt::LSE_EMPTY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// groups: fp32, one warp a group, GT warps a block (one: a block frees its
+// memory as soon as its group is done), no block barrier.  The warp's region
+// of shared memory holds 8 rows of Q, the token bias of its KEYS key slots,
+// their K and V rows, its valid picks (in the order of idx) and each slot's
+// source row (slot r: valid pick r / ell, key r % ell; -1 past the valid
+// keys, whose K and V rows are zero and bias NEG_INF).  At D >= 32 the rows
+// of Q, K and V are unpadded and their 16-byte chunks swizzled (chunk c of
+// row r at c ^ (r % 8)), and P (8 rows x KEYS) takes the place of Q and the
+// bias once S is done: 9.6 KB a warp at D 32, so some 21 one-warp blocks
+// fit an SM.  Lane (rp, kx) = (lane / 8, lane % 8): S of rows 2rp, 2rp+1 x
+// keys kx + 8i; O of the same rows x the VW-float vectors kx + 8j of D.  A
+// row's max and sum run over its 8 lanes (xor 1, 2, 4).
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdGroups {
+  static constexpr int GT = 1, ROWS = 8, KEYS = 32;
+  static constexpr bool SWZ = D >= 32;               // swizzled rows (8+ chunks a row)
+  static constexpr int LD = SWZ ? D : D + 4, LP = KEYS + 4, KPL = KEYS / 8;
+  static constexpr int VW = D >= 32 ? 4 : D / 8, NV = D / (8 * VW);
+  // a warp's region, in floats: Q, bias, K, V, then ints: picks, sources;
+  // P over Q and the bias where they hold it, else after the ints
+  static constexpr int Q_OFF = 0, B_OFF = ROWS * LD, K_OFF = B_OFF + KEYS;
+  static constexpr int V_OFF = K_OFF + KEYS * LD, I_OFF = V_OFF + KEYS * LD;
+  static constexpr int R_OFF = I_OFF + KEYS, END = R_OFF + KEYS;
+  static constexpr bool P_OVER_Q = K_OFF >= ROWS * LP;
+  static constexpr int P_OFF = P_OVER_Q ? Q_OFF : END;
+  static constexpr int WARP = P_OVER_Q ? END : END + ROWS * LP;   // floats a warp
+  static constexpr size_t SMEM = (size_t)GT * WARP * 4;
+  // the float offset of 16-byte chunk c of row r of a Q, K or V tile
+  __device__ __forceinline__ static int at(int r, int c) {
+    return r * LD + (SWZ ? c ^ (r & 7) : c) * 4;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(32 * FwdGroups<D>::GT)
+selection_fwd_groups(const float* __restrict__ q, const float* __restrict__ kb,
+                     const float* __restrict__ vb, const int* __restrict__ idx,
+                     const float* __restrict__ tok_bias, float* __restrict__ o,
+                     float* __restrict__ lse, int Hkv, int G, int M, int NB, int ell,
+                     int k_star, int n_items, float scale) {
+  using C = FwdGroups<D>;
+  constexpr int LP = C::LP, KEYS = C::KEYS, KPL = C::KPL, ROWS = C::ROWS;
+  constexpr int VW = C::VW, NV = C::NV, CH = D / 4;        // CH: 16-byte chunks a row
+  constexpr unsigned FULL = 0xffffffffu;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int item = blockIdx.x * C::GT + warp;              // (b * Hkv + h) * G + group
+  if (item >= n_items) return;                             // warp-uniform
+  float* sm = reinterpret_cast<float*>(rt::dyn_smem()) + warp * C::WARP;
+  float* Qs = sm + C::Q_OFF;
+  float* Ks = sm + C::K_OFF;
+  float* Vs = sm + C::V_OFF;
+  float* Ps = sm + C::P_OFF;
+  float* bs = sm + C::B_OFF;
+  int* picks = reinterpret_cast<int*>(sm + C::I_OFF);
+  int* rows = reinterpret_cast<int*>(sm + C::R_OFF);
+  const int bh = item / G, b = bh / Hkv;
+  const size_t row0 = (size_t)item * M;
+  auto stage_q = [&](int r0) {                             // Q rows r0.. (zero past M)
+    for (int c = lane; c < ROWS * CH; c += 32) {
+      const int r = c / CH, e = c % CH;
+      float* dst = Qs + C::at(r, e);
+      if (r0 + r < M)
+        rt::cp_async16(dst, q + (row0 + r0 + r) * D + e * 4);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  // the valid picks, in the order of idx (k* <= KEYS <= 32)
+  const int pick = lane < k_star ? idx[(size_t)item * k_star + lane] : -1;
+  const bool ok = pick >= 0 && pick < NB;
+  const unsigned valid = __ballot_sync(FULL, ok);
+  const int n_keys = __popc(valid) * ell;
+  if (n_keys == 0) {                                       // zeros and LSE_EMPTY
+    for (int c = lane; c < M * CH; c += 32)
+      reinterpret_cast<float4*>(o + row0 * D)[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = lane; r < M; r += 32) lse[row0 + r] = rt::LSE_EMPTY;
+    return;
+  }
+  stage_q(0);
+  if (ok) picks[__popc(valid & ((1u << lane) - 1u))] = pick;
+  __syncwarp();
+  for (int r = lane; r < KEYS; r += 32) {                  // each key slot's source, bias
+    const int s = r / ell, c = r - s * ell;
+    const int blk = r < n_keys ? picks[s] : -1;
+    rows[r] = blk >= 0 ? (bh * NB + blk) * ell + c : -1;
+    if (blk >= 0)
+      rt::cp_async4(bs + r, tok_bias + ((size_t)b * NB + blk) * ell + c);
+    else
+      bs[r] = rt::NEG_INF;
+  }
+  __syncwarp();
+  for (int c = lane; c < KEYS * CH; c += 32) {             // K, V rows
+    const int r = c / CH, e = c % CH;
+    const int src = rows[r];
+    float* kd = Ks + C::at(r, e);
+    float* vd = Vs + C::at(r, e);
+    if (src >= 0) {
+      rt::cp_async16(kd, kb + (size_t)src * D + e * 4);
+      rt::cp_async16(vd, vb + (size_t)src * D + e * 4);
+    } else {
+      *reinterpret_cast<float4*>(kd) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(vd) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  rt::cp_async_commit();
+  rt::cp_async_wait<0>();
+  __syncwarp();
+
+  const int rp = lane / 8, kx = lane % 8;
+  float bias[KPL];                                         // P may take the bias' place
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) bias[i] = bs[kx + 8 * i];
+  for (int r0 = 0; r0 < M; r0 += ROWS) {
+    if (r0 > 0) {                                          // Q rows of a later pass
+      __syncwarp();
+      stage_q(r0);
+      rt::cp_async_commit();
+      rt::cp_async_wait<0>();
+      __syncwarp();
+    }
+    // S = Q K^T: rows 2rp + h, keys kx + 8i
+    float st[2][KPL];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) st[h][i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < CH; ++d) {
+      const float4 q0 = *reinterpret_cast<const float4*>(Qs + C::at(2 * rp, d));
+      const float4 q1 = *reinterpret_cast<const float4*>(Qs + C::at(2 * rp + 1, d));
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const float4 k4 = *reinterpret_cast<const float4*>(Ks + C::at(kx + 8 * i, d));
+        st[0][i] = dot4(q0, k4, st[0][i]);
+        st[1][i] = dot4(q1, k4, st[1][i]);
+      }
+    }
+    __syncwarp();                                          // Qs is free for P
+    // one softmax pass a row: its max, then p and its sum
+    float m[2], l[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = rt::NEG_INF;
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        st[h][i] = st[h][i] * scale + bias[i];
+        mx = fmaxf(mx, st[h][i]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float ms = fmaxf(mx, rt::NEG_HALF);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const float p = st[h][i] > rt::NEG_HALF ? expf(st[h][i] - ms) : 0.f;
+        sum += p;
+        Ps[(2 * rp + h) * LP + kx + 8 * i] = p;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(FULL, sum, off);
+      m[h] = mx;
+      l[h] = sum;
+    }
+    __syncwarp();
+    // O = P V: rows 2rp + h, vectors kx + 8j of D
+    float acc[2][NV * VW];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < NV * VW; ++e) acc[h][e] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < KEYS; c0 += 4) {
+      const float4 p0 = *reinterpret_cast<const float4*>(Ps + (2 * rp) * LP + c0);
+      const float4 p1 = *reinterpret_cast<const float4*>(Ps + (2 * rp + 1) * LP + c0);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float a0 = lane_of(p0, c), a1 = lane_of(p1, c);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          float v[VW];
+          if constexpr (VW == 4)
+            load_vec<VW>(v, Vs + C::at(c0 + c, kx + 8 * j));
+          else
+            load_vec<VW>(v, Vs + (c0 + c) * C::LD + (kx + 8 * j) * VW);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            acc[0][j * VW + e] = fmaf(a0, v[e], acc[0][j * VW + e]);
+            acc[1][j * VW + e] = fmaf(a1, v[e], acc[1][j * VW + e]);
+          }
+        }
+      }
+    }
+    float lv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 2 * rp + h;
+      lv[h] = l[h] > 0.f ? fmaxf(m[h], rt::NEG_HALF) + logf(fmaxf(l[h], 1e-30f))
+                         : rt::LSE_EMPTY;
+      if (r >= M) continue;
+      const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+      float* out = o + (row0 + r) * D;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float* dst = out + (kx + 8 * j) * VW;
+        if constexpr (VW == 4)
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(acc[h][4 * j] * inv, acc[h][4 * j + 1] * inv,
+                          acc[h][4 * j + 2] * inv, acc[h][4 * j + 3] * inv);
+        else
+          store2<float>(dst, acc[h][2 * j] * inv, acc[h][2 * j + 1] * inv);
+      }
+    }
+    if (M % 4 == 0) {
+      // lanes 0, 1 store rows 4t..4t+3 of the pass (held by lanes 16t, 16t + 8)
+      const int t = lane & 1;
+      const float x0 = __shfl_sync(FULL, lv[0], 16 * t), x1 = __shfl_sync(FULL, lv[1], 16 * t);
+      const float x2 = __shfl_sync(FULL, lv[0], 16 * t + 8);
+      const float x3 = __shfl_sync(FULL, lv[1], 16 * t + 8);
+      if (lane < 2 && r0 + 4 * lane < M)
+        *reinterpret_cast<float4*>(lse + row0 + r0 + 4 * lane) = make_float4(x0, x1, x2, x3);
+    } else if (kx == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r0 + 2 * rp + h < M) lse[row0 + r0 + 2 * rp + h] = lv[h];
     }
   }
 }
@@ -463,7 +706,7 @@ int launch_warp(const void* q, const void* kb, const void* vb, const void* idx,
                 int NB, int ell, int k_star, cudaStream_t stream) {
   const int n_items = B * Hkv * G;
   const int blocks = (n_items + kWarps - 1) / kWarps;
-  selection_fwd_kernel<T, D><<<blocks, 32 * kWarps, 0, stream>>>(
+  selection_fwd_warp<T, D><<<blocks, 32 * kWarps, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kb), static_cast<const T*>(vb),
       static_cast<const int*>(idx), static_cast<const float*>(tok_bias),
       static_cast<T*>(o), static_cast<float*>(lse), Hkv, G, M, NB, ell, k_star,
@@ -502,18 +745,45 @@ int launch_tiles(const void* q, const void* kb, const void* vb, const void* idx,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_groups(const void* q, const void* kb, const void* vb, const void* idx,
+                  const void* tok_bias, void* o, void* lse, int B, int Hkv, int G, int M,
+                  int NB, int ell, int k_star, cudaStream_t stream) {
+  if constexpr (D > 64) {                 // built for D 16, 32, 64 only
+    return (int)cudaErrorInvalidValue;
+  } else {
+    using C = FwdGroups<D>;
+    if (M >= 16 || k_star * ell > C::KEYS) return (int)cudaErrorInvalidValue;
+    const int n_items = B * Hkv * G;
+    auto kern = selection_fwd_groups<D>;
+    if (int err = set_smem(kern, C::SMEM)) return err;
+    kern<<<(n_items + C::GT - 1) / C::GT, 32 * C::GT, C::SMEM, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kb),
+        static_cast<const float*>(vb), static_cast<const int*>(idx),
+        static_cast<const float*>(tok_bias), static_cast<float*>(o),
+        static_cast<float*>(lse), Hkv, G, M, NB, ell, k_star, n_items,
+        (float)(1.0 / sqrt((double)D)));
+    return (int)cudaGetLastError();
+  }
+}
+
 }  // namespace
 
-// tiles: 0 = the warp path, 1 = the tiled path (kernels/selection.py::selection_plan)
+// path: 0 = warp, 1 = tiles, 2 = groups (fp32, D <= 64 only), as
+// kernels/selection.py::selection_plan names them
 extern "C" int selection_fwd(const void* q, const void* kb, const void* vb,
                              const void* idx, const void* tok_bias, void* o,
                              void* lse, int B, int Hkv, int G, int M, int NB,
-                             int ell, int k_star, int D, int bf16, int tiles,
+                             int ell, int k_star, int D, int bf16, int path,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * Hkv * G == 0 || M == 0) return 0;
   RT_DISPATCH_D128(D, {
-    if (tiles)
+    if (path == 2)                        // fp32 only
+      return bf16 ? (int)cudaErrorInvalidValue
+                  : launch_groups<kD>(q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G, M, NB,
+                                      ell, k_star, s);
+    if (path == 1)
       return bf16 ? launch_tiles<__nv_bfloat16, kD>(q, kb, vb, idx, tok_bias, o, lse, B,
                                                     Hkv, G, M, NB, ell, k_star, s)
                   : launch_tiles<float, kD>(q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G,

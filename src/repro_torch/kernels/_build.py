@@ -40,7 +40,7 @@ SIGNATURES = {
     # causal, block_causal, ell, bf16, stream
     "flash_fwd": [P] * 7 + [I] * 10 + [P],
     # q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G, M, NB, ell, k_star, D, bf16,
-    # tiles, stream
+    # path (0 warp, 1 tiles, 2 groups), stream
     "selection_fwd": [P] * 7 + [I] * 10 + [P],
     # o1, o2, o3, g1, g2, g3, m, out, R, D, bf16, stream
     "epilogue_fwd": [P] * 8 + [I] * 3 + [P],
@@ -62,8 +62,9 @@ SIGNATURES = {
     # q, kb, vb, idx, tok_bias, do, lse, delta, order, offsets, ws, dkb, dvb, B,
     # Hkv, G, M, NB, ell, k_star, D, bf16, stream
     "selection_dkv": [P] * 13 + [I] * 9 + [P],
-    # o1, o2, o3, g1, g2, g3, m, do, do1, do2, do3, dg1, dg2, dg3, R, D, bf16, stream
-    "epilogue_bwd": [P] * 14 + [I] * 3 + [P],
+    # o1, o2, o3, g1, g2, g3, m, do, do1, do2, do3, dg1, dg2, dg3, R, D, bf16,
+    # lanes (0 = the warp kernel), stream
+    "epilogue_bwd": [P] * 14 + [I] * 4 + [P],
     # q, k, v, key_bias, qseg, kseg, k_bounds, tiles, o, lse, H, rep, T, L, n_tiles, D,
     # bf16, stream
     "varlen_fwd": [P] * 10 + [I] * 7 + [P],

@@ -110,6 +110,13 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (→ the plain version runs);
     False when every one is a CUDA tensor (→ the kernel launches).  Any
     other device, or a mix, raises."""
+    first = tensors[0]                     # the common cases first: no device objects made
+    if first.is_cuda:
+        dev = first.get_device()
+        if all(t.is_cuda and t.get_device() == dev for t in tensors):
+            return False
+    elif all(t.is_cpu for t in tensors):
+        return True
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True

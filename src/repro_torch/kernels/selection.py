@@ -14,14 +14,22 @@ the products run on the tensor cores.  The TPU scalar-prefetched the
 indices to drive its block fetches; here a block loads its own group's
 indices and gathers the selected blocks itself.
 
-Two paths, one rule (:func:`selection_plan`, a pure function of M, ℓ, D
-and the dtype; the wrappers follow it, a CUDA tensor never goes to the
-plain version):
+Three paths, one rule (:func:`selection_plan`, a pure function of M, ℓ, D,
+the dtype and, for the forward, k*; the wrappers follow it, a CUDA tensor
+never goes to the plain version):
 
-- ``warp`` for M < 16 (shapenet's 8 rows against 8 keys would fill a
-  tensor-core tile half at best): one warp owns one (batch, KV head,
-  group), 8 rows × 4 lanes, D/4 dims a lane, shuffles sum a row's dot
-  products.  Its backward (``selection_bwd``) accumulates dQ in registers
+- ``groups``, the forward only, for fp32 groups of M < 16 rows at D ≤ 64
+  whose k*·ℓ keys fit one stage of 32 (shapenet: 8 rows against 4 blocks of
+  8 keys): a block of one warp owns one group; it stages the group's
+  valid selections, their K and V rows and token bias and Q (``cp.async``,
+  16 bytes a copy; 9.6 KB a group at D 32, so some 21 groups an SM are in
+  flight) and scores all of the group's keys in one pass (one max and one
+  sum a row, no rescale), S and P V register-tiled, P through shared
+  memory.
+- ``warp`` for the other M < 16 shapes (the forward in bf16, at D 128 or
+  with more keys; the backward at every M < 16): one warp owns one
+  (batch, KV head, group), 8 rows × 4 lanes, D/4 dims a lane, shuffles sum
+  a row's dot products.  Its backward (``selection_bwd``) accumulates dQ in registers
   and stores each selection's dK, dV (summed over the group's rows by a
   shuffle reduce-scatter), fp32 and coalesced, into a staging buffer
   (2, B·Hkv·G·k*, ℓ, D) at the selection's slot; a first pass gives the
@@ -82,10 +90,11 @@ COUNT_DKV = _counter("selection_dkv")           # and dK, dV
 
 
 class SelectionPlan(NamedTuple):
-    """How the CUDA kernels take one shape: ``path`` ``"warp"`` or
-    ``"tiles"``; ``rows``: query rows a block (forward, ``selection_dq``) or
-    a pass of the warp; ``keys``: keys a staged chunk; ``dkv_rows``: rows a
-    staged tile of ``selection_dkv`` (0 on the warp path)."""
+    """How the CUDA kernels take one shape: ``path`` ``"groups"``,
+    ``"warp"`` or ``"tiles"``; ``rows``: query rows a block (forward,
+    ``selection_dq``) or a pass of the warp; ``keys``: keys a staged chunk
+    (``groups``: the keys one stage holds); ``dkv_rows``: rows a staged tile
+    of ``selection_dkv`` (0 on the other paths)."""
     path: str
     rows: int
     keys: int
@@ -93,22 +102,31 @@ class SelectionPlan(NamedTuple):
 
 
 TILE_MIN_ROWS = 16          # one m16n8k16 tile of rows
+GROUPS_KEYS = 32            # keys of one group's stage (FwdGroups::KEYS)
+GROUPS_DIMS = (16, 32, 64)  # the groups kernel's instantiations
 
 
-def selection_plan(M: int, ell: int, D: int, dtype: torch.dtype) -> SelectionPlan:
+def selection_plan(M: int, ell: int, D: int, dtype: torch.dtype,
+                   k_star: int | None = None) -> SelectionPlan:
     """The path and tiles of the selection kernels for groups of M rows
     against blocks of ℓ keys at head dim D (the constants of
     ``csrc/selection_{fwd,bwd}.cu``).  M < 16 takes the warp path (one warp
     a group, 8 rows a pass, keys in chunks of 8); M ≥ 16 the tiled path
     (blocks of 64 rows; chunks of 64 keys in bf16, 32 in fp32;
-    ``selection_dkv`` stages 64 rows, 32 at D 128).  A shape no path takes
-    raises, naming the kernel and the shape."""
+    ``selection_dkv`` stages 64 rows, 32 at D 128).  ``k_star``, the
+    forward's picks a group: given, an fp32 group of M < 16 rows at D ≤ 64
+    whose k*·ℓ keys fit one stage of 32 takes the forward's ``groups`` path
+    (8 rows a pass, all of its keys in one stage); the backward passes no
+    k*.  A shape no path takes raises, naming the kernel and the shape."""
     if (dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS["selection_fwd"]
             or M < 1 or ell < 1):
         raise ValueError(f"selection kernels: no path takes M {M}, ℓ {ell}, D {D}, {dtype} "
                          f"(M, ℓ ≥ 1; D in {HEAD_DIMS['selection_fwd']}; float32 or "
                          "bfloat16)")
     if M < TILE_MIN_ROWS:
+        if (k_star and dtype == torch.float32 and D in GROUPS_DIMS
+                and k_star * ell <= GROUPS_KEYS):
+            return SelectionPlan("groups", 8, GROUPS_KEYS, 0)
         return SelectionPlan("warp", 8, 8, 0)
     return SelectionPlan("tiles", 64, 64 if dtype == torch.bfloat16 else 32,
                          32 if D > 64 else 64)
@@ -214,6 +232,9 @@ def selection_attention_fwd_plain(q, kb, vb, idx, tok_bias):
     return sdpa(q, kg, vg, bias, return_lse=True)
 
 
+PATH_CODES = {"warp": 0, "tiles": 1, "groups": 2}       # selection_fwd's `path`
+
+
 def selection_attention_fwd(q, kb, vb, idx, tok_bias):
     """(o, lse) of group-selected attention: the CUDA kernel on CUDA tensors,
     the plain version on CPU tensors."""
@@ -224,14 +245,14 @@ def selection_attention_fwd(q, kb, vb, idx, tok_bias):
         return selection_attention_fwd_plain(q, kb, vb, idx, tok_bias)
     check_cuda_inputs("selection_fwd", data=(q, kb, vb), f32=(tok_bias,),
                       i32=(idx,), head_dim=D)
-    plan = selection_plan(M, ell, D, q.dtype)
+    plan = selection_plan(M, ell, D, q.dtype, idx.shape[-1])
     o = torch.empty_like(q)
     lse = torch.empty((B, Hkv, G, M), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch("selection_fwd", q.data_ptr(), kb.data_ptr(), vb.data_ptr(),
                   idx.data_ptr(), tok_bias.data_ptr(), o.data_ptr(),
                   lse.data_ptr(), B, Hkv, G, M, NB, ell, idx.shape[-1], D,
-                  int(q.dtype == torch.bfloat16), int(plan.path == "tiles"), stream)
+                  int(q.dtype == torch.bfloat16), PATH_CODES[plan.path], stream)
     COUNT.hit()
     return o, lse
 

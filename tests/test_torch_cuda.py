@@ -26,7 +26,13 @@ with the local backward run from its lse.  The causal LM's kernels:
 ``local_dkv`` with a mask, a dead block, a masked slot and packed segments
 (windows 32 and 256), ``paged_gather`` with out-of-range rows and unaligned
 rows, int32 and int64 indices, one kernel a call, and a 2-layer smoke tinyllama's forward, paged decode and (with remat)
-gradients against the reference backend.  Tolerance: fp32
+gradients against the reference backend.  The fp32 groups path of
+``selection_fwd`` at shapenet's serving and packed shapes and at D 16 / 64,
+M 5 / 12 and a tail (dead groups, duplicate picks, an index of NB, a masked
+tail; identical bits on two calls), the shapes that keep the warp kernel,
+``epilogue_bwd`` on both of its kernels at D 12-128 in both dtypes (odd R,
+an input off 16 bytes; identical bits on two calls, two output buffers), and
+the loaded entry points' signatures.  Tolerance: fp32
 1e-4, bf16 4e-2 (6e-2 for the selection backward, as the JAX suite's bf16
 gradient tolerances); the row gather is exact.
 """
@@ -189,6 +195,101 @@ def test_selection_kernel(cuda, dtype, head_dim, M, ell):
     plain_idx = torch.where(idx < NB, idx, -1)          # the plain version takes −1 only
     _check(got, selection.selection_attention_fwd_plain(q, kb, vb, plain_idx, tok), dtype)
     assert bool((got[0][2] == 0).all()) and bool((got[1][2] == 1e30).all())
+
+
+def _groups_case(dev, B_, Hkv, G, M, NB_, ell, head_dim, ks, seed):
+    """Random picks with −1 and NB, dead groups (no pick; only −1 and NB),
+    a block picked twice by a group and by every group of a head, and a
+    masked tail (each batch's last 3/8 of its last block, and all of batch
+    0's block 1)."""
+    q = _rand((B_, Hkv, G, M, head_dim), torch.float32, dev, seed)
+    kb = _rand((B_, Hkv, NB_, ell, head_dim), torch.float32, dev, seed + 1)
+    vb = _rand((B_, Hkv, NB_, ell, head_dim), torch.float32, dev, seed + 2)
+    g = torch.Generator().manual_seed(seed + 3)
+    idx = torch.randint(-1, NB_ + 1, (B_, Hkv, G, ks), generator=g).int()
+    idx[0, 0, :3] = -1                         # dead groups
+    idx[0, 0, 3] = NB_                         # dead: every pick is NB
+    idx[0, 1, 4, :2] = 5                       # a block twice in a group
+    idx[-1, -1, :, 0] = 2                      # every group of a head on block 2
+    tok = torch.zeros(B_, NB_, ell)
+    tok[:, -1, ell - 3 * ell // 8:] = -1e30
+    tok[0, 1] = -1e30
+    return q, kb, vb, idx.to(dev), tok.to(dev)
+
+
+# (B, Hkv, G, M, NB, ℓ, D, k*): shapenet's serving / train shape (8 × 8
+# heads of 32, 480 groups of 8 rows, 4 blocks of 8 keys), its packed one
+# (one sample of 3,840 groups), D 16 and 64, two passes (M 12), a short
+# pass (M 5), a stage filled by 2 blocks of 16, a tail tile (G 37)
+GROUPS_SHAPES = [(8, 8, 480, 8, 480, 8, 32, 4), (1, 8, 3840, 8, 3840, 8, 32, 4),
+                 (2, 3, 37, 8, 40, 8, 16, 4), (2, 3, 37, 8, 40, 8, 64, 4),
+                 (2, 3, 37, 12, 40, 4, 32, 8), (2, 3, 37, 5, 40, 8, 32, 3),
+                 (2, 3, 37, 4, 40, 16, 32, 2)]
+
+
+@pytest.mark.parametrize("shape", GROUPS_SHAPES,
+                         ids=["-".join(map(str, s)) for s in GROUPS_SHAPES])
+def test_selection_fwd_groups_edges(cuda, shape):
+    """The fp32 groups path (``selection_fwd_groups``) against the plain
+    version (fp32 1e-4): dead groups give zeros and LSE_EMPTY, identical
+    bits on two calls, one launch a call."""
+    from repro_torch.kernels import selection
+    B_, Hkv, G, M, NB_, ell, head_dim, ks = shape
+    assert selection.selection_plan(M, ell, head_dim, torch.float32, ks).path == "groups"
+    q, kb, vb, idx, tok = _groups_case(cuda, *shape, 60)
+    before = selection.COUNT.n
+    first = selection.selection_attention_fwd(q, kb, vb, idx, tok)
+    second = selection.selection_attention_fwd(q, kb, vb, idx, tok)
+    torch.cuda.synchronize()
+    assert selection.COUNT.n == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    plain_idx = torch.where(idx < NB_, idx, -1)
+    _check(first, selection.selection_attention_fwd_plain(q, kb, vb, plain_idx, tok),
+           torch.float32)
+    o, lse = first
+    assert bool((o[0, 0, :4] == 0).all()) and bool((lse[0, 0, :4] == 1e30).all())
+
+
+# (dtype, D, k*): the forward shapes that keep the warp kernel at M 8, ℓ 8
+WARP_KEPT = [(torch.bfloat16, 32, 4), (torch.float32, 128, 4), (torch.bfloat16, 128, 4),
+             (torch.float32, 32, 5)]
+
+
+@pytest.mark.parametrize("dtype,head_dim,ks", WARP_KEPT,
+                         ids=[f"{str(d)[6:]}-D{h}-k{k}" for d, h, k in WARP_KEPT])
+def test_selection_fwd_warp_kept(cuda, dtype, head_dim, ks):
+    """bf16, D 128 and more keys than one stage stay on the warp kernel
+    (``selection_fwd_warp``), against the plain version."""
+    from repro_torch.kernels import selection
+    assert selection.selection_plan(8, 8, head_dim, dtype, ks).path == "warp"
+    q, kb, vb, idx, tok = _groups_case(cuda, 2, 2, 40, 8, 40, 8, head_dim, ks, 70)
+    q, kb, vb = (t.to(dtype) for t in (q, kb, vb))
+    got = selection.selection_attention_fwd(q, kb, vb, idx, tok)
+    torch.cuda.synchronize()
+    plain_idx = torch.where(idx < 40, idx, -1)
+    _check(got, selection.selection_attention_fwd_plain(q, kb, vb, plain_idx, tok), dtype)
+
+
+def test_build_signatures_loaded(cuda):
+    """The loaded entry points carry ``_build.SIGNATURES``; an entry point
+    refuses what it has no kernel for (the groups path in bf16)."""
+    from repro_torch.kernels import _build
+    _build.load()
+    assert set(_build._entry) == set(_build.SIGNATURES)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert _build._entry[name].argtypes == argtypes
+    q = torch.zeros((1, 1, 1, 8, 32), dtype=torch.bfloat16, device=cuda)
+    kb = torch.zeros((1, 1, 1, 8, 32), dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros((1, 1, 1, 4), dtype=torch.int32, device=cuda)
+    tok = torch.zeros((1, 1, 8), device=cuda)
+    lse = torch.empty((1, 1, 1, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="selection_fwd: CUDA launch failed"):
+        _build.launch("selection_fwd", q.data_ptr(), kb.data_ptr(), kb.data_ptr(),
+                      idx.data_ptr(), tok.data_ptr(), q.data_ptr(), lse.data_ptr(),
+                      1, 1, 1, 8, 1, 8, 4, 32, 1, 2,
+                      torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(TypeError):
+        _build.launch("epilogue_bwd", *([0] * 18))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -432,6 +533,44 @@ def test_epilogue_bwd_kernel(cuda, dtype):
     do = _rand((R, D), dtype, cuda, 14)
     got = epilogue.gated_combine_bwd(*os_, *gs, m, do)
     _check(got, epilogue.gated_combine_bwd_plain(*os_, *gs, m, do), dtype)
+
+
+# (R, D, dtype, shift): the vec kernel at D 16-128 in both dtypes on an odd
+# R, 12 vectors on 8 lanes (D 48), bf16 D 40 (5 vectors on 4 lanes); the
+# warp kernel at D 12 bf16, D 30 fp32 and on inputs 4 bytes off 16 (shift)
+EPI_CASES = [(R, D, dt, 0) for D in (16, 32, 64, 128)
+             for dt in (torch.float32, torch.bfloat16) for R in (1, 4099)] + [
+    (517, 48, torch.float32, 0), (517, 40, torch.bfloat16, 0),
+    (517, 12, torch.bfloat16, 0), (517, 30, torch.float32, 0), (517, 32, torch.float32, 1)]
+
+
+@pytest.mark.parametrize("R,head_dim,dtype,shift", EPI_CASES,
+                         ids=[f"R{r}-D{d}-{str(t)[6:]}-s{s}" for r, d, t, s in EPI_CASES])
+def test_epilogue_bwd_paths(cuda, R, head_dim, dtype, shift):
+    """``epilogue_bwd`` on both kernels of :func:`epilogue.epilogue_bwd_plan`
+    against the plain version: identical bits on two calls, one launch a
+    call, two buffers for the six outputs."""
+    from repro_torch.kernels import epilogue
+    def rows(seed):
+        t = _rand((R * head_dim + shift,), dtype, cuda, seed)
+        return t[shift:].view(R, head_dim)
+    os_ = [rows(30 + i) for i in range(3)]
+    do = rows(34)
+    gs = [torch.rand(R, device=cuda) for _ in range(3)]
+    m = (torch.rand(R, device=cuda) > 0.3).float()
+    plan = epilogue.epilogue_bwd_plan(head_dim, dtype, shift == 0)
+    assert plan.path == ("warp" if shift or head_dim in (12, 30) else "vec")
+    before = epilogue.COUNT_BWD.n
+    first = epilogue.gated_combine_bwd(*os_, *gs, m, do)
+    second = epilogue.gated_combine_bwd(*os_, *gs, m, do)
+    torch.cuda.synchronize()
+    assert epilogue.COUNT_BWD.n == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert len({t.untyped_storage().data_ptr() for t in first}) == 2
+    want = epilogue.gated_combine_bwd_plain(*os_, *gs, m, do)
+    for k in range(3):
+        assert torch.equal(first[k], want[k])
+    _check(first, want, dtype)
 
 
 def test_train_step_grads_match_reference(cuda):
