@@ -80,9 +80,31 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    (and no other kernel), and on one batch every layer's parameter and
    input gradients on the kernel path must match the ``reference``
    backend's given the same layer input and upstream gradient, within 1e-4
-   of each tensor's largest value (``train_reference_check``).
+   of each tensor's largest value, and every layer's output within 1e-3
+   (``train_reference_check``).
+5. baselines: the paper's other workloads (``BASELINES``), each at full
+   width and depth (18 layers, d_model 256, 8 heads of 32, fp32, weights
+   from seed 0): ``shapenet-full`` (dense attention with a key mask: the
+   flash kernels at 3840 queries × 3840 keys), ``shapenet-erwin`` (ball
+   attention at the levels 0, 1, 2, 1, … of its layers: the ball kernels on
+   pooled sequences of 4096, 2048 and 1024 tokens; its clouds pad to 4096,
+   since its levels 1 and 2 need a multiple of 512 and 1024),
+   ``shapenet-bsa-group-cmp`` (group compression with φ = "mlp": the flash
+   kernels at 480 pooled queries × 480 pooled keys) on batches of 8
+   ShapeNet-Car train clouds, and ``elasticity-bsa`` / ``elasticity-full``
+   on batches of 8 ``ElasticityDataset`` plates (972 points padded to
+   1024).  First the flash kernels at the full shape and the ball kernels
+   at Erwin's three pooled shapes against their plain versions, timed with
+   their device times beside SDPA with the same mask (``flash_dkv``: its
+   row splits, identical bits on two calls); then each config takes one
+   warm-up step and three timed steps of ``make_train_step`` as in phase
+   4: loss and gradients finite, each kernel of its path (``train_full``:
+   the flash trio; ``train_erwin``: the ball pair; the BSA configs:
+   ``train_padded``) launched 18 times a step and no other kernel, the ball
+   kernels on their ``fma`` path, and every layer held to the reference
+   backend as in phase 4 (an Erwin layer at its own level);
 
-5. LM kernels: ``local_fwd`` (B = 1, N = 4096, rep 8, D 64, window 256,
+6. LM kernels: ``local_fwd`` (B = 1, N = 4096, rep 8, D 64, window 256,
    a padded tail, a hole and a packed-sample boundary; bf16 on the tiled
    path, fp32 on the rows path, ``local.local_plan``) and ``paged_gather``
    (the serving pool of 65 blocks of 256 rows of 4 × 64: one decode step's
@@ -102,7 +124,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    4,096-token sequence) against its plain version, timed, with SDPA on the
    same dense mask beside ``local_fwd``, the local backward and
    ``flash_fwd``;
-6. prefill: ``make_prefill_step`` on ``tinyllama-1.1b`` at full width and
+7. prefill: ``make_prefill_step`` on ``tinyllama-1.1b`` at full width and
    depth (22 layers, d_model 2048, 32 / 4 heads of 64, vocabulary 32,000,
    bf16, random weights from seed 0) over B = 2 × N = 32,768 random tokens
    (``prefill_32k``'s sequence length, its global batch of 32 cut to 2 for
@@ -113,13 +135,13 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    beside its bound at this shape), and every layer on the kernel path must match the ``reference``
    backend given the same layer input within 4e-2 of the layer output's
    largest value (the repository's bf16 tolerance);
-7. decode oracle: ``nsa_causal_decode_paged`` at the full width's heads
+8. decode oracle: ``nsa_causal_decode_paged`` at the full width's heads
    (32 / 4 of 64, fp32, ``LM_BSA`` with ``group_size=0,
    query_cmp_selection=False``, the configuration whose decode is exact
    against the forward) over a shuffled block table and three staggered
    slots of 1,100–1,600 tokens must match ``nsa_causal_attention`` on the
    kernel path at every position within 1e-4 of the output's largest value;
-8. serving: ``ServingEngine(paged=True)`` with 8 slots, ``max_len`` 2048,
+9. serving: ``ServingEngine(paged=True)`` with 8 slots, ``max_len`` 2048,
    pages of 256 serves 10 greedy requests of 1,100–1,600 random tokens
    (numpy seed 0), 8 new tokens each; requests 0, 1 and 8 open with the
    same 512 tokens (a shared system prompt; request 8, admitted after the
@@ -133,9 +155,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    top-two logit gap there below 4e-2 of the largest |logit|); three more
    decode steps are profiled, and three timed with the host time of their
    ``paged_gather`` calls taken apart (``decode_profile``);
-9. LM backward kernels: ``local_dq`` and ``local_dkv`` against their plain
+10. LM backward kernels: ``local_dq`` and ``local_dkv`` against their plain
    version in fp32 (the lanes path) and bf16 (the tiled path on the tensor
-   cores, ``local.local_plan``) on the ``local_fwd`` case of phase 5 and at
+   cores, ``local.local_plan``) on the ``local_fwd`` case of phase 6 and at
    the LM train shapes (B = 2 × 4096 tokens, no mask), within 1e-4 (fp32)
    and 4e-2 (bf16) of each gradient's largest value, timed with one
    liveness map for both, as ``local_window_bwd`` shares it, beside SDPA
@@ -144,7 +166,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    64 pooled keys, ``selection_fwd``, ``selection_dq`` and
    ``selection_dkv`` (the tiled path) on each layer's own picks (512 rows a
    group) beside SDPA with the dense mask, and ``epilogue_bwd``;
-10. LM train: ``make_train_step`` on ``tinyllama-1.1b`` at full width and
+11. LM train: ``make_train_step`` on ``tinyllama-1.1b`` at full width and
    depth (bf16 parameters, fp32 AdamW moments, remat on, random weights
    from seed 0) over ``lm_batches(seed=0)`` at ``train_4k``'s length, B =
    2 × 4096 tokens (its global batch of 256 cut to 2 for one card): one
@@ -190,6 +212,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import nsa_causal  # noqa: E402
 from repro_torch.core.backend import use_backend  # noqa: E402
 from repro_torch.core.balltree import pack_varlen  # noqa: E402
+from repro_torch.data.elasticity import ElasticityDataset  # noqa: E402
 from repro_torch.data.lm import lm_batches  # noqa: E402
 from repro_torch.data.shapenet import N_POINTS, ShapeNetCarDataset, make_clouds  # noqa: E402
 from repro_torch.kernels import (_build, bta, epilogue, flash, local, paged,  # noqa: E402
@@ -203,7 +226,7 @@ from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa:
 from repro_torch.layers.losses import masked_mean_nll  # noqa: E402
 from repro_torch.layers.nn import dense, embed, rmsnorm  # noqa: E402
 from repro_torch.models.api import model_api  # noqa: E402
-from repro_torch.models.pointcloud import pc_layer  # noqa: E402
+from repro_torch.models.pointcloud import erwin_levels, pc_layer  # noqa: E402
 from repro_torch.models.transformer import lm_layer  # noqa: E402
 from repro_torch.numerics import NEG_INF  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
@@ -216,6 +239,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
 SEL_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 GRAD_REL_TOL = 1e-4          # train_reference_check, relative to each tensor's max
+# gradients that are 0 in exact arithmetic (train_reference_check holds them
+# against the layer's largest parameter gradient): φ_k's output bias under
+# φ = "mlp" shifts every pooled key alike
+ZERO_GRADS = ("attn.bsa.phi_k.fc2.b",)
 TRAIN_STEPS = 5
 
 # the kernels, their sources and the TPU kernels they replace
@@ -258,6 +285,9 @@ PATHS["decode_oracle"] = ("paged_gather",)
 PATHS["serve_lm"] = ("paged_gather",)
 PATHS["train_lm"] = PATHS["prefill"] + ("local_dq", "local_dkv", "flash_dq", "flash_dkv",
                                         "selection_dq", "selection_dkv", "epilogue_bwd")
+PATHS["train_full"] = ("flash_fwd", "flash_dq", "flash_dkv")
+PATHS["train_erwin"] = ("bta_fwd", "bta_bwd")
+PATHS["train_group_cmp"] = PATHS["train_padded"]
 # the path, dtype and mode whose launches and row the kernels line reports
 # for the LM kernels; the others report the shapenet train paths' (fp32)
 LM_MAIN = {"local_fwd": ("prefill", "bfloat16", "lm_window"),
@@ -273,6 +303,19 @@ BALL, ELL, KSTAR, GROUP = 256, 8, 4, 8
 NB = N // ELL
 REAL_POINTS = N_POINTS                  # sample 0: a full ShapeNet-Car cloud
 CAPACITY = B * N                        # packed rows: the padded batch's 8 × 3840
+
+# the paper's other workloads, trained at full width and depth (the baselines
+# phase): config -> (its path, the padded length of its batches).  Erwin's
+# levels 1 and 2 need a multiple of 512 and 1024 (3840 is neither), so its
+# clouds pad to 4096; Elasticity's 972-point plates pad to 1024
+ERWIN_N, ELASTICITY_N = 4096, 1024
+BASELINES = {"shapenet-full": ("train_full", N),
+             "shapenet-erwin": ("train_erwin", ERWIN_N),
+             "shapenet-bsa-group-cmp": ("train_group_cmp", N),
+             "elasticity-bsa": ("train_padded", ELASTICITY_N),
+             "elasticity-full": ("train_full", ELASTICITY_N)}
+BASELINE_STEPS = 3
+LAYER_TOL = 1e-3             # each layer's output against the reference backend's
 
 # the LM slice: tinyllama-1.1b (32 query heads on 4 KV heads of 64, LM_BSA)
 LM = "tinyllama-1.1b"
@@ -318,9 +361,16 @@ NO_SPILL = [*((name, (64, 128), ("mma", "fma"))
 # -> [(key, path whose launches it reports or None, dtype, mode)]): the LM
 # prefill's flash_fwd beside the shapenet train path's, selection_fwd on the
 # model's picks beside random ones, the epilogues at the LM's shapes, the
-# D 128 rows, and paged_gather on int64 rows beside int32
+# D 128 rows, paged_gather on int64 rows beside int32, and the baselines'
+# shapes: the flash kernels at shapenet-full's 3840 queries × 3840 keys, the
+# ball kernels at shapenet-erwin's levels 0–2 (4096, 2048, 1024 tokens)
 LM_ALSO = {"flash_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_block_causal"),
-                         ("d128", None, "bfloat16", "d128_block_causal")],
+                         ("d128", None, "bfloat16", "d128_block_causal"),
+                         ("full", "shapenet-full", "float32", "full")],
+           "flash_dq": [("full", "shapenet-full", "float32", "full")],
+           "flash_dkv": [("full", "shapenet-full", "float32", "full")],
+           **{name: [(f"erwin_l{lv}", "shapenet-erwin", "float32", f"erwin_l{lv}")
+                     for lv in range(3)] for name in ("bta_fwd", "bta_bwd")},
            "selection_fwd": [("topk", "train_padded", "float32", "topk")],
            "epilogue_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_rows"),
                             ("d128", None, "bfloat16", "d128_rows")],
@@ -332,7 +382,8 @@ LM_ALSO = {"flash_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_block_causal"
 
 
 # a kernel row's optional keys, carried into the kernels line
-EXTRA_KEYS = ("device_ms", "library_device_ms", "index", "rows", "path", "bit_identical")
+EXTRA_KEYS = ("device_ms", "library_device_ms", "index", "rows", "path", "bit_identical",
+              "splits")
 
 
 class CheckFailed(Exception):
@@ -1142,6 +1193,125 @@ def varlen_kernel_phase(dev, serve_offsets, serve_mask, train_batch) -> list[dic
 
 # output_hashes: (B*Hkv, n_heads, rep, N, L, D, mask) of shapenet's compression
 # branch, the LM's block-causal pooled keys and causal D 128
+def baseline_kernel_phase(dev, mask) -> list[dict]:
+    """The kernels at the shapes the baselines' train steps give them, fp32,
+    against their plain versions, timed beside SDPA with the same mask.
+    ``mask``: the train batch's (B, 4096) mask (8 clouds of 3586 points).
+
+    shapenet-full: ``flash_fwd``, ``flash_dq``, ``flash_dkv`` with 3840
+    queries against 3840 keys, a key bias from the padding mask and no
+    ``q_valid`` (every query row is computed; dO is zero on padded rows, as
+    the masked loss gives it); ``flash_dkv``'s row splits and identical bits
+    on two calls.  shapenet-erwin: ``bta_fwd`` / ``bta_bwd`` at each level's
+    pooled sequence (4096, 2048, 1024 tokens, ball 256; a pooled token is
+    valid iff one of its tokens is)."""
+    results = []
+    record = recorder(results)
+    es = 4
+    # ---- flash: N queries against N keys, key bias
+    n = N
+    key_mask = mask[:, :n]
+    key_bias = torch.where(key_mask, 0.0, NEG_INF).float()
+    q = rand((B * H, 1, n, D), torch.float32, dev, 90)
+    k = rand((B * H, n, D), torch.float32, dev, 91)
+    v = rand((B * H, n, D), torch.float32, dev, 92)
+    kw = dict(n_heads=H)
+    call = functools.partial(flash.flash_attention_fwd, q, k, v, key_bias, None, **kw)
+    plain = functools.partial(flash.flash_attention_fwd_plain, q, k, v, key_bias, None, **kw)
+    o, lse = call()
+    err, ok = max_err((o, lse), plain())
+    valid_keys = float(key_mask.sum()) * n * H            # (row, key) pairs, every row
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es + 4 * B * n
+                       + 4 * q.numel() // D, 4.0 * D * valid_keys, torch.float32)
+    qs, ks, vs = (t.reshape(B, H, n, D).clone().requires_grad_(True) for t in (q, k, v))
+    fmask = key_mask[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=fmask)  # noqa: E731
+    with torch.no_grad():
+        lib_ms, lib_dev = median_ms(lib), device_ms(lib, per_call=True)[0]
+    record("flash_fwd", "full", torch.float32, err, ok, median_ms(call),
+           median_ms(plain, reps=5), b_ms, b_by, lib_ms,
+           device_ms=device_ms(call, "flash_fwd")[0], library_device_ms=lib_dev,
+           path=flash.flash_fwd_plan(D, torch.float32).path)
+    do = rand(o.shape, torch.float32, dev, 93)
+    do = torch.where(key_mask.repeat_interleave(H, 0)[:, None, :, None], do,
+                     torch.zeros_like(do))
+    args = (q, k, v, key_bias, do, lse, row_delta(do, o))
+    dq = flash.flash_attention_dq(*args, **kw)
+    dkv = flash.flash_attention_dkv(*args, **kw)
+    again = flash.flash_attention_dkv(*args, **kw)
+    want = flash.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(dkv, again))
+    check(same, "flash_dkv [full]: two calls on the same inputs differ")
+    live_pairs = float(key_mask.sum(1).mul(key_mask.sum(1)).sum()) * H   # real rows only
+    side = 2 * 4 * q.numel() // D + 4 * B * n
+    p_ms = median_ms(lambda: flash.flash_attention_bwd_plain(*args, **kw), reps=5)
+    lib_bwd = library_bwd_ms(lib, (qs, ks, vs))
+    lib_bwd_dev = library_bwd_device_ms(lib, (qs, ks, vs))
+    splits = flash.dkv_splits(n, n, B * H, D, sms=torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    for name, got, ref, nbytes, flops in (
+            ("flash_dq", (dq,), want[:1], (3 * q.numel() + 2 * k.numel()) * es + side,
+             6.0 * D * live_pairs),
+            ("flash_dkv", dkv, want[1:], (2 * q.numel() + 4 * k.numel()) * es + side,
+             8.0 * D * live_pairs)):
+        fn = getattr(flash, "flash_attention_" + name.split("_")[1])
+        err, ok = max_err(got, ref)
+        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        extra = {"bit_identical": same, "splits": splits} if name == "flash_dkv" else {}
+        record(name, "full", torch.float32, err, ok,
+               median_ms(functools.partial(fn, *args, **kw)), p_ms, b_ms, b_by, lib_bwd,
+               device_ms=device_ms(functools.partial(fn, *args, **kw), name)[0],
+               library_device_ms=lib_bwd_dev, **extra)
+    del qs, ks, vs, want
+
+    # ---- bta: each Erwin level's pooled sequence, one ball of 256 keys per row
+    for level in range(3):
+        s_ = 1 << level
+        n = ERWIN_N // s_
+        pmask = mask.reshape(B, n, s_).any(-1)
+        kb = torch.where(pmask, 0.0, NEG_INF).float()
+        q = rand((B * H, 1, n, D), torch.float32, dev, 94 + level)
+        k = rand((B * H, n, D), torch.float32, dev, 97 + level)
+        v = rand((B * H, n, D), torch.float32, dev, 100 + level)
+        kw = dict(ball_size=BALL, n_heads=H)
+        mode = f"erwin_l{level}"
+        path = bta.bta_plan(BALL, D, 1, torch.float32).path
+        live_balls = int(pmask.reshape(B, n // BALL, BALL).any(-1).sum()) * H
+        qs, ks, vs = (t.reshape(B, H, n // BALL, BALL, D).transpose(1, 2)
+                      .reshape(B * (n // BALL), H, BALL, D).contiguous()
+                      .requires_grad_(True) for t in (q, k, v))
+        bmask = pmask.reshape(B * (n // BALL), 1, 1, BALL)
+        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bmask)  # noqa: E731
+        call = functools.partial(bta.ball_attention_fwd, q, k, v, kb, **kw)
+        o, lse = call()
+        err, ok = max_err((o, lse), bta.ball_attention_fwd_plain(q, k, v, kb, **kw))
+        b_ms, b_by = bound(4 * q.numel() * es + 4 * B * n + 4 * B * (n // BALL)
+                           + 4 * q.numel() // D, 4.0 * BALL * BALL * D * live_balls,
+                           torch.float32)
+        with torch.no_grad():
+            lib_ms, lib_dev = median_ms(lib), device_ms(lib, per_call=True)[0]
+        record("bta_fwd", mode, torch.float32, err, ok, median_ms(call),
+               median_ms(lambda: bta.ball_attention_fwd_plain(q, k, v, kb, **kw), reps=5),
+               b_ms, b_by, lib_ms, device_ms=device_ms(call, "bta_fwd")[0],
+               library_device_ms=lib_dev, path=path)
+        do = rand(o.shape, torch.float32, dev, 103 + level)
+        do = torch.where(pmask.repeat_interleave(H, 0)[:, None, :, None], do,
+                         torch.zeros_like(do))
+        args = (q, k, v, kb, do, lse, row_delta(do, o))
+        call = functools.partial(bta.ball_attention_bwd, *args, **kw)
+        err, ok = max_err(call(), bta.ball_attention_bwd_plain(*args, **kw))
+        b_ms, b_by = bound(7 * q.numel() * es + 2 * 4 * q.numel() // D + 4 * B * n
+                           + 4 * B * (n // BALL), 10.0 * BALL * BALL * D * live_balls,
+                           torch.float32)
+        record("bta_bwd", mode, torch.float32, err, ok, median_ms(call),
+               median_ms(lambda: bta.ball_attention_bwd_plain(*args, **kw), reps=5),
+               b_ms, b_by, library_bwd_ms(lib, (qs, ks, vs)),
+               device_ms=device_ms(call, "bta_bwd")[0],
+               library_device_ms=library_bwd_device_ms(lib, (qs, ks, vs)), path=path)
+    return results
+
+
 HASH_CASES = {"shapenet_cmp": (64, 8, 1, 3840, 480, 32, {}),
               "lm_block_causal": (8, 4, 8, 4096, 64, 64, dict(block_causal=True, ell=64)),
               "causal_d128": (8, 8, 3, 1024, 1024, 128, dict(causal=True))}
@@ -1370,9 +1540,17 @@ def packed_train_batches(dev) -> list[dict]:
     return batches
 
 
-def train_phase(dev, batches, layout: str) -> dict:
-    cfg = get_config("shapenet-bsa")
-    check_ball_path(cfg, f"train {layout}")
+def train_phase(dev, batches, layout: str, arch: str = "shapenet-bsa",
+                path: str | None = None) -> dict:
+    """``arch`` at full width and depth: a warm-up step on ``batches[0]``,
+    then a timed step on each other batch; each kernel of ``path`` (default
+    ``train_<layout>``) must launch once a layer and step, and no other
+    kernel; every layer is held to the reference backend on ``batches[1]``."""
+    cfg = get_config(arch)
+    if cfg.attention != "full":                         # a ball kernel runs
+        check_ball_path(cfg, f"train {arch} {layout}")
+    path = path or f"train_{layout}"
+    steps = len(batches) - 1
     api = model_api(cfg)
     model = api.init(seed=0, device=dev)
     opt_state = adamw_init(dict(model.named_parameters()))
@@ -1391,8 +1569,9 @@ def train_phase(dev, batches, layout: str) -> dict:
         metrics.append(out)
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
     points = sum(int(b["mask"].sum()) for b in batches[1:])
-    stats = {"layout": layout, "steps": TRAIN_STEPS, "batch": B,
-             "pad_to": N if layout == "padded" else CAPACITY, "points": points,
+    stats = {"arch": arch, "layout": layout, "path": path, "steps": steps, "batch": B,
+             "pad_to": batches[0]["mask"].shape[1] if layout == "padded" else CAPACITY,
+             "points": points,
              "loss": [float(m["loss"]) for m in metrics],
              "grad_norm": [float(m["grad_norm"]) for m in metrics],
              "lr": [m["lr"] for m in metrics], "step_ms": step_ms,
@@ -1402,18 +1581,48 @@ def train_phase(dev, batches, layout: str) -> dict:
              "launches": launches}
     print(json.dumps({"train": stats}), flush=True)
     check(all(math.isfinite(x) for x in stats["loss"] + stats["grad_norm"]),
-          "non-finite loss or gradient norm")
+          f"{arch}: non-finite loss or gradient norm")
     check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
-              if p.grad is not None), "non-finite gradient")   # φ_q only feeds top-k
-    check_launches(launches, f"train_{layout}", cfg.n_layers * TRAIN_STEPS)
+              if p.grad is not None), f"{arch}: non-finite gradient")  # φ_q: top-k only
+    check_launches(launches, path, cfg.n_layers * steps)
     stats["reference_check"] = train_reference_check(model, cfg, batches[1])
-    profile_train_step(step, model, opt_state, batches[1], layout)
+    profile_train_step(step, model, opt_state, batches[1], layout, arch)
     return stats
 
 
+def baselines_phase(dev, shapenet_batches) -> dict:
+    """The paper's other workloads (``BASELINES``) trained at full width and
+    depth: 1 + ``BASELINE_STEPS`` batches of 8 each, ShapeNet-Car train
+    clouds (the padded train phase's first batches; Erwin's padded on to
+    4096 rows, as ``ShapeNetCarDataset.batches(pad_to=4096)`` gives them) or
+    ``ElasticityDataset("train")`` plates padded to 1024.  Returns config →
+    its train stats."""
+    shapenet = shapenet_batches[:BASELINE_STEPS + 1]
+    elastic = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for _, b in zip(
+        range(BASELINE_STEPS + 1),
+        ElasticityDataset("train").batches(B, seed=0, pad_to=ELASTICITY_N))]
+    out = {}
+    for arch, (path, n) in BASELINES.items():
+        batches = elastic if arch.startswith("elasticity") else [
+            pad_rows(b, n) for b in shapenet]
+        t0 = time.perf_counter()
+        out[arch] = train_phase(dev, batches, "padded", arch, path)
+        print(f"# {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def pad_rows(batch: dict, n: int) -> dict:
+    """A padded batch padded on to ``n`` rows: zero features and targets,
+    mask False, as ``pack_items`` pads."""
+    return {k: F.pad(v, (0, 0, 0, n - v.shape[1]) if v.ndim == 3 else (0, n - v.shape[1]))
+            for k, v in batch.items()}
+
+
 def train_reference_check(model, cfg, batch) -> dict:
-    """Hold each layer's gradients on the kernel path to the ``reference``
-    backend's, given the same layer input and the same upstream gradient.
+    """Hold each layer's output and gradients on the kernel path to the
+    ``reference`` backend's, given the same layer input and the same
+    upstream gradient (an Erwin layer at its own level).
 
     The kernel path runs forward with a cut between layers, the loss's
     gradient is carried down layer by layer through the kernel path's own
@@ -1424,51 +1633,71 @@ def train_reference_check(model, cfg, batch) -> dict:
     Each gradient tensor of each layer (its input's and every parameter's)
     is held by max|kernel − reference| / max|reference| ≤ ``GRAD_REL_TOL``:
     the loss is a mean over ~29k outputs, so the gradients are far below 1
-    and an absolute limit would let a wrong one through."""
+    and an absolute limit would let a wrong one through.  A gradient that
+    is 0 in exact arithmetic (``ZERO_GRADS``) is held against the layer's
+    largest parameter gradient instead: φ = "mlp"'s φ_k.fc2.b adds the same
+    vector to every pooled key, and softmax ignores a shift shared by every
+    key, so both backends return rounding noise for it.  Each layer's
+    output is held on every real point within ``LAYER_TOL``·(1 + |ref|)."""
     mask, offsets = batch["mask"], batch.get("offsets")
     eps = cfg.norm_eps
+    levels = erwin_levels(cfg)
     xs, ys = [], []
     h = dense(model.embed, batch["feats"]).detach()
     with use_backend("kernels"):
-        for lp in model.layers:
+        for lp, level in zip(model.layers, levels):
             x = h.detach().requires_grad_(True)
-            h = pc_layer(lp, x, mcfg=cfg, mask=mask, offsets=offsets)
+            h = pc_layer(lp, x, mcfg=cfg, mask=mask, offsets=offsets, erwin_level=level)
             xs.append(x)
             ys.append(h)
     top = h.detach().requires_grad_(True)
     pred = dense(model.head, rmsnorm(model.final_norm, top, eps)).float()
     err = torch.where(mask[..., None], (pred - batch["target"]) ** 2, 0.0)
     gy, = torch.autograd.grad(err.sum() / (mask.sum() * cfg.out_dim), top)
-    rows, elements = [], 0
+    rows, elements, fwd_worst, fwd_beyond = [], 0, 0.0, 0
     for i in reversed(range(len(model.layers))):
         lp = model.layers[i]
         names = [n for n, p in lp.named_parameters() if p.requires_grad]
         wrt = [xs[i]] + [p for _, p in lp.named_parameters() if p.requires_grad]
         gk = torch.autograd.grad(ys[i], wrt, gy, allow_unused=True)
         with use_backend("reference"):
-            yr = pc_layer(lp, xs[i], mcfg=cfg, mask=mask, offsets=offsets)
+            yr = pc_layer(lp, xs[i], mcfg=cfg, mask=mask, offsets=offsets,
+                          erwin_level=levels[i])
         gr = torch.autograd.grad(yr, wrt, gy, allow_unused=True)
+        d = (ys[i] - yr).detach().abs()[mask]
+        fwd_worst = max(fwd_worst, float(d.max()))
+        fwd_beyond += int((d > LAYER_TOL * (1 + yr.detach().abs()[mask])).any(-1).sum())
+        pairs = []
         for name, a, b in zip(["input"] + names, gk, gr):
             check((a is None) == (b is None), f"layer {i} {name}: gradient on one side only")
             if a is None:
                 continue
             check(bool(torch.isfinite(a).all()), f"layer {i} {name}: non-finite gradient")
-            diff, ref = float((a - b).abs().max()), float(b.abs().max())
-            rel = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
-            rows.append({"layer": i, "name": name, "max_abs_diff": diff,
-                         "ref_max_abs": ref, "rel": rel})
+            pairs.append((name, float((a - b).abs().max()), float(b.abs().max())))
             elements += a.numel()
+        largest = max(ref for name, _, ref in pairs if name != "input")
+        for name, diff, ref in pairs:
+            den = largest if name in ZERO_GRADS else ref
+            rows.append({"layer": i, "name": name, "max_abs_diff": diff,
+                         "ref_max_abs": ref, "of_largest": name in ZERO_GRADS,
+                         "rel": diff / den if den > 0 else (0.0 if diff == 0 else math.inf)})
         gy = gk[0]
     worst = max(rows, key=lambda r: r["rel"])
     smallest = min(rows, key=lambda r: r["ref_max_abs"])
-    stats = {"layout": "padded" if offsets is None else "packed",
+    stats = {"arch": cfg.name, "layout": "padded" if offsets is None else "packed",
+             "erwin_levels": levels if cfg.attention == "erwin" else None,
+             "forward_tol": LAYER_TOL, "forward_max_abs_diff": fwd_worst,
+             "forward_points_beyond_tol": fwd_beyond,
              "rel_tol": GRAD_REL_TOL, "worst": worst, "smallest_ref": smallest,
+             "zero_grads": [r for r in rows if r["of_largest"]][:4],
              "max_abs_diff": max(r["max_abs_diff"] for r in rows),
              "input_grad_ref_max_abs": [r["ref_max_abs"] for r in reversed(rows)
                                         if r["name"] == "input"],
              "tensors_compared": len(rows), "grad_elements_compared": elements,
              "layers": len(model.layers)}
     print(json.dumps({"train_reference_check": stats}), flush=True)
+    check(fwd_beyond == 0, f"{cfg.name}: kernel-path layer outputs vs reference backend: "
+                           f"{fwd_beyond} points beyond {LAYER_TOL} (max {fwd_worst})")
     beyond = [f"layer {r['layer']} {r['name']} ({r['rel']:.2e})" for r in rows
               if not r["rel"] <= GRAD_REL_TOL]
     check(not beyond, f"kernel-path gradients vs reference backend beyond "
@@ -1476,7 +1705,8 @@ def train_reference_check(model, cfg, batch) -> dict:
     return stats
 
 
-def profile_train_step(step, model, opt_state, batch, layout: str) -> None:
+def profile_train_step(step, model, opt_state, batch, layout: str,
+                       arch: str = "shapenet-bsa") -> None:
     """Where one train step spends device time (torch.profiler): kernel time
     on the card, each ported kernel's share, the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -1484,8 +1714,8 @@ def profile_train_step(step, model, opt_state, batch, layout: str) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(model, opt_state, batch)
         torch.cuda.synchronize()
-    print(json.dumps({"train_profile": {"layout": layout, **device_summary(prof)}}),
-          flush=True)
+    print(json.dumps({"train_profile": {"arch": arch, "layout": layout,
+                                        **device_summary(prof)}}), flush=True)
 
 
 def device_summary(prof) -> dict:
@@ -2697,7 +2927,13 @@ def main() -> int:
     del model
     paths["train_padded"] = train_phase(dev, batches, "padded")
     paths["train_packed"] = train_phase(dev, packed_batches, "packed")
-    del batches, packed_batches
+    del packed_batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows += baseline_kernel_phase(dev, pad_rows(batches[0], ERWIN_N)["mask"])
+    paths.update(baselines_phase(dev, batches))
+    print(f"# baselines phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    del batches
     torch.cuda.empty_cache()
 
     rows += lm_kernel_phase(dev)

@@ -31,7 +31,7 @@ class ModelConfig:
     d_ff: int
     head_dim: int = 0                # 0 ⇒ d_model // n_heads
     vocab_size: int = 0              # LM families
-    attention: str = "bsa"           # mechanism; only "bsa" is ported
+    attention: str = "bsa"           # mechanism: "bsa" | "full" | "erwin"
     bsa: BSAConfig = dataclasses.field(default_factory=BSAConfig)
     rope_theta: float = 1e4
     tie_embeddings: bool = False

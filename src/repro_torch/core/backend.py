@@ -27,7 +27,9 @@ Built-ins:
                    ``"kernels"``, CPU tensors ``"reference"``.
 
 Resolution (weakest → strongest): ``BSAConfig.backend`` (with
-``backend_overrides`` per branch) < ``with use_backend("..."):``.
+``backend_overrides`` per branch) < ``with use_backend("..."):``.  The
+baselines' single-backend calls (``full_attention``, ``erwin_attention``)
+resolve one backend for the whole call: :func:`single_backend`.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from typing import Iterator
 
 __all__ = ["ReferenceBackend", "KernelBackend", "AutoBackend", "DEFAULT_BACKEND",
            "BRANCH_KEYS", "register_backend", "get_backend", "list_backends",
-           "use_backend", "active_backend", "resolve_branch_backends", "get_varlen",
-           "get_paged_gather"]
+           "use_backend", "active_backend", "resolve_branch_backends", "single_backend",
+           "get_varlen", "get_paged_gather"]
 
 DEFAULT_BACKEND = "auto"
 BRANCH_KEYS = ("ball", "cmp", "slc")
@@ -287,6 +289,15 @@ def resolve_branch_backends(cfg) -> dict:
     base = cfg.backend or DEFAULT_BACKEND
     overrides = dict(cfg.backend_overrides or ())
     return {b: get_backend(overrides.get(b, base)) for b in BRANCH_KEYS}
+
+
+def single_backend(name: str | None = None):
+    """The backend of a single-backend call (the full and Erwin baselines):
+    an active ``use_backend`` wins, then ``name`` (the config's
+    ``bsa.backend``), then the default.  ``backend_overrides`` name BSA's
+    branches and are not read."""
+    stack = getattr(_tls, "stack", None)
+    return get_backend(stack[-1] if stack else name or DEFAULT_BACKEND)
 
 
 def get_varlen(backend, op: str):

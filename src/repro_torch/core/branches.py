@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.kernels.common import lse_finalize
 from repro_torch.kernels.occupancy import invalidate_dead_groups
-from repro_torch.layers.nn import dense
+from repro_torch.layers.nn import dense, mlp
 from repro_torch.numerics import NEG_INF, mask_to_bias
 
 __all__ = ["BRANCHES", "phi_apply", "block_validity", "gate_values",
@@ -29,23 +29,29 @@ BRANCHES = ("ball", "cmp", "slc")
 # ---------------------------------------------------------------------------
 
 def phi_apply(p, x: torch.Tensor, mask: torch.Tensor | None, cfg) -> torch.Tensor:
-    """Compress token blocks to coarse tokens (the masked mean φ).
+    """Compress token blocks to coarse tokens.
 
-    ``p`` carries ``pos`` (ℓ, D); x: (B, N, H, D) → (B, NB, H, D) with
-    NB = N // ℓ.  Padded positions contribute zero; the mean is over valid
-    tokens only, divided by max(count, 1)."""
-    if cfg.phi != "mean":
-        raise NotImplementedError(f"phi={cfg.phi!r} is not ported (only 'mean')")
+    ``p`` carries ``pos`` (ℓ, D), and ``fc1`` / ``fc2`` for φ = "mlp";
+    x: (B, N, H, D) → (B, NB, H, D) with NB = N // ℓ.  Padded positions
+    contribute zero.  φ = "mean": the mean over valid tokens, divided by
+    max(count, 1).  φ = "mlp": each block's ℓ tokens of a head flattened
+    to ℓ·D (token outer, dim inner), then ``layers.nn.mlp`` (ℓ·D → 2D →
+    D, GELU), shared by heads and blocks."""
+    if cfg.phi not in ("mean", "mlp"):
+        raise ValueError(f"phi={cfg.phi!r}: must be 'mean' or 'mlp'")
     B, N, H, D = x.shape
     ell = cfg.cmp_block
     if N % ell:
         raise ValueError(f"N={N} not a multiple of cmp_block={ell}")
     nb = N // ell
     xb = x.reshape(B, nb, ell, H, D) + p.pos.to(x.dtype)[None, None, :, None, :]
+    if mask is not None:
+        mb = mask.reshape(B, nb, ell)[..., None, None]
+        xb = torch.where(mb, xb, torch.zeros((), dtype=x.dtype, device=x.device))
+    if cfg.phi == "mlp":
+        return mlp(p, xb.permute(0, 1, 3, 2, 4).reshape(B, nb, H, ell * D))
     if mask is None:
         return xb.float().mean(dim=2).to(x.dtype)
-    mb = mask.reshape(B, nb, ell)[..., None, None]
-    xb = torch.where(mb, xb, torch.zeros((), dtype=x.dtype, device=x.device))
     cnt = mask.reshape(B, nb, ell).sum(-1).clamp(min=1)
     out = xb.float().sum(dim=2) / cnt[..., None, None].float()
     return out.to(x.dtype)

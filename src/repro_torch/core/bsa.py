@@ -35,15 +35,19 @@ __all__ = ["BSAParams", "bsa_init", "bsa_attention", "bsa_attention_varlen",
 
 
 class Phi(nn.Module):
-    """Parameters of one φ operator: a positional offset ``pos`` (ℓ, D)."""
+    """Parameters of one φ operator: a positional offset ``pos`` (ℓ, D), and
+    for φ = "mlp" the ``fc1`` (ℓ·D → 2D) and ``fc2`` (2D → D) dense layers
+    with bias, He-scaled by their fan-in as JAX's ``dense_init``."""
 
     def __init__(self, cfg: BSAConfig, head_dim: int, *, generator, dtype, device):
         super().__init__()
-        if cfg.phi != "mean":
-            raise NotImplementedError(f"phi={cfg.phi!r} is not ported (only 'mean')")
         pos = torch.randn((cfg.cmp_block, head_dim), generator=generator,
                           device=generator.device) * 0.02
         self.pos = nn.Parameter(pos.to(dtype=dtype, device=device))
+        if cfg.phi == "mlp":
+            kw = dict(generator=generator, bias=True, dtype=dtype, device=device)
+            self.fc1 = Dense(cfg.cmp_block * head_dim, 2 * head_dim, **kw)
+            self.fc2 = Dense(2 * head_dim, head_dim, **kw)
 
 
 class Gates(nn.Module):

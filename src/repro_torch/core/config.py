@@ -22,7 +22,7 @@ class BSAConfig:
     group_size: int = 8             # g — query group for shared selection (0 ⇒ off)
     query_cmp_selection: bool = True   # Eq. 13–14: score with pooled queries
     group_compression: bool = False    # Eq. 15: pooled-query compression branch
-    phi: str = "mean"               # φ pooling: "mean" | "mlp" (mlp not ported)
+    phi: str = "mean"               # φ pooling: "mean" | "mlp" (Eq. 15's group-cmp)
     gate_mode: str = "scalar"       # σ(γ_b): "scalar" (per head) | "token"
     mask_own_ball: bool = True      # §3.2: selection ignores blocks in own ball
     local_window: int = 0           # causal variant: window w; 0 ⇒ ball_size

@@ -13,8 +13,8 @@ over ShapeNet-Car batches for the point-cloud family.  Weights come from
 seed 0; the AdamW moments are kept in the config's ``opt_state_dtype``.
 It runs on ``cuda`` unless ``--device cpu`` is given; there is no fallback
 from one to the other.  The JAX launcher's ``Trainer`` (watchdog,
-checkpoints), mesh and ``--distributed`` are not ported yet (ROADMAP queue
-1 items 11–12), nor its ``--backend`` switch.
+checkpoints) is not ported yet (ROADMAP queue 1 item 4), nor its
+``--backend`` switch (item 2), mesh and ``--distributed`` (item 6).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Minimal NN layers: dense, RMSNorm, SwiGLU, token embedding.
+"""Minimal NN layers: dense, RMSNorm, SwiGLU, a two-layer GELU MLP, token
+embedding.
 
 Counterpart of ``repro/layers/nn.py``.  Layers are ``nn.Module``s whose
 parameter names mirror the JAX pytree keys (``w``, ``b``, ``g``), so
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["he_scale", "Dense", "dense", "RMSNorm", "rmsnorm", "SwiGLU", "swiglu",
-           "Embed", "embed", "unembed"]
+           "MLP", "mlp", "Embed", "embed", "unembed"]
 
 
 def he_scale(fan_in: int) -> float:
@@ -93,6 +94,28 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     u = dense(p.up, x)
     h = F.silu(g.float()).to(x.dtype) * u
     return dense(p.down, h)
+
+
+class MLP(nn.Module):
+    """``fc1`` d_in → d_hidden and ``fc2`` d_hidden → d_out, both with bias;
+    fc2's weights He-scaled by d_hidden."""
+
+    def __init__(self, d_in: int, d_hidden: int, d_out: int, *,
+                 generator: torch.Generator, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(generator=generator, bias=True, dtype=dtype, device=device)
+        self.fc1 = Dense(d_in, d_hidden, **kw)
+        self.fc2 = Dense(d_hidden, d_out, scale=he_scale(d_hidden), **kw)
+
+    def forward(self, x):
+        return mlp(self, x)
+
+
+def mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """fc2(GELU(fc1(x))): the tanh form of GELU (``jax.nn.gelu``'s default),
+    in fp32, cast back to x's dtype.  ``p`` carries ``fc1`` and ``fc2``."""
+    h = F.gelu(dense(p.fc1, x).float(), approximate="tanh").to(x.dtype)
+    return dense(p.fc2, h)
 
 
 class Embed(nn.Module):

@@ -311,6 +311,22 @@ def test_params_to_jax_inverts_params_from_jax():
     _assert_trees_close(params_to_jax(model), tree, atol=0, rtol=0)
     zero = params_to_jax(model, grads=True)                    # no backward yet
     assert all((a == 0).all() for a in _flat(zero).values())
+    # the baselines (no ``bsa`` key under ``attn``; Erwin's levels change no
+    # parameter) and group compression (φ = "mlp": ``pos``, ``fc1``, ``fc2``)
+    group_cmp = dict(BSA, group_compression=True, phi="mlp")
+    for attention, bsa in (("full", BSA), ("erwin", BSA), ("bsa", group_cmp)):
+        jcfg = JModelConfig(**dict(MODEL, attention=attention), vocab_size=0, remat=False,
+                            bsa=JBSAConfig(**bsa, backend="jnp"))
+        tcfg = ModelConfig(**dict(MODEL, attention=attention), bsa=BSAConfig(**bsa))
+        tree = jax.tree.map(np.asarray, j_pc.pc_init(jax.random.PRNGKey(3), jcfg))
+        model = params_from_jax(tree, model_api(tcfg).init(3, device="cpu"))
+        _assert_trees_close(params_to_jax(model), tree, atol=0, rtol=0)
+        attn = _flat(tree["layers"]["attn"])
+        if attention == "bsa":
+            assert {f"bsa.phi_{w}.{p}" for w in "qkv" for p in ("pos", "fc1.w", "fc1.b",
+                                                                 "fc2.w", "fc2.b")} <= set(attn)
+        else:
+            assert sorted(attn) == ["wk.w", "wo.w", "wq.w", "wv.w"]
 
 
 def test_train_cli_runs_on_cpu(capsys, monkeypatch):
