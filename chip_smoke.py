@@ -141,7 +141,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    against the forward) over a shuffled block table and three staggered
    slots of 1,100–1,600 tokens must match ``nsa_causal_attention`` on the
    kernel path at every position within 1e-4 of the output's largest value;
-9. serving: ``ServingEngine(paged=True)`` with 8 slots, ``max_len`` 2048,
+9. serving: ``tinyllama-1.1b`` at full width and 4 of its 22 layers
+   (``SERVE_LM_LAYERS``: the run's time limit), through
+   ``ServingEngine(paged=True)`` with 8 slots, ``max_len`` 2048,
    pages of 256 serves 10 greedy requests of 1,100–1,600 random tokens
    (numpy seed 0), 8 new tokens each; requests 0, 1 and 8 open with the
    same 512 tokens (a shared system prompt; request 8, admitted after the
@@ -181,18 +183,55 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    floored at 1e-4 of the layer's largest parameter gradient), given the
    same layer input and upstream gradient (``lm_train_reference_check``).
 
-The shapenet paths run at full width and depth.  Any failed check exits
-non-zero before the result lines.  On success the last line is
-``{"ok": true, "device": {...}}``.
+12. quickstart (after the baselines): ``launch.quickstart`` on the card
+   (sections 1–6 of ``examples/quickstart.py`` through
+   ``repro_torch.core``, fp32, 4 heads of 16): its asserts pass, and
+   ``bta_fwd``, ``flash_fwd``, ``selection_fwd``, ``epilogue_fwd`` and
+   ``varlen_fwd`` each launch, no other kernel;
+13. trainer: ``launch.train --arch shapenet-bsa --steps 3 --batch 8 --ckpt
+   DIR`` through ``runtime.Trainer`` (each train-path kernel 18 times a
+   step), then a second ``Trainer`` restores step 3's checkpoint (every
+   parameter and AdamW moment bit for bit) and trains one more step: its
+   optimizer step count is 4, its loss finite, step 4's checkpoint exists;
+14. the causal path's kernels at the new models' heads (``HEAD_ROWS``):
+   stablelm-1.6b's 32 / 32 of 64 (rep 1) and granite-20b's 48 / 1 of 128
+   (rep 48: selection groups of 3,072 rows) on one 4,096-token sequence in
+   bf16, as phase 6 runs phi4-mini's, each against its plain version with
+   its bound and SDPA's time on the same dense mask;
+15. the other dense LMs (``DENSE_LMS``), after tinyllama's weights are
+   freed, each at full width and depth with random weights from seed 0:
+   ``stablelm-1.6b`` (24 layers, d 2048, 32 / 32 heads of 64, vocabulary
+   100,352), ``phi4-mini-3.8b`` (32 layers, d 3072, 24 / 8 of 128,
+   200,064) and ``granite-20b`` (52 layers, d 6144, 48 / 1 of 128, d_ff
+   24,576, 49,152; 28.17 B parameters, 56.3 GB in bf16).  Each prefills 1
+   × 32,768 tokens (granite 1 × 8,192) as phase 7 does (launches, every
+   layer within 4e-2 of the reference backend, a profiled call), decodes
+   paged through ``api.paged_decode_step`` on its own config
+   (``dense_decode_phase``: two staggered slots of 300 and 200 positions in
+   bf16, launches, finite logits, ms a step), holds that entry point to the
+   forward on the kernel path (``decode_hold``: each layer fed the
+   forward's layer input, every attention output and the logits within
+   1.5e-2 of the forward's largest value, position by position), and
+   stablelm (2 × 4,096
+   tokens) and phi4-mini (1 × 4,096) train 1 + 3 steps as phase 11 does
+   (launches, every layer's gradients within 6e-2, peak memory).  granite
+   does not train: its fp32 AdamW moments alone would be 225 GB.
+
+``$REPRO_TORCH_ATTENTION_BACKEND`` must be unset: it would beat every
+backend the script names.  The shapenet paths run at full width and
+depth.  Any failed check exits non-zero before the result lines.  On
+success the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -210,7 +249,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import nsa_causal  # noqa: E402
-from repro_torch.core.backend import use_backend  # noqa: E402
+from repro_torch.core.backend import ENV_VAR, use_backend  # noqa: E402
 from repro_torch.core.balltree import pack_varlen  # noqa: E402
 from repro_torch.data.elasticity import ElasticityDataset  # noqa: E402
 from repro_torch.data.lm import lm_batches  # noqa: E402
@@ -226,7 +265,10 @@ from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa:
 from repro_torch.layers.losses import masked_mean_nll  # noqa: E402
 from repro_torch.layers.nn import dense, embed, rmsnorm  # noqa: E402
 from repro_torch.models.api import model_api  # noqa: E402
+from repro_torch.models.attention_layer import (attention_layer_apply,  # noqa: E402
+                                                attention_layer_decode_paged)
 from repro_torch.models.pointcloud import erwin_levels, pc_layer  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.transformer import lm_layer  # noqa: E402
 from repro_torch.numerics import NEG_INF  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
@@ -288,6 +330,9 @@ PATHS["train_lm"] = PATHS["prefill"] + ("local_dq", "local_dkv", "flash_dq", "fl
 PATHS["train_full"] = ("flash_fwd", "flash_dq", "flash_dkv")
 PATHS["train_erwin"] = ("bta_fwd", "bta_bwd")
 PATHS["train_group_cmp"] = PATHS["train_padded"]
+PATHS["quickstart"] = ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd", "varlen_fwd")
+PATHS["trainer"] = PATHS["train_padded"]                # Trainer on shapenet-bsa
+PATHS["trainer_resume"] = PATHS["train_padded"]
 # the path, dtype and mode whose launches and row the kernels line reports
 # for the LM kernels; the others report the shapenet train paths' (fp32)
 LM_MAIN = {"local_fwd": ("prefill", "bfloat16", "lm_window"),
@@ -325,6 +370,13 @@ PREFILL_B, PREFILL_N = 2, 32768          # prefill_32k's length, its batch of 32
 LM_LAYER_TOL = 4e-2                      # bf16, of each layer output's largest value
 DECODE_TOL = 1e-4                        # fp32, of the output's largest value
 SLOTS, MAX_LEN, PAGE = 8, 2048, 256
+# the paged serving phase (and its lockstep processes) runs tinyllama at 4
+# of its 22 layers, at full width: it is host-bound and its time goes with
+# the depth (the phase took ~300 s at 22 layers, 285 s at 11 on a slow host
+# and 89 s at 4), and at 11 layers the whole run took 1,016 s there before
+# the dense LMs' main-path decode (~85 s more) was added, against a limit
+# of 1,200 s
+SERVE_LM_LAYERS = 4
 N_REQUESTS, NEW_TOKENS, SHARED = 10, 8, 512
 NEAR_TIE = 4e-2                          # of the largest |logit|
 TRAIN_LM_B, TRAIN_LM_N = 2, 4096         # train_4k's length, its global batch of 256 cut to 2
@@ -337,8 +389,32 @@ TRAIN_LM_STEPS = 3
 LM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
 LM_GRAD_REL_TOL = 6e-2
 LM_GRAD_FLOOR = 1e-4
-# head_dim 128: phi4-mini-3.8b's heads (24 query on 8 KV heads of 128), LM_BSA
-D128_HQ, D128_HKV, D128, D128_N = 24, 8, 128, 4096
+# the dense LMs beside tinyllama (dense_lm_phase), at full width and depth,
+# LM_BSA, bf16, weights from seed 0: config -> ((prefill B, N), (train B, N)
+# or None).  The prefill takes prefill_32k's length with its batch of 32 cut
+# to 1 (granite-20b: 8,192 tokens, to stay in time and in 80 GB); training
+# takes train_4k's length (phi4-mini one sequence: its fp32 moments alone
+# are 35.6 GB); granite-20b does not train (its AdamW moments are 225 GB)
+DENSE_LMS = {"stablelm-1.6b": ((1, 32768), (2, 4096)),
+             "phi4-mini-3.8b": ((1, 32768), (1, 4096)),
+             "granite-20b": ((1, 8192), None)}
+for _arch in DENSE_LMS:                                  # their paths
+    PATHS[f"prefill:{_arch}"] = PATHS["prefill"]
+    PATHS[f"decode:{_arch}"] = ("paged_gather",)
+    PATHS[f"train:{_arch}"] = PATHS["train_lm"]
+# their paged decode: two staggered slots (lengths, first steps), bf16;
+# its hold against the forward (decode_hold), of the forward's largest
+# value: on the H100 the three models' attention outputs read at most
+# 6.9e-3 and their logits 5.5e-3, and stablelm's decode with its
+# compression branch scaled by 0.9 reads 1.6e-2 to 3.2e-2 in every layer
+DECODE_LENS, DECODE_STARTS = (300, 200), (0, 100)
+DECODE_HOLD_TOL = 1.5e-2
+# the causal path's kernel rows at each model's heads (head_rows_phase):
+# tag -> (config, query heads, KV heads, head dim), one 4,096-token sequence
+HEAD_ROWS = {"d128": ("phi4-mini-3.8b", 24, 8, 128),
+             "rep1": ("stablelm-1.6b", 32, 32, 64),
+             "rep48": ("granite-20b", 48, 1, 128)}
+HEAD_ROWS_N = 4096
 # the redesigned kernels must build without spills at these head dims, every
 # variant named: mma (bf16 tensor cores), fma (fp32 register tiles) and, for
 # the local backward, lanes (fp32 and small windows, both dtypes); the ball
@@ -365,20 +441,31 @@ NO_SPILL = [*((name, (64, 128), ("mma", "fma"))
 # shapes: the flash kernels at shapenet-full's 3840 queries × 3840 keys, the
 # ball kernels at shapenet-erwin's levels 0–2 (4096, 2048, 1024 tokens)
 LM_ALSO = {"flash_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_block_causal"),
-                         ("d128", None, "bfloat16", "d128_block_causal"),
                          ("full", "shapenet-full", "float32", "full")],
            "flash_dq": [("full", "shapenet-full", "float32", "full")],
            "flash_dkv": [("full", "shapenet-full", "float32", "full")],
            **{name: [(f"erwin_l{lv}", "shapenet-erwin", "float32", f"erwin_l{lv}")
                      for lv in range(3)] for name in ("bta_fwd", "bta_bwd")},
            "selection_fwd": [("topk", "train_padded", "float32", "topk")],
-           "epilogue_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_rows"),
-                            ("d128", None, "bfloat16", "d128_rows")],
-           "epilogue_bwd": [("lm_train", "train_lm", "bfloat16", "lm_train_rows"),
-                            ("d128", None, "bfloat16", "d128_rows")],
-           "local_fwd": [("d128", None, "bfloat16", "d128_lm_window")],
+           "epilogue_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_rows")],
+           "epilogue_bwd": [("lm_train", "train_lm", "bfloat16", "lm_train_rows")],
            "paged_gather": [("int64_rows", "serve_lm", "float32", "decode_window_i64"),
                             ("crow_int64", "serve_lm", "float32", "decode_crow_i64")]}
+# the rows at each model's heads (bf16) under their tag, with the launches of
+# that model's path (its prefill for the forward kernels, its training for the
+# backward ones, None where it does not train, its decode for paged_gather)
+HEAD_ROW_MODES = {"local_fwd": "lm_window", "local_dq": "lm_window",
+                  "local_dkv": "lm_window", "flash_fwd": "block_causal",
+                  "flash_dq": "block_causal", "flash_dkv": "block_causal",
+                  "selection_fwd": "groups", "selection_dq": "groups",
+                  "selection_dkv": "groups", "epilogue_fwd": "rows", "epilogue_bwd": "rows",
+                  "paged_gather": "decode_window"}
+for _tag, (_arch, *_) in HEAD_ROWS.items():
+    for _name, _mode in HEAD_ROW_MODES.items():
+        _path = (f"decode:{_arch}" if _name == "paged_gather"
+                 else f"prefill:{_arch}" if _name in PATHS["prefill"]
+                 else f"train:{_arch}" if DENSE_LMS[_arch][1] else None)
+        LM_ALSO.setdefault(_name, []).append((_tag, _path, "bfloat16", f"{_tag}_{_mode}"))
 
 
 # a kernel row's optional keys, carried into the kernels line
@@ -2014,19 +2101,22 @@ def lm_kernel_phase(dev) -> list[dict]:
     return results
 
 
-def head_dim_128_phase(dev) -> list[dict]:
-    """The causal LM path's kernels at head_dim 128 against their plain
-    versions, in fp32 and bf16: phi4-mini's heads (24 / 8 of 128, rep 3)
-    with ``LM_BSA`` on B = 1 × 4096 tokens.  ``local_fwd`` / ``local_dq`` /
-    ``local_dkv`` on ``lm_window_case`` (a padded tail, a hole, a sample
-    boundary), ``flash_fwd`` / ``flash_dq`` / ``flash_dkv`` block-causal
-    against the 64 pooled keys, ``selection_fwd`` / ``selection_bwd`` on 64
-    groups of g·rep = 192 rows picking 16 of the past blocks of 64 keys, the
-    two epilogues on 4096 · 24 rows and ``paged_gather`` on one decode
-    step's window (8 slots of 512 rows of 8 × 128)."""
+def head_rows_phase(dev, tag: str, dtypes) -> list[dict]:
+    """The causal LM path's kernels at one model's heads (``HEAD_ROWS[tag]``)
+    against their plain versions, in ``dtypes``, with ``LM_BSA`` on B = 1 ×
+    4096 tokens; each row's mode starts with ``tag``.  ``local_fwd`` /
+    ``local_dq`` / ``local_dkv`` on ``lm_window_case`` (a padded tail, a
+    hole, a sample boundary), ``flash_fwd`` / ``flash_dq`` / ``flash_dkv``
+    block-causal against the 64 pooled keys, ``selection_fwd`` /
+    ``selection_bwd`` on 64 groups of g·rep rows (phi4-mini's heads: 192;
+    granite's: 3,072) picking 16 of the past blocks of 64 keys, the two
+    epilogues on 4096 · Hq rows and ``paged_gather`` on one decode step's
+    window (8 slots of 512 rows of Hkv × D); SDPA with the same dense mask
+    beside the local and flash kernels, forward and backward."""
     results = []
     record = recorder(results)
-    Hq, Hkv, Dh, n = D128_HQ, D128_HKV, D128, D128_N
+    _, Hq, Hkv, Dh = HEAD_ROWS[tag]
+    n = HEAD_ROWS_N
     rep = Hq // Hkv
     key_bias, blk_seg = lm_window_case(dev, n)
     pairs = Hq * local_visible_pairs(key_bias, blk_seg, LM_W)
@@ -2046,7 +2136,7 @@ def head_dim_128_phase(dev) -> list[dict]:
     idx = torch.where(val > -0.5, idx, -1).int().contiguous()  # (1, Hkv, G, k*)
     lkw = dict(window=LM_W, n_heads=Hkv)
     fkw = dict(n_heads=Hkv, block_causal=True, ell=LM_ELL)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         es = torch.tensor([], dtype=dtype).element_size()
         # ---- local_fwd, local_dq, local_dkv
         q = rand((Hkv, rep, n, Dh), dtype, dev, 141)
@@ -2069,7 +2159,7 @@ def head_dim_128_phase(dev) -> list[dict]:
                                                                         attn_mask=dense_ok),
                                  (qs, ks, vs))
         del qs, ks, vs
-        record("local_fwd", "d128_lm_window", dtype, err, ok,
+        record("local_fwd", f"{tag}_lm_window", dtype, err, ok,
                median_ms(lambda: local.local_window_fwd(q, k, v, key_bias, blk_seg, **lkw)),
                median_ms(lambda: local.local_window_fwd_plain(q, k, v, key_bias, blk_seg, **lkw),
                          warmup=1, reps=3), b_ms, b_by, lib_fwd,
@@ -2088,12 +2178,12 @@ def head_dim_128_phase(dev) -> list[dict]:
         side += 4 * q.numel() // Dh
         err, ok = rel_err((dq,), want[:1])
         b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * es + side, 6.0 * Dh * pairs, dtype)
-        record("local_dq", "d128_lm_window", dtype, err, ok,
+        record("local_dq", f"{tag}_lm_window", dtype, err, ok,
                median_ms(lambda: local.local_window_dq(*args, live=live, **lkw)), p_ms, b_ms,
                b_by, lib_bwd)
         err, ok = rel_err(dkv, want[1:])
         b_ms, b_by = bound((2 * q.numel() + 4 * k.numel()) * es + side, 8.0 * Dh * pairs, dtype)
-        record("local_dkv", "d128_lm_window", dtype, err, ok,
+        record("local_dkv", f"{tag}_lm_window", dtype, err, ok,
                median_ms(lambda: local.local_window_dkv(*args, live=live, **lkw)), p_ms, b_ms,
                b_by, lib_bwd)
         del k, v, o, lse, do, args, live, dq, dkv, want, got
@@ -2109,14 +2199,20 @@ def head_dim_128_phase(dev) -> list[dict]:
         side = 4 * nb + 4 * q.numel() // Dh
         b_ms, b_by = bound((2 * q.numel() + 2 * kf.numel()) * es + side, 4.0 * Dh * f_pairs,
                            dtype)
-        qs = q.reshape(1, Hq, n, Dh)
-        ks, vs = (t.repeat_interleave(rep, 0)[None] for t in (kf, vf))
-        record("flash_fwd", "d128_block_causal", dtype, err, ok,
+        qs = q.reshape(1, Hq, n, Dh).clone().requires_grad_(True)
+        ks, vs = (t.repeat_interleave(rep, 0)[None].clone().requires_grad_(True)
+                  for t in (kf, vf))
+        with torch.no_grad():
+            lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                       attn_mask=vis))
+        lib_bwd = library_bwd_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                        attn_mask=vis),
+                                 (qs, ks, vs))
+        del qs, ks, vs
+        record("flash_fwd", f"{tag}_block_causal", dtype, err, ok,
                median_ms(lambda: flash.flash_attention_fwd(q, kf, vf, zb, None, **fkw)),
                median_ms(lambda: flash.flash_attention_fwd_plain(q, kf, vf, zb, None, **fkw),
-                         warmup=1, reps=3), b_ms, b_by,
-               median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis)))
-        del qs, ks, vs
+                         warmup=1, reps=3), b_ms, b_by, lib_fwd)
         o, lse = got
         do = rand(o.shape, dtype, dev, 147)
         args = (q, kf, vf, zb, do, lse, row_delta(do, o))
@@ -2129,15 +2225,15 @@ def head_dim_128_phase(dev) -> list[dict]:
         err, ok = rel_err((dq,), want[:1])
         b_ms, b_by = bound((3 * q.numel() + 2 * kf.numel()) * es + side, 6.0 * Dh * f_pairs,
                            dtype)
-        record("flash_dq", "d128_block_causal", dtype, err, ok,
+        record("flash_dq", f"{tag}_block_causal", dtype, err, ok,
                median_ms(lambda: flash.flash_attention_dq(*args, **fkw)), p_ms, b_ms, b_by,
-               None)
+               lib_bwd)
         err, ok = rel_err(dkv, want[1:])
         b_ms, b_by = bound((2 * q.numel() + 4 * kf.numel()) * es + side, 8.0 * Dh * f_pairs,
                            dtype)
-        record("flash_dkv", "d128_block_causal", dtype, err, ok,
+        record("flash_dkv", f"{tag}_block_causal", dtype, err, ok,
                median_ms(lambda: flash.flash_attention_dkv(*args, **fkw)), p_ms, b_ms, b_by,
-               None)
+               lib_bwd)
         del q, kf, vf, o, lse, do, args, dq, dkv, want, got
 
         # ---- selection_fwd, selection_dq, selection_dkv
@@ -2146,7 +2242,7 @@ def head_dim_128_phase(dev) -> list[dict]:
         vb = rand((1, Hkv, nb, LM_ELL, Dh), dtype, dev, 150)
         tok_bias = torch.zeros((1, nb, LM_ELL), dtype=torch.float32, device=dev)
         do = rand(qg.shape, dtype, dev, 151)
-        selection_tiled_rows(record, "d128_groups", qg, kb, vb, [idx], tok_bias, do)
+        selection_tiled_rows(record, f"{tag}_groups", qg, kb, vb, [idx], tok_bias, do)
         del qg, kb, vb, do
 
         # ---- epilogue_fwd, epilogue_bwd: R = N·Hq rows of 128
@@ -2159,13 +2255,13 @@ def head_dim_128_phase(dev) -> list[dict]:
         torch.cuda.synchronize()
         err, ok = max_err((got,), (want,))
         b_ms, b_by = bound(4 * R * Dh * es + 4 * 4 * R, 6.0 * R * Dh, torch.float32)
-        record("epilogue_fwd", "d128_rows", dtype, err, ok,
+        record("epilogue_fwd", f"{tag}_rows", dtype, err, ok,
                median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
                median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
                b_ms, b_by, None,
                device_ms=device_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m),
                                    "epilogue_fwd")[0])
-        epilogue_bwd_row(record, "d128_rows", (*os_, *gs, m, rand((R, Dh), dtype, dev, 158)),
+        epilogue_bwd_row(record, f"{tag}_rows", (*os_, *gs, m, rand((R, Dh), dtype, dev, 158)),
                          rel_err)
         del os_, gs, got, want
 
@@ -2173,8 +2269,8 @@ def head_dim_128_phase(dev) -> list[dict]:
         # and int64 rows
         win_rows, _, Rp = decode_rows(dev, seed=1)
         pool = rand((Rp, Hkv, Dh), dtype, dev, 159)
-        paged_rows(record, "d128_decode_window", pool, win_rows, dtype)
-        paged_rows(record, "d128_decode_window_i64", pool, win_rows.long(), dtype)
+        paged_rows(record, f"{tag}_decode_window", pool, win_rows, dtype)
+        paged_rows(record, f"{tag}_decode_window_i64", pool, win_rows.long(), dtype)
         del pool
         torch.cuda.empty_cache()
     return results
@@ -2207,14 +2303,18 @@ def ptxas_table(log: str) -> list[dict]:
     return out
 
 
-def prefill_phase(dev, api, model) -> dict:
-    """``make_prefill_step`` on B = 2 × N = 32,768 random tokens: one
-    warm-up call, one timed call (its launches checked), the per-layer
-    reference check and a profiled call."""
+def prefill_phase(dev, api, model, batch_size: int = PREFILL_B, seq_len: int = PREFILL_N,
+                  path: str = "prefill") -> dict:
+    """``make_prefill_step`` on ``batch_size`` × ``seq_len`` random tokens
+    (tinyllama: B = 2 × N = 32,768): one warm-up call, one timed call (its
+    launches checked against ``path``), the per-layer reference check and a
+    profiled call."""
     cfg = api.mcfg
-    check(local.local_plan(LM_W, LM_D, getattr(torch, cfg.compute_dtype)).path == "tiles",
-          "prefill: local_fwd is not on the tiled path (local_fwd_mma)")
-    batch = api.make_batch(np.random.default_rng(0), PREFILL_B, PREFILL_N, device=dev)
+    hq, hkv, dh, w = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                      cfg.bsa.effective_local_window)
+    check(local.local_plan(w, dh, getattr(torch, cfg.compute_dtype)).path == "tiles",
+          f"prefill {cfg.name}: local_fwd is not on the tiled path (local_fwd_mma)")
+    batch = api.make_batch(np.random.default_rng(0), batch_size, seq_len, device=dev)
     step = make_prefill_step(api)
     t0 = time.perf_counter()
     step(model, batch)                                   # warm-up
@@ -2227,15 +2327,16 @@ def prefill_phase(dev, api, model) -> dict:
     torch.cuda.synchronize()
     latency = time.perf_counter() - t0
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
-    stats = {"arch": LM, "batch": PREFILL_B, "seq_len": PREFILL_N, "layers": cfg.n_layers,
+    stats = {"arch": cfg.name, "batch": batch_size, "seq_len": seq_len,
+             "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": [hq, hkv, dh],
              "dtype": cfg.compute_dtype, "latency_s": latency, "warmup_s": warm_s,
-             "tokens_per_second": PREFILL_B * PREFILL_N / latency,
+             "tokens_per_second": batch_size * seq_len / latency,
              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches}
     print(json.dumps({"prefill": stats}), flush=True)
-    check_launches(launches, "prefill", cfg.n_layers)
-    check(logits.shape == (PREFILL_B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
-          f"prefill logits: shape {tuple(logits.shape)} or non-finite")
+    check_launches(launches, path, cfg.n_layers)
+    check(logits.shape == (batch_size, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"prefill {cfg.name} logits: shape {tuple(logits.shape)} or non-finite")
     stats["reference_check"] = prefill_reference_check(model, cfg, batch["tokens"])
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2246,15 +2347,15 @@ def prefill_phase(dev, api, model) -> dict:
     summary = device_summary(prof)
     summary["profiled_wall_ms"] = wall * 1e3
     # local_fwd at the prefill shape: its device time a launch beside its bound
-    # (B × N positions, 32 / 4 heads of 64, every token valid)
-    kb = torch.zeros((PREFILL_B, PREFILL_N), device=dev)
-    n_q, n_kv = PREFILL_B * PREFILL_N * LM_HQ * LM_D, PREFILL_B * PREFILL_N * LM_HKV * LM_D
-    b_ms, b_by = bound(2 * 2 * (n_q + n_kv) + 4 * PREFILL_B * PREFILL_N * (1 + LM_HQ),
-                       4.0 * LM_D * LM_HQ * local_visible_pairs(kb, None, LM_W), torch.bfloat16)
+    # (B × N positions, the config's heads, every token valid)
+    kb = torch.zeros((batch_size, seq_len), device=dev)
+    n_q, n_kv = batch_size * seq_len * hq * dh, batch_size * seq_len * hkv * dh
+    b_ms, b_by = bound(2 * 2 * (n_q + n_kv) + 4 * batch_size * seq_len * (1 + hq),
+                       4.0 * dh * hq * local_visible_pairs(kb, None, w), torch.bfloat16)
     summary["local_fwd"] = {"device_ms_per_launch":
                             summary["ported_kernels_ms"].get("local_fwd", 0.0) / cfg.n_layers,
                             "bound_ms": b_ms, "bound_by": b_by}
-    print(json.dumps({"prefill_profile": summary}), flush=True)
+    print(json.dumps({"prefill_profile": {"arch": cfg.name, **summary}}), flush=True)
     return stats
 
 
@@ -2281,7 +2382,7 @@ def prefill_reference_check(model, cfg, tokens) -> dict:
                          "rel": diff / ref})
             x = yk
             del yr
-    stats = {"rel_tol": LM_LAYER_TOL, "layers": len(rows),
+    stats = {"arch": cfg.name, "rel_tol": LM_LAYER_TOL, "layers": len(rows),
              "worst": max(rows, key=lambda r: r["rel"]),
              "rel_by_layer": [r["rel"] for r in rows]}
     print(json.dumps({"prefill_reference_check": stats}), flush=True)
@@ -2404,8 +2505,9 @@ def serve_lm_phase(dev, api, model) -> dict:
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
     eng.kv.check()
     per_step = [s.elapsed_time(e) / w for s, e, w in windows]
-    stats = {"arch": LM, "slots": SLOTS, "max_len": MAX_LEN, "page": PAGE,
-             "requests": len(prompts), "prompt_tokens": int(sum(len(p) for p in prompts)),
+    stats = {"arch": LM, "layers": cfg.n_layers, "slots": SLOTS, "max_len": MAX_LEN,
+             "page": PAGE, "requests": len(prompts),
+             "prompt_tokens": int(sum(len(p) for p in prompts)),
              "new_tokens": NEW_TOKENS, "serve_steps": eng.serve_steps,
              "windows": len(windows), "wall_s": wall,
              "tokens_per_second": eng.tokens_per_second,
@@ -2554,14 +2656,15 @@ def rel_err(got, want, tol_table=LM_BWD_TOL) -> tuple[float, bool]:
     return max(errs), ok
 
 
-def lm_train_batches(dev, vocab: int) -> list[dict]:
+def lm_train_batches(dev, vocab: int, batch_size: int = TRAIN_LM_B,
+                     seq_len: int = TRAIN_LM_N) -> list[dict]:
     """1 + ``TRAIN_LM_STEPS`` batches of ``lm_batches(seed=0)`` at
-    ``train_4k``'s length (B = 2 × 4096 tokens), tokens and labels on the
-    card."""
+    ``train_4k``'s length (tinyllama: B = 2 × 4096 tokens), tokens and
+    labels on the card."""
     return [{k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
             for _, b in zip(range(TRAIN_LM_STEPS + 1),
-                            lm_batches(vocab_size=vocab, batch_size=TRAIN_LM_B,
-                                       seq_len=TRAIN_LM_N, seed=0))]
+                            lm_batches(vocab_size=vocab, batch_size=batch_size,
+                                       seq_len=seq_len, seed=0))]
 
 
 def lm_selection_picks(api, model, batch) -> list[torch.Tensor]:
@@ -2700,15 +2803,17 @@ def lm_backward_kernel_phase(dev, picks) -> list[dict]:
     return results
 
 
-def train_lm_phase(dev, api, model, batches) -> dict:
+def train_lm_phase(dev, api, model, batches, path: str = "train_lm") -> dict:
     """``make_train_step`` on the LM at full width and depth (bf16
     parameters, fp32 AdamW moments, remat on): one warm-up step, then
-    ``TRAIN_LM_STEPS`` timed steps (their launches checked), the per-layer
-    gradient check against the reference backend and a profiled step."""
+    ``TRAIN_LM_STEPS`` timed steps (their launches checked against
+    ``path``), the per-layer gradient check against the reference backend
+    and a profiled step."""
     cfg = api.mcfg
-    check(cfg.remat, f"{LM} trains with remat on")
-    check(local.local_plan(LM_W, LM_D, getattr(torch, cfg.compute_dtype)).path == "tiles",
-          "LM train: local_fwd is not on the tiled path (local_fwd_mma)")
+    check(cfg.remat, f"{cfg.name} trains with remat on")
+    check(local.local_plan(cfg.bsa.effective_local_window, cfg.resolved_head_dim,
+                           getattr(torch, cfg.compute_dtype)).path == "tiles",
+          f"{cfg.name} train: local_fwd is not on the tiled path (local_fwd_mma)")
     opt_state = adamw_init(dict(model.named_parameters()),
                            state_dtype=getattr(torch, cfg.opt_state_dtype))
     step = make_train_step(api, base_lr=1e-3, weight_decay=0.01, total_steps=300,
@@ -2727,8 +2832,10 @@ def train_lm_phase(dev, api, model, batches) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append(out)
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
-    tokens = TRAIN_LM_STEPS * TRAIN_LM_B * TRAIN_LM_N
-    stats = {"arch": LM, "steps": TRAIN_LM_STEPS, "batch": TRAIN_LM_B, "seq_len": TRAIN_LM_N,
+    batch_size, seq_len = batches[0]["tokens"].shape
+    tokens = TRAIN_LM_STEPS * batch_size * seq_len
+    stats = {"arch": cfg.name, "steps": TRAIN_LM_STEPS, "batch": batch_size,
+             "seq_len": seq_len,
              "layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
              "opt_state_dtype": cfg.opt_state_dtype, "remat": cfg.remat,
              "loss": [float(m["loss"]) for m in metrics],
@@ -2740,10 +2847,10 @@ def train_lm_phase(dev, api, model, batches) -> dict:
              "launches": launches}
     print(json.dumps({"train_lm": stats}), flush=True)
     check(all(math.isfinite(x) for x in stats["loss"] + stats["grad_norm"]),
-          "LM train: non-finite loss or gradient norm")
+          f"{cfg.name} train: non-finite loss or gradient norm")
     check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
-              if p.grad is not None), "LM train: non-finite gradient")   # φ_q: none
-    check_launches(launches, "train_lm", cfg.n_layers * TRAIN_LM_STEPS,
+              if p.grad is not None), f"{cfg.name} train: non-finite gradient")   # φ_q: none
+    check_launches(launches, path, cfg.n_layers * TRAIN_LM_STEPS,
                    per_forward_kernel=2 * cfg.n_layers * TRAIN_LM_STEPS)   # + recompute
     stats["reference_check"] = lm_train_reference_check(model, cfg, batches[1])
     from torch.profiler import ProfilerActivity, profile
@@ -2756,7 +2863,7 @@ def train_lm_phase(dev, api, model, batches) -> dict:
     summary = device_summary(prof)
     summary.update(profiled_wall_ms=wall * 1e3,
                    device_busy_share=summary["device_kernel_ms"] / (wall * 1e3))
-    print(json.dumps({"train_lm_profile": summary}), flush=True)
+    print(json.dumps({"train_lm_profile": {"arch": cfg.name, **summary}}), flush=True)
     return stats
 
 
@@ -2827,7 +2934,8 @@ def lm_train_reference_check(model, cfg, batch) -> dict:
         b.update(rel=max(b["rel"], r["rel"]), rel_own=max(b["rel_own"], r["rel_own"]),
                  share=min(b["share"], r["share"]),
                  floored_layers=b["floored_layers"] + r["floored"])
-    stats = {"rel_tol": LM_GRAD_REL_TOL, "floor": LM_GRAD_FLOOR, "worst": worst,
+    stats = {"arch": cfg.name, "rel_tol": LM_GRAD_REL_TOL, "floor": LM_GRAD_FLOOR,
+             "worst": worst,
              "by_name": by_name, "tensors_compared": len(rows), "layers": len(layers),
              "rel_by_layer": [max(r["rel"] for r in rows if r["layer"] == i)
                               for i in range(len(layers))]}
@@ -2836,6 +2944,313 @@ def lm_train_reference_check(model, cfg, batch) -> dict:
               if not r["rel"] <= LM_GRAD_REL_TOL]
     check(not beyond, f"LM kernel-path gradients vs reference backend beyond "
                       f"{LM_GRAD_REL_TOL}: {', '.join(beyond[:8])}")
+    return stats
+
+
+def decode_schedule(dev) -> tuple[torch.Tensor, torch.Tensor, int, int]:
+    """The dense LMs' decode schedule: two slots of ``DECODE_LENS``
+    positions from steps ``DECODE_STARTS`` over a shuffled block table;
+    each slot's pages are mapped from its first step and an idle slot's
+    table row names the trash block.  Returns (tables (steps, Bs, n_pages)
+    int32, lengths (steps, Bs), num_blocks, n_pad), on the card up front,
+    so a decode loop never waits for the host."""
+    lens, starts = DECODE_LENS, DECODE_STARTS
+    Bs = len(lens)
+    n_pad = -(-max(lens) // PAGE) * PAGE
+    n_pages = n_pad // PAGE
+    num_blocks = Bs * n_pages
+    blocks = np.random.default_rng(0).permutation(num_blocks).reshape(Bs, n_pages)
+    steps = max(s + n for s, n in zip(starts, lens))
+    tables = np.full((steps, Bs, n_pages), num_blocks, np.int32)
+    lengths = np.zeros((steps, Bs), np.int64)
+    for t in range(steps):
+        for b in range(Bs):
+            if 0 <= t - starts[b] < lens[b]:
+                tables[t, b], lengths[t, b] = blocks[b], t - starts[b]
+    return (torch.from_numpy(tables).to(dev), torch.from_numpy(lengths).to(dev),
+            num_blocks, n_pad)
+
+
+def dense_decode_phase(dev, api, model) -> dict:
+    """The LM's paged decode through the user's entry point,
+    ``api.paged_decode_step`` on the model's own config (``LM_BSA``, bf16):
+    the two staggered slots of ``decode_schedule``, each fed random tokens
+    (numpy seed 3); every layer launches ``paged_gather`` 8 times a step,
+    the logits are finite, and ``ms_per_step`` is this loop's wall time a
+    step.  Then ``decode_hold`` holds the same entry point to the forward."""
+    cfg = api.mcfg
+    tables, lengths, num_blocks, n_pad = decode_schedule(dev)
+    steps, Bs = lengths.shape
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (Bs, n_pad), dtype=np.int32)).to(dev)
+    slot = torch.arange(Bs, device=dev)
+    caches = api.paged_cache_init(Bs, num_blocks, PAGE, cfg.cdtype(), device=dev)
+    with torch.inference_mode():
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        torch.cuda.synchronize()
+        reset_counters()                                 # just before the main path
+        t0 = time.perf_counter()
+        for t in range(steps):
+            logits, caches = api.paged_decode_step(model, tokens[slot, lengths[t]], caches,
+                                                   tables[t], lengths[t], PAGE)
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    del caches
+    check_launches(launches, f"decode:{cfg.name}", 8 * cfg.n_layers * steps)
+    check(tuple(logits.shape) == (Bs, cfg.vocab_size) and bool(finite),
+          f"{cfg.name} decode: logits of shape {tuple(logits.shape)}, finite {bool(finite)}")
+    stats = {"arch": cfg.name, "slots": Bs, "lens": list(DECODE_LENS),
+             "starts": list(DECODE_STARTS), "steps": steps, "dtype": cfg.compute_dtype,
+             "positions": sum(DECODE_LENS), "seconds": seconds,
+             "ms_per_step": seconds / steps * 1e3, "launches": launches}
+    print(json.dumps({"dense_decode": stats}), flush=True)
+    stats["hold"] = decode_hold(dev, api, model, tokens, tables, lengths, num_blocks)
+    return stats
+
+
+def decode_hold(dev, api, model, tokens, tables, lengths, num_blocks) -> dict:
+    """The paged decode held to the forward on the kernel path, position by
+    position, by teacher forcing.  The forward (``api.forward`` with
+    ``group_size=0, query_cmp_selection=False``: per-token selection, the
+    selection the decode makes; the decode reads neither field) records
+    each layer's input and attention output through taps on
+    ``transformer.lm_layer`` and ``transformer.attention_layer_apply``.
+    Then ``transformer.lm_paged_decode_step``, which ``api.paged_decode_step``
+    calls, runs ``decode_schedule`` again with ``layer_input`` feeding each
+    layer the forward's input at its slot's position, and a tap on
+    ``transformer.attention_layer_decode_paged`` records each attention
+    output.  Every layer's attention output and the logits (of the last
+    layer fed the forward's input) must lie within ``DECODE_HOLD_TOL`` of
+    the forward's largest value.  Free-running, or with only the attention
+    fed, the bf16 rounding of 24 to 52 random-weight layers grows past that
+    however either side computes: ``free_running`` reports the forward on
+    the reference backend against the kernel path's."""
+    cfg = api.mcfg
+    xapi = model_api(cfg.scaled(bsa=dataclasses.replace(cfg.bsa, group_size=0,
+                                                        query_cmp_selection=False)))
+    n_layers = cfg.n_layers
+    steps, Bs = lengths.shape
+    slot = torch.arange(Bs, device=dev)
+    fwd_in, fwd_attn = [], []                  # each layer's input and attention output
+
+    def tap_layer(lp, x, **kw):
+        fwd_in.append(x)
+        return lm_layer(lp, x, **kw)
+
+    def tap_forward(p, x, **kw):
+        fwd_attn.append(attention_layer_apply(p, x, **kw))
+        return fwd_attn[-1]
+
+    with torch.inference_mode():
+        with use_backend("kernels"), mock.patch.multiple(
+                transformer, lm_layer=tap_layer, attention_layer_apply=tap_forward):
+            ref = xapi.forward(model, {"tokens": tokens})
+        with use_backend("reference"):                   # the bf16 noise floor
+            alt = xapi.forward(model, {"tokens": tokens})
+    check(len(fwd_in) == len(fwd_attn) == n_layers,
+          f"{cfg.name} forward: {len(fwd_in)} layers and {len(fwd_attn)} attention calls "
+          f"tapped, expected {n_layers}")
+    outs, logits, calls = [[] for _ in range(n_layers)], [], [0]
+
+    def tap_decode(*args, **kw):
+        out, cache = attention_layer_decode_paged(*args, **kw)
+        outs[calls[0] % n_layers].append(out[:, 0])
+        calls[0] += 1
+        return out, cache
+
+    caches = api.paged_cache_init(Bs, num_blocks, PAGE, cfg.cdtype(), device=dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode(), mock.patch.object(transformer, "attention_layer_decode_paged",
+                                                   tap_decode):
+        for t in range(steps):
+            length = lengths[t]
+            lg, caches = transformer.lm_paged_decode_step(
+                model, tokens[slot, length], caches, tables[t], length, mcfg=cfg, page=PAGE,
+                layer_input=lambda i, x: fwd_in[i][slot, length][:, None])
+            logits.append(lg)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del caches
+    check(calls[0] == n_layers * steps, f"{cfg.name} decode: {calls[0]} attention calls "
+                                        f"tapped, expected {n_layers * steps}")
+
+    def held(pick, want) -> dict:
+        """``pick(b, positions)``'s rows against the forward's rows ``want``
+        (Bs, n_pad, ·) at each slot's positions: the worst distance, the
+        largest value and the positions beyond the limit."""
+        diff, top = [], []
+        for b in range(Bs):
+            idx = torch.arange(DECODE_LENS[b], device=dev)
+            g, w = pick(b, idx).float(), want[b, :DECODE_LENS[b]].float()
+            check(bool(torch.isfinite(g).all()), f"{cfg.name} decode: non-finite values")
+            diff.append((g - w).abs().amax(-1))
+            top.append(w.abs().amax())
+        diff, scale = torch.cat(diff), float(max(top))
+        return {"max_abs_diff": float(diff.max()), "ref_max_abs": scale,
+                "rel": float(diff.max()) / scale,
+                "beyond": int((diff > DECODE_HOLD_TOL * scale).sum())}
+
+    def decoded(rows):
+        got = torch.stack(rows)                          # (steps, Bs, ·)
+        return lambda b, idx: got[DECODE_STARTS[b] + idx, b]
+
+    by_layer = [held(decoded(o), fwd_attn[i]) for i, o in enumerate(outs)]
+    final = held(decoded(logits), ref)
+    free = held(lambda b, idx: alt[b, idx], ref)         # reference vs kernel forward
+    stats = {"arch": cfg.name, "rel_tol": DECODE_HOLD_TOL, "logits": final,
+             "worst_layer": max(range(n_layers), key=lambda i: by_layer[i]["rel"]),
+             "attention_rel_by_layer": [r["rel"] for r in by_layer],
+             "positions_beyond_tol": final["beyond"] + sum(r["beyond"] for r in by_layer),
+             "free_running": {"reference_vs_kernel_forward_logits_rel": free["rel"]},
+             "seconds": seconds}
+    print(json.dumps({"dense_decode_hold": stats}), flush=True)
+    beyond = [f"layer {i} ({r['rel']:.2e})" for i, r in enumerate(by_layer) if r["beyond"]]
+    if final["beyond"]:
+        beyond.append(f"logits ({final['rel']:.2e})")
+    check(not beyond, f"{cfg.name} paged decode vs forward beyond {DECODE_HOLD_TOL} of the "
+                      f"largest value: {', '.join(beyond[:8])}")
+    return stats
+
+
+def dense_lm_phase(dev, arch: str) -> dict:
+    """One dense LM of ``DENSE_LMS`` at full width and depth: its weights
+    from seed 0 on the card (peak memory of the init reported), the prefill
+    (``prefill_phase``: launches, every layer held to the reference backend
+    within 4e-2, a profiled call), the paged decode
+    (``dense_decode_phase``) and, where it trains, 1 + 3 steps with remat
+    and fp32 moments (``train_lm_phase``: launches, every layer's gradients
+    within 6e-2, peak memory).  Returns its paths' stats."""
+    (pb, pn), train = DENSE_LMS[arch]
+    out = {}
+    api = model_api(get_config(arch))
+    cfg = api.mcfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init = {"arch": arch, "parameters": n_params, "dtype": cfg.param_dtype,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "weights_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+            "init_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - t0}
+    print(json.dumps({"dense_lm_init": init}), flush=True)
+    print(f"# {arch}: {n_params / 1e9:.3f} B parameters ({cfg.param_dtype}) made in "
+          f"{init['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out[f"prefill:{arch}"] = prefill_phase(dev, api, model, pb, pn, f"prefill:{arch}")
+    torch.cuda.empty_cache()
+    print(f"# {arch} prefill: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out[f"decode:{arch}"] = dense_decode_phase(dev, api, model)
+    torch.cuda.empty_cache()
+    print(f"# {arch} decode: {time.perf_counter() - t0:.1f} s", flush=True)
+    if train is None:
+        moments = 2 * n_params * 4 / 1e9
+        print(json.dumps({"train_skipped": {
+            "arch": arch, "reason": f"its fp32 AdamW moments alone are {moments:.1f} GB, "
+                                    "beside its weights, on a card of 80 GB"}}), flush=True)
+        return out
+    t0 = time.perf_counter()
+    batches = lm_train_batches(dev, cfg.vocab_size, *train)
+    out[f"train:{arch}"] = train_lm_phase(dev, api, model, batches, f"train:{arch}")
+    print(f"# {arch} train: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def quickstart_phase() -> dict:
+    """``launch.quickstart`` on the card (fp32, D 16): its asserts pass and
+    each kernel of its path launches, no other."""
+    from repro_torch.launch import quickstart
+    t0 = time.perf_counter()
+    reset_counters()
+    out = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {name: c.n for name, c in COUNTERS.items()}
+    for name, n in launches.items():
+        if name in PATHS["quickstart"]:
+            check(n >= 1, f"quickstart: {name} never launched")
+        else:
+            check(n == 0, f"quickstart: {name} launched {n} times, expected 0")
+    check(all(bool(torch.isfinite(t).all()) for t in out.values()),
+          "quickstart: non-finite output")
+    stats = {"seconds": time.perf_counter() - t0, "launches": launches}
+    print(json.dumps({"quickstart": stats}), flush=True)
+    print(f"# quickstart phase: {stats['seconds']:.1f} s", flush=True)
+    return stats
+
+
+def trainer_phase(dev, next_batch) -> dict:
+    """``launch.train --arch shapenet-bsa --steps 3 --batch 8 --ckpt DIR`` on
+    the card (``runtime.Trainer``: a checkpoint at its last step), then a
+    second ``Trainer`` restores it (every parameter and moment bit for bit,
+    the step count 3) and trains one more step on ``next_batch``, the
+    fourth batch of the same order: its step count is 4, its loss finite,
+    and step 4's checkpoint exists.  Each run launches each kernel of the
+    padded train path once a layer and step.  DIR is ``build/``'s, removed
+    after."""
+    import shutil
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import Trainer
+    t0 = time.perf_counter()
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    fits, fit = [], Trainer.fit
+
+    def spy(self, *args, **kw):                          # keeps the CLI's trainer
+        out = fit(self, *args, **kw)
+        fits.append((self, out))
+        return out
+
+    try:
+        reset_counters()
+        with mock.patch.object(Trainer, "fit", spy):
+            loss = train_cli.main(["--arch", "shapenet-bsa", "--steps", "3", "--batch", "8",
+                                   "--ckpt", str(ckpt)])
+        torch.cuda.synchronize()
+        launches = {name: c.n for name, c in COUNTERS.items()}
+        trainer, (model, opt_state) = fits[0]
+        n_layers = trainer.api.mcfg.n_layers
+        check_launches(launches, "trainer", 3 * n_layers)
+        check(math.isfinite(loss) and latest_step(ckpt) == 3 and opt_state["step"] == 3,
+              f"trainer: loss {loss}, checkpoint {latest_step(ckpt)}, "
+              f"steps {opt_state['step']} after 3 steps")
+        again = Trainer(trainer.api, trainer.cfg, device=dev)
+        model2, opt2 = again.init_state()
+        model2, opt2, done = again.maybe_restore(model2, opt2)
+        saved = {"params": dict(model.named_parameters()), "m": opt_state["m"],
+                 "v": opt_state["v"]}
+        restored = {"params": dict(model2.named_parameters()), "m": opt2["m"],
+                    "v": opt2["v"]}
+        same = all(torch.equal(restored[k][n], t) for k in saved for n, t in saved[k].items())
+        check(done == 3 and opt2["step"] == 3 and same,
+              f"trainer: restored step {done}, optimizer step {opt2['step']}, bits equal "
+              f"{same}")
+        reset_counters()
+        model2, opt2 = again.fit(iter([next_batch]), steps=1, model=model2, opt_state=opt2,
+                                 start_step=done)
+        torch.cuda.synchronize()
+        resumed = {name: c.n for name, c in COUNTERS.items()}
+        check_launches(resumed, "trainer_resume", n_layers)
+        loss2 = again.metrics_history[-1]["loss"]
+        check(opt2["step"] == 4 and latest_step(ckpt) == 4 and math.isfinite(loss2),
+              f"trainer resume: optimizer step {opt2['step']}, checkpoint "
+              f"{latest_step(ckpt)}, loss {loss2}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    stats = {"arch": "shapenet-bsa", "loss": [m["loss"] for m in trainer.metrics_history],
+             "step_s": [m["step_time_s"] for m in trainer.metrics_history],
+             "wall_s": trainer.wall_time, "restored_step": done, "bits_equal": same,
+             "resumed_loss": loss2, "resumed_optimizer_step": opt2["step"],
+             "launches": launches, "resumed_launches": resumed,
+             "seconds": time.perf_counter() - t0}
+    print(json.dumps({"trainer": stats}), flush=True)
+    print(f"# trainer phase: {stats['seconds']:.1f} s", flush=True)
     return stats
 
 
@@ -2879,6 +3294,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    check(not os.environ.get(ENV_VAR),
+          f"${ENV_VAR} is set ({os.environ.get(ENV_VAR)!r}): it would override every "
+          "backend this script names, so its launch checks could pass by accident; unset it")
     dev = torch.device("cuda")
     smi = smi_line()
     print(f"# card: {smi}", flush=True)
@@ -2933,13 +3351,20 @@ def main() -> int:
     rows += baseline_kernel_phase(dev, pad_rows(batches[0], ERWIN_N)["mask"])
     paths.update(baselines_phase(dev, batches))
     print(f"# baselines phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    paths["quickstart"] = quickstart_phase()
+    paths["trainer"] = trainer_phase(dev, batches[3])
+    paths["trainer_resume"] = {"launches": paths["trainer"]["resumed_launches"]}
     del batches
     torch.cuda.empty_cache()
 
     rows += lm_kernel_phase(dev)
     t0 = time.perf_counter()
-    rows += head_dim_128_phase(dev)
+    rows += head_rows_phase(dev, "d128", (torch.float32, torch.bfloat16))
     print(f"# head_dim 128 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for tag in ("rep1", "rep48"):                        # stablelm's and granite's heads
+        t0 = time.perf_counter()
+        rows += head_rows_phase(dev, tag, (torch.bfloat16,))
+        print(f"# {tag} heads phase: {time.perf_counter() - t0:.1f} s", flush=True)
     lm_api = model_api(get_config(LM))
     t0 = time.perf_counter()
     lm_model = lm_api.init(seed=0, device=dev)
@@ -2950,12 +3375,27 @@ def main() -> int:
     paths["prefill"] = prefill_phase(dev, lm_api, lm_model)
     torch.cuda.empty_cache()
     paths["decode_oracle"] = decode_oracle_phase(dev)
-    paths["serve_lm"] = serve_lm_phase(dev, lm_api, lm_model)
+    serve_api = model_api(lm_api.mcfg.scaled(n_layers=SERVE_LM_LAYERS))
+    serve_model = serve_api.init(seed=0, device=dev)
+    t0 = time.perf_counter()
+    paths["serve_lm"] = serve_lm_phase(dev, serve_api, serve_model)
+    print(f"# serve_lm phase ({SERVE_LM_LAYERS} layers): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del serve_model
     torch.cuda.empty_cache()
     lm_batches_ = lm_train_batches(dev, lm_api.mcfg.vocab_size)
     rows += lm_backward_kernel_phase(dev, lm_selection_picks(lm_api, lm_model,
                                                              lm_batches_[0]))
     paths["train_lm"] = train_lm_phase(dev, lm_api, lm_model, lm_batches_)
+    del lm_model, lm_batches_                            # tinyllama's weights and batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in DENSE_LMS:
+        t0 = time.perf_counter()
+        paths.update(dense_lm_phase(dev, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"# {arch} phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     summary = kernels_line(rows, paths)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -5,6 +5,11 @@ and dense causal-LM families read.  ``pdtype()`` / ``cdtype()`` return
 torch dtypes.  :func:`get_config` finds a config by name in the module of
 that name (``"tinyllama-1.1b"`` → ``configs/tinyllama_1_1b.py``), as the
 JAX registry does; the point-cloud variants live in ``shapenet_bsa.py``.
+``SHAPES`` are the four input-shape cells and ``ARCH_IDS`` the assigned
+architectures, copied from JAX.  The port has the dense ones
+(``tinyllama-1.1b``, ``stablelm-1.6b``, ``phi4-mini-3.8b``,
+``granite-20b``); ``get_config`` of the others (the MoE, SSM, hybrid,
+encoder-decoder and VLM families) raises a ``KeyError``.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import torch
 
 from repro_torch.core.config import BSAConfig
 
-__all__ = ["ModelConfig", "register", "get_config", "list_configs"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "ARCH_IDS", "register", "get_config",
+           "list_configs", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +63,27 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS = [
+    "granite-20b", "tinyllama-1.1b", "phi4-mini-3.8b", "stablelm-1.6b",
+    "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b",
+    "llava-next-34b", "jamba-1.5-large-398b", "seamless-m4t-medium",
+]
+
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -67,12 +94,16 @@ def register(name: str):
     return deco
 
 
-_MODULES = ("shapenet_bsa", "tinyllama_1_1b")
+_MODULES = ("shapenet_bsa", "tinyllama_1_1b", "stablelm_1_6b", "phi4_mini_3_8b",
+            "granite_20b")
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         mod = name.replace("-", "_").replace(".", "_")
+        if mod not in _MODULES and name in ARCH_IDS:
+            raise KeyError(f"config {name!r} is not ported yet: its family comes with "
+                           "ROADMAP queue 1 item 5 (the other families)")
         importlib.import_module(f"repro_torch.configs."
                                 f"{mod if mod in _MODULES else 'shapenet_bsa'}")
     if name not in _REGISTRY:
@@ -84,3 +115,7 @@ def list_configs() -> list[str]:
     for mod in _MODULES:
         importlib.import_module(f"repro_torch.configs.{mod}")
     return sorted(_REGISTRY)
+
+
+def list_archs() -> list[str]:
+    return list(ARCH_IDS)

@@ -26,23 +26,39 @@ Built-ins:
   ``"auto"``       chosen by the device of the tensors: CUDA tensors take
                    ``"kernels"``, CPU tensors ``"reference"``.
 
-Resolution (weakest → strongest): ``BSAConfig.backend`` (with
-``backend_overrides`` per branch) < ``with use_backend("..."):``.  The
-baselines' single-backend calls (``full_attention``, ``erwin_attention``)
-resolve one backend for the whole call: :func:`single_backend`.
+Resolution (weakest → strongest)::
+
+    BSAConfig.backend  <  with use_backend("..."):  <  $REPRO_TORCH_ATTENTION_BACKEND
+
+as in the JAX package.  The context manager and the environment variable
+force one backend for every branch; absent both, ``BSAConfig.backend`` is
+the base and ``backend_overrides`` redirects single branches.  The port
+reads its own variable, ``REPRO_TORCH_ATTENTION_BACKEND``, holding the
+port's names (``reference``, ``kernels``, ``auto`` or any registered
+name), and never JAX's ``REPRO_ATTENTION_BACKEND``: the two packages run
+side by side in one test process, and JAX's names (``jnp``, ``pallas``,
+``interpret``) mean nothing here.  The variable is read at every call and
+holds on every thread, so the remat recompute that autograd runs on its
+own thread (``active_backend``) resolves to it as the forward did.
+:func:`resolve_backend_name` applies the chain to a config's name and
+:func:`resolve_backend` returns the object: the baselines
+(``full_attention``, ``erwin_attention``) resolve one backend for the
+whole call with it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from typing import Iterator
 
-__all__ = ["ReferenceBackend", "KernelBackend", "AutoBackend", "DEFAULT_BACKEND",
-           "BRANCH_KEYS", "register_backend", "get_backend", "list_backends",
-           "use_backend", "active_backend", "resolve_branch_backends", "single_backend",
-           "get_varlen", "get_paged_gather"]
+__all__ = ["ReferenceBackend", "KernelBackend", "AutoBackend", "ENV_VAR",
+           "DEFAULT_BACKEND", "BRANCH_KEYS", "register_backend", "get_backend",
+           "list_backends", "use_backend", "active_backend", "resolve_backend_name",
+           "resolve_backend", "resolve_branch_backends", "get_varlen", "get_paged_gather"]
 
+ENV_VAR = "REPRO_TORCH_ATTENTION_BACKEND"
 DEFAULT_BACKEND = "auto"
 BRANCH_KEYS = ("ball", "cmp", "slc")
 REQUIRED_OPS = ("ball", "flash", "selection", "gated_combine")
@@ -246,7 +262,8 @@ def get_backend(name: str):
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown attention backend {name!r}; registered: "
-                       f"{list_backends()} and 'auto'") from None
+                       f"{list_backends()} and 'auto' (${ENV_VAR} and use_backend() "
+                       "must name one of these)") from None
 
 
 def list_backends() -> list[str]:
@@ -256,7 +273,8 @@ def list_backends() -> list[str]:
 @contextlib.contextmanager
 def use_backend(name: str) -> Iterator:
     """Force backend ``name`` for every branch of every attention call in
-    this block (this thread).  Nests."""
+    this block (this thread).  Nests; beaten only by the environment
+    variable."""
     backend = get_backend(name)          # fail fast on unknown names
     stack = getattr(_tls, "stack", None)
     if stack is None:
@@ -273,31 +291,44 @@ def active_backend() -> str | None:
     None.  Autograd runs a CUDA backward on a thread of its own, where no
     ``use_backend`` of the caller is active: code that runs part of a
     forward again in the backward (activation checkpointing) re-enters this
-    name there."""
+    name there.  The environment variable needs no re-entry: it holds on
+    every thread."""
     stack = getattr(_tls, "stack", None)
     return stack[-1] if stack else None
 
 
+def _forced_name() -> str | None:
+    """The environment's backend, else this thread's ``use_backend``."""
+    return os.environ.get(ENV_VAR) or active_backend()
+
+
+def resolve_backend_name(name: str | None = None) -> str:
+    """Apply the precedence chain to a config-level ``name`` (may be None):
+    the environment variable, then ``use_backend``, then ``name``, then
+    ``"auto"``."""
+    return _forced_name() or name or DEFAULT_BACKEND
+
+
+def resolve_backend(name=None):
+    """The backend object for a config-level ``name`` after the precedence
+    chain.  A backend object (anything not a string) passes through
+    unchanged, past the overrides, as in JAX."""
+    if name is not None and not isinstance(name, str):
+        return name
+    return get_backend(resolve_backend_name(name))
+
+
 def resolve_branch_backends(cfg) -> dict:
-    """{"ball": backend, "cmp": backend, "slc": backend} for one call: an
-    active ``use_backend`` forces all three; otherwise ``cfg.backend`` with
-    ``cfg.backend_overrides`` per branch."""
-    stack = getattr(_tls, "stack", None)
-    if stack:
-        bk = get_backend(stack[-1])
+    """{"ball": backend, "cmp": backend, "slc": backend} for one call: the
+    environment variable or an active ``use_backend`` forces all three;
+    otherwise ``cfg.backend`` with ``cfg.backend_overrides`` per branch."""
+    forced = _forced_name()
+    if forced:
+        bk = get_backend(forced)
         return {b: bk for b in BRANCH_KEYS}
     base = cfg.backend or DEFAULT_BACKEND
     overrides = dict(cfg.backend_overrides or ())
     return {b: get_backend(overrides.get(b, base)) for b in BRANCH_KEYS}
-
-
-def single_backend(name: str | None = None):
-    """The backend of a single-backend call (the full and Erwin baselines):
-    an active ``use_backend`` wins, then ``name`` (the config's
-    ``bsa.backend``), then the default.  ``backend_overrides`` name BSA's
-    branches and are not read."""
-    stack = getattr(_tls, "stack", None)
-    return get_backend(stack[-1] if stack else name or DEFAULT_BACKEND)
 
 
 def get_varlen(backend, op: str):

@@ -1,8 +1,10 @@
 """Ball-tree ordering and ragged batching (host-side numpy).
 
-A copy of the parts of ``repro/core/balltree.py`` the serving and training
-paths use: the padded layout (``pack_ragged``) and the packed-varlen layout
-(``pack_varlen``: all samples on one axis with an ``offsets`` array).
+A copy of ``repro/core/balltree.py``: the ball order of one cloud
+(``build_balltree_permutation``, ``ball_order``, ``ball_ids``), the padded
+layout (``pack_ragged``, ``ragged_ball_order``) and the packed-varlen
+layout (``pack_varlen``: all samples on one axis with an ``offsets``
+array).
 The tree is built by recursive median bisection along the axis of largest
 extent; the model consumes only the permutation that sorts points into
 ball order, after which every contiguous chunk of ``ball_size`` points is
@@ -13,9 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["build_balltree_permutation", "build_balltree_permutations",
-           "pad_to_multiple", "bucket_length", "pack_ragged", "unpack_ragged",
-           "pack_items", "pack_varlen", "unpack_varlen"]
+__all__ = ["build_balltree_permutation", "build_balltree_permutations", "ball_order",
+           "ball_ids", "pad_to_multiple", "bucket_length", "pack_ragged", "unpack_ragged",
+           "pack_items", "pack_varlen", "unpack_varlen", "ragged_ball_order"]
 
 
 def _bisect(points: np.ndarray, idx: np.ndarray, out: list, leaf_size: int) -> None:
@@ -51,6 +53,20 @@ def build_balltree_permutation(points: np.ndarray, ball_size: int) -> np.ndarray
 def build_balltree_permutations(points_list, ball_size: int) -> list:
     """One independent ball-tree permutation per cloud of a ragged batch."""
     return [build_balltree_permutation(p, ball_size) for p in points_list]
+
+
+def ball_order(points: np.ndarray, features: np.ndarray, ball_size: int):
+    """Permute ``features`` (and ``points``) into ball order.  Returns
+    (points_perm, features_perm, perm, inv_perm)."""
+    perm = build_balltree_permutation(points, ball_size)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+    return points[perm], features[perm], perm, inv
+
+
+def ball_ids(seq_len: int, ball_size: int) -> np.ndarray:
+    """The ball id of each position of a ball-ordered sequence."""
+    return np.arange(seq_len) // ball_size
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0, value: float = 0.0):
@@ -188,3 +204,16 @@ def pack_items(items: list[dict], pad_to: int | None) -> dict:
     target = pad_to or max(it["feats"].shape[0] for it in items)
     return {k: pack_ragged([it[k] for it in items], 1, pad_to=target)[0]
             for k in items[0]}
+
+
+def ragged_ball_order(points_list, features_list, ball_size: int, *,
+                      pad_to: int | None = None, geometric: bool = True):
+    """Ball-order each cloud of a ragged batch with its own tree and pack
+    them.  Returns ``(points (B, L, D), feats (B, L, F), mask (B, L),
+    perms)``; ``perms`` map predictions back to each cloud's point order."""
+    perms = build_balltree_permutations(points_list, ball_size)
+    pts = [np.asarray(p)[perm] for p, perm in zip(points_list, perms)]
+    fts = [np.asarray(f)[perm] for f, perm in zip(features_list, perms)]
+    pts_b, mask = pack_ragged(pts, ball_size, pad_to=pad_to, geometric=geometric)
+    fts_b, _ = pack_ragged(fts, ball_size, pad_to=pad_to, geometric=geometric)
+    return pts_b, fts_b, mask, perms

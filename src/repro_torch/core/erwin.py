@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.backend import single_backend
+from repro_torch.core.backend import resolve_backend
 
 __all__ = ["erwin_attention"]
 
@@ -29,11 +29,11 @@ def erwin_attention(q, k, v, *, ball_size: int, level: int = 0, mask=None,
     their own dtype (padded tokens included, as the reference does), a
     pooled token is valid iff one of its s tokens is, and the pooled
     output is repeated s times (its gradient sums over the copies).  Rows
-    that ``mask`` marks padded come back zero.  ``backend`` names a backend;
-    None resolves as :func:`core.backend.single_backend`
-    does.  Returns (B, N, Hq, D)."""
+    that ``mask`` marks padded come back zero.  ``backend`` names a backend
+    (or is one), resolved by :func:`core.backend.resolve_backend`.  Returns
+    (B, N, Hq, D)."""
     B, N, Hq, D = q.shape
-    bk = single_backend(backend)
+    bk = resolve_backend(backend)
     s = 1 << level
     if s > 1:
         if N % (s * ball_size):

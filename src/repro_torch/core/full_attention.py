@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.backend import single_backend
+from repro_torch.core.backend import resolve_backend
 
 __all__ = ["full_attention"]
 
@@ -19,7 +19,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    backend=None) -> torch.Tensor:
     """q: (B, N, Hq, D); k, v: (B, L, Hkv, D); ``mask``: (B, L) bool key
     validity.  GQA-native: K/V go to the backend un-repeated.  ``backend``
-    names a backend; None resolves as
-    :func:`core.backend.single_backend` does.  Query rows are all computed
-    (a padded row attends the valid keys).  Returns (B, N, Hq, D)."""
-    return single_backend(backend).flash(q, k, v, key_valid=mask, causal=causal)
+    names a backend (or is one), resolved by
+    :func:`core.backend.resolve_backend`.  Query rows are all computed (a
+    padded row attends the valid keys).  Returns (B, N, Hq, D)."""
+    return resolve_backend(backend).flash(q, k, v, key_valid=mask, causal=causal)

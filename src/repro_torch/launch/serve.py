@@ -13,7 +13,10 @@ cache (retiring finished slots and admitting queued ones mid-flight):
 
 ``--smoke`` shrinks the config to its smoke size (two layers, d_model 64)
 and ``--device cpu`` runs on the CPU (the kernels' plain versions); the
-default device is the card.  Weights are random, from seed 0.
+default device is the card.  Weights are random, from seed 0.  ``--smoke``
+without ``--paged`` is the analogue of ``examples/serve_lm.py``: random
+prompts, greedy ``generate``, and the printed shape, first slot and
+tokens/s.
 """
 
 from __future__ import annotations
@@ -82,7 +85,8 @@ def main(argv=None):
                            dtype=np.int32)
     out = eng.generate(prompts, args.tokens)
     print(f"generated {out.shape} on {torch.device(args.device)}, throughput "
-          f"{eng.tokens_per_second:.1f} tok/s")
+          f"{eng.tokens_per_second:.1f} tok/s ({args.slots} slots)")
+    print("first slot:", out[0].tolist())
     return out
 
 

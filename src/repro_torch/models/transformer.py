@@ -172,14 +172,21 @@ def lm_cache_init(mcfg, batch: int, max_len: int, dtype=torch.bfloat16,
              for i in range(len(layer_spec(mcfg)))} for _ in range(n_periods(mcfg))]
 
 
-def _decode(params: LanguageModel, token, caches, mcfg, attend) -> tuple:
+def _decode(params: LanguageModel, token, caches, mcfg, attend,
+            layer_input=None) -> tuple:
     """One decode step through the stack; ``attend(attn, h, cache)`` is the
-    layer's attention decode (its addressing built once for the step)."""
+    layer's attention decode (its addressing built once for the step).
+    ``layer_input(n, x)``, when given, returns what the stack's n-th layer
+    takes in place of ``x`` (a teacher-forced check feeds it the forward's
+    input at the slot's position)."""
     x1 = embed(params.embed, token[:, None], dtype=mcfg.cdtype())      # (B,1,d)
-    new = []
+    new, n = [], 0
     for period, pc in zip(params.layers, caches):
         nc = {}
         for i, lp in enumerate(period.positions()):
+            if layer_input is not None:
+                x1 = layer_input(n, x1)
+            n += 1
             h, nc[f"pos{i}"] = attend(lp.attn, rmsnorm(lp.norm1, x1, mcfg.norm_eps),
                                       pc[f"pos{i}"])
             x1 = x1 + h
@@ -205,15 +212,16 @@ def lm_paged_cache_init(mcfg, batch: int, num_blocks: int, page: int,
 
 
 def lm_paged_decode_step(params: LanguageModel, token, caches, table, lengths, *, mcfg,
-                         page: int):
+                         page: int, layer_input=None):
     """token: (B,) int; table (B, n_pages); lengths (B,) per-slot positions
     → (logits (B, V) fp32, caches).  Lengths are not advanced (the host
-    owns them)."""
+    owns them).  ``layer_input``: see :func:`_decode`."""
     step = paged_step(table, lengths, cfg=mcfg.bsa, page=page)
     return _decode(params, token, caches, mcfg,
                    lambda p, h, c: attention_layer_decode_paged(p, h, c, table, lengths,
                                                                 mcfg=mcfg, page=page,
-                                                                step=step))
+                                                                step=step),
+                   layer_input)
 
 
 def lm_has_recurrent_state(mcfg) -> bool:

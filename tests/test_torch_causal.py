@@ -382,6 +382,48 @@ def test_lm_decode_step_matches_jax(smoke_lm):
     assert len(paged) == tcfg.n_layers and set(paged[0]) == {"pos0"}
 
 
+def test_paged_decode_layer_input_feeds_each_layer(smoke_lm, monkeypatch):
+    """``lm_paged_decode_step(layer_input=)``: the identity leaves the step's
+    bits alone; feeding each layer the forward's input at the slot's
+    position (per-token selection, the decode's) gives the forward's logits."""
+    _, _, tcfg, _, model = smoke_lm
+    xcfg = tcfg.scaled(bsa=dataclasses.replace(tcfg.bsa, group_size=0,
+                                               query_cmp_selection=False))
+    B, T, page = 2, 96, 32                         # past two local windows
+    toks = torch.from_numpy(
+        np.random.default_rng(11).integers(0, tcfg.vocab_size, (B, T)).astype(np.int32))
+    inputs, lm_layer = [], t_tf.lm_layer
+
+    def tap(lp, x, **kw):
+        inputs.append(x)
+        return lm_layer(lp, x, **kw)
+
+    with torch.no_grad():
+        with monkeypatch.context() as m:
+            m.setattr(t_tf, "lm_layer", tap)
+            ref = model_api(xcfg).forward(model, {"tokens": toks})
+        assert len(inputs) == tcfg.n_layers
+        table = torch.arange(B * 3, dtype=torch.int32).reshape(B, 3)
+        runs, calls = [], []
+        for hook in (None, lambda i, x: x, "forward"):
+            caches = t_tf.lm_paged_cache_init(xcfg, B, B * 3, page, torch.float32)
+            out = []
+            for t in range(T):
+                lengths = torch.full((B,), t)
+
+                def forced(i, x, t=t):
+                    calls.append(i)
+                    return inputs[i][:, t:t + 1]
+                lg, caches = t_tf.lm_paged_decode_step(
+                    model, toks[:, t], caches, table, lengths, mcfg=xcfg, page=page,
+                    layer_input=forced if hook == "forward" else hook)
+                out.append(lg)
+            runs.append(torch.stack(out, 1))
+    assert torch.equal(runs[0], runs[1])
+    assert calls == list(range(tcfg.n_layers)) * T
+    np.testing.assert_allclose(_np(runs[2]), _np(ref), **ORACLE_TOL)
+
+
 def test_convert_round_trips_the_lm_tree(smoke_lm):
     _, jp, _, _, model = smoke_lm
     from repro_torch.convert import params_to_jax

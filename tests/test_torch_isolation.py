@@ -33,7 +33,11 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 # modules the checks below must reach by name, whatever the glob finds
 NAMED = ("configs/base.py", "kernels/local.py", "kernels/_build.py", "layers/losses.py",
          "data/lm.py", "data/__init__.py", "models/transformer.py", "models/api.py",
-         "optim/adamw.py", "launch/steps.py", "launch/train.py")
+         "optim/adamw.py", "launch/steps.py", "launch/train.py", "core/__init__.py",
+         "core/backend.py", "core/balltree.py", "configs/stablelm_1_6b.py",
+         "configs/phi4_mini_3_8b.py", "configs/granite_20b.py", "checkpoint/manager.py",
+         "runtime/trainer.py", "runtime/watchdog.py", "launch/quickstart.py",
+         "launch/train_shapenet.py", "launch/serve.py")
 
 
 def _imported_modules(path: Path) -> set:
@@ -65,7 +69,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.paged_cache, repro_torch.configs.reduce, "
             "repro_torch.kernels.local, repro_torch.kernels.paged, "
             "repro_torch.launch.train, repro_torch.layers.losses, repro_torch.data.lm, "
-            "repro_torch.data, repro_torch.optim.adamw; "
+            "repro_torch.data, repro_torch.optim.adamw, repro_torch.core, "
+            "repro_torch.checkpoint, repro_torch.runtime, repro_torch.launch.quickstart; "
             "repro_torch.configs.list_configs(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")

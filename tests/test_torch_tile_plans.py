@@ -50,6 +50,7 @@ import torch
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core.balltree import pack_varlen
 from repro_torch.kernels import bta, flash, local, varlen
+from repro_torch.kernels.common import HEAD_DIMS
 from repro_torch.kernels.occupancy import (local_half_live, varlen_dkv_tiles,
                                             varlen_row_tiles)
 from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
@@ -298,7 +299,13 @@ def test_plans_for_configs(name):
         assert tuple(local.local_plan(256, 64, dtype)) == ("tiles", 64, 64, 64, 64)
     if name == "shapenet-bsa":
         assert tuple(fwd) == ("fma", 64, 32)
-    if cfg.attention == "bsa":
+    if cfg.attention == "bsa" and D not in HEAD_DIMS["bta_fwd"]:
+        # phi4-mini's and granite's D 128: the ball kernels take none, and the
+        # causal LM runs the local window in place of the ball branch
+        assert cfg.family == "dense"
+        with pytest.raises(ValueError, match="bta: no path"):
+            bta.bta_plan(cfg.bsa.ball_size, D, cfg.n_heads // cfg.n_kv_heads, dtype)
+    elif cfg.attention == "bsa":
         m, rep = cfg.bsa.ball_size, cfg.n_heads // cfg.n_kv_heads
         ball = bta.bta_plan(m, D, rep, dtype)           # bta_fwd's path and bta_bwd's
         fma = dtype == torch.float32 and D in (16, 32) and m % 64 == 0 and m <= 256
