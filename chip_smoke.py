@@ -53,9 +53,15 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    each layer's own picks in the model's first train step (mode ``topk``),
    both with its device time, its path and identical bits on two calls;
    the epilogues give their device time at every shape they run (shapenet,
-   the LM, D 128), and ``epilogue_bwd`` identical bits on two calls and
-   the kernel ``epilogue.epilogue_bwd_plan`` names (``vec`` at every
-   shape here);
+   the LM, D 128) and the kernel ``epilogue.epilogue_plan`` names (``vec``
+   at every shape here), ``epilogue_bwd`` identical bits on two calls;
+   ``epilogue_fwd`` takes per-head gates and the (B·N,) mask as the layer
+   hands them over, and beside each of its rows a ``*_call`` row times the
+   layer's call, ``ops.gated_combine``, which must launch ``epilogue_fwd``
+   and no other kernel; the line also carries ``paths``
+   (``path_hashes``): the served output of a 2-layer ``shapenet-bsa`` and
+   the logits of 130 paged decode steps of a 2-layer ``tinyllama-1.1b``,
+   so a change can be held to its parent's bits end to end;
 3. serve, padded then packed: ``shapenet-bsa`` at full width (18 layers,
    random weights from a seed) serves 16 synthetic clouds of 2800–3586
    points through ``GeometryEngine(batch_slots=8)`` (the ball kernels on
@@ -106,12 +112,17 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
 
 6. LM kernels: ``local_fwd`` (B = 1, N = 4096, rep 8, D 64, window 256,
    a padded tail, a hole and a packed-sample boundary; bf16 on the tiled
-   path, fp32 on the rows path, ``local.local_plan``) and ``paged_gather``
+   path, fp32 on the rows path, ``local.local_plan``), ``paged_gather``
    (the serving pool of 65 blocks of 256 rows of 4 × 64: one decode step's
    local-window gather of 8 slots, 4096 rows from ``paged_step``, as int32
    and as int64 indices, and its 8 compressed rows, int64; each timed per
    call with host work, by its device time from the profiler, and beside
    ``index_select`` on the same rows; a call must launch no other kernel)
+   and ``paged_gather_pair`` (the K and V pools gathered with one row list,
+   as the decode gathers them: the window's rows as int32 and int64, the 8
+   compressed rows int64 and every block's 256 compressed rows int32; exact
+   against the plain pair, timed likewise, with one and two
+   ``index_select`` calls beside)
    in fp32 and bf16 against their plain versions, and ``flash_fwd``
    (block-causal, timed beside SDPA with the dense block-causal mask; the
    kernels line gives this row as
@@ -119,7 +130,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    at the shapes one 32,768-token sequence of the prefill gives them (32
    query heads on 4 KV heads of 64, ℓ = 64, k* = 16, g = 64, so 512 rows a
    group); then head_dim 128: each kernel of
-   the causal path, the two epilogues and ``paged_gather`` in fp32 and bf16
+   the causal path, the two epilogues and ``paged_gather_pair`` in fp32 and bf16
    at phi4-mini's heads (24 query on 8 KV heads of 128, ``LM_BSA``, one
    4,096-token sequence) against its plain version, timed, with SDPA on the
    same dense mask beside ``local_fwd``, the local backward and
@@ -150,13 +161,15 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    first slot retires, reuses the sealed pages), and an 11th request is
    exactly those 512 tokens: it reuses both sealed pages and must
    copy-on-write the second (``cow_copies`` ≥ 1, ``kv.check()``); the serve
-   must launch ``paged_gather`` 8 times a layer and step and no other
-   kernel; requests 0, 9 and 10 are also generated by B = 1 lockstep
-   ``generate`` (three processes side by side, after the serve) and their
-   tokens must equal the served ones, or part at a near-tie (the lockstep
-   top-two logit gap there below 4e-2 of the largest |logit|); three more
-   decode steps are profiled, and three timed with the host time of their
-   ``paged_gather`` calls taken apart (``decode_profile``);
+   must launch ``paged_gather_pair`` 4 times a layer and step (the φ-block,
+   the completed compressed row, the window, every block's compressed row:
+   each from the K and the V pool at once) and no other kernel; requests 0,
+   9 and 10 are also generated by B = 1 lockstep ``generate`` (three
+   processes side by side, after the serve) and their tokens must equal the
+   served ones, or part at a near-tie (the lockstep top-two logit gap there
+   below 4e-2 of the largest |logit|); three more decode steps are profiled,
+   and three timed with the host time of their ``paged_gather_pair`` calls
+   taken apart (``decode_profile``);
 10. LM backward kernels: ``local_dq`` and ``local_dkv`` against their plain
    version in fp32 (the lanes path) and bf16 (the tiled path on the tensor
    cores, ``local.local_plan``) on the ``local_fwd`` case of phase 6 and at
@@ -190,9 +203,11 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    ``varlen_fwd`` each launch, no other kernel;
 13. trainer: ``launch.train --arch shapenet-bsa --steps 3 --batch 8 --ckpt
    DIR`` through ``runtime.Trainer`` (each train-path kernel 18 times a
-   step), then a second ``Trainer`` restores step 3's checkpoint (every
-   parameter and AdamW moment bit for bit) and trains one more step: its
-   optimizer step count is 4, its loss finite, step 4's checkpoint exists;
+   step; steps numbered 0–2 as JAX numbers them), then a second ``Trainer``
+   restores the checkpoint of step 2 (every parameter and AdamW moment bit
+   for bit; the optimizer's count 3) and trains from step 2 on two more
+   batches: its optimizer count is 5, its losses finite, and step 3's
+   checkpoint exists (a fit never saves its first step, as in JAX);
 14. the causal path's kernels at the new models' heads (``HEAD_ROWS``):
    stablelm-1.6b's 32 / 32 of 64 (rep 1) and granite-20b's 48 / 1 of 128
    (rep 48: selection groups of 3,072 rows) on one 4,096-token sequence in
@@ -207,7 +222,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    × 32,768 tokens (granite 1 × 8,192) as phase 7 does (launches, every
    layer within 4e-2 of the reference backend, a profiled call), decodes
    paged through ``api.paged_decode_step`` on its own config
-   (``dense_decode_phase``: two staggered slots of 300 and 200 positions in
+   (``dense_decode_phase``: two staggered slots of 200 and 130 positions in
    bf16, launches, finite logits, ms a step), holds that entry point to the
    forward on the kernel path (``decode_hold``: each layer fed the
    forward's layer input, every attention output and the logits within
@@ -254,8 +269,8 @@ from repro_torch.core.balltree import pack_varlen  # noqa: E402
 from repro_torch.data.elasticity import ElasticityDataset  # noqa: E402
 from repro_torch.data.lm import lm_batches  # noqa: E402
 from repro_torch.data.shapenet import N_POINTS, ShapeNetCarDataset, make_clouds  # noqa: E402
-from repro_torch.kernels import (_build, bta, epilogue, flash, local, paged,  # noqa: E402
-                                 selection, varlen)
+from repro_torch.kernels import (_build, bta, epilogue, flash, local, ops,  # noqa: E402
+                                 paged, selection, varlen)
 from repro_torch.kernels.common import (COUNTERS, HEAD_DIMS, reset_counters,  # noqa: E402
                                         row_delta)
 from repro_torch.kernels.occupancy import (ranges_live_map, tile_seg_ranges,  # noqa: E402
@@ -314,6 +329,8 @@ KERNELS = {
     "local_dkv": ("src/repro_torch/csrc/local_bwd.cu", "src/repro/kernels/local.py:126"),
     "paged_gather": ("src/repro_torch/csrc/paged_gather.cu",
                      "src/repro/kernels/paged.py:23"),
+    "paged_gather_pair": ("src/repro_torch/csrc/paged_gather.cu",
+                          "src/repro/kernels/paged.py:23"),
 }
 # the kernels each path runs (every other kernel must stay at 0 launches there)
 PATHS = {"serve_padded": ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd"),
@@ -323,8 +340,11 @@ PATHS["train_padded"] = PATHS["serve_padded"] + (
 PATHS["train_packed"] = PATHS["serve_packed"] + (
     "bta_bwd", "varlen_dq", "varlen_dkv", "selection_bwd", "epilogue_bwd")
 PATHS["prefill"] = ("local_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd")
-PATHS["decode_oracle"] = ("paged_gather",)
-PATHS["serve_lm"] = ("paged_gather",)
+# the paged decode gathers each of its four row sets from the K and the V
+# pool in one launch; no main path gathers a single pool any more
+PATHS["decode_oracle"] = ("paged_gather_pair",)
+PATHS["serve_lm"] = ("paged_gather_pair",)
+DECODE_GATHERS = 4                       # pair launches a layer and decode step
 PATHS["train_lm"] = PATHS["prefill"] + ("local_dq", "local_dkv", "flash_dq", "flash_dkv",
                                         "selection_dq", "selection_dkv", "epilogue_bwd")
 PATHS["train_full"] = ("flash_fwd", "flash_dq", "flash_dkv")
@@ -337,6 +357,7 @@ PATHS["trainer_resume"] = PATHS["train_padded"]
 # for the LM kernels; the others report the shapenet train paths' (fp32)
 LM_MAIN = {"local_fwd": ("prefill", "bfloat16", "lm_window"),
            "paged_gather": ("serve_lm", "float32", "decode_window"),
+           "paged_gather_pair": ("serve_lm", "float32", "pair_window"),
            "local_dq": ("train_lm", "bfloat16", "lm_train"),
            "local_dkv": ("train_lm", "bfloat16", "lm_train"),
            "selection_dq": ("train_lm", "bfloat16", "lm_train_topk"),
@@ -400,14 +421,17 @@ DENSE_LMS = {"stablelm-1.6b": ((1, 32768), (2, 4096)),
              "granite-20b": ((1, 8192), None)}
 for _arch in DENSE_LMS:                                  # their paths
     PATHS[f"prefill:{_arch}"] = PATHS["prefill"]
-    PATHS[f"decode:{_arch}"] = ("paged_gather",)
+    PATHS[f"decode:{_arch}"] = ("paged_gather_pair",)
     PATHS[f"train:{_arch}"] = PATHS["train_lm"]
-# their paged decode: two staggered slots (lengths, first steps), bf16;
-# its hold against the forward (decode_hold), of the forward's largest
-# value: on the H100 the three models' attention outputs read at most
-# 6.9e-3 and their logits 5.5e-3, and stablelm's decode with its
-# compression branch scaled by 0.9 reads 1.6e-2 to 3.2e-2 in every layer
-DECODE_LENS, DECODE_STARTS = (300, 200), (0, 100)
+# their paged decode: two staggered slots (lengths, first steps), bf16,
+# over three complete φ-blocks (the decode and its hold are host-bound, so
+# their steps set the phases' time: 300 / 200 positions took 400 of a
+# 1,085-second run on a slow host); its hold against the forward
+# (decode_hold), of the forward's largest value: on the H100 the three
+# models' attention outputs read at most 6.9e-3 and their logits 5.5e-3 at
+# 300 / 200 positions, and stablelm's decode with its compression branch
+# scaled by 0.9 reads 1.6e-2 to 3.2e-2 in every layer
+DECODE_LENS, DECODE_STARTS = (200, 130), (0, 70)
 DECODE_HOLD_TOL = 1.5e-2
 # the causal path's kernel rows at each model's heads (head_rows_phase):
 # tag -> (config, query heads, KV heads, head dim), one 4,096-token sequence
@@ -432,12 +456,15 @@ NO_SPILL = [*((name, (64, 128), ("mma", "fma"))
             *((name, bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")),
             *((name, HEAD_DIMS[name], ("fma",))
               for name in ("varlen_fwd", "varlen_dq", "varlen_dkv")),
-            ("epilogue_bwd", (1, 2, 4, 8, 16, 32), ("vec",))]
+            *((name, (1, 2, 4, 8, 16, 32), ("vec",))
+              for name in ("epilogue_fwd", "epilogue_bwd"))]
 # a kernel's further rows in the kernels line, beside its main path's (name
 # -> [(key, path whose launches it reports or None, dtype, mode)]): the LM
 # prefill's flash_fwd beside the shapenet train path's, selection_fwd on the
 # model's picks beside random ones, the epilogues at the LM's shapes, the
-# D 128 rows, paged_gather on int64 rows beside int32, and the baselines'
+# D 128 rows, the gathers on int64 rows beside int32 (the pair also on the
+# 8 compressed rows and every block's), the layer's epilogue call beside the
+# kernel's (``call``), and the baselines'
 # shapes: the flash kernels at shapenet-full's 3840 queries × 3840 keys, the
 # ball kernels at shapenet-erwin's levels 0–2 (4096, 2048, 1024 tokens)
 LM_ALSO = {"flash_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_block_causal"),
@@ -447,30 +474,42 @@ LM_ALSO = {"flash_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_block_causal"
            **{name: [(f"erwin_l{lv}", "shapenet-erwin", "float32", f"erwin_l{lv}")
                      for lv in range(3)] for name in ("bta_fwd", "bta_bwd")},
            "selection_fwd": [("topk", "train_padded", "float32", "topk")],
-           "epilogue_fwd": [("lm_prefill", "prefill", "bfloat16", "lm_rows")],
+           "epilogue_fwd": [("call", "serve_padded", "float32", "rows_call"),
+                            ("lm_prefill", "prefill", "bfloat16", "lm_rows"),
+                            ("lm_prefill_call", "prefill", "bfloat16", "lm_rows_call")],
            "epilogue_bwd": [("lm_train", "train_lm", "bfloat16", "lm_train_rows")],
            "paged_gather": [("int64_rows", "serve_lm", "float32", "decode_window_i64"),
-                            ("crow_int64", "serve_lm", "float32", "decode_crow_i64")]}
+                            ("crow_int64", "serve_lm", "float32", "decode_crow_i64")],
+           "paged_gather_pair": [
+               ("int64_rows", "serve_lm", "float32", "pair_window_i64"),
+               ("crow_int64", "serve_lm", "float32", "pair_crow_i64"),
+               ("cmp_rows", "serve_lm", "float32", "pair_cmp_rows")]}
 # the rows at each model's heads (bf16) under their tag, with the launches of
 # that model's path (its prefill for the forward kernels, its training for the
-# backward ones, None where it does not train, its decode for paged_gather)
+# backward ones, None where it does not train, its decode for the gather)
 HEAD_ROW_MODES = {"local_fwd": "lm_window", "local_dq": "lm_window",
                   "local_dkv": "lm_window", "flash_fwd": "block_causal",
                   "flash_dq": "block_causal", "flash_dkv": "block_causal",
                   "selection_fwd": "groups", "selection_dq": "groups",
                   "selection_dkv": "groups", "epilogue_fwd": "rows", "epilogue_bwd": "rows",
-                  "paged_gather": "decode_window"}
+                  "paged_gather_pair": "pair_window"}
 for _tag, (_arch, *_) in HEAD_ROWS.items():
     for _name, _mode in HEAD_ROW_MODES.items():
-        _path = (f"decode:{_arch}" if _name == "paged_gather"
+        _path = (f"decode:{_arch}" if _name == "paged_gather_pair"
                  else f"prefill:{_arch}" if _name in PATHS["prefill"]
                  else f"train:{_arch}" if DENSE_LMS[_arch][1] else None)
         LM_ALSO.setdefault(_name, []).append((_tag, _path, "bfloat16", f"{_tag}_{_mode}"))
 
 
+# kernels that no main path launches, with the reason the kernels line gives
+NOT_ON_A_MAIN_PATH = {
+    "paged_gather": "the single-pool entry, kept for callers with one pool: the "
+                    "decode gathers each row set from its K and V pools at once "
+                    "(paged_gather_pair); its launches are those of serve_lm, 0"}
 # a kernel row's optional keys, carried into the kernels line
 EXTRA_KEYS = ("device_ms", "library_device_ms", "index", "rows", "path", "bit_identical",
-              "splits")
+              "splits", "index_select_ms", "index_select_pair_ms",
+              "index_select_device_ms")
 
 
 class CheckFailed(Exception):
@@ -777,7 +816,7 @@ def selection_fwd_repro(mode, dtype, call) -> bool:
 def epilogue_bwd_row(record, mode, args, err_fn=max_err) -> None:
     """``epilogue_bwd`` on ``args`` (o₁..o₃, g₁..g₃, m, dO) against its plain
     version (by ``err_fn``), its bits equal on two calls, timed per call and
-    on the device, with the kernel :func:`epilogue.epilogue_bwd_plan`
+    on the device, with the kernel :func:`epilogue.epilogue_plan`
     names."""
     R, Dh = args[0].shape
     dtype, es = args[0].dtype, args[0].element_size()
@@ -792,7 +831,44 @@ def epilogue_bwd_row(record, mode, args, err_fn=max_err) -> None:
     record("epilogue_bwd", mode, dtype, err, ok, median_ms(call),
            median_ms(lambda: epilogue.gated_combine_bwd_plain(*args), reps=5),
            b_ms, b_by, None, device_ms=device_ms(call, "epilogue_bwd")[0],
-           bit_identical=same, path=epilogue.epilogue_bwd_plan(Dh, dtype).path)
+           bit_identical=same, path=epilogue.epilogue_plan(Dh, dtype).path)
+
+
+def epilogue_fwd_rows(record, mode: str, dtype, dev, shape, mask, seed: int) -> None:
+    """``epilogue_fwd`` on three (B, N, H, D) branch outputs with the gates
+    and mask as the layer hands them over: one gate a head (``gate_mode``
+    "scalar", every config's), the (B, N) mask or None.  Row ``mode``: the
+    kernel's wrapper against its plain version, its device time; row
+    ``{mode}_call``: the layer's call, ``ops.gated_combine`` (views, the
+    autograd op, the launch), which must launch ``epilogue_fwd`` and no
+    other kernel.  Bound: the three outputs read and the result written
+    once, the gates and the mask read once."""
+    Bx, Nx, Hx, Dx = shape
+    R, T = Bx * Nx * Hx, Bx * Nx
+    es = torch.tensor([], dtype=dtype).element_size()
+    outs = [rand(shape, dtype, dev, seed + i) for i in range(3)]
+    leaves = [torch.sigmoid(rand((Hx,), torch.float32, dev, seed + 3 + i)) for i in range(3)]
+    gates = [g[None, None, :, None] for g in leaves]     # core.branches.gate_values
+    os_, gs = [o.view(R, Dx) for o in outs], [g[None] for g in leaves]
+    m = None if mask is None else mask.reshape(T)
+    call = lambda: epilogue.gated_combine_fwd(*os_, *gs, m)  # noqa: E731
+    plain = lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m)  # noqa: E731
+    layer = lambda: ops.gated_combine(outs, gates, mask)  # noqa: E731
+    got, want, via_layer = call(), plain(), layer()
+    torch.cuda.synchronize()
+    err, ok = max_err((got,), (want,))
+    b_ms, b_by = bound(4 * R * Dx * es + 12 * Hx + (0 if m is None else T), 6.0 * R * Dx,
+                       torch.float32)
+    path = epilogue.epilogue_plan(Dx, dtype).path
+    p_ms = median_ms(plain, reps=5)
+    record("epilogue_fwd", mode, dtype, err, ok, median_ms(call), p_ms, b_ms, b_by, None,
+           device_ms=device_ms(call, "epilogue_fwd")[0], path=path)
+    d_ms, names = device_ms(layer, "epilogue_fwd")
+    check(bool(names) and all("epilogue_fwd" in k for k in names),
+          f"ops.gated_combine [{mode}]: launched other kernels than epilogue_fwd: {names}")
+    err, ok = max_err((via_layer.view(R, Dx),), (want,))
+    record("epilogue_fwd", f"{mode}_call", dtype, err, ok, median_ms(layer), p_ms, b_ms, b_by,
+           None, device_ms=d_ms, path=path)
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -899,21 +975,7 @@ def kernel_phase(dev) -> list[dict]:
                path=selection.selection_plan(M, ELL, D, dtype, KSTAR).path)
 
         # ---- epilogue: R = B·N·H rows of D
-        R = B * N * H
-        os_ = [rand((R, D), dtype, dev, 10 + i) for i in range(3)]
-        gs = [torch.sigmoid(rand((R,), torch.float32, dev, 20 + i)) for i in range(3)]
-        m = mask[:, :, None].expand(B, N, H).reshape(R).float()
-        got = epilogue.gated_combine_fwd(*os_, *gs, m)
-        want = epilogue.gated_combine_fwd_plain(*os_, *gs, m)
-        torch.cuda.synchronize()
-        err, ok = max_err((got,), (want,))
-        b_ms, b_by = bound(4 * R * D * es + 4 * 4 * R, 6.0 * R * D, torch.float32)
-        record("epilogue_fwd", "rows", dtype, err, ok,
-               median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
-               median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
-               b_ms, b_by, None,
-               device_ms=device_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m),
-                                   "epilogue_fwd")[0])
+        epilogue_fwd_rows(record, "rows", dtype, dev, (B, N, H, D), mask, 10)
     return results
 
 
@@ -1418,9 +1480,12 @@ def output_hashes(dev) -> dict:
     on the former, ``selection_dq`` / ``selection_dkv`` on the latter; the
     epilogues on 8,192 rows of 32 and 64; the varlen kernels on three clouds
     packed to 3,072 rows (``HASH_OFFSETS``); the local kernels on
-    ``lm_window_case(dev, 2048)``; ``paged_gather`` on one decode step's
-    rows.  Every backward kernel gets its inputs from the plain forward, so
-    its hash holds only its own code."""
+    ``lm_window_case(dev, 2048)``; ``paged_gather`` and ``paged_gather_pair``
+    on one decode step's rows.  Every backward kernel gets its inputs from the
+    plain forward, so its hash holds only its own code.  ``epilogue_fwd``
+    takes the rows' gates as (8,192, 1) (H = 1: one gate a row) and the mask
+    as bool, the same values the (R,) fp32 form of the first version gave.
+    ``paths``: :func:`path_hashes`."""
     def draw(shape, seed, dtype):
         g = torch.Generator(device=dev).manual_seed(seed)
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -1482,10 +1547,11 @@ def output_hashes(dev) -> dict:
         for d in (32, 64):
             os_ = [draw((8192, d), 30 + i, dtype) for i in range(3)]
             gs = [torch.sigmoid(draw((8192,), 33 + i, torch.float32)) for i in range(3)]
-            m = (draw((8192,), 36, torch.float32) > -1.0).float()
-            row[f"epilogue_fwd/d{d}"] = digest(epilogue.gated_combine_fwd(*os_, *gs, m))
+            m = draw((8192,), 36, torch.float32) > -1.0
+            row[f"epilogue_fwd/d{d}"] = digest(epilogue.gated_combine_fwd(
+                *os_, *(g[:, None] for g in gs), m))
             row[f"epilogue_bwd/d{d}"] = digest(*epilogue.gated_combine_bwd(
-                *os_, *gs, m, draw((8192, d), 37, dtype)))
+                *os_, *gs, m.float(), draw((8192, d), 37, dtype)))
         # varlen: three clouds packed to 3,072 rows (and a capacity tail)
         T = int(HASH_OFFSETS[-1]) + 512
         vmask = np.zeros(T, bool)
@@ -1512,11 +1578,62 @@ def output_hashes(dev) -> dict:
         row["local_dq"] = digest(local.local_window_dq(*args, live=live, **lkw))
         row["local_dkv"] = digest(*local.local_window_dkv(*args, live=live, **lkw))
         # paged_gather: one decode step's window rows and compressed rows
-        win_rows, crow, R = decode_rows(dev)
+        win_rows, crow, _, R = decode_rows(dev)
         pool = draw((R, LM_HKV, LM_D), 60, dtype)
         row["paged_gather"] = digest(paged.paged_gather(pool, win_rows),
                                      paged.paged_gather(pool, crow))
+        v_pool = draw((R, LM_HKV, LM_D), 61, dtype)
+        row["paged_gather_pair"] = digest(*paged.paged_gather_pair(pool, v_pool, win_rows),
+                                          *paged.paged_gather_pair(pool, v_pool, crow))
         out[f"kernels/{dt}"] = row
+    out["paths"] = path_hashes(dev)
+    return out
+
+
+def path_hashes(dev) -> dict:
+    """sha256 (16 hex digits) of what two main paths give on seeded inputs,
+    through model-level entry points only, so the same code runs on a
+    parent's kernels: ``serve``, a 2-layer ``shapenet-bsa`` at full width
+    (fp32, weights from seed 0) on two clouds of 3840 rows (the second
+    padded from 3,000) through ``api.forward``; ``decode``, the logits of
+    130 steps of ``api.paged_decode_step`` on a 2-layer ``tinyllama-1.1b``
+    at full width (bf16, weights from seed 0) over two slots (pages of 256,
+    lengths 130 and 100 from steps 0 and 30), which gathers from its pools
+    and completes compressed blocks on the way."""
+    def digest(*ts):
+        m = hashlib.sha256()
+        for t in ts:
+            m.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return m.hexdigest()[:16]
+
+    out = {}
+    with torch.inference_mode():
+        api = model_api(get_config("shapenet-bsa").scaled(n_layers=2))
+        model = api.init(seed=0, device=dev)
+        batch = api.make_batch(np.random.default_rng(0), 2, N, device=dev)
+        batch["mask"][1, 3000:] = False
+        out["serve"] = digest(api.forward(model, batch))
+        del model
+        api = model_api(get_config(LM).scaled(n_layers=2))
+        model = api.init(seed=0, device=dev)
+        lens, starts, steps = (130, 100), (0, 30), 130
+        n_pages = 2                          # a slot holds two local windows
+        num_blocks = 2 * n_pages
+        caches = api.paged_cache_init(2, num_blocks, PAGE, api.mcfg.cdtype(), device=dev)
+        tokens = torch.from_numpy(np.random.default_rng(5).integers(
+            0, api.mcfg.vocab_size, (2, steps), dtype=np.int32)).to(dev)
+        logits = []
+        for t in range(steps):
+            live = [0 <= t - s < n for s, n in zip(starts, lens)]
+            table = torch.tensor([[b * n_pages + p if live[b] else num_blocks
+                                   for p in range(n_pages)] for b in range(2)], device=dev)
+            lengths = torch.tensor([max(t - s, 0) if ok else 0
+                                    for s, ok in zip(starts, live)], device=dev)
+            pos = lengths.clamp(max=steps - 1)
+            step_logits, caches = api.paged_decode_step(
+                model, tokens[torch.arange(2, device=dev), pos], caches, table, lengths, PAGE)
+            logits.append(step_logits)
+        out["decode"] = digest(*logits)
     return out
 
 
@@ -1925,18 +2042,19 @@ def lm_window_case(dev, n: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
     return key_bias, blk_seg
 
 
-def decode_rows(dev, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor, int]:
+def decode_rows(dev, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """One paged decode step's gather indices at the serving shape, from
     ``nsa_causal.paged_step``: 8 slots of 1,100–1,600 tokens over a shuffled
     block table of the pool of 65 blocks of 256 rows.  Returns (win_rows
     (8, 512) int32, the local window's; crow (8,) int64, the compressed
-    rows'; the pool's rows R)."""
+    rows the new tokens complete; cmp_rows (8, 32) int32, every block's
+    compressed row; the pool's rows R)."""
     n_pages = MAX_LEN // PAGE
     rng = np.random.default_rng(seed)
     table = torch.from_numpy(rng.permutation(SLOTS * n_pages).reshape(SLOTS, n_pages)).to(dev)
     lengths = torch.from_numpy(rng.integers(1100, 1601, SLOTS)).to(dev)
     st = nsa_causal.paged_step(table, lengths, cfg=get_config(LM).bsa, page=PAGE)
-    return st.win_rows, st.crow, (SLOTS * n_pages + 1) * PAGE
+    return st.win_rows, st.crow, st.cmp_rows, (SLOTS * n_pages + 1) * PAGE
 
 
 def paged_rows(record, mode: str, pool, rows, dtype) -> None:
@@ -1962,6 +2080,37 @@ def paged_rows(record, mode: str, pool, rows, dtype) -> None:
            median_ms(lambda: paged.paged_gather_plain(pool, rows), reps=5),
            b_ms, b_by, median_ms(lambda: torch.index_select(pool, 0, flat), reps=50),
            device_ms=k_dev, library_device_ms=lib_dev, index=str(rows.dtype), rows=n)
+
+
+def paged_pair_rows(record, mode: str, k_pool, v_pool, rows, dtype) -> None:
+    """``paged_gather_pair`` on ``rows`` against the plain pair (exact),
+    with ``ms`` a CUDA-event time around one call (host work included),
+    ``device_ms`` the kernel's own duration (profiler; the call must launch
+    one kernel, its own), and ``index_select`` on the same rows beside it:
+    ``index_select_ms`` one call (one pool), ``index_select_pair_ms`` the
+    two calls that gather both pools.  No one PyTorch call gathers both
+    pools, so ``library_ms`` is None."""
+    call = lambda: paged.paged_gather_pair(k_pool, v_pool, rows)  # noqa: E731
+    got = call()
+    want = paged.paged_gather_pair_plain(k_pool, v_pool, rows)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want)
+    ok = ok and all(torch.equal(g, w) for g, w in zip(got, want))
+    n = rows.numel()
+    b_ms, b_by = bound(4 * n * k_pool[0].numel() * k_pool.element_size()
+                       + n * rows.element_size(), 0.0, dtype)
+    k_dev, names = device_ms(call, "paged_gather")
+    check(bool(names) and all("paged_gather" in k for k in names),
+          f"paged_gather_pair [{mode}]: a call launched other kernels than its own: {names}")
+    flat = rows.reshape(-1)
+    one = lambda: torch.index_select(k_pool, 0, flat)  # noqa: E731
+    two = lambda: (torch.index_select(k_pool, 0, flat),  # noqa: E731
+                   torch.index_select(v_pool, 0, flat))
+    record("paged_gather_pair", mode, dtype, err, ok, median_ms(call, reps=50),
+           median_ms(lambda: paged.paged_gather_pair_plain(k_pool, v_pool, rows), reps=5),
+           b_ms, b_by, None, device_ms=k_dev, index=str(rows.dtype), rows=n,
+           index_select_ms=median_ms(one, reps=50), index_select_pair_ms=median_ms(two, reps=50),
+           index_select_device_ms=device_ms(one)[0])
 
 
 def lm_kernel_phase(dev) -> list[dict]:
@@ -2023,12 +2172,19 @@ def lm_kernel_phase(dev) -> list[dict]:
         # ---- paged_gather: one decode step's window gather of 8 slots (int32
         # rows, as the decode passes them), the same rows as int64, and the
         # compressed rows (int64, as the decode passes them)
-        win_rows, crow, R = decode_rows(dev)
+        win_rows, crow, cmp_rows, R = decode_rows(dev)
         pool = rand((R, LM_HKV, LM_D), dtype, dev, 94)
         paged_rows(record, "decode_window", pool, win_rows, dtype)
         paged_rows(record, "decode_window_i64", pool, win_rows.long(), dtype)
         paged_rows(record, "decode_crow_i64", pool, crow, dtype)
-        del pool
+        # ---- paged_gather_pair: the same row sets from a K and a V pool, as
+        # the decode gathers them, and every block's compressed rows (int32)
+        v_pool = rand((R, LM_HKV, LM_D), dtype, dev, 93)
+        paged_pair_rows(record, "pair_window", pool, v_pool, win_rows, dtype)
+        paged_pair_rows(record, "pair_window_i64", pool, v_pool, win_rows.long(), dtype)
+        paged_pair_rows(record, "pair_crow_i64", pool, v_pool, crow, dtype)
+        paged_pair_rows(record, "pair_cmp_rows", pool, v_pool, cmp_rows, dtype)
+        del pool, v_pool
 
         # ---- flash_fwd, block-causal: 32,768 queries against 512 pooled keys
         q = rand((LM_HKV, rep, N1, LM_D), dtype, dev, 95)
@@ -2080,23 +2236,8 @@ def lm_kernel_phase(dev) -> list[dict]:
                b_ms, b_by, None)
         del qg, kb, vb
 
-        # ---- epilogue_fwd: R = N·Hq rows of 64
-        R = N1 * LM_HQ
-        os_ = [rand((R, LM_D), dtype, dev, 101 + i) for i in range(3)]
-        gs = [torch.sigmoid(rand((R,), torch.float32, dev, 104 + i)) for i in range(3)]
-        m = torch.ones(R, dtype=torch.float32, device=dev)
-        got = epilogue.gated_combine_fwd(*os_, *gs, m)
-        want = epilogue.gated_combine_fwd_plain(*os_, *gs, m)
-        torch.cuda.synchronize()
-        err, ok = max_err((got,), (want,))
-        b_ms, b_by = bound(4 * R * LM_D * es + 4 * 4 * R, 6.0 * R * LM_D, torch.float32)
-        record("epilogue_fwd", "lm_rows", dtype, err, ok,
-               median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
-               median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
-               b_ms, b_by, None,
-               device_ms=device_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m),
-                                   "epilogue_fwd")[0])
-        del os_, gs, got, want
+        # ---- epilogue_fwd: R = N·Hq rows of 64 (the prefill passes no mask)
+        epilogue_fwd_rows(record, "lm_rows", dtype, dev, (1, N1, LM_HQ, LM_D), None, 101)
         torch.cuda.empty_cache()
     return results
 
@@ -2245,33 +2386,24 @@ def head_rows_phase(dev, tag: str, dtypes) -> list[dict]:
         selection_tiled_rows(record, f"{tag}_groups", qg, kb, vb, [idx], tok_bias, do)
         del qg, kb, vb, do
 
-        # ---- epilogue_fwd, epilogue_bwd: R = N·Hq rows of 128
+        # ---- epilogue_fwd, epilogue_bwd: R = N·Hq rows of 128 (the backward
+        # kernel takes (R,) gates and mask)
+        epilogue_fwd_rows(record, f"{tag}_rows", dtype, dev, (1, n, Hq, Dh), None, 152)
         R = n * Hq
         os_ = [rand((R, Dh), dtype, dev, 152 + i) for i in range(3)]
         gs = [torch.sigmoid(rand((R,), torch.float32, dev, 155 + i)) for i in range(3)]
         m = torch.ones(R, dtype=torch.float32, device=dev)
-        got = epilogue.gated_combine_fwd(*os_, *gs, m)
-        want = epilogue.gated_combine_fwd_plain(*os_, *gs, m)
-        torch.cuda.synchronize()
-        err, ok = max_err((got,), (want,))
-        b_ms, b_by = bound(4 * R * Dh * es + 4 * 4 * R, 6.0 * R * Dh, torch.float32)
-        record("epilogue_fwd", f"{tag}_rows", dtype, err, ok,
-               median_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m)),
-               median_ms(lambda: epilogue.gated_combine_fwd_plain(*os_, *gs, m), reps=5),
-               b_ms, b_by, None,
-               device_ms=device_ms(lambda: epilogue.gated_combine_fwd(*os_, *gs, m),
-                                   "epilogue_fwd")[0])
         epilogue_bwd_row(record, f"{tag}_rows", (*os_, *gs, m, rand((R, Dh), dtype, dev, 158)),
                          rel_err)
-        del os_, gs, got, want
+        del os_, gs
 
-        # ---- paged_gather: one decode step's window gather of 8 slots, int32
-        # and int64 rows
-        win_rows, _, Rp = decode_rows(dev, seed=1)
-        pool = rand((Rp, Hkv, Dh), dtype, dev, 159)
-        paged_rows(record, f"{tag}_decode_window", pool, win_rows, dtype)
-        paged_rows(record, f"{tag}_decode_window_i64", pool, win_rows.long(), dtype)
-        del pool
+        # ---- paged_gather_pair: one decode step's window gather of 8 slots
+        # from the K and the V pool, int32 and int64 rows
+        win_rows, _, _, Rp = decode_rows(dev, seed=1)
+        pools = [rand((Rp, Hkv, Dh), dtype, dev, 159 + i) for i in range(2)]
+        paged_pair_rows(record, f"{tag}_pair_window", *pools, win_rows, dtype)
+        paged_pair_rows(record, f"{tag}_pair_window_i64", *pools, win_rows.long(), dtype)
+        del pools
         torch.cuda.empty_cache()
     return results
 
@@ -2440,7 +2572,7 @@ def decode_oracle_phase(dev) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = {name: c.n for name, c in COUNTERS.items()}
-    check_launches(launches, "decode_oracle", 8 * steps)
+    check_launches(launches, "decode_oracle", DECODE_GATHERS * steps)
     valid = torch.zeros((Bs, n_pad), dtype=torch.bool, device=dev)
     for s in range(Bs):
         valid[s, :lens[s]] = True
@@ -2519,7 +2651,7 @@ def serve_lm_phase(dev, api, model) -> dict:
              "blocks_reused": eng.kv.blocks_reused, "cow_copies": eng.kv.cow_copies,
              "launches": launches}
     print(json.dumps({"serve_lm": stats}), flush=True)
-    check_launches(launches, "serve_lm", 8 * cfg.n_layers * eng.serve_steps)
+    check_launches(launches, "serve_lm", DECODE_GATHERS * cfg.n_layers * eng.serve_steps)
     check(all(len(o) == NEW_TOKENS for o in served), "a request got the wrong token count")
     check(eng.kv.blocks_reused > 0, "the shared prompt prefix was not reused")
     check(eng.kv.cow_copies >= 1, "request 10 (the shared 512 tokens) made no "
@@ -2606,8 +2738,9 @@ def lockstep_checks(cfg, dev, prompts, served, rids) -> list[dict]:
 def profile_decode(eng) -> None:
     """Where three paged decode steps of the serving engine (8 slots, after
     the serve) spend their time: device kernel time against the wall time;
-    then three unprofiled steps with the host time of every ``paged_gather``
-    call (the wrapper's work and the launch) taken apart."""
+    then three unprofiled steps with the host time of every
+    ``paged_gather_pair`` call (the wrapper's work and the launch) taken
+    apart."""
     from torch.profiler import ProfilerActivity, profile
     tok = torch.zeros(SLOTS, dtype=torch.int64, device=eng.device)
     table = torch.from_numpy(eng.kv.table.copy()).to(eng.device)
@@ -2622,14 +2755,14 @@ def profile_decode(eng) -> None:
     summary = device_summary(prof)
     summary.update(steps=3, profiled_wall_ms=wall * 1e3,
                    device_busy_share=summary["device_kernel_ms"] / (wall * 1e3))
-    host, real = [], paged.paged_gather
+    host, real = [], paged.paged_gather_pair
 
-    def timed_gather(pool, rows):
+    def timed_gather(k_pool, v_pool, rows):
         t0 = time.perf_counter()
-        out = real(pool, rows)
+        out = real(k_pool, v_pool, rows)
         host.append(time.perf_counter() - t0)
         return out
-    with mock.patch.object(paged, "paged_gather", timed_gather):
+    with mock.patch.object(paged, "paged_gather_pair", timed_gather):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
@@ -2956,7 +3089,7 @@ def decode_schedule(dev) -> tuple[torch.Tensor, torch.Tensor, int, int]:
     so a decode loop never waits for the host."""
     lens, starts = DECODE_LENS, DECODE_STARTS
     Bs = len(lens)
-    n_pad = -(-max(lens) // PAGE) * PAGE
+    n_pad = max(-(-max(lens) // PAGE) * PAGE, 2 * LM_W)   # a slot holds two windows
     n_pages = n_pad // PAGE
     num_blocks = Bs * n_pages
     blocks = np.random.default_rng(0).permutation(num_blocks).reshape(Bs, n_pages)
@@ -2975,7 +3108,7 @@ def dense_decode_phase(dev, api, model) -> dict:
     """The LM's paged decode through the user's entry point,
     ``api.paged_decode_step`` on the model's own config (``LM_BSA``, bf16):
     the two staggered slots of ``decode_schedule``, each fed random tokens
-    (numpy seed 3); every layer launches ``paged_gather`` 8 times a step,
+    (numpy seed 3); every layer launches ``paged_gather_pair`` 4 times a step,
     the logits are finite, and ``ms_per_step`` is this loop's wall time a
     step.  Then ``decode_hold`` holds the same entry point to the forward."""
     cfg = api.mcfg
@@ -2998,7 +3131,7 @@ def dense_decode_phase(dev, api, model) -> dict:
         seconds = time.perf_counter() - t0
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
     del caches
-    check_launches(launches, f"decode:{cfg.name}", 8 * cfg.n_layers * steps)
+    check_launches(launches, f"decode:{cfg.name}", DECODE_GATHERS * cfg.n_layers * steps)
     check(tuple(logits.shape) == (Bs, cfg.vocab_size) and bool(finite),
           f"{cfg.name} decode: logits of shape {tuple(logits.shape)}, finite {bool(finite)}")
     stats = {"arch": cfg.name, "slots": Bs, "lens": list(DECODE_LENS),
@@ -3184,15 +3317,16 @@ def quickstart_phase() -> dict:
     return stats
 
 
-def trainer_phase(dev, next_batch) -> dict:
+def trainer_phase(dev, next_batches) -> dict:
     """``launch.train --arch shapenet-bsa --steps 3 --batch 8 --ckpt DIR`` on
-    the card (``runtime.Trainer``: a checkpoint at its last step), then a
-    second ``Trainer`` restores it (every parameter and moment bit for bit,
-    the step count 3) and trains one more step on ``next_batch``, the
-    fourth batch of the same order: its step count is 4, its loss finite,
-    and step 4's checkpoint exists.  Each run launches each kernel of the
-    padded train path once a layer and step.  DIR is ``build/``'s, removed
-    after."""
+    the card (``runtime.Trainer``, steps 0–2 numbered as JAX numbers them: a
+    checkpoint at the last, step 2), then a second ``Trainer`` restores it
+    (every parameter and moment bit for bit, the optimizer's count 3, the
+    resumed step 2) and trains from step 2 on ``next_batches``, two batches
+    of the same order: its optimizer count is 5, its losses finite, and step
+    3's checkpoint exists (a fit's first step is never saved, as in JAX).
+    Each run launches each kernel of the padded train path once a layer and
+    step.  DIR is ``build/``'s, removed after."""
     import shutil
     from repro_torch.checkpoint import latest_step
     from repro_torch.launch import train as train_cli
@@ -3217,7 +3351,7 @@ def trainer_phase(dev, next_batch) -> dict:
         trainer, (model, opt_state) = fits[0]
         n_layers = trainer.api.mcfg.n_layers
         check_launches(launches, "trainer", 3 * n_layers)
-        check(math.isfinite(loss) and latest_step(ckpt) == 3 and opt_state["step"] == 3,
+        check(math.isfinite(loss) and latest_step(ckpt) == 2 and opt_state["step"] == 3,
               f"trainer: loss {loss}, checkpoint {latest_step(ckpt)}, "
               f"steps {opt_state['step']} after 3 steps")
         again = Trainer(trainer.api, trainer.cfg, device=dev)
@@ -3228,19 +3362,21 @@ def trainer_phase(dev, next_batch) -> dict:
         restored = {"params": dict(model2.named_parameters()), "m": opt2["m"],
                     "v": opt2["v"]}
         same = all(torch.equal(restored[k][n], t) for k in saved for n, t in saved[k].items())
-        check(done == 3 and opt2["step"] == 3 and same,
+        check(done == 2 and opt2["step"] == 3 and same,
               f"trainer: restored step {done}, optimizer step {opt2['step']}, bits equal "
               f"{same}")
         reset_counters()
-        model2, opt2 = again.fit(iter([next_batch]), steps=1, model=model2, opt_state=opt2,
-                                 start_step=done)
+        model2, opt2 = again.fit(iter(next_batches), steps=len(next_batches), model=model2,
+                                 opt_state=opt2, start_step=done)
         torch.cuda.synchronize()
         resumed = {name: c.n for name, c in COUNTERS.items()}
-        check_launches(resumed, "trainer_resume", n_layers)
+        check_launches(resumed, "trainer_resume", len(next_batches) * n_layers)
         loss2 = again.metrics_history[-1]["loss"]
-        check(opt2["step"] == 4 and latest_step(ckpt) == 4 and math.isfinite(loss2),
+        check(opt2["step"] == 5 and latest_step(ckpt) == 3 and math.isfinite(loss2)
+              and [m["step"] for m in again.metrics_history] == [2, 3],
               f"trainer resume: optimizer step {opt2['step']}, checkpoint "
-              f"{latest_step(ckpt)}, loss {loss2}")
+              f"{latest_step(ckpt)}, loss {loss2}, logged steps "
+              f"{[m['step'] for m in again.metrics_history]}")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     stats = {"arch": "shapenet-bsa", "loss": [m["loss"] for m in trainer.metrics_history],
@@ -3276,6 +3412,8 @@ def kernels_line(rows: list[dict], paths: dict) -> list[dict]:
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "launches_by_path": by_path}
         entry.update({k: row[k] for k in EXTRA_KEYS if k in row})
+        if name in NOT_ON_A_MAIN_PATH:
+            entry["note"] = NOT_ON_A_MAIN_PATH[name]
         for key, path, dt, mode in LM_ALSO.get(name, ()):
             row = next(r for r in rows if r["name"] == name and r["dtype"] == dt
                        and r["mode"] == mode)
@@ -3352,7 +3490,7 @@ def main() -> int:
     paths.update(baselines_phase(dev, batches))
     print(f"# baselines phase: {time.perf_counter() - t0:.1f} s", flush=True)
     paths["quickstart"] = quickstart_phase()
-    paths["trainer"] = trainer_phase(dev, batches[3])
+    paths["trainer"] = trainer_phase(dev, batches[3:5])
     paths["trainer_resume"] = {"launches": paths["trainer"]["resumed_launches"]}
     del batches
     torch.cuda.empty_cache()

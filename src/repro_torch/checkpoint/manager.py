@@ -16,7 +16,7 @@ port updates parameters in place, where JAX arrays are immutable: so
 ``save`` copies every tensor to the host before it returns, and the
 writer thread owns that copy.  ``restore`` fills the template's tensors in
 place (the port keeps one copy of the weights) after checking each shape.
-There is one process and no mesh, so no shardings (ROADMAP queue 1 item 6).
+There is one process and no mesh, so no shardings (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -103,7 +103,7 @@ def get_config(name: str) -> ModelConfig:
         mod = name.replace("-", "_").replace(".", "_")
         if mod not in _MODULES and name in ARCH_IDS:
             raise KeyError(f"config {name!r} is not ported yet: its family comes with "
-                           "ROADMAP queue 1 item 5 (the other families)")
+                           "ROADMAP queue 1 item 2 (the other families)")
         importlib.import_module(f"repro_torch.configs."
                                 f"{mod if mod in _MODULES else 'shapenet_bsa'}")
     if name not in _REGISTRY:

@@ -34,7 +34,7 @@ Names of ``repro.core`` and their counterparts here:
   every other name   → the same name
 
 The JAX package's ``"sharded"`` backend (``repro.distributed``, a mesh of
-devices) has no counterpart yet: ROADMAP queue 1 item 6.
+devices) has no counterpart yet: ROADMAP queue 1 item 3.
 """
 
 from repro_torch.core.config import BSAConfig  # noqa: F401

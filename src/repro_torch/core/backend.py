@@ -7,11 +7,13 @@ LM) through ``local_window`` in place of ``ball``;
 ``bsa_attention_varlen`` (the packed layout) through ``ball_varlen``,
 ``flash_varlen``, ``local_window_varlen`` and ``selection_varlen``,
 resolved by :func:`get_varlen`; the paged decode
-(``nsa_causal_decode_paged``) fetches its pool rows through
-``paged_gather``, resolved by :func:`get_paged_gather`.  Shapes follow
+(``nsa_causal_decode_paged``) fetches the same rows of its K and V pools
+through ``paged_gather_pair``, resolved by :func:`get_paged_gather`
+(``paged_gather`` gathers one pool).  Shapes follow
 ``core``: q (B, N, Hq, D), k/v (B, L, Hkv, D), GQA-native; the varlen ops
 take one packed axis, q (T, Hq, D), k/v (L, Hkv, D), and host ``offsets``;
-``paged_gather(pool (R, Hkv, D), rows)`` → ``rows.shape + (Hkv, D)``.
+``paged_gather(pool (R, Hkv, D), rows)`` → ``rows.shape + (Hkv, D)``,
+``paged_gather_pair(k_pool, v_pool, rows)`` → two of them.
 
 Built-ins:
 
@@ -118,6 +120,10 @@ class ReferenceBackend:
         # plain advanced indexing: the semantics of the paged decode's fetch
         return pool[rows]
 
+    def paged_gather_pair(self, k_pool, v_pool, rows):
+        from repro_torch.kernels.paged import paged_gather_pair_plain
+        return paged_gather_pair_plain(k_pool, v_pool, rows)
+
     # -- packed-varlen ops: q (T, Hq, D), k/v (L, Hkv, D), host offsets.  The
     # parity oracle of the varlen kernels: sample isolation is an explicit
     # segment bias on the reference math.
@@ -189,6 +195,10 @@ class KernelBackend:
     def paged_gather(self, pool, rows):
         from repro_torch.kernels import ops
         return ops.paged_gather(pool, rows)
+
+    def paged_gather_pair(self, k_pool, v_pool, rows):
+        from repro_torch.kernels import ops
+        return ops.paged_gather_pair(k_pool, v_pool, rows)
 
     def gated_combine(self, outs, gates, mask):
         from repro_torch.kernels import ops
@@ -344,13 +354,18 @@ def get_varlen(backend, op: str):
 
 
 def get_paged_gather(backend):
-    """The backend's paged-cache row gather, or the reference backend's
-    (plain indexing, the same semantics) when a registered backend does not
-    provide one."""
-    fn = getattr(backend, "paged_gather", None)
+    """The backend's paged-cache gather of the same rows from a K and a V
+    pool, ``paged_gather_pair(k_pool, v_pool, rows) → (k, v)``.  A
+    registered backend with only the single-pool ``paged_gather`` gathers
+    the pair with two calls of its own; one with neither takes the
+    reference backend's."""
+    fn = getattr(backend, "paged_gather_pair", None)
     if callable(fn):
         return fn
-    return _REGISTRY["reference"].paged_gather
+    single = getattr(backend, "paged_gather", None)
+    if callable(single):
+        return lambda k_pool, v_pool, rows: (single(k_pool, rows), single(v_pool, rows))
+    return _REGISTRY["reference"].paged_gather_pair
 
 
 _AUTO = AutoBackend()

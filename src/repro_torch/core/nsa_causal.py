@@ -14,9 +14,10 @@ local window in place of the ball branch:
 
 combined by the gated epilogue (kernel ``epilogue_fwd``).  The decode path
 (``nsa_causal_decode_paged``) updates a token cache and a compressed cache
-one token at a time, reading its rows through the backend's
-``paged_gather`` (kernel ``paged_gather``); the dense lockstep cache is its
-degenerate one-page layout (``nsa_causal_decode``).
+one token at a time, reading each row set from its K and V pools in one
+call of the backend's ``paged_gather_pair`` (kernel ``paged_gather_pair``,
+four a layer and step); the dense lockstep cache is its degenerate
+one-page layout (``nsa_causal_decode``).
 
 Caches are dicts of tensors updated IN PLACE (the JAX version returns new
 arrays): a decode step scatters its token rows into the pools it was given
@@ -245,11 +246,13 @@ def _cmp_attend_from_rows(kc_all, vc_all, q1, blk_ok, rep):
 
 
 class _DensePoolOps:
-    """Single-device pool access of the paged decode: row gathers through
-    the backend's ``paged_gather``, in-place row scatters."""
+    """Single-device pool access of the paged decode: the same rows of the K
+    and the V pool gathered in one call of the backend's
+    ``paged_gather_pair``, in-place row scatters."""
 
-    def __init__(self, gather):
-        self.gather = gather                   # (R,Hkv,D), rows → rows.shape+(Hkv,D)
+    def __init__(self, gather_pair):
+        # (R,Hkv,D) K pool, V pool, rows → two rows.shape+(Hkv,D)
+        self.gather_pair = gather_pair
 
     @staticmethod
     def gather_head(pool, rows, head_idx):
@@ -261,8 +264,8 @@ class _DensePoolOps:
         return pool.index_copy_(0, rows, vals.to(pool.dtype))
 
     def cmp_attend(self, k_pool, v_pool, rows, q1, blk_ok, rep):
-        return _cmp_attend_from_rows(self.gather(k_pool, rows), self.gather(v_pool, rows),
-                                     q1, blk_ok, rep)
+        return _cmp_attend_from_rows(*self.gather_pair(k_pool, v_pool, rows), q1, blk_ok,
+                                     rep)
 
 
 class PagedStep(NamedTuple):
@@ -354,18 +357,20 @@ def nsa_causal_decode_paged(params: BSAParams, q1, k1, v1, cache: dict, table, l
 
     # --- compressed cache: slots whose new token completes a φ-block; the
     # read-modify-write keeps the other slots' rows (exclusively owned)
-    new_kc = phi_apply(params.phi_k, ops.gather(k_pool, st.brows), None, cfg)
-    new_vc = phi_apply(params.phi_v, ops.gather(v_pool, st.brows), None, cfg)
-    kc_val = torch.where(st.complete, new_kc[:, 0], ops.gather(cache["k_cmp"], st.crow))
-    vc_val = torch.where(st.complete, new_vc[:, 0], ops.gather(cache["v_cmp"], st.crow))
+    k_blk, v_blk = ops.gather_pair(k_pool, v_pool, st.brows)
+    new_kc = phi_apply(params.phi_k, k_blk, None, cfg)
+    new_vc = phi_apply(params.phi_v, v_blk, None, cfg)
+    kc_old, vc_old = ops.gather_pair(cache["k_cmp"], cache["v_cmp"], st.crow)
+    kc_val = torch.where(st.complete, new_kc[:, 0], kc_old)
+    vc_val = torch.where(st.complete, new_vc[:, 0], vc_old)
     k_cmp = ops.scatter_rows(cache["k_cmp"], st.crow, kc_val)
     v_cmp = ops.scatter_rows(cache["v_cmp"], st.crow, vc_val)
 
     # --- local branch: the blocked window [max(t//w − 1, 0)·w, t]; positions
     # past t still name allocated-or-trash pages (w | page), the bias removes them
     qg = q1.reshape(B, Hkv, rep, D)
-    out_local = sdpa(qg, ops.gather(k_pool, st.win_rows).transpose(1, 2),
-                     ops.gather(v_pool, st.win_rows).transpose(1, 2), st.win_bias)
+    k_win, v_win = ops.gather_pair(k_pool, v_pool, st.win_rows)
+    out_local = sdpa(qg, k_win.transpose(1, 2), v_win.transpose(1, 2), st.win_bias)
 
     # --- compression branch: the complete blocks that end strictly before t
     out_cmp, s = ops.cmp_attend(k_cmp, v_cmp, st.cmp_rows, q1, st.blk_ok, rep)

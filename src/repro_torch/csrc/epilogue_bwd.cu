@@ -8,12 +8,12 @@
 //
 // Bound on the H100: memory -- seven tensors of R*D elements and seven of R
 // move for ten FLOP per element.  Two kernels, chosen by
-// kernels/epilogue.py::epilogue_bwd_plan (the wrapper passes `lanes`):
+// kernels/epilogue.py::epilogue_plan (the wrapper passes `lanes`):
 //   vec   D a multiple of one 16-byte vector (4 fp32, 8 bf16) and every
-//         (R, D) tensor 16-byte aligned.  A row lies on L lanes (D/4 in fp32,
-//         D/8 in bf16, a power of two up to 32), so a warp holds 32/L rows;
-//         each lane loads its row's gates and mask, then 16-byte vectors of
-//         o1..o3 and dO (vectors sub, sub + L, ...), stores 16-byte vectors
+//         (R, D) tensor 16-byte aligned.  A row lies on L lanes by the rule
+//         of epilogue.cuh (shared with epilogue_fwd.cu); each lane loads its
+//         row's gates and mask, then 16-byte vectors of o1..o3 and dO
+//         (vectors sub, sub + L, ...), stores 16-byte vectors
 //         of do1..do3, and the three sums over D run over the row's L lanes
 //         by a butterfly (xor 1, 2, ..., L/2): a fixed order, so two calls
 //         give the same bits.  Lane k < 3 of a row stores dg_k: the warp's
@@ -22,12 +22,13 @@
 //   warp  any other D or alignment: one warp a row (grid-stride over rows),
 //         lanes walk the row's elements side by side, warp reductions for
 //         dg, written by lane 0.
-#include "common.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;   // rows in flight per block (warp kernel)
-constexpr int kThreads = 256;
+constexpr int kThreads = rt::kEpilogueThreads;
+using rt::Vec;
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -64,40 +65,6 @@ epilogue_bwd_warp(const T* __restrict__ o1, const T* __restrict__ o2,
   }
 }
 
-// One 16-byte vector as fp32 and back (4 fp32 or 8 bf16 elements).
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&x)[N]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&x)[N]) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&x)[N]) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
-      x[2 * k] = f.x, x[2 * k + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&x)[N]) {
-    uint32_t w[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
-      w[k] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
 template <typename T, int L>
 __global__ void __launch_bounds__(kThreads)
 epilogue_bwd_vec(const T* __restrict__ o1, const T* __restrict__ o2,
@@ -109,9 +76,9 @@ epilogue_bwd_vec(const T* __restrict__ o1, const T* __restrict__ o2,
                  float* __restrict__ dg3, int R, int D) {
   using V = Vec<T>;
   constexpr int N = V::N;
-  const size_t t = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  const int sub = threadIdx.x % L;
-  const size_t r = t / L;
+  const rt::RowLane<L> at;
+  const size_t r = at.row;
+  const int sub = at.sub;
   const bool live = r < (size_t)R;
   float mr = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
   if (live) mr = m[r], a1 = g1[r], a2 = g2[r], a3 = g3[r];
@@ -176,8 +143,7 @@ int launch_vec(const void* o1, const void* o2, const void* o3, const void* g1,
                void* do1, void* do2, void* do3, void* dg1, void* dg2, void* dg3,
                int R, int D, cudaStream_t stream) {
   if (D % Vec<T>::N) return (int)cudaErrorInvalidValue;
-  const size_t blocks = ((size_t)R * L + kThreads - 1) / kThreads;
-  epilogue_bwd_vec<T, L><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  epilogue_bwd_vec<T, L><<<rt::epilogue_vec_blocks(R, L), kThreads, 0, stream>>>(
       static_cast<const T*>(o1), static_cast<const T*>(o2), static_cast<const T*>(o3),
       static_cast<const float*>(g1), static_cast<const float*>(g2),
       static_cast<const float*>(g3), static_cast<const float*>(m),
@@ -210,7 +176,7 @@ int launch(const void* o1, const void* o2, const void* o3, const void* g1,
 }  // namespace
 
 // lanes: 0 = the warp kernel, else the vec kernel with `lanes` lanes a row
-// (kernels/epilogue.py::epilogue_bwd_plan)
+// (kernels/epilogue.py::epilogue_plan)
 extern "C" int epilogue_bwd(const void* o1, const void* o2, const void* o3,
                             const void* g1, const void* g2, const void* g3,
                             const void* m, const void* dout, void* do1, void* do2,

@@ -42,8 +42,9 @@ SIGNATURES = {
     # q, kb, vb, idx, tok_bias, o, lse, B, Hkv, G, M, NB, ell, k_star, D, bf16,
     # path (0 warp, 1 tiles, 2 groups), stream
     "selection_fwd": [P] * 7 + [I] * 10 + [P],
-    # o1, o2, o3, g1, g2, g3, m, out, R, D, bf16, stream
-    "epilogue_fwd": [P] * 8 + [I] * 3 + [P],
+    # o1, o2, o3, g1, g2, g3, m, out, R, D, H, gs1, gs2, gs3, bf16, lanes (0 = the
+    # warp kernel), stream
+    "epilogue_fwd": [P] * 8 + [I] * 8 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dq, dk, dv, BH, rep, N, D, ball,
     # n_heads, bf16, tiles, stream
     "bta_bwd": [P] * 11 + [I] * 8 + [P],
@@ -85,6 +86,8 @@ SIGNATURES = {
     "local_dkv": [P] * 10 + [I] * 8 + [P],
     # pool, rows, out, R, M, row_bytes, idx64, stream
     "paged_gather": [P] * 3 + [I] * 4 + [P],
+    # k_pool, v_pool, rows, k_out, v_out, R, M, row_bytes, idx64, stream
+    "paged_gather_pair": [P] * 5 + [I] * 4 + [P],
 }
 
 _lib = None

@@ -5,7 +5,8 @@ Counterpart of ``repro/kernels/ops.py`` (``ball_attention``,
 ``flash_attention``, ``local_window_attention``, ``selection_attention``,
 ``gated_combine``, the packed-varlen ``flash_attention_varlen``,
 ``ball_attention_varlen``, ``local_window_attention_varlen``,
-``selection_attention_varlen``, and the paged decode's ``paged_gather``);
+``selection_attention_varlen``, and the paged decode's ``paged_gather`` and
+``paged_gather_pair``);
 these are what the ``"kernels"`` backend dispatches to.  The contract is the JAX
 one: q (B, N, Hq, D), k/v (B, L, Hkv, D) with Hq = Hkv·rep and query head
 h·rep + r belonging to KV head h; masks are (B, L) bool with True = real
@@ -28,7 +29,7 @@ from repro_torch.numerics import key_padding_bias, mask_to_bias
 __all__ = ["ball_attention", "flash_attention", "local_window_attention",
            "selection_attention", "gated_combine", "flash_attention_varlen",
            "ball_attention_varlen", "local_window_attention_varlen",
-           "selection_attention_varlen", "paged_gather"]
+           "selection_attention_varlen", "paged_gather", "paged_gather_pair"]
 
 
 def _to_bh(t):
@@ -126,21 +127,19 @@ def selection_attention(q, k, v, top_idx, sel_valid, mask, *, block_size: int,
 
 def gated_combine(outs, gates, mask):
     """Fused gate-and-mask epilogue over the three branch outputs.
-    ``outs``: three (B, N, H, D) tensors; ``gates``: three fp32 tensors
-    broadcastable to (B, N, H, 1) (per-head gates are expanded to rows here
-    and their row gradients sum back through the expand); ``mask``: (B, N)
-    bool or None.  Returns (B, N, H, D) in ``outs[0].dtype``."""
+    ``outs``: three (B, N, H, D) tensors; ``gates``: three fp32 tensors of
+    (1, 1, H, 1) (one gate a head) or (B, N, H, 1) (one a row, possibly a
+    strided slice of the layer's gate projection); ``mask``: (B, N) bool or
+    None.  The kernel reads them as they are: each gate as a (1 | B·N, H)
+    view, the mask as (B·N,), with no (B·N·H,) copy (a gate of another
+    shape, or one no view reaches, raises).  Returns (B, N, H, D) in ``outs[0].dtype``."""
     o1, o2, o3 = outs
     B, N, H, D = o1.shape
     R = B * N * H
-    g1, g2, g3 = (g.float().expand(B, N, H, 1).reshape(R) for g in gates)
-    if mask is None:
-        m = torch.ones(R, dtype=torch.float32, device=o1.device)
-    else:
-        m = mask[:, :, None].expand(B, N, H).reshape(R).float()
-    out = epilogue.GatedCombineFn.apply(*(o.reshape(R, D) for o in (o1, o2, o3)),
-                                        g1, g2, g3, m)
-    return out.reshape(B, N, H, D)
+    g1, g2, g3 = (g.view(g.shape[0] * g.shape[1], H) for g in gates)
+    m = None if mask is None else mask.reshape(B * N)
+    out = epilogue.GatedCombineFn.apply(*(o.reshape(R, D) for o in outs), g1, g2, g3, m)
+    return out.view(B, N, H, D)
 
 
 # ---------------------------------------------------------------------------
@@ -214,3 +213,9 @@ def paged_gather(pool, rows):
     """Gather pool rows for the paged decode: ``pool`` (R, Hkv, D) flat KV
     pool, ``rows`` integer of any shape → ``rows.shape + (Hkv, D)``."""
     return paged.paged_gather(pool, rows)
+
+
+def paged_gather_pair(k_pool, v_pool, rows):
+    """Gather the same rows of the K and the V pool in one launch:
+    ``(k_pool[rows], v_pool[rows])``, each ``rows.shape + (Hkv, D)``."""
+    return paged.paged_gather_pair(k_pool, v_pool, rows)

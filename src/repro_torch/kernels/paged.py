@@ -16,6 +16,12 @@ warp copies one row with 16-byte vector loads, neighbouring lanes on
 neighbouring addresses.  The kernel reads int32 or int64 indices itself,
 and the wrapper neither casts nor reshapes them: a call is one
 ``torch.empty`` and one launch.
+
+``paged_gather_pair(k_pool, v_pool, rows)`` gathers the K and the V pool
+with the same rows in one launch (``csrc/paged_gather.cu``'s
+``paged_gather_pair``): the paged decode fetches every row set from both
+pools, and at its sizes the call, not the copy, is the cost.  One
+``torch.empty`` holds both outputs, returned as two views.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import _counter, check_cuda_inputs, on_cpu
 
-__all__ = ["paged_gather", "paged_gather_plain", "COUNT"]
+__all__ = ["paged_gather", "paged_gather_plain", "paged_gather_pair",
+           "paged_gather_pair_plain", "COUNT", "COUNT_PAIR"]
 
 COUNT = _counter("paged_gather")
+COUNT_PAIR = _counter("paged_gather_pair")
 
 
 def _check(pool, rows):
@@ -71,9 +79,42 @@ def paged_gather(pool, rows):
             return paged_gather_plain(pool, rows)
         check_cuda_inputs("paged_gather", data=(pool,), index=(rows,))
     R, H, D = pool.shape
-    out = torch.empty((*rows.shape, H, D), dtype=pool.dtype, device=pool.device)
+    out = pool.new_empty((*rows.shape, H, D))     # less host work than torch.empty(device=)
     _build.launch("paged_gather", pool.data_ptr(), rows.data_ptr(), out.data_ptr(), R,
                   rows.numel(), H * D * pool.element_size(), int(rows.dtype == torch.int64),
                   torch._C._cuda_getCurrentRawStream(pool.get_device()))
     COUNT.hit()
     return out
+
+
+def paged_gather_pair_plain(k_pool, v_pool, rows):
+    """Plain PyTorch version of the pair kernel: two calls of
+    :func:`paged_gather_plain` with the same rows."""
+    return paged_gather_plain(k_pool, rows), paged_gather_plain(v_pool, rows)
+
+
+def paged_gather_pair(k_pool, v_pool, rows):
+    """``(k_pool[rows], v_pool[rows])`` (negative from the end, then
+    clamped) for two pools of one shape and dtype: one CUDA launch on CUDA
+    tensors, the plain version on CPU tensors.  ``rows``: int32 or int64
+    tensor of any shape (contiguous on the card)."""
+    if not (_kernel_takes(k_pool, rows) and v_pool.is_cuda
+            and v_pool.get_device() == k_pool.get_device() and v_pool.dtype == k_pool.dtype
+            and v_pool.shape == k_pool.shape and v_pool.is_contiguous()):
+        _check(k_pool, rows)
+        _check(v_pool, rows)
+        if v_pool.shape != k_pool.shape or v_pool.dtype != k_pool.dtype:
+            raise ValueError(f"paged_gather_pair: the pools differ: {tuple(k_pool.shape)} "
+                             f"{k_pool.dtype} and {tuple(v_pool.shape)} {v_pool.dtype}")
+        if on_cpu(k_pool, v_pool, rows):
+            return paged_gather_pair_plain(k_pool, v_pool, rows)
+        check_cuda_inputs("paged_gather_pair", data=(k_pool, v_pool), index=(rows,))
+    R, H, D = k_pool.shape
+    out = k_pool.new_empty((2, *rows.shape, H, D))
+    M, row_bytes = rows.numel(), H * D * k_pool.element_size()
+    _build.launch("paged_gather_pair", k_pool.data_ptr(), v_pool.data_ptr(), rows.data_ptr(),
+                  out.data_ptr(), out.data_ptr() + M * row_bytes, R, M, row_bytes,
+                  int(rows.dtype == torch.int64),
+                  torch._C._cuda_getCurrentRawStream(k_pool.get_device()))
+    COUNT_PAIR.hit()
+    return out.unbind(0)

@@ -12,7 +12,7 @@ CUDA kernels: ``bta_fwd``, ``flash_fwd``, ``selection_fwd`` and
 reference.  Section 5 swaps the ``reference`` and ``kernels`` backends
 with no change at the call site.  Its asserts are the example's.  Section
 7 (the ``"sharded"`` backend over a device mesh) waits for the
-distributed layer (ROADMAP queue 1 item 6).
+distributed layer (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations

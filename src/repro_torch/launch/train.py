@@ -18,7 +18,7 @@ start after the last batch it trained on (its ``data_state``).
 or a registered name) in the config; ``$REPRO_TORCH_ATTENTION_BACKEND``
 beats it.  It runs on ``cuda`` unless ``--device cpu`` is given; there is
 no fallback from one to the other.  The JAX launcher's ``--mesh`` and
-``--distributed`` wait for the distributed layer (ROADMAP queue 1 item 6).
+``--distributed`` wait for the distributed layer (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def main(argv=None) -> float:
     trainer = Trainer(api, cfg, device=args.device)
 
     model, opt_state = trainer.init_state()
-    model, opt_state, done = trainer.maybe_restore(model, opt_state)
+    model, opt_state, step0 = trainer.maybe_restore(model, opt_state)
     if mcfg.family == "pointcloud":
         data = ShapeNetCarDataset("train", ball_size=mcfg.bsa.ball_size).batches(
             args.batch, seed=0)
@@ -69,7 +69,7 @@ def main(argv=None) -> float:
         data = lm_batches(vocab_size=mcfg.vocab_size, batch_size=args.batch,
                           seq_len=args.seq, seed=0,
                           start_step=state["step"] + 1 if state else 0)
-    trainer.fit(data, steps=args.steps, model=model, opt_state=opt_state, start_step=done)
+    trainer.fit(data, steps=args.steps, model=model, opt_state=opt_state, start_step=step0)
     loss = trainer.metrics_history[-1]["loss"]
     print(f"done: {args.steps} steps of {args.arch}, wall {trainer.wall_time:.1f}s on "
           f"{args.device}, stragglers {len(trainer.watchdog.straggler_events)}")

@@ -48,7 +48,7 @@ def layer_spec(mcfg) -> list[tuple[str, str]]:
     if mcfg.family != "dense":
         raise NotImplementedError(
             f"family {mcfg.family!r} (MoE / mamba mixers) is not ported yet: it comes "
-            "with the other model families (ROADMAP queue 1 item 10)")
+            "with the other model families (ROADMAP queue 1 item 2)")
     return [("attn", "dense" if mcfg.d_ff else "none")]
 
 

@@ -7,13 +7,17 @@ point-cloud models and the LMs (everything goes through
 ``make_train_step`` updates the model and the optimizer state in place.
 Weights are drawn from ``TrainerConfig.seed`` on the trainer's device
 (``cuda`` unless the caller asks for the CPU).  A checkpoint holds
-``{"params": the model's named parameters, "opt": the AdamW state}``; its
-step, like the step a log line and ``metrics_history`` name, is the number
-of optimizer steps done (the JAX trainer names both by the index of the
-last step, one less), so a resumed ``fit`` goes on from it.  A batch's
-``_state`` (the LM pipeline's (seed, step)) goes into the checkpoint's
-``extra`` as ``data_state``.  There is
-no mesh and no sharding rules (ROADMAP queue 1 item 6).
+``{"params": the model's named parameters, "opt": the AdamW state}``.
+Steps are numbered as the JAX trainer numbers them: a log line, an entry
+of ``metrics_history`` and a checkpoint name the loop index of the step
+(0 for the first), a checkpoint is saved where that index is a multiple
+of ``ckpt_every``, on SIGTERM and at the last step, never at the first
+step of a ``fit``, and a resumed ``fit`` starts at the checkpoint's index.
+So the step a resume starts with repeats that index, as in JAX; the
+schedule reads the optimizer's own count (``opt_state["step"]``), which
+goes on from the checkpoint's.  A batch's ``_state`` (the LM pipeline's
+(seed, step)) goes into the checkpoint's ``extra`` as ``data_state``.
+There is no mesh and no sharding rules (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -87,7 +91,8 @@ class Trainer:
         parameters and the moments are filled in place, and ``data_state``
         becomes the checkpoint's (the ``_state`` of the last batch it
         trained on; None without one), for the caller to restart its data
-        from.  Returns (model, opt_state, steps done)."""
+        from.  Returns (model, opt_state, the checkpoint's step index: the
+        ``step0`` a resumed ``fit`` starts at)."""
         self.data_state = None
         if self.ckpt is None or latest_step(self.cfg.ckpt_dir) is None:
             return model, opt_state, 0
@@ -98,8 +103,9 @@ class Trainer:
 
     def _install_sigterm(self):
         """SIGTERM sets a flag: the step it lands in saves (blocking) and the
-        loop stops.  Returns the previous handler, or None off the main
-        thread, where a handler cannot be installed."""
+        loop stops, past a fit's first step (as in JAX).  Returns the
+        previous handler, or None off the main thread, where a handler
+        cannot be installed."""
         def handler(signum, frame):
             self._preempted = True
         try:
@@ -140,22 +146,21 @@ class Trainer:
                 self.watchdog.step(step, dt)
 
                 last = step == step0 + steps - 1
-                done = step + 1
                 if step % self.cfg.log_every == 0 or last:
                     m = {k: float(v) for k, v in metrics.items()}
-                    m.update(loss=loss, step=done, step_time_s=dt)
+                    m.update(loss=loss, step=step, step_time_s=dt)
                     self.metrics_history.append(m)
-                    print(f"step {done:4d}  loss {loss:.5f}  grad_norm "
+                    print(f"step {step:4d}  loss {loss:.5f}  grad_norm "
                           f"{m.get('grad_norm', 0.0):.4f}  lr {m['lr']:.2e}  "
                           f"{dt * 1e3:.0f} ms", flush=True)
-                if self.ckpt and (done % self.cfg.ckpt_every == 0 or self._preempted
-                                  or last):
-                    self.ckpt.save(done, {"params": dict(model.named_parameters()),
+                if self.ckpt and step > step0 and (step % self.cfg.ckpt_every == 0
+                                                   or self._preempted or last):
+                    self.ckpt.save(step, {"params": dict(model.named_parameters()),
                                           "opt": opt_state},
                                    extra={"data_state": state} if state else None,
                                    block=self._preempted)
                     if self._preempted:
-                        print(f"preempted: state saved at step {done}", flush=True)
+                        print(f"preempted: state saved at step {step}", flush=True)
                         break
         finally:
             self.watchdog.stop()

@@ -103,7 +103,7 @@ def test_core_exports_a_counterpart_of_every_jax_name():
         if mapped is not None:
             assert hasattr(t_core, mapped), f"repro_torch.core lacks {mapped} ({name})"
     assert [n for n in names if RENAMED.get(n, n) is None] == ["Backend"]
-    assert "queue 1 item 6" in doc                 # the sharded backend, not faked
+    assert "queue 1 item 3" in doc                 # the sharded backend, not faked
     from repro_torch.core import (BSAConfig, bsa_attention, bsa_attention_varlen,  # noqa
                                   erwin_attention, full_attention, nsa_causal_attention,
                                   pack_varlen, ragged_ball_order, resolve_backend,
@@ -223,10 +223,10 @@ def test_configs_registered_and_the_rest_raise():
     assert set(NEW_LMS) <= set(list_configs())
     assert list_archs()[:4] == ["granite-20b", "tinyllama-1.1b", "phi4-mini-3.8b",
                                 "stablelm-1.6b"]
-    with pytest.raises(KeyError, match="qwen2-moe-a2.7b.*queue 1 item 5"):
+    with pytest.raises(KeyError, match="qwen2-moe-a2.7b.*queue 1 item 2"):
         get_config("qwen2-moe-a2.7b")
     for arch in list_archs()[4:]:
-        with pytest.raises(KeyError, match="queue 1 item 5"):
+        with pytest.raises(KeyError, match="queue 1 item 2"):
             get_config(arch)
     with pytest.raises(KeyError, match="unknown config"):
         get_config("no-such-model")

@@ -306,5 +306,5 @@ def test_train_cli_runs_elasticity_on_cpu(capsys, monkeypatch):
     mse = train_shapenet.main(["--arch", "elasticity-full", "--device", "cpu",
                                "--layers", "1", "--steps", "2", "--batch", "2"])
     out = capsys.readouterr().out
-    assert "step    2" in out and "[elasticity-full] test MSE" in out
+    assert "step    1" in out and "[elasticity-full] test MSE" in out
     assert np.isfinite(mse) and seen == ["ElasticityDataset"]

@@ -4,7 +4,8 @@ The blocked local-window kernel's plain version and the paged row gather's
 plain version against the Pallas kernels in interpret mode, RoPE,
 ``nsa_causal_attention`` branch by branch, the paged decode against the
 full-sequence forward (a staggered, shuffled-table oracle, as the JAX
-suite's) and against JAX's decode, and a 2-layer smoke tinyllama's
+suite's) and against JAX's decode (and its four pair gathers a step), and
+a 2-layer smoke tinyllama's
 ``lm_apply`` logits and ``lm_decode_step`` on converted weights.  The same
 numpy inputs from a seed go to both packages.  Tolerances: the kernels'
 plain versions fp32 1e-5, bf16 4e-2; decode against the forward 2e-5 (the
@@ -318,6 +319,61 @@ def test_paged_decode_matches_forward_and_jax(backend):
     assert got.keys() == want.keys() and len(got) == sum(lens)
     for (s, p), row in got.items():
         np.testing.assert_allclose(row, ref[s, p], **ORACLE_TOL, err_msg=f"slot {s} pos {p}")
+        np.testing.assert_allclose(row, want[s, p], **TOL, err_msg=f"slot {s} pos {p}")
+
+
+def test_paged_decode_gathers_kv_pairs_and_matches_jax(monkeypatch):
+    """Each step of the paged decode on the kernels backend (their plain
+    versions here) fetches its four row sets (φ-block, completed compressed
+    row, local window, compressed rows) with one ``paged_gather_pair`` call
+    each and no single-pool gather, and equals JAX's
+    ``nsa_causal_decode_paged`` step for step."""
+    B, Hq, Hkv, D = 3, 4, 2, 16
+    page, n_pages, num_blocks, N_pad = 32, 4, 12, 64
+    lens, starts = [40, 33, 9], [0, 5, 30]
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((B, N_pad, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, N_pad, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, N_pad, Hkv, D)).astype(np.float32)
+    jp, tp = _nsa_pair(SMOKE, Hq, Hkv, D)
+    cfg, jcfg = BSAConfig(**SMOKE), JBSAConfig(**SMOKE, backend="jnp")
+    calls = {"pair": 0, "single": 0}
+    pair, single = t_paged.paged_gather_pair, t_paged.paged_gather
+
+    def count(key, fn):
+        def spy(*args):
+            calls[key] += 1
+            return fn(*args)
+        return spy
+
+    monkeypatch.setattr(t_paged, "paged_gather_pair", count("pair", pair))
+    monkeypatch.setattr(t_paged, "paged_gather", count("single", single))
+    per_step = []
+    with use_backend("kernels"):
+        cache = t_nsa.init_paged_decode_cache(num_blocks, page, Hkv, D, cfg,
+                                              dtype=torch.float32)
+
+        def step(q1, k1, v1, table, lengths):
+            before = calls["pair"]
+            out, _ = t_nsa.nsa_causal_decode_paged(
+                tp, _t(q1), _t(k1), _t(v1), cache, torch.from_numpy(table),
+                torch.from_numpy(lengths), cfg=cfg, page=page)
+            per_step.append(calls["pair"] - before)
+            return out
+        got = _staggered_decode(step, q, k, v, B, page, n_pages, num_blocks, lens, starts)
+    assert set(per_step) == {4} and calls["single"] == 0
+
+    jcache = [j_nsa.init_paged_decode_cache(num_blocks, page, Hkv, D, jcfg,
+                                            dtype=jnp.float32)]
+    jstep = jax.jit(lambda p, a, b, c, cc, tt, ll: j_nsa.nsa_causal_decode_paged(
+        p, a, b, c, cc, tt, ll, cfg=jcfg, page=page))
+
+    def jax_step(q1, k1, v1, table, lengths):
+        out, jcache[0] = jstep(jp, q1, k1, v1, jcache[0], table, lengths)
+        return out
+    want = _staggered_decode(jax_step, q, k, v, B, page, n_pages, num_blocks, lens, starts)
+    assert got.keys() == want.keys() and len(got) == sum(lens)
+    for (s, p), row in got.items():
         np.testing.assert_allclose(row, want[s, p], **TOL, err_msg=f"slot {s} pos {p}")
 
 

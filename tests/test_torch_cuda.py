@@ -24,14 +24,19 @@ windows 64-256 and with or without segments (a padded tail, a dead block, a mask
 with the local backward run from its lse.  The causal LM's kernels:
 ``local_fwd``, ``local_dq`` and
 ``local_dkv`` with a mask, a dead block, a masked slot and packed segments
-(windows 32 and 256), ``paged_gather`` with out-of-range rows and unaligned
-rows, int32 and int64 indices, one kernel a call, and a 2-layer smoke tinyllama's forward, paged decode and (with remat)
+(windows 32 and 256), ``paged_gather`` and ``paged_gather_pair`` with
+out-of-range rows and unaligned rows, int32 and int64 indices, one kernel a
+call, and a 2-layer smoke tinyllama's forward, paged decode (four pair
+gathers a layer and step) and (with remat)
 gradients against the reference backend.  The fp32 groups path of
 ``selection_fwd`` at shapenet's serving and packed shapes and at D 16 / 64,
 M 5 / 12 and a tail (dead groups, duplicate picks, an index of NB, a masked
 tail; identical bits on two calls), the shapes that keep the warp kernel,
-``epilogue_bwd`` on both of its kernels at D 12-128 in both dtypes (odd R,
-an input off 16 bytes; identical bits on two calls, two output buffers), and
+``epilogue_bwd`` and ``epilogue_fwd`` on both of their kernels at D 12-128
+in both dtypes (odd R, an input off 16 bytes; identical bits on two calls;
+the backward's two output buffers; the forward's per-head, per-row and
+strided gates, with and without a mask, and ``ops.gated_combine`` one
+kernel a call), and
 the loaded entry points' signatures.  The paper's other workloads: the
 flash kernels at a square shape with a key mask (the full baseline; two
 ``flash_dkv`` calls give identical bits), ``erwin_attention`` at levels 0–2
@@ -301,11 +306,80 @@ def test_epilogue_kernel(cuda, dtype):
     from repro_torch.kernels import epilogue
     R = B * N * HQ
     os_ = [_rand((R, D), dtype, cuda, 10 + i) for i in range(3)]
-    gs = [torch.rand(R, device=cuda) for _ in range(3)]
-    m = (torch.rand(R, device=cuda) > 0.3).float()
+    gs = [torch.rand(R // HQ, HQ, device=cuda) for _ in range(3)]
+    m = torch.rand(R // HQ, device=cuda) > 0.3
     got = epilogue.gated_combine_fwd(*os_, *gs, m)
     want = epilogue.gated_combine_fwd_plain(*os_, *gs, m)
     _check((got,), (want,), dtype)
+
+
+# (R, D, dtype, shift): the forward's vec kernel at D 16-128 in both dtypes
+# on odd token counts, 12 vectors on 8 lanes (D 48), bf16 D 40; the warp
+# kernel at D 12 bf16, D 30 fp32 and on inputs 4 bytes off 16 (shift)
+EPI_FWD_CASES = [(R, D, dt, 0) for D in (16, 32, 64, 128)
+                 for dt in (torch.float32, torch.bfloat16) for R in (3, 4101)] + [
+    (519, 48, torch.float32, 0), (519, 40, torch.bfloat16, 0),
+    (519, 12, torch.bfloat16, 0), (519, 30, torch.float32, 0), (519, 32, torch.float32, 1)]
+
+
+@pytest.mark.parametrize("gates", ["head", "row", "slice"])
+@pytest.mark.parametrize("R,head_dim,dtype,shift", EPI_FWD_CASES,
+                         ids=[f"R{r}-D{d}-{str(t)[6:]}-s{s}" for r, d, t, s in EPI_FWD_CASES])
+def test_epilogue_fwd_paths(cuda, R, head_dim, dtype, shift, gates):
+    """``epilogue_fwd`` on both kernels of :func:`epilogue.epilogue_plan`
+    against the plain version (within the tolerance: the kernel may fuse a
+    product and a sum, the plain version rounds each), with one gate a head, one a row
+    and the token-mode slice of a (T, 3H) projection, with and without the
+    mask: identical bits on two calls, one launch a call."""
+    from repro_torch.kernels import epilogue
+    H = 3
+    def rows(seed):
+        t = _rand((R * head_dim + shift,), dtype, cuda, seed)
+        return t[shift:].view(R, head_dim)
+    os_ = [rows(40 + i) for i in range(3)]
+    T = R // H
+    g = torch.Generator(device=cuda).manual_seed(1)
+    if gates == "head":
+        gs = [torch.rand(1, H, device=cuda, generator=g) for _ in range(3)]
+    elif gates == "row":
+        gs = [torch.rand(T, H, device=cuda, generator=g) for _ in range(3)]
+    else:
+        proj = torch.rand(T, 3 * H, device=cuda, generator=g)
+        gs = [proj[:, i * H:(i + 1) * H] for i in range(3)]
+    plan = epilogue.epilogue_plan(head_dim, dtype, shift == 0)
+    assert plan.path == ("warp" if shift or head_dim in (12, 30) else "vec")
+    for m in (torch.rand(T, device=cuda, generator=g) > 0.3, None):
+        before = epilogue.COUNT.n
+        first = epilogue.gated_combine_fwd(*os_, *gs, m)
+        second = epilogue.gated_combine_fwd(*os_, *gs, m)
+        torch.cuda.synchronize()
+        assert epilogue.COUNT.n == before + 2
+        assert torch.equal(first, second)
+        want = epilogue.gated_combine_fwd_plain(*os_, *gs, m)
+        _check((first,), (want,), dtype)
+
+
+def test_gated_combine_launches_only_the_forward_kernel(cuda):
+    """The layer's call (``ops.gated_combine``, per-head gates, a mask)
+    launches ``epilogue_fwd`` and no other kernel: no (R,) copy of a gate
+    or of the mask."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    outs = [_rand((B, N, HQ, D), torch.float32, cuda, 50 + i) for i in range(3)]
+    gates = [torch.rand(HQ, device=cuda)[None, None, :, None] for _ in range(3)]
+    mask = _mask(cuda)
+    ops.gated_combine(outs, gates, mask)
+    torch.cuda.synchronize()
+    for _ in range(3):          # a trace now and then holds no device event: take it again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ops.gated_combine(outs, gates, mask)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "epilogue_fwd" in kernels[0], kernels
 
 
 def test_model_kernels_match_reference(cuda):
@@ -551,7 +625,7 @@ EPI_CASES = [(R, D, dt, 0) for D in (16, 32, 64, 128)
 @pytest.mark.parametrize("R,head_dim,dtype,shift", EPI_CASES,
                          ids=[f"R{r}-D{d}-{str(t)[6:]}-s{s}" for r, d, t, s in EPI_CASES])
 def test_epilogue_bwd_paths(cuda, R, head_dim, dtype, shift):
-    """``epilogue_bwd`` on both kernels of :func:`epilogue.epilogue_bwd_plan`
+    """``epilogue_bwd`` on both kernels of :func:`epilogue.epilogue_plan`
     against the plain version: identical bits on two calls, one launch a
     call, two buffers for the six outputs."""
     from repro_torch.kernels import epilogue
@@ -562,7 +636,7 @@ def test_epilogue_bwd_paths(cuda, R, head_dim, dtype, shift):
     do = rows(34)
     gs = [torch.rand(R, device=cuda) for _ in range(3)]
     m = (torch.rand(R, device=cuda) > 0.3).float()
-    plan = epilogue.epilogue_bwd_plan(head_dim, dtype, shift == 0)
+    plan = epilogue.epilogue_plan(head_dim, dtype, shift == 0)
     assert plan.path == ("warp" if shift or head_dim in (12, 30) else "vec")
     before = epilogue.COUNT_BWD.n
     first = epilogue.gated_combine_bwd(*os_, *gs, m, do)
@@ -1019,10 +1093,47 @@ def test_paged_gather_kernel(cuda, dtype, shape, index):
         [e.name for e in kernels] and len(kernels) == 1, [e.name for e in kernels]
 
 
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype,shape,shift", [(torch.float32, (40, 2, 16), 0),
+                                               (torch.bfloat16, (40, 2, 16), 0),
+                                               (torch.float32, (40, 2, 16), 1),  # words
+                                               (torch.bfloat16, (40, 1, 3), 0)])  # bytes
+def test_paged_gather_pair_kernel(cuda, dtype, shape, shift, index):
+    """The pair kernel equals two plain gathers exactly, int32 and int64
+    rows past the end, from the end and before 0, pools off 16 bytes;
+    two calls give the same bits, and one call is one kernel on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import paged
+    n = int(np.prod(shape))
+    pools = [_rand((n + shift,), dtype, cuda, 86 + i)[shift:].view(shape) for i in range(2)]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rows = torch.randint(0, 40, (5, 9), generator=g, device=cuda).to(index)
+    rows[0, :4] = torch.tensor([40, 57, -1, -45])
+    before = paged.COUNT_PAIR.n
+    k, v = paged.paged_gather_pair(*pools, rows)
+    k2, v2 = paged.paged_gather_pair(*pools, rows)
+    torch.cuda.synchronize()
+    assert paged.COUNT_PAIR.n == before + 2
+    assert k.shape == v.shape == (5, 9) + shape[1:]
+    for got, again, want in zip((k, v), (k2, v2), paged.paged_gather_pair_plain(*pools, rows)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        assert torch.equal(got, again)
+    for _ in range(3):          # a trace now and then holds no device event: take it again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            paged.paged_gather_pair(*pools, rows)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "paged_gather" in kernels[0], kernels
+
+
 def test_lm_kernels_match_reference(cuda):
     """A 2-layer smoke tinyllama on the card: the forward launches the four
     LM forward kernels once a layer and matches the reference backend; the
-    paged decode launches 8 row gathers a layer and step and matches too."""
+    paged decode launches 4 pair gathers a layer and step and matches too."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import smoke_config
     from repro_torch.core.backend import use_backend
@@ -1048,7 +1159,8 @@ def test_lm_kernels_match_reference(cuda):
         reset_counters()
         got, caches["kernels"] = api.paged_decode_step(model, tok, caches["kernels"], table,
                                                        lengths, 32)
-        assert COUNTERS["paged_gather"].n == 8 * cfg.n_layers
+        assert COUNTERS["paged_gather_pair"].n == 4 * cfg.n_layers
+        assert COUNTERS["paged_gather"].n == 0
         with use_backend("reference"):
             want, caches["ref"] = api.paged_decode_step(model, tok, caches["ref"], table,
                                                         lengths, 32)

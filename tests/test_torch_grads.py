@@ -285,11 +285,12 @@ def test_epilogue_bwd_plain_is_autograd_of_forward():
     R = 64
     outs = [torch.from_numpy(a) for a in _arrays(64, *([(R, D)] * 3))]
     gates = [torch.rand(R, generator=torch.Generator().manual_seed(i)) for i in range(3)]
-    m = (torch.arange(R) % 3 != 0).float()
+    m = torch.arange(R) % 3 != 0
     leaves = [t.clone().requires_grad_(True) for t in outs + gates]
-    out = epilogue.gated_combine_fwd_plain(*leaves, m)
+    # the forward reads a row's gate as (R/H, H) = (R, 1) here and the mask per token
+    out = epilogue.gated_combine_fwd_plain(*leaves[:3], *(g[:, None] for g in leaves[3:]), m)
     do = torch.from_numpy(_arrays(65, (R, D))[0])
     out.backward(do)
-    got = epilogue.gated_combine_bwd_plain(*outs, *gates, m, do)
+    got = epilogue.gated_combine_bwd_plain(*outs, *gates, m.float(), do)
     for g, t in zip(got, leaves):
         torch.testing.assert_close(g, t.grad, atol=1e-6, rtol=1e-6)

@@ -122,7 +122,8 @@ def test_cpu_runs_move_no_kernel_counter(backend):
                              "bta_bwd", "flash_dq", "flash_dkv", "selection_bwd",
                              "selection_dq", "selection_dkv",
                              "epilogue_bwd", "varlen_fwd", "varlen_dq", "varlen_dkv",
-                             "local_fwd", "local_dq", "local_dkv", "paged_gather"}
+                             "local_fwd", "local_dq", "local_dkv", "paged_gather",
+                             "paged_gather_pair"}
     assert all(c.n == 0 for c in COUNTERS.values())
 
 

@@ -148,9 +148,10 @@ def test_epilogue_plain_matches_pallas(dtype):
     pairs = [_pair(o, dtype) for o in os_]
     want = j_epi._fwd_call(*(p[0] for p in pairs), *(jnp.asarray(g) for g in gs),
                            jnp.asarray(m), tile=64, interpret=True)
+    # the port's kernel reads per-row gates as (B·N, H) and the mask per token
     got = epilogue.gated_combine_fwd(*(p[1] for p in pairs),
-                                     *(torch.from_numpy(g[:, 0]) for g in gs),
-                                     torch.from_numpy(m[:, 0]))
+                                     *(torch.from_numpy(g).view(B * N, HQ) for g in gs),
+                                     torch.from_numpy(_mask().reshape(-1)))
     _close(got, want, dtype)
 
 

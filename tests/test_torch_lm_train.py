@@ -343,5 +343,5 @@ def test_train_cli_runs_on_cpu(capsys):
     loss = train.main(["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
                        "--seq", "64"])
     out = capsys.readouterr().out
-    assert "step    1" in out and "step    2" in out and "done: 2 steps" in out
+    assert "step    0" in out and "step    1" in out and "done: 2 steps" in out
     assert np.isfinite(loss)

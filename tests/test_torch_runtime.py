@@ -10,7 +10,10 @@ watchdog and trainer tests, and more).
   on counting optimizer steps; 2 steps then 2 resumed equal 4 straight
   bit for bit; SIGTERM during ``fit`` saves that step and stops; 2 steps
   on weights converted from JAX match JAX's ``Trainer`` (losses and
-  parameters, 1e-3 as ``tests/test_torch_train.py``);
+  parameters, 1e-3 as ``tests/test_torch_train.py``); on a tiny
+  ``shapenet-bsa`` both packages' ``Trainer`` write the same checkpoint
+  names and log step labels and resume at the same step (the loop index,
+  as JAX numbers it);
 * the ``launch.train`` and ``launch.train_shapenet --var-points --ckpt``
   CLIs on the CPU.
 """
@@ -30,6 +33,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs.reduce import smoke_config as j_smoke_config
 from repro.data import lm as j_lm
 from repro.models.api import model_api as j_model_api
+from repro.core.config import BSAConfig as JBSAConfig
 from repro.optim import adamw as j_adamw
 from repro.runtime import Trainer as JTrainer
 from repro.runtime import TrainerConfig as JTrainerConfig
@@ -38,6 +42,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.reduce import smoke_config
 from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.core.backend import use_backend
+from repro_torch.core.config import BSAConfig
 from repro_torch.data import lm_batches
 from repro_torch.launch import train, train_shapenet
 from repro_torch.models.api import model_api
@@ -189,21 +194,21 @@ def test_trainer_loss_decreases_and_resumes(tmp_path):
     tr = Trainer(api, cfg, device="cpu")
     model, opt = tr.fit(_data(), steps=21)
     losses = [m["loss"] for m in tr.metrics_history]
-    assert [m["step"] for m in tr.metrics_history] == [1, 21]
+    assert [m["step"] for m in tr.metrics_history] == [0, 20]
     assert losses[-1] < losses[0], f"loss did not decrease: {losses}"
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "step_00000010", "step_00000020", "step_00000021"]
+        "step_00000010", "step_00000020"]          # step 0 is never saved
     assert opt["step"] == 21 and tr.wall_time > 0
-    meta = json.loads((tmp_path / "step_00000021" / "manifest.json").read_text())
+    meta = json.loads((tmp_path / "step_00000020" / "manifest.json").read_text())
     assert meta["extra"] == {"data_state": {"seed": 0, "step": 20}}
 
-    tr2 = Trainer(api, cfg, device="cpu")          # resume: picks up step 21
-    model2, opt2 = tr2.fit(_data(21), steps=2)
-    assert opt2["step"] == 23 and latest_step(tmp_path) == 23
-    assert [m["step"] for m in tr2.metrics_history] == [23]
-    # keep-last 3: 10 pruned after 23
+    tr2 = Trainer(api, cfg, device="cpu")          # resume: starts at step index 20
+    model2, opt2 = tr2.fit(_data(21), steps=12)
+    assert opt2["step"] == 33 and latest_step(tmp_path) == 31
+    assert [m["step"] for m in tr2.metrics_history] == [31]
+    # keep-last 3: 10 pruned after 31
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "step_00000020", "step_00000021", "step_00000023"]
+        "step_00000020", "step_00000030", "step_00000031"]
 
 
 def test_trainer_resume_is_bit_exact(tmp_path):
@@ -212,10 +217,10 @@ def test_trainer_resume_is_bit_exact(tmp_path):
     straight, _ = Trainer(api, TrainerConfig(**kw), device="cpu").fit(_data(), steps=4)
     cfg = TrainerConfig(**kw, ckpt_dir=str(tmp_path))
     _, opt = Trainer(api, cfg, device="cpu").fit(_data(), steps=2)
-    assert opt["step"] == 2 and latest_step(tmp_path) == 2
+    assert opt["step"] == 2 and latest_step(tmp_path) == 1
     tr = Trainer(api, cfg, device="cpu")
     model, opt = tr.fit(_data(2), steps=2)
-    assert opt["step"] == 4 and latest_step(tmp_path) == 4
+    assert opt["step"] == 4 and latest_step(tmp_path) == 2
     want = _params(straight)
     for n, p in model.named_parameters():
         assert torch.equal(p, want[n]), n
@@ -231,9 +236,9 @@ def test_trainer_restore_gives_the_data_state(tmp_path):
     fresh.fit(_data(), steps=3)
     tr = Trainer(api, cfg, device="cpu")
     model, opt = tr.init_state()
-    model, opt, done = tr.maybe_restore(model, opt)
-    assert done == 3 and opt["step"] == 3
-    assert tr.data_state == {"seed": 0, "step": 2}     # the last batch step 3 trained on
+    model, opt, step0 = tr.maybe_restore(model, opt)
+    assert step0 == 2 and opt["step"] == 3
+    assert tr.data_state == {"seed": 0, "step": 2}     # the last batch step 2 trained on
 
 
 def test_trainer_saves_and_stops_on_sigterm(tmp_path):
@@ -245,7 +250,7 @@ def test_trainer_saves_and_stops_on_sigterm(tmp_path):
 
     def batches():
         for i, b in enumerate(_data()):
-            if i == 2:                             # SIGTERM while step 3 is drawn
+            if i == 2:                             # SIGTERM while step 2 is drawn
                 if on_main:
                     os.kill(os.getpid(), signal.SIGTERM)
                 else:                              # no handler off the main thread
@@ -258,11 +263,11 @@ def test_trainer_saves_and_stops_on_sigterm(tmp_path):
         installed = signal.getsignal(signal.SIGTERM)
         signal.signal(signal.SIGTERM, before)
     assert installed == before                     # fit put the old handler back
-    assert opt["step"] == 3 and latest_step(tmp_path) == 3
-    assert [m["step"] for m in tr.metrics_history] == [1, 2, 3]
+    assert opt["step"] == 3 and latest_step(tmp_path) == 2
+    assert [m["step"] for m in tr.metrics_history] == [0, 1, 2]
     template = {"params": {n: torch.empty_like(p) for n, p in model.named_parameters()}}
     got, meta = CheckpointManager(tmp_path).restore(template)
-    assert meta["step"] == 3
+    assert meta["step"] == 2
     for n, p in model.named_parameters():
         assert torch.equal(got["params"][n], p), n
 
@@ -295,6 +300,48 @@ def test_trainer_matches_jax_trainer():
                                    **TOL)
 
 
+def _cloud_batches(in_dim, out_dim, start=0, B=2, N=32):
+    """Point-cloud batches of numpy arrays, batch i from seed i."""
+    i = start
+    while True:
+        rng = np.random.default_rng(i)
+        yield {"feats": rng.standard_normal((B, N, in_dim), dtype=np.float32),
+               "target": rng.standard_normal((B, N, out_dim), dtype=np.float32),
+               "mask": np.ones((B, N), bool)}
+        i += 1
+
+
+def test_trainer_numbers_steps_as_the_jax_trainer(tmp_path):
+    """The tiny ``shapenet-bsa`` of the suites, 5 steps then 3 resumed with
+    ``ckpt_every`` 3 and ``log_every`` 2, through both packages' ``Trainer``:
+    the same checkpoint directories, the same logged step labels, the same
+    resumed ``step0`` (the last checkpoint's step index)."""
+    tiny = dict(n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64)
+    bsa = dict(ball_size=16, cmp_block=4, slc_block=4, top_k=2, group_size=4)
+    japi = j_model_api(j_get_config("shapenet-bsa").scaled(
+        **tiny, bsa=JBSAConfig(**bsa, backend="jnp")))
+    tapi = model_api(get_config("shapenet-bsa").scaled(**tiny, bsa=BSAConfig(**bsa)))
+    kw = dict(base_lr=1e-3, total_steps=10, warmup_steps=1, ckpt_every=3, log_every=2)
+    dims = (tapi.mcfg.in_dim, tapi.mcfg.out_dim)
+    runs = {}
+    for name, make in (("jax", lambda d: JTrainer(japi, JTrainerConfig(**kw, ckpt_dir=d))),
+                       ("torch", lambda d: Trainer(tapi, TrainerConfig(**kw, ckpt_dir=d),
+                                                   device="cpu"))):
+        d = tmp_path / name
+        first = make(str(d))
+        first.fit(_cloud_batches(*dims), steps=5)
+        saved = sorted(p.name for p in d.iterdir())
+        again = make(str(d))
+        step0 = again.maybe_restore(*again.init_state())[2]
+        again.fit(_cloud_batches(*dims, start=5), steps=3)
+        runs[name] = (saved, [m["step"] for m in first.metrics_history], step0,
+                      [m["step"] for m in again.metrics_history],
+                      sorted(p.name for p in d.iterdir()))
+    assert runs["torch"] == runs["jax"]
+    assert runs["torch"] == (["step_00000003", "step_00000004"], [0, 2, 4], 4, [4, 6],
+                             ["step_00000003", "step_00000004", "step_00000006"])
+
+
 def test_trainer_defaults_to_the_card():
     tr = Trainer(_api(), TrainerConfig())
     assert tr.device == torch.device("cuda")
@@ -312,13 +359,13 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
             "--backend", "kernels", "--ckpt", str(tmp_path)]
     loss = train.main(argv)
     out = capsys.readouterr().out
-    assert "step    1" in out and "step    2" in out and "done: 2 steps" in out
-    assert np.isfinite(loss) and latest_step(tmp_path) == 2
-    loss = train.main(argv)                        # resumes at step 2, data at batch 2
+    assert "step    0" in out and "step    1" in out and "done: 2 steps" in out
+    assert np.isfinite(loss) and latest_step(tmp_path) == 1
+    loss = train.main(argv)                        # resumes at step 1, data at batch 2
     out = capsys.readouterr().out
-    assert "step    3" in out and "step    4" in out and "step    1" not in out
-    assert np.isfinite(loss) and latest_step(tmp_path) == 4
-    meta = json.loads((tmp_path / "step_00000004" / "manifest.json").read_text())
+    assert "step    1" in out and "step    2" in out and "step    0" not in out
+    assert np.isfinite(loss) and latest_step(tmp_path) == 2
+    meta = json.loads((tmp_path / "step_00000002" / "manifest.json").read_text())
     assert meta["extra"]["data_state"] == {"seed": 0, "step": 3}
 
 
@@ -345,7 +392,7 @@ def test_train_shapenet_cli_var_points(tmp_path, capsys, monkeypatch):
                                "--batch", "2", "--var-points", "900", "1500",
                                "--ckpt", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "step    1" in out and "step    2" in out and "test MSE" in out
-    assert np.isfinite(mse) and latest_step(tmp_path) == 2
+    assert "step    0" in out and "step    1" in out and "test MSE" in out
+    assert np.isfinite(mse) and latest_step(tmp_path) == 1
     assert fed == [(2, 1536), (2, 1536)]           # padded to max_padded_len
     assert calls == [{"device": torch.device("cpu"), "pad_to": 1536}]

@@ -38,6 +38,13 @@ that pick their paths, checked on the CPU.
   ``FwdFma`` (``csrc/fma_fwd.cuh``), ``DqFma`` and ``DkvFma``
   (``csrc/fma_bwd.cuh``) and the row kernels of ``csrc/varlen_fwd.cu`` and
   ``csrc/varlen_bwd.cu``.
+- :func:`epilogue.epilogue_plan`, the one rule of both epilogues, at every
+  configuration the port registers (its head dim, both dtypes, aligned or
+  not), with both ``vec`` kernels taking their rows and lanes from
+  ``csrc/epilogue.cuh`` (``RowLane``, ``epilogue_vec_blocks``, ``Vec``),
+  the lanes each entry point instantiates being the rule's, and the
+  forward's threads, rows and lanes covering every element of R rows once
+  for every R up to a few blocks.
 """
 
 import re
@@ -49,7 +56,7 @@ import torch
 
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core.balltree import pack_varlen
-from repro_torch.kernels import bta, flash, local, varlen
+from repro_torch.kernels import bta, epilogue, flash, local, varlen
 from repro_torch.kernels.common import HEAD_DIMS
 from repro_torch.kernels.occupancy import (local_half_live, varlen_dkv_tiles,
                                             varlen_row_tiles)
@@ -573,3 +580,47 @@ def test_varlen_plan_matches_source_constants(D):
 def test_plans_raise(call):
     with pytest.raises(ValueError):
         call()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", sorted(list_configs()))
+def test_epilogue_plan_is_one_rule_for_both_kernels(name, dtype):
+    """Each registered configuration's head dim goes to ``vec`` when its
+    rows are 16-byte vectors (lanes D / per-vector, up to 32, times rows a
+    warp = 32), to ``warp`` when an input is off 16 bytes; both kernels
+    read the rule from ``csrc/epilogue.cuh`` and instantiate its lanes."""
+    D = get_config(name).head_dim
+    per_vec = 16 // dtype.itemsize
+    plan = epilogue.epilogue_plan(D, dtype)
+    if D % per_vec == 0:
+        assert plan.path == "vec" and plan.lanes * plan.rows == 32
+        assert plan.lanes == min(32, 1 << ((D // per_vec).bit_length() - 1))
+    assert epilogue.epilogue_plan(D, dtype, aligned=False).path == "warp"
+    head = (CSRC / "epilogue.cuh").read_text()
+    assert "struct RowLane" in head and "epilogue_vec_blocks" in head
+    for src in ("epilogue_fwd.cu", "epilogue_bwd.cu"):
+        text = (CSRC / src).read_text()
+        assert '#include "epilogue.cuh"' in text and "struct Vec" not in text
+        assert "rt::RowLane<L>" in text and "rt::epilogue_vec_blocks(R, L)" in text
+    fwd = (CSRC / "epilogue_fwd.cu").read_text()
+    assert [int(n) for n in re.findall(r"EPI_VEC\((\d+)\)", fwd)] == [1, 2, 4, 8, 16, 32]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_epilogue_vec_rows_and_lanes_cover_each_element_once(lanes):
+    """``RowLane``'s map (thread t of ``epilogue_vec_blocks(R, L)`` blocks
+    of 256: row t // L, lane t % L, vectors lane, lane + L, ...) writes
+    every vector of R rows of D = 2·L vectors exactly once, at R from 1 to
+    past two blocks' rows."""
+    threads = 256
+    vectors = 2 * lanes
+    for R in (1, 7, threads // lanes + 1, 2 * threads // lanes + 3):
+        blocks = -(-R * lanes // threads)
+        t = torch.arange(blocks * threads)
+        row, sub = t // lanes, t % lanes
+        live = row < R
+        hits = torch.zeros(R, vectors, dtype=torch.int64)
+        for k in range(0, vectors, lanes):
+            hits.index_put_((row[live], sub[live] + k), torch.ones(int(live.sum()),
+                            dtype=torch.int64), accumulate=True)
+        assert (hits == 1).all()

@@ -342,7 +342,7 @@ def test_train_cli_runs_on_cpu(capsys, monkeypatch):
     mse = train_shapenet.main(["--device", "cpu", "--layers", "1", "--steps", "2",
                                "--batch", "1"])
     out = capsys.readouterr().out
-    assert "step    1" in out and "step    2" in out and "test MSE" in out
+    assert "step    0" in out and "step    1" in out and "test MSE" in out
     assert np.isfinite(mse) and calls == [{"device": torch.device("cpu"), "pad_to": None}]
     defaults = inspect.signature(evaluate).parameters
     assert defaults["n_batches"].default == defaults["batch_size"].default == 8
