@@ -152,7 +152,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    against the forward) over a shuffled block table and three staggered
    slots of 1,100–1,600 tokens must match ``nsa_causal_attention`` on the
    kernel path at every position within 1e-4 of the output's largest value;
-9. serving: ``tinyllama-1.1b`` at full width and 4 of its 22 layers
+9. serving: ``tinyllama-1.1b`` at full width and 2 of its 22 layers
    (``SERVE_LM_LAYERS``: the run's time limit), through
    ``ServingEngine(paged=True)`` with 8 slots, ``max_len`` 2048,
    pages of 256 serves 10 greedy requests of 1,100–1,600 random tokens
@@ -222,15 +222,55 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    × 32,768 tokens (granite 1 × 8,192) as phase 7 does (launches, every
    layer within 4e-2 of the reference backend, a profiled call), decodes
    paged through ``api.paged_decode_step`` on its own config
-   (``dense_decode_phase``: two staggered slots of 200 and 130 positions in
+   (``dense_decode_phase``: two staggered slots of 96 and 64 positions in
    bf16, launches, finite logits, ms a step), holds that entry point to the
    forward on the kernel path (``decode_hold``: each layer fed the
    forward's layer input, every attention output and the logits within
    1.5e-2 of the forward's largest value, position by position), and
    stablelm (2 × 4,096
-   tokens) and phi4-mini (1 × 4,096) train 1 + 3 steps as phase 11 does
+   tokens) and phi4-mini (1 × 4,096) train 1 + 2 steps as phase 11 does
    (launches, every layer's gradients within 6e-2, peak memory).  granite
    does not train: its fp32 AdamW moments alone would be 225 GB.
+16. the other families (``family_phases``), each at its published widths,
+   bf16, random weights from seed 0, each phase's seconds printed.  Their
+   kernel rows run after phase 14's (``family_kernel_rows``), bf16, against
+   their plain versions beside SDPA:
+   seamless-m4t's encoder balls (``bta_fwd`` / ``bta_bwd`` on the rows
+   path: 4096 frames, 16 heads of 64, balls of 256), its cross-attention
+   (the flash trio, 512 decoder rows against 4096 frames; ``flash_fwd``
+   with one row at decode) and the causal path at qwen2-moe's 16 / 16
+   heads of 128 (``rep1_d128``), phi3.5-moe's 32 / 8 (``rep4``) and
+   llava's 56 / 8 (``rep7``: selection groups of 448 rows).  Then
+   ``moe_phase``: qwen2-moe-a2.7b (24 layers, 60 routed experts top-4
+   padded to 64, 4 shared; 15.15 B parameters) prefills 1 × 4,096 at full
+   depth (launches; every layer held to the reference backend within 4e-2
+   with the MoE routing held to the kernel path's, ``HeldRouting``: a
+   router near-tie flips under bf16 rounding), decodes paged over two
+   slots of 64 / 48 positions and holds that to the forward (positions
+   whose last MoE layer dropped an assignment in the forward, or routed
+   otherwise than the decode, left out of the logits and counted), and
+   trains 1 + 2 steps at 4 of its 24 layers (fp32 moments of all 24 would
+   need ~180 GB; gradients within 6e-2, the first layer's bits equal on
+   two calls); phi3.5-moe prefills at 2 of its 32 layers (its bf16
+   weights are 83.7 GB).  ``mamba_phase``: mamba2-1.3b (48 layers) at full
+   depth prefills (no kernel: the chunked SSD is plain products), decodes
+   paged with its hold (each layer's mamba output fed the forward's
+   input), serves 6 requests of 64–128 tokens on 4 slots through
+   ``ServingEngine(paged=True)`` (slots reused, ``cache_reset_slot``
+   counted, requests 4 and 5, admitted into reused slots, against B = 1
+   lockstep) and trains 1 + 2 steps.  ``encdec_phase``: seamless-m4t-medium (12 + 12 layers) trains
+   1 + 2 steps on 1 × 4,096 frames (512 decoder tokens; each kernel's
+   launches counted exactly), its encoder and decoder layers held to the
+   reference backend (outputs 4e-2, gradients 6e-2, φ_k.pos against the
+   layer's largest gradient: 0 in exact arithmetic), a layer's gradients
+   bit-identical on two calls, then greedy-decodes 32 tokens through
+   ``api.cache_init(params=, memory=)`` and ``api.decode_step``, held to
+   ``decode_train`` with each decoder layer fed the forward's input.
+   ``vlm_phase``: llava-next-34b (60 layers, d 7168, 56 / 8 heads of 128;
+   34.45 B parameters) prefills 512 image + 3,584 text tokens at the
+   depth whose weights leave 6 GB under 76 GB (all 60 on an 80 GB card),
+   every layer held to the reference backend.  jamba-1.5-large-398b runs
+   on the CPU only (one 8-layer period is ~44 B parameters).
 
 ``$REPRO_TORCH_ATTENTION_BACKEND`` must be unset: it would beat every
 backend the script names.  The shapenet paths run at full width and
@@ -240,6 +280,7 @@ success the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -283,7 +324,8 @@ from repro_torch.models.api import model_api  # noqa: E402
 from repro_torch.models.attention_layer import (attention_layer_apply,  # noqa: E402
                                                 attention_layer_decode_paged)
 from repro_torch.models.pointcloud import erwin_levels, pc_layer  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import encdec, mamba2, transformer, vlm  # noqa: E402
+from repro_torch.models.moe import moe_apply  # noqa: E402
 from repro_torch.models.transformer import lm_layer  # noqa: E402
 from repro_torch.numerics import NEG_INF  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
@@ -391,17 +433,18 @@ PREFILL_B, PREFILL_N = 2, 32768          # prefill_32k's length, its batch of 32
 LM_LAYER_TOL = 4e-2                      # bf16, of each layer output's largest value
 DECODE_TOL = 1e-4                        # fp32, of the output's largest value
 SLOTS, MAX_LEN, PAGE = 8, 2048, 256
-# the paged serving phase (and its lockstep processes) runs tinyllama at 4
+# the paged serving phase (and its lockstep processes) runs tinyllama at 2
 # of its 22 layers, at full width: it is host-bound and its time goes with
 # the depth (the phase took ~300 s at 22 layers, 285 s at 11 on a slow host
-# and 89 s at 4), and at 11 layers the whole run took 1,016 s there before
+# and 86–89 s at 4), and at 11 layers the whole run took 1,016 s there before
 # the dense LMs' main-path decode (~85 s more) was added, against a limit
-# of 1,200 s
-SERVE_LM_LAYERS = 4
+# of 1,200 s; 4 layers until the other families' phases came in
+SERVE_LM_LAYERS = 2
 N_REQUESTS, NEW_TOKENS, SHARED = 10, 8, 512
 NEAR_TIE = 4e-2                          # of the largest |logit|
 TRAIN_LM_B, TRAIN_LM_N = 2, 4096         # train_4k's length, its global batch of 256 cut to 2
 TRAIN_LM_STEPS = 3
+DENSE_TRAIN_STEPS = 2    # stablelm's and phi4-mini's steps (3 before the families)
 # the LM's backward kernels against their plain versions, of each gradient's
 # largest value; the LM train check against the reference backend (the
 # repository's bf16 selection-gradient tolerance), of each gradient's
@@ -424,21 +467,67 @@ for _arch in DENSE_LMS:                                  # their paths
     PATHS[f"decode:{_arch}"] = ("paged_gather_pair",)
     PATHS[f"train:{_arch}"] = PATHS["train_lm"]
 # their paged decode: two staggered slots (lengths, first steps), bf16,
-# over three complete φ-blocks (the decode and its hold are host-bound, so
-# their steps set the phases' time: 300 / 200 positions took 400 of a
-# 1,085-second run on a slow host); its hold against the forward
+# over a complete φ-block in each slot (the decode and its hold are
+# host-bound, so their steps set the phases' time: 300 / 200 positions took
+# 400 of a 1,085-second run on a slow host, 200 / 130 210 s of a 795-second
+# one; 96 / 64 since the other families' phases came in); its hold against the forward
 # (decode_hold), of the forward's largest value: on the H100 the three
 # models' attention outputs read at most 6.9e-3 and their logits 5.5e-3 at
 # 300 / 200 positions, and stablelm's decode with its compression branch
 # scaled by 0.9 reads 1.6e-2 to 3.2e-2 in every layer
-DECODE_LENS, DECODE_STARTS = (200, 130), (0, 70)
+DECODE_LENS, DECODE_STARTS = (96, 64), (0, 32)
 DECODE_HOLD_TOL = 1.5e-2
 # the causal path's kernel rows at each model's heads (head_rows_phase):
 # tag -> (config, query heads, KV heads, head dim), one 4,096-token sequence
 HEAD_ROWS = {"d128": ("phi4-mini-3.8b", 24, 8, 128),
              "rep1": ("stablelm-1.6b", 32, 32, 64),
-             "rep48": ("granite-20b", 48, 1, 128)}
+             "rep48": ("granite-20b", 48, 1, 128),
+             "rep1_d128": ("qwen2-moe-a2.7b", 16, 16, 128),
+             "rep4": ("phi3.5-moe-42b-a6.6b", 32, 8, 128),
+             "rep7": ("llava-next-34b", 56, 8, 128)}
 HEAD_ROWS_N = 4096
+
+# the other families (family phases), each at its published widths, bf16,
+# weights from seed 0: qwen2-moe-a2.7b prefills 1 × 4096 at full depth,
+# decodes paged (two staggered slots of FAMILY_DECODE_LENS positions) and
+# trains 1 + FAMILY_TRAIN_STEPS steps of 1 × 4096 at MOE_TRAIN_LAYERS of
+# its 24 layers (fp32 AdamW moments of all 24 would take ~180 GB);
+# phi3.5-moe prefills at PHIMOE_LAYERS of 32 (83.7 GB of bf16 weights);
+# mamba2-1.3b prefills, decodes, serves and trains at full depth;
+# seamless-m4t-medium trains 1 × 4096 frames (512 decoder tokens) and
+# decodes SEAMLESS_DECODE greedy tokens; llava-next-34b prefills 512 image
+# + 3584 text tokens at the most layers whose weights leave LLAVA_ROOM_GB
+# under LLAVA_PEAK_GB.  jamba-1.5-large-398b is not run on the card: one
+# period of 8 layers holds ~44 B parameters (88 GB in bf16)
+QWEN, PHIMOE, MAMBA = "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b"
+SEAMLESS, LLAVA = "seamless-m4t-medium", "llava-next-34b"
+FAMILY_N = 4096
+FAMILY_TRAIN_STEPS = 2
+MOE_TRAIN_LAYERS, PHIMOE_LAYERS = 4, 2
+FAMILY_DECODE_LENS, FAMILY_DECODE_STARTS = (64, 48), (0, 16)
+SEAMLESS_DECODE, SEAMLESS_MAX_LEN = 32, 512
+MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_NEW, MAMBA_MAX_LEN = 4, 6, 16, 256
+LLAVA_PEAK_GB, LLAVA_ROOM_GB = 76.0, 6.0
+# gradients that are 0 in exact arithmetic in the encoder-decoder check
+# (grad_rows), held against the layer's largest parameter gradient
+EXACT_ZERO = "bsa.phi_k.pos"
+# mamba serving: the requests also generated by B = 1 lockstep, the two
+# admitted into reused slots
+MAMBA_LOCKSTEP = (4, 5)
+for _arch in (QWEN, PHIMOE, LLAVA):
+    PATHS[f"prefill:{_arch}"] = PATHS["prefill"]
+PATHS[f"decode:{QWEN}"] = ("paged_gather_pair",)
+PATHS[f"train:{QWEN}"] = PATHS["train_lm"]
+for _kind in ("prefill", "decode", "serve", "train"):        # mamba2 runs no kernel
+    PATHS[f"{_kind}:{MAMBA}"] = ()
+# seamless: the encoder's non-causal BSA (ball, compression, selection,
+# combine), the decoder's causal BSA and its cross-attention (flash)
+PATHS[f"train:{SEAMLESS}"] = ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd",
+                              "local_fwd", "bta_bwd", "flash_dq", "flash_dkv",
+                              "selection_dq", "selection_dkv", "epilogue_bwd", "local_dq",
+                              "local_dkv")
+PATHS[f"decode:{SEAMLESS}"] = ("paged_gather_pair", "flash_fwd")
+TRAINED = {a for a, (_, t) in DENSE_LMS.items() if t} | {QWEN, MAMBA}
 # the redesigned kernels must build without spills at these head dims, every
 # variant named: mma (bf16 tensor cores), fma (fp32 register tiles) and, for
 # the local backward, lanes (fp32 and small windows, both dtypes); the ball
@@ -497,8 +586,17 @@ for _tag, (_arch, *_) in HEAD_ROWS.items():
     for _name, _mode in HEAD_ROW_MODES.items():
         _path = (f"decode:{_arch}" if _name == "paged_gather_pair"
                  else f"prefill:{_arch}" if _name in PATHS["prefill"]
-                 else f"train:{_arch}" if DENSE_LMS[_arch][1] else None)
-        LM_ALSO.setdefault(_name, []).append((_tag, _path, "bfloat16", f"{_tag}_{_mode}"))
+                 else f"train:{_arch}" if _arch in TRAINED else None)
+        LM_ALSO.setdefault(_name, []).append(
+            (_tag, _path if _path in PATHS else None, "bfloat16", f"{_tag}_{_mode}"))
+# seamless's encoder ball (bf16, 16 heads of 64: the rows path) and its
+# cross-attention (512 decoder rows against 4096 frames; one row at decode)
+for _name in ("bta_fwd", "bta_bwd"):
+    LM_ALSO[_name].append(("seamless", f"train:{SEAMLESS}", "bfloat16", "seamless_ball"))
+for _name in ("flash_fwd", "flash_dq", "flash_dkv"):
+    LM_ALSO[_name].append(("cross", f"train:{SEAMLESS}", "bfloat16", "cross"))
+LM_ALSO["flash_fwd"].append(("cross_decode", f"decode:{SEAMLESS}", "bfloat16",
+                             "cross_decode"))
 
 
 # kernels that no main path launches, with the reason the kernels line gives
@@ -1922,10 +2020,24 @@ def profile_train_step(step, model, opt_state, batch, layout: str,
                                         **device_summary(prof)}}), flush=True)
 
 
+# device kernels by kind, first match wins (device_summary's
+# ``by_category_ms``): the ported kernels, GEMMs, sorts (the MoE dispatch's
+# and top-k's), index / gather / scatter kernels (the MoE dispatch and
+# combine, embeddings), copies and casts, other elementwise kernels (the
+# SSD's exponentials and products among them), reductions
+DEVICE_CATEGORIES = (("ported", "|".join(KERNELS)),
+                     ("gemm", r"gemm|xmma|gemv"),
+                     ("sort", r"sort|radix|topk"),
+                     ("index_gather_scatter", r"index|gather|scatter"),
+                     ("copy_cast", r"copy|cast"),
+                     ("elementwise", r"elementwise"),
+                     ("reduce", r"reduce|softmax|norm"))
+
+
 def device_summary(prof) -> dict:
     """Device time by kernel: only events that ran on the card (CPU-side ops,
     autograd nodes included, carry their kernels' time too and are left
-    out)."""
+    out); ``by_category_ms`` sums it by ``DEVICE_CATEGORIES``."""
     from torch.autograd import DeviceType
     kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
@@ -1937,7 +2049,13 @@ def device_summary(prof) -> dict:
         if hit:
             ported[hit.group(1)] = ported.get(hit.group(1), 0.0) + ms
     top = sorted(kernels, key=lambda r: -r[1])[:12]
+    by_category = {}
+    for name, ms, _ in kernels:
+        cat = next((c for c, pattern in DEVICE_CATEGORIES
+                    if re.search(pattern, name, re.IGNORECASE)), "other")
+        by_category[cat] = by_category.get(cat, 0.0) + ms
     return {"device_kernel_ms": sum(ms for _, ms, _ in kernels), "ported_kernels_ms": ported,
+            "by_category_ms": by_category,
             "topk_ms": sum(ms for n, ms, _ in kernels if "topk" in n.lower()),
             "top_device_kernels": [{"name": n[:90], "ms": t, "calls": c} for n, t, c in top]}
 
@@ -2444,8 +2562,10 @@ def prefill_phase(dev, api, model, batch_size: int = PREFILL_B, seq_len: int = P
     cfg = api.mcfg
     hq, hkv, dh, w = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                       cfg.bsa.effective_local_window)
-    check(local.local_plan(w, dh, getattr(torch, cfg.compute_dtype)).path == "tiles",
-          f"prefill {cfg.name}: local_fwd is not on the tiled path (local_fwd_mma)")
+    attn = has_attention(cfg)
+    check(not attn or local.local_plan(w, dh, getattr(torch, cfg.compute_dtype)).path
+          == "tiles", f"prefill {cfg.name}: local_fwd is not on the tiled path "
+                      "(local_fwd_mma)")
     batch = api.make_batch(np.random.default_rng(0), batch_size, seq_len, device=dev)
     step = make_prefill_step(api)
     t0 = time.perf_counter()
@@ -2466,10 +2586,12 @@ def prefill_phase(dev, api, model, batch_size: int = PREFILL_B, seq_len: int = P
              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches}
     print(json.dumps({"prefill": stats}), flush=True)
-    check_launches(launches, path, cfg.n_layers)
+    check_launches(launches, path, cfg.n_layers if attn else 0)
     check(logits.shape == (batch_size, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           f"prefill {cfg.name} logits: shape {tuple(logits.shape)} or non-finite")
-    stats["reference_check"] = prefill_reference_check(model, cfg, batch["tokens"])
+    if attn:
+        stats["reference_check"] = prefill_reference_check(
+            model, cfg, embed_input(api, model, batch))
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2478,6 +2600,10 @@ def prefill_phase(dev, api, model, batch_size: int = PREFILL_B, seq_len: int = P
         wall = time.perf_counter() - t0
     summary = device_summary(prof)
     summary["profiled_wall_ms"] = wall * 1e3
+    summary["device_busy_share"] = summary["device_kernel_ms"] / (wall * 1e3)
+    if not attn:
+        print(json.dumps({"prefill_profile": {"arch": cfg.name, **summary}}), flush=True)
+        return stats
     # local_fwd at the prefill shape: its device time a launch beside its bound
     # (B × N positions, the config's heads, every token valid)
     kb = torch.zeros((batch_size, seq_len), device=dev)
@@ -2491,20 +2617,69 @@ def prefill_phase(dev, api, model, batch_size: int = PREFILL_B, seq_len: int = P
     return stats
 
 
-def prefill_reference_check(model, cfg, tokens) -> dict:
+class HeldRouting:
+    """Holds the two sides of a layer check to one MoE routing: on the
+    ``kernels`` backend each MoE call records the experts its router picks;
+    on the ``reference`` backend the calls take those experts, in order,
+    weighted by their own router's probabilities (``moe_apply(top_e=)``), and
+    the tokens whose own pick differs are counted (a near-tie of the router
+    flips under the bf16 rounding of the attention before it; a flipped
+    token runs other experts, which no tolerance of the layer's output can
+    hold).  Without MoE layers it only selects the backend."""
+
+    def __init__(self):
+        self.routes, self.flipped, self.tokens = [], 0, 0
+
+    def _record(self, p, x, mcfg, top_e=None):
+        y, aux = moe_apply(p, x, mcfg)
+        self.routes.append(aux["top_e"])
+        return y, aux
+
+    def _replay(self, p, x, mcfg, top_e=None):
+        held = self.routes.pop(0)
+        own = torch.topk(torch.softmax(dense(p.router, x).float(), -1),
+                         mcfg.experts_per_token, dim=-1).indices
+        self.flipped += int((own.sort(-1).values != held.sort(-1).values).any(-1).sum())
+        self.tokens += own.shape[0] * own.shape[1]
+        return moe_apply(p, x, mcfg, top_e=held)
+
+    @contextlib.contextmanager
+    def __call__(self, backend: str):
+        fn = self._record if backend == "kernels" else self._replay
+        with use_backend(backend), mock.patch.object(transformer, "moe_apply", fn):
+            yield
+
+
+def embed_input(api, model, batch) -> torch.Tensor:
+    """The first layer's input of the LM stack (the VLM's: the projected
+    image tokens, then the text's embeddings)."""
+    cfg = api.mcfg
+    if cfg.family == "vlm":
+        img = vlm._project(model.projector, batch["patch_embeds"], cfg.cdtype())
+        return torch.cat([img, embed(model.lm.embed, batch["tokens"], dtype=cfg.cdtype())], 1)
+    return embed(model.embed, batch["tokens"], dtype=cfg.cdtype())
+
+
+def lm_stack(model):
+    return (model.lm if hasattr(model, "lm") else model).layers
+
+
+def prefill_reference_check(model, cfg, x0) -> dict:
     """Every layer on the kernel path against the ``reference`` backend given
-    the same layer input, along the kernel path's own trajectory (the
-    reference runs one sequence at a time, to bound its memory)."""
-    B_, N_ = tokens.shape
-    pos = torch.arange(N_, device=tokens.device)[None].expand(B_, N_)
-    rows = []
+    the same layer input ``x0`` (B, N, d) along the kernel path's own
+    trajectory (the reference runs one sequence at a time, to bound its
+    memory; an MoE layer's routing held to the kernel path's:
+    ``HeldRouting``)."""
+    B_, N_, _ = x0.shape
+    pos = torch.arange(N_, device=x0.device)[None].expand(B_, N_)
+    rows, held = [], HeldRouting()
     with torch.no_grad():
-        x = embed(model.embed, tokens, dtype=cfg.cdtype())
-        for i, period in enumerate(model.layers):
+        x = x0
+        for i, period in enumerate(lm_stack(model)):
             lp = period.pos0
-            with use_backend("kernels"):
+            with held("kernels"):
                 yk = lm_layer(lp, x, mcfg=cfg, positions=pos)
-            with use_backend("reference"):
+            with held("reference"):
                 yr = torch.cat([lm_layer(lp, x[b:b + 1], mcfg=cfg, positions=pos[b:b + 1])
                                 for b in range(B_)])
             check(bool(torch.isfinite(yk).all()), f"layer {i}: non-finite output")
@@ -2517,6 +2692,9 @@ def prefill_reference_check(model, cfg, tokens) -> dict:
     stats = {"arch": cfg.name, "rel_tol": LM_LAYER_TOL, "layers": len(rows),
              "worst": max(rows, key=lambda r: r["rel"]),
              "rel_by_layer": [r["rel"] for r in rows]}
+    if held.tokens:
+        stats["moe_routing"] = {"held_tokens": held.tokens,
+                                "router_flips_on_reference": held.flipped}
     print(json.dumps({"prefill_reference_check": stats}), flush=True)
     beyond = [f"layer {r['layer']} ({r['rel']:.2e})" for r in rows
               if not r["rel"] <= LM_LAYER_TOL]
@@ -2790,12 +2968,12 @@ def rel_err(got, want, tol_table=LM_BWD_TOL) -> tuple[float, bool]:
 
 
 def lm_train_batches(dev, vocab: int, batch_size: int = TRAIN_LM_B,
-                     seq_len: int = TRAIN_LM_N) -> list[dict]:
-    """1 + ``TRAIN_LM_STEPS`` batches of ``lm_batches(seed=0)`` at
-    ``train_4k``'s length (tinyllama: B = 2 × 4096 tokens), tokens and
-    labels on the card."""
+                     seq_len: int = TRAIN_LM_N, steps: int = TRAIN_LM_STEPS) -> list[dict]:
+    """1 + ``steps`` batches of ``lm_batches(seed=0)`` at ``train_4k``'s
+    length (tinyllama: B = 2 × 4096 tokens), tokens and labels on the
+    card."""
     return [{k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
-            for _, b in zip(range(TRAIN_LM_STEPS + 1),
+            for _, b in zip(range(steps + 1),
                             lm_batches(vocab_size=vocab, batch_size=batch_size,
                                        seq_len=seq_len, seed=0))]
 
@@ -2936,16 +3114,26 @@ def lm_backward_kernel_phase(dev, picks) -> list[dict]:
     return results
 
 
-def train_lm_phase(dev, api, model, batches, path: str = "train_lm") -> dict:
-    """``make_train_step`` on the LM at full width and depth (bf16
-    parameters, fp32 AdamW moments, remat on): one warm-up step, then
-    ``TRAIN_LM_STEPS`` timed steps (their launches checked against
-    ``path``), the per-layer gradient check against the reference backend
-    and a profiled step."""
+def has_attention(cfg) -> bool:
+    return any(mixer == "attn" for mixer, _ in transformer.layer_spec(cfg))
+
+
+def train_lm_phase(dev, api, model, batches, path: str = "train_lm",
+                   reference: bool = True, profile: bool = True) -> dict:
+    """``make_train_step`` on the LM at full width (bf16 parameters, fp32
+    AdamW moments, remat on): one warm-up step, then ``len(batches) − 1``
+    timed steps (their launches checked against ``path``), the per-layer
+    gradient check against the reference backend (``reference``; a stack
+    without attention runs the same code on both backends), identical
+    gradient bits on two calls of the first layer, and a profiled step
+    (``profile``: the profiler's summary of mamba2's 48-layer step took 42
+    s on the host, so its split comes from its prefill's profile)."""
     cfg = api.mcfg
+    n_steps = len(batches) - 1
     check(cfg.remat, f"{cfg.name} trains with remat on")
-    check(local.local_plan(cfg.bsa.effective_local_window, cfg.resolved_head_dim,
-                           getattr(torch, cfg.compute_dtype)).path == "tiles",
+    check(not has_attention(cfg)
+          or local.local_plan(cfg.bsa.effective_local_window, cfg.resolved_head_dim,
+                              getattr(torch, cfg.compute_dtype)).path == "tiles",
           f"{cfg.name} train: local_fwd is not on the tiled path (local_fwd_mma)")
     opt_state = adamw_init(dict(model.named_parameters()),
                            state_dtype=getattr(torch, cfg.opt_state_dtype))
@@ -2966,8 +3154,8 @@ def train_lm_phase(dev, api, model, batches, path: str = "train_lm") -> dict:
         metrics.append(out)
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
     batch_size, seq_len = batches[0]["tokens"].shape
-    tokens = TRAIN_LM_STEPS * batch_size * seq_len
-    stats = {"arch": cfg.name, "steps": TRAIN_LM_STEPS, "batch": batch_size,
+    tokens = n_steps * batch_size * seq_len
+    stats = {"arch": cfg.name, "steps": n_steps, "batch": batch_size,
              "seq_len": seq_len,
              "layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
              "opt_state_dtype": cfg.opt_state_dtype, "remat": cfg.remat,
@@ -2983,9 +3171,15 @@ def train_lm_phase(dev, api, model, batches, path: str = "train_lm") -> dict:
           f"{cfg.name} train: non-finite loss or gradient norm")
     check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
               if p.grad is not None), f"{cfg.name} train: non-finite gradient")   # φ_q: none
-    check_launches(launches, path, cfg.n_layers * TRAIN_LM_STEPS,
-                   per_forward_kernel=2 * cfg.n_layers * TRAIN_LM_STEPS)   # + recompute
-    stats["reference_check"] = lm_train_reference_check(model, cfg, batches[1])
+    n_attn = cfg.n_layers * sum(m == "attn" for m, _ in transformer.layer_spec(cfg)) \
+        // len(transformer.layer_spec(cfg))
+    check_launches(launches, path, n_attn * n_steps,
+                   per_forward_kernel=2 * n_attn * n_steps)   # + recompute
+    if reference:
+        stats["reference_check"] = lm_train_reference_check(model, cfg, batches[1])
+    stats["bit_identical"] = lm_layer_bits(model, cfg, batches[1])
+    if not profile:
+        return stats
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3020,7 +3214,7 @@ def lm_train_reference_check(model, cfg, batch) -> dict:
     B_, N_ = tokens.shape
     pos = torch.arange(N_, device=tokens.device)[None].expand(B_, N_)
     layers = [period.pos0 for period in model.layers]
-    xs = []
+    xs, held = [], HeldRouting()
     with torch.no_grad(), use_backend("kernels"):
         h = embed(model.embed, tokens, dtype=cfg.cdtype())
         for lp in layers:
@@ -3038,7 +3232,7 @@ def lm_train_reference_check(model, cfg, batch) -> dict:
         wrt = [x] + [p for _, p in lp.named_parameters() if p.requires_grad]
         grads = {}
         for backend in ("kernels", "reference"):
-            with use_backend(backend):
+            with held(backend):
                 y = lm_layer(lp, x, mcfg=cfg, positions=pos)
                 grads[backend] = torch.autograd.grad(y, wrt, gy, allow_unused=True)
             del y
@@ -3072,6 +3266,9 @@ def lm_train_reference_check(model, cfg, batch) -> dict:
              "by_name": by_name, "tensors_compared": len(rows), "layers": len(layers),
              "rel_by_layer": [max(r["rel"] for r in rows if r["layer"] == i)
                               for i in range(len(layers))]}
+    if held.tokens:
+        stats["moe_routing"] = {"held_tokens": held.tokens,
+                                "router_flips_on_reference": held.flipped}
     print(json.dumps({"train_lm_reference_check": stats}), flush=True)
     beyond = [f"layer {r['layer']} {r['name']} ({r['rel']:.2e})" for r in rows
               if not r["rel"] <= LM_GRAD_REL_TOL]
@@ -3080,14 +3277,40 @@ def lm_train_reference_check(model, cfg, batch) -> dict:
     return stats
 
 
-def decode_schedule(dev) -> tuple[torch.Tensor, torch.Tensor, int, int]:
-    """The dense LMs' decode schedule: two slots of ``DECODE_LENS``
-    positions from steps ``DECODE_STARTS`` over a shuffled block table;
+def lm_layer_bits(model, cfg, batch) -> bool:
+    """The first layer's input and parameter gradients on the kernel path
+    (its attention or mamba mixer, its FFN or MoE), computed twice from the
+    same input and upstream gradient: identical bits, checked."""
+    tokens = batch["tokens"]
+    B_, N_ = tokens.shape
+    pos = torch.arange(N_, device=tokens.device)[None].expand(B_, N_)
+    lp = model.layers[0].pos0
+    with torch.no_grad():
+        x = embed(model.embed, tokens, dtype=cfg.cdtype())
+    x = x.requires_grad_(True)
+    wrt = [x] + [p for p in lp.parameters() if p.requires_grad]
+    runs = []
+    with use_backend("kernels"):
+        for _ in range(2):
+            y = lm_layer(lp, x, mcfg=cfg, positions=pos)
+            gy = torch.ones_like(y) / y.numel() ** 0.5
+            runs.append(torch.autograd.grad(y, wrt, gy, allow_unused=True))
+            del y
+    same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(*runs))
+    print(json.dumps({"lm_layer_bits": {"arch": cfg.name, "tensors": len(wrt),
+                                        "bit_identical": same}}), flush=True)
+    check(same, f"{cfg.name}: the first layer's gradients differ between two calls")
+    return same
+
+
+def decode_schedule(dev, lens=DECODE_LENS, starts=DECODE_STARTS
+                    ) -> tuple[torch.Tensor, torch.Tensor, int, int]:
+    """The LMs' decode schedule: two slots of ``lens`` positions (the dense
+    LMs: ``DECODE_LENS``) from steps ``starts`` over a shuffled block table;
     each slot's pages are mapped from its first step and an idle slot's
     table row names the trash block.  Returns (tables (steps, Bs, n_pages)
     int32, lengths (steps, Bs), num_blocks, n_pad), on the card up front,
     so a decode loop never waits for the host."""
-    lens, starts = DECODE_LENS, DECODE_STARTS
     Bs = len(lens)
     n_pad = max(-(-max(lens) // PAGE) * PAGE, 2 * LM_W)   # a slot holds two windows
     n_pages = n_pad // PAGE
@@ -3104,15 +3327,25 @@ def decode_schedule(dev) -> tuple[torch.Tensor, torch.Tensor, int, int]:
             num_blocks, n_pad)
 
 
-def dense_decode_phase(dev, api, model) -> dict:
+def start_slots(api, caches, t: int, starts):
+    """A recurrent (mamba) slot's state zeroed at its first step, as the
+    engine resets a slot on admission (attention pools need no reset)."""
+    for b, s0 in enumerate(starts):
+        if t == s0 and api.has_recurrent_state:
+            caches = api.cache_reset_slot(caches, b)
+    return caches
+
+
+def dense_decode_phase(dev, api, model, lens=DECODE_LENS, starts=DECODE_STARTS) -> dict:
     """The LM's paged decode through the user's entry point,
     ``api.paged_decode_step`` on the model's own config (``LM_BSA``, bf16):
-    the two staggered slots of ``decode_schedule``, each fed random tokens
-    (numpy seed 3); every layer launches ``paged_gather_pair`` 4 times a step,
-    the logits are finite, and ``ms_per_step`` is this loop's wall time a
-    step.  Then ``decode_hold`` holds the same entry point to the forward."""
+    the two staggered slots of ``decode_schedule(lens, starts)``, each fed
+    random tokens (numpy seed 3); every attention layer launches
+    ``paged_gather_pair`` 4 times a step (a mamba layer none), the logits
+    are finite, and ``ms_per_step`` is this loop's wall time a step.  Then
+    ``decode_hold`` holds the same entry point to the forward."""
     cfg = api.mcfg
-    tables, lengths, num_blocks, n_pad = decode_schedule(dev)
+    tables, lengths, num_blocks, n_pad = decode_schedule(dev, lens, starts)
     steps, Bs = lengths.shape
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (Bs, n_pad), dtype=np.int32)).to(dev)
@@ -3124,6 +3357,7 @@ def dense_decode_phase(dev, api, model) -> dict:
         reset_counters()                                 # just before the main path
         t0 = time.perf_counter()
         for t in range(steps):
+            caches = start_slots(api, caches, t, starts)
             logits, caches = api.paged_decode_step(model, tokens[slot, lengths[t]], caches,
                                                    tables[t], lengths[t], PAGE)
             finite &= torch.isfinite(logits).all()
@@ -3131,61 +3365,85 @@ def dense_decode_phase(dev, api, model) -> dict:
         seconds = time.perf_counter() - t0
     launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
     del caches
-    check_launches(launches, f"decode:{cfg.name}", DECODE_GATHERS * cfg.n_layers * steps)
+    n_attn = sum(hasattr(lp, "attn") for period in model.layers for lp in period.positions())
+    check_launches(launches, f"decode:{cfg.name}", DECODE_GATHERS * n_attn * steps)
     check(tuple(logits.shape) == (Bs, cfg.vocab_size) and bool(finite),
           f"{cfg.name} decode: logits of shape {tuple(logits.shape)}, finite {bool(finite)}")
-    stats = {"arch": cfg.name, "slots": Bs, "lens": list(DECODE_LENS),
-             "starts": list(DECODE_STARTS), "steps": steps, "dtype": cfg.compute_dtype,
-             "positions": sum(DECODE_LENS), "seconds": seconds,
+    stats = {"arch": cfg.name, "slots": Bs, "lens": list(lens),
+             "starts": list(starts), "steps": steps, "dtype": cfg.compute_dtype,
+             "positions": sum(lens), "seconds": seconds,
              "ms_per_step": seconds / steps * 1e3, "launches": launches}
     print(json.dumps({"dense_decode": stats}), flush=True)
-    stats["hold"] = decode_hold(dev, api, model, tokens, tables, lengths, num_blocks)
+    stats["hold"] = decode_hold(dev, api, model, tokens, tables, lengths, num_blocks,
+                                lens, starts)
     return stats
 
 
-def decode_hold(dev, api, model, tokens, tables, lengths, num_blocks) -> dict:
+def decode_hold(dev, api, model, tokens, tables, lengths, num_blocks,
+                lens=DECODE_LENS, starts=DECODE_STARTS) -> dict:
     """The paged decode held to the forward on the kernel path, position by
     position, by teacher forcing.  The forward (``api.forward`` with
     ``group_size=0, query_cmp_selection=False``: per-token selection, the
     selection the decode makes; the decode reads neither field) records
-    each layer's input and attention output through taps on
-    ``transformer.lm_layer`` and ``transformer.attention_layer_apply``.
-    Then ``transformer.lm_paged_decode_step``, which ``api.paged_decode_step``
-    calls, runs ``decode_schedule`` again with ``layer_input`` feeding each
-    layer the forward's input at its slot's position, and a tap on
-    ``transformer.attention_layer_decode_paged`` records each attention
-    output.  Every layer's attention output and the logits (of the last
-    layer fed the forward's input) must lie within ``DECODE_HOLD_TOL`` of
-    the forward's largest value.  Free-running, or with only the attention
-    fed, the bf16 rounding of 24 to 52 random-weight layers grows past that
-    however either side computes: ``free_running`` reports the forward on
-    the reference backend against the kernel path's."""
+    each layer's input and mixer output (attention or mamba) through taps on
+    ``transformer.lm_layer``, ``transformer.attention_layer_apply`` and
+    ``transformer.mamba2_apply``.  Then ``transformer.lm_paged_decode_step``,
+    which ``api.paged_decode_step`` calls, runs the schedule again with
+    ``layer_input`` feeding each layer the forward's input at its slot's
+    position, and taps on ``transformer.attention_layer_decode_paged`` and
+    ``transformer.mamba2_decode`` record each mixer output.  Every layer's
+    mixer output and the logits (of the last layer fed the forward's input)
+    must lie within ``DECODE_HOLD_TOL`` of the forward's largest value.
+    Free-running, or with only the attention fed, the bf16 rounding of 24 to
+    52 random-weight layers grows past that however either side computes:
+    ``free_running`` reports the forward on the reference backend against
+    the kernel path's.
+
+    With MoE, the logits pass the last layer's MoE, which at the forward's
+    sequence length may drop an assignment over its capacity (a decode step
+    never drops) and whose router may break a near-tie the other way: the
+    positions where the forward dropped one of the last layer's
+    assignments, or where its expert set differs from the decode's, are left
+    out of the logits' hold and counted (a mixer output is read before the
+    layer's MoE, so every one is held)."""
     cfg = api.mcfg
     xapi = model_api(cfg.scaled(bsa=dataclasses.replace(cfg.bsa, group_size=0,
                                                         query_cmp_selection=False)))
     n_layers = cfg.n_layers
     steps, Bs = lengths.shape
     slot = torch.arange(Bs, device=dev)
-    fwd_in, fwd_attn = [], []                  # each layer's input and attention output
+    fwd_in, fwd_mix, fwd_moe = [], [], []          # layer inputs, mixer outputs, MoE aux
 
     def tap_layer(lp, x, **kw):
         fwd_in.append(x)
         return lm_layer(lp, x, **kw)
 
     def tap_forward(p, x, **kw):
-        fwd_attn.append(attention_layer_apply(p, x, **kw))
-        return fwd_attn[-1]
+        fwd_mix.append(attention_layer_apply(p, x, **kw))
+        return fwd_mix[-1]
+
+    def tap_mamba(p, x, mcfg):
+        fwd_mix.append(mamba2.mamba2_apply(p, x, mcfg))
+        return fwd_mix[-1]
+
+    def tap_moe(collect):
+        def moe(p, x, mcfg, top_e=None):
+            y, aux = moe_apply(p, x, mcfg, top_e)
+            collect.append(aux)
+            return y, aux
+        return moe
 
     with torch.inference_mode():
         with use_backend("kernels"), mock.patch.multiple(
-                transformer, lm_layer=tap_layer, attention_layer_apply=tap_forward):
+                transformer, lm_layer=tap_layer, attention_layer_apply=tap_forward,
+                mamba2_apply=tap_mamba, moe_apply=tap_moe(fwd_moe)):
             ref = xapi.forward(model, {"tokens": tokens})
         with use_backend("reference"):                   # the bf16 noise floor
             alt = xapi.forward(model, {"tokens": tokens})
-    check(len(fwd_in) == len(fwd_attn) == n_layers,
-          f"{cfg.name} forward: {len(fwd_in)} layers and {len(fwd_attn)} attention calls "
+    check(len(fwd_in) == len(fwd_mix) == n_layers,
+          f"{cfg.name} forward: {len(fwd_in)} layers and {len(fwd_mix)} mixer calls "
           f"tapped, expected {n_layers}")
-    outs, logits, calls = [[] for _ in range(n_layers)], [], [0]
+    outs, logits, calls, dec_moe = [[] for _ in range(n_layers)], [], [0], []
 
     def tap_decode(*args, **kw):
         out, cache = attention_layer_decode_paged(*args, **kw)
@@ -3193,11 +3451,19 @@ def decode_hold(dev, api, model, tokens, tables, lengths, num_blocks) -> dict:
         calls[0] += 1
         return out, cache
 
+    def tap_mamba_decode(*args, **kw):
+        out, cache = mamba2.mamba2_decode(*args, **kw)
+        outs[calls[0] % n_layers].append(out[:, 0])
+        calls[0] += 1
+        return out, cache
+
     caches = api.paged_cache_init(Bs, num_blocks, PAGE, cfg.cdtype(), device=dev)
     t0 = time.perf_counter()
-    with torch.inference_mode(), mock.patch.object(transformer, "attention_layer_decode_paged",
-                                                   tap_decode):
+    with torch.inference_mode(), mock.patch.multiple(
+            transformer, attention_layer_decode_paged=tap_decode,
+            mamba2_decode=tap_mamba_decode, moe_apply=tap_moe(dec_moe)):
         for t in range(steps):
+            caches = start_slots(api, caches, t, starts)
             length = lengths[t]
             lg, caches = transformer.lm_paged_decode_step(
                 model, tokens[slot, length], caches, tables[t], length, mcfg=cfg, page=PAGE,
@@ -3206,38 +3472,61 @@ def decode_hold(dev, api, model, tokens, tables, lengths, num_blocks) -> dict:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     del caches
-    check(calls[0] == n_layers * steps, f"{cfg.name} decode: {calls[0]} attention calls "
+    check(calls[0] == n_layers * steps, f"{cfg.name} decode: {calls[0]} mixer calls "
                                         f"tapped, expected {n_layers * steps}")
+    # the logits' positions left out: the last MoE layer dropped an assignment
+    # in the forward, or picked another expert set than the decode
+    keep = torch.ones(tokens.shape, dtype=torch.bool, device=dev)
+    moe_left_out = {}
+    if fwd_moe:
+        per_layer = len(dec_moe) // steps
+        last_f, last_d = fwd_moe[-1], dec_moe[per_layer - 1::per_layer]
+        dec_sets = torch.stack([a["top_e"][:, 0].sort(-1).values for a in last_d])  # (T,Bs,k)
+        differ = torch.zeros_like(keep)
+        for b in range(Bs):
+            idx = torch.arange(lens[b], device=dev)
+            differ[b, idx] = (dec_sets[starts[b] + idx, b]
+                              != last_f["top_e"][b, idx].sort(-1).values).any(-1)
+        keep &= ~last_f["dropped"] & ~differ
+        moe_left_out = {"dropped_in_forward": int(sum(last_f["dropped"][b, :lens[b]].sum()
+                                                      for b in range(Bs))),
+                        "expert_set_differs": int(sum(differ[b, :lens[b]].sum()
+                                                      for b in range(Bs)))}
 
-    def held(pick, want) -> dict:
+    def held(pick, want, keep_rows=None) -> dict:
         """``pick(b, positions)``'s rows against the forward's rows ``want``
-        (Bs, n_pad, ·) at each slot's positions: the worst distance, the
-        largest value and the positions beyond the limit."""
+        (Bs, n_pad, ·) at each slot's positions (those of ``keep_rows``):
+        the worst distance, the largest value and the positions beyond the
+        limit."""
         diff, top = [], []
         for b in range(Bs):
-            idx = torch.arange(DECODE_LENS[b], device=dev)
-            g, w = pick(b, idx).float(), want[b, :DECODE_LENS[b]].float()
+            idx = torch.arange(lens[b], device=dev)
+            if keep_rows is not None:
+                idx = idx[keep_rows[b, :lens[b]]]
+            g, w = pick(b, idx).float(), want[b, idx].float()
             check(bool(torch.isfinite(g).all()), f"{cfg.name} decode: non-finite values")
             diff.append((g - w).abs().amax(-1))
             top.append(w.abs().amax())
         diff, scale = torch.cat(diff), float(max(top))
         return {"max_abs_diff": float(diff.max()), "ref_max_abs": scale,
-                "rel": float(diff.max()) / scale,
+                "rel": float(diff.max()) / scale, "positions": int(diff.numel()),
                 "beyond": int((diff > DECODE_HOLD_TOL * scale).sum())}
 
     def decoded(rows):
         got = torch.stack(rows)                          # (steps, Bs, ·)
-        return lambda b, idx: got[DECODE_STARTS[b] + idx, b]
+        return lambda b, idx: got[starts[b] + idx, b]
 
-    by_layer = [held(decoded(o), fwd_attn[i]) for i, o in enumerate(outs)]
-    final = held(decoded(logits), ref)
+    by_layer = [held(decoded(o), fwd_mix[i]) for i, o in enumerate(outs)]
+    final = held(decoded(logits), ref, keep if fwd_moe else None)
     free = held(lambda b, idx: alt[b, idx], ref)         # reference vs kernel forward
     stats = {"arch": cfg.name, "rel_tol": DECODE_HOLD_TOL, "logits": final,
              "worst_layer": max(range(n_layers), key=lambda i: by_layer[i]["rel"]),
-             "attention_rel_by_layer": [r["rel"] for r in by_layer],
+             "mixer_rel_by_layer": [r["rel"] for r in by_layer],
              "positions_beyond_tol": final["beyond"] + sum(r["beyond"] for r in by_layer),
              "free_running": {"reference_vs_kernel_forward_logits_rel": free["rel"]},
              "seconds": seconds}
+    if fwd_moe:
+        stats["moe_positions_left_out"] = moe_left_out
     print(json.dumps({"dense_decode_hold": stats}), flush=True)
     beyond = [f"layer {i} ({r['rel']:.2e})" for i, r in enumerate(by_layer) if r["beyond"]]
     if final["beyond"]:
@@ -3289,10 +3578,663 @@ def dense_lm_phase(dev, arch: str) -> dict:
                                     "beside its weights, on a card of 80 GB"}}), flush=True)
         return out
     t0 = time.perf_counter()
-    batches = lm_train_batches(dev, cfg.vocab_size, *train)
+    batches = lm_train_batches(dev, cfg.vocab_size, *train, steps=DENSE_TRAIN_STEPS)
     out[f"train:{arch}"] = train_lm_phase(dev, api, model, batches, f"train:{arch}")
     print(f"# {arch} train: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the other families: MoE, SSM, VLM, encoder-decoder (family phases)
+# ---------------------------------------------------------------------------
+
+def family_kernel_phase(dev) -> list[dict]:
+    """seamless-m4t's own kernel shapes in bf16 against the plain versions,
+    timed beside SDPA: ``bta_fwd`` / ``bta_bwd`` on its encoder's ball
+    attention (4096 frames, 16 heads of 64, balls of 256: ``bta_plan``'s
+    rows path, which no earlier main path ran), the flash trio on its
+    cross-attention (512 decoder rows against 4096 frames, every frame
+    valid; ``flash_dkv`` identical bits on two calls) and ``flash_fwd`` on a
+    decode step's single row against the 4096 frames."""
+    results = []
+    record = recorder(results)
+    dt, es = torch.bfloat16, 2
+    cfg = get_config(SEAMLESS)
+    Hs, Dh, n, m = cfg.n_heads, cfg.resolved_head_dim, FAMILY_N, cfg.bsa.ball_size
+    nd = n // cfg.dec_ratio
+    kb = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    # ---- bta: the encoder's balls
+    q = rand((Hs, 1, n, Dh), dt, dev, 170)
+    k = rand((Hs, n, Dh), dt, dev, 171)
+    v = rand((Hs, n, Dh), dt, dev, 172)
+    kw = dict(ball_size=m, n_heads=Hs)
+    path = bta.bta_plan(m, Dh, 1, dt).path
+    check(path == "rows", f"seamless ball: bta_plan names {path}, expected rows")
+    balls = n // m * Hs
+    qs, ks, vs = (t.reshape(Hs, n // m, m, Dh).transpose(0, 1).contiguous()
+                  .requires_grad_(True) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs)  # noqa: E731
+    call = functools.partial(bta.ball_attention_fwd, q, k, v, kb, **kw)
+    plain = functools.partial(bta.ball_attention_fwd_plain, q, k, v, kb, **kw)
+    o, lse = call()
+    err, ok = max_err((o, lse), plain())
+    b_ms, b_by = bound(4 * q.numel() * es + 4 * n + 4 * (n // m) + 4 * q.numel() // Dh,
+                       4.0 * m * m * Dh * balls, dt)
+    with torch.no_grad():
+        lib_ms, lib_dev = median_ms(lib), device_ms(lib, per_call=True)[0]
+    record("bta_fwd", "seamless_ball", dt, err, ok, median_ms(call), median_ms(plain, reps=5),
+           b_ms, b_by, lib_ms, device_ms=device_ms(call, "bta_fwd")[0],
+           library_device_ms=lib_dev, path=path)
+    do = rand(o.shape, dt, dev, 173)
+    args = (q, k, v, kb, do, lse, row_delta(do, o))
+    call = functools.partial(bta.ball_attention_bwd, *args, **kw)
+    err, ok = rel_err(call(), bta.ball_attention_bwd_plain(*args, **kw))
+    b_ms, b_by = bound(7 * q.numel() * es + 2 * 4 * q.numel() // Dh + 4 * n + 4 * (n // m),
+                       10.0 * m * m * Dh * balls, dt)
+    record("bta_bwd", "seamless_ball", dt, err, ok, median_ms(call),
+           median_ms(lambda: bta.ball_attention_bwd_plain(*args, **kw), reps=5), b_ms, b_by,
+           library_bwd_ms(lib, (qs, ks, vs)), device_ms=device_ms(call, "bta_bwd")[0],
+           library_device_ms=library_bwd_device_ms(lib, (qs, ks, vs)), path=path)
+    del qs, ks, vs, args
+    # ---- flash: cross-attention, nd rows (and one at decode) against n frames
+    fkw = dict(n_heads=Hs)
+    for mode, rows in (("cross", nd), ("cross_decode", 1)):
+        q = rand((Hs, 1, rows, Dh), dt, dev, 174)
+        call = functools.partial(flash.flash_attention_fwd, q, k, v, kb, None, **fkw)
+        plain = functools.partial(flash.flash_attention_fwd_plain, q, k, v, kb, None, **fkw)
+        o, lse = call()
+        err, ok = max_err((o, lse), plain())
+        pairs = float(rows * n * Hs)
+        side = 4 * n + 4 * q.numel() // Dh
+        b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es + side, 4.0 * Dh * pairs, dt)
+        qs = q.reshape(1, Hs, rows, Dh).clone().requires_grad_(True)
+        ks, vs = (t[None].clone().requires_grad_(True) for t in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(qs, ks, vs)  # noqa: E731
+        with torch.no_grad():
+            lib_ms, lib_dev = median_ms(lib), device_ms(lib, per_call=True)[0]
+        record("flash_fwd", mode, dt, err, ok, median_ms(call), median_ms(plain, reps=5),
+               b_ms, b_by, lib_ms, device_ms=device_ms(call, "flash_fwd")[0],
+               library_device_ms=lib_dev, path=flash.flash_fwd_plan(Dh, dt).path)
+        if mode != "cross":
+            continue
+        do = rand(o.shape, dt, dev, 175)
+        args = (q, k, v, kb, do, lse, row_delta(do, o))
+        dq = flash.flash_attention_dq(*args, **fkw)
+        dkv = flash.flash_attention_dkv(*args, **fkw)
+        again = flash.flash_attention_dkv(*args, **fkw)
+        want = flash.flash_attention_bwd_plain(*args, **fkw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(dkv, again))
+        check(same, "flash_dkv [cross]: two calls on the same inputs differ")
+        p_ms = median_ms(lambda: flash.flash_attention_bwd_plain(*args, **fkw), reps=5)
+        lib_bwd = library_bwd_ms(lib, (qs, ks, vs))
+        lib_bwd_dev = library_bwd_device_ms(lib, (qs, ks, vs))
+        side += 4 * q.numel() // Dh
+        for name, got, ref, nbytes, flops in (
+                ("flash_dq", (dq,), want[:1], (3 * q.numel() + 2 * k.numel()) * es + side,
+                 6.0 * Dh * pairs),
+                ("flash_dkv", dkv, want[1:], (2 * q.numel() + 4 * k.numel()) * es + side,
+                 8.0 * Dh * pairs)):
+            fn = functools.partial(getattr(flash, "flash_attention_" + name.split("_")[1]),
+                                   *args, **fkw)
+            err, ok = rel_err(got, ref)
+            b_ms, b_by = bound(nbytes, flops, dt)
+            extra = {"bit_identical": same} if name == "flash_dkv" else {}
+            record(name, "cross", dt, err, ok, median_ms(fn), p_ms, b_ms, b_by, lib_bwd,
+                   device_ms=device_ms(fn, name)[0], library_device_ms=lib_bwd_dev, **extra)
+        del qs, ks, vs, args, want, dq, dkv, again
+    torch.cuda.empty_cache()
+    return results
+
+
+def family_init(dev, cfg, cut: str | None = None):
+    """``model_api(cfg).init(seed=0)`` on the card; prints the parameter
+    count, the weights' size, the init's peak memory and ``cut`` (a depth
+    cut and its reason)."""
+    api = model_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init = {"arch": cfg.name, "family": cfg.family, "parameters": n_params,
+            "dtype": cfg.param_dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "weights_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+            "init_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - t0, "depth_cut": cut}
+    print(json.dumps({"family_init": init}), flush=True)
+    print(f"# {cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.param_dtype}) at "
+          f"{cfg.n_layers} layers made in {init['seconds']:.1f} s"
+          + (f"; depth cut: {cut}" if cut else ""), flush=True)
+    return api, model
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_phase(dev) -> dict:
+    """qwen2-moe-a2.7b at full width: the prefill at full depth (every layer
+    held to the reference backend with its routing held: ``HeldRouting``),
+    the paged decode and its hold (positions whose last MoE layer dropped an
+    assignment in the forward, or routed otherwise, left out of the logits'
+    hold and counted), then 1 + 2 train steps at ``MOE_TRAIN_LAYERS`` layers
+    (gradients per layer within 6e-2, the first layer's gradients
+    bit-identical on two calls); phi3.5-moe's prefill at ``PHIMOE_LAYERS``
+    layers."""
+    out = {}
+    cfg = get_config(QWEN)
+    api, model = family_init(dev, cfg)
+    t0 = time.perf_counter()
+    out[f"prefill:{QWEN}"] = prefill_phase(dev, api, model, 1, FAMILY_N, f"prefill:{QWEN}")
+    print(f"# {QWEN} prefill: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out[f"decode:{QWEN}"] = dense_decode_phase(dev, api, model, FAMILY_DECODE_LENS,
+                                               FAMILY_DECODE_STARTS)
+    print(f"# {QWEN} decode: {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    free()
+    t0 = time.perf_counter()
+    api, model = family_init(dev, cfg.scaled(n_layers=MOE_TRAIN_LAYERS),
+                             f"train at {MOE_TRAIN_LAYERS} of {cfg.n_layers} layers: fp32 "
+                             "AdamW moments of all 24 need ~180 GB")
+    batches = lm_train_batches(dev, cfg.vocab_size, 1, FAMILY_N, FAMILY_TRAIN_STEPS)
+    out[f"train:{QWEN}"] = train_lm_phase(dev, api, model, batches, f"train:{QWEN}")
+    print(f"# {QWEN} train: {time.perf_counter() - t0:.1f} s", flush=True)
+    del model, batches
+    free()
+    t0 = time.perf_counter()
+    pcfg = get_config(PHIMOE)
+    api, model = family_init(dev, pcfg.scaled(n_layers=PHIMOE_LAYERS),
+                             f"{PHIMOE_LAYERS} of {pcfg.n_layers} layers: its bf16 weights "
+                             "are 83.7 GB")
+    out[f"prefill:{PHIMOE}"] = prefill_phase(dev, api, model, 1, FAMILY_N,
+                                             f"prefill:{PHIMOE}")
+    print(f"# {PHIMOE} prefill: {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    free()
+    return out
+
+
+def mamba_serve_phase(dev, api, model) -> dict:
+    """``ServingEngine(paged=True)`` on mamba2 with ``MAMBA_SLOTS`` slots and
+    ``MAMBA_REQUESTS`` prompts of 64–128 tokens (numpy seed 5), greedy,
+    ``MAMBA_NEW`` new tokens each: slots are reused, ``cache_reset_slot``
+    zeroes each admitted slot's state (counted), prefix reuse is off for
+    recurrent state, and no kernel launches.  Requests ``MAMBA_LOCKSTEP``
+    (the two admitted into reused slots) are then
+    generated alone by B = 1 lockstep ``generate`` (``api.decode_step``):
+    their tokens must equal the served ones, or part at a near-tie (the
+    lockstep top-two logit gap there below 4e-2 of the largest |logit|: the
+    logits are rounded to bf16, so exact ties occur)."""
+    cfg = api.mcfg
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in rng.integers(64, 129, MAMBA_REQUESTS)]
+    resets = []
+
+    def reset_slot(caches, slot):
+        resets.append(slot)
+        return api.cache_reset_slot(caches, slot)
+
+    eng = ServingEngine(dataclasses.replace(api, cache_reset_slot=reset_slot), model,
+                        batch_slots=MAMBA_SLOTS, max_len=MAMBA_MAX_LEN, paged=True, page=PAGE)
+    torch.cuda.synchronize()
+    reset_counters()                                     # just before the main path
+    t0 = time.perf_counter()
+    served = eng.serve(prompts, MAMBA_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    stats = {"arch": cfg.name, "slots": MAMBA_SLOTS, "requests": len(prompts),
+             "prompt_tokens": [len(p) for p in prompts], "new_tokens": MAMBA_NEW,
+             "serve_steps": eng.serve_steps, "wall_s": wall, "slot_resets": len(resets),
+             "prefix_reuse": eng._prefix_enabled,
+             "tokens_per_second": eng.tokens_per_second,
+             "steps_per_second": eng.serve_steps / wall, "launches": launches}
+    print(json.dumps({"serve_mamba": stats}), flush=True)
+    check_launches(launches, f"serve:{MAMBA}", 0)
+    check(len(resets) == len(prompts), f"mamba serve: {len(resets)} slot resets for "
+                                       f"{len(prompts)} admissions")
+    check(not eng._prefix_enabled, "mamba serve: prefix reuse on for recurrent state")
+    check(all(len(o) == MAMBA_NEW for o in served), "mamba serve: wrong token counts")
+    rows, t0 = [], time.perf_counter()
+    for rid in MAMBA_LOCKSTEP:
+        prompt = prompts[rid]
+        one = ServingEngine(api, model, batch_slots=1, max_len=MAMBA_MAX_LEN)
+        logits, step = [], one._step
+
+        def keep_logits(*args, step=step, logits=logits):
+            nxt, lg, caches = step(*args)
+            logits.append(lg[0])
+            return nxt, lg, caches
+        one._step = keep_logits
+        toks = one.generate(prompt[None], MAMBA_NEW)[0]
+        row = {"request": rid, "served": served[rid].tolist(), "lockstep": toks.tolist()}
+        apart = np.nonzero(toks != served[rid])[0]
+        if len(apart):
+            j = int(apart[0])
+            lg = logits[len(prompt) - 1 + j].float().cpu().numpy()
+            top2 = np.sort(lg)[-2:]
+            gap, scale = float(top2[1] - top2[0]), float(np.abs(lg).max())
+            row.update(parted_at=j, top2_gap=gap, max_abs_logit=scale,
+                       near_tie=gap < NEAR_TIE * scale)
+        check(not len(apart) or row["near_tie"],
+              f"mamba request {rid}: served tokens part from lockstep at "
+              f"{row.get('parted_at')} with a top-two logit gap of {row.get('top2_gap')}")
+        rows.append(row)
+    stats["lockstep"] = {"requests": rows, "seconds": time.perf_counter() - t0,
+                         "equal": sum("parted_at" not in r for r in rows)}
+    print(json.dumps({"serve_mamba_lockstep": stats["lockstep"]}), flush=True)
+    return stats
+
+
+def mamba_phase(dev) -> dict:
+    """mamba2-1.3b at full width and depth (48 layers): the prefill (no
+    kernel: the SSD is plain products), the paged decode and its hold (each
+    layer's mamba output and the logits, fed the forward's layer input),
+    the serving engine with slot reuse against lockstep, and 1 + 2 train
+    steps (the first layer's gradients bit-identical on two calls)."""
+    out = {}
+    api, model = family_init(dev, get_config(MAMBA))
+    cfg = api.mcfg
+    for key, fn in ((f"prefill:{MAMBA}", lambda: prefill_phase(dev, api, model, 1, FAMILY_N,
+                                                               f"prefill:{MAMBA}")),
+                    (f"decode:{MAMBA}", lambda: dense_decode_phase(
+                        dev, api, model, FAMILY_DECODE_LENS, FAMILY_DECODE_STARTS)),
+                    (f"serve:{MAMBA}", lambda: mamba_serve_phase(dev, api, model))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        free()
+        print(f"# {key}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    batches = lm_train_batches(dev, cfg.vocab_size, 1, FAMILY_N, FAMILY_TRAIN_STEPS)
+    out[f"train:{MAMBA}"] = train_lm_phase(dev, api, model, batches, f"train:{MAMBA}",
+                                           reference=False, profile=False)
+    print(f"# train:{MAMBA}: {time.perf_counter() - t0:.1f} s", flush=True)
+    del model, batches
+    free()
+    return out
+
+
+def grad_rows(tag: str, i: int, names, got, want) -> list[dict]:
+    """One layer's gradients (kernels ``got``, reference ``want``) as rows of
+    max|diff| / max|reference|, a parameter's floored at ``LM_GRAD_FLOOR``
+    of the layer's largest parameter gradient (inputs unfloored).  φ_k's
+    ``pos`` (``EXACT_ZERO``) is held against the layer's largest parameter
+    gradient itself: with no padded token it adds the same mean(pos) to
+    every pooled key, which neither the compression softmax nor the
+    selection's ranking sees, so its gradient is 0 in exact arithmetic and
+    both backends return rounding noise for it (seamless's decoder: 6–11%
+    of its own largest value on the card)."""
+    pairs = []
+    for name, a, b in zip(names, got, want):
+        check((a is None) == (b is None), f"{tag} {i} {name}: gradient on one side only")
+        if a is None:
+            continue
+        check(bool(torch.isfinite(a).all()), f"{tag} {i} {name}: non-finite gradient")
+        pairs.append((name, float((a.float() - b.float()).abs().max()),
+                      float(b.float().abs().max())))
+    floor = LM_GRAD_FLOOR * max(ref for name, _, ref in pairs if name not in ("input",
+                                                                              "memory"))
+    rows = []
+    for name, diff, ref in pairs:
+        den = (ref if name in ("input", "memory")
+               else floor / LM_GRAD_FLOOR if name.endswith(EXACT_ZERO) else max(ref, floor))
+        rows.append({"part": tag, "layer": i, "name": name, "max_abs_diff": diff,
+                     "rel": diff / den if den > 0 else (0.0 if diff == 0 else math.inf)})
+    return rows
+
+
+def encdec_reference_check(model, cfg, batch) -> dict:
+    """seamless's encoder and decoder layers on the kernel path against the
+    ``reference`` backend given the same layer inputs: every layer's output
+    within ``LM_LAYER_TOL`` of its largest value, then (walking down from
+    the loss) every layer's input, memory and parameter gradients within
+    ``LM_GRAD_REL_TOL`` (``grad_rows``); the decoder layers' memory
+    gradients, summed, are the encoder's upstream gradient."""
+    frames, toks, labels = batch["frames"], batch["dec_tokens"], batch["labels"]
+    pos = torch.arange(toks.shape[1], device=toks.device)[None].expand(*toks.shape)
+    xs_e, xs_d, fwd = [], [], []
+    with torch.no_grad():
+        with use_backend("kernels"):
+            h = dense(model.frontend_proj, frames.to(cfg.cdtype()))
+            for lp in model.enc_layers:
+                xs_e.append(h)
+                h = encdec.enc_layer(lp, h, mcfg=cfg)
+            top_e = h
+            memory = rmsnorm(model.enc_norm, h, cfg.norm_eps)
+            h = embed(model.tok_embed, toks, dtype=cfg.cdtype())
+            for lp in model.dec_layers:
+                xs_d.append(h)
+                h = encdec.dec_layer(lp, h, memory, mcfg=cfg, positions=pos)
+        calls = [("encoder", i, lambda lp=lp, x=x: encdec.enc_layer(lp, x, mcfg=cfg))
+                 for i, (lp, x) in enumerate(zip(model.enc_layers, xs_e))]
+        calls += [("decoder", i, lambda lp=lp, x=x: encdec.dec_layer(
+            lp, x, memory, mcfg=cfg, positions=pos))
+            for i, (lp, x) in enumerate(zip(model.dec_layers, xs_d))]
+        for part, i, fn in calls:
+            with use_backend("kernels"):
+                yk = fn()
+            with use_backend("reference"):
+                yr = fn()
+            fwd.append({"part": part, "layer": i,
+                        "rel": float((yk.float() - yr.float()).abs().max())
+                        / float(yr.float().abs().max())})
+    top = h.detach().requires_grad_(True)
+    logits = dense(model.lm_head, rmsnorm(model.dec_norm, top, cfg.norm_eps)).float()
+    gy, = torch.autograd.grad(masked_mean_nll(logits, labels), top)
+    del logits
+    rows = []
+    g_mem = torch.zeros_like(memory, dtype=torch.float32)
+    for i in reversed(range(len(xs_d))):
+        lp = model.dec_layers[i]
+        x = xs_d[i].detach().requires_grad_(True)
+        mem = memory.detach().requires_grad_(True)
+        named = [(n, p) for n, p in lp.named_parameters() if p.requires_grad]
+        wrt = [x, mem] + [p for _, p in named]
+        grads = {}
+        for backend in ("kernels", "reference"):
+            with use_backend(backend):
+                y = encdec.dec_layer(lp, x, mem, mcfg=cfg, positions=pos)
+                grads[backend] = torch.autograd.grad(y, wrt, gy, allow_unused=True)
+            del y
+        rows += grad_rows("decoder", i, ["input", "memory"] + [n for n, _ in named],
+                          grads["kernels"], grads["reference"])
+        gy, g_mem = grads["kernels"][0], g_mem + grads["kernels"][1].float()
+        del grads
+    xt = top_e.detach().requires_grad_(True)
+    gy, = torch.autograd.grad(rmsnorm(model.enc_norm, xt, cfg.norm_eps), xt,
+                              g_mem.to(xt.dtype))
+    for i in reversed(range(len(xs_e))):
+        lp = model.enc_layers[i]
+        x = xs_e[i].detach().requires_grad_(True)
+        named = [(n, p) for n, p in lp.named_parameters() if p.requires_grad]
+        wrt = [x] + [p for _, p in named]
+        grads = {}
+        for backend in ("kernels", "reference"):
+            with use_backend(backend):
+                y = encdec.enc_layer(lp, x, mcfg=cfg)
+                grads[backend] = torch.autograd.grad(y, wrt, gy, allow_unused=True)
+            del y
+        rows += grad_rows("encoder", i, ["input"] + [n for n, _ in named],
+                          grads["kernels"], grads["reference"])
+        gy = grads["kernels"][0]
+        del grads
+    stats = {"arch": cfg.name, "layer_rel_tol": LM_LAYER_TOL, "grad_rel_tol": LM_GRAD_REL_TOL,
+             "floor": LM_GRAD_FLOOR, "layer_outputs": fwd,
+             "worst_output": max(fwd, key=lambda r: r["rel"]),
+             "worst_gradient": max(rows, key=lambda r: r["rel"]),
+             "tensors_compared": len(rows)}
+    print(json.dumps({"encdec_reference_check": stats}), flush=True)
+    beyond = [f"{r['part']} {r['layer']} ({r['rel']:.2e})" for r in fwd
+              if not r["rel"] <= LM_LAYER_TOL]
+    beyond += [f"{r['part']} {r['layer']} {r['name']} ({r['rel']:.2e})" for r in rows
+               if not r["rel"] <= LM_GRAD_REL_TOL]
+    check(not beyond, f"seamless kernel path vs reference backend: {', '.join(beyond[:8])}")
+    return stats
+
+
+def encdec_bits(model, cfg, batch) -> bool:
+    """The first encoder layer's and the first decoder layer's input (and
+    memory) and parameter gradients on the kernel path, twice from the same
+    inputs: identical bits, checked."""
+    toks = batch["dec_tokens"]
+    pos = torch.arange(toks.shape[1], device=toks.device)[None].expand(*toks.shape)
+    with torch.no_grad(), use_backend("kernels"):
+        xe = dense(model.frontend_proj, batch["frames"].to(cfg.cdtype()))
+        mem = rmsnorm(model.enc_norm, xe, cfg.norm_eps)
+        xd = embed(model.tok_embed, toks, dtype=cfg.cdtype())
+    same = True
+    for fn, lp, ins in ((lambda lp, x: encdec.enc_layer(lp, x, mcfg=cfg),
+                         model.enc_layers[0], [xe]),
+                        (lambda lp, x, m: encdec.dec_layer(lp, x, m, mcfg=cfg, positions=pos),
+                         model.dec_layers[0], [xd, mem])):
+        ins = [t.detach().requires_grad_(True) for t in ins]
+        wrt = ins + [p for p in lp.parameters() if p.requires_grad]
+        runs = []
+        with use_backend("kernels"):
+            for _ in range(2):
+                y = fn(lp, *ins)
+                runs.append(torch.autograd.grad(y, wrt, torch.ones_like(y) / y.numel() ** 0.5,
+                                                allow_unused=True))
+                del y
+        same = same and all((a is None and b is None) or torch.equal(a, b)
+                            for a, b in zip(*runs))
+    print(json.dumps({"encdec_layer_bits": {"bit_identical": same}}), flush=True)
+    check(same, "seamless: a layer's gradients differ between two calls")
+    return same
+
+
+def seamless_train_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` train steps of seamless with remat
+    (each forward kernel twice a layer and step): the encoder's BSA (ball,
+    compression, selection, combine) a layer, the decoder's causal BSA and
+    cross-attention a layer."""
+    Le, Ld = cfg.n_encoder_layers or cfg.n_layers, cfg.n_layers
+    fwd = {"bta_fwd": Le, "flash_fwd": Le + 2 * Ld, "selection_fwd": Le + Ld,
+           "epilogue_fwd": Le + Ld, "local_fwd": Ld}
+    bwd = {"bta_bwd": Le, "flash_dq": Le + 2 * Ld, "flash_dkv": Le + 2 * Ld,
+           "selection_dq": Le + Ld, "selection_dkv": Le + Ld, "epilogue_bwd": Le + Ld,
+           "local_dq": Ld, "local_dkv": Ld}
+    return {**{k: 2 * n * steps for k, n in fwd.items()},
+            **{k: n * steps for k, n in bwd.items()}}
+
+
+def check_counts(launches: dict, want: dict, what: str) -> None:
+    for name, n in launches.items():
+        check(n == want.get(name, 0),
+              f"{name} launched {n} times on {what}, expected {want.get(name, 0)}")
+
+
+def encdec_phase(dev) -> dict:
+    """seamless-m4t-medium at full width and depth (12 + 12 layers): 1 + 2
+    train steps on 1 × 4096 frames (512 decoder tokens; each kernel's
+    launches counted exactly: ``seamless_train_launches``), the layers held
+    to the reference backend (``encdec_reference_check``), a layer's
+    gradients bit-identical on two calls, a profiled step; then the decode
+    (``encdec_decode_phase``)."""
+    out = {}
+    api, model = family_init(dev, get_config(SEAMLESS))
+    cfg = api.mcfg
+    batches = [api.make_batch(np.random.default_rng(s), 1, FAMILY_N, device=dev)
+               for s in range(FAMILY_TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    opt_state = adamw_init(dict(model.named_parameters()),
+                           state_dtype=getattr(torch, cfg.opt_state_dtype))
+    step = make_train_step(api, base_lr=1e-3, weight_decay=0.01, total_steps=300,
+                           warmup_steps=30)
+    model, opt_state, _ = step(model, opt_state, batches[0])       # warm-up step
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()                                    # just before the main path
+    metrics, step_ms = [], []
+    for batch in batches[1:]:
+        t1 = time.perf_counter()
+        model, opt_state, m = step(model, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append(m)
+    launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    stats = {"arch": cfg.name, "steps": FAMILY_TRAIN_STEPS, "frames": FAMILY_N,
+             "decoder_tokens": int(batches[0]["dec_tokens"].shape[1]),
+             "layers": [len(model.enc_layers), len(model.dec_layers)],
+             "loss": [float(m["loss"]) for m in metrics],
+             "grad_norm": [float(m["grad_norm"]) for m in metrics], "warmup_s": warm_s,
+             "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+             "frames_per_second": FAMILY_TRAIN_STEPS * FAMILY_N / (sum(step_ms) / 1e3),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches}
+    print(json.dumps({"train_encdec": stats}), flush=True)
+    check(all(math.isfinite(x) for x in stats["loss"] + stats["grad_norm"]),
+          "seamless train: non-finite loss or gradient norm")
+    check_counts(launches, seamless_train_launches(cfg, FAMILY_TRAIN_STEPS), "seamless train")
+    stats["reference_check"] = encdec_reference_check(model, cfg, batches[1])
+    stats["bit_identical"] = encdec_bits(model, cfg, batches[1])
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(model, opt_state, batches[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    summary = device_summary(prof)
+    summary.update(profiled_wall_ms=wall * 1e3,
+                   device_busy_share=summary["device_kernel_ms"] / (wall * 1e3))
+    print(json.dumps({"train_encdec_profile": {"arch": cfg.name, **summary}}), flush=True)
+    out[f"train:{SEAMLESS}"] = stats
+    print(f"# {SEAMLESS} train: {time.perf_counter() - t0:.1f} s", flush=True)
+    del opt_state
+    free()
+    t0 = time.perf_counter()
+    out[f"decode:{SEAMLESS}"] = encdec_decode_phase(dev, api, model, batches[1])
+    print(f"# {SEAMLESS} decode: {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    free()
+    return out
+
+
+def encdec_decode_phase(dev, api, model, batch) -> dict:
+    """Greedy decode of ``SEAMLESS_DECODE`` tokens through the user's entry
+    points: ``api.cache_init(1, 512, params=, memory=)`` over the encoder's
+    output (cross-attention K/V computed once) and ``api.decode_step``
+    (self-attention: 4 ``paged_gather_pair`` a layer and step; cross-attention:
+    ``flash_fwd`` with one row against the 4096 frames), counted exactly.
+    Then the hold: ``decode_train`` on the greedy tokens (padded to 512 with
+    random ones) records each decoder layer's input and output (a tap on
+    ``encdec.dec_layer``), and the decode runs again with each layer fed the
+    forward's input (``encdec_decode_step(layer_input=)``): every layer's
+    output and the logits within ``DECODE_HOLD_TOL`` of the forward's
+    largest value, position by position."""
+    cfg = api.mcfg
+    with torch.inference_mode(), use_backend("kernels"):
+        memory = encdec.encode(model, batch["frames"], mcfg=cfg)
+    caches = api.cache_init(1, SEAMLESS_MAX_LEN, cfg.cdtype(), device=dev, params=model,
+                            memory=memory)
+    tok = batch["dec_tokens"][:, 0]
+    greedy = [tok]
+    torch.cuda.synchronize()
+    reset_counters()                                    # just before the main path
+    t0 = time.perf_counter()
+    for _ in range(SEAMLESS_DECODE):
+        logits, caches = api.decode_step(model, tok, caches)
+        tok = logits.argmax(-1).to(torch.int32)
+        greedy.append(tok)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    del caches
+    L = cfg.n_layers
+    check_counts(launches, {"paged_gather_pair": DECODE_GATHERS * L * SEAMLESS_DECODE,
+                            "flash_fwd": L * SEAMLESS_DECODE}, "seamless decode")
+    check(bool(torch.isfinite(logits).all()), "seamless decode: non-finite logits")
+    stats = {"arch": cfg.name, "tokens": SEAMLESS_DECODE, "seconds": seconds,
+             "ms_per_token": seconds / SEAMLESS_DECODE * 1e3, "launches": launches,
+             "greedy": torch.stack(greedy[1:], 1)[0].tolist()}
+    # the hold: teacher forcing over the greedy tokens
+    seq = torch.stack(greedy[:SEAMLESS_DECODE], 1)                     # (1, 32)
+    pad = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, SEAMLESS_MAX_LEN - SEAMLESS_DECODE), dtype=np.int32)).to(dev)
+    fwd_in, fwd_out, dec_layer = [], [], encdec.dec_layer
+
+    def tap(lp, x, *args, **kw):
+        fwd_in.append(x)
+        fwd_out.append(dec_layer(lp, x, *args, **kw))
+        return fwd_out[-1]
+
+    with torch.inference_mode(), use_backend("kernels"), \
+            mock.patch.object(encdec, "dec_layer", tap):
+        ref = encdec.decode_train(model, torch.cat([seq, pad], 1), memory, mcfg=cfg)
+    got_out = [[] for _ in range(L)]
+    got_logits = []
+    caches = api.cache_init(1, SEAMLESS_MAX_LEN, cfg.cdtype(), device=dev, params=model,
+                            memory=memory)
+    with torch.inference_mode(), use_backend("kernels"):
+        for t in range(SEAMLESS_DECODE):
+            def feed(n, x, t=t):
+                if n:
+                    got_out[n - 1].append(x[:, 0])
+                return fwd_in[n][:, t:t + 1]
+            lg, caches = encdec.encdec_decode_step(model, seq[:, t], caches, mcfg=cfg,
+                                                   layer_input=feed)
+            got_logits.append(lg)
+    rows = []
+    for name, got, want in [(f"layer {i}", torch.stack(got_out[i], 1),
+                             fwd_out[i][:, :SEAMLESS_DECODE]) for i in range(L - 1)] + [
+            ("logits", torch.stack(got_logits, 1), ref[:, :SEAMLESS_DECODE])]:
+        check(bool(torch.isfinite(got).all()), f"seamless decode hold {name}: non-finite")
+        d = float((got.float() - want.float()).abs().max())
+        rows.append({"what": name, "rel": d / float(want.float().abs().max())})
+    stats["hold"] = {"rel_tol": DECODE_HOLD_TOL, "rows": rows,
+                     "greedy_equals_teacher_argmax": bool(torch.equal(
+                         ref[0, :SEAMLESS_DECODE].argmax(-1).int(),
+                         torch.stack(greedy[1:], 1)[0].int()))}
+    print(json.dumps({"decode_encdec": stats}), flush=True)
+    beyond = [f"{r['what']} ({r['rel']:.2e})" for r in rows if not r["rel"] <= DECODE_HOLD_TOL]
+    check(not beyond, f"seamless decode vs decode_train beyond {DECODE_HOLD_TOL}: "
+                      f"{', '.join(beyond)}")
+    return stats
+
+
+def vlm_phase(dev) -> dict:
+    """llava-next-34b at full width: the depth is the most layers whose bf16
+    weights leave ``LLAVA_ROOM_GB`` under ``LLAVA_PEAK_GB`` (measured on one-
+    and two-layer models: the weights outside the stack and a layer's), at
+    most its 60; then the prefill of 512 image + 3,584 text tokens
+    (``prefill_phase``: launches, every layer of the backbone held to the
+    reference backend, a profiled call) with its peak memory."""
+    cfg = get_config(LLAVA)
+    sizes = []
+    for n in (1, 2):
+        model = model_api(cfg.scaled(n_layers=n)).init(seed=0, device=dev)
+        sizes.append(sum(p.numel() * p.element_size() for p in model.parameters()))
+        del model
+        free()
+    per_layer, outside = sizes[1] - sizes[0], 2 * sizes[0] - sizes[1]
+    depth = min(cfg.n_layers, int((LLAVA_PEAK_GB - LLAVA_ROOM_GB) * 1e9 - outside)
+                // per_layer)
+    cut = None if depth == cfg.n_layers else (
+        f"{depth} of {cfg.n_layers} layers: {per_layer / 1e9:.3f} GB a layer, "
+        f"{outside / 1e9:.2f} GB outside the stack, {LLAVA_ROOM_GB} GB left for the prefill "
+        f"under {LLAVA_PEAK_GB} GB")
+    api, model = family_init(dev, cfg.scaled(n_layers=depth), cut)
+    t0 = time.perf_counter()
+    stats = prefill_phase(dev, api, model, 1, FAMILY_N, f"prefill:{LLAVA}")
+    stats.update(image_tokens=cfg.vision_tokens, text_tokens=FAMILY_N - cfg.vision_tokens,
+                 depth_cut=cut)
+    print(f"# {LLAVA} prefill ({depth} layers): {time.perf_counter() - t0:.1f} s, peak "
+          f"{stats['peak_memory_gb']:.1f} GB", flush=True)
+    check(stats["peak_memory_gb"] < 80.0, f"llava prefill peak {stats['peak_memory_gb']} GB")
+    del model
+    free()
+    return {f"prefill:{LLAVA}": stats}
+
+
+def family_kernel_rows(dev) -> list[dict]:
+    """The other families' kernel rows: seamless's ball and cross-attention
+    shapes, the causal path at qwen2-moe's, phi3.5-moe's and llava's heads
+    (run beside the other head rows, before the models' phases)."""
+    t0 = time.perf_counter()
+    rows = family_kernel_phase(dev)
+    for tag in ("rep1_d128", "rep4", "rep7"):
+        rows += head_rows_phase(dev, tag, (torch.bfloat16,))
+    print(f"# family kernel rows: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def family_phases(dev, paths: dict) -> None:
+    """The other families' models (``moe_phase``, ``mamba_phase``,
+    ``encdec_phase``, ``vlm_phase``), each phase's seconds printed; their
+    paths go into ``paths``."""
+    for phase in (moe_phase, mamba_phase, encdec_phase, vlm_phase):
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        free()
+        print(f"# {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def quickstart_phase() -> dict:
@@ -3503,6 +4445,7 @@ def main() -> int:
         t0 = time.perf_counter()
         rows += head_rows_phase(dev, tag, (torch.bfloat16,))
         print(f"# {tag} heads phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    rows += family_kernel_rows(dev)
     lm_api = model_api(get_config(LM))
     t0 = time.perf_counter()
     lm_model = lm_api.init(seed=0, device=dev)
@@ -3534,6 +4477,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"# {arch} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    family_phases(dev, paths)
 
     summary = kernels_line(rows, paths)
     print(json.dumps({"kernels": summary}), flush=True)

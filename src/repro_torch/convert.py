@@ -9,16 +9,20 @@ Two layout differences are bridged here:
 
   * a dense weight ``w`` is stored (d_in, d_out) in JAX
     (``repro/layers/nn.py:27``) and (d_out, d_in) here: it is transposed;
-  * ``params["layers"]`` holds every layer's parameters stacked on a
-    leading axis (``jax.vmap`` in ``repro/models/pointcloud.py`` and
-    ``repro/models/transformer.py``): it is unstacked into
-    ``model.layers[i]``.  For the LM the stack is over periods and each
-    period's layers sit under ``pos0``, ``pos1``, …; the port's period
+  * a layer stack (``layers``; the VLM's ``lm.layers``; the
+    encoder-decoder's ``enc_layers`` and ``dec_layers``) holds every
+    layer's parameters stacked on a leading axis (``jax.vmap`` in the JAX
+    models): it is unstacked into the port's ``nn.ModuleList`` of that
+    name, ``model.layers[i]``.  For the LM the stack is over periods and
+    each period's layers sit under ``pos0``, ``pos1``, …; the port's period
     modules carry the same names, so that level maps by name too.
 
-The LM's other keys load the same way: ``embed.table`` (vocab, d_model)
-as it is, ``lm_head.w`` transposed like every dense weight,
-``final_norm.g``.  A key the port lacks, or a shape that disagrees, raises.
+Every other key loads as it is: ``embed.table`` (vocab, d_model),
+``final_norm.g``, the MoE expert stacks ``w_gate`` / ``w_up`` (E, d, dff)
+and ``w_down`` (E, dff, d) (the product's own layout in both packages),
+mamba's ``conv_w`` (W, C), ``A_log``, ``D``, ``dt_bias``; ``lm_head.w`` is
+transposed like every dense weight.  A key the port lacks, or a shape that
+disagrees, raises.
 """
 
 from __future__ import annotations
@@ -35,6 +39,14 @@ def _load(module: nn.Module, tree: dict, where: str) -> None:
         path = f"{where}.{key}" if where else key
         if isinstance(value, dict):
             child = getattr(module, key, None)
+            if isinstance(child, nn.ModuleList):           # a stack: unstack it
+                depth = {np.asarray(a).shape[0] for a in _leaves(value)}
+                if depth != {len(child)}:
+                    raise ValueError(f"{path}: JAX tree stacks {depth} layers, the port "
+                                     f"has {len(child)}")
+                for i, layer in enumerate(child):
+                    _load(layer, _take(value, i), f"{path}.{i}")
+                continue
             if not isinstance(child, nn.Module):
                 raise KeyError(f"the port has no module {path!r}")
             _load(child, value, path)
@@ -56,16 +68,7 @@ def params_from_jax(tree: dict, model: nn.Module) -> nn.Module:
     """Copy ``tree`` (the JAX parameter pytree with numpy leaves) into
     ``model`` in place and return it.  A key the port lacks, or a shape
     that disagrees, raises."""
-    tree = dict(tree)
-    stacked = tree.pop("layers", None)
-    _load(model, tree, "")
-    if stacked is not None:
-        depth = {np.asarray(a).shape[0] for a in _leaves(stacked)}
-        if depth != {len(model.layers)}:
-            raise ValueError(f"JAX tree stacks {depth} layers, the port has "
-                             f"{len(model.layers)}")
-        for i, layer in enumerate(model.layers):
-            _load(layer, _take(stacked, i), f"layers.{i}")
+    _load(model, dict(tree), "")
     return model
 
 
@@ -97,8 +100,9 @@ def named_to_jax(named: dict) -> dict:
     """Tensors keyed by parameter name (the model's parameters, their
     gradients, an optimizer moment) in the JAX pytree layout, as numpy fp32
     arrays that own their data (a later in-place update of the tensors
-    leaves them as they were): dense weights transposed to (d_in, d_out), ``layers.i.*``
-    stacked on a leading layer axis."""
+    leaves them as they were): dense weights transposed to (d_in, d_out), a
+    stack's ``<stack>.i.*`` (``layers``, ``lm.layers``, ``enc_layers``,
+    ``dec_layers``) stacked on a leading layer axis."""
     tree: dict = {}
     stacked: dict = {}
     for name, t in named.items():
@@ -106,15 +110,14 @@ def named_to_jax(named: dict) -> dict:
         parts = name.split(".")
         if parts[-1] == "w":                       # dense: (d_out, d_in) → (d_in, d_out)
             arr = arr.T
-        if parts[0] == "layers":
-            stacked.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr
+        at = next((i for i, part in enumerate(parts) if part.isdigit()), None)
+        if at is not None:                         # <stack>.<i>.<rest>
+            key = (tuple(parts[:at]), tuple(parts[at + 1:]))
+            stacked.setdefault(key, {})[int(parts[at])] = arr
             continue
         _put(tree, parts, arr)
-    if stacked:
-        layers: dict = {}
-        for path, by_layer in stacked.items():
-            _put(layers, list(path), np.stack([by_layer[i] for i in sorted(by_layer)]))
-        tree["layers"] = layers
+    for (stack, path), by_layer in stacked.items():
+        _put(tree, [*stack, *path], np.stack([by_layer[i] for i in sorted(by_layer)]))
     return tree
 
 

@@ -16,7 +16,11 @@ and ``--device cpu`` runs on the CPU (the kernels' plain versions); the
 default device is the card.  Weights are random, from seed 0.  ``--smoke``
 without ``--paged`` is the analogue of ``examples/serve_lm.py``: random
 prompts, greedy ``generate``, and the printed shape, first slot and
-tokens/s.
+tokens/s.  ``--arch`` takes every decoder-only LM (dense, MoE, SSM,
+hybrid: a mamba layer's state is zeroed when its slot takes a request, and
+prefix reuse is off for it) and, in lockstep only, the VLM (decoding on its
+backbone); a family without a paged decoder is refused with ``--paged``,
+and the encoder-decoder always (its decode needs the encoder's memory).
 """
 
 from __future__ import annotations
@@ -59,11 +63,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     mcfg = get_config(args.arch)
+    if mcfg.is_encoder_decoder:
+        ap.error(f"--arch {args.arch}: the encoder-decoder's decode needs the encoder's "
+                 "memory (api.cache_init(params=, memory=)); serve a decoder-only LM")
     if args.smoke:
         mcfg = smoke_config(mcfg)
     if args.backend:
         mcfg = mcfg.scaled(bsa=dataclasses.replace(mcfg.bsa, backend=args.backend))
     api = model_api(mcfg)
+    if args.paged and not api.has_paged_decoder:
+        ap.error(f"--arch {args.arch}: family {mcfg.family!r} has no paged decode path")
     model = api.init(0, device=args.device)
     rng = np.random.default_rng(0)
     if args.paged:

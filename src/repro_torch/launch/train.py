@@ -5,8 +5,9 @@
     python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke --device cpu \
         --steps 2                                    # reduced config, CPU-sized
 
-``runtime.Trainer`` over ``lm_batches`` (seed 0) for the LM families, or
-over ShapeNet-Car batches for the point-cloud family: ``make_train_step``
+``runtime.Trainer`` over ``lm_batches`` (seed 0) for the decoder-only LM
+families (dense, MoE, SSM, hybrid), or over ShapeNet-Car batches for the
+point-cloud family: ``make_train_step``
 (loss, backward, global-norm clipping at 1.0, AdamW with weight decay
 0.01, lr ``--lr`` with linear warm-up over a twentieth of the steps and
 cosine decay), weights from seed 0, the AdamW moments in the config's
@@ -17,7 +18,10 @@ start after the last batch it trained on (its ``data_state``).
 ``--backend`` names the attention backend (``reference | kernels | auto``
 or a registered name) in the config; ``$REPRO_TORCH_ATTENTION_BACKEND``
 beats it.  It runs on ``cuda`` unless ``--device cpu`` is given; there is
-no fallback from one to the other.  The JAX launcher's ``--mesh`` and
+no fallback from one to the other.  The VLM and encoder-decoder
+configs are refused: their batches carry patch or frame embeddings that
+token batches lack (train them with ``launch.steps.make_train_step`` on
+``api.make_batch`` batches).  The JAX launcher's ``--mesh`` and
 ``--distributed`` wait for the distributed layer (ROADMAP queue 1 item 3).
 """
 
@@ -49,6 +53,9 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
 
     mcfg = get_config(args.arch)
+    if mcfg.family in ("vlm", "audio"):
+        ap.error(f"--arch {args.arch}: the {mcfg.family} family trains on patch / frame "
+                 "embeddings, which the launcher's token batches lack")
     if args.smoke:
         mcfg = smoke_config(mcfg)
     if args.backend:

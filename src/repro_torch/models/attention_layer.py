@@ -8,9 +8,11 @@ one-token decode steps over a dense cache (``attention_layer_decode``) or
 paged pools (``attention_layer_decode_paged``).  The baselines are
 ``"full"`` (``full_attention``, non-causal with a key mask or causal) and
 ``"erwin"`` (``erwin_attention`` at the layer's coarsening level), padded
-layout only.  Their dense-cache decode paths and cross-attention belong to
-the encoder-decoder family, not ported yet: a decode of a mechanism other
-than BSA raises.
+layout only; their one-token decode attends the whole cache with the plain
+``sdpa`` (JAX's dense cached path).  ``cross_attention_apply`` attends
+precomputed memory K/V (``memory_kv``) with ``full_attention``,
+non-causal, the memory mask as key validity: the encoder-decoder's
+cross-attention, on the flash kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.branches import repeat_kv, sdpa
 from repro_torch.core.bsa import bsa_attention, bsa_attention_varlen, bsa_init
 from repro_torch.core.erwin import erwin_attention
 from repro_torch.core.full_attention import full_attention
@@ -26,9 +29,10 @@ from repro_torch.core.nsa_causal import (init_decode_cache, init_paged_decode_ca
                                          nsa_causal_decode_paged)
 from repro_torch.layers.nn import Dense, dense
 from repro_torch.layers.rope import rope_angles, rotate
+from repro_torch.numerics import mask_to_bias
 
 __all__ = ["MECHANISMS", "AttentionLayer", "attention_layer_apply",
-           "attention_cache_init", "attention_paged_cache_init", "attention_layer_decode",
+           "cross_attention_apply", "memory_kv", "attention_cache_init", "attention_paged_cache_init", "attention_layer_decode",
            "attention_layer_decode_paged"]
 
 MECHANISMS = ("bsa", "full", "erwin")
@@ -107,12 +111,26 @@ def attention_layer_apply(p: AttentionLayer, x: torch.Tensor, *, mcfg,
     return dense(p.wo, out.reshape(B, N, mcfg.n_heads * mcfg.resolved_head_dim))
 
 
-def _bsa_only(mcfg, what: str) -> None:
-    if mcfg.attention != "bsa":
-        raise NotImplementedError(
-            f"{what} is ported for attention='bsa' only, got {mcfg.attention!r} (the "
-            "dense-cache decode of the other mechanisms comes with the "
-            "encoder-decoder family)")
+def cross_attention_apply(p: AttentionLayer, x, memory_kv, *, mcfg,
+                          mem_mask=None) -> torch.Tensor:
+    """Cross-attention of x (B, N, d) to precomputed memory K/V, a (B, L,
+    Hkv, D) pair: ``full_attention``, non-causal, ``mem_mask`` (B, L) bool
+    as key validity, no RoPE."""
+    B, N, _ = x.shape
+    hd = mcfg.resolved_head_dim
+    q = dense(p.wq, x).reshape(B, N, mcfg.n_heads, hd)
+    mk, mv = memory_kv
+    out = full_attention(q, mk, mv, mask=mem_mask, causal=False, backend=mcfg.bsa.backend)
+    return dense(p.wo, out.reshape(B, N, mcfg.n_heads * hd))
+
+
+def memory_kv(p: AttentionLayer, memory, *, mcfg) -> tuple:
+    """Cross-attention K/V of the encoder output (B, L, d): a (B, L, Hkv, D)
+    pair."""
+    B, L, _ = memory.shape
+    hd = mcfg.resolved_head_dim
+    return (dense(p.wk, memory).reshape(B, L, mcfg.n_kv_heads, hd),
+            dense(p.wv, memory).reshape(B, L, mcfg.n_kv_heads, hd))
 
 
 # ---------------------------------------------------------------------------
@@ -120,19 +138,43 @@ def _bsa_only(mcfg, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def attention_cache_init(mcfg, batch: int, max_len: int, dtype, device=None) -> dict:
-    _bsa_only(mcfg, "the decode cache")
-    return init_decode_cache(batch, max_len, mcfg.n_kv_heads, mcfg.resolved_head_dim,
-                             mcfg.bsa, dtype=dtype, device=device)
+    """BSA: ``init_decode_cache``; other mechanisms: dense K/V of (batch,
+    max_len, Hkv, D) and a shared length."""
+    hd = mcfg.resolved_head_dim
+    if mcfg.attention == "bsa":
+        return init_decode_cache(batch, max_len, mcfg.n_kv_heads, hd, mcfg.bsa,
+                                 dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=device)
+    return {"k": torch.zeros((batch, max_len, mcfg.n_kv_heads, hd), **kw),
+            "v": torch.zeros((batch, max_len, mcfg.n_kv_heads, hd), **kw),
+            "length": torch.zeros((), dtype=torch.int64, device=device)}
 
 
 def attention_paged_cache_init(mcfg, num_blocks: int, page: int, dtype,
                                device=None) -> dict:
-    """Flat paged pools of one layer (+1 trash block).  Every layer's pools
-    have the same block layout, so one host block table serves the stack."""
-    _bsa_only(mcfg, "the paged decode cache")
-    return init_paged_decode_cache(num_blocks, page, mcfg.n_kv_heads,
-                                   mcfg.resolved_head_dim, mcfg.bsa, dtype=dtype,
-                                   device=device)
+    """Flat paged pools of one layer (+1 trash block): token and compressed
+    pools for BSA, token pools for the other mechanisms.  Every layer's
+    pools have the same block layout, so one host block table serves the
+    stack."""
+    hd = mcfg.resolved_head_dim
+    if mcfg.attention == "bsa":
+        return init_paged_decode_cache(num_blocks, page, mcfg.n_kv_heads, hd, mcfg.bsa,
+                                       dtype=dtype, device=device)
+    R = (num_blocks + 1) * page
+    kw = dict(dtype=dtype, device=device)
+    return {"k": torch.zeros((R, mcfg.n_kv_heads, hd), **kw),
+            "v": torch.zeros((R, mcfg.n_kv_heads, hd), **kw)}
+
+
+def _attend_cache(q, k_all, v_all, valid, mcfg):
+    """q (B, 1, Hq, D) against every cached row k_all / v_all (B, L, Hkv, D)
+    where ``valid`` (B, L): the plain ``sdpa`` of the dense cached path."""
+    rep = mcfg.n_heads // mcfg.n_kv_heads
+    out = sdpa(q.transpose(1, 2),
+               repeat_kv(k_all.to(q.dtype), rep).transpose(1, 2),
+               repeat_kv(v_all.to(q.dtype), rep).transpose(1, 2),
+               mask_to_bias(valid[:, None, None, :]))
+    return out.transpose(1, 2)
 
 
 def attention_layer_decode_paged(p: AttentionLayer, x1, cache, table, lengths, *, mcfg,
@@ -144,8 +186,18 @@ def attention_layer_decode_paged(p: AttentionLayer, x1, cache, table, lengths, *
     (B, 1, d), cache)."""
     B = x1.shape[0]
     q, k, v = _project(p, x1, mcfg, lengths[:, None] if rope else None, rope)
-    out, cache = nsa_causal_decode_paged(p.bsa, q, k, v, cache, table, lengths,
-                                         cfg=mcfg.bsa, page=page, x1=x1, step=step)
+    if mcfg.attention == "bsa":
+        out, cache = nsa_causal_decode_paged(p.bsa, q, k, v, cache, table, lengths,
+                                             cfg=mcfg.bsa, page=page, x1=x1, step=step)
+    else:
+        capacity = table.shape[1] * page
+        wrow = table.gather(1, (lengths // page)[:, None].long())[:, 0] * page + lengths % page
+        cache["k"][wrow.long()] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][wrow.long()] = v[:, 0].to(cache["v"].dtype)
+        apos = torch.arange(capacity, device=x1.device)[None].expand(B, capacity)
+        rows = (table.long().gather(1, apos // page) * page + apos % page)
+        out = _attend_cache(q, cache["k"][rows], cache["v"][rows],
+                            apos <= lengths[:, None], mcfg)
     return dense(p.wo, out.reshape(B, 1, mcfg.n_heads * mcfg.resolved_head_dim)), cache
 
 
@@ -155,7 +207,15 @@ def attention_layer_decode(p: AttentionLayer, x1, cache, *, mcfg, rope: bool = T
     ``cache["length"]`` → (out (B, 1, d), cache).  ``step``: the step's
     ``nsa_causal.dense_step``, shared by the layers."""
     B = x1.shape[0]
-    pos = cache["length"].expand(B, 1)
-    q, k, v = _project(p, x1, mcfg, pos if rope else None, rope)
-    out, cache = nsa_causal_decode(p.bsa, q, k, v, cache, cfg=mcfg.bsa, x1=x1, step=step)
+    t = cache["length"]
+    q, k, v = _project(p, x1, mcfg, t.expand(B, 1) if rope else None, rope)
+    if mcfg.attention == "bsa":
+        out, cache = nsa_causal_decode(p.bsa, q, k, v, cache, cfg=mcfg.bsa, x1=x1, step=step)
+    else:
+        cache["k"][:, t] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, t] = v[:, 0].to(cache["v"].dtype)
+        S = cache["k"].shape[1]
+        valid = (torch.arange(S, device=x1.device) <= t)[None].expand(B, S)
+        out = _attend_cache(q, cache["k"], cache["v"], valid, mcfg)
+        cache = {**cache, "length": t + 1}
     return dense(p.wo, out.reshape(B, 1, mcfg.n_heads * mcfg.resolved_head_dim)), cache

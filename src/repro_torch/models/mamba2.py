@@ -1,0 +1,191 @@
+"""Mamba-2 (SSD, state-space duality) mixer layer.
+
+Counterpart of ``repro/models/mamba2.py``.  The chunked SSD algorithm (Dao
+& Gu 2024): within a chunk of ``CHUNK`` tokens a quadratic, attention-like
+term; across chunks a linear recurrence of the (H, N, P) state, run here
+as a Python loop over the chunks where JAX runs ``lax.scan``.  The JAX
+einsums that contract three operands are contracted two at a time here,
+in an order that never builds a (B, nc, Q, Q, H, P) intermediate: the
+(CB ⊙ M) weights first, then one batched product over (b, c, h) with
+dt·x; the decay times dt·x first for the chunk states; the inter-chunk
+output as C times the entering state, then the decay.  The causal mask is
+applied in log space, before the exponential, so the masked entries are
+exp(−inf) = 0 and never overflow (their gradients stay finite).
+
+The causal depthwise convolution (width ``ssm_conv``) is a sum of
+``ssm_conv`` shifted products over a left-padded input, in fp32: its
+backward is plain reductions, so it gives the same bits on every call on
+the card.  The one-token decode (``mamba2_decode``) keeps the last
+``ssm_conv − 1`` inputs and the fp32 state per slot (``mamba2_cache_init``)
+and shares the parameters: decode ≡ forward is tested.  The paper's BSA
+does not apply to this attention-free mixer.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.layers.nn import Dense, RMSNorm, dense, rmsnorm
+
+__all__ = ["CHUNK", "Mamba2", "mamba2_init", "mamba2_apply", "mamba2_cache_init",
+           "mamba2_decode"]
+
+CHUNK = 128
+
+
+def _dims(mcfg):
+    d_inner = mcfg.ssm_expand * mcfg.d_model
+    H = d_inner // mcfg.ssm_head_dim
+    return d_inner, H, mcfg.ssm_head_dim, mcfg.ssm_state
+
+
+class Mamba2(nn.Module):
+    """``in_proj`` (d → z, x, B, C, dt), ``conv_w`` (W, C) and ``conv_b``,
+    ``A_log``, ``D``, ``dt_bias`` (H,), the gated ``norm`` and
+    ``out_proj``; names and layouts as the JAX pytree's."""
+
+    def __init__(self, mcfg, *, generator: torch.Generator, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        d = mcfg.d_model
+        d_inner, H, P, Ns = _dims(mcfg)
+        conv_ch = d_inner + 2 * Ns
+        kw = dict(dtype=dtype, device=device)
+        self.in_proj = Dense(d, 2 * d_inner + 2 * Ns + H, generator=generator, **kw)
+        w = torch.randn((mcfg.ssm_conv, conv_ch), generator=generator,
+                        device=generator.device) * 0.1
+        self.conv_w = nn.Parameter(w.to(**kw))
+        self.conv_b = nn.Parameter(torch.zeros(conv_ch, **kw))
+        self.A_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, H)).to(**kw))
+        self.D = nn.Parameter(torch.ones(H, **kw))
+        self.dt_bias = nn.Parameter(torch.zeros(H, **kw))
+        self.norm = RMSNorm(d_inner, eps=mcfg.norm_eps, **kw)
+        self.out_proj = Dense(d_inner, d, generator=generator, **kw)
+
+
+def mamba2_init(mcfg, *, generator: torch.Generator, dtype=torch.float32,
+                device=None) -> Mamba2:
+    return Mamba2(mcfg, generator=generator, dtype=dtype, device=device)
+
+
+def _split_proj(proj, mcfg):
+    d_inner, H, P, Ns = _dims(mcfg)
+    return torch.split(proj, [d_inner, d_inner, Ns, Ns, H], dim=-1)   # z, x, B, C, dt
+
+
+def _conv_train(p: Mamba2, u: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise convolution of u (B, S, C): out[s] = Σ_w
+    u[s − W + 1 + w] · conv_w[w] + conv_b, with zeros before the start."""
+    w = p.conv_w.to(u.dtype).float()                                  # (W, C)
+    W, S = w.shape[0], u.shape[1]
+    pad = F.pad(u.float(), (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + S] * w[i] for i in range(W))
+    return out.to(u.dtype) + p.conv_b.to(u.dtype)
+
+
+def _gated_out(p: Mamba2, y, z, mcfg, dtype):
+    y = rmsnorm(p.norm, y * F.silu(z.float()).to(dtype), mcfg.norm_eps)
+    return dense(p.out_proj, y)
+
+
+def mamba2_apply(p: Mamba2, x: torch.Tensor, mcfg) -> torch.Tensor:
+    """x: (B, S, d_model) → (B, S, d_model) by the chunked SSD scan; S must
+    be a multiple of the chunk (or shorter than one)."""
+    B, S, _ = x.shape
+    d_inner, H, P, Ns = _dims(mcfg)
+    Q = min(CHUNK, S)
+    if S % Q:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+
+    z, xin, Bm, Cm, dt = _split_proj(dense(p.in_proj, x), mcfg)
+    xBC = F.silu(_conv_train(p, torch.cat([xin, Bm, Cm], -1)).float()).to(x.dtype)
+    xin, Bm, Cm = torch.split(xBC, [d_inner, Ns, Ns], dim=-1)
+    xin = xin.reshape(B, S, H, P)
+
+    A = -torch.exp(p.A_log.float())                                  # (H,)
+    dt = F.softplus(dt.float() + p.dt_bias.float())                  # (B, S, H)
+    loga = dt * A                                                    # log decay
+    dtx = xin.float() * dt[..., None]                                # (B, S, H, P)
+
+    cs = torch.cumsum(loga.reshape(B, nc, Q, H), dim=2)              # inclusive
+    dtx_c = dtx.reshape(B, nc, Q, H, P)
+    B_c = Bm.reshape(B, nc, Q, Ns).float()
+    C_c = Cm.reshape(B, nc, Q, Ns).float()
+
+    # intra-chunk: y[i] = Σ_{j≤i} (C_i·B_j) exp(cs_i − cs_j) dtx_j
+    CB = torch.matmul(C_c, B_c.transpose(-1, -2))                    # (B, nc, Q, Q)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]                # (B, nc, Q, Q, H)
+    ii = torch.arange(Q, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    M = torch.exp(torch.where(causal, seg, -math.inf))               # masked in log space
+    Wt = (CB[..., None] * M).permute(0, 1, 4, 2, 3)                  # (B, nc, H, Q, Q)
+    y_intra = torch.matmul(Wt, dtx_c.permute(0, 1, 3, 2, 4))         # (B, nc, H, Q, P)
+    y_intra = y_intra.permute(0, 1, 3, 2, 4)                         # (B, nc, Q, H, P)
+
+    # chunk out-states S_c = Σ_j exp(cs_last − cs_j) B_j ⊗ dtx_j: (B, nc, H, N, P)
+    decay_out = torch.exp(cs[:, :, -1:, :] - cs)                     # (B, nc, Q, H)
+    ddx = (decay_out[..., None] * dtx_c).reshape(B, nc, Q, H * P)
+    S_c = torch.matmul(B_c.transpose(-1, -2), ddx)                   # (B, nc, N, H·P)
+    S_c = S_c.reshape(B, nc, Ns, H, P).permute(0, 1, 3, 2, 4)
+    A_tot = torch.exp(cs[:, :, -1, :])                               # (B, nc, H)
+
+    # inter-chunk recurrence: the state entering each chunk
+    h = torch.zeros((B, H, Ns, P), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = A_tot[:, c, :, None, None] * h + S_c[:, c]
+    h_in = torch.stack(h_in, 1)                                      # (B, nc, H, N, P)
+
+    # inter-chunk output: y_inter[i] = exp(cs_i) · C_i · h_in
+    hh = h_in.permute(0, 1, 3, 2, 4).reshape(B, nc, Ns, H * P)
+    y_inter = torch.matmul(C_c, hh).reshape(B, nc, Q, H, P) * torch.exp(cs)[..., None]
+
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    y = y + p.D.float()[None, None, :, None] * xin.float()
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    return _gated_out(p, y, z, mcfg, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def mamba2_cache_init(mcfg, batch: int, dtype=torch.float32, device=None) -> dict:
+    """Per slot: the fp32 state ``h`` (B, H, N, P) and the last W − 1
+    convolution inputs ``conv`` (B, W − 1, C) in ``dtype``."""
+    d_inner, H, P, Ns = _dims(mcfg)
+    return {"h": torch.zeros((batch, H, Ns, P), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, mcfg.ssm_conv - 1, d_inner + 2 * Ns), dtype=dtype,
+                                device=device)}
+
+
+def mamba2_decode(p: Mamba2, x1: torch.Tensor, cache: dict, mcfg) -> tuple:
+    """x1: (B, 1, d_model) → ((B, 1, d_model), the updated cache)."""
+    B = x1.shape[0]
+    d_inner, H, P, Ns = _dims(mcfg)
+    z, xin, Bm, Cm, dt = _split_proj(dense(p.in_proj, x1), mcfg)
+    u = torch.cat([xin, Bm, Cm], -1)                                 # (B, 1, C)
+    win = torch.cat([cache["conv"].to(u.dtype), u], dim=1)           # (B, W, C)
+    w = p.conv_w.to(u.dtype)
+    xBC = (torch.einsum("bwc,wc->bc", win.float(), w.float()).to(u.dtype)
+           + p.conv_b.to(u.dtype))
+    xBC = F.silu(xBC.float()).to(x1.dtype)
+    xin, Bm, Cm = torch.split(xBC, [d_inner, Ns, Ns], dim=-1)
+    xin = xin.reshape(B, H, P)
+
+    A = -torch.exp(p.A_log.float())
+    dt1 = F.softplus(dt[:, 0].float() + p.dt_bias.float())          # (B, H)
+    a = torch.exp(dt1 * A[None, :])
+    dtx = xin.float() * dt1[..., None]                               # (B, H, P)
+    b_out = Bm.float()[:, None, :, None] * dtx[:, :, None, :]        # (B, H, N, P)
+    h = a[..., None, None] * cache["h"] + b_out
+    y = torch.einsum("bn,bhnp->bhp", Cm.float(), h)
+    y = y + p.D.float()[None, :, None] * xin.float()
+    y = y.reshape(B, 1, d_inner).to(x1.dtype)
+    return _gated_out(p, y, z, mcfg, x1.dtype), {"h": h, "conv": win[:, 1:]}

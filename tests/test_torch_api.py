@@ -12,7 +12,8 @@
   equal JAX's on every shared field; at their smoke size ``lm_apply``
   matches JAX on converted weights, and two ``make_train_step`` steps of
   stablelm's (rep 1) match JAX;
-* the configs the port lacks raise, and the quickstart runs.
+* every assigned config (and its smoke size) equals JAX's field for
+  field, an unknown name raises, and the quickstart runs.
 
 Same weights on both sides (``params_from_jax``), inputs from numpy.
 Tolerances: ``lm_apply`` fp32 1e-4; the train step 1e-3, as
@@ -32,6 +33,7 @@ import torch
 
 import repro_torch.core as t_core
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.configs.reduce import smoke_config as j_smoke_config
 from repro.core import balltree as j_bt
 from repro.launch.steps import make_train_step as j_make_train_step
@@ -220,16 +222,35 @@ def test_backend_env_var_holds_in_the_remat_recompute(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_configs_registered_and_the_rest_raise():
-    assert set(NEW_LMS) <= set(list_configs())
-    assert list_archs()[:4] == ["granite-20b", "tinyllama-1.1b", "phi4-mini-3.8b",
-                                "stablelm-1.6b"]
-    with pytest.raises(KeyError, match="qwen2-moe-a2.7b.*queue 1 item 2"):
-        get_config("qwen2-moe-a2.7b")
-    for arch in list_archs()[4:]:
-        with pytest.raises(KeyError, match="queue 1 item 2"):
-            get_config(arch)
+    """Every assigned architecture is registered (all ten families' configs
+    are ported); an unknown name still raises."""
+    assert set(list_archs()) <= set(list_configs())
+    assert list_archs() == j_list_archs()
+    for arch in list_archs():
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown config"):
         get_config("no-such-model")
+
+
+def _fields(cfg) -> dict:
+    """The config's fields; of its BSA config those the port has (the
+    deprecated ``use_kernels`` flag is not carried over)."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out["bsa"] = {k: v for k, v in dataclasses.asdict(cfg.bsa).items() if k != "use_kernels"}
+    return out
+
+
+@pytest.mark.parametrize("arch", list_archs() + ["shapenet-bsa", "shapenet-full",
+                                                 "shapenet-erwin", "elasticity-bsa"])
+def test_config_equals_jax_field_for_field(arch):
+    """The port's ``ModelConfig`` has JAX's fields, and each config (and its
+    smoke size) equals JAX's ``get_config`` field for field: the
+    counterpart of ``tests/test_archs_smoke.py::test_full_configs_have_exact_dims``."""
+    got, want = get_config(arch), j_get_config(arch)
+    assert sorted(_fields(got)) == sorted(_fields(want))
+    assert _fields(got) == _fields(want)
+    assert _fields(smoke_config(got)) == _fields(j_smoke_config(want))
+    assert model_api(got).mcfg is got
 
 
 @pytest.mark.parametrize("arch", NEW_LMS)

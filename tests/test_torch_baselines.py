@@ -36,6 +36,7 @@ from repro.core import full_attention as j_full_attention
 from repro.core.config import BSAConfig as JBSAConfig
 from repro.data import elasticity as j_elasticity
 from repro.layers import nn as j_nn
+from repro.models import attention_layer as j_attn
 from repro.models import pointcloud as j_pc
 from repro.models.api import model_api as j_model_api
 from repro.optim import adamw as j_adamw
@@ -282,6 +283,9 @@ def test_elasticity_batches_match_jax(pad_to):
 
 @pytest.mark.parametrize("attention", ["full", "erwin"])
 def test_baselines_refuse_packed_offsets_and_decode(attention):
+    """The baselines refuse packed offsets; their dense and paged decode
+    caches (K, V and a length; K, V pools with a trash block) equal JAX's
+    ``attention_cache_init`` / ``attention_paged_cache_init``."""
     cfg = smoke_config(get_config(f"shapenet-{attention}"))
     layer = t_attn.AttentionLayer(cfg, generator=torch.Generator())
     assert not hasattr(layer, "bsa")
@@ -289,10 +293,16 @@ def test_baselines_refuse_packed_offsets_and_decode(attention):
     with pytest.raises(NotImplementedError, match=f"attention='{attention}'"):
         t_attn.attention_layer_apply(layer, x, mcfg=cfg, mask=torch.ones(1, 64, dtype=bool),
                                      offsets=np.array([0, 32, 64], np.int32))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        t_attn.attention_cache_init(cfg, 1, 64, torch.float32)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        t_attn.attention_paged_cache_init(cfg, 4, 16, torch.float32)
+    jcfg = j_smoke_config(j_get_config(f"shapenet-{attention}"))
+    for got, want in ((t_attn.attention_cache_init(cfg, 2, 64, torch.float32),
+                       j_attn.attention_cache_init(jcfg, 2, 64, jnp.float32)),
+                      (t_attn.attention_paged_cache_init(cfg, 4, 16, torch.float32),
+                       j_attn.attention_paged_cache_init(jcfg, 4, 16, jnp.float32))):
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert tuple(got[key].shape) == want[key].shape, key
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+            assert (got[key].dtype == torch.float32) == (want[key].dtype == jnp.float32)
 
 
 def test_train_cli_runs_elasticity_on_cpu(capsys, monkeypatch):

@@ -295,6 +295,13 @@ def test_bta_bwd_walk_paper_shape():
 def test_plans_for_configs(name):
     cfg = get_config(name)
     D, dtype = cfg.resolved_head_dim, getattr(torch, cfg.compute_dtype)
+    if cfg.attention == "none":
+        # mamba2: no attention layer, so no kernel; its resolved head dim
+        # (d_model) is one no attention kernel takes
+        assert cfg.family == "ssm" and not cfg.n_heads
+        with pytest.raises(ValueError, match="flash_fwd: no path"):
+            flash.flash_fwd_plan(D, dtype)
+        return
     fwd = flash.flash_fwd_plan(D, dtype)
     assert fwd.path == ("mma" if dtype == torch.bfloat16 else "fma")
     if cfg.bsa.local_window:
@@ -307,9 +314,10 @@ def test_plans_for_configs(name):
     if name == "shapenet-bsa":
         assert tuple(fwd) == ("fma", 64, 32)
     if cfg.attention == "bsa" and D not in HEAD_DIMS["bta_fwd"]:
-        # phi4-mini's and granite's D 128: the ball kernels take none, and the
-        # causal LM runs the local window in place of the ball branch
-        assert cfg.family == "dense"
+        # D 128 (phi4-mini, granite, the MoE LMs, jamba, llava): the ball
+        # kernels take none, and the causal LM runs the local window in
+        # place of the ball branch
+        assert cfg.family in ("dense", "moe", "hybrid", "vlm")
         with pytest.raises(ValueError, match="bta: no path"):
             bta.bta_plan(cfg.bsa.ball_size, D, cfg.n_heads // cfg.n_kv_heads, dtype)
     elif cfg.attention == "bsa":
@@ -583,9 +591,11 @@ def test_plans_raise(call):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("name", sorted(list_configs()))
+@pytest.mark.parametrize("name", sorted(n for n in list_configs()
+                                        if get_config(n).attention != "none"))
 def test_epilogue_plan_is_one_rule_for_both_kernels(name, dtype):
-    """Each registered configuration's head dim goes to ``vec`` when its
+    """Each registered configuration with attention (mamba2 has none, so no
+    combine) sends its head dim to ``vec`` when its
     rows are 16-byte vectors (lanes D / per-vector, up to 32, times rows a
     warp = 32), to ``warp`` when an input is off 16 bytes; both kernels
     read the rule from ``csrc/epilogue.cuh`` and instantiate its lanes."""
