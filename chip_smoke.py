@@ -12,8 +12,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    per CUDA source, all at once; the redesigned kernels, ``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, the tiled selection kernels, ``local_dq``
    and ``local_dkv`` in every variant and ``local_fwd_mma``, must build
-   with 0 bytes spilled at head dims 64 and 128, ``bta_fwd_fma`` /
-   ``bta_bwd_fma`` at 16 and 32, and ``varlen_fwd_fma``, ``varlen_dq_fma``
+   with 0 bytes spilled at head dims 64 and 128, ``bta_fwd_mma`` /
+   ``bta_bwd_mma`` at 64 and 128, ``bta_fwd_fma`` / ``bta_bwd_fma`` at 16
+   and 32, and ``varlen_fwd_fma``, ``varlen_dq_fma``
    and ``varlen_dkv_fma`` at 16, 32 and 64, ``selection_fwd_groups`` at
    16, 32 and 64 and ``epilogue_bwd_vec`` at every lanes count, by ptxas's
    report: ``NO_SPILL``), TF32 off for every fp32 product;
@@ -24,7 +25,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    library call, and the least time the H100 could take for the same work.
    The ball kernels' rows also give the kernel's own device time from the
    profiler, SDPA's (forward, or forward + backward − forward) and the path
-   ``bta.bta_plan`` picks (``fma`` in fp32, ``rows`` in bf16).
+   ``bta.bta_plan`` picks (``fma`` in fp32, ``mma`` in bf16).
    The four padded forward kernels run at the shapes serving
    ``shapenet-bsa`` gives them (8 slots of 3840 points, sample 0 padded
    from a 3586-point cloud, the others 2800–3586 points, 8 heads of 32);
@@ -235,8 +236,10 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    bf16, random weights from seed 0, each phase's seconds printed.  Their
    kernel rows run after phase 14's (``family_kernel_rows``), bf16, against
    their plain versions beside SDPA:
-   seamless-m4t's encoder balls (``bta_fwd`` / ``bta_bwd`` on the rows
-   path: 4096 frames, 16 heads of 64, balls of 256), its cross-attention
+   seamless-m4t's encoder balls (``bta_fwd`` / ``bta_bwd`` on the mma
+   path: 4096 frames, 16 heads of 64, balls of 256), the ball pair at
+   llava's 56 / 8 heads of 128 (the mma path at D 128) and at seamless's
+   heads in balls of 32 (the rows path, bf16), its cross-attention
    (the flash trio, 512 decoder rows against 4096 frames; ``flash_fwd``
    with one row at decode) and the causal path at qwen2-moe's 16 / 16
    heads of 128 (``rep1_d128``), phi3.5-moe's 32 / 8 (``rep4``) and
@@ -531,7 +534,8 @@ TRAINED = {a for a, (_, t) in DENSE_LMS.items() if t} | {QWEN, MAMBA}
 # the redesigned kernels must build without spills at these head dims, every
 # variant named: mma (bf16 tensor cores), fma (fp32 register tiles) and, for
 # the local backward, lanes (fp32 and small windows, both dtypes); the ball
-# kernels' fma variants at the head dims their fma path takes (16, 32), the
+# kernels' mma variants at 64 and 128 and their fma variants at the head dims
+# their fma path takes (16, 32), the
 # varlen kernels' at theirs (16, 32, 64), selection_fwd's groups variant at
 # its (16, 32, 64); epilogue_bwd's vec variant at every lanes count (in
 # place of a head dim), fp32 and bf16.  (kernel, head dims, variants)
@@ -543,6 +547,7 @@ NO_SPILL = [*((name, (64, 128), ("mma", "fma"))
             ("local_dq", (64, 128), ("mma", "lanes")),
             ("local_dkv", (64, 128), ("mma", "lanes")),
             *((name, bta.FMA_DIMS, ("fma",)) for name in ("bta_fwd", "bta_bwd")),
+            *((name, (64, 128), ("mma",)) for name in ("bta_fwd", "bta_bwd")),
             *((name, HEAD_DIMS[name], ("fma",))
               for name in ("varlen_fwd", "varlen_dq", "varlen_dkv")),
             *((name, (1, 2, 4, 8, 16, 32), ("vec",))
@@ -589,10 +594,15 @@ for _tag, (_arch, *_) in HEAD_ROWS.items():
                  else f"train:{_arch}" if _arch in TRAINED else None)
         LM_ALSO.setdefault(_name, []).append(
             (_tag, _path if _path in PATHS else None, "bfloat16", f"{_tag}_{_mode}"))
-# seamless's encoder ball (bf16, 16 heads of 64: the rows path) and its
-# cross-attention (512 decoder rows against 4096 frames; one row at decode)
+# seamless's encoder ball (bf16, 16 heads of 64: the mma path), the ball pair
+# at llava's 56 / 8 heads of 128 (the mma path at D 128) and at seamless's
+# heads in balls of 32 (the rows path; no main path runs either), and
+# seamless's cross-attention (512 decoder rows against 4096 frames; one row
+# at decode)
 for _name in ("bta_fwd", "bta_bwd"):
-    LM_ALSO[_name].append(("seamless", f"train:{SEAMLESS}", "bfloat16", "seamless_ball"))
+    LM_ALSO[_name] += [("seamless", f"train:{SEAMLESS}", "bfloat16", "seamless_ball"),
+                       ("llava_d128", None, "bfloat16", "llava_ball"),
+                       ("rows_ball32", None, "bfloat16", "rows_ball32")]
 for _name in ("flash_fwd", "flash_dq", "flash_dkv"):
     LM_ALSO[_name].append(("cross", f"train:{SEAMLESS}", "bfloat16", "cross"))
 LM_ALSO["flash_fwd"].append(("cross_decode", f"decode:{SEAMLESS}", "bfloat16",
@@ -1573,7 +1583,8 @@ def output_hashes(dev) -> dict:
     code can be held to its parent.  ``flash_fwd`` / ``flash_dq`` on
     ``HASH_CASES`` (about a sixth of the keys dead), ``flash_dkv`` beside
     them; ``bta_fwd`` / ``bta_bwd`` on 16 heads of 1,024 positions (balls of
-    256, D 32, a padded tail); ``selection_fwd`` on groups of 8 rows (ℓ 8,
+    256, D 32, a padded tail; in bf16 also at D 64 with rep 2, ``mma_d64``,
+    and in balls of 32, ``rows_ball32``); ``selection_fwd`` on groups of 8 rows (ℓ 8,
     D 32, k* 4: shapenet's) and of 64 rows (ℓ 64, D 64), ``selection_bwd``
     on the former, ``selection_dq`` / ``selection_dkv`` on the latter; the
     epilogues on 8,192 rows of 32 and 64; the varlen kernels on three clouds
@@ -1622,6 +1633,19 @@ def output_hashes(dev) -> dict:
         do = draw(o.shape, 13, dtype)
         row["bta_bwd"] = digest(*bta.ball_attention_bwd(q, k, v, kbias, do, lse,
                                                         row_delta(do, o), **kw))
+        if dtype == torch.bfloat16:
+            # the bf16 paths at other shapes: mma at D 64 (rep 2), rows at balls of 32
+            for tag, (rep_, d, ball) in (("mma_d64", (2, 64, BALL)), ("rows_ball32", (1, 32, 32))):
+                q, k, v = (draw(sh, s, dtype) for sh, s in (((16, rep_, 1024, d), 14),
+                                                            ((16, 1024, d), 15),
+                                                            ((16, 1024, d), 16)))
+                kw = dict(ball_size=ball, n_heads=8)
+                o, lse = bta.ball_attention_fwd(q, k, v, kbias, **kw)
+                row[f"bta_fwd/{tag}"] = digest(o, lse)
+                o, lse = bta.ball_attention_fwd_plain(q, k, v, kbias, **kw)
+                do = draw(o.shape, 17, dtype)
+                row[f"bta_bwd/{tag}"] = digest(*bta.ball_attention_bwd(
+                    q, k, v, kbias, do, lse, row_delta(do, o), **kw))
         # selection: groups of 8 rows (shapenet's), of 64 rows (the tiled path)
         for tag, (G, M, NB_, ell, d) in (("m8", (48, 8, 48, 8, 32)),
                                          ("m64", (8, 64, 16, 64, 64))):
@@ -3588,54 +3612,75 @@ def dense_lm_phase(dev, arch: str) -> dict:
 # the other families: MoE, SSM, VLM, encoder-decoder (family phases)
 # ---------------------------------------------------------------------------
 
+def ball_kernel_rows(record, dev, mode: str, Hkv: int, rep: int, Dh: int, m: int, n: int,
+                     seed: int, want_path: str) -> tuple:
+    """``bta_fwd`` / ``bta_bwd`` in bf16 on one sequence of n positions
+    (every one valid) in balls of m, Hkv KV heads of rep query heads each,
+    against their plain versions (the backward fed the kernel's own lse),
+    timed with their device times beside SDPA on the same balls (K and V
+    repeated to the query heads), forward and backward; ``bta_plan`` must
+    name ``want_path``.  Returns the inputs (q, k, v, key_bias)."""
+    dt, es = torch.bfloat16, 2
+    kb = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    q = rand((Hkv, rep, n, Dh), dt, dev, seed)
+    k = rand((Hkv, n, Dh), dt, dev, seed + 1)
+    v = rand((Hkv, n, Dh), dt, dev, seed + 2)
+    kw = dict(ball_size=m, n_heads=Hkv)
+    path = bta.bta_plan(m, Dh, rep, dt).path
+    check(path == want_path, f"{mode}: bta_plan names {path}, expected {want_path}")
+    nb = n // m
+    balls = nb * Hkv * rep                     # (query head, ball) pairs
+    qs = q.reshape(Hkv * rep, nb, m, Dh).transpose(0, 1).contiguous().requires_grad_(True)
+    ks, vs = (t.reshape(Hkv, nb, m, Dh).transpose(0, 1).repeat_interleave(rep, 1).contiguous()
+              .requires_grad_(True) for t in (k, v))
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs)  # noqa: E731
+    call = functools.partial(bta.ball_attention_fwd, q, k, v, kb, **kw)
+    plain = functools.partial(bta.ball_attention_fwd_plain, q, k, v, kb, **kw)
+    o, lse = call()
+    err, ok = max_err((o, lse), plain())
+    side = 4 * n + 4 * nb + 4 * q.numel() // Dh              # bias, live, lse
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es + side,
+                       4.0 * m * m * Dh * balls, dt)
+    with torch.no_grad():
+        lib_ms, lib_dev = median_ms(lib), device_ms(lib, per_call=True)[0]
+    record("bta_fwd", mode, dt, err, ok, median_ms(call), median_ms(plain, reps=5),
+           b_ms, b_by, lib_ms, device_ms=device_ms(call, "bta_fwd")[0],
+           library_device_ms=lib_dev, path=path)
+    do = rand(o.shape, dt, dev, seed + 3)
+    args = (q, k, v, kb, do, lse, row_delta(do, o))
+    call = functools.partial(bta.ball_attention_bwd, *args, **kw)
+    err, ok = rel_err(call(), bta.ball_attention_bwd_plain(*args, **kw))
+    b_ms, b_by = bound((3 * q.numel() + 4 * k.numel()) * es + side + 4 * q.numel() // Dh,
+                       10.0 * m * m * Dh * balls, dt)
+    record("bta_bwd", mode, dt, err, ok, median_ms(call),
+           median_ms(lambda: bta.ball_attention_bwd_plain(*args, **kw), reps=5), b_ms, b_by,
+           library_bwd_ms(lib, (qs, ks, vs)), device_ms=device_ms(call, "bta_bwd")[0],
+           library_device_ms=library_bwd_device_ms(lib, (qs, ks, vs)), path=path)
+    return q, k, v, kb
+
+
 def family_kernel_phase(dev) -> list[dict]:
     """seamless-m4t's own kernel shapes in bf16 against the plain versions,
     timed beside SDPA: ``bta_fwd`` / ``bta_bwd`` on its encoder's ball
     attention (4096 frames, 16 heads of 64, balls of 256: ``bta_plan``'s
-    rows path, which no earlier main path ran), the flash trio on its
-    cross-attention (512 decoder rows against 4096 frames, every frame
-    valid; ``flash_dkv`` identical bits on two calls) and ``flash_fwd`` on a
-    decode step's single row against the 4096 frames."""
+    mma path), the flash trio on its cross-attention (512 decoder rows
+    against 4096 frames, every frame valid; ``flash_dkv`` identical bits on
+    two calls) and ``flash_fwd`` on a decode step's single row against the
+    4096 frames.  Beside them the ball pair at llava's heads (56 / 8 of
+    128, rep 7: the mma path at D 128) and at seamless's heads in balls of
+    32 (the rows path, which bf16 keeps there)."""
     results = []
     record = recorder(results)
     dt, es = torch.bfloat16, 2
     cfg = get_config(SEAMLESS)
     Hs, Dh, n, m = cfg.n_heads, cfg.resolved_head_dim, FAMILY_N, cfg.bsa.ball_size
     nd = n // cfg.dec_ratio
-    kb = torch.zeros((1, n), dtype=torch.float32, device=dev)
-    # ---- bta: the encoder's balls
-    q = rand((Hs, 1, n, Dh), dt, dev, 170)
-    k = rand((Hs, n, Dh), dt, dev, 171)
-    v = rand((Hs, n, Dh), dt, dev, 172)
-    kw = dict(ball_size=m, n_heads=Hs)
-    path = bta.bta_plan(m, Dh, 1, dt).path
-    check(path == "rows", f"seamless ball: bta_plan names {path}, expected rows")
-    balls = n // m * Hs
-    qs, ks, vs = (t.reshape(Hs, n // m, m, Dh).transpose(0, 1).contiguous()
-                  .requires_grad_(True) for t in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs)  # noqa: E731
-    call = functools.partial(bta.ball_attention_fwd, q, k, v, kb, **kw)
-    plain = functools.partial(bta.ball_attention_fwd_plain, q, k, v, kb, **kw)
-    o, lse = call()
-    err, ok = max_err((o, lse), plain())
-    b_ms, b_by = bound(4 * q.numel() * es + 4 * n + 4 * (n // m) + 4 * q.numel() // Dh,
-                       4.0 * m * m * Dh * balls, dt)
-    with torch.no_grad():
-        lib_ms, lib_dev = median_ms(lib), device_ms(lib, per_call=True)[0]
-    record("bta_fwd", "seamless_ball", dt, err, ok, median_ms(call), median_ms(plain, reps=5),
-           b_ms, b_by, lib_ms, device_ms=device_ms(call, "bta_fwd")[0],
-           library_device_ms=lib_dev, path=path)
-    do = rand(o.shape, dt, dev, 173)
-    args = (q, k, v, kb, do, lse, row_delta(do, o))
-    call = functools.partial(bta.ball_attention_bwd, *args, **kw)
-    err, ok = rel_err(call(), bta.ball_attention_bwd_plain(*args, **kw))
-    b_ms, b_by = bound(7 * q.numel() * es + 2 * 4 * q.numel() // Dh + 4 * n + 4 * (n // m),
-                       10.0 * m * m * Dh * balls, dt)
-    record("bta_bwd", "seamless_ball", dt, err, ok, median_ms(call),
-           median_ms(lambda: bta.ball_attention_bwd_plain(*args, **kw), reps=5), b_ms, b_by,
-           library_bwd_ms(lib, (qs, ks, vs)), device_ms=device_ms(call, "bta_bwd")[0],
-           library_device_ms=library_bwd_device_ms(lib, (qs, ks, vs)), path=path)
-    del qs, ks, vs, args
+    # ---- bta: the encoder's balls; llava's heads at D 128; balls of 32
+    _, k, v, kb = ball_kernel_rows(record, dev, "seamless_ball", Hs, 1, Dh, m, n, 170, "mma")
+    lv = get_config(LLAVA)
+    ball_kernel_rows(record, dev, "llava_ball", lv.n_kv_heads, lv.n_heads // lv.n_kv_heads,
+                     lv.resolved_head_dim, lv.bsa.ball_size, n, 180, "mma")
+    ball_kernel_rows(record, dev, "rows_ball32", Hs, 1, Dh, 32, n, 190, "rows")
     # ---- flash: cross-attention, nd rows (and one at decode) against n frames
     fkw = dict(n_heads=Hs)
     for mode, rows in (("cross", nd), ("cross_decode", 1)):
@@ -4040,6 +4085,9 @@ def encdec_phase(dev) -> dict:
     out = {}
     api, model = family_init(dev, get_config(SEAMLESS))
     cfg = api.mcfg
+    check(bta.bta_plan(cfg.bsa.ball_size, cfg.resolved_head_dim,
+                       cfg.n_heads // cfg.n_kv_heads, cfg.cdtype()).path == "mma",
+          "seamless train: the encoder's balls are not on bta_plan's mma path")
     batches = [api.make_batch(np.random.default_rng(s), 1, FAMILY_N, device=dev)
                for s in range(FAMILY_TRAIN_STEPS + 1)]
     t0 = time.perf_counter()

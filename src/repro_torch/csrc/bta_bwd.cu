@@ -7,17 +7,37 @@
 // (B, N) fp32, live (B, N/m) int32, lse and delta = rowsum(dO*O) (B*Hkv, rep,
 // N) fp32 -> dq like q, dk/dv like k.
 //
-// Bound on the H100: at the paper's shapes (m = 256, D = 32, fp32) the five
-// products (S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ = dS K) are
-// 10*m*D FLOP per query row against a few D-wide rows of bytes, so the fp32
-// FMA rate bounds it.
+// Bound on the H100: the five products (S = QK^T, dP = dO V^T, dV += P^T dO,
+// dK += dS^T Q, dQ = dS K) are 10*m*D FLOP per query row against a few
+// D-wide rows of bytes, so the products bound it: on the bf16 tensor cores in
+// bf16 (seamless's encoder: m = 256, D = 64), on the fp32 FMA pipes at the
+// paper's shapes (m = 256, D = 32, fp32).
 //
 // Design.  The ball is the tile, so a ball's gradients depend on that ball
-// alone and one thread block per (batch*KV-head, ball) produces all three in
-// a single pass, as the TPU kernel does: no other block touches the ball's
-// dK, dV (no atomics, no staging buffer, a fixed order of sums).  Two paths,
-// one rule (kernels/bta.py::bta_plan):
-//   fma   fp32, m a multiple of 64 up to 256, D 16 or 32 (shapenet): the
+// alone: no block touches another ball's dQ, dK, dV (no atomics, no staging
+// buffer, a fixed order of sums, so two calls give equal bits).  Three
+// paths, one rule (kernels/bta.py::bta_plan):
+//   mma   bf16, m a multiple of 64, D 16-128: one launch, two block roles
+//         side by side in one grid (blockIdx.x < m/64: dK/dV, the rest: dQ;
+//         (m/64 + rep*m/64, N/m, B*Hkv) blocks of 4 warps), tiles staged in
+//         bf16 by cp.async and double-buffered, every product on mma.sync
+//         m16n8k16 with fp32 accumulation, exponentials on the MUFU unit:
+//     dK/dV  a block owns 64 of the ball's keys (K, V staged once) and walks
+//            the ball's rep*m query rows in tiles of RT (64; 32 at D 128),
+//            Q, dO, lse, delta staged; a warp owns 16 keys and, per 32 rows,
+//            computes S^T and dP^T, turns them into P^T and dS^T fragments
+//            and adds P^T dO and dS^T Q into its dV, dK (16 keys x D, fp32),
+//            so the GQA group's sum over its rep heads stays in registers.
+//     dQ     a block owns 64 rows of one query head (Q, dO staged once) and
+//            walks the ball's m/64 key tiles; a warp owns 16 rows: S, dP,
+//            dS and dQ += dS K.
+//         S and dP are computed in both roles (seven products a pair, not
+//         five): the price of owning every output in one block.  A tile of
+//         rows whose lse are all LSE_EMPTY is skipped, and so is a dK/dV
+//         block whose 64 keys are all masked.
+//   fma   fp32, m a multiple of 64 up to 256, D 16 or 32 (shapenet): one
+//         block a ball produces all three in a single pass, as the TPU
+//         kernel does: the
 //         ball's K, V and bias are staged once (cp.async; 72 KB at m 256, D
 //         32), the ball's dK and dV stay in registers for the whole block (256
 //         threads, a thread holding 8 keys x D/8 dims of each: 64 floats at
@@ -34,15 +54,15 @@
 //         Five products per (row, key), none recomputed.  The shared memory
 //         (184 KB at D 32) holds one block an SM.  (512 threads, 128
 //         registers each, spilled at D 32 and were no faster.)
-//   rows  bf16 and the other shapes: one thread per query row runs the
-//         ball's keys for dQ (K, V staged as fp32), then one thread per key
-//         runs the query rows, staged one rep head at a time, for dK and dV
-//         (s and dO.v computed in both passes).  p and dS are rounded to the
-//         operand dtype before their products (bf16 in, bf16 operands, fp32
-//         sums).
-// Masked keys and rows with lse = LSE_EMPTY give p = 0; a dead ball (live =
-// 0) writes exact zeros without reading K or V.
-#include "tiles.cuh"
+//   rows  fp32 at D 64 and balls that are no multiple of 64: one block a
+//         ball; one thread per query row runs the ball's keys for dQ (K, V
+//         staged as fp32), then one thread per key runs the query rows,
+//         staged one rep head at a time, for dK and dV (s and dO.v computed
+//         in both passes).
+// p and dS are rounded to the operand dtype before their products (bf16 in,
+// bf16 operands, fp32 sums).  Masked keys and rows with lse = LSE_EMPTY give
+// p = 0; a dead ball (live = 0) writes exact zeros without reading K or V.
+#include "mma_bwd.cuh"
 
 namespace {
 
@@ -375,6 +395,217 @@ bta_bwd_fma(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// mma, bf16: tensor cores, two block roles in one grid, each on the tile
+// step it shares with local_bwd.cu (mma_bwd.cuh).  Shared memory (bf16
+// elements, row stride LD; then fp32):
+//   dK/dV  K, V [BK rows], Q, dO [2][RT rows] | lse, delta [2][RT], bias [BK]
+//   dQ     Q, dO [BM rows], K, V [2][BK rows] | bias [2][BK]
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+using rt::store2;
+
+template <int D>
+struct BwdMma {
+  static constexpr int BM = 64, BK = 64, RT = D > 64 ? 32 : 64, NT = 128;
+  static constexpr int LD = D + 8;   // bf16 row stride: ldmatrix rows on distinct banks
+  static constexpr int KV_Q_OFF = 2 * BK * LD, KV_DO_OFF = KV_Q_OFF + 2 * RT * LD;
+  static constexpr int KV_END = KV_DO_OFF + 2 * RT * LD;
+  static constexpr int DQ_K_OFF = 2 * BM * LD, DQ_V_OFF = DQ_K_OFF + 2 * BK * LD;
+  static constexpr int DQ_END = DQ_V_OFF + 2 * BK * LD;
+  static constexpr size_t KV_SMEM = (size_t)KV_END * 2 + (size_t)(4 * RT + BK) * 4;
+  static constexpr size_t DQ_SMEM = (size_t)DQ_END * 2 + (size_t)2 * BK * 4;
+  static constexpr size_t SMEM = KV_SMEM > DQ_SMEM ? KV_SMEM : DQ_SMEM;
+};
+
+// dK, dV of keys [kt*BK, kt*BK + BK) of ball `ball` of bh, over the ball's
+// rep*m query rows.
+template <int D>
+__device__ __forceinline__ void bta_dkv_block(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_bias, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int bh, int ball, int kt, int rep, int N, int m, int n_heads,
+    float scale) {
+  using C = BwdMma<D>;
+  constexpr int RT = C::RT, BK = C::BK, LD = C::LD;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  const bf16* Ks = sm;
+  const bf16* Vs = sm + BK * LD;
+  float* ls = reinterpret_cast<float*>(sm + C::KV_END);    // [2][RT]
+  float* dls = ls + 2 * RT;                                 // [2][RT]
+  float* bs = dls + 2 * RT;                                 // [BK]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int kw = (threadIdx.x / 32) * 16;                   // the warp's first key
+  const int b = bh / n_heads;
+  const int j0 = ball * m + kt * BK;                        // the block's first key
+  const size_t kv0 = ((size_t)bh * N + j0) * D;
+
+  stage_rows<bf16, D, LD>(sm, k + kv0, BK, BK, C::NT);
+  stage_rows<bf16, D, LD>(sm + BK * LD, v + kv0, BK, BK, C::NT);
+  bool key_live = false;
+  if (threadIdx.x < BK) {
+    bs[threadIdx.x] = key_bias[(size_t)b * N + j0 + threadIdx.x];
+    key_live = bs[threadIdx.x] > rt::NEG_HALF;
+  }
+  // tile it: rows (it % per_head)*RT.. of query head it / per_head
+  const int per_head = m / RT;
+  const int n_tiles = __syncthreads_or(key_live) ? rep * per_head : 0;
+  auto load_tile = [&](int it, int buf) {
+    const size_t row0 =
+        ((size_t)bh * rep + it / per_head) * N + (size_t)ball * m + (it % per_head) * RT;
+    stage_rows<bf16, D, LD>(sm + C::KV_Q_OFF + buf * RT * LD, q + row0 * D, RT, RT, C::NT);
+    stage_rows<bf16, D, LD>(sm + C::KV_DO_OFF + buf * RT * LD, dout + row0 * D, RT, RT,
+                            C::NT);
+    stage_vals(ls + buf * RT, lse + row0, RT, RT, rt::LSE_EMPTY, C::NT);
+    stage_vals(dls + buf * RT, delta + row0, RT, RT, 0.f, C::NT);
+  };
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[a][e] = dva[a][e] = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) load_tile(it + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    const float* lt = ls + buf * RT;
+    const float* dlt = dls + buf * RT;
+    const bool row_live = threadIdx.x < RT && lt[threadIdx.x] < rt::LSE_HALF;
+    if (__syncthreads_or(row_live))              // the tile has a row that sees a key
+      rt::mma_dkv_tile<D, RT, LD>(Ks, Vs, bs, sm + C::KV_Q_OFF + buf * RT * LD,
+                                  sm + C::KV_DO_OFF + buf * RT * LD, lt, dlt, kw, scale,
+                                  [](int, int) { return true; }, dka, dva);
+    __syncthreads();                       // buffer `buf` is free for tile it+2
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t off = kv0 + (size_t)(kw + g + 8 * h) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      store2<bf16>(dk + off + nt * 8, dka[nt][2 * h], dka[nt][2 * h + 1]);
+      store2<bf16>(dv + off + nt * 8, dva[nt][2 * h], dva[nt][2 * h + 1]);
+    }
+  }
+}
+
+// dQ of rows [qt*BM, qt*BM + BM) of ball `ball`'s rep*m rows of bh (one
+// query head's, since BM divides m), over the ball's m keys.
+template <int D>
+__device__ __forceinline__ void bta_dq_block(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_bias, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+    int bh, int ball, int qt, int rep, int N, int m, int n_heads, float scale) {
+  using C = BwdMma<D>;
+  constexpr int BM = C::BM, BK = C::BK, LD = C::LD;
+  bf16* sm = reinterpret_cast<bf16*>(rt::dyn_smem());
+  const bf16* Qs = sm;
+  const bf16* Ds = sm + BM * LD;
+  float* bs = reinterpret_cast<float*>(sm + C::DQ_END);    // [2][BK]
+
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int rw = (threadIdx.x / 32) * 16;                   // the warp's first row
+  const int b = bh / n_heads;
+  const int row0 = qt * BM;
+  const size_t base = ((size_t)bh * rep + row0 / m) * N + (size_t)ball * m + row0 % m;
+  const bool row_live = threadIdx.x < BM && lse[base + threadIdx.x] < rt::LSE_HALF;
+  if (!__syncthreads_or(row_live)) {                        // dq == 0
+    rt::store_zeros(dq + base * D, BM * D);
+    return;
+  }
+  stage_rows<bf16, D, LD>(sm, q + base * D, BM, BM, C::NT);
+  stage_rows<bf16, D, LD>(sm + BM * LD, dout + base * D, BM, BM, C::NT);
+  const bf16* kb = k + ((size_t)bh * N + (size_t)ball * m) * D;
+  const bf16* vb = v + ((size_t)bh * N + (size_t)ball * m) * D;
+  const float* biasb = key_bias + (size_t)b * N + (size_t)ball * m;
+  auto load_tile = [&](int kt, int buf) {
+    const int j0 = kt * BK;
+    stage_rows<bf16, D, LD>(sm + C::DQ_K_OFF + buf * BK * LD, kb + (size_t)j0 * D, BK, BK,
+                            C::NT);
+    stage_rows<bf16, D, LD>(sm + C::DQ_V_OFF + buf * BK * LD, vb + (size_t)j0 * D, BK, BK,
+                            C::NT);
+    stage_vals(bs + buf * BK, biasb + j0, BK, BK, rt::NEG_INF, C::NT);
+  };
+
+  float l[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = rw + g + 8 * h;
+    l[h] = lse[base + rr];
+    dl[h] = delta[base + rr];
+  }
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[a][e] = 0.f;
+
+  const int n_kt = m / BK;
+  load_tile(0, 0);
+  rt::cp_async_commit();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) load_tile(kt + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    rt::mma_dq_tile<D, BK, LD>(Qs, Ds, sm + C::DQ_K_OFF + buf * BK * LD,
+                               sm + C::DQ_V_OFF + buf * BK * LD, bs + buf * BK, rw, l, dl, scale,
+                               [](int, int) { return true; }, dqa);
+    __syncthreads();                       // buffer `buf` is free for tile kt+2
+  }
+  rt::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* out = dq + (base + rw + g + 8 * h) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      store2<bf16>(out + nt * 8, dqa[nt][2 * h], dqa[nt][2 * h + 1]);
+  }
+}
+
+// blockIdx = (role tile, ball, bh): x < m/BK a dK/dV block of key tile x,
+// else a dQ block of row tile x - m/BK.
+template <int D>
+__global__ void __launch_bounds__(BwdMma<D>::NT, 1)
+bta_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const float* __restrict__ key_bias,
+            const int* __restrict__ live, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int rep,
+            int N, int m, int n_heads, float scale) {
+  using C = BwdMma<D>;
+  const int bh = blockIdx.z, ball = blockIdx.y;
+  const int n_kt = m / C::BK;
+  const bool dkv = (int)blockIdx.x < n_kt;
+  if (live[bh / n_heads * (N / m) + ball] == 0) {          // all keys masked: p == 0
+    if (dkv) {
+      const size_t kv0 = ((size_t)bh * N + (size_t)ball * m + blockIdx.x * C::BK) * D;
+      rt::store_zeros(dk + kv0, C::BK * D);
+      rt::store_zeros(dv + kv0, C::BK * D);
+    } else {
+      const int row0 = (blockIdx.x - n_kt) * C::BM;
+      rt::store_zeros(dq + (((size_t)bh * rep + row0 / m) * N + (size_t)ball * m + row0 % m) * D,
+                      C::BM * D);
+    }
+    return;
+  }
+  if (dkv)
+    bta_dkv_block<D>(q, k, v, key_bias, dout, lse, delta, dk, dv, bh, ball, blockIdx.x, rep, N,
+                     m, n_heads, scale);
+  else
+    bta_dq_block<D>(q, k, v, key_bias, dout, lse, delta, dq, bh, ball, blockIdx.x - n_kt, rep,
+                    N, m, n_heads, scale);
+}
+
+// ---------------------------------------------------------------------------
 
 template <typename T, int D>
 int launch_rows(const void* q, const void* k, const void* v, const void* key_bias,
@@ -415,19 +646,46 @@ int launch_fma(const void* q, const void* k, const void* v, const void* key_bias
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* key_bias,
+               const void* live, const void* dout, const void* lse, const void* delta,
+               void* dq, void* dk, void* dv, int BH, int rep, int N, int m, int n_heads,
+               float scale, cudaStream_t stream) {
+  using C = BwdMma<D>;
+  if (m % C::BK != 0) return (int)cudaErrorInvalidValue;
+  auto kern = bta_bwd_mma<D>;
+  if (int err = set_smem(kern, C::SMEM)) return err;
+  const dim3 grid(m / C::BK + rep * m / C::BM, N / m, BH);
+  kern<<<grid, C::NT, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(key_bias), static_cast<const int*>(live),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), rep, N, m, n_heads, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// tiles: kernels/bta.py::bta_plan's path ("fma" = 1: fp32, D 16 or 32)
+// path: kernels/bta.py::bta_plan's (PATH_CODES: 0 rows, 1 fma: fp32 at D 16 or
+// 32, 2 mma: bf16, m a multiple of 64)
 extern "C" int bta_bwd(const void* q, const void* k, const void* v,
                        const void* key_bias, const void* live, const void* dout,
                        const void* lse, const void* delta, void* dq, void* dk,
                        void* dv, int BH, int rep, int N, int D, int m, int n_heads,
-                       int bf16, int tiles, void* stream) {
+                       int bf16, int path, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N % m != 0) return (int)cudaErrorInvalidValue;
   if (BH == 0 || rep == 0 || N == 0) return 0;
   const float scale = (float)(1.0 / sqrt((double)D));
-  if (tiles) {
+  if (path == 2) {
+    if (!bf16) return (int)cudaErrorInvalidValue;
+    RT_DISPATCH_D128(D, {
+      return launch_mma<kD>(q, k, v, key_bias, live, dout, lse, delta, dq, dk, dv, BH, rep, N,
+                            m, n_heads, scale, s);
+    });
+  }
+  if (path == 1) {
     if (bf16) return (int)cudaErrorInvalidValue;
     switch (D) {
       case 16: return launch_fma<16>(q, k, v, key_bias, live, dout, lse, delta, dq, dk, dv,
@@ -437,6 +695,7 @@ extern "C" int bta_bwd(const void* q, const void* k, const void* v,
       default: return (int)cudaErrorInvalidValue;
     }
   }
+  if (path != 0) return (int)cudaErrorInvalidValue;
   RT_DISPATCH_D(D, {
     return bf16 ? launch_rows<__nv_bfloat16, kD>(q, k, v, key_bias, live, dout, lse, delta,
                                                  dq, dk, dv, BH, rep, N, m, n_heads, scale, s)

@@ -42,7 +42,8 @@
 //                flag is set, all of block i+1's rows, in staged tiles of BM
 //                rows (32 at D 128); a warp owns 16 keys: S^T, dP^T,
 //                dV += P^T dO and dK += dS^T Q.  The GQA group's sum stays
-//                in registers.
+//                in registers.  Both tile steps are mma_bwd.cuh's, shared
+//                with bta_bwd_mma's two block roles.
 //   lanes  fp32, and w not a multiple of 64: 256 threads, a row (local_dq)
 //          or a key (local_dkv) held by 4 lanes with D/4 dims each (float4
 //          chunks sub, sub+4, ...: the four lanes read neighbouring 16
@@ -53,7 +54,7 @@
 // p and dS are rounded to the operand dtype before their products.  A masked
 // key (bias NEG_INF) and a row with lse = LSE_EMPTY give p = 0, so they
 // contribute exactly 0; a block with no live half writes zeros.
-#include "tiles.cuh"
+#include "mma_bwd.cuh"
 
 namespace {
 
@@ -357,65 +358,10 @@ local_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* Kt = sm + C::K_OFF + buf * BK * LD;
     const bf16* Vt = sm + C::V_OFF + buf * BK * LD;
     const float* bt = bs + buf * BK;
-    const bool diag = n_self > 0 && kt == n_kt - 1;         // the self half's tile c
-    float st[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int a = 0; a < BK / 8; ++a)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[a][e] = dp[a][e] = 0.f;
-    // S = Q K^T, dP = dO V^T over D
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t qa[4], da[4];
-      const int aoff = (rw + lane % 16) * LD + d0 + (lane / 16) * 8;
-      rt::ldmatrix_x4(qa, Qs + aoff);
-      rt::ldmatrix_x4(da, Ds + aoff);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        const int boff = (np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 + 8 * ((lane / 8) % 2);
-        uint32_t kf[4], vf[4];
-        rt::ldmatrix_x4(kf, Kt + boff);
-        rt::ldmatrix_x4(vf, Vt + boff);
-        rt::mma_bf16(st[2 * np], qa, kf[0], kf[1]);
-        rt::mma_bf16(st[2 * np + 1], qa, kf[2], kf[3]);
-        rt::mma_bf16(dp[2 * np], da, vf[0], vf[1]);
-        rt::mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
-      }
-    }
-    // dS = P (dP - delta) scale, rounded to bf16 as A fragments (rows x keys);
-    // the diagonal tile sees key <= row (both counted from the chunk start)
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int key = nt * 8 + tig * 2 + (e % 2);
-        float p = 0.f;
-        if (!diag || key <= rw + g + 8 * h)
-          p = rt::p_from_lse_fast(st[nt][e] * scale + bt[key], l[h]);
-        dp[nt][e] = p * (dp[nt][e] - dl[h]) * scale;
-      }
-    }
-    uint32_t sa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      sa[kk][0] = rt::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      sa[kk][1] = rt::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      sa[kk][2] = rt::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      sa[kk][3] = rt::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-    }
-    // dQ += dS K over the tile's keys
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int n0 = 0; n0 < D; n0 += 16) {
-        const int boff = (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n0 + 8 * (lane / 16);
-        uint32_t kf[4];
-        rt::ldmatrix_x4_trans(kf, Kt + boff);
-        rt::mma_bf16(dqa[n0 / 8], sa[kk], kf[0], kf[1]);
-        rt::mma_bf16(dqa[n0 / 8 + 1], sa[kk], kf[2], kf[3]);
-      }
-    }
+    // the self half's tile c is the diagonal: key <= row (both from the chunk start)
+    const bool diag = n_self > 0 && kt == n_kt - 1;
+    rt::mma_dq_tile<D, BK, LD>(Qs, Ds, Kt, Vt, bt, rw, l, dl, scale,
+                               [&](int key, int row) { return !diag || key <= row; }, dqa);
     __syncthreads();                       // buffer `buf` is free for tile kt+2
   }
   rt::cp_async_wait<0>();
@@ -514,79 +460,9 @@ local_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool causal = u < per_a && u * BM < BK;
     // the tile has a live row, and the warp a key its last row sees
     if (__syncthreads_or(row_live) && !(causal && j0 + kw > t0 + BM - 1)) {
-      const bf16* Qt = sm + C::Q_OFF + buf * BM * LD;
-      const bf16* Dt = sm + C::DO_OFF + buf * BM * LD;
-      // sub-tiles of 32 rows bound the S^T / dP^T registers
-#pragma unroll 1
-      for (int r0 = 0; r0 < BM; r0 += 32) {
-        float st[4][4], dp[4][4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[a][e] = dp[a][e] = 0.f;
-        // S^T = K Q^T, dP^T = V dO^T over D
-#pragma unroll
-        for (int d0 = 0; d0 < D; d0 += 16) {
-          uint32_t ka[4], va[4];
-          const int aoff = (kw + lane % 16) * LD + d0 + (lane / 16) * 8;
-          rt::ldmatrix_x4(ka, Ks + aoff);
-          rt::ldmatrix_x4(va, Vs + aoff);
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            const int boff =
-                (r0 + np * 16 + lane % 8 + 8 * (lane / 16)) * LD + d0 + 8 * ((lane / 8) % 2);
-            uint32_t qb[4], db[4];
-            rt::ldmatrix_x4(qb, Qt + boff);
-            rt::ldmatrix_x4(db, Dt + boff);
-            rt::mma_bf16(st[2 * np], ka, qb[0], qb[1]);
-            rt::mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
-            rt::mma_bf16(dp[2 * np], va, db[0], db[1]);
-            rt::mma_bf16(dp[2 * np + 1], va, db[2], db[3]);
-          }
-        }
-        // P^T and dS^T, rounded to bf16 as A fragments (keys x rows)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kw + g + 8 * (e / 2);
-            const int row = r0 + nt * 8 + tig * 2 + (e % 2);
-            float p = 0.f;
-            if (!causal || j0 + key <= t0 + row)
-              p = rt::p_from_lse_fast(st[nt][e] * scale + bs[key], lt[row]);
-            dp[nt][e] = p * (dp[nt][e] - dlt[row]) * scale;
-            st[nt][e] = p;
-          }
-        }
-        uint32_t pa[2][4], sa[2][4];
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          pa[kk][0] = rt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-          pa[kk][1] = rt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-          pa[kk][2] = rt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-          pa[kk][3] = rt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-          sa[kk][0] = rt::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-          sa[kk][1] = rt::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-          sa[kk][2] = rt::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-          sa[kk][3] = rt::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-        }
-        // dV += P^T dO, dK += dS^T Q over the sub-tile's rows
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-          for (int n0 = 0; n0 < D; n0 += 16) {
-            const int boff =
-                (r0 + kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n0 + 8 * (lane / 16);
-            uint32_t db[4], qb[4];
-            rt::ldmatrix_x4_trans(db, Dt + boff);
-            rt::ldmatrix_x4_trans(qb, Qt + boff);
-            rt::mma_bf16(dva[n0 / 8], pa[kk], db[0], db[1]);
-            rt::mma_bf16(dva[n0 / 8 + 1], pa[kk], db[2], db[3]);
-            rt::mma_bf16(dka[n0 / 8], sa[kk], qb[0], qb[1]);
-            rt::mma_bf16(dka[n0 / 8 + 1], sa[kk], qb[2], qb[3]);
-          }
-        }
-      }
+      rt::mma_dkv_tile<D, BM, LD>(
+          Ks, Vs, bs, sm + C::Q_OFF + buf * BM * LD, sm + C::DO_OFF + buf * BM * LD, lt, dlt, kw,
+          scale, [&](int key, int row) { return !causal || j0 + key <= t0 + row; }, dka, dva);
     }
     __syncthreads();                       // buffer `buf` is free for tile it+2
   }

@@ -33,8 +33,8 @@ I = ctypes.c_int
 # carrying cudaGetLastError() (or cudaErrorInvalidValue for a head_dim
 # that has no instantiation)
 SIGNATURES = {
-    # q, k, v, key_bias, live, o, lse, BH, rep, N, D, ball, n_heads, bf16, tiles,
-    # stream
+    # q, k, v, key_bias, live, o, lse, BH, rep, N, D, ball, n_heads, bf16, path
+    # (0 rows, 1 fma, 2 mma), stream
     "bta_fwd": [P] * 7 + [I] * 8 + [P],
     # q, k, v, key_bias, q_valid, o, lse, BH, rep, N, L, D, n_heads,
     # causal, block_causal, ell, bf16, stream
@@ -46,7 +46,7 @@ SIGNATURES = {
     # warp kernel), stream
     "epilogue_fwd": [P] * 8 + [I] * 8 + [P],
     # q, k, v, key_bias, live, do, lse, delta, dq, dk, dv, BH, rep, N, D, ball,
-    # n_heads, bf16, tiles, stream
+    # n_heads, bf16, path (0 rows, 1 fma, 2 mma), stream
     "bta_bwd": [P] * 11 + [I] * 8 + [P],
     # q, k, v, key_bias, do, lse, delta, dq, BH, rep, N, L, D, n_heads, causal,
     # block_causal, ell, bf16, stream

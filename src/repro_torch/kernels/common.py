@@ -21,16 +21,17 @@ from repro_torch.numerics import NEG_INF
 
 __all__ = ["LSE_EMPTY", "resolve_compute_dtype", "mma_dtype", "lse_finalize",
            "p_from_lse", "row_delta", "LaunchCounter", "COUNTERS", "reset_counters",
-           "on_cpu", "check_cuda_inputs", "HEAD_DIMS"]
+           "on_cpu", "check_cuda_inputs", "HEAD_DIMS", "BF16_HEAD_DIMS"]
 
 # Sentinel logsumexp for query rows with NO valid key: exp(s − LSE_EMPTY)
 # underflows to exactly 0 for any finite logit s.
 LSE_EMPTY = 1e30
 
-# head dims each CUDA kernel is instantiated for (csrc/*.cu dispatch):
-# the causal LM path's kernels also take 128 (RT_DISPATCH_D128); the ball
-# and packed-varlen kernels do not yet (a ball of 256 keys at D 128 needs
-# its keys tiled to fit a block's shared memory)
+# head dims each CUDA kernel is instantiated for (csrc/*.cu dispatch), by
+# operand dtype: the causal LM path's kernels take 16-128 (RT_DISPATCH_D128);
+# the ball kernels 16-128 in bf16 (their mma path streams 64-key tiles) and
+# 16-64 in fp32 (the fma and rows paths hold a ball's keys whole); the
+# packed-varlen kernels 16-64 (the rows path stages its keys as fp32)
 _CAUSAL_DIMS = (16, 32, 64, 128)
 _BALL_DIMS = (16, 32, 64)
 HEAD_DIMS = {
@@ -40,6 +41,7 @@ HEAD_DIMS = {
     **{name: _BALL_DIMS for name in ("bta_fwd", "bta_bwd", "varlen_fwd", "varlen_dq",
                                      "varlen_dkv")},
 }
+BF16_HEAD_DIMS = {**HEAD_DIMS, "bta_fwd": _CAUSAL_DIMS, "bta_bwd": _CAUSAL_DIMS}
 
 
 def resolve_compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -136,7 +138,8 @@ def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(), index=(),
     ``data``: operand tensors that must share one dtype, fp32 or bf16;
     ``f32`` / ``i32``: side inputs of fixed dtype; ``index``: indices the
     kernel reads as int32 or int64.  Every tensor must be contiguous, and
-    ``head_dim`` one of ``HEAD_DIMS[name]``."""
+    ``head_dim`` one of ``HEAD_DIMS[name]`` (``BF16_HEAD_DIMS[name]`` for
+    bf16 operands)."""
     dts = {t.dtype for t in data}
     if len(dts) > 1:
         raise TypeError(f"{name}: operands must share one dtype, got {dts}")
@@ -155,6 +158,8 @@ def check_cuda_inputs(name: str, *, data=(), f32=(), i32=(), index=(),
     for t in (*data, *f32, *i32, *index):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if head_dim is not None and head_dim not in HEAD_DIMS[name]:
-        raise ValueError(f"{name}: head_dim {head_dim} not built "
-                         f"(the kernel takes {HEAD_DIMS[name]})")
+    bf16 = torch.bfloat16 in dts
+    dims = (BF16_HEAD_DIMS if bf16 else HEAD_DIMS)[name]
+    if head_dim is not None and head_dim not in dims:
+        raise ValueError(f"{name}: head_dim {head_dim} not built (the kernel takes "
+                         f"{dims}{' in bfloat16' if bf16 else ''})")

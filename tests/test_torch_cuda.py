@@ -15,11 +15,13 @@ tiles, skipped ``q_valid`` tiles, block-causal rows that see nothing) and
 the local backward at every head dim and windows 64-256 (bf16: the tiled
 path, with a bit-for-bit determinism check).
 Each backward kernel gets the same (inputs, dO, lse, δ) as its plain
-version.  The ball kernels on both paths of ``bta_plan`` at ball 256 (fp32
-D 16 and 32 on the register-tiled path, D 64 and bf16 on the row kernels;
-rep 1 and 2; a ball with 2 valid keys, a dead ball, rows that see no key),
-with a bit-for-bit determinism check of the fused backward; the BALL 16
-cases run the row kernels.  The tiled ``local_fwd`` at every head dim,
+version.  The ball kernels on every path of ``bta_plan`` (balls of 256:
+fp32 D 16 and 32 on the register-tiled path, D 64 on the row kernels, bf16
+D 32–128 on the tensor cores at rep 1, 2 and 4; bf16 balls of 32 on the row
+kernels; a ball with 2 valid keys, a dead ball, rows that see no key), with
+bit-for-bit determinism checks of the fused fp32 backward and the bf16 one
+(also at a ball of 512); the BALL 16 cases run the row kernels.  The tiled
+``local_fwd`` at every head dim,
 windows 64-256 and with or without segments (a padded tail, a dead block, a masked slot),
 with the local backward run from its lse.  The causal LM's kernels:
 ``local_fwd``, ``local_dq`` and
@@ -437,34 +439,41 @@ def test_bta_bwd_kernel(cuda, dtype):
 BTA_BALL, BTA_N = 256, 768
 
 
-def _bta_case(dev, dtype, head_dim, rep, seed):
+def _bta_case(dev, dtype, head_dim, rep, seed, ball=BTA_BALL, n=BTA_N):
     Hkv = 2
-    q = _rand((2 * Hkv, rep, BTA_N, head_dim), dtype, dev, seed)
-    k = _rand((2 * Hkv, BTA_N, head_dim), dtype, dev, seed + 1)
-    v = _rand((2 * Hkv, BTA_N, head_dim), dtype, dev, seed + 2)
-    valid = torch.ones(2, BTA_N, dtype=torch.bool, device=dev)
+    q = _rand((2 * Hkv, rep, n, head_dim), dtype, dev, seed)
+    k = _rand((2 * Hkv, n, head_dim), dtype, dev, seed + 1)
+    v = _rand((2 * Hkv, n, head_dim), dtype, dev, seed + 2)
+    valid = torch.ones(2, n, dtype=torch.bool, device=dev)
     valid[0, 258:] = False
     valid[1, 5:40] = False
-    return q, k, v, _bias(valid), dict(ball_size=BTA_BALL, n_heads=Hkv)
+    return q, k, v, _bias(valid), dict(ball_size=ball, n_heads=Hkv)
 
 
-@pytest.mark.parametrize("rep", [1, 2])
-@pytest.mark.parametrize("dtype,head_dim,path", [(torch.float32, 16, "fma"),
-                                                 (torch.float32, 32, "fma"),
-                                                 (torch.float32, 64, "rows"),
-                                                 (torch.bfloat16, 32, "rows")])
-def test_bta_tiled_edges(cuda, dtype, head_dim, path, rep):
-    """Both paths of ``bta_plan`` at ball 256 against the plain versions:
-    forward and backward (from the kernel's own lse) one launch each, a live
-    ball with 2 valid keys, a dead ball (zeros, ``LSE_EMPTY``, gradients
-    exactly 0) and, with ``live`` forced to 1 there, rows whose keys are all
-    masked walked by the kernel (the same zeros and ``LSE_EMPTY``)."""
+_BTA_EDGES = [(torch.float32, 16, BTA_BALL, "fma", rep) for rep in (1, 2)]
+_BTA_EDGES += [(torch.float32, 32, BTA_BALL, "fma", rep) for rep in (1, 2)]
+_BTA_EDGES += [(torch.float32, 64, BTA_BALL, "rows", rep) for rep in (1, 2)]
+_BTA_EDGES += [(torch.bfloat16, d, BTA_BALL, "mma", rep) for d in (32, 64, 128)
+               for rep in (1, 2, 4)]
+_BTA_EDGES += [(torch.bfloat16, 32, 32, "rows", rep) for rep in (1, 2)]
+
+
+@pytest.mark.parametrize("dtype,head_dim,ball,path,rep", _BTA_EDGES)
+def test_bta_tiled_edges(cuda, dtype, head_dim, ball, path, rep):
+    """Every path of ``bta_plan`` against the plain versions (balls of 256:
+    fp32 D 16 / 32 on fma, D 64 on rows, bf16 D 32–128 on mma at rep 1, 2
+    and 4; bf16 balls of 32 on rows): forward and backward (from the
+    kernel's own lse) one launch each, a live ball with 2 valid keys, a dead
+    ball (zeros, ``LSE_EMPTY``, gradients exactly 0) and, with ``live``
+    forced to 1 there, rows whose keys are all masked walked by the kernel
+    (the same zeros and ``LSE_EMPTY``)."""
     from repro_torch.kernels import bta
     from repro_torch.kernels.common import LSE_EMPTY
-    q, k, v, kb, kw = _bta_case(cuda, dtype, head_dim, rep, 40)
-    assert bta.bta_plan(BTA_BALL, head_dim, rep, dtype).path == path
-    live = bta._live(kb, BTA_BALL)
-    assert live.tolist() == [[1, 1, 0], [1, 1, 1]]
+    q, k, v, kb, kw = _bta_case(cuda, dtype, head_dim, rep, 40, ball)
+    assert bta.bta_plan(ball, head_dim, rep, dtype).path == path
+    live = bta._live(kb, ball)
+    assert live.tolist() == (kb > -1).reshape(2, -1, ball).any(-1).int().tolist()
+    assert live[0, 256 // ball].item() == 1                  # 2 valid keys
     for lv in (live, torch.ones_like(live)):
         n0, n1 = bta.COUNT.n, bta.COUNT_BWD.n
         o, lse = bta.ball_attention_fwd(q, k, v, kb, live=lv, **kw)
@@ -474,21 +483,33 @@ def test_bta_tiled_edges(cuda, dtype, head_dim, path, rep):
         assert (bta.COUNT.n, bta.COUNT_BWD.n) == (n0 + 1, n1 + 1)
         _check((o, lse), bta.ball_attention_fwd_plain(q, k, v, kb, **kw), dtype)
         _check(got, bta.ball_attention_bwd_plain(q, k, v, kb, *rest, **kw), dtype)
-        dead = slice(2 * BTA_BALL, 3 * BTA_BALL)            # sample 0's ball 2
+        dead = slice(2 * BTA_BALL, 3 * BTA_BALL)            # sample 0's dead balls
         assert (o[:2, :, dead] == 0).all() and (lse[:2, :, dead] == LSE_EMPTY).all()
         assert all((g[:2, ..., dead, :] == 0).all() for g in got)
 
 
-def test_bta_bwd_fma_deterministic(cuda):
-    """The fused backward owns each ball's gradients: identical bits on two
-    calls."""
+@pytest.mark.parametrize("dtype,head_dim,ball,rep", [(torch.float32, 32, BTA_BALL, 2),
+                                                     (torch.bfloat16, 64, BTA_BALL, 2),
+                                                     (torch.bfloat16, 128, BTA_BALL, 4),
+                                                     (torch.bfloat16, 64, 512, 2)])
+def test_bta_bwd_fma_deterministic(cuda, dtype, head_dim, ball, rep):
+    """Each backward path that owns a ball's gradients in fixed blocks gives
+    identical bits on two calls: the fused fp32 ``bta_bwd_fma`` and the bf16
+    ``bta_bwd_mma`` (its dK/dV and dQ blocks), the latter also at a ball of
+    512 (beyond any block's staged keys), held to the plain version there."""
     from repro_torch.kernels import bta
-    q, k, v, kb, kw = _bta_case(cuda, torch.float32, 32, 2, 50)
+    n = 3 * ball
+    q, k, v, kb, kw = _bta_case(cuda, dtype, head_dim, rep, 50, ball, n)
+    assert bta.bta_plan(ball, head_dim, rep, dtype).path == (
+        "fma" if dtype == torch.float32 else "mma")
     o, lse = bta.ball_attention_fwd(q, k, v, kb, **kw)
-    rest = _bwd_inputs(o, lse, torch.float32, 51)
+    rest = _bwd_inputs(o, lse, dtype, 51)
     first = bta.ball_attention_bwd(q, k, v, kb, *rest, **kw)
     second = bta.ball_attention_bwd(q, k, v, kb, *rest, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    if ball > BTA_BALL:
+        _check((o, lse), bta.ball_attention_fwd_plain(q, k, v, kb, **kw), dtype)
+        _check(first, bta.ball_attention_bwd_plain(q, k, v, kb, *rest, **kw), dtype)
 
 
 @pytest.mark.parametrize("splits", [1, 3])

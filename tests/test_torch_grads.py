@@ -82,6 +82,23 @@ def test_ball_attention_grads_match_jax(rep, dtype):
     assert (_np(got[1])[:, -N // 8:] == 0).all()      # padded keys: exact zeros
 
 
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_ball_attention_grads_match_jax_mma_shapes(head_dim):
+    """The bf16 mma path's shapes: balls of 256 at D 64 (seamless's encoder)
+    and D 128, rep 2, N 512 with the last 64 keys padding."""
+    n, m, rep = 512, 256, 2
+    mask = _mask(n)
+    q, k, v, do = _arrays(head_dim, (B, n, HKV * rep, head_dim), (B, n, HKV, head_dim),
+                          (B, n, HKV, head_dim), (B, n, HKV * rep, head_dim))
+    assert bta.bta_plan(m, head_dim, rep, torch.bfloat16).path == "mma"
+    _, want = _jax_vjp(lambda q, k, v: j_ops.ball_attention(
+        q, k, v, jnp.asarray(mask), m, interpret=True), (q, k, v), do, "bfloat16")
+    _, got = _torch_grads(lambda q, k, v: ops.ball_attention(
+        q, k, v, torch.from_numpy(mask), m), (q, k, v), do, "bfloat16")
+    _close_all(got, want, TOL["bfloat16"])
+    assert (_np(got[1])[:, -n // 8:] == 0).all()      # padded keys: exact zeros
+
+
 # (mode, D, rep, dtype): key-bias mode as the compression branch runs it at
 # D 32, and the causal LM's modes at head_dim 128 with rep 3 (phi4-mini's
 # group of 24 / 8 heads)

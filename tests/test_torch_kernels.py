@@ -83,6 +83,31 @@ def test_bta_plain_matches_pallas(dtype):
     assert (_np(to)[2 * HKV:] == 0).all() and (_np(tl)[2 * HKV:] == 1e30).all()
 
 
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_bta_plain_matches_pallas_mma_shapes(head_dim):
+    """The shapes of the bf16 mma path: balls of 256 at D 64 (seamless's
+    encoder) and D 128 (the Pallas kernel's largest head dim), rep 2; two
+    samples of 512 positions, the second's ball 1 holding 3 valid keys."""
+    rng = np.random.default_rng(head_dim)
+    n, m = 512, 256
+    q = rng.standard_normal((2 * HKV, REP, n, head_dim), np.float32)
+    k = rng.standard_normal((2 * HKV, n, head_dim), np.float32)
+    v = rng.standard_normal((2 * HKV, n, head_dim), np.float32)
+    mask = np.ones((2, n), bool)
+    mask[1, 259:] = False
+    kb = _bias(mask)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in (q, k, v))
+    assert bta.bta_plan(m, head_dim, REP, torch.bfloat16).path == "mma"
+    live = j_key_tile_live(jnp.asarray(kb), m).astype(jnp.int32)
+    jo, jl = j_bta._fwd_call(jq, jk, jv, jnp.asarray(kb), live, ball_size=m,
+                             n_heads=HKV, interpret=True, compute="bfloat16")
+    to, tl = bta.ball_attention_fwd(tq, tk, tv, torch.from_numpy(kb), ball_size=m,
+                                    n_heads=HKV)
+    _close(to, jo, "bfloat16")
+    _close(tl, jl, "bfloat16")
+    assert np.isfinite(_np(to)).all()
+
+
 @pytest.mark.parametrize("dtype,causal,block_causal,L,n,ell", [
     pytest.param("float32", False, False, NB, N, ELL, id="float32-False-False-16"),
     pytest.param("bfloat16", False, False, NB, N, ELL, id="bfloat16-False-False-16"),

@@ -247,3 +247,21 @@ def test_check_cuda_inputs_head_dims(name):
             t_common.check_cuda_inputs(name, data=(x, x), f32=(x,), head_dim=128)
     with pytest.raises(ValueError, match=rf"^{name}: head_dim 96 not built"):
         t_common.check_cuda_inputs(name, data=(x, x), f32=(x,), head_dim=96)
+
+
+@pytest.mark.parametrize("name", _BALL_VARLEN)
+def test_check_cuda_inputs_head_dims_bf16(name):
+    """In bf16 the ball kernels also take head_dim 128 (their mma path
+    streams 64-key tiles); the packed-varlen kernels still refuse it, and
+    fp32 operands keep every kernel at 16-64."""
+    x, y = torch.zeros(2, 4, 128, dtype=torch.bfloat16), torch.zeros(2, 4)
+    for d in (16, 32, 64):
+        t_common.check_cuda_inputs(name, data=(x, x), f32=(y,), head_dim=d)
+    if name.startswith("bta_"):
+        t_common.check_cuda_inputs(name, data=(x, x), f32=(y,), head_dim=128)
+    else:
+        with pytest.raises(ValueError, match=rf"^{name}: head_dim 128 not built"):
+            t_common.check_cuda_inputs(name, data=(x, x), f32=(y,), head_dim=128)
+    with pytest.raises(ValueError, match=rf"^{name}: head_dim 128 not built"):
+        t_common.check_cuda_inputs(name, data=(x.float(), x.float()), f32=(y,),
+                                   head_dim=128)

@@ -15,8 +15,11 @@ that pick their paths, checked on the CPU.
   block-causal modes, ℓ 8 and 64, L 480 (a ragged key tile) and 512;
   windows 64–256, live and dead halves.
 - :func:`bta.fwd_walk` and :func:`bta.bwd_walk` (the row blocks and key
-  tiles of the register-tiled ball kernels) over a live ball: every
-  (row, key) pair visited exactly once, at balls 64–256 and rep 1–2.
+  tiles of the tiled ball kernels) over a live ball: every (row, key) pair
+  visited exactly once, on the fma path at balls 64–256 and rep 1–2, on
+  the mma path at balls 64–512, rep 1–4 and D 64 / 128, in the forward and
+  in each role of the backward (the dK/dV blocks' row tiles, the dQ
+  blocks' key tiles).
 - :func:`flash.flash_fwd_plan`, :func:`local.local_plan` (the path of
   ``local_fwd``, ``local_dq`` and ``local_dkv``) and :func:`bta.bta_plan`
   (the path of ``bta_fwd`` and ``bta_bwd``) at every configuration the port
@@ -275,6 +278,37 @@ def test_bta_walks_visit_each_pair_once(D, m, rep):
         assert bool((seen == 1).all())
 
 
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("m", [64, 256, 512])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bta_mma_walks_visit_each_pair_once(D, m, rep):
+    """The bf16 mma path over one live ball: the forward's 64-row blocks ×
+    64-key tiles, the backward's dQ blocks (64 rows × the ball's key tiles)
+    and dK/dV blocks (64 keys × the ball's rep·m rows in row tiles of 64, 32
+    at D 128) each visit every (row, key) pair of the ball exactly once,
+    each block or tile inside one query head, in order."""
+    plan = bta.bta_plan(m, D, rep, torch.bfloat16)
+    assert plan == ("mma", 64, 64, 32 if D > 64 else 64)
+    fwd = bta.fwd_walk(m, D, rep, torch.bfloat16)
+    dq = bta.bwd_walk(m, D, rep, torch.bfloat16, role="dq")
+    dkv = bta.bwd_walk(m, D, rep, torch.bfloat16, role="dkv")
+    assert fwd == dq
+    assert [(t0, t1) for t0, t1, _ in dkv] == [
+        (t, t + plan.row_tile) for _ in range(m // plan.key_tile)
+        for t in range(0, rep * m, plan.row_tile)]
+    for walk in (fwd, dkv):
+        seen = torch.zeros(rep * m, m, dtype=torch.int32)
+        for t0, t1, keys in walk:
+            assert t0 // m == (t1 - 1) // m                          # one query head
+            assert all(j1 - j0 == plan.key_tile for j0, j1 in keys)
+            assert all(a[1] == b[0] for a, b in zip(keys, keys[1:]))
+            for j0, j1 in keys:
+                seen[t0:t1, j0:j1] += 1
+        assert bool((seen == 1).all())
+    with pytest.raises(ValueError):
+        bta.bwd_walk(m, D, rep, torch.bfloat16, role="dk")
+
+
 def test_bta_bwd_walk_paper_shape():
     """shapenet's ball (256 keys, D 32, rep 1): the fused backward walks 8
     row tiles of 32, each against the ball's 8 key warps of 32 keys, and the
@@ -284,7 +318,7 @@ def test_bta_bwd_walk_paper_shape():
     assert [(t0, t1, len(keys)) for t0, t1, keys in bta.fwd_walk(256, 32, 1, torch.float32)] \
         == [(t, t + 64, 8) for t in range(0, 256, 64)]
     with pytest.raises(ValueError):
-        bta.bwd_walk(256, 32, 1, torch.bfloat16)                     # the rows path
+        bta.bwd_walk(256, 64, 1, torch.float32)                      # the rows path
 
 
 # ---------------------------------------------------------------------------
@@ -314,19 +348,25 @@ def test_plans_for_configs(name):
     if name == "shapenet-bsa":
         assert tuple(fwd) == ("fma", 64, 32)
     if cfg.attention == "bsa" and D not in HEAD_DIMS["bta_fwd"]:
-        # D 128 (phi4-mini, granite, the MoE LMs, jamba, llava): the ball
-        # kernels take none, and the causal LM runs the local window in
-        # place of the ball branch
+        # D 128 (phi4-mini, granite, the MoE LMs, jamba, llava; all bf16 with
+        # balls of 256): the ball kernels' mma path takes them (the causal LM
+        # runs the local window in place of the ball branch), fp32 none
         assert cfg.family in ("dense", "moe", "hybrid", "vlm")
+        m, rep = cfg.bsa.ball_size, cfg.n_heads // cfg.n_kv_heads
+        assert dtype == torch.bfloat16 and m % 64 == 0
+        assert tuple(bta.bta_plan(m, D, rep, dtype)) == ("mma", 64, 64, 32)
         with pytest.raises(ValueError, match="bta: no path"):
-            bta.bta_plan(cfg.bsa.ball_size, D, cfg.n_heads // cfg.n_kv_heads, dtype)
+            bta.bta_plan(m, D, rep, torch.float32)
     elif cfg.attention == "bsa":
         m, rep = cfg.bsa.ball_size, cfg.n_heads // cfg.n_kv_heads
         ball = bta.bta_plan(m, D, rep, dtype)           # bta_fwd's path and bta_bwd's
         fma = dtype == torch.float32 and D in (16, 32) and m % 64 == 0 and m <= 256
-        assert ball.path == ("fma" if fma else "rows")
+        mma = dtype == torch.bfloat16 and m % 64 == 0
+        assert ball.path == ("fma" if fma else "mma" if mma else "rows")
         if name == "shapenet-bsa":
             assert tuple(ball) == ("fma", 64, 32, 32)
+        if name == "seamless-m4t-medium":
+            assert tuple(ball) == ("mma", 64, 64, 64)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -374,22 +414,53 @@ def test_bta_plan_matches_source_constants(D):
     assert "atomicAdd" not in text                      # each ball's gradients owned by a block
 
 
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_bta_mma_plan_matches_source_constants(D):
+    """The mma path's tiles are ``FwdMma``'s (``csrc/bta_fwd.cu``: 64 rows a
+    block, 64-key tiles) and ``BwdMma``'s (``csrc/bta_bwd.cu``: dQ blocks of
+    BM rows over BK-key tiles, dK/dV blocks of BK keys over RT-row tiles),
+    at every ball that is a multiple of 64; the entry points take the
+    wrapper's path code as their last int."""
+    fwd = _consts(CSRC / "bta_fwd.cu", "FwdMma", D)
+    bwd = _consts(CSRC / "bta_bwd.cu", "BwdMma", D)
+    for m in (64, 256, 1024):
+        plan = bta.bta_plan(m, D, 3, torch.bfloat16)
+        assert plan.path == "mma"
+        assert (plan.rows, plan.key_tile) == (fwd["BM"], fwd["BK"]) == (bwd["BM"], bwd["BK"])
+        assert plan.row_tile == bwd["RT"]
+    assert bta.PATH_CODES == {"rows": 0, "fma": 1, "mma": 2}
+    # the tile steps are shared: the forward's with flash_fwd_mma and
+    # local_fwd_mma, the backward's two with local_dq_mma / local_dkv_mma
+    assert "rt::mma_fwd_walk" in (CSRC / "bta_fwd.cu").read_text()
+    for src in ("bta_bwd.cu", "local_bwd.cu"):
+        text = (CSRC / src).read_text()
+        assert "rt::mma_dq_tile" in text and "rt::mma_dkv_tile" in text
+    for src in ("bta_fwd.cu", "bta_bwd.cu"):
+        text = (CSRC / src).read_text()
+        assert "if (path == 2)" in text and "if (path == 1)" in text
+        assert not re.search(r"\batomic\w*\(", text)             # no atomic of any kind
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m", [16, 32, 64, 256])
 @pytest.mark.parametrize("D", [16, 32, 64])
 def test_bta_plan_boundaries(D, m, dtype):
-    """fp32 at D 16 / 32 with a ball that is a multiple of 64 takes the fma
-    path (both kernels); bf16, the small balls (the tests' 16, the smoke
-    config's 32) and D 64 take the rows path, whose walks the mirrors
+    """bf16 with a ball that is a multiple of 64 takes the mma path at every
+    head dim, with no upper limit on the ball; fp32 at D 16 / 32 with a
+    ball that is a multiple of 64 up to 256 takes the fma path (both
+    kernels); the small balls (the tests' 16, the smoke config's 32) and
+    fp32 at D 64 or above 256 take the rows path, whose walks the mirrors
     refuse."""
     plan = bta.bta_plan(m, D, 2, dtype)
-    fma = dtype == torch.float32 and D != 64 and m % 64 == 0
-    assert plan.path == ("fma" if fma else "rows")
-    if not fma:
+    bf16 = dtype == torch.bfloat16
+    tiled = "mma" if bf16 else "fma" if D != 64 else "rows"
+    assert plan.path == (tiled if m % 64 == 0 else "rows")
+    if plan.path == "rows":
         assert plan.rows == min(256, 2 * m) and plan.key_tile == plan.row_tile == m
         with pytest.raises(ValueError):
             bta.bwd_walk(m, D, 2, dtype)
-    assert bta.bta_plan(512, D, 1, dtype).path == "rows"    # over a block's registers
+    # a ball of 512: over the fma block's registers, streamed by the mma path
+    assert bta.bta_plan(512, D, 1, dtype).path == ("mma" if bf16 else "rows")
 
 
 @pytest.mark.parametrize("window,dtype,path", [(256, torch.bfloat16, "tiles"),
@@ -571,6 +642,7 @@ def test_varlen_plan_matches_source_constants(D):
                                   lambda: local.dkv_walk(32, 64, torch.bfloat16),
                                   lambda: bta.bta_plan(256, 48, 1, torch.float32),
                                   lambda: bta.bta_plan(256, 128, 1, torch.float32),
+                                  lambda: bta.bta_plan(32, 128, 1, torch.bfloat16),
                                   lambda: bta.bta_plan(256, 32, 1, torch.float16),
                                   lambda: bta.bta_plan(0, 32, 1, torch.float32),
                                   lambda: bta.fwd_walk(32, 32, 1, torch.float32),
@@ -582,7 +654,8 @@ def test_varlen_plan_matches_source_constants(D):
                                   lambda: varlen_row_tiles([0, 48, 32], [0, 6, 4], 64, 8,
                                                            "cpu", rows=64)],
                          ids=["fwd-D48", "fwd-fp16", "local-w0", "local-D48", "walk-lanes",
-                              "bta-D48", "bta-D128", "bta-fp16", "bta-m0", "bta-walk-rows",
+                              "bta-D48", "bta-D128", "bta-D128-ball32", "bta-fp16", "bta-m0",
+                              "bta-walk-rows",
                               "varlen-D128", "varlen-D48", "varlen-fp16", "rows-lengths",
                               "rows-order"])
 def test_plans_raise(call):

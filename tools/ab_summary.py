@@ -10,6 +10,20 @@ runs = {t: json.loads((DIR / f"ab_{t}.json").read_text())
         if (DIR / f"ab_{t}.json").exists()}
 print("card", next(iter(runs.values()))["card"])
 order = list(runs)
+for i, row in enumerate(next(iter(runs.values())).get("ball", [])):
+    vals = {t: runs[t]["ball"][i] for t in order}
+    print("ball", row["case"], row["dtype"], " | ".join(
+        f"{t}: refused" if "refused" in v else
+        f"{t}: fwd {v['fwd_ms']:.4f} (dev {v['fwd_device_ms']}) bwd {v['bwd_ms']:.4f} "
+        f"(dev {v['bwd_device_ms']})" for t, v in vals.items()),
+        "fwd digests equal:", len({v.get("fwd_digest") for v in vals.values()}) == 1,
+        "bwd digests equal:", len({v.get("bwd_digest") for v in vals.values()}) == 1)
+for t in order:
+    if "seamless" in runs[t]:
+        sm = runs[t]["seamless"]
+        print("seamless", t, json.dumps({k: sm[k] for k in (
+            "step_ms", "profiled_wall_ms", "device_kernel_ms", "device_busy_share",
+            "by_category_ms", "ported_kernels_ms")}))
 for i, row in enumerate(next(iter(runs.values()))["epilogue"]):
     vals = {t: runs[t]["epilogue"][i] for t in order}
     print("epi", row["shape"], row["dtype"],
@@ -24,7 +38,8 @@ for i, row in enumerate(next(iter(runs.values()))["gather"]):
                      f"{len(v['pair_kernels'])} k) isel {v['index_select_ms']:.4f} "
                      f"isel2 {v['index_select_pair_ms']:.4f}" for t, v in vals.items()))
 for t in order:
-    print("decode", t, json.dumps(runs[t]["decode"]))
+    if "decode" in runs[t]:
+        print("decode", t, json.dumps(runs[t]["decode"]))
 hp = [t for t in order if "output_hashes" in runs[t]]
 if len(hp) >= 2:
     a, b = runs[hp[0]], runs[hp[1]]

@@ -1,14 +1,27 @@
-"""Parent-against-change measurements of epilogue_fwd and the paged gathers.
+"""Parent-against-change measurements of the port's kernels on one card.
 
-    python3 tools/ab_worker.py TREE TAG OUT.json [--hashes]
+    python3 tools/ab_worker.py TREE TAG OUT.json [--hashes] [--sections LIST]
 
 TREE is a checkout (its src/ is imported first, its own kernels built into
-TREE/build/kernels).  Times the layer's epilogue call (ops.gated_combine)
-and the bare kernel call at the PERF.md shapes, the decode step's gathers
-as the tree makes them (the parent: two single-pool calls a row set; the
-change: one pair call), index_select beside them, and 100 steps of
-tinyllama's paged decode at 22 layers.  --hashes adds the tree's own
-output_hashes and this repository's path_hashes run on the tree's package.
+TREE/build/kernels).  ``--sections`` (a comma list, default every one):
+
+- ``ball``: ``bta_fwd`` / ``bta_bwd`` at seamless's encoder balls (16
+  heads of 64, 4,096 frames, balls of 256, bf16), llava's heads (56 / 8 of
+  128, bf16; a tree whose kernels refuse D 128 records the refusal),
+  seamless's heads in balls of 32 (bf16) and shapenet's padded train batch
+  (8 × 8 heads of 32, 3,840 rows, fp32): a call's time, its device time
+  from the profiler and the outputs' digest;
+- ``seamless``: seamless-m4t-medium at full width and depth, one warm-up
+  and two timed train steps on 4,096 frames, then a profiled step
+  (``device_summary``: the device time by kernel kind, ``by_category_ms``);
+- ``epilogue``: the layer's epilogue call (``ops.gated_combine``) and the
+  bare kernel call at the PERF.md shapes;
+- ``gather``: the decode step's gathers as the tree makes them (the pair
+  call, or two single-pool calls before it), ``index_select`` beside them;
+- ``decode``: 100 steps of tinyllama's paged decode at 22 layers.
+
+``--hashes`` adds the tree's own output_hashes and this repository's
+path_hashes run on the tree's package.
 """
 import importlib.util
 import json
@@ -49,7 +62,100 @@ if _build.last_build["built"]:
     Path(OUT + ".ptxas.log").write_text(_build.last_build["log"])
 new_api = "paged_gather_pair" in _build.SIGNATURES
 res = {"tag": TAG, "tree": str(TREE), "new_api": new_api, "card": cs.smi_line(),
-       "epilogue": [], "gather": []}
+       "epilogue": [], "gather": [], "ball": []}
+ALL = ("ball", "seamless", "epilogue", "gather", "decode")
+SECTIONS = (sys.argv[sys.argv.index("--sections") + 1].split(",") if "--sections" in sys.argv
+            else ALL)
+assert set(SECTIONS) <= set(ALL), SECTIONS
+
+
+def digest(*ts):
+    m = hashlib.sha256()
+    for t in ts:
+        m.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return m.hexdigest()[:16]
+
+
+def ball_rows():
+    """bta_fwd / bta_bwd at the shapes of the ball section, in the tree's
+    own path for each."""
+    from repro_torch.kernels import bta
+    from repro_torch.kernels.common import row_delta
+    shapenet = cs.slice_mask(dev)
+    cases = {"seamless": (16, 1, 64, 256, 4096, torch.bfloat16, None),
+             "llava_d128": (8, 7, 128, 256, 4096, torch.bfloat16, None),
+             "rows_ball32": (16, 1, 64, 32, 4096, torch.bfloat16, None),
+             "shapenet": (cs.B * cs.H, 1, cs.D, cs.BALL, cs.N, torch.float32, shapenet)}
+    for name, (bh, rep, d, m, n, dtype, mask) in cases.items():
+        nh = bh if mask is None else cs.H
+        valid = torch.ones(1, n, dtype=torch.bool, device=dev) if mask is None else mask
+        kb = torch.where(valid, 0.0, -1e30).float()
+        q = cs.rand((bh, rep, n, d), dtype, dev, 200)
+        k, v = (cs.rand((bh, n, d), dtype, dev, s) for s in (201, 202))
+        kw = dict(ball_size=m, n_heads=nh)
+        row = {"case": name, "dtype": str(dtype)[6:]}
+        try:
+            o, lse = bta.ball_attention_fwd(q, k, v, kb, **kw)
+        except (ValueError, RuntimeError) as e:
+            row["refused"] = str(e)[:160]
+            res["ball"].append(row)
+            print(json.dumps(row), flush=True)
+            continue
+        do = cs.rand(o.shape, dtype, dev, 203)
+        args = (q, k, v, kb, do, lse, row_delta(do, o))
+        fwd = lambda: bta.ball_attention_fwd(q, k, v, kb, **kw)  # noqa: E731
+        bwd = lambda: bta.ball_attention_bwd(*args, **kw)  # noqa: E731
+        row.update(fwd_ms=cs.median_ms(fwd, reps=50), fwd_device_ms=cs.device_ms(
+                       fwd, "bta_fwd")[0], fwd_digest=digest(o, lse),
+                   bwd_ms=cs.median_ms(bwd, reps=50), bwd_device_ms=cs.device_ms(
+                       bwd, "bta_bwd")[0], bwd_digest=digest(*bwd()))
+        res["ball"].append(row)
+        print(json.dumps(row), flush=True)
+        del q, k, v, o, lse, do, args
+        torch.cuda.empty_cache()
+
+
+def seamless_step():
+    """seamless-m4t-medium's train step at full width and depth: 1 warm-up,
+    2 timed steps on 4,096 frames, then a profiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    api, model = cs.family_init(dev, get_config(cs.SEAMLESS))
+    cfg = api.mcfg
+    batches = [api.make_batch(np.random.default_rng(s), 1, cs.FAMILY_N, device=dev)
+               for s in range(3)]
+    opt = adamw_init(dict(model.named_parameters()),
+                     state_dtype=getattr(torch, cfg.opt_state_dtype))
+    step = make_train_step(api, base_lr=1e-3, weight_decay=0.01, total_steps=300,
+                           warmup_steps=30)
+    model, opt, _ = step(model, opt, batches[0])
+    torch.cuda.synchronize()
+    ms, losses = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, opt, batches[1])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    summary = cs.device_summary(prof)
+    res["seamless"] = {"step_ms": ms, "loss": losses, "profiled_wall_ms": wall,
+                       "device_busy_share": summary["device_kernel_ms"] / wall, **summary}
+    print(json.dumps({"seamless": res["seamless"]}), flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+if "ball" in SECTIONS:
+    ball_rows()
+if "seamless" in SECTIONS:
+    seamless_step()
 
 SHAPES = {"shapenet": ((8, 3840, 8, 32), torch.float32, True),
           "shapenet_bf16": ((8, 3840, 8, 32), torch.bfloat16, True),
@@ -58,7 +164,7 @@ SHAPES = {"shapenet": ((8, 3840, 8, 32), torch.float32, True),
           "d128_fp32": ((1, 4096, 24, 128), torch.float32, False),
           "rep1": ((1, 4096, 32, 64), torch.bfloat16, False),
           "rep48": ((1, 4096, 48, 128), torch.bfloat16, False)}
-for name, (shape, dtype, masked) in SHAPES.items():
+for name, (shape, dtype, masked) in SHAPES.items() if "epilogue" in SECTIONS else ():
     Bx, Nx, Hx, Dx = shape
     R = Bx * Nx * Hx
     outs = [cs.rand(shape, dtype, dev, 10 + i) for i in range(3)]
@@ -91,7 +197,7 @@ for name, (shape, dtype, masked) in SHAPES.items():
     del outs, kargs, out
     torch.cuda.empty_cache()
 
-for dtype in (torch.float32, torch.bfloat16):
+for dtype in (torch.float32, torch.bfloat16) if "gather" in SECTIONS else ():
     R = cs.decode_rows(dev)[-1]
     n_pages = cs.MAX_LEN // cs.PAGE
     rng = np.random.default_rng(0)
@@ -121,40 +227,44 @@ for dtype in (torch.float32, torch.bfloat16):
         res["gather"].append(row)
         print(json.dumps(row), flush=True)
 
-# tinyllama's paged decode at 22 layers: the first 100 steps of the dense
-# LMs' schedule through api.paged_decode_step
-from repro_torch.models.api import model_api  # noqa: E402
-api = model_api(get_config(cs.LM))
-model = api.init(seed=0, device=dev)
-tables, lengths, num_blocks, n_pad = cs.decode_schedule(dev)
-tokens = torch.from_numpy(np.random.default_rng(3).integers(
-    0, api.mcfg.vocab_size, (2, n_pad), dtype=np.int32)).to(dev)
-slot = torch.arange(2, device=dev)
-caches = api.paged_cache_init(2, num_blocks, cs.PAGE, api.mcfg.cdtype(), device=dev)
-with torch.inference_mode():
-    for t in range(10):                                  # warm-up
-        api.paged_decode_step(model, tokens[slot, lengths[t]], caches, tables[t], lengths[t],
-                              cs.PAGE)
+
+
+def decode_steps():
+    """tinyllama's paged decode at 22 layers: the first 100 steps of the
+    dense LMs' schedule through api.paged_decode_step."""
+    from repro_torch.models.api import model_api
+    api = model_api(get_config(cs.LM))
+    model = api.init(seed=0, device=dev)
+    tables, lengths, num_blocks, n_pad = cs.decode_schedule(dev)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, api.mcfg.vocab_size, (2, n_pad), dtype=np.int32)).to(dev)
+    slot = torch.arange(2, device=dev)
     caches = api.paged_cache_init(2, num_blocks, cs.PAGE, api.mcfg.cdtype(), device=dev)
-    torch.cuda.synchronize()
-    reset_counters()
-    t0 = time.perf_counter()
-    logits = []
-    for t in range(100):
-        lg, caches = api.paged_decode_step(model, tokens[slot, lengths[t]], caches, tables[t],
-                                           lengths[t], cs.PAGE)
-        logits.append(lg)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
-dig = hashlib.sha256()
-for lg in logits:
-    dig.update(lg.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-res["decode"] = {"ms_per_step": sec * 10, "launches": {k: c.n for k, c in COUNTERS.items()
-                                                       if c.n},
-                 "logits_digest": dig.hexdigest()[:16]}
-print(json.dumps(res["decode"]), flush=True)
-del model, caches
-torch.cuda.empty_cache()
+    with torch.inference_mode():
+        for t in range(10):                                  # warm-up
+            api.paged_decode_step(model, tokens[slot, lengths[t]], caches, tables[t],
+                                  lengths[t], cs.PAGE)
+        caches = api.paged_cache_init(2, num_blocks, cs.PAGE, api.mcfg.cdtype(), device=dev)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        logits = []
+        for t in range(100):
+            lg, caches = api.paged_decode_step(model, tokens[slot, lengths[t]], caches,
+                                               tables[t], lengths[t], cs.PAGE)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    res["decode"] = {"ms_per_step": sec * 10, "launches": {k: c.n for k, c in COUNTERS.items()
+                                                           if c.n},
+                     "logits_digest": digest(*logits)}
+    print(json.dumps(res["decode"]), flush=True)
+    del model, caches
+    torch.cuda.empty_cache()
+
+
+if "decode" in SECTIONS:
+    decode_steps()
 
 if "--hashes" in sys.argv:
     own = load(TREE / "chip_smoke.py", "cs_own")
