@@ -220,7 +220,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    100,352), ``phi4-mini-3.8b`` (32 layers, d 3072, 24 / 8 of 128,
    200,064) and ``granite-20b`` (52 layers, d 6144, 48 / 1 of 128, d_ff
    24,576, 49,152; 28.17 B parameters, 56.3 GB in bf16).  Each prefills 1
-   × 32,768 tokens (granite 1 × 8,192) as phase 7 does (launches, every
+   × 16,384 tokens (granite 1 × 4,096) as phase 7 does (launches, every
    layer within 4e-2 of the reference backend, a profiled call), decodes
    paged through ``api.paged_decode_step`` on its own config
    (``dense_decode_phase``: two staggered slots of 96 and 64 positions in
@@ -274,6 +274,28 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    depth whose weights leave 6 GB under 76 GB (all 60 on an 80 GB card),
    every layer held to the reference backend.  jamba-1.5-large-398b runs
    on the CPU only (one 8-layer period is ~44 B parameters).
+17. sharded (``sharded_phase``, last): the ``"sharded"`` backend in ranks
+   that share the one card (spawned processes, a gloo group over
+   localhost: NCCL refuses two ranks on one device; the ``kernels`` inner
+   backend, the library built above).  ``shapenet-bsa`` at full width and
+   depth, p = 3 (balls of 256 split in 1,280-row shards): loss and every
+   parameter gradient on one padded batch of 8 train clouds (each rank's
+   launches: the ball, flash and epilogue kernels and their backwards 18
+   times, no selection kernel, the ring's products being plain), equal
+   bits on every rank and on two calls, every layer held to the unsharded
+   kernel path (``train_reference_check(..., backends=("sharded",
+   "kernels"))``: outputs 1e-3, gradients 1e-4).  Its packed serving at
+   p = 2 through ``GeometryEngine(backend="sharded")`` (8 clouds: the LPT
+   segment plan, 54 output gathers and no other collective, held layer by
+   layer and end to end at 1e-3 to the unsharded engine); the ball op
+   warning and falling back at p = 2; the quickstart's section 7.
+   ``tinyllama-1.1b`` at full width and ``SERVE_LM_LAYERS`` layers, p = 2:
+   a 4,096-token prefill held layer by layer at 4e-2, then paged serving of
+   5 requests on 4 slots through ``ServingEngine(backend="sharded")`` on
+   row-partitioned pools (a copy-on-write across ranks), teacher-forced
+   against the unsharded engine: each step's argmax equal or at a
+   near-tie.  Each rank's launches are printed; the timings are of ranks
+   sharing one card, no scaling number.
 
 ``$REPRO_TORCH_ATTENTION_BACKEND`` must be unset: it would beat every
 backend the script names.  The shapenet paths run at full width and
@@ -288,6 +310,7 @@ import dataclasses
 import functools
 import gc
 import hashlib
+import io
 import json
 import math
 import os
@@ -296,6 +319,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -398,6 +422,15 @@ PATHS["train_group_cmp"] = PATHS["train_padded"]
 PATHS["quickstart"] = ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue_fwd", "varlen_fwd")
 PATHS["trainer"] = PATHS["train_padded"]                # Trainer on shapenet-bsa
 PATHS["trainer_resume"] = PATHS["train_padded"]
+# the sharded phase (ranks that share the one card): shapenet-bsa's loss and
+# gradients at p = 3 (the ring selection's per-hop products are plain
+# PyTorch, so no selection kernel), its packed serving at p = 2, tinyllama's
+# prefill and paged serving at p = 2; the launches are each rank's
+PATHS["sharded_padded"] = ("bta_fwd", "flash_fwd", "epilogue_fwd", "bta_bwd", "flash_dq",
+                           "flash_dkv", "epilogue_bwd")
+PATHS["sharded_packed"] = PATHS["serve_packed"]
+PATHS["sharded_prefill"] = ("local_fwd", "flash_fwd", "epilogue_fwd")
+PATHS["sharded_serve_lm"] = ("paged_gather_pair",)
 # the path, dtype and mode whose launches and row the kernels line reports
 # for the LM kernels; the others report the shapenet train paths' (fp32)
 LM_MAIN = {"local_fwd": ("prefill", "bfloat16", "lm_window"),
@@ -458,13 +491,15 @@ LM_GRAD_REL_TOL = 6e-2
 LM_GRAD_FLOOR = 1e-4
 # the dense LMs beside tinyllama (dense_lm_phase), at full width and depth,
 # LM_BSA, bf16, weights from seed 0: config -> ((prefill B, N), (train B, N)
-# or None).  The prefill takes prefill_32k's length with its batch of 32 cut
-# to 1 (granite-20b: 8,192 tokens, to stay in time and in 80 GB); training
-# takes train_4k's length (phi4-mini one sequence: its fp32 moments alone
-# are 35.6 GB); granite-20b does not train (its AdamW moments are 225 GB)
-DENSE_LMS = {"stablelm-1.6b": ((1, 32768), (2, 4096)),
-             "phi4-mini-3.8b": ((1, 32768), (1, 4096)),
-             "granite-20b": ((1, 8192), None)}
+# or None).  The prefill takes half of prefill_32k's length with its batch
+# of 32 cut to 1 (granite-20b: 4,096 tokens; 32,768 and 8,192 until the
+# sharded phase came in, which the run's time limit had to make room for);
+# training takes train_4k's length (phi4-mini one sequence: its fp32
+# moments alone are 35.6 GB); granite-20b does not train (its AdamW moments
+# are 225 GB)
+DENSE_LMS = {"stablelm-1.6b": ((1, 16384), (2, 4096)),
+             "phi4-mini-3.8b": ((1, 16384), (1, 4096)),
+             "granite-20b": ((1, 4096), None)}
 for _arch in DENSE_LMS:                                  # their paths
     PATHS[f"prefill:{_arch}"] = PATHS["prefill"]
     PATHS[f"decode:{_arch}"] = ("paged_gather_pair",)
@@ -1945,10 +1980,12 @@ def pad_rows(batch: dict, n: int) -> dict:
             for k, v in batch.items()}
 
 
-def train_reference_check(model, cfg, batch) -> dict:
+def train_reference_check(model, cfg, batch, backends=("kernels", "reference")) -> dict:
     """Hold each layer's output and gradients on the kernel path to the
     ``reference`` backend's, given the same layer input and the same
-    upstream gradient (an Erwin layer at its own level).
+    upstream gradient (an Erwin layer at its own level).  ``backends``
+    names the path under test and the one it is held to (the sharded
+    phase holds ``"sharded"`` to ``"kernels"``).
 
     The kernel path runs forward with a cut between layers, the loss's
     gradient is carried down layer by layer through the kernel path's own
@@ -1970,7 +2007,7 @@ def train_reference_check(model, cfg, batch) -> dict:
     levels = erwin_levels(cfg)
     xs, ys = [], []
     h = dense(model.embed, batch["feats"]).detach()
-    with use_backend("kernels"):
+    with use_backend(backends[0]):
         for lp, level in zip(model.layers, levels):
             x = h.detach().requires_grad_(True)
             h = pc_layer(lp, x, mcfg=cfg, mask=mask, offsets=offsets, erwin_level=level)
@@ -1986,7 +2023,7 @@ def train_reference_check(model, cfg, batch) -> dict:
         names = [n for n, p in lp.named_parameters() if p.requires_grad]
         wrt = [xs[i]] + [p for _, p in lp.named_parameters() if p.requires_grad]
         gk = torch.autograd.grad(ys[i], wrt, gy, allow_unused=True)
-        with use_backend("reference"):
+        with use_backend(backends[1]):
             yr = pc_layer(lp, xs[i], mcfg=cfg, mask=mask, offsets=offsets,
                           erwin_level=levels[i])
         gr = torch.autograd.grad(yr, wrt, gy, allow_unused=True)
@@ -2020,13 +2057,14 @@ def train_reference_check(model, cfg, batch) -> dict:
              "input_grad_ref_max_abs": [r["ref_max_abs"] for r in reversed(rows)
                                         if r["name"] == "input"],
              "tensors_compared": len(rows), "grad_elements_compared": elements,
-             "layers": len(model.layers)}
+             "layers": len(model.layers), "backends": list(backends)}
     print(json.dumps({"train_reference_check": stats}), flush=True)
-    check(fwd_beyond == 0, f"{cfg.name}: kernel-path layer outputs vs reference backend: "
+    what = f"{backends[0]}-path {{}} vs the {backends[1]} backend"
+    check(fwd_beyond == 0, f"{cfg.name}: {what.format('layer outputs')}: "
                            f"{fwd_beyond} points beyond {LAYER_TOL} (max {fwd_worst})")
     beyond = [f"layer {r['layer']} {r['name']} ({r['rel']:.2e})" for r in rows
               if not r["rel"] <= GRAD_REL_TOL]
-    check(not beyond, f"kernel-path gradients vs reference backend beyond "
+    check(not beyond, f"{what.format('gradients')} beyond "
                       f"{GRAD_REL_TOL} of their largest value: {', '.join(beyond[:8])}")
     return stats
 
@@ -2098,8 +2136,10 @@ def profile_batch(eng, clouds) -> None:
           flush=True)
 
 
-def reference_check(eng, model, cfg, clouds, served, free_ref) -> dict:
-    """Hold the kernel path to the ``reference`` backend on one served batch.
+def reference_check(eng, model, cfg, clouds, served, free_ref,
+                    backends=("kernels", "reference")) -> dict:
+    """Hold the kernel path to the ``reference`` backend on one served batch
+    (``backends``: the path under test and the one it is held to).
 
     The check is per layer: along the kernel path's own trajectory, every
     layer's kernel-path output must match the reference backend's output
@@ -2116,9 +2156,9 @@ def reference_check(eng, model, cfg, clouds, served, free_ref) -> dict:
     with torch.no_grad():
         xk = xr = dense(model.embed, batch["feats"])
         for i, lp in enumerate(model.layers):
-            with use_backend("kernels"):
+            with use_backend(backends[0]):
                 yk = pc_layer(lp, xk, mcfg=cfg, mask=mask, offsets=offsets)
-            with use_backend("reference"):
+            with use_backend(backends[1]):
                 want = pc_layer(lp, xk, mcfg=cfg, mask=mask, offsets=offsets)  # same input
                 yr = pc_layer(lp, xr, mcfg=cfg, mask=mask, offsets=offsets)    # free-running
             d = (yk - want).abs()[mask]
@@ -2134,9 +2174,10 @@ def reference_check(eng, model, cfg, clouds, served, free_ref) -> dict:
              "free_running_points_apart_per_layer": parted,
              "free_running_output_max_abs_diff": float(max(d.max() for d in end_diff)),
              "free_running_output_points_beyond_1e-3": int(sum(
-                 (d > 1e-3 * (1 + abs(w))).sum() for d, w in zip(end_diff, free_ref)))}
+                 (d > 1e-3 * (1 + abs(w))).sum() for d, w in zip(end_diff, free_ref))),
+             "backends": list(backends)}
     print(json.dumps({"reference_check": stats}), flush=True)
-    check(step_beyond == 0, f"kernel path vs reference backend: {step_beyond} "
+    check(step_beyond == 0, f"{backends[0]} path vs {backends[1]} backend: {step_beyond} "
                             f"points beyond 1e-3 in some layer (max {step_worst})")
     return stats
 
@@ -2651,7 +2692,8 @@ class HeldRouting:
     token runs other experts, which no tolerance of the layer's output can
     hold).  Without MoE layers it only selects the backend."""
 
-    def __init__(self):
+    def __init__(self, record: str = "kernels"):
+        self.record = record                # the backend whose routing the other takes
         self.routes, self.flipped, self.tokens = [], 0, 0
 
     def _record(self, p, x, mcfg, top_e=None):
@@ -2669,7 +2711,7 @@ class HeldRouting:
 
     @contextlib.contextmanager
     def __call__(self, backend: str):
-        fn = self._record if backend == "kernels" else self._replay
+        fn = self._record if backend == self.record else self._replay
         with use_backend(backend), mock.patch.object(transformer, "moe_apply", fn):
             yield
 
@@ -2688,22 +2730,23 @@ def lm_stack(model):
     return (model.lm if hasattr(model, "lm") else model).layers
 
 
-def prefill_reference_check(model, cfg, x0) -> dict:
+def prefill_reference_check(model, cfg, x0, backends=("kernels", "reference")) -> dict:
     """Every layer on the kernel path against the ``reference`` backend given
     the same layer input ``x0`` (B, N, d) along the kernel path's own
     trajectory (the reference runs one sequence at a time, to bound its
     memory; an MoE layer's routing held to the kernel path's:
-    ``HeldRouting``)."""
+    ``HeldRouting``).  ``backends``: the path under test and the one it is
+    held to."""
     B_, N_, _ = x0.shape
     pos = torch.arange(N_, device=x0.device)[None].expand(B_, N_)
-    rows, held = [], HeldRouting()
+    rows, held = [], HeldRouting(record=backends[0])
     with torch.no_grad():
         x = x0
         for i, period in enumerate(lm_stack(model)):
             lp = period.pos0
-            with held("kernels"):
+            with held(backends[0]):
                 yk = lm_layer(lp, x, mcfg=cfg, positions=pos)
-            with held("reference"):
+            with held(backends[1]):
                 yr = torch.cat([lm_layer(lp, x[b:b + 1], mcfg=cfg, positions=pos[b:b + 1])
                                 for b in range(B_)])
             check(bool(torch.isfinite(yk).all()), f"layer {i}: non-finite output")
@@ -2715,15 +2758,15 @@ def prefill_reference_check(model, cfg, x0) -> dict:
             del yr
     stats = {"arch": cfg.name, "rel_tol": LM_LAYER_TOL, "layers": len(rows),
              "worst": max(rows, key=lambda r: r["rel"]),
-             "rel_by_layer": [r["rel"] for r in rows]}
+             "rel_by_layer": [r["rel"] for r in rows], "backends": list(backends)}
     if held.tokens:
         stats["moe_routing"] = {"held_tokens": held.tokens,
                                 "router_flips_on_reference": held.flipped}
     print(json.dumps({"prefill_reference_check": stats}), flush=True)
     beyond = [f"layer {r['layer']} ({r['rel']:.2e})" for r in rows
               if not r["rel"] <= LM_LAYER_TOL]
-    check(not beyond, f"prefill kernel path vs reference backend beyond {LM_LAYER_TOL}: "
-                      f"{', '.join(beyond)}")
+    check(not beyond, f"prefill {backends[0]} path vs {backends[1]} backend beyond "
+                      f"{LM_LAYER_TOL}: {', '.join(beyond)}")
     return stats
 
 
@@ -4380,6 +4423,372 @@ def trainer_phase(dev, next_batches) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the sharded phase: ranks on one card, a gloo group over localhost
+# ---------------------------------------------------------------------------
+
+# ranks of each case: shapenet's balls of 256 split at p = 3 (1,280 rows, 5
+# balls a rank) and not at p = 2 (1,920 rows: the ball op falls back, which
+# the packed case checks); tinyllama's 4,096 tokens split at p = 2
+SHARDED_P = {"padded": 3, "packed": 2, "lm": 2}
+SHARDED_TIMEOUT_S = 300                 # a rank's wait in one collective
+SHARDED_LM_SLOTS, SHARDED_LM_NEW = 4, 8
+
+
+class CollectiveCount:
+    """Counts the sharded ops' collectives by kind (``comm.all_gather`` and
+    ``comm.rotate_plain``, which every other collective goes through)."""
+
+    def __init__(self):
+        from repro_torch.distributed import comm
+        self.comm, self.n = comm, {"all_gather": 0, "rotate": 0}
+        self._orig = (comm.all_gather, comm.rotate_plain)
+
+    def __enter__(self):
+        gather, rot = self._orig
+
+        def counted_gather(x, ax):
+            self.n["all_gather"] += 1
+            return gather(x, ax)
+
+        def counted_rotate(x, ax, **kw):
+            self.n["rotate"] += 1
+            return rot(x, ax, **kw)
+        self.comm.all_gather, self.comm.rotate_plain = counted_gather, counted_rotate
+        return self
+
+    def __exit__(self, *exc):
+        self.comm.all_gather, self.comm.rotate_plain = self._orig
+
+
+def rank_digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def same_on_every_rank(digest: str, ax) -> bool:
+    from repro_torch.distributed import comm
+    mine = torch.frombuffer(bytearray(bytes.fromhex(digest)), dtype=torch.uint8)
+    return all(torch.equal(t, mine) for t in comm.all_gather(mine, ax))
+
+
+def sharded_padded_case(dev, mesh, inputs, res) -> None:
+    """shapenet-bsa at full width and depth: loss and every parameter
+    gradient through the sharded backend on 8 padded clouds (the main
+    path), equal bits on every rank and over two calls, then every layer
+    held to the unsharded kernel path (``train_reference_check``)."""
+    from repro_torch.distributed import mesh_context
+    api = model_api(get_config("shapenet-bsa"))
+    cfg = api.mcfg
+    model = api.init(seed=0, device=dev)
+    batch = {k: v.to(dev) for k, v in inputs["padded"].items()}
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step():
+        with mesh_context(mesh), use_backend("sharded"):
+            loss, _ = api.loss(model, batch)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            return loss, [g for g in grads if g is not None]   # φ_q feeds only top-k
+    torch.cuda.synchronize()
+    with CollectiveCount() as cc:
+        reset_counters()                                 # just before the main path
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res["launches"] = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    check_launches(res["launches"], "sharded_padded", cfg.n_layers)
+    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads),
+          "sharded shapenet-bsa: non-finite loss or gradient")
+    digest = rank_digest(grads)
+    _, again = step()
+    ax = mesh.axis_group("data")
+    res.update(loss=float(loss.detach()), step_s=wall, collectives=cc.n,
+               bits_equal_across_calls=rank_digest(again) == digest,
+               bits_equal_across_ranks=same_on_every_rank(digest, ax),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(res["bits_equal_across_calls"], "sharded gradients differ between two calls")
+    check(res["bits_equal_across_ranks"], "sharded gradients differ between ranks")
+    with mesh_context(mesh), contextlib.redirect_stdout(io.StringIO()) as buf:
+        st = train_reference_check(model, cfg, batch, backends=("sharded", "kernels"))
+    if mesh.rank == 0:
+        print(buf.getvalue(), end="", flush=True)
+    res["hold"] = {k: st[k] for k in ("forward_max_abs_diff", "worst", "max_abs_diff",
+                                      "tensors_compared")}
+
+
+def sharded_packed_case(dev, mesh, inputs, res) -> None:
+    """shapenet-bsa's packed serving through ``GeometryEngine(backend=
+    "sharded")`` (the main path: LPT segment sharding, one output gather a
+    branch and no other collective), held layer by layer and end to end to
+    the unsharded kernel engine; the ball op's fallback at p = 2; the
+    quickstart's section 7 on the card."""
+    from repro_torch.distributed import mesh_context
+    from repro_torch.launch import quickstart
+    api = model_api(get_config("shapenet-bsa"))
+    cfg = api.mcfg
+    model = api.init(seed=0, device=dev)
+    clouds = inputs["clouds"]
+
+    def engine(backend):
+        return GeometryEngine(api, model, batch_slots=B, pad_to=CAPACITY, layout="packed",
+                              backend=backend)
+    with mesh_context(mesh):
+        eng = engine("sharded")
+    eng.predict(clouds)                                  # warm-up
+    torch.cuda.synchronize()
+    with CollectiveCount() as cc:
+        reset_counters()                                 # just before the main path
+        t0 = time.perf_counter()
+        outs = eng.predict(clouds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res["launches"] = {name: c.n for name, c in COUNTERS.items()}  # just after it
+    check_launches(res["launches"], "sharded_packed", cfg.n_layers)
+    # each of the three branches gathers its output once a layer, and that is all
+    check(cc.n == {"all_gather": 3 * cfg.n_layers, "rotate": 0},
+          f"packed sharded serving: collectives {cc.n}, expected "
+          f"{3 * cfg.n_layers} output gathers and nothing else")
+    free_ref = engine("kernels").predict(clouds)
+    with mesh_context(mesh), contextlib.redirect_stdout(io.StringIO()) as buf:
+        st = reference_check(eng, model, cfg, clouds, outs, free_ref,
+                             backends=("sharded", "kernels"))
+    if mesh.rank == 0:
+        print(buf.getvalue(), end="", flush=True)
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(outs, free_ref))
+    beyond = sum(int((np.abs(a - b) > 1e-3 * (1 + np.abs(b))).sum())
+                 for a, b in zip(outs, free_ref))
+    res.update({"predict_s": wall, "collectives": cc.n, "output_max_abs_diff": diff,
+                "output_points_beyond_1e-3": beyond,
+                "layer_max_abs_diff": st["per_layer_max_abs_diff"],
+                "points": sum(len(o) for o in outs)})
+    check(beyond == 0, f"packed sharded serving vs the unsharded kernel engine: {beyond} "
+                       f"points beyond 1e-3 (max {diff})")
+
+    # p = 2 does not split shapenet's balls of 256: the op warns and falls back
+    from repro_torch.core.backend import get_backend
+    from repro_torch.distributed.sharded_backend import reset_warnings
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((2, N, H, D), generator=g, device=dev) for _ in range(3))
+    reset_warnings()
+    with mesh_context(mesh), warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        got = get_backend("sharded").ball(q, k, v, None, ball_size=BALL)
+    res["ball_fallback_warning"] = [str(r.message) for r in rec if "falls back" in str(
+        r.message)]
+    check(len(res["ball_fallback_warning"]) == 1 and "granule" in res[
+        "ball_fallback_warning"][0], f"ball at p = 2: no fallback warning ({rec})")
+    check(torch.equal(got, get_backend("kernels").ball(q, k, v, None, ball_size=BALL)),
+          "ball at p = 2: the fallback differs from the kernels backend")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        quickstart.main([])
+    res["quickstart_section_7"] = "sharded over 2 ranks == single-device: OK" in buf.getvalue()
+    check(res["quickstart_section_7"], "quickstart section 7 did not run on two ranks")
+
+
+def sharded_lm_case(dev, mesh, inputs, res) -> None:
+    """tinyllama-1.1b at full width, ``SERVE_LM_LAYERS`` of its layers: a
+    4,096-token prefill through the sharded backend (the main path), held
+    layer by layer to the unsharded kernel path; then paged serving through
+    ``ServingEngine(backend="sharded")`` on row-partitioned pools (the main
+    path of the decode), against the unsharded engine."""
+    from repro_torch.distributed import mesh_context
+    api = model_api(get_config(LM).scaled(n_layers=SERVE_LM_LAYERS))
+    cfg = api.mcfg
+    model = api.init(seed=0, device=dev)
+    batch = api.make_batch(np.random.default_rng(0), 1, 4096, device=dev)
+    step = make_prefill_step(api)
+    with mesh_context(mesh), use_backend("sharded"):
+        step(model, batch)                               # warm-up
+        torch.cuda.synchronize()
+        with CollectiveCount() as cc:
+            reset_counters()                             # just before the main path
+            t0 = time.perf_counter()
+            logits = step(model, batch)
+            torch.cuda.synchronize()
+            res["prefill_s"] = time.perf_counter() - t0
+            res["prefill_launches"] = {n: c.n for n, c in COUNTERS.items()}  # just after
+    res["prefill_collectives"] = cc.n
+    check_launches(res["prefill_launches"], "sharded_prefill", cfg.n_layers)
+    want = step(model, batch)                            # unsharded, kernels
+    res["prefill_logits_max_abs_diff"] = float((logits - want).abs().max())
+    check(bool(torch.isfinite(logits).all()), "sharded prefill: non-finite logits")
+    with mesh_context(mesh), contextlib.redirect_stdout(io.StringIO()) as buf:
+        st = prefill_reference_check(model, cfg, embed_input(api, model, batch),
+                                     backends=("sharded", "kernels"))
+    if mesh.rank == 0:
+        print(buf.getvalue(), end="", flush=True)
+    res["prefill_hold"] = {"rel_by_layer": st["rel_by_layer"]}
+
+    res["serve"] = sharded_serve_lm(api, model, mesh, inputs["lm_prompts"])
+
+
+def sharded_serve_lm(api, model, mesh, prompts) -> dict:
+    """Paged serving of ``prompts`` one step at a time (EOS −1: never
+    sampled) on the unsharded kernel engine, then through
+    ``ServingEngine(backend="sharded")`` on row-partitioned pools (the main
+    path), teacher-forced with the unsharded engine's samples so both run
+    one schedule: at every step and slot the sharded argmax must equal the
+    unsharded sample unless the unsharded top-two logit gap is under
+    ``NEAR_TIE`` of its largest |logit|."""
+    from repro_torch.distributed import mesh_context
+    kw = dict(batch_slots=SHARDED_LM_SLOTS, max_len=MAX_LEN, paged=True, page=PAGE)
+    ref = ServingEngine(api, model, backend="kernels", **kw)
+    rec = []
+    sample = ref._sample
+
+    def keep(logits):
+        t = sample(logits)
+        rec.append((logits.float().cpu(), t.cpu()))
+        return t
+    ref._sample = keep
+    want = ref.serve(prompts, SHARDED_LM_NEW, eos_id=-1)
+    with mesh_context(mesh):
+        eng = ServingEngine(api, model, backend="sharded", **kw)
+    it, rows = iter(rec), []
+
+    def forced(logits):
+        lg, t = next(it)
+        mine = logits.float().cpu()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) < NEAR_TIE * lg.abs().amax(-1)
+        apart = mine.argmax(-1) != t.long()
+        rows.append((int(apart.sum()), int((apart & ~tie).sum()),
+                     float((mine - lg).abs().max() / lg.abs().max())))
+        return t.to(logits.device)
+    eng._sample = forced
+    torch.cuda.synchronize()
+    reset_counters()                                     # just before the main path
+    t0 = time.perf_counter()
+    got = eng.serve(prompts, SHARDED_LM_NEW, eos_id=-1)  # outside the with-block
+    torch.cuda.synchronize()
+    stats = {"serve_s": time.perf_counter() - t0,
+             "launches": {n: c.n for n, c in COUNTERS.items()},   # just after it
+             "steps": eng.serve_steps, "cow_copies": eng.kv.cow_copies,
+             "pool_rows": int(eng.caches[0]["pos0"]["k"].shape[0]),
+             "num_blocks": eng.num_blocks, "argmax_apart": sum(r[0] for r in rows),
+             "apart_not_near_tie": sum(r[1] for r in rows),
+             "max_rel_logit_diff": max(r[2] for r in rows)}
+    eng.kv.check()
+    check_launches(stats["launches"], "sharded_serve_lm",
+                   DECODE_GATHERS * api.mcfg.n_layers * eng.serve_steps)
+    check(len(rows) == len(rec) and all(np.array_equal(a, b) for a, b in zip(got, want)),
+          f"teacher-forced serving: {len(rows)} steps vs {len(rec)}, or other tokens")
+    check(eng.kv.cow_copies >= 1, "sharded serving made no copy-on-write")
+    check(stats["apart_not_near_tie"] == 0,
+          f"sharded decode picks another token than the unsharded one away from a "
+          f"near-tie: {stats}")
+    return stats
+
+
+SHARDED_CASES = {"padded": sharded_padded_case, "packed": sharded_packed_case,
+                 "lm": sharded_lm_case}
+
+
+def sharded_rank(rank: int, world: int, case: str, init_file: str, in_path: str,
+                 out_path: str) -> None:
+    """One rank of a sharded case (a spawned process): a gloo group over
+    localhost, the kernels built by the parent, the kernels inner backend."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.distributed.sharded_backend import INNER_ENV
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ[INNER_ENV] = "kernels"
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    res = {"rank": rank, "case": case}
+    try:
+        _build.load()
+        SHARDED_CASES[case](dev, make_local_mesh(), torch.load(in_path, weights_only=False),
+                            res)
+    except Exception as e:                               # reported by the parent
+        res["failed"] = f"{type(e).__name__}: {e}"
+        import traceback
+        res["traceback"] = traceback.format_exc()[-4000:]
+    finally:
+        Path(out_path).write_text(json.dumps(res))
+        dist.destroy_process_group()
+    if "failed" in res:
+        sys.exit(1)
+
+
+def sharded_inputs(path: Path, batch: dict, clouds: list, vocab: int) -> None:
+    """What the ranks read: the padded train batch, 8 clouds to serve and
+    the LM's requests (5 prompts of 260–400 tokens; requests 1 and 3 open
+    with request 0's first page, and request 4 is that page alone, which
+    forces a copy-on-write on the row-partitioned pools)."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, int(n), dtype=np.int32)
+               for n in rng.integers(260, 401, 4)]
+    for r in (1, 3):
+        prompts[r][:PAGE] = prompts[0][:PAGE]
+    prompts.append(prompts[0][:PAGE].copy())
+    torch.save({"padded": {k: v.cpu() for k, v in batch.items()},
+                "clouds": clouds[:B], "lm_prompts": prompts}, path)
+
+
+def sharded_phase(paths: dict) -> None:
+    """Run each sharded case in ``SHARDED_P`` ranks that share the card
+    (spawned processes; NCCL refuses two ranks on one device, so the ranks
+    talk over a gloo group, which stages CUDA tensors through the host).
+    The timings are of ranks sharing one card: no scaling number."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    out_dir = ROOT / "build" / "sharded"
+    in_path = out_dir / "inputs.pt"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    for case, p in SHARDED_P.items():
+        t0 = time.perf_counter()
+        init = out_dir / f"{case}.group"
+        init.unlink(missing_ok=True)
+        outs = [out_dir / f"{case}_rank{r}.json" for r in range(p)]
+        for o in outs:
+            o.unlink(missing_ok=True)
+        procs = [ctx.Process(target=sharded_rank, args=(r, p, case, str(init), str(in_path),
+                                                        str(outs[r])))
+                 for r in range(p)]
+        for pr in procs:
+            pr.start()
+        try:
+            while any(pr.is_alive() for pr in procs):   # one failed rank ends the case
+                if any(pr.exitcode not in (None, 0) for pr in procs):
+                    break
+                check(time.perf_counter() - t0 < 3 * SHARDED_TIMEOUT_S,
+                      f"sharded {case}: ranks still running")
+                time.sleep(0.5)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                pr.join()
+        results = [json.loads(o.read_text()) if o.exists() else {"failed": "no result"}
+                   for o in outs]
+        seconds = time.perf_counter() - t0
+        for r in results:
+            print(json.dumps({"sharded": {"p": p, **r}}), flush=True)
+        failed = [f"rank {i}: {r['failed']}" for i, r in enumerate(results) if "failed" in r]
+        check(not failed and all(pr.exitcode == 0 for pr in procs),
+              f"sharded {case} (p = {p}): {'; '.join(failed)}")
+        print(f"# sharded {case} (p = {p}): {seconds:.1f} s", flush=True)
+        for name, get in (
+                (f"sharded_{case}", lambda r: r.get("launches")),
+                ("sharded_prefill", lambda r: r.get("prefill_launches")),
+                ("sharded_serve_lm", lambda r: r.get("serve", {}).get("launches"))):
+            if get(results[0]) is not None:
+                paths[name] = {"launches": get(results[0]),
+                               "launches_by_rank": [get(r) for r in results]}
+    print(f"# sharded phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def kernels_line(rows: list[dict], paths: dict) -> list[dict]:
     """The kernels line: one entry a kernel with its main path's row and
     launches, and the further rows of ``LM_ALSO`` under their keys."""
@@ -4457,6 +4866,9 @@ def main() -> int:
     t0 = time.perf_counter()
     clouds = make_clouds(16, (2800, REAL_POINTS), seed=2024)
     print(f"# made 16 clouds in {time.perf_counter() - t0:.1f} s", flush=True)
+    (ROOT / "build" / "sharded").mkdir(parents=True, exist_ok=True)
+    sharded_inputs(ROOT / "build" / "sharded" / "inputs.pt", batches[0], clouds,
+                   get_config(LM).vocab_size)
     _, serve_offsets, serve_mask = pack_varlen(
         [np.zeros((c["points"].shape[0], 1), np.float32) for c in clouds[:8]], BALL,
         pad_to=CAPACITY, max_samples=B)
@@ -4526,6 +4938,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"# {arch} phase: {time.perf_counter() - t0:.1f} s", flush=True)
     family_phases(dev, paths)
+    sharded_phase(paths)
 
     summary = kernels_line(rows, paths)
     print(json.dumps({"kernels": summary}), flush=True)

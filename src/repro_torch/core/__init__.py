@@ -33,8 +33,12 @@ Names of ``repro.core`` and their counterparts here:
                        :func:`register_backend` checks
   every other name   → the same name
 
-The JAX package's ``"sharded"`` backend (``repro.distributed``, a mesh of
-devices) has no counterpart yet: ROADMAP queue 1 item 3.
+The ``"sharded"`` backend (``repro_torch.distributed``: the ops split
+across the ranks of a ``torch.distributed`` mesh, activated by
+``mesh_context``) registers itself the first time ``get_backend`` or
+``use_backend`` names it, as JAX's does.  Training across ranks (the
+parameter shardings of ``repro.distributed.params``) is still to come:
+ROADMAP queue 1 item 3.
 """
 
 from repro_torch.core.config import BSAConfig  # noqa: F401

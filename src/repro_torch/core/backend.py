@@ -26,7 +26,10 @@ Built-ins:
                    each runs its kernel's plain versions).  It never
                    answers with the reference;
   ``"auto"``       chosen by the device of the tensors: CUDA tensors take
-                   ``"kernels"``, CPU tensors ``"reference"``.
+                   ``"kernels"``, CPU tensors ``"reference"``;
+  ``"sharded"``    an inner backend's ops split across the ranks of a
+                   mesh (``repro_torch.distributed``), registered on first
+                   use.
 
 Resolution (weakest → strongest)::
 
@@ -268,6 +271,10 @@ def register_backend(name: str, backend, *, overwrite: bool = False):
 def get_backend(name: str):
     if name == "auto":
         return _AUTO
+    if name == "sharded" and name not in _REGISTRY:
+        # registered on first use: core imports nothing distributed unless
+        # the multi-rank backend is asked for
+        import repro_torch.distributed.sharded_backend  # noqa: F401
     try:
         return _REGISTRY[name]
     except KeyError:

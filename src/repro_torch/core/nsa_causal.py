@@ -21,8 +21,9 @@ one-page layout (``nsa_causal_decode``).
 
 Caches are dicts of tensors updated IN PLACE (the JAX version returns new
 arrays): a decode step scatters its token rows into the pools it was given
-and returns the same dict.  The sharded re-entry of the JAX decode (its
-``_pool_ops`` hook under a mesh) is not ported.
+and returns the same dict.  Under the ``"sharded"`` backend the decode
+re-enters through ``distributed.sharded_backend.sharded_paged_decode``,
+which runs this same core on row-partitioned pools (its ``_pool_ops``).
 """
 
 from __future__ import annotations
@@ -327,7 +328,7 @@ def paged_step(table, lengths, *, cfg: BSAConfig, page: int) -> PagedStep:
 
 def nsa_causal_decode_paged(params: BSAParams, q1, k1, v1, cache: dict, table, lengths,
                             *, cfg: BSAConfig, page: int, x1=None,
-                            step: PagedStep | None = None):
+                            step: PagedStep | None = None, _pool_ops=None):
     """One decode step over paged per-slot caches.
 
     q1: (B, 1, Hq, D); k1, v1: (B, 1, Hkv, D): slot b's new token at position
@@ -343,7 +344,16 @@ def nsa_causal_decode_paged(params: BSAParams, q1, k1, v1, cache: dict, table, l
     step), so the token scatter and the compressed row's read-modify-write
     never collide across slots; inactive slots write into the trash block.
     Returns (out (B, 1, Hq, D) in q1's dtype, cache)."""
-    ops = _DensePoolOps(get_paged_gather(resolve_branch_backends(cfg)["cmp"]))
+    backend = resolve_branch_backends(cfg)["cmp"]
+    # (``is True``: the auto backend answers any attribute with a dispatcher)
+    if _pool_ops is None and getattr(backend, "is_sharded_backend", False) is True:
+        # re-enter with row-partitioned pool ops; the inner call comes back
+        # here with _pool_ops set
+        from repro_torch.distributed import sharded_backend
+        return sharded_backend.sharded_paged_decode(backend, params, q1, k1, v1, cache,
+                                                    table, lengths, cfg=cfg, page=page,
+                                                    x1=x1, step=step)
+    ops = _pool_ops if _pool_ops is not None else _DensePoolOps(get_paged_gather(backend))
     st = step if step is not None else paged_step(table, lengths, cfg=cfg, page=page)
     B, _, Hq, D = q1.shape
     Hkv = k1.shape[2]

@@ -18,6 +18,10 @@ kernels' walks from the same host offsets: row tiles (``varlen_fwd``,
 cut into splits) that never cross a segment.
 :func:`tile_seg_ranges` / :func:`ranges_live_map` say which (query tile,
 key tile) pairs share a segment: what the kernels visit.
+
+The ring schedule's liveness (:func:`causal_tile_live` at shard
+granularity, :func:`ring_hop_live`) and :func:`offsets_digest`, the host
+offsets' hashable identity, serve the ``"sharded"`` backend.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from repro_torch.numerics import NEG_INF, segment_ids_from_offsets
 __all__ = ["key_tile_live", "local_half_live", "group_live", "invalidate_dead_groups",
            "offsets_key", "segment_ids", "VarlenMaps", "varlen_maps",
            "varlen_row_tiles", "VarlenDkvTiles", "varlen_dkv_tiles", "tile_seg_ranges",
-           "ranges_live_map"]
+           "ranges_live_map", "causal_tile_live", "ring_hop_live", "offsets_digest"]
 
 
 def key_tile_live(key_bias: torch.Tensor, tile: int) -> torch.Tensor:
@@ -80,6 +84,36 @@ def invalidate_dead_groups(sel_valid: torch.Tensor, mask: torch.Tensor | None,
     return sel_valid & live.reshape(live.shape + (1,) * (sel_valid.dim() - 2))
 
 
+def causal_tile_live(n_q: int, n_k: int, tq: int, tk: int, *, causal: bool = False,
+                     block_causal: bool = False, ell: int = 1) -> np.ndarray:
+    """Static (nQ, nK) bool structural liveness of the flash mask modes:
+    tile (i, j) is live iff any (query, key) pair in it passes the mask.
+    The extreme pair is (last query of tile i, first key of tile j), since
+    both masks are monotone in the query position and anti-monotone in the
+    key index.  Plain mode: every tile."""
+    qmax = (np.arange(n_q) + 1) * tq - 1
+    kmin = np.arange(n_k) * tk
+    if block_causal:
+        return (kmin[None, :] + 1) * ell - 1 < qmax[:, None]
+    if causal:
+        return kmin[None, :] <= qmax[:, None]
+    return np.ones((n_q, n_k), bool)
+
+
+def ring_hop_live(p: int, n_loc: int, *, causal: bool = False, block_causal: bool = False,
+                  ell: int = 1) -> np.ndarray:
+    """Static (p, p) bool: does hop h contribute anything on shard i?  Hop h
+    leaves shard i holding the K/V slab of shard (i − h) mod p, so this is
+    :func:`causal_tile_live` at tile size ``n_loc`` reindexed from (query
+    tile, key tile) to (shard, hop).  Token-causal: live iff h ≤ i, p(p+1)/2
+    of p² hops."""
+    tl = causal_tile_live(p, p, n_loc, n_loc, causal=causal, block_causal=block_causal,
+                          ell=ell)
+    i = np.arange(p)[:, None]
+    h = np.arange(p)[None, :]
+    return tl[i, (i - h) % p]
+
+
 # ---------------------------------------------------------------------------
 # packed-varlen maps
 # ---------------------------------------------------------------------------
@@ -94,6 +128,15 @@ def offsets_key(offsets) -> tuple:
                              f"numpy array), got one on {offsets.device}")
         return tuple(offsets.reshape(-1).tolist())
     return tuple(int(x) for x in np.asarray(offsets).reshape(-1))
+
+
+def offsets_digest(offsets) -> tuple | None:
+    """Hashable identity of host ``offsets`` (a tuple of ints), or None for
+    offsets on a device: the host cannot read them without waiting for the
+    card, as JAX's cannot read traced ones."""
+    if isinstance(offsets, torch.Tensor) and offsets.device.type != "cpu":
+        return None
+    return offsets_key(offsets)
 
 
 def _check_offsets(key: tuple, length: int) -> None:

@@ -5,14 +5,17 @@ alone.
     python -m repro_torch.launch.quickstart                 # on the card
     python -m repro_torch.launch.quickstart --device cpu
 
-The port's analogue of ``examples/quickstart.py``, sections 1–6 (fp32,
-4 heads of 16).  On the card the default backend (``"auto"``) runs the
-CUDA kernels: ``bta_fwd``, ``flash_fwd``, ``selection_fwd`` and
-``epilogue_fwd``, and ``varlen_fwd`` for the packed layout; on the CPU the
-reference.  Section 5 swaps the ``reference`` and ``kernels`` backends
-with no change at the call site.  Its asserts are the example's.  Section
-7 (the ``"sharded"`` backend over a device mesh) waits for the
-distributed layer (ROADMAP queue 1 item 3).
+    torchrun --nproc_per_node=2 -m repro_torch.launch.quickstart  # + section 7
+
+The port's analogue of ``examples/quickstart.py`` (fp32, 4 heads of 16).
+On the card the default backend (``"auto"``) runs the CUDA kernels:
+``bta_fwd``, ``flash_fwd``, ``selection_fwd`` and ``epilogue_fwd``, and
+``varlen_fwd`` for the packed layout; on the CPU the reference.  Section 5
+swaps the ``reference`` and ``kernels`` backends with no change at the call
+site.  Section 7 runs the same call on the ``"sharded"`` backend over a
+mesh of two ranks, and only under an initialised group of two (``torchrun``
+starts one: NCCL with a card a rank, gloo on the CPU).  Its asserts are the
+example's.
 """
 
 from __future__ import annotations
@@ -112,8 +115,36 @@ def main(argv=None) -> dict:
     for got, want in zip(per_cloud_vl, per_cloud):
         assert np.allclose(got, want, atol=1e-4)
     print("packed-varlen == bucket-padded, per cloud: OK")
-    return {"out": out, "padded": out_b, "packed": out_vl}
+    result = {"out": out, "padded": out_b, "packed": out_vl}
+
+    # 7. several ranks: the "sharded" backend splits the same call over a
+    #    mesh of ranks (balls split across them, the small compressed K/V is
+    #    used whole), still with no call-site change
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized() and dist.get_world_size() == 2):
+        print("section 7 (the sharded backend) runs under an initialised group of two "
+              "ranks: torchrun --nproc_per_node=2 -m repro_torch.launch.quickstart")
+        return result
+    from repro_torch.distributed import mesh_context
+    from repro_torch.launch.mesh import make_local_mesh
+    with torch.no_grad(), mesh_context(make_local_mesh()), use_backend("sharded"):
+        out_sh = bsa_attention(params, qs, ks, vs, cfg=cfg)
+    assert torch.allclose(out_ref, out_sh, atol=1e-4)
+    print("sharded over 2 ranks == single-device: OK")
+    result["sharded"] = out_sh
+    return result
 
 
 if __name__ == "__main__":
-    main()
+    import os
+    if "WORLD_SIZE" in os.environ:                   # started by torchrun
+        import torch.distributed as dist
+        if torch.cuda.is_available():
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if torch.cuda.is_available() else "gloo")
+        try:
+            main()
+        finally:
+            dist.destroy_process_group()
+    else:
+        main()

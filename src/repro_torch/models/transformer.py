@@ -324,7 +324,11 @@ def lm_paged_cache_copy_block(mcfg, caches, src: int, dst: int, *, page: int):
         for i, (mixer, _) in enumerate(spec):
             if mixer != "attn":
                 continue
-            for key, t in pc[f"pos{i}"].items():
+            pools = pc[f"pos{i}"]
+            if hasattr(pools, "copy_block"):      # row blocks across ranks (sharded)
+                pools.copy_block(src, dst, page=page, cmp_block=mcfg.bsa.cmp_block)
+                continue
+            for key, t in pools.items():
                 rows = page if key in ("k", "v") else cpp
                 t[dst * rows:(dst + 1) * rows] = t[src * rows:(src + 1) * rows]
     return caches

@@ -20,6 +20,13 @@ The JAX engine jits one step per mode; here the steps run eagerly under
 windows of W steps whose samples stay on the device
 (``launch/steps.py::make_paged_serve_window``).
 
+With ``backend="sharded"`` an engine must be built inside a
+``distributed.mesh_context`` (it fails at once otherwise), keeps that mesh
+and re-enters it around every call.  The paged engine then holds each
+attention pool as this rank's row block (``sharded_backend.shard_pools``;
+the block count raised until both pools' rows divide the mesh axis) and
+copies blocks on write across the ranks (``RowShards.copy_block``).
+
 ``GeometryEngine`` (counterpart of ``repro/serving/engine.py::GeometryEngine``)
 serves the point-cloud family: per-cloud
 ball-tree permutation on the host → pack → one forward on the model's
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 import time
 from collections import deque
 
@@ -53,8 +61,46 @@ from repro_torch.serving.paged_cache import PagedKVCache
 __all__ = ["ServingEngine", "GeometryEngine"]
 
 
-def _backend_scope(name: str | None):
-    return use_backend(name) if name else contextlib.nullcontext()
+def _backend_scope(name: str | None, mesh_info=None):
+    """Force attention backend ``name`` (None: the config's) and, with
+    ``mesh_info`` (the (mesh, axis) an engine captured at construction),
+    re-enter its ``mesh_context``, so a mesh-requiring backend finds its
+    mesh also when the engine is used outside the caller's block."""
+    stack = contextlib.ExitStack()
+    if name:
+        stack.enter_context(use_backend(name))
+    if mesh_info is not None:
+        from repro_torch.distributed.sharded_backend import mesh_context
+        stack.enter_context(mesh_context(mesh_info[0], axis=mesh_info[1]))
+    return stack
+
+
+def _require_mesh_if_needed(backend_name: str | None, api, engine: str):
+    """(mesh, axis) when the engine's effective backend needs a mesh, else
+    None.  Fails at construction, with the recipe, where a mesh-requiring
+    backend has none.  Resolution follows the backend precedence (config <
+    engine override < environment)."""
+    from repro_torch.core.backend import ENV_VAR, get_backend
+    eff = (os.environ.get(ENV_VAR) or backend_name
+           or getattr(api.mcfg.bsa, "backend", None) or "auto")
+    try:
+        bk = get_backend(eff)
+    except KeyError:
+        return None                      # unknown names fail later, in use_backend
+    if getattr(bk, "requires_mesh", False) is not True:   # "auto" answers any attribute
+        return None
+    from repro_torch.distributed.sharded_backend import current_mesh_axis
+    ctx = current_mesh_axis()
+    if ctx is None:
+        raise ValueError(
+            f"{engine}(backend={eff!r}) needs an active mesh: construct the engine "
+            "inside a mesh context, e.g.\n"
+            "    from repro_torch.distributed import mesh_context\n"
+            "    from repro_torch.launch.mesh import make_local_mesh\n"
+            "    with mesh_context(make_local_mesh()):\n"
+            f"        engine = {engine}(...)\n"
+            "(the engine keeps the mesh, so later calls may run outside the block)")
+    return ctx
 
 
 class ServingEngine:
@@ -77,6 +123,7 @@ class ServingEngine:
         self.max_len = max_len
         self.temperature = temperature
         self.backend = backend
+        self._mesh = _require_mesh_if_needed(backend, api, "ServingEngine")
         self.cache_dtype = cache_dtype
         self.device = next(model.parameters()).device
         self._gen = torch.Generator(device=self.device)
@@ -93,6 +140,13 @@ class ServingEngine:
             self.page = page
             self.n_pages = max_len // page
             self.num_blocks = num_blocks or batch_slots * self.n_pages
+            if self._mesh is not None:
+                # the sharded decode partitions the pools by row: raise the
+                # block count until both row counts divide the mesh axis
+                p = self._mesh[0].shape[self._mesh[1]]
+                cpp = page // api.mcfg.bsa.cmp_block
+                while ((self.num_blocks + 1) * page) % p or ((self.num_blocks + 1) * cpp) % p:
+                    self.num_blocks += 1
             self._prefix_enabled = prefix_cache and not api.has_recurrent_state
             self._pstep = make_paged_serve_step(api, page=page)
             self._wstep = make_paged_serve_window(api, page=page)
@@ -111,6 +165,9 @@ class ServingEngine:
                                prefix_cache=self._prefix_enabled)
         self.caches = self.api.paged_cache_init(self.B, self.num_blocks, self.page,
                                                 self.cache_dtype, device=self.device)
+        if self._mesh is not None:           # this rank's row block of each pool
+            from repro_torch.distributed.sharded_backend import shard_paged_caches
+            self.caches = shard_paged_caches(self.caches, *self._mesh)
 
     def reset(self, cache_dtype=None):
         """Drop all cached state.  ``cache_dtype=None`` keeps the engine's
@@ -135,7 +192,7 @@ class ServingEngine:
             raise ValueError(f"prompts must have {self.B} rows, got {prompts.shape[0]}")
         toks = self._dev(prompts.astype(np.int64))
         nxt = None
-        with _backend_scope(self.backend):
+        with _backend_scope(self.backend, self._mesh):
             for t in range(toks.shape[1]):
                 nxt, _, self.caches = self._step(self.model, self.caches, toks[:, t])
         return nxt
@@ -161,7 +218,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         if eos_id is None:
             out = [tok]
-            with _backend_scope(self.backend):
+            with _backend_scope(self.backend, self._mesh):
                 for _ in range(n_tokens - 1):
                     _, logits, self.caches = self._step(self.model, self.caches, tok)
                     tok = self._sample(logits)
@@ -173,7 +230,7 @@ class ServingEngine:
             emit = np.where(done, pad_id, first).astype(np.int32)
             out = [emit]
             self.tokens_generated += int((~done).sum())
-            with _backend_scope(self.backend):
+            with _backend_scope(self.backend, self._mesh):
                 for _ in range(n_tokens - 1):
                     if done.all():
                         break
@@ -224,7 +281,7 @@ class ServingEngine:
         dev_table, tver = None, -1
         prev = None
         t0 = time.perf_counter()
-        with _backend_scope(self.backend):
+        with _backend_scope(self.backend, self._mesh):
             while queue or (slot_req >= 0).any():
                 # 1) admission into free slots (prefix-reuse aware)
                 for s in range(self.B):
@@ -323,7 +380,7 @@ class ServingEngine:
         dev_table, tver = None, -1
         prev = torch.zeros(self.B, dtype=torch.int32, device=self.device)
         t0 = time.perf_counter()
-        with _backend_scope(self.backend):
+        with _backend_scope(self.backend, self._mesh):
             while queue or (slot_req >= 0).any():
                 for s in range(self.B):          # admission into free slots
                     if slot_req[s] < 0 and queue:
@@ -405,6 +462,7 @@ class GeometryEngine:
     def __init__(self, api, model, *, batch_slots: int = 8,
                  pad_to: int | None = None, backend: str | None = None,
                  layout: str | None = None):
+        self._mesh = _require_mesh_if_needed(backend, api, "GeometryEngine")
         if layout is None:
             layout = "packed" if api.mcfg.attention == "bsa" else "padded"
         if layout not in ("packed", "padded"):
@@ -468,7 +526,7 @@ class GeometryEngine:
 
     def _predict_batch(self, chunk) -> list[np.ndarray]:
         batch, mask, perms = self.pack_batch(chunk)
-        with _backend_scope(self.backend):
+        with _backend_scope(self.backend, self._mesh):
             pred = self.api.forward(self.model, batch)
         if self.layout == "packed":
             per_cloud = unpack_varlen(pred[0].cpu().numpy(),
