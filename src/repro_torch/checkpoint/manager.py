@@ -16,7 +16,10 @@ port updates parameters in place, where JAX arrays are immutable: so
 ``save`` copies every tensor to the host before it returns, and the
 writer thread owns that copy.  ``restore`` fills the template's tensors in
 place (the port keeps one copy of the weights) after checking each shape.
-There is one process and no mesh, so no shardings (ROADMAP queue 1 item 3).
+Over a mesh of ranks (``runtime.Trainer(mesh=...)``) the trainer gathers
+the full state before a save and one rank writes it; ``restore(...,
+take=)`` cuts each full leaf to this rank's part before it fills the
+template, which is JAX's restore onto the shardings of another mesh.
 """
 
 from __future__ import annotations
@@ -142,11 +145,14 @@ class CheckpointManager:
 
     # ---------------- restore ----------------
 
-    def restore(self, template: dict, *, step: int | None = None) -> tuple[dict, dict]:
+    def restore(self, template: dict, *, step: int | None = None,
+                take=None) -> tuple[dict, dict]:
         """Restore the checkpoint at ``step`` (default: the newest) into the
         structure of ``template``.  Tensor leaves are filled in place and
         returned, Python numbers come back as numbers of the template's
-        type.  Returns (state, manifest)."""
+        type.  ``take(key, full)``, when given, returns the part of a
+        tensor leaf's full saved value that the template holds.  Returns
+        (state, manifest)."""
         if step is None:
             step = latest_step(self.dir)
             if step is None:
@@ -161,6 +167,8 @@ class CheckpointManager:
                 arr = data[key]
                 if meta["leaves"][key]["dtype"] == "bfloat16":
                     arr = torch.from_numpy(arr).view(torch.bfloat16)
+                if take is not None and isinstance(want, torch.Tensor):
+                    arr = take(key, torch.as_tensor(arr))
                 shape = tuple(want.shape) if hasattr(want, "shape") else ()
                 if tuple(arr.shape) != shape:
                     raise ValueError(f"{key}: checkpoint {tuple(arr.shape)} != "

@@ -3,8 +3,8 @@
 Counterpart of ``repro/distributed/sharded_backend.py``.  The ``"sharded"``
 backend wraps a single-device backend (``"kernels"``, ``"reference"`` or
 ``"auto"``) and splits the ops of the backend protocol across the ranks of
-the mesh activated by :func:`mesh_context`, the distributed analogue of
-``use_backend()``::
+the mesh activated by :func:`mesh_context` (``sharding.py``, re-exported
+here), the distributed analogue of ``use_backend()``::
 
     dist.init_process_group("nccl")          # torchrun, one card a rank
     with mesh_context(make_local_mesh()), use_backend("sharded"):
@@ -59,10 +59,8 @@ gathers them instead).  The inner backend is named by ``inner`` or
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
-import threading
 import warnings
 
 import numpy as np
@@ -71,7 +69,8 @@ import torch
 from repro_torch.core.backend import (get_backend, get_paged_gather, get_varlen,
                                       list_backends, register_backend)
 from repro_torch.distributed import comm, ring
-from repro_torch.distributed.sharding import axis_rules, logical_to_spec
+from repro_torch.distributed.sharding import (current_mesh_axis, logical_to_spec,  # noqa: F401
+                                              mesh_context)
 
 __all__ = ["ShardedBackend", "RowShards", "mesh_context", "current_mesh_axis",
            "sharded_paged_decode", "shard_pools", "shard_paged_caches", "reset_warnings",
@@ -80,7 +79,6 @@ __all__ = ["ShardedBackend", "RowShards", "mesh_context", "current_mesh_axis",
 INNER_ENV = "REPRO_TORCH_SHARDED_INNER"
 RING_DECODE_ENV = "REPRO_TORCH_SHARDED_RING_DECODE"
 
-_TLS = threading.local()
 _WARNED: set = set()
 
 
@@ -97,34 +95,6 @@ def _warn_once(op: str, code: str, detail: str) -> None:
 def reset_warnings() -> None:
     """Clear the warn-once registry (test isolation)."""
     _WARNED.clear()
-
-
-@contextlib.contextmanager
-def mesh_context(mesh, *, axis: str = "data", rules: dict | None = None):
-    """Activate ``mesh`` for the ``"sharded"`` backend in this block (this
-    thread); ``axis`` names the mesh axis the sequence splits over.  Also
-    enters ``sharding.axis_rules`` with ``seq_sp`` on ``axis`` and
-    ``batch`` off it (``rules`` overrides)."""
-    if axis not in mesh.shape:
-        raise ValueError(f"mesh_context: axis {axis!r} not in mesh axes {tuple(mesh.shape)}")
-    merged = {"batch": None, "seq_sp": (axis,)}
-    if rules:
-        merged.update(rules)
-    stack = getattr(_TLS, "stack", None)
-    if stack is None:
-        stack = _TLS.stack = []
-    stack.append((mesh, axis))
-    try:
-        with axis_rules(mesh, merged):
-            yield mesh
-    finally:
-        stack.pop()
-
-
-def current_mesh_axis():
-    """(mesh, axis) of the innermost active :func:`mesh_context`, or None."""
-    stack = getattr(_TLS, "stack", None)
-    return stack[-1] if stack else None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,18 +21,34 @@ beats it.  It runs on ``cuda`` unless ``--device cpu`` is given; there is
 no fallback from one to the other.  The VLM and encoder-decoder
 configs are refused: their batches carry patch or frame embeddings that
 token batches lack (train them with ``launch.steps.make_train_step`` on
-``api.make_batch`` batches).  The JAX launcher's ``--mesh`` and
-``--distributed`` wait for the distributed layer (ROADMAP queue 1 item 3).
+``api.make_batch`` batches).
+
+Across ranks, one process a card under torchrun::
+
+    torchrun --nproc_per_node=<cards> -m repro_torch.launch.train \
+        --arch shapenet-bsa --mesh 2x2 --distributed
+
+``--distributed`` joins the process group from torchrun's environment
+(NCCL for ``cuda``, each rank on card ``LOCAL_RANK``; gloo for ``--device
+cpu``), and ``--mesh 2x2`` lays the ranks out as ``("data", "model")``
+(``4`` alone: ``("data",)``) for ``runtime.Trainer(mesh=...)``.  Every
+rank draws the same batches and trains on its slice of them.  ``--mesh``
+without a process group is an error.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.configs.reduce import smoke_config
 from repro_torch.data import ShapeNetCarDataset, lm_batches
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.api import model_api
 from repro_torch.runtime import Trainer, TrainerConfig
 
@@ -50,6 +66,9 @@ def main(argv=None) -> float:
                          "registered name (default: config)")
     ap.add_argument("--ckpt", default=None, help="checkpoint directory (resumes from it)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="", help="e.g. 2x4 → (data=2, model=4)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group from torchrun's environment")
     args = ap.parse_args(argv)
 
     mcfg = get_config(args.arch)
@@ -61,10 +80,23 @@ def main(argv=None) -> float:
     if args.backend:
         mcfg = mcfg.scaled(bsa=dataclasses.replace(mcfg.bsa, backend=args.backend))
     api = model_api(mcfg)
+    if args.distributed:
+        if args.device.startswith("cuda"):
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if args.device.startswith("cuda") else "gloo")
+    mesh = None
+    if args.mesh:
+        if not (dist.is_available() and dist.is_initialized()):
+            ap.error("--mesh needs a process group: run under torchrun with --distributed "
+                     "(torchrun --nproc_per_node=<cards> -m repro_torch.launch.train "
+                     "--mesh ... --distributed)")
+        dims = tuple(int(x) for x in args.mesh.split("x"))
+        mesh = make_mesh(dims, ("data", "model")[:len(dims)])
+
     cfg = TrainerConfig(base_lr=args.lr, total_steps=args.steps,
                         warmup_steps=max(args.steps // 20, 1),
                         ckpt_dir=args.ckpt, log_every=max(args.steps // 20, 1))
-    trainer = Trainer(api, cfg, device=args.device)
+    trainer = Trainer(api, cfg, mesh=mesh, device=args.device)
 
     model, opt_state = trainer.init_state()
     model, opt_state, step0 = trainer.maybe_restore(model, opt_state)
@@ -78,8 +110,12 @@ def main(argv=None) -> float:
                           start_step=state["step"] + 1 if state else 0)
     trainer.fit(data, steps=args.steps, model=model, opt_state=opt_state, start_step=step0)
     loss = trainer.metrics_history[-1]["loss"]
-    print(f"done: {args.steps} steps of {args.arch}, wall {trainer.wall_time:.1f}s on "
-          f"{args.device}, stragglers {len(trainer.watchdog.straggler_events)}")
+    if args.distributed:
+        dist.destroy_process_group()
+    if trainer.is_writer:
+        where = f"{args.device}, mesh {mesh.shape}" if mesh is not None else args.device
+        print(f"done: {args.steps} steps of {args.arch}, wall {trainer.wall_time:.1f}s on "
+              f"{where}, stragglers {len(trainer.watchdog.straggler_events)}")
     return loss
 
 

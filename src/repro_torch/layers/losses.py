@@ -4,12 +4,16 @@ The JAX version picks the gold logit with a one-hot masked sum so that it
 stays sharded over the vocabulary; the port runs on one card, so a
 ``gather`` picks the same number.  The formula is the JAX one: fp32
 logsumexp minus the gold logit, and a masked mean whose denominator is
-floored at 1.
+floored at 1.  Where the batch is split across ranks (``sharding.
+batch_total``) the denominator counts the whole batch's positions, so the
+ranks' losses add up to the loss of the whole batch.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.sharding import batch_total
 
 __all__ = ["vocab_parallel_nll", "masked_mean_nll"]
 
@@ -27,6 +31,6 @@ def masked_mean_nll(logits: torch.Tensor, labels: torch.Tensor,
     """Mean NLL over the positions of ``loss_mask`` (all when None)."""
     nll = vocab_parallel_nll(logits, labels)
     if loss_mask is None:
-        return nll.sum() / nll.numel()
+        return nll.sum() / batch_total(nll.numel(), device=nll.device)
     nll = torch.where(loss_mask.bool(), nll, 0.0)
-    return nll.sum() / torch.clamp(loss_mask.sum(), min=1)
+    return nll.sum() / torch.clamp(batch_total(loss_mask.sum()), min=1)

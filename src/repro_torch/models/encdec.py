@@ -14,13 +14,11 @@ cross-attention K/V computed once (``encdec_cache_init``).
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.backend import active_backend, use_backend
+from repro_torch.distributed.sharding import forward_context
 from repro_torch.core.nsa_causal import dense_step
 from repro_torch.layers.losses import masked_mean_nll
 from repro_torch.layers.nn import Dense, Embed, RMSNorm, SwiGLU, dense, embed, rmsnorm, swiglu
@@ -103,13 +101,14 @@ def dec_layer(lp: DecLayer, x, memory, *, mcfg, positions, mem_mask=None) -> tor
 
 def _run(fn, remat: bool, *args, **kw):
     """``fn(*args, **kw)``, under ``torch.utils.checkpoint`` when ``remat``
-    and autograd records; the recompute re-enters the forward's backend."""
+    and autograd records; the recompute re-enters the forward's backend,
+    mesh and axis rules (``sharding.forward_context``)."""
     if not (remat and torch.is_grad_enabled()):
         return fn(*args, **kw)
-    backend = active_backend()
+    ctx = forward_context()
 
     def again(*a):
-        with use_backend(backend) if backend else contextlib.nullcontext():
+        with ctx():
             return fn(*a, **kw)
 
     return checkpoint(again, *args, use_reentrant=False)

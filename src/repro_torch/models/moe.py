@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import batch_total
 from repro_torch.layers.nn import Dense, SwiGLU, dense, swiglu
 
 __all__ = ["MoE", "moe_init", "moe_capacity", "moe_route", "moe_apply"]
@@ -117,7 +118,12 @@ def moe_apply(p: MoE, x: torch.Tensor, mcfg,
     r = moe_route(p, x, mcfg, top_e)
     cap, order, counts, starts = r["cap"], r["order"], r["counts"], r["starts"]
     expert_counts = counts[:, :E].sum(0)
-    aux_loss = E * torch.sum(r["probs"].mean((0, 1)) * expert_counts.float() / (B * S * k))
+    # where the batch is split across ranks (``sharding.batch_total``): this
+    # rank's share of the whole batch's loss (the shares add up to it), with
+    # the token count and the assignments taken over the whole batch
+    tokens = batch_total(B * S, device=x.device)
+    aux_loss = E * torch.sum(r["probs"].sum((0, 1)) / tokens
+                             * batch_total(expert_counts).float() / (tokens * k))
 
     # dispatch: row c of expert e in batch row b is the assignment at sorted
     # position starts[e] + c when c < min(counts[e], cap); else the zero row

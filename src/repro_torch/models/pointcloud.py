@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import batch_total
 from repro_torch.layers.nn import Dense, RMSNorm, SwiGLU, dense, rmsnorm, swiglu
 from repro_torch.models.attention_layer import AttentionLayer, attention_layer_apply
 
@@ -94,16 +95,17 @@ def pc_apply(params: PointCloudModel, feats, *, mcfg, mask=None, offsets=None,
 def pc_loss(params: PointCloudModel, batch: dict, *, mcfg):
     """batch: {feats (B, N, F), target (B, N, out_dim), mask (B, N)} →
     (masked MSE, {"mse": MSE}): the squared error summed over real points,
-    divided by max(mask.sum()·out_dim, 1).  An ``offsets`` key selects the
-    packed-varlen layout."""
+    divided by max(mask.sum()·out_dim, 1), the count taken over the whole
+    batch where it is split across ranks (``sharding.batch_total``).  An
+    ``offsets`` key selects the packed-varlen layout."""
     pred = pc_apply(params, batch["feats"], mcfg=mcfg, mask=batch.get("mask"),
                     offsets=batch.get("offsets"))
     err = (pred - batch["target"].float()) ** 2
     m = batch.get("mask")
     if m is not None:
         err = torch.where(m[..., None], err, torch.zeros_like(err))
-        denom = torch.clamp(m.sum() * mcfg.out_dim, min=1)
+        denom = torch.clamp(batch_total(m.sum()) * mcfg.out_dim, min=1)
     else:
-        denom = err.numel()
+        denom = batch_total(err.numel(), device=err.device)
     loss = err.sum() / denom
     return loss, {"mse": loss}

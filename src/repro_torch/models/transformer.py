@@ -29,7 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.backend import active_backend, use_backend
+from repro_torch.distributed.sharding import forward_context
 from repro_torch.core.nsa_causal import dense_step, paged_step
 from repro_torch.layers.losses import masked_mean_nll
 from repro_torch.layers.nn import (Dense, Embed, RMSNorm, SwiGLU, dense, embed, rmsnorm,
@@ -160,11 +160,12 @@ def lm_layer(lp: LMLayer, x, *, mcfg, mask=None, positions=None,
 
 
 def _period_apply(period: LMPeriod, x, positions, *, mcfg, mask=None,
-                  backend: str | None = None) -> tuple:
-    # ``backend``: the forward's ``use_backend``, re-entered when the
+                  ctx=None) -> tuple:
+    # ``ctx``: the forward's backend, mesh and axis rules
+    # (``sharding.forward_context``), re-entered when the
     # checkpointed period runs again on autograd's thread
     aux = []
-    with use_backend(backend) if backend else contextlib.nullcontext():
+    with ctx() if ctx else contextlib.nullcontext():
         for lp in period.positions():
             x = lm_layer(lp, x, mcfg=mcfg, mask=mask, positions=positions, aux=aux)
     return x, sum(aux) if aux else torch.zeros((), dtype=torch.float32, device=x.device)
@@ -185,10 +186,11 @@ def lm_apply(params: LanguageModel, tokens=None, *, mcfg, inputs_embeds=None, ma
         positions = torch.arange(N, device=x.device)[None].expand(B, N)
     remat = mcfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ctx = forward_context() if remat else None
     for period in params.layers:
         if remat:
             x, a = checkpoint(_period_apply, period, x, positions, mcfg=mcfg, mask=mask,
-                              backend=active_backend(), use_reentrant=False)
+                              ctx=ctx, use_reentrant=False)
         else:
             x, a = _period_apply(period, x, positions, mcfg=mcfg, mask=mask)
         aux = aux + a

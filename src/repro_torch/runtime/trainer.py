@@ -1,5 +1,6 @@
 """The training loop: the train step with periodic async checkpoints, a
-save on SIGTERM, a straggler watchdog, and resume.
+save on SIGTERM, a straggler watchdog, resume, and training across the
+ranks of a mesh.
 
 Counterpart of ``repro/runtime/trainer.py``.  One ``Trainer`` drives the
 point-cloud models and the LMs (everything goes through
@@ -17,7 +18,47 @@ So the step a resume starts with repeats that index, as in JAX; the
 schedule reads the optimizer's own count (``opt_state["step"]``), which
 goes on from the checkpoint's.  A batch's ``_state`` (the LM pipeline's
 (seed, step)) goes into the checkpoint's ``extra`` as ``data_state``.
-There is no mesh and no sharding rules (ROADMAP queue 1 item 3).
+
+With ``mesh`` (a ``launch.mesh.Mesh`` over the ranks of an initialised
+process group; every rank runs the same ``Trainer`` on the same
+batches), the layouts of ``distributed/params.py`` are realised so, as
+PyTorch has no GSPMD to turn them into a partitioned program:
+
+* Data parallelism.  Each rank takes its slice of the global batch along
+  dim 0, by ``batch_shardings`` over ``pod`` / ``data``, and computes the
+  forward and backward with whole parameters.  A packed point-cloud batch
+  (an ``offsets`` key) has no batch dim: its samples are split whole
+  (``ring.plan_segments`` on the host offsets) and re-packed, never its
+  rows.  The step is ``make_train_step``, run under ``sharding.axis_rules``
+  with the logical ``batch`` on the axes the batch is split over; there it
+  sums the gradients, the loss and the metrics over the data ranks in rank
+  order (``sharding.batch_total``), so every rank holds the same bits.
+* Exact losses.  Under those rules the loss functions divide by counts
+  taken over the whole batch (``batch_total`` again: the masked points,
+  the unmasked tokens, the MoE router's load statistics), so the ranks'
+  losses add up to the single-rank loss, and their gradients to its
+  gradient.
+* Layouts as ownership.  Each rank holds only its part of each AdamW
+  moment, by ``opt_shardings`` (ZeRO-1 over the data axes, and the
+  Megatron dims over ``model``), and updates the matching part of the
+  parameter; the parts are then all-gathered in rank order.  The
+  global-norm clip reads the whole reduced gradient before the update.
+  With ``mcfg.fsdp`` the parameters between the steps of a ``fit`` are
+  kept as their parts by ``param_shardings`` and gathered at the start of
+  a step (whole again when ``fit`` returns).
+* Checkpoints.  A save gathers the full state on the main thread before
+  the async write, and rank 0 writes it; a restore cuts this rank's parts
+  of the full tensors under the current mesh, which may differ from the
+  one that saved (JAX's elastic restore).
+* SIGTERM.  The flag is agreed over the ranks every step (a max), so
+  every rank saves the same step or none does.
+
+Megatron's column / row compute over ``model`` is not realised: the ranks
+of the ``model`` axis compute the same thing (ROADMAP).  JAX's ``Trainer``
+also takes axis ``rules``, which steer GSPMD's layout of the activations
+(``constrain``); the port has no GSPMD (``constrain`` returns its input),
+so its ``Trainer`` takes none.  Without a mesh everything is as on one
+card.
 """
 
 from __future__ import annotations
@@ -26,11 +67,16 @@ import dataclasses
 import signal
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
+from repro_torch.distributed import comm, ring
+from repro_torch.distributed.params import (axis_coordinate, batch_shardings, full_tensor,
+                                            local_part, opt_shardings, param_shardings)
+from repro_torch.distributed.sharding import axis_rules
 from repro_torch.launch.steps import make_train_step
-from repro_torch.optim import adamw_init
+from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.runtime.watchdog import Watchdog
 
 __all__ = ["TrainerConfig", "Trainer", "to_device"]
@@ -52,15 +98,18 @@ class TrainerConfig:
 
 def to_device(batch: dict, device) -> dict:
     """numpy (or tensor) batch → tensors on ``device``; keys starting with
-    ``_``, such as the LM pipeline's ``_state``, stay behind."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()
-            if not k.startswith("_")}
+    ``_``, such as the LM pipeline's ``_state``, stay behind, and a packed
+    batch's ``offsets`` stay on the host (the varlen plans read them
+    there)."""
+    return {k: torch.as_tensor(v).to("cpu" if k == "offsets" else device)
+            for k, v in batch.items() if not k.startswith("_")}
 
 
 class Trainer:
-    def __init__(self, api, cfg: TrainerConfig, *, device="cuda"):
+    def __init__(self, api, cfg: TrainerConfig, *, mesh=None, device="cuda"):
         self.api = api
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.watchdog = Watchdog()
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep_last=cfg.keep_last)
@@ -69,26 +118,57 @@ class Trainer:
         self.metrics_history: list[dict] = []
         self.wall_time = 0.0
         self.data_state = None
-        self._step = make_train_step(
+        self.p_sh = self.o_sh = None
+        self._shapes: dict = {}
+        self._params_cut = False                 # fsdp: parameters held as their parts
+        self._train_step = make_train_step(
             api, base_lr=cfg.base_lr, weight_decay=cfg.weight_decay,
             total_steps=cfg.total_steps, warmup_steps=cfg.warmup_steps,
-            max_grad_norm=cfg.max_grad_norm)
+            max_grad_norm=cfg.max_grad_norm,
+            update=None if mesh is None else self._update_parts)
+        self._step = self._train_step if mesh is None else self._mesh_step
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank writes checkpoints and log lines (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # ------------------------------------------------------------------
 
     def init_state(self):
         """(model, opt_state): weights from ``cfg.seed`` on the trainer's
-        device, zero AdamW moments in the config's ``opt_state_dtype``."""
+        device, zero AdamW moments in the config's ``opt_state_dtype`` (over
+        a mesh: this rank's parts of them)."""
         model = self.api.init(self.cfg.seed, device=self.device)
         return model, self._opt_init(model)
 
+    def _layouts(self, model) -> None:
+        if self.mesh is None or self.p_sh is not None:
+            return
+        params = dict(model.named_parameters())
+        self._shapes = {n: tuple(p.shape) for n, p in params.items()}
+        self.p_sh = param_shardings(params, self.mesh, zero1=self.api.mcfg.fsdp)
+        self.o_sh = opt_shardings({"m": params, "v": params, "step": 0}, self.mesh)
+
     def _opt_init(self, model) -> dict:
-        return adamw_init(dict(model.named_parameters()),
-                          state_dtype=getattr(torch, self.api.mcfg.opt_state_dtype))
+        dtype = getattr(torch, self.api.mcfg.opt_state_dtype)
+        params = dict(model.named_parameters())
+        if self.mesh is None:
+            return adamw_init(params, state_dtype=dtype)
+        self._layouts(model)
+        return {k: {n: torch.zeros_like(local_part(p, self.o_sh[k][n], self.mesh),
+                                        dtype=dtype) for n, p in params.items()}
+                for k in ("m", "v")} | {"step": 0}
+
+    def moment_bytes(self, opt_state) -> int:
+        """Bytes of the AdamW moments this rank holds."""
+        return sum(t.numel() * t.element_size() for k in ("m", "v")
+                   for t in opt_state[k].values())
 
     def maybe_restore(self, model, opt_state):
         """Resume from the newest checkpoint if there is one: the model's
-        parameters and the moments are filled in place, and ``data_state``
+        parameters and the moments (over a mesh: this rank's parts of the
+        saved full tensors) are filled in place, and ``data_state``
         becomes the checkpoint's (the ``_state`` of the last batch it
         trained on; None without one), for the caller to restart its data
         from.  Returns (model, opt_state, the checkpoint's step index: the
@@ -96,10 +176,36 @@ class Trainer:
         self.data_state = None
         if self.ckpt is None or latest_step(self.cfg.ckpt_dir) is None:
             return model, opt_state, 0
+        take = None
+        if self.mesh is not None:
+            self._layouts(model)
+
+            def take(key, full):
+                group, *rest = key.split("/", 2)
+                if group == "opt":
+                    return local_part(full, self.o_sh[rest[0]][rest[1]], self.mesh)
+                return full
         state, meta = self.ckpt.restore({"params": dict(model.named_parameters()),
-                                         "opt": opt_state})
+                                         "opt": opt_state}, take=take)
         self.data_state = meta["extra"].get("data_state")
         return model, state["opt"], meta["step"]
+
+    def full_state(self, model, opt_state) -> dict:
+        """``{"params", "opt"}`` whole: over a mesh the parts are gathered
+        (a collective: every rank calls it) and every rank gets them."""
+        if self.mesh is None:
+            return {"params": dict(model.named_parameters()), "opt": opt_state}
+        params = {n: self._full_param(n, p) for n, p in model.named_parameters()}
+        opt = {k: {n: full_tensor(t.contiguous(), self.o_sh[k][n], self._shapes[n], self.mesh)
+                   for n, t in opt_state[k].items()} for k in ("m", "v")}
+        opt["step"] = opt_state["step"]
+        return {"params": params, "opt": opt}
+
+    def _full_param(self, name, p):
+        if not self._params_cut:
+            return p
+        return full_tensor(p.data.contiguous(), self.p_sh[name], self._shapes[name],
+                           self.mesh)
 
     def _install_sigterm(self):
         """SIGTERM sets a flag: the step it lands in saves (blocking) and the
@@ -113,13 +219,102 @@ class Trainer:
         except ValueError:                              # not the main thread
             return None
 
+    def _agree(self, flag: bool) -> bool:
+        """``flag`` or-ed over every rank of the mesh (a max over each axis
+        in turn; also a barrier)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        for a in self.mesh.axis_names:
+            t = comm.all_reduce_max(t, self.mesh.axis_group(a))
+        return bool(t.item())
+
+    # ------------------------------------------------------------------
+    # the step over a mesh
+
+    def _data_axes(self, batch: dict) -> tuple:
+        """The mesh axes the batch's dim 0 is cut over (``batch_shardings``),
+        () where it is not."""
+        if "offsets" in batch:                  # packed: samples over the DP axes
+            return tuple(a for a in ("pod", "data") if self.mesh.shape.get(a, 1) > 1)
+        specs = batch_shardings(batch, self.mesh)
+        cuts = {s[0] for s in specs.values() if len(s)}
+        if len(cuts) != 1:
+            raise ValueError(f"the batch's leaves are cut differently along dim 0: {specs}")
+        entry = cuts.pop()
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        return tuple(a for a in axes if self.mesh.shape[a] > 1)
+
+    def local_batch(self, batch: dict) -> tuple[dict, tuple]:
+        """(this rank's part of the global ``batch`` on the trainer's
+        device, the mesh axes it is cut over)."""
+        batch = {k: v for k, v in batch.items() if not k.startswith("_")}
+        batch = {k: v if k == "offsets" else torch.as_tensor(v) for k, v in batch.items()}
+        axes = self._data_axes(batch)
+        if not axes:
+            return to_device(batch, self.device), axes
+        c, n = axis_coordinate(self.mesh, axes)
+        if "offsets" not in batch:
+            return to_device({k: v[v.shape[0] // n * c:v.shape[0] // n * (c + 1)]
+                              for k, v in batch.items()}, self.device), axes
+        offsets = tuple(int(o) for o in np.asarray(batch["offsets"]))
+        T = next(v.shape[1] for k, v in batch.items() if k != "offsets")
+        plan = ring.plan_segments(offsets, n)
+        idx, local_offsets, _, _ = ring.axis_layout(plan, offsets, T,
+                                                    self.api.mcfg.bsa.ball_size)
+        rows = torch.from_numpy(idx.reshape(n, -1)[c].astype(np.int64))
+        out = {"offsets": torch.from_numpy(local_offsets[c].copy())}   # stays on the host
+        for k, v in batch.items():
+            if k != "offsets":                     # row T: a zero (False) padding row
+                v = torch.cat([v, v.new_zeros((v.shape[0], 1, *v.shape[2:]))], 1)
+                out[k] = v[:, rows].to(self.device)
+        return out, axes
+
+    def _mesh_step(self, model, opt_state, batch_axes):
+        """``make_train_step`` on this rank's part of the batch, under rules
+        that put ``batch`` on the axes it is cut over (the gradients, the
+        loss's counts and the metrics summed over them), with the update of
+        :meth:`_update_parts`."""
+        batch, axes = batch_axes
+        if self._params_cut:                      # fsdp: whole parameters for the step
+            for n, p in model.named_parameters():
+                p.data = self._full_param(n, p)
+            self._params_cut = False
+        with axis_rules(self.mesh, {"batch": axes or None}):
+            out = self._train_step(model, opt_state, batch)
+        self._params_cut = self.api.mcfg.fsdp
+        return out
+
+    def _update_parts(self, params, grads, opt_state, lr):
+        """AdamW on this rank's parts (``opt_shardings``) of the parameters
+        and of the reduced, clipped gradients; the parts are then gathered
+        in rank order (with ``mcfg.fsdp``, cut again by
+        ``param_shardings``)."""
+        mesh, o_sh = self.mesh, self.o_sh["m"]
+        parts = {n: local_part(p.data, o_sh[n], mesh) for n, p in params.items()}
+        opt_state = adamw_update(parts, {n: local_part(g, o_sh[n], mesh)
+                                         for n, g in grads.items()},
+                                 opt_state, lr=lr, weight_decay=self.cfg.weight_decay)
+        fsdp = self.api.mcfg.fsdp
+        for n, p in params.items():
+            if fsdp and self.p_sh[n] == o_sh[n] and self.p_sh[n].owner == o_sh[n].owner:
+                p.data = parts[n].clone()
+                continue
+            full = full_tensor(parts[n].contiguous(), o_sh[n], p.shape, mesh)
+            if fsdp:
+                p.data = local_part(full, self.p_sh[n], mesh).clone()
+            else:
+                p.data.copy_(full)
+        return opt_state
+
     # ------------------------------------------------------------------
 
     def fit(self, batches, *, steps: int, model=None, opt_state=None,
             start_step: int | None = None):
         """Run ``steps`` optimizer steps over ``batches`` (an iterator of
-        dicts of numpy arrays or tensors).  Without ``model``, it starts
-        from ``init_state`` and the newest checkpoint.  Returns (model,
+        dicts of numpy arrays or tensors; over a mesh every rank gets the
+        same global batches).  Without ``model``, it starts from
+        ``init_state`` and the newest checkpoint.  Returns (model,
         opt_state)."""
         if model is None:
             model, opt_state = self.init_state()
@@ -128,6 +323,7 @@ class Trainer:
             restored = 0
             if opt_state is None:
                 opt_state = self._opt_init(model)
+        self._layouts(model)
         step0 = restored if start_step is None else start_step
         self._preempted = False
         previous = self._install_sigterm()
@@ -138,7 +334,8 @@ class Trainer:
             for step in range(step0, step0 + steps):
                 batch = next(it)
                 state = batch.get("_state")
-                batch = to_device(batch, self.device)
+                batch = (to_device(batch, self.device) if self.mesh is None
+                         else self.local_batch(batch))
                 t0 = time.time()
                 model, opt_state, metrics = self._step(model, opt_state, batch)
                 loss = float(metrics["loss"])           # waits for the step
@@ -150,17 +347,21 @@ class Trainer:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(loss=loss, step=step, step_time_s=dt)
                     self.metrics_history.append(m)
-                    print(f"step {step:4d}  loss {loss:.5f}  grad_norm "
-                          f"{m.get('grad_norm', 0.0):.4f}  lr {m['lr']:.2e}  "
-                          f"{dt * 1e3:.0f} ms", flush=True)
+                    if self.is_writer:
+                        print(f"step {step:4d}  loss {loss:.5f}  grad_norm "
+                              f"{m.get('grad_norm', 0.0):.4f}  lr {m['lr']:.2e}  "
+                              f"{dt * 1e3:.0f} ms", flush=True)
+                preempted = self._agree(self._preempted)
                 if self.ckpt and step > step0 and (step % self.cfg.ckpt_every == 0
-                                                   or self._preempted or last):
-                    self.ckpt.save(step, {"params": dict(model.named_parameters()),
-                                          "opt": opt_state},
-                                   extra={"data_state": state} if state else None,
-                                   block=self._preempted)
-                    if self._preempted:
-                        print(f"preempted: state saved at step {step}", flush=True)
+                                                   or preempted or last):
+                    full = self.full_state(model, opt_state)
+                    if self.is_writer:
+                        self.ckpt.save(step, full,
+                                       extra={"data_state": state} if state else None,
+                                       block=preempted)
+                    if preempted:
+                        if self.is_writer:
+                            print(f"preempted: state saved at step {step}", flush=True)
                         break
         finally:
             self.watchdog.stop()
@@ -169,4 +370,9 @@ class Trainer:
             if self.ckpt:
                 self.ckpt.wait()
             self.wall_time = time.time() - t_train0
+        if self._params_cut:                      # fsdp: whole parameters to the caller
+            for n, p in model.named_parameters():
+                p.data = self._full_param(n, p)
+            self._params_cut = False
+        self._agree(False)                        # every rank past the last write
         return model, opt_state

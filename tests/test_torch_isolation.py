@@ -2,7 +2,8 @@
 
 * No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax`` or
   anything of ``repro``, and importing the port leaves ``jax`` out of
-  ``sys.modules``.
+  ``sys.modules``; importing the models leaves the ``"sharded"`` backend
+  unloaded.
 * On CPU tensors no kernel counter moves, forward or backward (the plain
   versions run; the point-cloud model and the LM with remat); asking
   for ``device="cuda"`` without a card raises instead of running on the CPU.
@@ -37,7 +38,8 @@ NAMED = ("configs/base.py", "kernels/local.py", "kernels/_build.py", "layers/los
          "core/backend.py", "core/balltree.py", "configs/stablelm_1_6b.py",
          "configs/phi4_mini_3_8b.py", "configs/granite_20b.py", "checkpoint/manager.py",
          "runtime/trainer.py", "runtime/watchdog.py", "launch/quickstart.py",
-         "launch/train_shapenet.py", "launch/serve.py")
+         "launch/train_shapenet.py", "launch/serve.py", "distributed/params.py",
+         "distributed/pipeline.py", "optim/compress.py")
 
 
 def _imported_modules(path: Path) -> set:
@@ -78,6 +80,30 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def test_models_leave_the_sharded_backend_unloaded():
+    """The models reach the distributed layer only through ``sharding``
+    (remat's ``forward_context``, the losses' ``batch_total``): importing
+    them loads neither the ring nor the ``"sharded"`` backend, which
+    ``core.backend`` registers on first use, and the package's names still
+    resolve."""
+    code = ("import sys, repro_torch.models.api, repro_torch.models.transformer, "
+            "repro_torch.models.encdec, repro_torch.launch.steps; "
+            "from repro_torch.core.backend import get_backend, list_backends; "
+            "print(sorted(m for m in sys.modules if m.startswith('repro_torch.distributed.')), "
+            "list_backends()); "
+            "from repro_torch.distributed import mesh_context, sharding, sharded_backend; "
+            "get_backend('sharded'); "
+            "print(mesh_context is sharding.mesh_context is sharded_backend.mesh_context, "
+            "list_backends())")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.splitlines() == [
+        "['repro_torch.distributed.comm', 'repro_torch.distributed.sharding'] "
+        "['kernels', 'reference']",
+        "True ['kernels', 'reference', 'sharded']"]
 
 
 def _tiny():
