@@ -215,8 +215,8 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    bf16, as phase 6 runs phi4-mini's, each against its plain version with
    its bound and SDPA's time on the same dense mask;
 15. the other dense LMs (``DENSE_LMS``), after tinyllama's weights are
-   freed, each at full width and depth (granite at ``DENSE_DEPTH``'s 26
-   layers) with random weights from seed 0:
+   freed, each at full width and at ``DENSE_DEPTH`` (stablelm 12 of its
+   layers, phi4-mini 16, granite 13) with random weights from seed 0:
    ``stablelm-1.6b`` (24 layers, d 2048, 32 / 32 heads of 64, vocabulary
    100,352), ``phi4-mini-3.8b`` (32 layers, d 3072, 24 / 8 of 128,
    200,064) and ``granite-20b`` (52 layers, d 6144, 48 / 1 of 128, d_ff
@@ -224,7 +224,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    × 16,384 tokens (granite 1 × 4,096) as phase 7 does (launches, every
    layer within 4e-2 of the reference backend, a profiled call), decodes
    paged through ``api.paged_decode_step`` on its own config
-   (``dense_decode_phase``: two staggered slots of 96 and 64 positions in
+   (``dense_decode_phase``: two staggered slots of 64 and 64 positions in
    bf16, launches, finite logits, ms a step), holds that entry point to the
    forward on the kernel path (``decode_hold``: each layer fed the
    forward's layer input, every attention output and the logits within
@@ -303,7 +303,10 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    8 clouds (4 a data rank; a checkpoint at the last) and a packed step,
    then a padded and a packed step from one shared state each way; held to
    the single-rank ``Trainer`` (free-running at 1e-3, the shared-state
-   steps at 1e-5: loss, gradient norm, parameters), parameters equal in
+   steps at 1e-5: loss, gradient norm, parameters; the one rank takes the
+   mesh step's selection picks, ``HeldPicks``, as its ``model`` ranks
+   split the heads, and its own picks may differ from them in at most
+   ``PICKS_FLIP_TOL`` of the (group, head)s), parameters equal in
    bits on every rank, the moment bytes a rank against one rank's; then a
    restore on (4,) ("data",), bit-equal to one rank's restore of the same
    checkpoint, and one step.  ``remat_lm_case`` (2 ranks): tinyllama at full
@@ -315,13 +318,24 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    9, 4 microbatches of 2 clouds of 3,840 real points, held to the blocks
    in sequence (1e-5), and ``make_compressed_grad_fn`` over ("pod",): the
    pods' mean loss, gradients within 2e-2 of the exact mean, a non-zero
-   residual.  Each rank's launches are printed; the timings are of ranks
-   sharing one card, no scaling number.
+   residual.  Megatron's compute over ``model`` (``tp_train_case``, 2
+   ranks on (1, 2)): tinyllama-1.1b and qwen2-moe-a2.7b (32 of 64 padded
+   experts a rank) at full width and ``TP_LAYERS`` (2) layers, bf16, remat,
+   1 + 2 steps of 2 × 4,096 tokens through ``Trainer(mesh=...)``: launches
+   (paths ``tp_train`` / ``tp_moe``), the parameter bytes a rank holds
+   (half of every cut weight, checked), peak memory, collectives and step
+   times; parameters equal in bits on both ranks; each layer held to one
+   rank's given the same input and upstream gradient (4e-2 / 6e-2, the MoE
+   routing held); a fp32 step from the same weights held to one rank's at
+   1e-5 (loss, gradient norm, every gradient).  Each rank's launches are
+   printed; the timings are of ranks sharing one card, no scaling number.
 
 ``$REPRO_TORCH_ATTENTION_BACKEND`` must be unset: it would beat every
 backend the script names.  The shapenet paths run at full width and
-depth but the sharded padded case (``SHARDED_PADDED_LAYERS``); granite-20b
-runs at ``DENSE_DEPTH``'s 26 of its 52 layers.  Any failed check exits non-zero before the result lines.  On
+depth but the sharded padded case (``SHARDED_PADDED_LAYERS``); the dense
+LMs run at ``DENSE_DEPTH`` (stablelm 12 of 24 layers, phi4-mini 16 of 32,
+granite-20b 13 of 52).  Any failed check exits
+non-zero before the result lines.  On
 success the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -463,6 +477,10 @@ PATHS["dp_train_packed"] = PATHS["train_packed"]
 PATHS["dp_resume"] = PATHS["train_padded"]
 PATHS["remat_lm"] = PATHS["sharded_prefill"] + ("local_dq", "local_dkv", "flash_dq",
                                                 "flash_dkv", "epilogue_bwd")
+# Megatron's compute over "model" (Trainer(mesh=(1, 2))): tinyllama's and
+# qwen2-moe's train steps at per-rank heads, remat on (forward kernels twice)
+PATHS["tp_train"] = PATHS["train_lm"]
+PATHS["tp_moe"] = PATHS["train_lm"]
 PATHS["pipeline"] = PATHS["train_padded"]
 PATHS["compressed"] = PATHS["train_padded"]
 # the path, dtype and mode whose launches and row the kernels line reports
@@ -535,10 +553,12 @@ LM_GRAD_FLOOR = 1e-4
 DENSE_LMS = {"stablelm-1.6b": ((1, 16384), (2, 4096)),
              "phi4-mini-3.8b": ((1, 16384), (1, 4096)),
              "granite-20b": ((1, 4096), None)}
-# depth cuts of the dense LMs (full depth otherwise): granite-20b at 26 of
-# its 52 layers, to make room in the run's time limit for the training
-# cases across ranks
-DENSE_DEPTH = {"granite-20b": 26}
+# depth cuts of the dense LMs, to make room in the run's time limit for
+# the training cases across ranks: granite-20b at 13 of its 52 layers (26
+# before the tensor-parallel ones), and since those stablelm-1.6b at 12 of 24
+# and phi4-mini-3.8b at 16 of 32 (their phases took 67 and 90 s of a
+# 1,200-second limit at full depth)
+DENSE_DEPTH = {"stablelm-1.6b": 12, "phi4-mini-3.8b": 16, "granite-20b": 13}
 for _arch in DENSE_LMS:                                  # their paths
     PATHS[f"prefill:{_arch}"] = PATHS["prefill"]
     PATHS[f"decode:{_arch}"] = ("paged_gather_pair",)
@@ -547,12 +567,13 @@ for _arch in DENSE_LMS:                                  # their paths
 # over a complete φ-block in each slot (the decode and its hold are
 # host-bound, so their steps set the phases' time: 300 / 200 positions took
 # 400 of a 1,085-second run on a slow host, 200 / 130 210 s of a 795-second
-# one; 96 / 64 since the other families' phases came in); its hold against the forward
+# one; 96 / 64 since the other families' phases came in, 64 / 64 from steps
+# 0 / 16 since the tensor-parallel cases); its hold against the forward
 # (decode_hold), of the forward's largest value: on the H100 the three
 # models' attention outputs read at most 6.9e-3 and their logits 5.5e-3 at
 # 300 / 200 positions, and stablelm's decode with its compression branch
 # scaled by 0.9 reads 1.6e-2 to 3.2e-2 in every layer
-DECODE_LENS, DECODE_STARTS = (96, 64), (0, 32)
+DECODE_LENS, DECODE_STARTS = (64, 64), (0, 16)
 DECODE_HOLD_TOL = 1.5e-2
 # the causal path's kernel rows at each model's heads (head_rows_phase):
 # tag -> (config, query heads, KV heads, head dim), one 4,096-token sequence
@@ -3643,7 +3664,7 @@ def decode_hold(dev, api, model, tokens, tables, lengths, num_blocks,
 
 
 def dense_lm_phase(dev, arch: str) -> dict:
-    """One dense LM of ``DENSE_LMS`` at full width and depth (``DENSE_DEPTH``
+    """One dense LM of ``DENSE_LMS`` at full width and its depth (``DENSE_DEPTH``
     cuts it): its weights
     from seed 0 on the card (peak memory of the init reported), the prefill
     (``prefill_phase``: launches, every layer held to the reference backend
@@ -4471,7 +4492,7 @@ def trainer_phase(dev, next_batches) -> dict:
 # balls a rank) and not at p = 2 (1,920 rows: the ball op falls back, which
 # the packed case checks); tinyllama's 4,096 tokens split at p = 2
 SHARDED_P = {"padded": 3, "packed": 2, "lm": 2, "dp_train": 4, "remat_lm": 2,
-             "pipeline_compress": 2}
+             "pipeline_compress": 2, "tp_train": 2}
 SHARDED_TIMEOUT_S = 300                 # a rank's wait in one collective
 # the padded case's depth: 6 of shapenet-bsa's 18 layers (full depth before
 # the training cases across ranks needed the run's time)
@@ -4486,6 +4507,7 @@ class CollectiveCount:
     def __init__(self):
         from repro_torch.distributed import comm
         self.comm, self.n = comm, {"all_gather": 0, "rotate": 0}
+        self.gathered_bytes = 0               # the all-gathers' inputs, this rank's
         self._orig = (comm.all_gather, comm.rotate_plain)
 
     def __enter__(self):
@@ -4493,6 +4515,7 @@ class CollectiveCount:
 
         def counted_gather(x, ax):
             self.n["all_gather"] += 1
+            self.gathered_bytes += x.numel() * x.element_size()
             return gather(x, ax)
 
         def counted_rotate(x, ax, **kw):
@@ -4732,6 +4755,12 @@ def sharded_serve_lm(api, model, mesh, prompts) -> dict:
 # and the int8 reduction
 DP_STEPS = 3                            # 1 + 2 steps on the (2, 2) mesh, a save at the last
 DP_HOLD = 1e-5                          # of the largest |value|, against one rank
+# a step from one shared state: of the (group, head)s whose picks the one
+# rank replays from the mesh step, the share where its own top-k picks
+# differ (4 of 517,248 padded, 6 of 462,240 packed on an H100: near-ties
+# that the head split rounds otherwise); a fault in the split selection
+# (φ, the score sums, the gates' heads) moves far more
+PICKS_FLIP_TOL = 1e-4
 # paper App. A settings, as the train phases (lr 1e-3 from the first step
 # sends the loss from 1.8 to 4.9, where AdamW's normalised update turns the
 # reduced gradient's rounding into 9.5e-5 of the largest parameter)
@@ -4766,6 +4795,90 @@ def _rank0_only(mesh, fn):
     return out
 
 
+class HeldPicks:
+    """Holds the one-rank side of a step to the selection picks of the step
+    across ranks, as ``HeldRouting`` holds an MoE routing: under ``record``
+    each BSA layer's valid picks are kept (this rank's groups and heads);
+    :meth:`masks` gathers them over the mesh into the whole batch's, and
+    under ``replay`` each layer's scores rank those blocks first (the
+    blocks that are valid on this side too).  The products of a rank's
+    heads round otherwise than the whole layer's, and top-k over nearly
+    tied scores is discontinuous: a flipped block moves the step by more
+    than any rounding does."""
+
+    def __init__(self):
+        self.picks = []
+
+    @contextlib.contextmanager
+    def record(self):
+        from repro_torch.core import bsa as bsa_core
+        scores = bsa_core._selection_scores
+
+        def recorded(*args, **kw):
+            s = scores(*args, **kw)
+            vals, idx = torch.topk(s, min(args[5].top_k, s.shape[-1]), dim=-1)
+            self.picks.append((idx, vals > NEG_INF / 2))
+            return s
+        with mock.patch.object(bsa_core, "_selection_scores", recorded):
+            yield
+
+    def masks(self, mesh22, T: int, nb: int, rows=None) -> list:
+        """Each layer's (B, G, Hkv, nb) bool mask of the whole batch's
+        picks (T rows, nb blocks): the kv heads gathered over ``model``, the
+        batch over ``data``; ``rows``, for a packed batch (B = 1), each data
+        rank's global row of each of its rows (T for a padding row), whose
+        groups and blocks are mapped to the whole axis's."""
+        from repro_torch.distributed import comm
+        out = []
+        for idx, ok in self.picks:
+            idx = idx.masked_fill(~ok, -1)
+            idx = torch.cat(comm.all_gather(idx.contiguous(), mesh22.axis_group("model")), 2)
+            parts = comm.all_gather(idx.contiguous(), mesh22.axis_group("data"))
+            if rows is None:
+                idx = torch.cat(parts, 0)
+                out.append((F.one_hot(idx.clamp(min=0), nb).bool()
+                            & (idx >= 0)[..., None]).any(-2))
+                continue
+            g = len(rows[0]) // parts[0].shape[1]          # rows a group
+            ell = T // nb
+            mask = torch.zeros((1, T // g, idx.shape[2], nb), dtype=torch.bool,
+                               device=idx.device)
+            for part, r in zip(parts, rows):
+                r = torch.as_tensor(r, device=idx.device)
+                g0 = r[torch.arange(part.shape[1], device=idx.device) * g]       # (G_l,)
+                blocks = r[part.clamp(min=0) * ell]
+                keep = (part >= 0) & (blocks < T) & (g0 < T)[None, :, None, None]
+                hot = (F.one_hot(torch.where(keep, blocks // ell, 0), nb).bool()
+                       & keep[..., None]).any(-2)[0]                          # (G_l, H, nb)
+                live = g0 < T
+                mask[0, g0[live] // g] |= hot[live]
+            out.append(mask)
+        self.picks = []
+        return out
+
+    @contextlib.contextmanager
+    def replay(self, masks: list):
+        """Under it, each layer's scores rank the held blocks first;
+        ``flipped`` counts the (group, head)s whose own picks differed."""
+        from repro_torch.core import bsa as bsa_core
+        scores, left = bsa_core._selection_scores, list(masks)
+        self.flipped = self.groups = 0
+
+        def replayed(*args, **kw):
+            s = scores(*args, **kw)
+            held = left.pop(0) & (s > NEG_INF / 2)
+            vals, own = torch.topk(s, min(args[5].top_k, s.shape[-1]), dim=-1)
+            mine = (F.one_hot(own, s.shape[-1]).bool() & (vals > NEG_INF / 2)[..., None]).any(-2)
+            mask, G = args[4], s.shape[1]              # groups with a real query only
+            live = (torch.ones(s.shape[:2], dtype=torch.bool, device=s.device) if mask is None
+                    else mask.reshape(mask.shape[0], G, -1).any(-1))
+            self.flipped += int(((mine != held).any(-1) & live[..., None]).sum())
+            self.groups += int(live.sum()) * s.shape[2]
+            return torch.where(held, -NEG_INF, s)
+        with mock.patch.object(bsa_core, "_selection_scores", replayed):
+            yield
+
+
 def dp_train_case(dev, mesh, inputs, res) -> None:
     """shapenet-bsa at full width and depth through ``Trainer(mesh=...)``
     on a (2, 2) ("data", "model") mesh (the main path): 1 + 2 steps of 8
@@ -4774,7 +4887,8 @@ def dp_train_case(dev, mesh, inputs, res) -> None:
     on the same seed and batches (rank 0 runs it; free-running, at
     ``LAYER_TOL``), then a padded and a packed step from the same state each
     way (this mesh's, gathered) held at ``DP_HOLD`` (loss, gradient norm,
-    parameters); parameters equal in bits on every rank, each rank's AdamW
+    parameters; the one rank replays the mesh step's picks, ``HeldPicks``,
+    and its own differ in at most ``PICKS_FLIP_TOL`` of them); parameters equal in bits on every rank, each rank's AdamW
     moment bytes beside one rank's.  Then a restore on a (4,) ("data",) mesh
     and one step, held to the single-rank ``Trainer`` resumed from the same
     checkpoint at ``DP_HOLD``."""
@@ -4813,6 +4927,7 @@ def dp_train_case(dev, mesh, inputs, res) -> None:
     res.update(mesh=str(mesh22.shape), loss=losses, step_s=[m["step_time_s"] for m in steps],
                packed_step_s=tr.metrics_history[-1]["step_time_s"], wall_s=wall,
                collectives_a_step={k: v / DP_STEPS for k, v in cc.n.items()},
+               gathered_bytes_a_step=cc.gathered_bytes / DP_STEPS,
                moment_bytes=tr.moment_bytes(opt),
                bits_equal_across_ranks=same_on_every_rank(rank_digest(params.values()), ax))
     check(res["bits_equal_across_ranks"], "dp_train: parameters differ between ranks")
@@ -4843,7 +4958,9 @@ def dp_train_case(dev, mesh, inputs, res) -> None:
               f"{ref['moment_bytes']}")
 
     # one step each way from the same state (this mesh's, gathered), held
-    # to one rank's at DP_HOLD: loss, gradient norm, parameters
+    # to one rank's at DP_HOLD: loss, gradient norm, parameters; the one
+    # rank takes the mesh step's selection picks (HeldPicks: its heads are
+    # split over "model", whose products round otherwise)
     res["same_state"] = {}
     for layout, batch in (("padded", padded[DP_STEPS]), ("packed", packed)):
         full = tr.full_state(model, opt)                 # live tensors where whole
@@ -4852,31 +4969,49 @@ def dp_train_case(dev, mesh, inputs, res) -> None:
                         **{key: {n: t.clone() for n, t in full["opt"][key].items()}
                            for key in ("m", "v")}}}
         k = opt["step"]
-        with use_backend("kernels"), contextlib.redirect_stdout(io.StringIO()):
+        picks = HeldPicks()
+        with use_backend("kernels"), contextlib.redirect_stdout(io.StringIO()), \
+                picks.record():
             model, opt = tr.fit(iter([batch]), steps=1, model=model, opt_state=opt,
                                 start_step=k)
         got = tr.metrics_history[-1]
         after = {n: p.detach() for n, p in model.named_parameters()}
+        rows, T = None, batch["feats"].shape[1]
+        if layout == "packed":                 # each data rank's rows of the packed axis
+            from repro_torch.distributed import ring
+            offsets = tuple(int(o) for o in np.asarray(batch["offsets"]))
+            plan = ring.plan_segments(offsets, mesh22.shape["data"])
+            idx = ring.axis_layout(plan, offsets, T, api.mcfg.bsa.ball_size)[0]
+            rows = list(idx.reshape(mesh22.shape["data"], -1).astype(np.int64))
+        masks = picks.masks(mesh22, T, T // api.mcfg.bsa.cmp_block, rows)
 
-        def one_step(full=full, batch=batch, got=got, after=after):
+        def one_step(full=full, batch=batch, got=got, after=after, masks=masks):
             one = Trainer(api, TrainerConfig(**DP_TRAIN), device=dev)
             m = api.init(seed=0, device=dev)
             with torch.no_grad():
                 for n, p in m.named_parameters():
                     p.copy_(full["params"][n])
             o = full["opt"]
-            with use_backend("kernels"), contextlib.redirect_stdout(io.StringIO()):
+            held = HeldPicks()
+            with use_backend("kernels"), contextlib.redirect_stdout(io.StringIO()), \
+                    held.replay(masks):
                 m, _ = one.fit(iter([batch]), steps=1, model=m, opt_state=o)
             want = one.metrics_history[-1]
             rel, where = _params_rel(after, dict(m.named_parameters()))
             return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
                     "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
-                    / abs(want["grad_norm"]), "param_rel": rel, "param_rel_at": where}
+                    / abs(want["grad_norm"]), "param_rel": rel, "param_rel_at": where,
+                    "picks_flipped": held.flipped, "picks_held": held.groups}
         held = _rank0_only(mesh, one_step)
         if held is not None:
             res["same_state"][layout] = held
             check(max(held["loss_rel"], held["grad_norm_rel"], held["param_rel"]) <= DP_HOLD,
                   f"dp_train {layout} step from the same state vs one rank: {held}")
+            check(held["picks_held"] > 0
+                  and held["picks_flipped"] <= PICKS_FLIP_TOL * held["picks_held"],
+                  f"dp_train {layout}: the one rank's own selection picks differ from the "
+                  f"mesh step's in {held['picks_flipped']} of {held['picks_held']} "
+                  f"(group, head)s, above {PICKS_FLIP_TOL}")
 
     # elastic: the step-2 checkpoint restored on (4,) ("data",)
     mesh4 = make_mesh((4,), ("data",))
@@ -5142,9 +5277,237 @@ def pipeline_compress_case(dev, mesh, inputs, res) -> None:
               f"compressed reduction: loss {ref} from one forward of the 4 clouds")
 
 
+# Megatron's compute over "model": 2 of each LM's layers at full width, 1 +
+# 2 bf16 steps of B 2 x 4096 tokens (TRAIN_LM_B, TRAIN_LM_N), then the holds
+TP_LAYERS = 2
+TP_ARCHS = {"tp_train": "tinyllama-1.1b", "tp_moe": "qwen2-moe-a2.7b"}
+TP_TRAIN = DP_TRAIN
+TP_STEPS = 2
+TP_HOLD = 1e-5              # fp32: the step's loss, gradient norm and gradients vs one rank
+TP_GRAD_FLOOR = 1e-3        # a gradient's denominator, of the model's largest (φ_k.pos: 0)
+
+
+@contextlib.contextmanager
+def held_moe_routing(routes: list, record: bool):
+    """Record each MoE layer's experts (``record``) or replay them in order
+    (``moe_apply(top_e=)``): both sides of a layer hold take one routing."""
+    def recorded(p, x, mcfg, top_e=None):
+        y, aux = moe_apply(p, x, mcfg)
+        routes.append(aux["top_e"])
+        return y, aux
+
+    def replayed(p, x, mcfg, top_e=None):
+        return moe_apply(p, x, mcfg, top_e=routes.pop(0))
+    with mock.patch.object(transformer, "moe_apply", recorded if record else replayed):
+        yield
+
+
+def _grad_rel(got: dict, want: dict, floor_share: float) -> tuple[float, str]:
+    """(the largest of max |got − want| over max |want| a tensor, each
+    denominator floored at ``floor_share`` of the largest |want| of all,
+    the tensor where it is)."""
+    big = max(float(t.abs().max()) for t in want.values())
+    return max((float((got[n].float() - t.float()).abs().max())
+                / max(float(t.abs().max()), floor_share * big), n) for n, t in want.items())
+
+
+def tp_layer_hold(tr, model, ref, cfg, batch, mesh) -> dict:
+    """Each layer of the tensor-parallel ``model`` (this rank's parts) against
+    the same layer of the whole ``ref`` on one rank, given the same input
+    and upstream gradient (the ``lm_train_reference_check`` recipe, the
+    MoE routing held to the parallel side's): the output at
+    ``LM_LAYER_TOL`` and every gradient (this rank's part of a cut one) at
+    ``LM_GRAD_REL_TOL`` of its largest value, floored at ``LM_GRAD_FLOOR``
+    of the layer's largest parameter gradient."""
+    from repro_torch.distributed.params import local_part
+    from repro_torch.distributed.sharding import axis_rules
+    tokens, labels = batch["tokens"], batch["labels"]
+    B_, N_ = tokens.shape
+    pos = torch.arange(N_, device=tokens.device)[None].expand(B_, N_)
+    xs = []
+    with torch.no_grad(), use_backend("kernels"):
+        h = embed(ref.embed, tokens, dtype=cfg.cdtype())
+        for period in ref.layers:
+            xs.append(h)
+            h = lm_layer(period.pos0, h, mcfg=cfg, positions=pos)
+    top = h.detach().requires_grad_(True)
+    logits = dense(ref.lm_head, rmsnorm(ref.final_norm, top, cfg.norm_eps)).float()
+    gy, = torch.autograd.grad(masked_mean_nll(logits, labels), top)
+    del logits
+    tr.hold(model, "model")
+    rows, routes = [], []
+    for i in reversed(range(len(xs))):
+        mine, whole = model.layers[i].pos0, ref.layers[i].pos0
+        names = [n for n, _ in whole.named_parameters()]
+        x = xs[i].detach().requires_grad_(True)
+        with use_backend("kernels"), axis_rules(mesh), held_moe_routing(routes, True):
+            y_tp = lm_layer(mine, x, mcfg=cfg, positions=pos)
+            g_tp = torch.autograd.grad(y_tp, [x, *mine.parameters()], gy, allow_unused=True)
+        with use_backend("kernels"), held_moe_routing(routes, False):
+            y = lm_layer(whole, x, mcfg=cfg, positions=pos)
+            g = torch.autograd.grad(y, [x, *whole.parameters()], gy, allow_unused=True)
+        out_rel = _rel(y_tp.detach(), y.detach())
+        del y, y_tp
+        pairs = []
+        for name, a, b in zip(["input"] + names, g_tp, g):
+            if b is None:                        # φ_q only feeds top-k
+                continue
+            if name != "input":
+                b = local_part(b, tr.tp_sh[f"layers.{i}.pos0.{name}"], tr.mesh)
+            pairs.append((name, float((a.float() - b.float()).abs().max()),
+                          float(b.float().abs().max())))
+        floor = LM_GRAD_FLOOR * max(r for n, _, r in pairs if n != "input")
+        rel = {n: d / (r if n == "input" else max(r, floor)) for n, d, r in pairs}
+        worst = max(rel, key=rel.get)
+        rows.append({"layer": i, "out_rel": out_rel, "grad_rel": rel[worst],
+                     "grad_rel_at": worst})
+        check(out_rel <= LM_LAYER_TOL and rel[worst] <= LM_GRAD_REL_TOL,
+              f"{cfg.name} tensor-parallel layer {i} vs one rank: output {out_rel:.2e}, "
+              f"{worst} gradient {rel[worst]:.2e}")
+        gy = g[0]
+        del g, g_tp
+    tr.hold(model, None)
+    return {"layers": rows, "out_tol": LM_LAYER_TOL, "grad_tol": LM_GRAD_REL_TOL}
+
+
+def _tp_arch(dev, mesh, path: str, arch: str, res) -> dict:
+    """One LM through ``Trainer(mesh=(1, 2))`` (see :func:`tp_train_case`)."""
+    from repro_torch.distributed.params import full_tensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    api = model_api(get_config(arch).scaled(n_layers=TP_LAYERS))
+    cfg = api.mcfg
+    mesh12 = make_mesh((1, 2), ("data", "model"))
+    batches = lm_train_batches(dev, cfg.vocab_size, steps=TP_STEPS)
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    ax = mesh.axis_group("data")                          # both ranks
+    tr = Trainer(api, TrainerConfig(**TP_TRAIN), mesh=mesh12, device=dev)
+    model, opt = tr.init_state()
+    whole_bytes = tr.param_bytes(model)
+    held, step = [], tr._step
+
+    def spied(model, opt_state, batch):
+        out = step(model, opt_state, batch)
+        held.append(tr.param_bytes(model))
+        return out
+    tr._step = spied
+    with use_backend("kernels"), quiet:
+        model, opt = tr.fit(iter(batches[:1]), steps=1, model=model, opt_state=opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with CollectiveCount() as cc:
+            reset_counters()                             # just before the main path
+            model, opt = tr.fit(iter(batches[1:]), steps=TP_STEPS, model=model,
+                                opt_state=opt, start_step=1)
+            torch.cuda.synchronize()
+            res["paths"][path] = {n: c.n for n, c in COUNTERS.items()}   # just after
+    check_launches(res["paths"][path], path, cfg.n_layers * TP_STEPS,
+                   per_forward_kernel=2 * cfg.n_layers * TP_STEPS)
+    steps = tr.metrics_history[1:]
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    cut = sum(p.numel() * p.element_size() for n, p in params.items()
+              if tr.tp_sh[n] != (None,) * p.dim())
+    out = {"arch": arch, "layers": cfg.n_layers, "mesh": str(mesh12.shape),
+           "batch": list(batches[0]["tokens"].shape), "param_dtype": cfg.param_dtype,
+           "loss": [m["loss"] for m in tr.metrics_history],
+           "grad_norm": [m["grad_norm"] for m in tr.metrics_history],
+           "step_ms": [m["step_time_s"] * 1e3 for m in steps],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "param_bytes_whole": whole_bytes, "param_bytes_cut_whole": cut,
+           "param_bytes_held": held[1:],
+           "collectives_a_step": {k: v / TP_STEPS for k, v in cc.n.items()},
+           "gathered_bytes_a_step": cc.gathered_bytes / TP_STEPS,
+           "bits_equal_across_ranks": same_on_every_rank(rank_digest(params.values()), ax)}
+    check(out["bits_equal_across_ranks"], f"{path}: parameters differ between ranks")
+    check(all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]),
+          f"{path}: losses {out['loss']}, gradient norms {out['grad_norm']}")
+    check(all(b == whole_bytes - cut // 2 for b in held),
+          f"{path}: a rank held {held} parameter bytes, not {whole_bytes - cut // 2}")
+
+    # bf16, layer by layer against one rank on the same whole weights, on
+    # the first sequence of a batch (qwen2-moe's whole-vocabulary logits of
+    # both sequences and their gradient outgrow the card shared by 2 ranks)
+    del opt
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = api.init(seed=0, device=dev)
+    with torch.no_grad():
+        for n, p in ref.named_parameters():
+            p.copy_(params[n])
+    out["layer_hold"] = tp_layer_hold(tr, model, ref, cfg,
+                                      {k: v[:1] for k, v in batches[1].items()}, mesh12)
+    del ref, model, params, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32: a step from the same weights, held to one rank's at TP_HOLD
+    api32 = model_api(cfg.scaled(param_dtype="float32", compute_dtype="float32"))
+    batch = {k: v[:1] for k, v in batches[1].items()}     # 1 x 4096 tokens
+    tr = Trainer(api32, TrainerConfig(**TP_TRAIN), mesh=mesh12, device=dev)
+    grads, step = {}, tr._step
+
+    def keep_grads(model, opt_state, b):
+        res_ = step(model, opt_state, b)
+        for n, p in model.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[n] = (g if tr.tp_sh[n] == (None,) * g.dim()
+                        else full_tensor(g.contiguous(), tr.tp_sh[n], tr._shapes[n], tr.mesh))
+        return res_
+    tr._step = keep_grads
+    with use_backend("kernels"), quiet:
+        tr.fit(iter([batch]), steps=1, model=api32.init(seed=0, device=dev))
+    got = tr.metrics_history[-1]
+    del tr
+    if mesh.rank != 0:                                   # only rank 0 compares
+        grads.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def one_rank():
+        one = Trainer(api32, TrainerConfig(**TP_TRAIN), device=dev)
+        with use_backend("kernels"), contextlib.redirect_stdout(io.StringIO()):
+            m, _ = one.fit(iter([batch]), steps=1, model=api32.init(seed=0, device=dev))
+        want = one.metrics_history[-1]
+        rel, where = _grad_rel(grads, {n: p.grad for n, p in m.named_parameters()
+                                       if p.grad is not None}, TP_GRAD_FLOOR)   # φ_q: none
+        return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
+                / abs(want["grad_norm"]), "grad_rel": rel, "grad_rel_at": where}
+    hold = _rank0_only(mesh, one_rank)
+    grads.clear()
+    if hold is not None:
+        out["fp32_hold"] = hold
+        check(max(hold["loss_rel"], hold["grad_norm_rel"], hold["grad_rel"]) <= TP_HOLD,
+              f"{path} fp32 step from the same weights vs one rank: {hold}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_train_case(dev, mesh, inputs, res) -> None:
+    """Megatron's compute over ``model`` (``distributed/tensor_parallel.py``)
+    through ``Trainer(mesh=(1, 2))`` (the main path): tinyllama-1.1b and
+    qwen2-moe-a2.7b (32 of its 64 padded experts a rank) at full width and
+    ``TP_LAYERS`` of their layers, bf16 with remat, 1 + ``TP_STEPS`` steps of
+    B 2 x 4096 tokens.  Each rank's launches, the parameter bytes it holds
+    between steps (half of every cut weight), its peak memory, the
+    collectives and the step time; parameters equal in bits on both ranks;
+    each layer held to one rank's given the same input and upstream
+    gradient (bf16, ``tp_layer_hold``); then a fp32 step from the same
+    weights held to one rank's at ``TP_HOLD`` (loss, gradient norm, every
+    gradient)."""
+    res["paths"] = {}
+    for path, arch in TP_ARCHS.items():
+        res[path] = _tp_arch(dev, mesh, path, arch, res)
+        print(json.dumps({path: res[path]}), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 SHARDED_CASES = {"padded": sharded_padded_case, "packed": sharded_packed_case,
                  "lm": sharded_lm_case, "dp_train": dp_train_case, "remat_lm": remat_lm_case,
-                 "pipeline_compress": pipeline_compress_case}
+                 "pipeline_compress": pipeline_compress_case, "tp_train": tp_train_case}
 
 
 def sharded_rank(rank: int, world: int, case: str, init_file: str, in_path: str,
@@ -5361,7 +5724,7 @@ def main() -> int:
     paths.update(baselines_phase(dev, batches))
     print(f"# baselines phase: {time.perf_counter() - t0:.1f} s", flush=True)
     paths["quickstart"] = quickstart_phase()
-    paths["trainer"] = trainer_phase(dev, batches[3:5])
+    paths["trainer"] = trainer_phase(dev, batches[-2:])
     paths["trainer_resume"] = {"launches": paths["trainer"]["resumed_launches"]}
     del batches
     torch.cuda.empty_cache()

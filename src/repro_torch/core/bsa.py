@@ -141,9 +141,10 @@ def _compression_branch(params, q, k, v, mask, cfg: BSAConfig, backend):
 # Branch 3 — Selection
 # ---------------------------------------------------------------------------
 
-def _selection_scores(params, q, k_cmp, blk_valid, mask, cfg: BSAConfig, q_seg=None):
+def _selection_scores(params, q, k_cmp, blk_valid, mask, cfg: BSAConfig, q_seg=None,
+                      score_reduce=None):
     """Group-level importance scores (B, G, Hkv, NB) fp32, already masked
-    (invalid block / own ball).
+    (invalid block / own ball).  ``score_reduce``: see :func:`bsa_attention`.
 
     ``q_seg``: (N,) int32 segment ids of a packed-varlen axis (B = 1): the
     blocks of other segments score NEG_INF, so top-k never picks across a
@@ -158,11 +159,15 @@ def _selection_scores(params, q, k_cmp, blk_valid, mask, cfg: BSAConfig, q_seg=N
         # Eq. 13–14: score with φ-pooled queries (block granularity)
         q_s = phi_apply(params.phi_q, q, mask, cfg)                 # (B,NB,Hq,D)
         s = diag_scores(q_s, k_cmp, rep, cfg.score_dtype)           # (B,NB,Hkv,NB)
+        if score_reduce is not None:
+            s = score_reduce(s)
         rows_per_group = max(g // ell, 1)
         G = nb // rows_per_group
         s = s.reshape(B, G, rows_per_group, Hkv, nb).mean(dim=2)    # Eq. 12 mean
     else:
         s = diag_scores(q, k_cmp, rep, cfg.score_dtype)             # (B,N,Hkv,NB)
+        if score_reduce is not None:
+            s = score_reduce(s)
         if cfg.group_size:
             s = s.reshape(B, N // g, g, Hkv, nb).mean(dim=2)
     s = s / (D ** 0.5)
@@ -187,11 +192,12 @@ def _selection_scores(params, q, k_cmp, blk_valid, mask, cfg: BSAConfig, q_seg=N
 
 
 def _selection_branch(params, q, k, v, k_cmp, blk_valid, mask, cfg: BSAConfig,
-                      backend):
+                      backend, score_reduce=None):
     """Top-k block choice + exact attention.  Returns (out, indices)."""
     B, N, Hq, D = q.shape
     nb = N // cfg.cmp_block
-    scores = _selection_scores(params, q, k_cmp, blk_valid, mask, cfg)
+    scores = _selection_scores(params, q, k_cmp, blk_valid, mask, cfg,
+                               score_reduce=score_reduce)
     G = scores.shape[1]
     k_star = min(cfg.top_k, nb)
     top_vals, top_idx = torch.topk(scores, k_star, dim=-1)           # (B,G,Hkv,k*)
@@ -207,14 +213,18 @@ def _selection_branch(params, q, k, v, k_cmp, blk_valid, mask, cfg: BSAConfig,
 # ---------------------------------------------------------------------------
 
 def bsa_attention(params: BSAParams, q, k, v, *, cfg: BSAConfig, mask=None, x=None,
-                  return_aux: bool = False):
+                  return_aux: bool = False, score_reduce=None):
     """Ball Sparse Attention (paper Eq. 9).
 
     q: (B, N, Hq, D); k, v: (B, N, Hkv, D); mask: (B, N) bool (True = real).
     Each batch row is an independent ball-ordered sample; padded keys are
     masked in logit space on every branch and padded query rows are zeroed
     by the combine.  ``x`` is the pre-projection layer input, needed only
-    for token gating.  Returns (B, N, Hq, D) [+ aux dict]."""
+    for token gating.  ``score_reduce``, where given, completes the
+    selection scores of these heads (B, ·, Hkv, NB) before top-k: under
+    tensor parallelism a GQA group's query heads can lie on several ranks
+    (``models.attention_layer.HeadSplit``).  Returns (B, N, Hq, D) [+ aux
+    dict]."""
     B, N, Hq, D = q.shape
     if k.shape[:2] != (B, N) or v.shape != k.shape:
         raise ValueError(f"k/v must be (B, N, Hkv, D) with (B, N) = {(B, N)}")
@@ -229,7 +239,7 @@ def bsa_attention(params: BSAParams, q, k, v, *, cfg: BSAConfig, mask=None, x=No
     out_cmp, k_cmp, v_cmp, blk_valid = _compression_branch(
         params, q, k, v, mask, cfg, bk["cmp"])
     out_slc, top_idx = _selection_branch(
-        params, q, k, v, k_cmp, blk_valid, mask, cfg, bk["slc"])
+        params, q, k, v, k_cmp, blk_valid, mask, cfg, bk["slc"], score_reduce)
 
     gates = gate_values(params.gates, cfg, x, Hq)
     out = bk["ball"].gated_combine(
@@ -242,7 +252,7 @@ def bsa_attention(params: BSAParams, q, k, v, *, cfg: BSAConfig, mask=None, x=No
 
 
 def bsa_attention_varlen(params: BSAParams, q, k, v, *, cfg: BSAConfig, offsets,
-                         mask=None, x=None, return_aux: bool = False):
+                         mask=None, x=None, return_aux: bool = False, score_reduce=None):
     """Ball Sparse Attention over a packed-varlen batch.
 
     q: (T, Hq, D); k, v: (T, Hkv, D): all samples concatenated on one token
@@ -255,8 +265,9 @@ def bsa_attention_varlen(params: BSAParams, q, k, v, *, cfg: BSAConfig, offsets,
     branches keep samples apart by construction (offsets are ball
     multiples; a group picks only blocks of its own segment), the
     compression branch by segment ids in the varlen kernel.  ``x``: the
-    pre-projection input (T, d_model), for token gating.  Returns
-    (T, Hq, D) [+ aux dict]."""
+    pre-projection input (T, d_model), for token gating.
+    ``score_reduce``: see :func:`bsa_attention`.  Returns (T, Hq, D) [+ aux
+    dict]."""
     T, Hq, D = q.shape
     if k.shape[0] != T or v.shape != k.shape:
         raise ValueError(f"k/v must be (T, Hkv, D) with T = {T}")
@@ -294,7 +305,8 @@ def bsa_attention_varlen(params: BSAParams, q, k, v, *, cfg: BSAConfig, offsets,
     # selection branch: segment isolation on top of the usual masking of the
     # scores, then the layout-agnostic gather-attend
     scores = _selection_scores(params, q[None], k_cmp[None], blk_valid, maskb, cfg,
-                               q_seg=segment_ids(offsets, T, q.device))
+                               q_seg=segment_ids(offsets, T, q.device),
+                               score_reduce=score_reduce)
     G = scores.shape[1]
     top_vals, top_idx = torch.topk(scores, min(cfg.top_k, nb), dim=-1)
     sel_valid = top_vals > NEG_INF / 2

@@ -112,9 +112,10 @@ def local_window_attention_ref(q, k, v, window: int, mask=None, chunk_blocks: in
 # ---------------------------------------------------------------------------
 
 def nsa_causal_attention(params: BSAParams, q, k, v, *, cfg: BSAConfig, mask=None,
-                         x=None, return_aux: bool = False):
+                         x=None, return_aux: bool = False, score_reduce=None):
     """Causal BSA.  q: (B, N, Hq, D); k, v: (B, N, Hkv, D); ``mask``: (B, N)
-    bool or None; ``x``: the layer input (token gating).  Returns
+    bool or None; ``x``: the layer input (token gating); ``score_reduce``:
+    see ``core.bsa.bsa_attention``.  Returns
     (B, N, Hq, D) [+ aux dict of the branch outputs, picks and gates]."""
     B, N, Hq, D = q.shape
     ell = cfg.cmp_block
@@ -133,7 +134,7 @@ def nsa_causal_attention(params: BSAParams, q, k, v, *, cfg: BSAConfig, mask=Non
                               ell=ell, chunk_tokens=cfg.jnp_chunk_tokens, **kw)
 
     out_slc, top_idx = _causal_selection(params, q, k, v, k_cmp, blk_valid, mask, cfg,
-                                         bk["slc"])
+                                         bk["slc"], score_reduce)
     gates = gate_values(params.gates, cfg, x, Hq)
     out = bk["ball"].gated_combine(
         (out_local, out_cmp, out_slc),
@@ -144,7 +145,8 @@ def nsa_causal_attention(params: BSAParams, q, k, v, *, cfg: BSAConfig, mask=Non
     return out
 
 
-def _causal_selection(params, q, k, v, k_cmp, blk_valid, mask, cfg: BSAConfig, backend):
+def _causal_selection(params, q, k, v, k_cmp, blk_valid, mask, cfg: BSAConfig, backend,
+                      score_reduce=None):
     """Group-causal top-k* block selection and its attention.  Returns
     (out (B, N, Hq, D), top_idx (B, G, Hkv, k*))."""
     B, N, Hq, D = q.shape
@@ -156,10 +158,14 @@ def _causal_selection(params, q, k, v, k_cmp, blk_valid, mask, cfg: BSAConfig, b
     if cfg.query_cmp_selection and cfg.group_size:
         q_s = phi_apply(params.phi_q, q, mask, cfg)                   # (B,NB,Hq,D)
         s = diag_scores(q_s, k_cmp, rep, cfg.score_dtype)             # (B,NB,Hkv,NB)
+        if score_reduce is not None:
+            s = score_reduce(s)
         rows_per_group = max(g // ell, 1)
         s = s.reshape(B, nb // rows_per_group, rows_per_group, Hkv, nb).mean(dim=2)
     else:
         s = diag_scores(q, k_cmp, rep, cfg.score_dtype)               # (B,N,Hkv,NB)
+        if score_reduce is not None:
+            s = score_reduce(s)
         if cfg.group_size:
             s = s.reshape(B, N // g, g, Hkv, nb).mean(dim=2)
     s = s / (D ** 0.5)

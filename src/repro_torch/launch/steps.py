@@ -24,7 +24,7 @@ __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
 
 
 def make_train_step(api, *, base_lr=1e-3, weight_decay=0.01, total_steps=100_000,
-                    warmup_steps=1000, max_grad_norm=1.0, update=None):
+                    warmup_steps=1000, max_grad_norm=1.0, update=None, grad_norm=None):
     """(model, opt_state, batch) → (model, opt_state, metrics) with metrics
     ``loss``, ``grad_norm`` (device tensors, before clipping) and ``lr``
     (float).  The schedule is read at the step count before the update, so
@@ -36,7 +36,10 @@ def make_train_step(api, *, base_lr=1e-3, weight_decay=0.01, total_steps=100_000
     scalar metrics are summed over those ranks (``sharding.batch_total``;
     on one rank it returns its input untouched).  ``update(params, grads,
     opt_state, lr) → opt_state`` takes the place of the AdamW update on the
-    whole parameters (the mesh ``Trainer`` updates this rank's parts)."""
+    whole parameters (the mesh ``Trainer`` updates this rank's parts), and
+    ``grad_norm(grads) → norm`` that of the global norm the clip reads (the
+    mesh ``Trainer``'s is the whole gradient's where the parameters are
+    held as their parts over ``model``)."""
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
@@ -45,7 +48,8 @@ def make_train_step(api, *, base_lr=1e-3, weight_decay=0.01, total_steps=100_000
         loss.backward()
         grads = batch_total({n: p.grad if p.grad is not None else torch.zeros_like(p)
                              for n, p in params.items()})
-        _, gnorm = clip_by_global_norm(list(grads.values()), max_grad_norm)
+        _, gnorm = clip_by_global_norm(list(grads.values()), max_grad_norm,
+                                       norm=None if grad_norm is None else grad_norm(grads))
         lr = cosine_schedule(opt_state["step"], base_lr=base_lr,
                              total_steps=total_steps, warmup_steps=warmup_steps)
         if update is None:

@@ -32,8 +32,11 @@ Across ranks, one process a card under torchrun::
 (NCCL for ``cuda``, each rank on card ``LOCAL_RANK``; gloo for ``--device
 cpu``), and ``--mesh 2x2`` lays the ranks out as ``("data", "model")``
 (``4`` alone: ``("data",)``) for ``runtime.Trainer(mesh=...)``.  Every
-rank draws the same batches and trains on its slice of them.  ``--mesh``
-without a process group is an error.
+rank draws the same batches and trains on its slice of them; the ranks of
+``model`` split the compute Megatron's way (each its attention heads,
+FFN columns, vocabulary slice and experts, holding only its parts of
+those weights: ``distributed/tensor_parallel.py``).  ``--mesh`` without a
+process group is an error.
 """
 
 from __future__ import annotations
@@ -66,7 +69,10 @@ def main(argv=None) -> float:
                          "registered name (default: config)")
     ap.add_argument("--ckpt", default=None, help="checkpoint directory (resumes from it)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mesh", default="", help="e.g. 2x4 → (data=2, model=4)")
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 2x4 → (data=2, model=4): the batch split over data, "
+                         "each rank of model computing its heads, FFN columns, "
+                         "vocabulary slice and experts with its parts of those weights")
     ap.add_argument("--distributed", action="store_true",
                     help="join the process group from torchrun's environment")
     args = ap.parse_args(argv)

@@ -7,6 +7,15 @@ parameter names mirror the JAX pytree keys (``w``, ``b``, ``g``), so
 name.  One difference in storage: a ``Dense`` weight is (d_out, d_in), the
 PyTorch habit, where JAX stores (d_in, d_out).
 
+Under tensor parallelism (``distributed/tensor_parallel.py``: a weight
+that ``runtime.Trainer`` holds as this rank's part over the ``model``
+axis) :func:`column_dense` and :func:`row_dense` are ``dense`` on a weight
+cut on its output or its input dim; :func:`swiglu` and :func:`mlp` run
+their first products as column products and the last as a row product,
+:func:`embed` looks up the ids of this rank's vocabulary rows, and
+:func:`unembed` gives this rank's vocabulary columns; on whole weights
+they are the one-card functions.
+
 Initialisation follows the JAX package's distributions (He-normal dense
 weights, zero biases, unit norm gains, N(0, 1/d) embeddings) from an
 explicit ``torch.Generator``, drawn on the generator's device; the two
@@ -19,8 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["he_scale", "Dense", "dense", "RMSNorm", "rmsnorm", "SwiGLU", "swiglu",
-           "MLP", "mlp", "Embed", "embed", "unembed"]
+from repro_torch.distributed import tensor_parallel as tp
+
+__all__ = ["he_scale", "Dense", "dense", "column_dense", "row_dense", "RMSNorm", "rmsnorm",
+           "SwiGLU", "swiglu", "MLP", "mlp", "Embed", "embed", "unembed"]
 
 
 def he_scale(fan_in: int) -> float:
@@ -46,14 +57,47 @@ class Dense(nn.Module):
         return dense(self, x)
 
 
+def _product(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x @ wᵀ in fp32, the weight cast to x's dtype first."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return F.linear(x, w)
+    return F.linear(x.float(), w.float())   # exact widened products, fp32 accumulation
+
+
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     """x @ wᵀ (+ b): the weight is cast to x's dtype, the product accumulates
     in fp32, the bias adds in fp32, and the result returns in x's dtype."""
-    w = p.w.to(x.dtype)
-    if x.dtype == torch.float32:
-        y = F.linear(x, w)
-    else:                       # exact widened products, fp32 accumulation
-        y = F.linear(x.float(), w.float())
+    y = _product(p.w, x)
+    if p.b is not None:
+        y = y + p.b.float()
+    return y.to(x.dtype)
+
+
+def column_dense(layers, x: torch.Tensor) -> tuple:
+    """:func:`dense` of each layer of ``layers`` on ``x``; where their
+    weights are cut over ``model`` on the output dim, this rank's columns,
+    with one ``tensor_parallel.copy_to_model`` of ``x`` for all of them."""
+    dims = {tp.cut_dim(p.w) for p in layers}
+    if dims == {None}:
+        return tuple(dense(p, x) for p in layers)
+    if dims != {0}:
+        raise ValueError(f"column_dense: weights cut on dims {dims}, not all on the output")
+    xc = tp.copy_to_model(tp.axis(), x)
+    return tuple(dense(p, xc) for p in layers)
+
+
+def row_dense(p, x: torch.Tensor) -> torch.Tensor:
+    """:func:`dense` where the weight is cut over ``model`` on its input dim
+    and ``x`` holds this rank's input features: the partial products in
+    fp32, summed over ``model``, the bias added once after the sum, the
+    result in x's dtype."""
+    dim = tp.cut_dim(p.w)
+    if dim is None:
+        return dense(p, x)
+    if dim != 1:
+        raise ValueError("row_dense: the weight is not cut on its input dim")
+    y = tp.reduce_from_model(tp.axis(), _product(p.w, x))
     if p.b is not None:
         y = y + p.b.float()
     return y.to(x.dtype)
@@ -90,10 +134,11 @@ class SwiGLU(nn.Module):
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    g = dense(p.gate, x)
-    u = dense(p.up, x)
+    """down(silu(gate(x)) · up(x)); gate / up column and down row products
+    where the weights are cut over ``model``."""
+    g, u = column_dense((p.gate, p.up), x)
     h = F.silu(g.float()).to(x.dtype) * u
-    return dense(p.down, h)
+    return row_dense(p.down, h)
 
 
 class MLP(nn.Module):
@@ -113,9 +158,10 @@ class MLP(nn.Module):
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     """fc2(GELU(fc1(x))): the tanh form of GELU (``jax.nn.gelu``'s default),
-    in fp32, cast back to x's dtype.  ``p`` carries ``fc1`` and ``fc2``."""
-    h = F.gelu(dense(p.fc1, x).float(), approximate="tanh").to(x.dtype)
-    return dense(p.fc2, h)
+    in fp32, cast back to x's dtype.  ``p`` carries ``fc1`` and ``fc2``;
+    fc1 a column and fc2 a row product where they are cut over ``model``."""
+    h = F.gelu(column_dense((p.fc1,), x)[0].float(), approximate="tanh").to(x.dtype)
+    return row_dense(p.fc2, h)
 
 
 class Embed(nn.Module):
@@ -130,11 +176,24 @@ class Embed(nn.Module):
 
 
 def embed(p, ids: torch.Tensor, dtype=None) -> torch.Tensor:
-    """Rows of the table for ``ids`` (any shape), cast to ``dtype``."""
+    """Rows of the table for ``ids`` (any shape), cast to ``dtype``.  With
+    the table cut over ``model`` (vocabulary-parallel): this rank looks up
+    the ids in its range of rows, writes zeros for the others, and the
+    ranks' rows are summed (one rank's row and zeros: exact)."""
     t = p.table if dtype is None else p.table.to(dtype)
-    return t[ids.long()]
+    if tp.cut_dim(p.table) is None:
+        return t[ids.long()]
+    ax = tp.axis()
+    rows = t.shape[0]
+    local = ids.long() - ax.index * rows
+    hit = (local >= 0) & (local < rows)
+    x = t[local.clamp(0, rows - 1)]
+    return tp.reduce_from_model(ax, torch.where(hit[..., None], x, torch.zeros_like(x)))
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    """Tied logits projection x (…, d) · tableᵀ → (…, vocab), fp32."""
+    """Tied logits projection x (…, d) · tableᵀ → (…, vocab), fp32; with
+    the table cut over ``model``, this rank's vocabulary columns."""
+    if tp.cut_dim(p.table) is not None:
+        x = tp.copy_to_model(tp.axis(), x)
     return torch.matmul(x.float(), p.table.to(x.dtype).float().t())

@@ -20,18 +20,20 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.branches import repeat_kv, sdpa
+from repro_torch.core.branches import BRANCHES, repeat_kv, sdpa
 from repro_torch.core.bsa import bsa_attention, bsa_attention_varlen, bsa_init
 from repro_torch.core.erwin import erwin_attention
 from repro_torch.core.full_attention import full_attention
 from repro_torch.core.nsa_causal import (init_decode_cache, init_paged_decode_cache,
                                          nsa_causal_attention, nsa_causal_decode,
                                          nsa_causal_decode_paged)
-from repro_torch.layers.nn import Dense, dense
+from repro_torch.distributed import comm, tensor_parallel
+from repro_torch.distributed.sharding import current_rules, logical_to_spec
+from repro_torch.layers.nn import Dense, dense, row_dense
 from repro_torch.layers.rope import rope_angles, rotate
 from repro_torch.numerics import mask_to_bias
 
-__all__ = ["MECHANISMS", "AttentionLayer", "attention_layer_apply",
+__all__ = ["MECHANISMS", "AttentionLayer", "HeadSplit", "attention_layer_apply",
            "cross_attention_apply", "memory_kv", "attention_cache_init", "attention_paged_cache_init", "attention_layer_decode",
            "attention_layer_decode_paged"]
 
@@ -73,6 +75,31 @@ def _project(p: AttentionLayer, x, mcfg, positions=None, rope: bool = True):
     return q, k, v
 
 
+def _attend(bsa, q, k, v, x, *, mcfg, causal, mask, erwin_level, offsets,
+            score_reduce=None):
+    """The mechanism on projected q (B, N, Hq, hd), k, v (B, N, Hkv, hd):
+    (B, N, Hq, hd).  ``bsa``: the BSA parameters; ``x``: the layer input
+    (token gates); ``score_reduce``: see ``core.bsa.bsa_attention``."""
+    B = q.shape[0]
+    if offsets is not None:
+        if mcfg.attention != "bsa" or causal:
+            raise NotImplementedError(
+                "packed-varlen offsets are only supported by non-causal BSA "
+                f"(got attention={mcfg.attention!r}, causal={causal})")
+        if B != 1:
+            raise ValueError(f"packed-varlen input must be a single packed row, got B={B}")
+        return bsa_attention_varlen(bsa, q[0], k[0], v[0], cfg=mcfg.bsa, offsets=offsets,
+                                    mask=None if mask is None else mask[0], x=x[0],
+                                    score_reduce=score_reduce)[None]
+    if mcfg.attention == "bsa":
+        fn = nsa_causal_attention if causal else bsa_attention
+        return fn(bsa, q, k, v, cfg=mcfg.bsa, mask=mask, x=x, score_reduce=score_reduce)
+    if mcfg.attention == "erwin":
+        return erwin_attention(q, k, v, ball_size=mcfg.bsa.ball_size, level=erwin_level,
+                               mask=mask, backend=mcfg.bsa.backend)
+    return full_attention(q, k, v, mask=mask, causal=causal, backend=mcfg.bsa.backend)
+
+
 def attention_layer_apply(p: AttentionLayer, x: torch.Tensor, *, mcfg,
                           causal: bool = False, mask=None, positions=None,
                           rope: bool = True, erwin_level: int = 0,
@@ -85,30 +112,102 @@ def attention_layer_apply(p: AttentionLayer, x: torch.Tensor, *, mcfg,
     at ``erwin_level``.  ``offsets`` (S+1,) int32 on the host switches
     non-causal BSA to the packed-varlen layout: x must then be one packed
     row (B == 1) whose samples lie back to back at ball-size boundaries,
-    and ``mask``'s row marks real tokens; other mechanisms raise."""
+    and ``mask``'s row marks real tokens; other mechanisms raise.
+
+    Where the layer's weights are cut over ``model``
+    (``distributed/tensor_parallel.py``), the rank computes its own heads
+    (:class:`HeadSplit`), or, where the cut does not fall on query heads,
+    the whole layer on gathered weights (JAX's replication fallback)."""
     B, N, _ = x.shape
+    kw = dict(mcfg=mcfg, causal=causal, mask=mask, erwin_level=erwin_level, offsets=offsets)
+    if any(tensor_parallel.cut_dim(t) is not None for t in p.parameters()):
+        split = HeadSplit(mcfg, p, tensor_parallel.axis())
+        if split.hq:
+            return split.apply(p, x, positions=positions, rope=rope, **kw)
+        p = tensor_parallel.whole(split.ax, p)
     q, k, v = _project(p, x, mcfg, positions, rope)
-    if offsets is not None:
-        if mcfg.attention != "bsa" or causal:
-            raise NotImplementedError(
-                "packed-varlen offsets are only supported by non-causal BSA "
-                f"(got attention={mcfg.attention!r}, causal={causal})")
-        if B != 1:
-            raise ValueError(f"packed-varlen input must be a single packed row, got B={B}")
-        out = bsa_attention_varlen(p.bsa, q[0], k[0], v[0], cfg=mcfg.bsa,
-                                   offsets=offsets,
-                                   mask=None if mask is None else mask[0], x=x[0])[None]
-    elif mcfg.attention == "bsa":
-        if causal:
-            out = nsa_causal_attention(p.bsa, q, k, v, cfg=mcfg.bsa, mask=mask, x=x)
-        else:
-            out = bsa_attention(p.bsa, q, k, v, cfg=mcfg.bsa, mask=mask, x=x)
-    elif mcfg.attention == "erwin":
-        out = erwin_attention(q, k, v, ball_size=mcfg.bsa.ball_size, level=erwin_level,
-                              mask=mask, backend=mcfg.bsa.backend)
-    else:
-        out = full_attention(q, k, v, mask=mask, causal=causal, backend=mcfg.bsa.backend)
+    out = _attend(p.bsa if mcfg.attention == "bsa" else None, q, k, v, x, **kw)
     return dense(p.wo, out.reshape(B, N, mcfg.n_heads * mcfg.resolved_head_dim))
+
+
+class HeadSplit:
+    """This rank's heads of an attention layer whose projections are cut
+    over ``model``.
+
+    Where the query heads divide over the axis and a rank's share of them
+    covers whole GQA groups or lies inside one (``hq`` > 0: this rank's
+    ``hq`` of them, from ``q0``), wq / wk / wv are column products and wo a
+    row product.  The rank's query heads read the kv heads from ``kv0``
+    (``rep`` query heads each): its own part of wk / wv where the kv heads
+    divide too, else the whole k and v, all-gathered after the column
+    product and narrowed.  Then a GQA group straddles ranks, and the
+    selection scores, a sum over the group's query heads, are summed over
+    ``model`` (:meth:`reduce_scores`); else top-k needs no collective.  φ
+    and the gates are replicated weights in head-split compute
+    (``tensor_parallel.shared``).  ``hq`` == 0: the cut falls elsewhere (inside
+    a query head), and the layer runs whole on every rank."""
+
+    def __init__(self, mcfg, p, ax):
+        Hq, Hkv = mcfg.n_heads, mcfg.n_kv_heads
+        self.ax, self.hd, self.n_kv = ax, mcfg.resolved_head_dim, Hkv
+        cut = tensor_parallel.cut_dim
+        hq, group = Hq // ax.size, Hq // Hkv
+        split = (cut(p.wq.w) == 0 and cut(p.wk.w) == 0 and Hq % ax.size == 0
+                 and (hq % group == 0 or group % hq == 0))
+        self.hq = hq if split else 0
+        if not split:                    # JAX's one-shot warning of the fallback
+            mesh, rules = current_rules()
+            logical_to_spec(("heads",), (Hq,), mesh, rules)
+            return
+        self.q0 = ax.index * hq
+        self.kv0, kv = self.q0 // group, max(hq // group, 1)
+        self.rep = hq // kv
+        self.own_kv = Hkv % ax.size == 0
+        self.split_groups = self.rep != group
+
+    def _kv(self, w, xc):
+        B, N, _ = xc.shape
+        t = dense(w, xc)
+        if self.own_kv:
+            return t.reshape(B, N, -1, self.hd)
+        t = tensor_parallel.gather_summed(self.ax, -1, t).reshape(B, N, self.n_kv, self.hd)
+        return t.narrow(2, self.kv0, self.hq // self.rep)
+
+    def reduce_scores(self, s: torch.Tensor) -> torch.Tensor:
+        """Selection scores (B, M, kv, NB) of this rank's query heads → the
+        whole groups' (the sum over every rank's heads of each kv head);
+        no gradient (they feed top-k)."""
+        full = s.new_zeros((*s.shape[:2], self.n_kv, s.shape[-1]))
+        full.narrow(2, self.kv0, s.shape[2]).copy_(s.detach())
+        return comm.all_reduce_sum(full, self.ax).narrow(2, self.kv0, s.shape[2])
+
+    def _bsa(self, p):
+        """φ and the gates: the gradient summed over ``model``, the gates
+        narrowed to this rank's query heads."""
+        bsa = tensor_parallel.shared(self.ax, p)
+        g = bsa.gates
+        if getattr(g, "proj", None) is not None:     # token gates: rows (3, Hq, ·)
+            H = g.proj.w.shape[0] // 3
+            g.proj.w = g.proj.w.reshape(3, H, -1).narrow(1, self.q0, self.hq).reshape(
+                3 * self.hq, -1)
+            g.proj.b = g.proj.b.reshape(3, H).narrow(1, self.q0, self.hq).reshape(-1)
+        else:
+            for b in BRANCHES:
+                setattr(g, b, getattr(g, b).narrow(0, self.q0, self.hq))
+        return bsa
+
+    def apply(self, p, x, *, mcfg, positions, rope, **kw):
+        B, N, _ = x.shape
+        xc = tensor_parallel.copy_to_model(self.ax, x)
+        q = dense(p.wq, xc).reshape(B, N, self.hq, self.hd)
+        k, v = self._kv(p.wk, xc), self._kv(p.wv, xc)
+        if rope and positions is not None:
+            cos, sin = rope_angles(positions, self.hd, mcfg.rope_theta)
+            q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        bsa = self._bsa(p.bsa) if mcfg.attention == "bsa" else None
+        out = _attend(bsa, q, k, v, xc, mcfg=mcfg,
+                      score_reduce=self.reduce_scores if self.split_groups else None, **kw)
+        return row_dense(p.wo, out.reshape(B, N, self.hq * self.hd))
 
 
 def cross_attention_apply(p: AttentionLayer, x, memory_kv, *, mcfg,

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.layers.nn import Dense, RMSNorm, dense, rmsnorm
+from repro_torch.distributed import tensor_parallel
+from repro_torch.layers.nn import Dense, RMSNorm, dense, rmsnorm, row_dense
 
 __all__ = ["CHUNK", "Mamba2", "mamba2_init", "mamba2_apply", "mamba2_cache_init",
            "mamba2_decode"]
@@ -87,14 +88,39 @@ def _conv_train(p: Mamba2, u: torch.Tensor) -> torch.Tensor:
     return out.to(u.dtype) + p.conv_b.to(u.dtype)
 
 
-def _gated_out(p: Mamba2, y, z, mcfg, dtype):
-    y = rmsnorm(p.norm, y * F.silu(z.float()).to(dtype), mcfg.norm_eps)
-    return dense(p.out_proj, y)
+def _gated(p: Mamba2, y, z, mcfg, dtype):
+    """The gated RMSNorm of the SSD's output (out_proj's input)."""
+    return rmsnorm(p.norm, y * F.silu(z.float()).to(dtype), mcfg.norm_eps)
 
 
 def mamba2_apply(p: Mamba2, x: torch.Tensor, mcfg) -> torch.Tensor:
     """x: (B, S, d_model) → (B, S, d_model) by the chunked SSD scan; S must
-    be a multiple of the chunk (or shorter than one)."""
+    be a multiple of the chunk (or shorter than one).
+
+    Where ``in_proj`` and ``out_proj`` are cut over ``model``
+    (``distributed/tensor_parallel.py``): in_proj is a column product whose
+    outputs (z, x, B, C and dt side by side, which a flat cut does not
+    split by heads) are all-gathered, the convolution and the scan run
+    whole on every rank, and out_proj is a row product on this rank's
+    columns of their output.  A layer with only one of them cut runs whole
+    on gathered weights."""
+    cut = tensor_parallel.cut_dim
+    if cut(p.in_proj.w) is None and cut(p.out_proj.w) is None:
+        return dense(p.out_proj, _mamba(p, dense(p.in_proj, x), x, mcfg))
+    ax = tensor_parallel.axis()
+    if cut(p.in_proj.w) != 0 or cut(p.out_proj.w) != 1:
+        w = tensor_parallel.whole(ax, p)
+        return dense(w.out_proj, _mamba(w, dense(w.in_proj, x), x, mcfg))
+    xc = tensor_parallel.copy_to_model(ax, x)
+    proj = tensor_parallel.gather_summed(ax, -1, dense(p.in_proj, xc))
+    y = _mamba(tensor_parallel.shared(ax, p, skip=("in_proj", "out_proj")), proj, x, mcfg)
+    n = p.out_proj.w.shape[1]
+    return row_dense(p.out_proj, y.narrow(-1, ax.index * n, n))
+
+
+def _mamba(p, proj, x, mcfg) -> torch.Tensor:
+    """The convolution, the SSD scan and the gated norm on ``in_proj``'s
+    output ``proj`` for the layer input ``x``: out_proj's input."""
     B, S, _ = x.shape
     d_inner, H, P, Ns = _dims(mcfg)
     Q = min(CHUNK, S)
@@ -102,7 +128,7 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, mcfg) -> torch.Tensor:
         raise ValueError(f"sequence length {S} is not a multiple of the chunk {Q}")
     nc = S // Q
 
-    z, xin, Bm, Cm, dt = _split_proj(dense(p.in_proj, x), mcfg)
+    z, xin, Bm, Cm, dt = _split_proj(proj, mcfg)
     xBC = F.silu(_conv_train(p, torch.cat([xin, Bm, Cm], -1)).float()).to(x.dtype)
     xin, Bm, Cm = torch.split(xBC, [d_inner, Ns, Ns], dim=-1)
     xin = xin.reshape(B, S, H, P)
@@ -149,7 +175,7 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, mcfg) -> torch.Tensor:
     y = (y_intra + y_inter).reshape(B, S, H, P)
     y = y + p.D.float()[None, None, :, None] * xin.float()
     y = y.reshape(B, S, d_inner).to(x.dtype)
-    return _gated_out(p, y, z, mcfg, x.dtype)
+    return _gated(p, y, z, mcfg, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -188,4 +214,5 @@ def mamba2_decode(p: Mamba2, x1: torch.Tensor, cache: dict, mcfg) -> tuple:
     y = torch.einsum("bn,bhnp->bhp", Cm.float(), h)
     y = y + p.D.float()[None, :, None] * xin.float()
     y = y.reshape(B, 1, d_inner).to(x1.dtype)
-    return _gated_out(p, y, z, mcfg, x1.dtype), {"h": h, "conv": win[:, 1:]}
+    return (dense(p.out_proj, _gated(p, y, z, mcfg, x1.dtype)),
+            {"h": h, "conv": win[:, 1:]})

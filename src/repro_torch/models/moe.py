@@ -18,6 +18,14 @@ k choices of a token in a fixed order.  So no backward adds two
 contributions into one row by atomics, and a backward on the card gives
 the same bits on every call.  The expert products run in fp32 on the
 exact widened operands (``preferred_element_type=float32``).
+
+Under tensor parallelism (the stack cut over the ``model`` axis,
+``distributed/tensor_parallel.py``) every rank routes every token, as
+JAX's GSPMD step does, so the drop set is the same; a rank then runs only
+its ``E_pad / model`` experts on the rows dispatched to them (or, where
+the experts do not divide, its part of every expert's ffn dim), and the
+combine is summed over ``model``.  The router and the shared expert's
+products follow their own weights' layout.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.distributed.sharding import batch_total
 from repro_torch.layers.nn import Dense, SwiGLU, dense, swiglu
 
@@ -125,34 +134,54 @@ def moe_apply(p: MoE, x: torch.Tensor, mcfg,
     aux_loss = E * torch.sum(r["probs"].sum((0, 1)) / tokens
                              * batch_total(expert_counts).float() / (tokens * k))
 
+    # expert parallelism (``distributed/tensor_parallel.py``): the stack cut
+    # over ``model`` on the expert dim (this rank's ``Ep / model`` experts
+    # from ``e0``), or inside each expert on the ffn dim where the experts do
+    # not divide; the routing is every rank's, the combine a sum over model
+    split = tensor_parallel.cut_dim(p.w_gate)
+    xs, w, e0, El = x, r["w"], 0, Ep
+    if split is not None:
+        ax = tensor_parallel.axis()
+        xs, w = tensor_parallel.copy_to_model(ax, x, w)
+        if split == 0:
+            El = p.w_gate.shape[0]
+            e0 = ax.index * El
+
     # dispatch: row c of expert e in batch row b is the assignment at sorted
     # position starts[e] + c when c < min(counts[e], cap); else the zero row
     n = B * S * k
-    xk = x[:, :, None, :].expand(B, S, k, d).reshape(n, d)
+    xk = xs[:, :, None, :].expand(B, S, k, d).reshape(n, d)
     xk = torch.cat([xk, xk.new_zeros((1, d))])                      # row n: zeros
     c = torch.arange(cap, device=x.device)
-    pos = (starts[:, :, None] + c).clamp(max=S * k - 1)             # (B, Ep, cap)
-    src = order.gather(1, pos.reshape(B, Ep * cap)).reshape(B, Ep, cap)
+    starts, counts = starts[:, e0:e0 + El], counts[:, e0:e0 + El]
+    pos = (starts[:, :, None] + c).clamp(max=S * k - 1)             # (B, El, cap)
+    src = order.gather(1, pos.reshape(B, El * cap)).reshape(B, El, cap)
     src = src + (torch.arange(B, device=x.device) * S * k)[:, None, None]
     src = torch.where(c < counts[:, :, None], src, n)
-    buf = xk[src.reshape(-1)].reshape(B, Ep, cap, d)
+    buf = xk[src.reshape(-1)].reshape(B, El, cap, d)
 
     # the experts: stacked SwiGLU, one batched product each, in fp32
-    bufe = buf.transpose(0, 1).reshape(Ep, B * cap, d).float()
+    bufe = buf.transpose(0, 1).reshape(El, B * cap, d).float()
     h_g = torch.bmm(bufe, p.w_gate.float())
     h_u = torch.bmm(bufe, p.w_up.float())
     h = (F.silu(h_g) * h_u).to(x.dtype)
-    out = torch.bmm(h.float(), p.w_down.float()).to(x.dtype)       # (Ep, B·cap, d)
-    out = out.reshape(Ep, B, cap, d).transpose(0, 1).reshape(B * Ep * cap, d)
+    out = torch.bmm(h.float(), p.w_down.float())
+    if split != 2:                       # a cut ffn dim: partial sums until the combine
+        out = out.to(x.dtype)
+    out = out.reshape(El, B, cap, d).transpose(0, 1).reshape(B * El * cap, d)
     out = torch.cat([out, out.new_zeros((1, d))])                   # the dropped read zeros
 
     # combine: each assignment's row, weighted, summed over its k choices
-    slot = r["slot"]
-    row = (torch.arange(B, device=x.device)[:, None, None] * Ep + r["top_e"]) * cap + slot
-    row = torch.where(slot < cap, row, B * Ep * cap)
-    y_k = out[row.reshape(-1)].reshape(B, S, k, d).float() * r["w"][..., None]
-    y = y_k.sum(2).to(x.dtype)
+    # (and over model: a rank holds the rows of its experts, or its part of
+    # every expert's)
+    slot, top_e = r["slot"], r["top_e"] - e0
+    row = (torch.arange(B, device=x.device)[:, None, None] * El + top_e) * cap + slot
+    row = torch.where((slot < cap) & (top_e >= 0) & (top_e < El), row, B * El * cap)
+    y = (out[row.reshape(-1)].reshape(B, S, k, d).float() * w[..., None]).sum(2)
+    if split is not None:
+        y = tensor_parallel.reduce_from_model(ax, y)
+    y = y.to(x.dtype)
     if hasattr(p, "shared"):
         y = y + swiglu(p.shared, x.reshape(B * S, d)).reshape(B, S, d)
     return y, {"aux_loss": aux_loss, "expert_counts": expert_counts, "top_e": r["top_e"],
-               "dropped": (slot == cap).any(-1)}
+               "dropped": (r["slot"] == cap).any(-1)}

@@ -29,11 +29,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import comm, tensor_parallel
 from repro_torch.distributed.sharding import forward_context
 from repro_torch.core.nsa_causal import dense_step, paged_step
 from repro_torch.layers.losses import masked_mean_nll
-from repro_torch.layers.nn import (Dense, Embed, RMSNorm, SwiGLU, dense, embed, rmsnorm,
-                                   swiglu, unembed)
+from repro_torch.layers.nn import (Dense, Embed, RMSNorm, SwiGLU, column_dense, dense, embed,
+                                   rmsnorm, swiglu, unembed)
 from repro_torch.models.attention_layer import (AttentionLayer, attention_cache_init,
                                                 attention_layer_apply,
                                                 attention_layer_decode,
@@ -125,11 +126,23 @@ def lm_init(mcfg, *, generator: torch.Generator, device) -> LanguageModel:
     return LanguageModel(mcfg, generator=generator, device=device)
 
 
+def _vocab_part(params: LanguageModel, mcfg):
+    """(the ``model`` axis group, this rank's first vocabulary id) where the
+    logits' weight (``lm_head``, or the tied table) is cut over ``model``
+    (``distributed/tensor_parallel.py``), else None."""
+    w = params.embed.table if mcfg.tie_embeddings else params.lm_head.w
+    if tensor_parallel.cut_dim(w) is None:
+        return None
+    ax = tensor_parallel.axis()
+    return ax, ax.index * w.shape[0]
+
+
 def _logits(params: LanguageModel, x, mcfg) -> torch.Tensor:
+    """fp32 logits; this rank's vocabulary slice where ``_vocab_part``."""
     x = rmsnorm(params.final_norm, x, mcfg.norm_eps)
     if mcfg.tie_embeddings:
         return unembed(params.embed, x)
-    return dense(params.lm_head, x).float()
+    return column_dense((params.lm_head,), x)[0].float()
 
 
 def _ffn(lp: LMLayer, x, mcfg, aux: list | None = None) -> torch.Tensor:
@@ -176,7 +189,21 @@ def lm_apply(params: LanguageModel, tokens=None, *, mcfg, inputs_embeds=None, ma
     """tokens: (B, N) int, or ``inputs_embeds`` (B, N, d) → (logits (B, N, V)
     fp32, the MoE auxiliary loss summed over the layers: a 0-d fp32 zero
     without MoE).  Differentiable (the serving entry points call it under
-    ``torch.inference_mode()``)."""
+    ``torch.inference_mode()``).  Under tensor parallelism the vocabulary
+    slices are gathered into the whole logits (:func:`lm_loss` never
+    gathers them)."""
+    logits, aux = _lm_forward(params, tokens, mcfg=mcfg, inputs_embeds=inputs_embeds,
+                              mask=mask, positions=positions)
+    part = _vocab_part(params, mcfg)
+    if part is not None:
+        logits = comm.gather(part[0], -1, logits)
+    return logits, aux
+
+
+def _lm_forward(params: LanguageModel, tokens=None, *, mcfg, inputs_embeds=None, mask=None,
+                positions=None) -> tuple:
+    """:func:`lm_apply` with the logits of this rank's vocabulary slice
+    under tensor parallelism."""
     if inputs_embeds is None:
         x = embed(params.embed, tokens, dtype=mcfg.cdtype())
     else:
@@ -200,9 +227,10 @@ def lm_apply(params: LanguageModel, tokens=None, *, mcfg, inputs_embeds=None, ma
 def lm_loss(params: LanguageModel, batch: dict, *, mcfg):
     """batch: {tokens (B, N), labels (B, N)[, loss_mask (B, N)][,
     inputs_embeds]} → (loss + 0.01·aux_loss, {"loss", "aux_loss"})."""
-    logits, aux_loss = lm_apply(params, batch["tokens"], mcfg=mcfg,
-                                inputs_embeds=batch.get("inputs_embeds"))
-    loss = masked_mean_nll(logits, batch["labels"], batch.get("loss_mask"))
+    logits, aux_loss = _lm_forward(params, batch["tokens"], mcfg=mcfg,
+                                   inputs_embeds=batch.get("inputs_embeds"))
+    loss = masked_mean_nll(logits, batch["labels"], batch.get("loss_mask"),
+                           part=_vocab_part(params, mcfg))
     return loss + 0.01 * aux_loss, {"loss": loss, "aux_loss": aux_loss}
 
 

@@ -19,10 +19,12 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float, *, norm=None):
     """Scale ``grads`` in place by min(1, max_norm / max(norm, 1e-12));
-    returns (grads, norm)."""
-    norm = global_norm(grads)
+    returns (grads, norm).  ``norm``: the norm to read, where ``grads``
+    are parts of a larger gradient (default: their own global norm)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     torch._foreach_mul_(grads, scale)
     return grads, norm

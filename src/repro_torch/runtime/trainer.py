@@ -25,14 +25,32 @@ batches), the layouts of ``distributed/params.py`` are realised so, as
 PyTorch has no GSPMD to turn them into a partitioned program:
 
 * Data parallelism.  Each rank takes its slice of the global batch along
-  dim 0, by ``batch_shardings`` over ``pod`` / ``data``, and computes the
-  forward and backward with whole parameters.  A packed point-cloud batch
-  (an ``offsets`` key) has no batch dim: its samples are split whole
-  (``ring.plan_segments`` on the host offsets) and re-packed, never its
-  rows.  The step is ``make_train_step``, run under ``sharding.axis_rules``
-  with the logical ``batch`` on the axes the batch is split over; there it
-  sums the gradients, the loss and the metrics over the data ranks in rank
-  order (``sharding.batch_total``), so every rank holds the same bits.
+  dim 0, by ``batch_shardings`` over ``pod`` / ``data``.  A packed
+  point-cloud batch (an ``offsets`` key) has no batch dim: its samples are
+  split whole (``ring.plan_segments`` on the host offsets) and re-packed,
+  never its rows.  The step is ``make_train_step``, run under
+  ``sharding.axis_rules`` (the ``rules`` given, then ``batch`` on the axes
+  the batch is split over); there it sums the gradients, the loss and the
+  metrics over the data ranks in rank order (``sharding.batch_total``), so
+  every rank holds the same bits.
+* Megatron's compute over ``model`` (``distributed/tensor_parallel.py``)
+  for the point-cloud, dense, MoE, SSM and hybrid families
+  (``TP_FAMILIES``).  Each weight that
+  ``param_shardings`` cuts over ``model`` is held as this rank's part of
+  it, during the step and between the steps of a ``fit``, and the rank
+  computes only with that part: wq / wk / wv, gate / up, fc1 and
+  ``lm_head`` are column products and wo, down, fc2 row products, so that
+  it runs its own attention heads (``models.attention_layer.HeadSplit``)
+  and FFN columns; the embedding is looked up on its vocabulary rows and
+  the loss reduces the max, the sum of exponentials and the gold logit
+  over ``model`` without gathering the logits; an MoE layer runs its own
+  experts; a mamba layer all-gathers its in_proj outputs after the column
+  product, runs the scan whole and its out_proj as a row product.  The
+  gradients, the data-axis sums and the AdamW moments then act on the
+  parts.  A layer whose cut does not fall on query heads runs whole on
+  gathered weights (JAX's replication fallback), and the VLM and
+  encoder-decoder families keep whole weights and compute the same thing
+  on every rank of ``model`` (ROADMAP).
 * Exact losses.  Under those rules the loss functions divide by counts
   taken over the whole batch (``batch_total`` again: the masked points,
   the unmasked tokens, the MoE router's load statistics), so the ranks'
@@ -41,11 +59,13 @@ PyTorch has no GSPMD to turn them into a partitioned program:
 * Layouts as ownership.  Each rank holds only its part of each AdamW
   moment, by ``opt_shardings`` (ZeRO-1 over the data axes, and the
   Megatron dims over ``model``), and updates the matching part of the
-  parameter; the parts are then all-gathered in rank order.  The
-  global-norm clip reads the whole reduced gradient before the update.
-  With ``mcfg.fsdp`` the parameters between the steps of a ``fit`` are
-  kept as their parts by ``param_shardings`` and gathered at the start of
-  a step (whole again when ``fit`` returns).
+  parameter; the parts are then all-gathered over the data axes in rank
+  order.  The global-norm clip reads the norm of the whole gradient: the
+  squares of the parts cut over ``model`` are summed over it in rank
+  order.  With ``mcfg.fsdp`` the parameters between the steps of a
+  ``fit`` are kept as their parts by ``param_shardings`` and gathered
+  over the data axes at the start of a step.  ``fit`` returns the whole
+  parameters.
 * Checkpoints.  A save gathers the full state on the main thread before
   the async write, and rank 0 writes it; a restore cuts this rank's parts
   of the full tensors under the current mesh, which may differ from the
@@ -53,12 +73,13 @@ PyTorch has no GSPMD to turn them into a partitioned program:
 * SIGTERM.  The flag is agreed over the ranks every step (a max), so
   every rank saves the same step or none does.
 
-Megatron's column / row compute over ``model`` is not realised: the ranks
-of the ``model`` axis compute the same thing (ROADMAP).  JAX's ``Trainer``
-also takes axis ``rules``, which steer GSPMD's layout of the activations
-(``constrain``); the port has no GSPMD (``constrain`` returns its input),
-so its ``Trainer`` takes none.  Without a mesh everything is as on one
-card.
+``rules`` (logical axis → mesh axes) is accepted for the signature of
+JAX's ``Trainer`` only, and changes no number, as in JAX: it is merged
+into the step's ``axis_rules``, where JAX's rules steer only GSPMD's
+layout of the activations (``constrain``, which returns its input here);
+which weights are cut comes from ``param_shardings``, whatever the rules
+say, and ``batch`` is always the axes the trainer splits the batch over.
+Without a mesh everything is as on one card.
 """
 
 from __future__ import annotations
@@ -71,15 +92,19 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
-from repro_torch.distributed import comm, ring
-from repro_torch.distributed.params import (axis_coordinate, batch_shardings, full_tensor,
-                                            local_part, opt_shardings, param_shardings)
+from repro_torch.distributed import comm, ring, tensor_parallel
+from repro_torch.distributed.params import (Spec, axis_coordinate, batch_shardings,
+                                            full_tensor, local_part, opt_shardings,
+                                            param_shardings)
 from repro_torch.distributed.sharding import axis_rules
 from repro_torch.launch.steps import make_train_step
-from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.optim import adamw_init, adamw_update, global_norm
 from repro_torch.runtime.watchdog import Watchdog
 
-__all__ = ["TrainerConfig", "Trainer", "to_device"]
+__all__ = ["TrainerConfig", "Trainer", "to_device", "TP_FAMILIES"]
+
+# the families whose compute is split over ``model``
+TP_FAMILIES = ("pointcloud", "dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -106,10 +131,11 @@ def to_device(batch: dict, device) -> dict:
 
 
 class Trainer:
-    def __init__(self, api, cfg: TrainerConfig, *, mesh=None, device="cuda"):
+    def __init__(self, api, cfg: TrainerConfig, *, mesh=None, rules=None, device="cuda"):
         self.api = api
         self.cfg = cfg
         self.mesh = mesh
+        self.rules = dict(rules or {})
         self.device = torch.device(device)
         self.watchdog = Watchdog()
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep_last=cfg.keep_last)
@@ -120,12 +146,13 @@ class Trainer:
         self.data_state = None
         self.p_sh = self.o_sh = None
         self._shapes: dict = {}
-        self._params_cut = False                 # fsdp: parameters held as their parts
+        self._held = None          # None: whole parameters; "model": tp parts; "fsdp"
         self._train_step = make_train_step(
             api, base_lr=cfg.base_lr, weight_decay=cfg.weight_decay,
             total_steps=cfg.total_steps, warmup_steps=cfg.warmup_steps,
             max_grad_norm=cfg.max_grad_norm,
-            update=None if mesh is None else self._update_parts)
+            update=None if mesh is None else self._update_parts,
+            grad_norm=None if mesh is None else self._grad_norm)
         self._step = self._train_step if mesh is None else self._mesh_step
 
     @property
@@ -143,12 +170,30 @@ class Trainer:
         return model, self._opt_init(model)
 
     def _layouts(self, model) -> None:
+        """The specs over the mesh: ``p_sh`` / ``o_sh`` (``param_shardings``
+        / ``opt_shardings``) of the whole tensors, ``tp_sh`` the cut over
+        ``model`` that the compute takes (none outside ``TP_FAMILIES``), and
+        ``_rel_p`` / ``_rel_o`` the rest of ``p_sh`` / ``o_sh`` on a
+        ``tp_sh`` part (of shape ``_part_shapes``)."""
         if self.mesh is None or self.p_sh is not None:
             return
-        params = dict(model.named_parameters())
+        params = dict(model.named_parameters())       # whole here
         self._shapes = {n: tuple(p.shape) for n, p in params.items()}
         self.p_sh = param_shardings(params, self.mesh, zero1=self.api.mcfg.fsdp)
         self.o_sh = opt_shardings({"m": params, "v": params, "step": 0}, self.mesh)
+        split = self.api.mcfg.family in TP_FAMILIES
+        tp = param_shardings(params, self.mesh) if split else {}
+        self.tp_sh, self._rel_p, self._rel_o, self._part_shapes = {}, {}, {}, {}
+        for n, shape in self._shapes.items():
+            dim = tensor_parallel.model_dim(tp[n]) if split else None
+            self.tp_sh[n] = Spec(tuple(tensor_parallel.MODEL if i == dim else None
+                                       for i in range(len(shape))))
+            part = list(shape)
+            if dim is not None:
+                part[dim] //= self.mesh.shape[tensor_parallel.MODEL]
+            self._part_shapes[n] = tuple(part)
+            self._rel_p[n] = _without(self.p_sh[n], dim)
+            self._rel_o[n] = _without(self.o_sh["m"][n], dim)
 
     def _opt_init(self, model) -> dict:
         dtype = getattr(torch, self.api.mcfg.opt_state_dtype)
@@ -202,10 +247,46 @@ class Trainer:
         return {"params": params, "opt": opt}
 
     def _full_param(self, name, p):
-        if not self._params_cut:
-            return p
-        return full_tensor(p.data.contiguous(), self.p_sh[name], self._shapes[name],
-                           self.mesh)
+        """The whole of a parameter held as its part (a collective)."""
+        if self._held == "fsdp":
+            p = full_tensor(p.data.contiguous(), self._rel_p[name], self._part_shapes[name],
+                            self.mesh)
+        if self._held is not None and tensor_parallel.model_dim(self.tp_sh[name]) is not None:
+            p = full_tensor(p.data.contiguous(), self.tp_sh[name], self._shapes[name],
+                            self.mesh)
+        return p
+
+    def hold(self, model, held) -> None:
+        """Keep ``model``'s parameters as ``held`` says: None whole, "model"
+        this rank's parts over ``model`` (``tp_sh``; each cut one marked by
+        ``tensor_parallel.cut``), "fsdp" its parts by ``param_shardings``
+        (a collective where parts are gathered: every rank calls it).  A
+        gradient of the shape left behind is dropped."""
+        if held == self._held:
+            return
+        for n, p in model.named_parameters():
+            p.grad = None
+            dim = tensor_parallel.model_dim(self.tp_sh[n])
+            if self._held == "fsdp":            # → this rank's tp part
+                p.data = full_tensor(p.data.contiguous(), self._rel_p[n],
+                                     self._part_shapes[n], self.mesh)
+            elif self._held is None and dim is not None:
+                p.data = local_part(p.data, self.tp_sh[n], self.mesh).clone()
+            if held is None:
+                if dim is not None:
+                    p.data = full_tensor(p.data.contiguous(), self.tp_sh[n],
+                                         self._shapes[n], self.mesh)
+                tensor_parallel.uncut(p)
+                continue
+            if dim is not None:
+                tensor_parallel.cut(p, dim)
+            if held == "fsdp":
+                p.data = local_part(p.data, self._rel_p[n], self.mesh).clone()
+        self._held = held
+
+    def param_bytes(self, model) -> int:
+        """Bytes of the parameters this rank holds now."""
+        return sum(p.numel() * p.element_size() for p in model.parameters())
 
     def _install_sigterm(self):
         """SIGTERM sets a flag: the step it lands in saves (blocking) and the
@@ -276,35 +357,46 @@ class Trainer:
         loss's counts and the metrics summed over them), with the update of
         :meth:`_update_parts`."""
         batch, axes = batch_axes
-        if self._params_cut:                      # fsdp: whole parameters for the step
-            for n, p in model.named_parameters():
-                p.data = self._full_param(n, p)
-            self._params_cut = False
-        with axis_rules(self.mesh, {"batch": axes or None}):
+        self.hold(model, "model")                 # the parts the compute takes
+        with axis_rules(self.mesh, {**self.rules, "batch": axes or None}):
             out = self._train_step(model, opt_state, batch)
-        self._params_cut = self.api.mcfg.fsdp
         return out
+
+    def _grad_norm(self, grads: dict) -> torch.Tensor:
+        """The norm of the whole (data-reduced) gradient: the squares of the
+        parts cut over ``model`` summed over it in rank order."""
+        split = {n for n in grads if tensor_parallel.model_dim(self.tp_sh[n]) is not None}
+        if not split:
+            return global_norm(list(grads.values()))
+        rest = [g for n, g in grads.items() if n not in split]
+        sq = comm.all_reduce_sum(global_norm([grads[n] for n in split]) ** 2,
+                                 self.mesh.axis_group(tensor_parallel.MODEL))
+        if rest:
+            sq = sq + global_norm(rest) ** 2
+        return torch.sqrt(sq)
 
     def _update_parts(self, params, grads, opt_state, lr):
         """AdamW on this rank's parts (``opt_shardings``) of the parameters
-        and of the reduced, clipped gradients; the parts are then gathered
-        in rank order (with ``mcfg.fsdp``, cut again by
-        ``param_shardings``)."""
-        mesh, o_sh = self.mesh, self.o_sh["m"]
-        parts = {n: local_part(p.data, o_sh[n], mesh) for n, p in params.items()}
-        opt_state = adamw_update(parts, {n: local_part(g, o_sh[n], mesh)
+        and of the reduced, clipped gradients, both held as their ``model``
+        parts; the parts are then gathered over the data axes in rank order
+        (with ``mcfg.fsdp``, cut again by ``param_shardings``)."""
+        mesh, rel_o, rel_p = self.mesh, self._rel_o, self._rel_p
+        parts = {n: local_part(p.data, rel_o[n], mesh) for n, p in params.items()}
+        opt_state = adamw_update(parts, {n: local_part(g, rel_o[n], mesh)
                                          for n, g in grads.items()},
                                  opt_state, lr=lr, weight_decay=self.cfg.weight_decay)
         fsdp = self.api.mcfg.fsdp
         for n, p in params.items():
-            if fsdp and self.p_sh[n] == o_sh[n] and self.p_sh[n].owner == o_sh[n].owner:
+            if fsdp and rel_p[n] == rel_o[n] and rel_p[n].owner == rel_o[n].owner:
                 p.data = parts[n].clone()
                 continue
-            full = full_tensor(parts[n].contiguous(), o_sh[n], p.shape, mesh)
+            full = full_tensor(parts[n].contiguous(), rel_o[n], p.shape, mesh)
             if fsdp:
-                p.data = local_part(full, self.p_sh[n], mesh).clone()
+                p.data = local_part(full, rel_p[n], mesh).clone()
             else:
                 p.data.copy_(full)
+        if fsdp:
+            self._held = "fsdp"
         return opt_state
 
     # ------------------------------------------------------------------
@@ -370,9 +462,15 @@ class Trainer:
             if self.ckpt:
                 self.ckpt.wait()
             self.wall_time = time.time() - t_train0
-        if self._params_cut:                      # fsdp: whole parameters to the caller
-            for n, p in model.named_parameters():
-                p.data = self._full_param(n, p)
-            self._params_cut = False
+        if self.mesh is not None:
+            self.hold(model, None)                # whole parameters to the caller
         self._agree(False)                        # every rank past the last write
         return model, opt_state
+
+
+def _without(spec: Spec, dim) -> Spec:
+    """``spec`` less its cut of ``dim`` (over ``model``): the same layout on
+    a tensor that holds only this rank's ``model`` part of that dim."""
+    if dim is None:
+        return spec
+    return Spec(tuple(None if i == dim else e for i, e in enumerate(spec)), spec.owner)

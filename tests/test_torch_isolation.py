@@ -39,7 +39,7 @@ NAMED = ("configs/base.py", "kernels/local.py", "kernels/_build.py", "layers/los
          "configs/phi4_mini_3_8b.py", "configs/granite_20b.py", "checkpoint/manager.py",
          "runtime/trainer.py", "runtime/watchdog.py", "launch/quickstart.py",
          "launch/train_shapenet.py", "launch/serve.py", "distributed/params.py",
-         "distributed/pipeline.py", "optim/compress.py")
+         "distributed/pipeline.py", "optim/compress.py", "distributed/tensor_parallel.py")
 
 
 def _imported_modules(path: Path) -> set:
@@ -84,7 +84,8 @@ def test_importing_the_port_loads_no_jax():
 
 def test_models_leave_the_sharded_backend_unloaded():
     """The models reach the distributed layer only through ``sharding``
-    (remat's ``forward_context``, the losses' ``batch_total``): importing
+    (remat's ``forward_context``, the losses' ``batch_total``) and
+    ``tensor_parallel`` (the compute over ``model``, on ``comm``): importing
     them loads neither the ring nor the ``"sharded"`` backend, which
     ``core.backend`` registers on first use, and the package's names still
     resolve."""
@@ -101,8 +102,8 @@ def test_models_leave_the_sharded_backend_unloaded():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.splitlines() == [
-        "['repro_torch.distributed.comm', 'repro_torch.distributed.sharding'] "
-        "['kernels', 'reference']",
+        "['repro_torch.distributed.comm', 'repro_torch.distributed.sharding', "
+        "'repro_torch.distributed.tensor_parallel'] ['kernels', 'reference']",
         "True ['kernels', 'reference', 'sharded']"]
 
 
