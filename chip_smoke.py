@@ -77,7 +77,7 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    flip);
 4. train, padded then packed: ``shapenet-bsa`` at full width and depth
    (18 layers, fp32; the ball kernels on their ``fma`` path) takes one
-   warm-up step and then ``TRAIN_STEPS`` (4) timed steps of
+   warm-up step and then ``TRAIN_STEPS`` (3) timed steps of
    ``make_train_step`` (masked MSE, backward, clipping at 1.0, AdamW at lr
    1e-3 with warm-up and cosine decay over 300 steps, weight decay 0.01),
    padded on batches of 8 ShapeNet-Car train clouds padded to 3840, packed
@@ -272,9 +272,9 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    ``api.cache_init(params=, memory=)`` and ``api.decode_step``, held to
    ``decode_train`` with each decoder layer fed the forward's input.
    ``vlm_phase``: llava-next-34b (60 layers, d 7168, 56 / 8 heads of 128;
-   34.45 B parameters) prefills 512 image + 3,584 text tokens at the
-   depth whose weights leave 6 GB under 76 GB (all 60 on an 80 GB card),
-   every layer held to the reference backend.  jamba-1.5-large-398b runs
+   34.45 B parameters) prefills 512 image + 3,584 text tokens at
+   ``LLAVA_DEPTH`` (30) layers (all 60 leave 6 GB under 76 GB on an 80 GB
+   card), every layer held to the reference backend.  jamba-1.5-large-398b runs
    on the CPU only (one 8-layer period is ~44 B parameters).
 17. sharded (``sharded_phase``, last): the ``"sharded"`` backend in ranks
    that share the one card (spawned processes, a gloo group over
@@ -320,21 +320,29 @@ imports nothing of JAX and nothing of the JAX package.  Phases:
    pods' mean loss, gradients within 2e-2 of the exact mean, a non-zero
    residual.  Megatron's compute over ``model`` (``tp_train_case``, 2
    ranks on (1, 2)): tinyllama-1.1b and qwen2-moe-a2.7b (32 of 64 padded
-   experts a rank) at full width and ``TP_LAYERS`` (2) layers, bf16, remat,
-   1 + 2 steps of 2 × 4,096 tokens through ``Trainer(mesh=...)``: launches
-   (paths ``tp_train`` / ``tp_moe``), the parameter bytes a rank holds
-   (half of every cut weight, checked), peak memory, collectives and step
-   times; parameters equal in bits on both ranks; each layer held to one
-   rank's given the same input and upstream gradient (4e-2 / 6e-2, the MoE
-   routing held); a fp32 step from the same weights held to one rank's at
-   1e-5 (loss, gradient norm, every gradient).  Each rank's launches are
-   printed; the timings are of ranks sharing one card, no scaling number.
+   experts a rank) on 2 × 4,096 tokens, llava-next-34b on 512 image +
+   3,584 text tokens, seamless-m4t-medium (2 + 2 layers) on 4,096 frames
+   and 512 tokens and mamba2-1.3b (its scan on 32 of 64 heads a rank) on
+   1 × 4,096, at full width and ``TP_LAYERS`` (2) layers, bf16, remat, 1 +
+   2 steps through ``Trainer(mesh=...)``: launches (paths ``tp_train`` /
+   ``tp_moe`` / ``tp_vlm`` / ``tp_encdec`` / ``tp_ssm``), the parameter
+   bytes a rank holds (half of every cut weight, checked), peak memory,
+   collectives and step times; parameters equal in bits on both ranks;
+   each layer (llava's projector, seamless's encoder and decoder layers
+   and ``frontend_proj`` too) held to one rank's given the same input and
+   upstream gradient (4e-2 / 6e-2, the MoE routing held); a fp32 step from
+   the same weights held to one rank's at 1e-5 (the one rank on the split
+   step's selection picks: loss, gradient norm, the whole gradient, and
+   every gradient but on llava and seamless, where fp32 rounds a tensor
+   further; mamba2's also in float64, every gradient).  Each rank's
+   launches are printed; the timings are of ranks sharing one card, no
+   scaling number.
 
 ``$REPRO_TORCH_ATTENTION_BACKEND`` must be unset: it would beat every
 backend the script names.  The shapenet paths run at full width and
 depth but the sharded padded case (``SHARDED_PADDED_LAYERS``); the dense
-LMs run at ``DENSE_DEPTH`` (stablelm 12 of 24 layers, phi4-mini 16 of 32,
-granite-20b 13 of 52).  Any failed check exits
+LMs run at ``DENSE_DEPTH`` (stablelm 6 of 24 layers, phi4-mini 8 of 32,
+granite-20b 6 of 52).  Any failed check exits
 non-zero before the result lines.  On
 success the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -406,7 +414,7 @@ GRAD_REL_TOL = 1e-4          # train_reference_check, relative to each tensor's 
 # against the layer's largest parameter gradient): φ_k's output bias under
 # φ = "mlp" shifts every pooled key alike
 ZERO_GRADS = ("attn.bsa.phi_k.fc2.b",)
-TRAIN_STEPS = 4             # 5 until the training cases across ranks needed the time
+TRAIN_STEPS = 3             # 5, then 4, until the cases across ranks needed the time
 
 # the kernels, their sources and the TPU kernels they replace
 KERNELS = {
@@ -477,10 +485,14 @@ PATHS["dp_train_packed"] = PATHS["train_packed"]
 PATHS["dp_resume"] = PATHS["train_padded"]
 PATHS["remat_lm"] = PATHS["sharded_prefill"] + ("local_dq", "local_dkv", "flash_dq",
                                                 "flash_dkv", "epilogue_bwd")
-# Megatron's compute over "model" (Trainer(mesh=(1, 2))): tinyllama's and
-# qwen2-moe's train steps at per-rank heads, remat on (forward kernels twice)
+# Megatron's compute over "model" (Trainer(mesh=(1, 2))): tinyllama's,
+# qwen2-moe's and llava's train steps at per-rank heads, remat on (forward
+# kernels twice); seamless's (its launches counted exactly by
+# seamless_train_launches); mamba2's, whose scan runs no kernel
 PATHS["tp_train"] = PATHS["train_lm"]
 PATHS["tp_moe"] = PATHS["train_lm"]
+PATHS["tp_vlm"] = PATHS["train_lm"]
+PATHS["tp_ssm"] = ()
 PATHS["pipeline"] = PATHS["train_padded"]
 PATHS["compressed"] = PATHS["train_padded"]
 # the path, dtype and mode whose launches and row the kernels line reports
@@ -554,11 +566,11 @@ DENSE_LMS = {"stablelm-1.6b": ((1, 16384), (2, 4096)),
              "phi4-mini-3.8b": ((1, 16384), (1, 4096)),
              "granite-20b": ((1, 4096), None)}
 # depth cuts of the dense LMs, to make room in the run's time limit for
-# the training cases across ranks: granite-20b at 13 of its 52 layers (26
-# before the tensor-parallel ones), and since those stablelm-1.6b at 12 of 24
-# and phi4-mini-3.8b at 16 of 32 (their phases took 67 and 90 s of a
-# 1,200-second limit at full depth)
-DENSE_DEPTH = {"stablelm-1.6b": 12, "phi4-mini-3.8b": 16, "granite-20b": 13}
+# the training cases across ranks: granite-20b at 6 of its 52 layers,
+# stablelm-1.6b at 6 of 24 and phi4-mini-3.8b at 8 of 32 (their phases took
+# 67 and 90 s of a 1,200-second limit at full depth; 26 / 24 / 32, then 13
+# / 12 / 16 layers, until the tensor-parallel cases of every family)
+DENSE_DEPTH = {"stablelm-1.6b": 6, "phi4-mini-3.8b": 8, "granite-20b": 6}
 for _arch in DENSE_LMS:                                  # their paths
     PATHS[f"prefill:{_arch}"] = PATHS["prefill"]
     PATHS[f"decode:{_arch}"] = ("paged_gather_pair",)
@@ -594,8 +606,9 @@ HEAD_ROWS_N = 4096
 # mamba2-1.3b prefills, decodes, serves and trains at full depth;
 # seamless-m4t-medium trains 1 × 4096 frames (512 decoder tokens) and
 # decodes SEAMLESS_DECODE greedy tokens; llava-next-34b prefills 512 image
-# + 3584 text tokens at the most layers whose weights leave LLAVA_ROOM_GB
-# under LLAVA_PEAK_GB.  jamba-1.5-large-398b is not run on the card: one
+# + 3584 text tokens at LLAVA_DEPTH of its 60 layers (all 60, which leave
+# LLAVA_ROOM_GB under LLAVA_PEAK_GB, until the tensor-parallel cases of
+# every family needed the time).  jamba-1.5-large-398b is not run on the card: one
 # period of 8 layers holds ~44 B parameters (88 GB in bf16)
 QWEN, PHIMOE, MAMBA = "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b"
 SEAMLESS, LLAVA = "seamless-m4t-medium", "llava-next-34b"
@@ -605,7 +618,7 @@ MOE_TRAIN_LAYERS, PHIMOE_LAYERS = 4, 2
 FAMILY_DECODE_LENS, FAMILY_DECODE_STARTS = (64, 48), (0, 16)
 SEAMLESS_DECODE, SEAMLESS_MAX_LEN = 32, 512
 MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_NEW, MAMBA_MAX_LEN = 4, 6, 16, 256
-LLAVA_PEAK_GB, LLAVA_ROOM_GB = 76.0, 6.0
+LLAVA_PEAK_GB, LLAVA_ROOM_GB, LLAVA_DEPTH = 76.0, 6.0, 30
 # gradients that are 0 in exact arithmetic in the encoder-decoder check
 # (grad_rows), held against the layer's largest parameter gradient
 EXACT_ZERO = "bsa.phi_k.pos"
@@ -625,6 +638,7 @@ PATHS[f"train:{SEAMLESS}"] = ("bta_fwd", "flash_fwd", "selection_fwd", "epilogue
                               "selection_dq", "selection_dkv", "epilogue_bwd", "local_dq",
                               "local_dkv")
 PATHS[f"decode:{SEAMLESS}"] = ("paged_gather_pair", "flash_fwd")
+PATHS["tp_encdec"] = PATHS[f"train:{SEAMLESS}"]
 TRAINED = {a for a, (_, t) in DENSE_LMS.items() if t} | {QWEN, MAMBA}
 # the redesigned kernels must build without spills at these head dims, every
 # variant named: mma (bf16 tensor cores), fma (fp32 register tiles) and, for
@@ -792,7 +806,7 @@ def device_ms(fn, pattern: str | None = None, reps: int = 20,
     after a warm-up.  Mean over the launches the trace holds: it may miss a
     few of the first calls' kernels, and now and then a trace holds no
     device kernel of ``fn`` at all, so such a one is taken again (up to
-    three times; then the time is None, not measured, and a
+    ``TRACE_TRIES`` times; then the time is None, not measured, and a
     ``device_ms_missing`` line names what the trace held).  ``per_call``:
     their device time a call instead (a library call may launch several
     kernels)."""
@@ -808,15 +822,20 @@ def device_ms(fn, pattern: str | None = None, reps: int = 20,
             sorted(e.key for e in ks))
 
 
+# traces a device_trace takes at most: three empty traces in a row were
+# seen once on the card (a paged_gather_pair row)
+TRACE_TRIES = 6
+
+
 def device_trace(fn, reps: int, pattern: str | None = None) -> list:
     """The device kernels' profiler averages over ``reps`` calls of ``fn``
     after a warm-up call (a trace with no kernel, or none whose name matches
-    ``pattern``, is taken again, up to three times)."""
+    ``pattern``, is taken again, up to ``TRACE_TRIES`` times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -4337,7 +4356,7 @@ def vlm_phase(dev) -> dict:
     """llava-next-34b at full width: the depth is the most layers whose bf16
     weights leave ``LLAVA_ROOM_GB`` under ``LLAVA_PEAK_GB`` (measured on one-
     and two-layer models: the weights outside the stack and a layer's), at
-    most its 60; then the prefill of 512 image + 3,584 text tokens
+    most ``LLAVA_DEPTH``; then the prefill of 512 image + 3,584 text tokens
     (``prefill_phase``: launches, every layer of the backbone held to the
     reference backend, a profiled call) with its peak memory."""
     cfg = get_config(LLAVA)
@@ -4348,12 +4367,12 @@ def vlm_phase(dev) -> dict:
         del model
         free()
     per_layer, outside = sizes[1] - sizes[0], 2 * sizes[0] - sizes[1]
-    depth = min(cfg.n_layers, int((LLAVA_PEAK_GB - LLAVA_ROOM_GB) * 1e9 - outside)
-                // per_layer)
+    room = int((LLAVA_PEAK_GB - LLAVA_ROOM_GB) * 1e9 - outside) // per_layer
+    depth = min(cfg.n_layers, LLAVA_DEPTH, room)
     cut = None if depth == cfg.n_layers else (
         f"{depth} of {cfg.n_layers} layers: {per_layer / 1e9:.3f} GB a layer, "
-        f"{outside / 1e9:.2f} GB outside the stack, {LLAVA_ROOM_GB} GB left for the prefill "
-        f"under {LLAVA_PEAK_GB} GB")
+        f"{outside / 1e9:.2f} GB outside the stack; {room} leave {LLAVA_ROOM_GB} GB for the "
+        f"prefill under {LLAVA_PEAK_GB} GB, LLAVA_DEPTH {LLAVA_DEPTH} the run's time")
     api, model = family_init(dev, cfg.scaled(n_layers=depth), cut)
     t0 = time.perf_counter()
     stats = prefill_phase(dev, api, model, 1, FAMILY_N, f"prefill:{LLAVA}")
@@ -4539,6 +4558,12 @@ def same_on_every_rank(digest: str, ax) -> bool:
     from repro_torch.distributed import comm
     mine = torch.frombuffer(bytearray(bytes.fromhex(digest)), dtype=torch.uint8)
     return all(torch.equal(t, mine) for t in comm.all_gather(mine, ax))
+
+
+def differing_on_ranks(tensors: dict, ax) -> list[str]:
+    """The names of ``tensors`` whose bits are not the same on every rank
+    of ``ax`` (a collective: every rank calls it)."""
+    return [n for n, t in tensors.items() if not same_on_every_rank(rank_digest([t]), ax)]
 
 
 def sharded_padded_case(dev, mesh, inputs, res) -> None:
@@ -4795,10 +4820,22 @@ def _rank0_only(mesh, fn):
     return out
 
 
+class _Topk:
+    """``torch`` as ``core.nsa_causal`` sees it, with ``topk`` replaced
+    (the causal selection's top-k* over its final scores)."""
+
+    def __init__(self, topk):
+        self.topk = topk
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
 class HeldPicks:
     """Holds the one-rank side of a step to the selection picks of the step
     across ranks, as ``HeldRouting`` holds an MoE routing: under ``record``
-    each BSA layer's valid picks are kept (this rank's groups and heads);
+    each BSA layer's valid picks are kept (this rank's groups and heads;
+    the non-causal selection's and the causal one's, in call order);
     :meth:`masks` gathers them over the mesh into the whole batch's, and
     under ``replay`` each layer's scores rank those blocks first (the
     blocks that are valid on this side too).  The products of a rank's
@@ -4817,26 +4854,37 @@ class HeldPicks:
         def recorded(*args, **kw):
             s = scores(*args, **kw)
             vals, idx = torch.topk(s, min(args[5].top_k, s.shape[-1]), dim=-1)
-            self.picks.append((idx, vals > NEG_INF / 2))
+            self.picks.append((idx, vals > NEG_INF / 2, s.shape[-1]))
             return s
-        with mock.patch.object(bsa_core, "_selection_scores", recorded):
+
+        def causal_topk(s, k, dim=-1):
+            vals, idx = torch.topk(s, k, dim=dim)
+            self.picks.append((idx, vals > NEG_INF / 2, s.shape[-1]))
+            return vals, idx
+        with mock.patch.object(bsa_core, "_selection_scores", recorded), \
+                mock.patch.object(nsa_causal, "torch", _Topk(causal_topk)):
             yield
 
-    def masks(self, mesh22, T: int, nb: int, rows=None) -> list:
-        """Each layer's (B, G, Hkv, nb) bool mask of the whole batch's
-        picks (T rows, nb blocks): the kv heads gathered over ``model``, the
-        batch over ``data``; ``rows``, for a packed batch (B = 1), each data
-        rank's global row of each of its rows (T for a padding row), whose
-        groups and blocks are mapped to the whole axis's."""
+    def masks(self, mesh22, T: int, nb: int, rows=None, n_kv: int | None = None) -> list:
+        """Each layer's (B, G, Hkv, blocks) bool mask of the whole batch's
+        picks (the blocks its scores ranked): the kv heads gathered over
+        ``model`` (where ranks share a kv head, ``n_kv`` of them in all, one
+        rank's picks of it: theirs are the same, their scores summed over
+        ``model``), the batch over ``data``; ``rows``, for a packed batch
+        (B = 1, T rows, nb blocks), each data rank's global row of each of
+        its rows (T for a padding row), whose groups and blocks are mapped
+        to the whole axis's."""
         from repro_torch.distributed import comm
         out = []
-        for idx, ok in self.picks:
+        for idx, ok, blocks in self.picks:
             idx = idx.masked_fill(~ok, -1)
-            idx = torch.cat(comm.all_gather(idx.contiguous(), mesh22.axis_group("model")), 2)
+            kv = comm.all_gather(idx.contiguous(), mesh22.axis_group("model"))
+            share = len(kv) * idx.shape[2] // (n_kv or len(kv) * idx.shape[2])
+            idx = torch.cat(kv[::share], 2)
             parts = comm.all_gather(idx.contiguous(), mesh22.axis_group("data"))
             if rows is None:
                 idx = torch.cat(parts, 0)
-                out.append((F.one_hot(idx.clamp(min=0), nb).bool()
+                out.append((F.one_hot(idx.clamp(min=0), blocks).bool()
                             & (idx >= 0)[..., None]).any(-2))
                 continue
             g = len(rows[0]) // parts[0].shape[1]          # rows a group
@@ -4864,18 +4912,25 @@ class HeldPicks:
         scores, left = bsa_core._selection_scores, list(masks)
         self.flipped = self.groups = 0
 
-        def replayed(*args, **kw):
-            s = scores(*args, **kw)
+        def held_first(s, k, mask):
             held = left.pop(0) & (s > NEG_INF / 2)
-            vals, own = torch.topk(s, min(args[5].top_k, s.shape[-1]), dim=-1)
+            vals, own = torch.topk(s, k, dim=-1)
             mine = (F.one_hot(own, s.shape[-1]).bool() & (vals > NEG_INF / 2)[..., None]).any(-2)
-            mask, G = args[4], s.shape[1]              # groups with a real query only
+            G = s.shape[1]                             # groups with a real query only
             live = (torch.ones(s.shape[:2], dtype=torch.bool, device=s.device) if mask is None
                     else mask.reshape(mask.shape[0], G, -1).any(-1))
             self.flipped += int(((mine != held).any(-1) & live[..., None]).sum())
             self.groups += int(live.sum()) * s.shape[2]
             return torch.where(held, -NEG_INF, s)
-        with mock.patch.object(bsa_core, "_selection_scores", replayed):
+
+        def replayed(*args, **kw):
+            s = scores(*args, **kw)
+            return held_first(s, min(args[5].top_k, s.shape[-1]), args[4])
+
+        def causal_topk(s, k, dim=-1):                 # the LM batches here have no mask
+            return torch.topk(held_first(s, k, None), k, dim=dim)
+        with mock.patch.object(bsa_core, "_selection_scores", replayed), \
+                mock.patch.object(nsa_causal, "torch", _Topk(causal_topk)):
             yield
 
 
@@ -4930,7 +4985,10 @@ def dp_train_case(dev, mesh, inputs, res) -> None:
                gathered_bytes_a_step=cc.gathered_bytes / DP_STEPS,
                moment_bytes=tr.moment_bytes(opt),
                bits_equal_across_ranks=same_on_every_rank(rank_digest(params.values()), ax))
-    check(res["bits_equal_across_ranks"], "dp_train: parameters differ between ranks")
+    if not res["bits_equal_across_ranks"]:
+        res["differing"] = differing_on_ranks(params, ax)
+    check(res["bits_equal_across_ranks"],
+          f"dp_train: parameters differ between ranks: {res.get('differing', [])[:12]}")
     check(all(math.isfinite(x) for x in losses), f"dp_train: losses {losses}")
 
     def one_rank():
@@ -5277,14 +5335,33 @@ def pipeline_compress_case(dev, mesh, inputs, res) -> None:
               f"compressed reduction: loss {ref} from one forward of the 4 clouds")
 
 
-# Megatron's compute over "model": 2 of each LM's layers at full width, 1 +
-# 2 bf16 steps of B 2 x 4096 tokens (TRAIN_LM_B, TRAIN_LM_N), then the holds
+# Megatron's compute over "model": 2 layers of each model at full width
+# (seamless: 2 encoder + 2 decoder layers), 1 + 2 bf16 steps (tinyllama
+# and qwen2-moe: B 2 x 4096 tokens, TRAIN_LM_B x TRAIN_LM_N; llava: its
+# prefill shape, 512 image + 3,584 text tokens; seamless: 4,096 frames and
+# 512 decoder tokens; mamba2: 1 x 4,096 tokens), then the holds
 TP_LAYERS = 2
-TP_ARCHS = {"tp_train": "tinyllama-1.1b", "tp_moe": "qwen2-moe-a2.7b"}
+TP_ARCHS = {"tp_train": "tinyllama-1.1b", "tp_moe": "qwen2-moe-a2.7b", "tp_vlm": LLAVA,
+            "tp_encdec": SEAMLESS, "tp_ssm": MAMBA}
+TP_SCALED = {"tp_encdec": dict(n_layers=TP_LAYERS, n_encoder_layers=TP_LAYERS)}
 TP_TRAIN = DP_TRAIN
 TP_STEPS = 2
 TP_HOLD = 1e-5              # fp32: the step's loss, gradient norm and gradients vs one rank
 TP_GRAD_FLOOR = 1e-3        # a gradient's denominator, of the model's largest (φ_k.pos: 0)
+# mamba's per-head vectors, whose gradients sum over every position with
+# heavy cancellation: one rank's own fp32 ones lie up to 1.6e-4 / 2.4e-5 of
+# their largest from a float64 step at the smoke size
+# (tools/mamba_fp64_grads.py); the fp32 hold reports them, and a float64
+# step, split and on one rank, holds them with every other gradient
+TP_FP32_UNRESOLVED = ("mamba.A_log", "mamba.dt_bias")
+# the paths whose fp32 step is held on its whole gradient (the relative L2
+# difference, with the loss and the gradient norm) and not tensor by
+# tensor: at llava's and seamless's widths on 4,096 positions a tensor's
+# largest difference from one rank's reaches 1.2e-5 of its largest value
+# with every selection pick held, 0 flipped, and the whole gradient's
+# difference 6.9e-6–8.7e-6: fp32's rounding of sums over the positions,
+# not the split (PERF.md §6); every other path is held on both
+TP_FP32_WHOLE_ONLY = ("tp_vlm", "tp_encdec")
 
 
 @contextlib.contextmanager
@@ -5302,84 +5379,246 @@ def held_moe_routing(routes: list, record: bool):
         yield
 
 
-def _grad_rel(got: dict, want: dict, floor_share: float) -> tuple[float, str]:
-    """(the largest of max |got − want| over max |want| a tensor, each
-    denominator floored at ``floor_share`` of the largest |want| of all,
-    the tensor where it is)."""
+def _grad_rels(got: dict, want: dict, floor_share: float) -> dict:
+    """{tensor: max |got − want| over max |want|, the denominator floored
+    at ``floor_share`` of the largest |want| of all}."""
     big = max(float(t.abs().max()) for t in want.values())
-    return max((float((got[n].float() - t.float()).abs().max())
-                / max(float(t.abs().max()), floor_share * big), n) for n, t in want.items())
+    return {n: float((got[n].double() - t.double()).abs().max())
+            / max(float(t.abs().max()), floor_share * big) for n, t in want.items()}
+
+
+@contextlib.contextmanager
+def float64_compute():
+    """The model code in float64: its fp32 casts (``.float()``), its fp32
+    zero states and ``layers.nn``'s widening product keep float64 (a model
+    whose path runs no kernel: mamba's)."""
+    from repro_torch.layers import nn as nn_layers
+    zeros = torch.zeros
+
+    def zeros64(*a, dtype=None, **kw):
+        return zeros(*a, dtype=torch.float64 if dtype in (None, torch.float32) else dtype, **kw)
+    with mock.patch.object(torch.Tensor, "float", lambda self: self.double()), \
+            mock.patch.object(torch, "zeros", zeros64), \
+            mock.patch.object(nn_layers, "_product", lambda w, x: F.linear(x, w.to(x.dtype))):
+        yield
+
+
+def float64_grads(api, batch: dict, dev, mesh=None) -> dict:
+    """The loss's gradients on ``batch`` at ``api``'s seed-0 weights,
+    computed in float64 (``float64_compute``), whole by name: on one rank,
+    or, with ``mesh``, split over its ``model`` axis as ``Trainer(mesh=...)``
+    splits the step, and gathered (a collective: every rank calls it)."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.params import full_tensor
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.runtime import Trainer, TrainerConfig
+    api64 = model_api(api.mcfg.scaled(param_dtype="float64", compute_dtype="float64"))
+    model = api64.init(seed=0, device=dev)
+    if mesh is None:
+        with float64_compute():
+            api64.loss(model, batch)[0].backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    tr = Trainer(api64, TrainerConfig(**TP_TRAIN), mesh=mesh, device=dev)
+    tr._layouts(model)
+    tr.hold(model, "model")
+    with float64_compute(), axis_rules(mesh, {"batch": None}):
+        api64.loss(model, batch)[0].backward()
+    return {n: p.grad if tensor_parallel.cut_dim(p) is None
+            else full_tensor(p.grad.contiguous(), tr.tp_sh[n], tr._shapes[n], mesh)
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _clipped(grads: dict, max_norm: float) -> dict:
+    """``grads`` scaled as the train step clips them to ``max_norm``."""
+    norm = float(torch.sqrt(sum(g.double().pow(2).sum() for g in grads.values())))
+    return {n: g * min(1.0, max_norm / norm) for n, g in grads.items()}
+
+
+def _grad_l2(got: dict, want: dict) -> float:
+    """‖got − want‖ over ‖want‖, of the whole gradient (every tensor of
+    ``want``)."""
+    d = sum(float((got[n].double() - t.double()).pow(2).sum()) for n, t in want.items())
+    return (d / sum(float(t.double().pow(2).sum()) for t in want.values())) ** 0.5
+
+
+def _tp_unit(tr, mesh, name: str, mine, whole, fn, inputs: dict, gy, routes: list,
+             zero: tuple = ()) -> tuple:
+    """One unit of :func:`tp_layer_hold`: ``fn(mine, *inputs)`` on this
+    rank's parts under the mesh's axis rules against ``fn(whole, *inputs)``
+    on one rank, given the same inputs (``{name: tensor}``) and upstream
+    gradient ``gy`` (the MoE routing held to the split side's): the output
+    at ``LM_LAYER_TOL`` and every gradient (this rank's part of a cut one)
+    at ``LM_GRAD_REL_TOL`` of its largest value, a parameter's floored at
+    ``LM_GRAD_FLOOR`` of the unit's largest parameter gradient; those
+    ending in ``zero`` (0 in exact arithmetic) against that largest itself,
+    as ``grad_rows`` holds them.  Returns (its row, the reference's input
+    gradients)."""
+    from repro_torch.distributed.params import local_part
+    from repro_torch.distributed.sharding import axis_rules
+    names = [f"{name}.{n}" for n, _ in whole.named_parameters()]
+    xs = [t.detach().requires_grad_(True) for t in inputs.values()]
+    with use_backend("kernels"), axis_rules(mesh), held_moe_routing(routes, True):
+        y_tp = fn(mine, *xs)
+        g_tp = torch.autograd.grad(y_tp, [*xs, *mine.parameters()], gy, allow_unused=True)
+    with use_backend("kernels"), held_moe_routing(routes, False):
+        y = fn(whole, *xs)
+        g = torch.autograd.grad(y, [*xs, *whole.parameters()], gy, allow_unused=True)
+    out_rel = _rel(y_tp.detach(), y.detach())
+    del y, y_tp
+    pairs = []
+    for key, a, b in zip([*inputs, *names], g_tp, g):
+        check((a is None) == (b is None), f"{key}: a gradient on one side only")
+        if b is None:                            # φ_q only feeds top-k; cross-attention's BSA
+            continue
+        if key in names:
+            b = local_part(b, tr.tp_sh[key], tr.mesh)
+        pairs.append((key, float((a.float() - b.float()).abs().max()),
+                      float(b.float().abs().max())))
+    floor = LM_GRAD_FLOOR * max(r for n, _, r in pairs if n in names)
+    rel = {n: d / (r if n not in names else floor / LM_GRAD_FLOOR if zero and n.endswith(zero)
+                   else max(r, floor)) for n, d, r in pairs}
+    worst = max(rel, key=rel.get)
+    check(out_rel <= LM_LAYER_TOL and rel[worst] <= LM_GRAD_REL_TOL,
+          f"{tr.api.mcfg.name} tensor-parallel {name} vs one rank: output {out_rel:.2e}, "
+          f"{worst} gradient {rel[worst]:.2e}")
+    return ({"unit": name, "out_rel": out_rel, "grad_rel": rel[worst], "grad_rel_at": worst},
+            g[:len(xs)])
+
+
+def _top_grad(lm_head, norm, top, cfg, labels, loss_mask=None):
+    """The loss's gradient at the final norm's input ``top`` (one rank's
+    whole head)."""
+    top = top.detach().requires_grad_(True)
+    logits = dense(lm_head, rmsnorm(norm, top, cfg.norm_eps)).float()
+    gy, = torch.autograd.grad(masked_mean_nll(logits[:, -labels.shape[1]:], labels, loss_mask),
+                              top)
+    return gy
+
+
+def _tp_lm_units(tr, mesh, mine, whole, cfg, x0, labels, prefix: str, routes) -> tuple:
+    """The LM backbone's layers, last first, each given the reference
+    forward's input and the upstream gradient chained through the
+    reference (the ``lm_train_reference_check`` recipe): (rows, the
+    gradient at the first layer's input)."""
+    B_, N_ = x0.shape[:2]
+    pos = torch.arange(N_, device=x0.device)[None].expand(B_, N_)
+    xs = []
+    with torch.no_grad(), use_backend("kernels"):
+        h = x0
+        for period in whole.layers:
+            xs.append(h)
+            h = lm_layer(period.pos0, h, mcfg=cfg, positions=pos)
+    gy = _top_grad(whole.lm_head, whole.final_norm, h, cfg, labels)
+    rows = []
+    for i in reversed(range(len(xs))):
+        row, (gy,) = _tp_unit(tr, mesh, f"{prefix}layers.{i}.pos0", mine.layers[i].pos0,
+                              whole.layers[i].pos0,
+                              lambda m, x: lm_layer(m, x, mcfg=cfg, positions=pos),
+                              {"input": xs[i]}, gy, routes)
+        rows.append(row)
+    return rows, gy
+
+
+def _tp_encdec_units(tr, mesh, mine, whole, cfg, batch, routes) -> list:
+    """seamless's units, last first: the decoder layers (self-attention,
+    cross-attention on the memory, SwiGLU; the memory's gradient summed
+    over them), the encoder layers (the gradient through the reference's
+    ``enc_norm``), then ``frontend_proj`` on the frames; φ_k.pos
+    (``EXACT_ZERO``) held as ``encdec_reference_check`` holds it."""
+    cdt, eps = cfg.cdtype(), cfg.norm_eps
+    frames, fmask = batch["frames"].to(cdt), batch.get("frame_mask")
+    tokens = batch["dec_tokens"]
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None].expand(*tokens.shape)
+    xe, xd = [], []
+    with torch.no_grad(), use_backend("kernels"):
+        x = encdec._frontend(whole.frontend_proj, frames)
+        for lp in whole.enc_layers:
+            xe.append(x)
+            x = encdec.enc_layer(lp, x, mcfg=cfg, mask=fmask)
+        pre = x
+        memory = rmsnorm(whole.enc_norm, pre, eps)
+        h = embed(whole.tok_embed, tokens, dtype=cdt)
+        for lp in whole.dec_layers:
+            xd.append(h)
+            h = encdec.dec_layer(lp, h, memory, mcfg=cfg, positions=pos, mem_mask=fmask)
+    gy = _top_grad(whole.lm_head, whole.dec_norm, h, cfg, batch["labels"],
+                   batch.get("loss_mask"))
+    rows, g_mem = [], 0
+    for i in reversed(range(len(xd))):
+        row, (gy, gm) = _tp_unit(
+            tr, mesh, f"dec_layers.{i}", mine.dec_layers[i], whole.dec_layers[i],
+            lambda m, x, mem: encdec.dec_layer(m, x, mem, mcfg=cfg, positions=pos,
+                                               mem_mask=fmask),
+            {"input": xd[i], "memory": memory}, gy, routes, zero=(EXACT_ZERO,))
+        rows.append(row)
+        g_mem = g_mem + gm
+    pre = pre.detach().requires_grad_(True)
+    gy, = torch.autograd.grad(rmsnorm(whole.enc_norm, pre, eps), pre, g_mem)
+    for i in reversed(range(len(xe))):
+        row, (gy,) = _tp_unit(tr, mesh, f"enc_layers.{i}", mine.enc_layers[i],
+                              whole.enc_layers[i],
+                              lambda m, x: encdec.enc_layer(m, x, mcfg=cfg, mask=fmask),
+                              {"input": xe[i]}, gy, routes, zero=(EXACT_ZERO,))
+        rows.append(row)
+    row, _ = _tp_unit(tr, mesh, "frontend_proj", mine.frontend_proj, whole.frontend_proj,
+                      encdec._frontend, {"frames": frames}, gy, routes)
+    return rows + [row]
 
 
 def tp_layer_hold(tr, model, ref, cfg, batch, mesh) -> dict:
-    """Each layer of the tensor-parallel ``model`` (this rank's parts) against
-    the same layer of the whole ``ref`` on one rank, given the same input
-    and upstream gradient (the ``lm_train_reference_check`` recipe, the
-    MoE routing held to the parallel side's): the output at
-    ``LM_LAYER_TOL`` and every gradient (this rank's part of a cut one) at
-    ``LM_GRAD_REL_TOL`` of its largest value, floored at ``LM_GRAD_FLOOR``
-    of the layer's largest parameter gradient."""
-    from repro_torch.distributed.params import local_part
-    from repro_torch.distributed.sharding import axis_rules
-    tokens, labels = batch["tokens"], batch["labels"]
-    B_, N_ = tokens.shape
-    pos = torch.arange(N_, device=tokens.device)[None].expand(B_, N_)
-    xs = []
-    with torch.no_grad(), use_backend("kernels"):
-        h = embed(ref.embed, tokens, dtype=cfg.cdtype())
-        for period in ref.layers:
-            xs.append(h)
-            h = lm_layer(period.pos0, h, mcfg=cfg, positions=pos)
-    top = h.detach().requires_grad_(True)
-    logits = dense(ref.lm_head, rmsnorm(ref.final_norm, top, cfg.norm_eps)).float()
-    gy, = torch.autograd.grad(masked_mean_nll(logits, labels), top)
-    del logits
+    """Each layer of the tensor-parallel ``model`` (this rank's parts)
+    against the same layer of the whole ``ref`` on one rank, given the same
+    input and upstream gradient (``_tp_unit``): an LM's layers; llava's
+    backbone layers, then its projector on the patch embeddings; seamless's
+    decoder layers (with the memory as an input), its encoder layers and
+    ``frontend_proj``."""
+    routes: list = []
     tr.hold(model, "model")
-    rows, routes = [], []
-    for i in reversed(range(len(xs))):
-        mine, whole = model.layers[i].pos0, ref.layers[i].pos0
-        names = [n for n, _ in whole.named_parameters()]
-        x = xs[i].detach().requires_grad_(True)
-        with use_backend("kernels"), axis_rules(mesh), held_moe_routing(routes, True):
-            y_tp = lm_layer(mine, x, mcfg=cfg, positions=pos)
-            g_tp = torch.autograd.grad(y_tp, [x, *mine.parameters()], gy, allow_unused=True)
-        with use_backend("kernels"), held_moe_routing(routes, False):
-            y = lm_layer(whole, x, mcfg=cfg, positions=pos)
-            g = torch.autograd.grad(y, [x, *whole.parameters()], gy, allow_unused=True)
-        out_rel = _rel(y_tp.detach(), y.detach())
-        del y, y_tp
-        pairs = []
-        for name, a, b in zip(["input"] + names, g_tp, g):
-            if b is None:                        # φ_q only feeds top-k
-                continue
-            if name != "input":
-                b = local_part(b, tr.tp_sh[f"layers.{i}.pos0.{name}"], tr.mesh)
-            pairs.append((name, float((a.float() - b.float()).abs().max()),
-                          float(b.float().abs().max())))
-        floor = LM_GRAD_FLOOR * max(r for n, _, r in pairs if n != "input")
-        rel = {n: d / (r if n == "input" else max(r, floor)) for n, d, r in pairs}
-        worst = max(rel, key=rel.get)
-        rows.append({"layer": i, "out_rel": out_rel, "grad_rel": rel[worst],
-                     "grad_rel_at": worst})
-        check(out_rel <= LM_LAYER_TOL and rel[worst] <= LM_GRAD_REL_TOL,
-              f"{cfg.name} tensor-parallel layer {i} vs one rank: output {out_rel:.2e}, "
-              f"{worst} gradient {rel[worst]:.2e}")
-        gy = g[0]
-        del g, g_tp
+    if cfg.family == "audio":
+        rows = _tp_encdec_units(tr, mesh, model, ref, cfg, batch, routes)
+    elif cfg.family == "vlm":
+        cdt = cfg.cdtype()
+        patches = batch["patch_embeds"].to(cdt)
+        with torch.no_grad():
+            x0 = vlm._embeds(ref, batch["tokens"], patches, cdt)
+        rows, gy = _tp_lm_units(tr, mesh, model.lm, ref.lm, cfg, x0, batch["labels"], "lm.",
+                                routes)
+        row, _ = _tp_unit(tr, mesh, "projector", model.projector, ref.projector,
+                          lambda m, pe: vlm._project(m, pe, cdt), {"patches": patches},
+                          gy[:, :patches.shape[1]], routes)
+        rows.append(row)
+    else:
+        with torch.no_grad():
+            x0 = embed(ref.embed, batch["tokens"], dtype=cfg.cdtype())
+        rows, _ = _tp_lm_units(tr, mesh, model, ref, cfg, x0, batch["labels"], "", routes)
     tr.hold(model, None)
-    return {"layers": rows, "out_tol": LM_LAYER_TOL, "grad_tol": LM_GRAD_REL_TOL}
+    return {"units": rows, "out_tol": LM_LAYER_TOL, "grad_tol": LM_GRAD_REL_TOL}
+
+
+def tp_batches(dev, path: str, api) -> list[dict]:
+    """1 + ``TP_STEPS`` batches: the LM train batches (tinyllama, qwen2-moe:
+    2 x 4096 tokens; mamba2: 1 x 4096), else ``api.make_batch`` at 1 x
+    ``FAMILY_N`` (llava: 512 image + 3,584 text tokens; seamless: 4,096
+    frames and 512 decoder tokens)."""
+    cfg = api.mcfg
+    if path in ("tp_train", "tp_moe"):
+        return lm_train_batches(dev, cfg.vocab_size, steps=TP_STEPS)
+    if path == "tp_ssm":
+        return lm_train_batches(dev, cfg.vocab_size, batch_size=1, steps=TP_STEPS)
+    return [api.make_batch(np.random.default_rng(s), 1, FAMILY_N, device=dev)
+            for s in range(TP_STEPS + 1)]
 
 
 def _tp_arch(dev, mesh, path: str, arch: str, res) -> dict:
-    """One LM through ``Trainer(mesh=(1, 2))`` (see :func:`tp_train_case`)."""
+    """One model through ``Trainer(mesh=(1, 2))`` (see :func:`tp_train_case`)."""
     from repro_torch.distributed.params import full_tensor
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime import Trainer, TrainerConfig
     t0 = time.perf_counter()
-    api = model_api(get_config(arch).scaled(n_layers=TP_LAYERS))
+    api = model_api(get_config(arch).scaled(**TP_SCALED.get(path, dict(n_layers=TP_LAYERS))))
     cfg = api.mcfg
     mesh12 = make_mesh((1, 2), ("data", "model"))
-    batches = lm_train_batches(dev, cfg.vocab_size, steps=TP_STEPS)
+    batches = tp_batches(dev, path, api)
     quiet = contextlib.redirect_stdout(io.StringIO())
     ax = mesh.axis_group("data")                          # both ranks
     tr = Trainer(api, TrainerConfig(**TP_TRAIN), mesh=mesh12, device=dev)
@@ -5402,14 +5641,19 @@ def _tp_arch(dev, mesh, path: str, arch: str, res) -> dict:
                                 opt_state=opt, start_step=1)
             torch.cuda.synchronize()
             res["paths"][path] = {n: c.n for n, c in COUNTERS.items()}   # just after
-    check_launches(res["paths"][path], path, cfg.n_layers * TP_STEPS,
-                   per_forward_kernel=2 * cfg.n_layers * TP_STEPS)
+    if cfg.family == "audio":
+        check_counts(res["paths"][path], seamless_train_launches(cfg, TP_STEPS), path)
+    else:
+        check_launches(res["paths"][path], path, cfg.n_layers * TP_STEPS,
+                       per_forward_kernel=2 * cfg.n_layers * TP_STEPS)
     steps = tr.metrics_history[1:]
     params = {n: p.detach() for n, p in model.named_parameters()}
     cut = sum(p.numel() * p.element_size() for n, p in params.items()
               if tr.tp_sh[n] != (None,) * p.dim())
-    out = {"arch": arch, "layers": cfg.n_layers, "mesh": str(mesh12.shape),
-           "batch": list(batches[0]["tokens"].shape), "param_dtype": cfg.param_dtype,
+    out = {"arch": arch, "layers": [len(model.enc_layers), len(model.dec_layers)]
+           if cfg.family == "audio" else cfg.n_layers, "mesh": str(mesh12.shape),
+           "batch": {k: list(v.shape) for k, v in batches[0].items()},
+           "param_dtype": cfg.param_dtype,
            "loss": [m["loss"] for m in tr.metrics_history],
            "grad_norm": [m["grad_norm"] for m in tr.metrics_history],
            "step_ms": [m["step_time_s"] * 1e3 for m in steps],
@@ -5444,9 +5688,9 @@ def _tp_arch(dev, mesh, path: str, arch: str, res) -> dict:
 
     # fp32: a step from the same weights, held to one rank's at TP_HOLD
     api32 = model_api(cfg.scaled(param_dtype="float32", compute_dtype="float32"))
-    batch = {k: v[:1] for k, v in batches[1].items()}     # 1 x 4096 tokens
+    batch = {k: v[:1] for k, v in batches[1].items()}     # one sequence
     tr = Trainer(api32, TrainerConfig(**TP_TRAIN), mesh=mesh12, device=dev)
-    grads, step = {}, tr._step
+    grads, step, picks = {}, tr._step, HeldPicks()
 
     def keep_grads(model, opt_state, b):
         res_ = step(model, opt_state, b)
@@ -5456,9 +5700,10 @@ def _tp_arch(dev, mesh, path: str, arch: str, res) -> dict:
                         else full_tensor(g.contiguous(), tr.tp_sh[n], tr._shapes[n], tr.mesh))
         return res_
     tr._step = keep_grads
-    with use_backend("kernels"), quiet:
+    with use_backend("kernels"), quiet, picks.record():
         tr.fit(iter([batch]), steps=1, model=api32.init(seed=0, device=dev))
     got = tr.metrics_history[-1]
+    masks = picks.masks(mesh12, None, None, n_kv=cfg.n_kv_heads)
     del tr
     if mesh.rank != 0:                                   # only rank 0 compares
         grads.clear()
@@ -5467,36 +5712,77 @@ def _tp_arch(dev, mesh, path: str, arch: str, res) -> dict:
 
     def one_rank():
         one = Trainer(api32, TrainerConfig(**TP_TRAIN), device=dev)
-        with use_backend("kernels"), contextlib.redirect_stdout(io.StringIO()):
+        held = HeldPicks()
+        with use_backend("kernels"), contextlib.redirect_stdout(io.StringIO()), \
+                held.replay(masks):
             m, _ = one.fit(iter([batch]), steps=1, model=api32.init(seed=0, device=dev))
         want = one.metrics_history[-1]
-        rel, where = _grad_rel(grads, {n: p.grad for n, p in m.named_parameters()
-                                       if p.grad is not None}, TP_GRAD_FLOOR)   # φ_q: none
-        return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
-                "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
-                / abs(want["grad_norm"]), "grad_rel": rel, "grad_rel_at": where}
+        wg = {n: p.grad for n, p in m.named_parameters() if p.grad is not None}   # φ_q: none
+        del m
+        rel = _grad_rels(grads, wg, TP_GRAD_FLOOR)
+        apart = {n for n in rel if cfg.family == "ssm" and n.endswith(TP_FP32_UNRESOLVED)}
+        worst = sorted(((r, n) for n, r in rel.items() if n not in apart), reverse=True)[:5]
+        out = {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+               "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
+               / abs(want["grad_norm"]), "grad_rel": worst[0][0], "grad_rel_at": worst[0][1],
+               "grad_rel_worst": worst, "grad_l2": _grad_l2(grads, wg),
+               "picks_flipped": held.flipped, "picks_held": held.groups}
+        if cfg.family == "ssm":        # no kernel on the path: the step in float64 beside
+            one64.update(float64_grads(api32, batch, dev))
+            fp32 = _grad_rels(wg, _clipped(one64, TrainerConfig(**TP_TRAIN).max_grad_norm),
+                              TP_GRAD_FLOOR)
+            out["unresolved_in_fp32"] = {n: {"split_vs_one": rel[n], "one_vs_float64": fp32[n]}
+                                         for n in sorted(apart)}
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    one64: dict = {}                                     # rank 0's float64 gradients
     hold = _rank0_only(mesh, one_rank)
     grads.clear()
+    if cfg.family == "ssm":
+        # the same step in float64, split and on one rank, every gradient
+        # held at TP_HOLD (TP_FP32_UNRESOLVED's too)
+        split64 = float64_grads(api32, batch, dev, mesh12)
+
+        def float64_hold():
+            rel = _grad_rels(split64, one64, TP_GRAD_FLOOR)
+            n = max(rel, key=rel.get)
+            return {"grad_rel": rel[n], "grad_rel_at": n}
+        held64 = _rank0_only(mesh, float64_hold)
+        del split64
+        one64.clear()
+        if hold is not None:
+            hold["float64"] = held64
     if hold is not None:
         out["fp32_hold"] = hold
-        check(max(hold["loss_rel"], hold["grad_norm_rel"], hold["grad_rel"]) <= TP_HOLD,
+        check(max(hold["loss_rel"], hold["grad_norm_rel"], hold["grad_l2"],
+                  0.0 if path in TP_FP32_WHOLE_ONLY else hold["grad_rel"],
+                  hold.get("float64", {}).get("grad_rel", 0.0)) <= TP_HOLD,
               f"{path} fp32 step from the same weights vs one rank: {hold}")
+        check(hold["picks_flipped"] <= PICKS_FLIP_TOL * hold["picks_held"],
+              f"{path}: the one rank's own selection picks differ from the split step's in "
+              f"{hold['picks_flipped']} of {hold['picks_held']} (group, head)s, above "
+              f"{PICKS_FLIP_TOL}")
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
 def tp_train_case(dev, mesh, inputs, res) -> None:
     """Megatron's compute over ``model`` (``distributed/tensor_parallel.py``)
-    through ``Trainer(mesh=(1, 2))`` (the main path): tinyllama-1.1b and
-    qwen2-moe-a2.7b (32 of its 64 padded experts a rank) at full width and
-    ``TP_LAYERS`` of their layers, bf16 with remat, 1 + ``TP_STEPS`` steps of
-    B 2 x 4096 tokens.  Each rank's launches, the parameter bytes it holds
-    between steps (half of every cut weight), its peak memory, the
-    collectives and the step time; parameters equal in bits on both ranks;
-    each layer held to one rank's given the same input and upstream
-    gradient (bf16, ``tp_layer_hold``); then a fp32 step from the same
-    weights held to one rank's at ``TP_HOLD`` (loss, gradient norm, every
-    gradient)."""
+    through ``Trainer(mesh=(1, 2))`` (the main path), bf16 with remat, 1 +
+    ``TP_STEPS`` steps at full width and ``TP_LAYERS`` layers:
+    tinyllama-1.1b and qwen2-moe-a2.7b (32 of its 64 padded experts a rank)
+    on B 2 x 4096 tokens, llava-next-34b (28 / 4 heads of 128 a rank; the
+    projector and the vocabulary split) on its prefill shape,
+    seamless-m4t-medium (2 encoder + 2 decoder layers, 8 of 16 heads a rank
+    in each attention, cross-attention included; the vocabulary split) on
+    4,096 frames and mamba2-1.3b (its scan on 32 of 64 heads a rank) on 1 x
+    4096 tokens.  Each rank's launches, the parameter bytes it holds between
+    steps (half of every cut weight), its peak memory, the collectives and
+    the step time; parameters equal in bits on both ranks; each layer held
+    to one rank's given the same input and upstream gradient (bf16,
+    ``tp_layer_hold``); then a fp32 step from the same weights held to one
+    rank's at ``TP_HOLD`` (loss, gradient norm, every gradient)."""
     res["paths"] = {}
     for path, arch in TP_ARCHS.items():
         res[path] = _tp_arch(dev, mesh, path, arch, res)

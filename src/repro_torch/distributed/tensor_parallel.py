@@ -18,6 +18,11 @@ g):
   * :func:`reduce_from_model`: forward the sum over ``model``, backward
     the identity: the output of a row product, or of a rank's experts.
 
+A statistic of every rank's part that every rank's own output then
+reads (mamba's gated norm's sum of squares over heads split across
+ranks) is summed in both directions (:func:`reduce_statistic`): each
+rank knows its gradient only through its own outputs.
+
 Every sum all-gathers and adds in rank order (``comm.all_reduce_sum``), so
 the ranks hold equal bits.  The column and row products built on them
 are ``layers.nn.column_dense`` / ``row_dense``, beside ``dense``.  A
@@ -40,8 +45,9 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.distributed import comm
 
-__all__ = ["MODEL", "model_dim", "cut", "uncut", "cut_dim", "axis",
-           "copy_to_model", "reduce_from_model", "gather_summed", "shared", "whole"]
+__all__ = ["MODEL", "model_dim", "cut", "uncut", "cut_dim", "axis", "vocab_part",
+           "copy_to_model", "reduce_from_model", "reduce_statistic", "gather_summed",
+           "shared", "whole"]
 
 MODEL = "model"
 
@@ -87,6 +93,22 @@ def axis():
     return mesh.axis_group(MODEL)
 
 
+def vocab_part(w: torch.Tensor):
+    """(the ``model`` axis group, this rank's first vocabulary id) where the
+    logits' weight ``w`` (vocabulary on dim 0) is cut over ``model``, else
+    None.  A whole ``w`` in a step over a ``model`` axis of several ranks
+    is JAX's replication fallback (a vocabulary that does not divide): its
+    one-shot warning."""
+    if cut_dim(w) is None:
+        from repro_torch.distributed.sharding import current_rules, logical_to_spec
+        ctx = current_rules()
+        if ctx is not None and hasattr(ctx[0], "axis_group"):
+            logical_to_spec(("vocab",), (w.shape[0],), *ctx)
+        return None
+    ax = axis()
+    return ax, ax.index * w.shape[0]
+
+
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ax, x):
@@ -95,6 +117,17 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, g
+
+
+class _ReduceBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, x):
+        ctx.ax = ax
+        return comm.all_reduce_sum(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, comm.all_reduce_sum(g.contiguous(), ctx.ax)
 
 
 class _GatherSummed(torch.autograd.Function):
@@ -118,6 +151,14 @@ def reduce_from_model(ax, x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over ``model`` (rank order); the gradient passes as it
     is."""
     return _Reduce.apply(ax, x)
+
+
+def reduce_statistic(ax, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``model`` (rank order), its gradient summed over
+    ``model`` too: a statistic of the ranks' parts that each rank's own
+    outputs read, so that each rank holds only its share of its
+    gradient."""
+    return _ReduceBoth.apply(ax, x)
 
 
 def gather_summed(ax, dim: int, x: torch.Tensor) -> torch.Tensor:

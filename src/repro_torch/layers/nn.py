@@ -77,14 +77,27 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
 def column_dense(layers, x: torch.Tensor) -> tuple:
     """:func:`dense` of each layer of ``layers`` on ``x``; where their
     weights are cut over ``model`` on the output dim, this rank's columns,
-    with one ``tensor_parallel.copy_to_model`` of ``x`` for all of them."""
+    with one ``tensor_parallel.copy_to_model`` of ``x`` for all of them.
+    A bias that stays whole (``param_shardings`` cuts no vector) adds its
+    entries of this rank's columns, its gradient summed over ``model``."""
     dims = {tp.cut_dim(p.w) for p in layers}
     if dims == {None}:
         return tuple(dense(p, x) for p in layers)
     if dims != {0}:
         raise ValueError(f"column_dense: weights cut on dims {dims}, not all on the output")
-    xc = tp.copy_to_model(tp.axis(), x)
-    return tuple(dense(p, xc) for p in layers)
+    ax = tp.axis()
+    xc = tp.copy_to_model(ax, x)
+    out = []
+    for p in layers:
+        y = _product(p.w, xc)
+        b = p.b
+        if b is not None and tp.cut_dim(b) is None:
+            n = y.shape[-1]
+            b = tp.copy_to_model(ax, b).narrow(0, ax.index * n, n)
+        if b is not None:
+            y = y + b.float()
+        out.append(y.to(x.dtype))
+    return tuple(out)
 
 
 def row_dense(p, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ layout only; their one-token decode attends the whole cache with the plain
 ``sdpa`` (JAX's dense cached path).  ``cross_attention_apply`` attends
 precomputed memory K/V (``memory_kv``) with ``full_attention``,
 non-causal, the memory mask as key validity: the encoder-decoder's
-cross-attention, on the flash kernels.
+cross-attention, on the flash kernels.  Under tensor parallelism
+(``distributed/tensor_parallel.py``) both layers run this rank's heads
+(:class:`HeadSplit`).
 """
 
 from __future__ import annotations
@@ -165,7 +167,8 @@ class HeadSplit:
         self.own_kv = Hkv % ax.size == 0
         self.split_groups = self.rep != group
 
-    def _kv(self, w, xc):
+    def kv(self, w, xc):
+        """This rank's kv heads of the column product of ``w`` on ``xc``."""
         B, N, _ = xc.shape
         t = dense(w, xc)
         if self.own_kv:
@@ -200,7 +203,7 @@ class HeadSplit:
         B, N, _ = x.shape
         xc = tensor_parallel.copy_to_model(self.ax, x)
         q = dense(p.wq, xc).reshape(B, N, self.hq, self.hd)
-        k, v = self._kv(p.wk, xc), self._kv(p.wv, xc)
+        k, v = self.kv(p.wk, xc), self.kv(p.wv, xc)
         if rope and positions is not None:
             cos, sin = rope_angles(positions, self.hd, mcfg.rope_theta)
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
@@ -210,24 +213,52 @@ class HeadSplit:
         return row_dense(p.wo, out.reshape(B, N, self.hq * self.hd))
 
 
+def _cross_heads(p: AttentionLayer, mcfg):
+    """(this rank's :class:`HeadSplit` of a cross-attention layer whose
+    projections are cut over ``model``, else None; the layer's weights to
+    compute with: its own, or, where the cut falls inside a query head,
+    gathered whole, as :func:`attention_layer_apply` does).  Its ``bsa``
+    parameters are never read (their gradient stays None)."""
+    if all(tensor_parallel.cut_dim(getattr(p, w).w) is None for w in ("wq", "wk", "wv", "wo")):
+        return None, p
+    split = HeadSplit(mcfg, p, tensor_parallel.axis())
+    if split.hq:
+        return split, p
+    return None, tensor_parallel.whole(split.ax, p)
+
+
 def cross_attention_apply(p: AttentionLayer, x, memory_kv, *, mcfg,
                           mem_mask=None) -> torch.Tensor:
     """Cross-attention of x (B, N, d) to precomputed memory K/V, a (B, L,
     Hkv, D) pair: ``full_attention``, non-causal, ``mem_mask`` (B, L) bool
-    as key validity, no RoPE."""
+    as key validity, no RoPE.  Where the projections are cut over
+    ``model``: this rank's query heads (wq a column product) against its
+    kv heads of ``memory_kv`` (:func:`memory_kv`'s), wo a row product."""
     B, N, _ = x.shape
     hd = mcfg.resolved_head_dim
-    q = dense(p.wq, x).reshape(B, N, mcfg.n_heads, hd)
+    split, p = _cross_heads(p, mcfg)
     mk, mv = memory_kv
+    if split is not None:
+        q = dense(p.wq, tensor_parallel.copy_to_model(split.ax, x)).reshape(B, N, split.hq, hd)
+        out = full_attention(q, mk, mv, mask=mem_mask, causal=False, backend=mcfg.bsa.backend)
+        return row_dense(p.wo, out.reshape(B, N, split.hq * hd))
+    q = dense(p.wq, x).reshape(B, N, mcfg.n_heads, hd)
     out = full_attention(q, mk, mv, mask=mem_mask, causal=False, backend=mcfg.bsa.backend)
     return dense(p.wo, out.reshape(B, N, mcfg.n_heads * hd))
 
 
 def memory_kv(p: AttentionLayer, memory, *, mcfg) -> tuple:
     """Cross-attention K/V of the encoder output (B, L, d): a (B, L, Hkv, D)
-    pair."""
+    pair; where the projections are cut over ``model``, the kv heads of
+    this rank's query heads (wk / wv column products; all-gathered and
+    narrowed where the cut falls inside a kv head, as
+    :class:`HeadSplit` does)."""
     B, L, _ = memory.shape
     hd = mcfg.resolved_head_dim
+    split, p = _cross_heads(p, mcfg)
+    if split is not None:
+        mc = tensor_parallel.copy_to_model(split.ax, memory)
+        return split.kv(p.wk, mc), split.kv(p.wv, mc)
     return (dense(p.wk, memory).reshape(B, L, mcfg.n_kv_heads, hd),
             dense(p.wv, memory).reshape(B, L, mcfg.n_kv_heads, hd))
 

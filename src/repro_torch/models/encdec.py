@@ -10,6 +10,15 @@ validity), SwiGLU.  With ``mcfg.remat`` each layer runs under
 layer of its scans), re-entering the forward's attention backend.  The
 decode keeps, per decoder layer, a self-attention cache and the memory's
 cross-attention K/V computed once (``encdec_cache_init``).
+
+Under tensor parallelism (``distributed/tensor_parallel.py``) the train
+step splits over ``model``: ``frontend_proj`` is a column product whose
+columns are all-gathered into the residual stream, every attention layer
+(the encoder's non-causal BSA, the decoder's causal BSA and its
+cross-attention) runs this rank's heads, SwiGLU its columns,
+``tok_embed`` is vocabulary-parallel and the loss reads this rank's
+vocabulary slice of ``lm_head``'s logits; :func:`decode_train` gathers
+the slices.
 """
 
 from __future__ import annotations
@@ -18,10 +27,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import comm, tensor_parallel
 from repro_torch.distributed.sharding import forward_context
 from repro_torch.core.nsa_causal import dense_step
 from repro_torch.layers.losses import masked_mean_nll
-from repro_torch.layers.nn import Dense, Embed, RMSNorm, SwiGLU, dense, embed, rmsnorm, swiglu
+from repro_torch.layers.nn import (Dense, Embed, RMSNorm, SwiGLU, column_dense, dense, embed,
+                                   rmsnorm, swiglu)
 from repro_torch.models.attention_layer import (AttentionLayer, attention_cache_init,
                                                 attention_layer_apply,
                                                 attention_layer_decode,
@@ -114,9 +125,19 @@ def _run(fn, remat: bool, *args, **kw):
     return checkpoint(again, *args, use_reentrant=False)
 
 
+def _frontend(p: Dense, frames) -> torch.Tensor:
+    """``frontend_proj`` of the frames; where it is cut over ``model``, a
+    column product whose columns are all-gathered (each rank then holds
+    the whole gradient of the residual stream: the backward keeps this
+    rank's columns of it)."""
+    if tensor_parallel.cut_dim(p.w) is None:
+        return dense(p, frames)
+    return comm.gather(tensor_parallel.axis(), -1, column_dense((p,), frames)[0])
+
+
 def encode(params: EncDecModel, frames, *, mcfg, mask=None) -> torch.Tensor:
     """frames: (B, S_enc, d_frontend) → memory (B, S_enc, d_model)."""
-    x = dense(params.frontend_proj, frames.to(mcfg.cdtype()))
+    x = _frontend(params.frontend_proj, frames.to(mcfg.cdtype()))
     for lp in params.enc_layers:
         x = _run(enc_layer, mcfg.remat, lp, x, mcfg=mcfg, mask=mask)
     return rmsnorm(params.enc_norm, x, mcfg.norm_eps)
@@ -124,7 +145,16 @@ def encode(params: EncDecModel, frames, *, mcfg, mask=None) -> torch.Tensor:
 
 def decode_train(params: EncDecModel, tokens, memory, *, mcfg, mem_mask=None) -> torch.Tensor:
     """Teacher-forced decoder: tokens (B, S_dec), memory (B, S_enc, d) →
-    logits (B, S_dec, V) fp32."""
+    logits (B, S_dec, V) fp32 (under tensor parallelism the ranks'
+    vocabulary slices gathered)."""
+    logits = _decode_forward(params, tokens, memory, mcfg=mcfg, mem_mask=mem_mask)
+    part = tensor_parallel.vocab_part(params.lm_head.w)
+    return logits if part is None else comm.gather(part[0], -1, logits)
+
+
+def _decode_forward(params: EncDecModel, tokens, memory, *, mcfg, mem_mask=None):
+    """:func:`decode_train` with the logits of this rank's vocabulary slice
+    under tensor parallelism."""
     x = embed(params.tok_embed, tokens, dtype=mcfg.cdtype())
     B, N, _ = x.shape
     positions = torch.arange(N, device=x.device)[None].expand(B, N)
@@ -132,16 +162,17 @@ def decode_train(params: EncDecModel, tokens, memory, *, mcfg, mem_mask=None) ->
         x = _run(dec_layer, mcfg.remat, lp, x, memory, mcfg=mcfg, positions=positions,
                  mem_mask=mem_mask)
     x = rmsnorm(params.dec_norm, x, mcfg.norm_eps)
-    return dense(params.lm_head, x).float()
+    return column_dense((params.lm_head,), x)[0].float()
 
 
 def encdec_loss(params: EncDecModel, batch: dict, *, mcfg):
     """batch: {frames, dec_tokens, labels[, frame_mask][, loss_mask]} →
     (loss, {"loss"})."""
     memory = encode(params, batch["frames"], mcfg=mcfg, mask=batch.get("frame_mask"))
-    logits = decode_train(params, batch["dec_tokens"], memory, mcfg=mcfg,
-                          mem_mask=batch.get("frame_mask"))
-    loss = masked_mean_nll(logits, batch["labels"], batch.get("loss_mask"))
+    logits = _decode_forward(params, batch["dec_tokens"], memory, mcfg=mcfg,
+                             mem_mask=batch.get("frame_mask"))
+    loss = masked_mean_nll(logits, batch["labels"], batch.get("loss_mask"),
+                           part=tensor_parallel.vocab_part(params.lm_head.w))
     return loss, {"loss": loss}
 
 

@@ -23,6 +23,7 @@ does not apply to this attention-free mixer.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import tensor_parallel
-from repro_torch.layers.nn import Dense, RMSNorm, dense, rmsnorm, row_dense
+from repro_torch.layers.nn import Dense, RMSNorm, dense, row_dense
 
 __all__ = ["CHUNK", "Mamba2", "mamba2_init", "mamba2_apply", "mamba2_cache_init",
            "mamba2_decode"]
@@ -78,19 +79,28 @@ def _split_proj(proj, mcfg):
     return torch.split(proj, [d_inner, d_inner, Ns, Ns, H], dim=-1)   # z, x, B, C, dt
 
 
-def _conv_train(p: Mamba2, u: torch.Tensor) -> torch.Tensor:
-    """Causal depthwise convolution of u (B, S, C): out[s] = Σ_w
-    u[s − W + 1 + w] · conv_w[w] + conv_b, with zeros before the start."""
-    w = p.conv_w.to(u.dtype).float()                                  # (W, C)
+def _conv_train(w: torch.Tensor, b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise convolution of u (B, S, C) by ``w`` (W, C) and ``b``
+    (C,): out[s] = Σ_w u[s − W + 1 + w] · w[w] + b, with zeros before the
+    start."""
+    w = w.to(u.dtype).float()
     W, S = w.shape[0], u.shape[1]
     pad = F.pad(u.float(), (0, 0, W - 1, 0))
     out = sum(pad[:, i:i + S] * w[i] for i in range(W))
-    return out.to(u.dtype) + p.conv_b.to(u.dtype)
+    return out.to(u.dtype) + b.to(u.dtype)
 
 
-def _gated(p: Mamba2, y, z, mcfg, dtype):
-    """The gated RMSNorm of the SSD's output (out_proj's input)."""
-    return rmsnorm(p.norm, y * F.silu(z.float()).to(dtype), mcfg.norm_eps)
+def _gated(g, y, z, mcfg, dtype, statistic=None):
+    """The gated RMSNorm of the SSD's output (out_proj's input), gain ``g``
+    (``layers.nn.rmsnorm``'s arithmetic).  ``statistic`` (this rank's sum
+    of squares → the whole layer's) where ``y`` and ``z`` hold only this
+    rank's heads: the mean is then over the whole ``d_inner``."""
+    hf = (y * F.silu(z.float()).to(dtype)).float()
+    if statistic is None:
+        ms = hf.pow(2).mean(dim=-1, keepdim=True)
+    else:
+        ms = statistic(hf.pow(2).sum(dim=-1, keepdim=True)) / _dims(mcfg)[0]
+    return (hf * torch.rsqrt(ms + mcfg.norm_eps)).to(dtype) * g.to(dtype)
 
 
 def mamba2_apply(p: Mamba2, x: torch.Tensor, mcfg) -> torch.Tensor:
@@ -100,10 +110,13 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, mcfg) -> torch.Tensor:
     Where ``in_proj`` and ``out_proj`` are cut over ``model``
     (``distributed/tensor_parallel.py``): in_proj is a column product whose
     outputs (z, x, B, C and dt side by side, which a flat cut does not
-    split by heads) are all-gathered, the convolution and the scan run
-    whole on every rank, and out_proj is a row product on this rank's
-    columns of their output.  A layer with only one of them cut runs whole
-    on gathered weights."""
+    split by heads) are all-gathered; each rank then runs the convolution
+    and the scan on its own H / model heads (JAX's ``heads`` constraint on
+    the scan's x: z, x and dt of its heads, B and C whole), the gated
+    norm's sum of squares summed over ``model``, and out_proj is a row
+    product on its heads' columns, the same range as its cut.  Where the
+    heads do not divide, the scan runs whole on every rank; a layer with
+    only one of the projections cut runs whole on gathered weights."""
     cut = tensor_parallel.cut_dim
     if cut(p.in_proj.w) is None and cut(p.out_proj.w) is None:
         return dense(p.out_proj, _mamba(p, dense(p.in_proj, x), x, mcfg))
@@ -113,14 +126,20 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, mcfg) -> torch.Tensor:
         return dense(w.out_proj, _mamba(w, dense(w.in_proj, x), x, mcfg))
     xc = tensor_parallel.copy_to_model(ax, x)
     proj = tensor_parallel.gather_summed(ax, -1, dense(p.in_proj, xc))
-    y = _mamba(tensor_parallel.shared(ax, p, skip=("in_proj", "out_proj")), proj, x, mcfg)
-    n = p.out_proj.w.shape[1]
-    return row_dense(p.out_proj, y.narrow(-1, ax.index * n, n))
+    shared = tensor_parallel.shared(ax, p, skip=("in_proj", "out_proj"))
+    if _dims(mcfg)[1] % ax.size:
+        n = p.out_proj.w.shape[1]
+        y = _mamba(shared, proj, x, mcfg)
+        return row_dense(p.out_proj, y.narrow(-1, ax.index * n, n))
+    return row_dense(p.out_proj, _mamba(shared, proj, x, mcfg, ax=ax))
 
 
-def _mamba(p, proj, x, mcfg) -> torch.Tensor:
+def _mamba(p, proj, x, mcfg, ax=None) -> torch.Tensor:
     """The convolution, the SSD scan and the gated norm on ``in_proj``'s
-    output ``proj`` for the layer input ``x``: out_proj's input."""
+    output ``proj`` for the layer input ``x``: out_proj's input.  With
+    ``ax`` (the ``model`` axis group; ``p`` the layer's parameters from
+    ``tensor_parallel.shared``): this rank's H / model heads only, and
+    their columns of out_proj's input."""
     B, S, _ = x.shape
     d_inner, H, P, Ns = _dims(mcfg)
     Q = min(CHUNK, S)
@@ -129,12 +148,24 @@ def _mamba(p, proj, x, mcfg) -> torch.Tensor:
     nc = S // Q
 
     z, xin, Bm, Cm, dt = _split_proj(proj, mcfg)
-    xBC = F.silu(_conv_train(p, torch.cat([xin, Bm, Cm], -1)).float()).to(x.dtype)
+    conv_w, conv_b, A_log, D, dt_bias, g = p.conv_w, p.conv_b, p.A_log, p.D, p.dt_bias, p.norm.g
+    statistic = None
+    if ax is not None:                  # this rank's heads: z, x, dt and their parameters
+        H //= ax.size
+        h0, c0, n = ax.index * H, ax.index * H * P, H * P
+        z, xin, dt = z.narrow(-1, c0, n), xin.narrow(-1, c0, n), dt.narrow(-1, h0, H)
+        # the convolution's channels: this rank's of x, then all of B and C
+        conv_w, conv_b = (torch.cat([t.narrow(-1, c0, n), t.narrow(-1, d_inner, 2 * Ns)], -1)
+                          for t in (conv_w, conv_b))
+        A_log, D, dt_bias = (t.narrow(0, h0, H) for t in (A_log, D, dt_bias))
+        g, d_inner = g.narrow(0, c0, n), n
+        statistic = functools.partial(tensor_parallel.reduce_statistic, ax)
+    xBC = F.silu(_conv_train(conv_w, conv_b, torch.cat([xin, Bm, Cm], -1)).float()).to(x.dtype)
     xin, Bm, Cm = torch.split(xBC, [d_inner, Ns, Ns], dim=-1)
     xin = xin.reshape(B, S, H, P)
 
-    A = -torch.exp(p.A_log.float())                                  # (H,)
-    dt = F.softplus(dt.float() + p.dt_bias.float())                  # (B, S, H)
+    A = -torch.exp(A_log.float())                                    # (H,)
+    dt = F.softplus(dt.float() + dt_bias.float())                    # (B, S, H)
     loga = dt * A                                                    # log decay
     dtx = xin.float() * dt[..., None]                                # (B, S, H, P)
 
@@ -173,9 +204,9 @@ def _mamba(p, proj, x, mcfg) -> torch.Tensor:
     y_inter = torch.matmul(C_c, hh).reshape(B, nc, Q, H, P) * torch.exp(cs)[..., None]
 
     y = (y_intra + y_inter).reshape(B, S, H, P)
-    y = y + p.D.float()[None, None, :, None] * xin.float()
+    y = y + D.float()[None, None, :, None] * xin.float()
     y = y.reshape(B, S, d_inner).to(x.dtype)
-    return _gated(p, y, z, mcfg, x.dtype)
+    return _gated(g, y, z, mcfg, x.dtype, statistic)
 
 
 # ---------------------------------------------------------------------------
@@ -214,5 +245,5 @@ def mamba2_decode(p: Mamba2, x1: torch.Tensor, cache: dict, mcfg) -> tuple:
     y = torch.einsum("bn,bhnp->bhp", Cm.float(), h)
     y = y + p.D.float()[None, :, None] * xin.float()
     y = y.reshape(B, 1, d_inner).to(x1.dtype)
-    return (dense(p.out_proj, _gated(p, y, z, mcfg, x1.dtype)),
+    return (dense(p.out_proj, _gated(p.norm.g, y, z, mcfg, x1.dtype)),
             {"h": h, "conv": win[:, 1:]})

@@ -127,14 +127,10 @@ def lm_init(mcfg, *, generator: torch.Generator, device) -> LanguageModel:
 
 
 def _vocab_part(params: LanguageModel, mcfg):
-    """(the ``model`` axis group, this rank's first vocabulary id) where the
-    logits' weight (``lm_head``, or the tied table) is cut over ``model``
-    (``distributed/tensor_parallel.py``), else None."""
-    w = params.embed.table if mcfg.tie_embeddings else params.lm_head.w
-    if tensor_parallel.cut_dim(w) is None:
-        return None
-    ax = tensor_parallel.axis()
-    return ax, ax.index * w.shape[0]
+    """``tensor_parallel.vocab_part`` of the logits' weight (``lm_head``,
+    or the tied table)."""
+    return tensor_parallel.vocab_part(params.embed.table if mcfg.tie_embeddings
+                                      else params.lm_head.w)
 
 
 def _logits(params: LanguageModel, x, mcfg) -> torch.Tensor:

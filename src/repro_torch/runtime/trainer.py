@@ -33,24 +33,24 @@ PyTorch has no GSPMD to turn them into a partitioned program:
   the batch is split over); there it sums the gradients, the loss and the
   metrics over the data ranks in rank order (``sharding.batch_total``), so
   every rank holds the same bits.
-* Megatron's compute over ``model`` (``distributed/tensor_parallel.py``)
-  for the point-cloud, dense, MoE, SSM and hybrid families
-  (``TP_FAMILIES``).  Each weight that
-  ``param_shardings`` cuts over ``model`` is held as this rank's part of
-  it, during the step and between the steps of a ``fit``, and the rank
-  computes only with that part: wq / wk / wv, gate / up, fc1 and
-  ``lm_head`` are column products and wo, down, fc2 row products, so that
-  it runs its own attention heads (``models.attention_layer.HeadSplit``)
-  and FFN columns; the embedding is looked up on its vocabulary rows and
-  the loss reduces the max, the sum of exponentials and the gold logit
-  over ``model`` without gathering the logits; an MoE layer runs its own
-  experts; a mamba layer all-gathers its in_proj outputs after the column
-  product, runs the scan whole and its out_proj as a row product.  The
-  gradients, the data-axis sums and the AdamW moments then act on the
-  parts.  A layer whose cut does not fall on query heads runs whole on
-  gathered weights (JAX's replication fallback), and the VLM and
-  encoder-decoder families keep whole weights and compute the same thing
-  on every rank of ``model`` (ROADMAP).
+* Megatron's compute over ``model`` (``distributed/tensor_parallel.py``),
+  in every family.  Each weight that ``param_shardings`` cuts over
+  ``model`` is held as this rank's part of it, during the step and between
+  the steps of a ``fit``, and the rank computes only with that part: wq /
+  wk / wv, gate / up, fc1, ``frontend_proj`` and ``lm_head`` are column
+  products and wo, down, fc2 row products, so that it runs its own
+  attention heads (``models.attention_layer.HeadSplit``: self-attention,
+  and the encoder-decoder's cross-attention on its heads of the memory's
+  K / V) and FFN columns; the embeddings are looked up on its vocabulary
+  rows and the loss reduces the max, the sum of exponentials and the gold
+  logit over ``model`` without gathering the logits; an MoE layer runs
+  its own experts; a mamba layer all-gathers its in_proj outputs after
+  the column product, runs the scan on its own heads (the gated norm's
+  sum of squares summed over ``model``) and its out_proj as a row
+  product.  The gradients, the data-axis sums and the AdamW moments then
+  act on the parts.  Where a cut does not fall on whole heads (query
+  heads, mamba's heads) or a vocabulary does not divide, that layer or
+  table runs whole on every rank (JAX's replication fallback).
 * Exact losses.  Under those rules the loss functions divide by counts
   taken over the whole batch (``batch_total`` again: the masked points,
   the unmasked tokens, the MoE router's load statistics), so the ranks'
@@ -101,10 +101,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.optim import adamw_init, adamw_update, global_norm
 from repro_torch.runtime.watchdog import Watchdog
 
-__all__ = ["TrainerConfig", "Trainer", "to_device", "TP_FAMILIES"]
-
-# the families whose compute is split over ``model``
-TP_FAMILIES = ("pointcloud", "dense", "moe", "ssm", "hybrid")
+__all__ = ["TrainerConfig", "Trainer", "to_device"]
 
 
 @dataclasses.dataclass
@@ -172,7 +169,7 @@ class Trainer:
     def _layouts(self, model) -> None:
         """The specs over the mesh: ``p_sh`` / ``o_sh`` (``param_shardings``
         / ``opt_shardings``) of the whole tensors, ``tp_sh`` the cut over
-        ``model`` that the compute takes (none outside ``TP_FAMILIES``), and
+        ``model`` that the compute takes, and
         ``_rel_p`` / ``_rel_o`` the rest of ``p_sh`` / ``o_sh`` on a
         ``tp_sh`` part (of shape ``_part_shapes``)."""
         if self.mesh is None or self.p_sh is not None:
@@ -181,11 +178,10 @@ class Trainer:
         self._shapes = {n: tuple(p.shape) for n, p in params.items()}
         self.p_sh = param_shardings(params, self.mesh, zero1=self.api.mcfg.fsdp)
         self.o_sh = opt_shardings({"m": params, "v": params, "step": 0}, self.mesh)
-        split = self.api.mcfg.family in TP_FAMILIES
-        tp = param_shardings(params, self.mesh) if split else {}
+        tp = param_shardings(params, self.mesh)
         self.tp_sh, self._rel_p, self._rel_o, self._part_shapes = {}, {}, {}, {}
         for n, shape in self._shapes.items():
-            dim = tensor_parallel.model_dim(tp[n]) if split else None
+            dim = tensor_parallel.model_dim(tp[n])
             self.tp_sh[n] = Spec(tuple(tensor_parallel.MODEL if i == dim else None
                                        for i in range(len(shape))))
             part = list(shape)
@@ -364,7 +360,11 @@ class Trainer:
 
     def _grad_norm(self, grads: dict) -> torch.Tensor:
         """The norm of the whole (data-reduced) gradient: the squares of the
-        parts cut over ``model`` summed over it in rank order."""
+        parts cut over ``model`` summed over it in rank order.  First the
+        gradients of the weights held whole on ``model`` become model rank
+        0's (:meth:`_agree_whole`), so every rank clips and updates by the
+        same numbers."""
+        self._agree_whole(grads)
         split = {n for n in grads if tensor_parallel.model_dim(self.tp_sh[n]) is not None}
         if not split:
             return global_norm(list(grads.values()))
@@ -374,6 +374,23 @@ class Trainer:
         if rest:
             sq = sq + global_norm(rest) ** 2
         return torch.sqrt(sq)
+
+    def _agree_whole(self, grads: dict) -> None:
+        """Set (in place) the gradients of the weights that every rank of
+        ``model`` holds whole to model rank 0's, one gather a dtype.  Each
+        rank computes them on its own from the same numbers, but not always
+        to the same bits on the card: shapenet's ``head.b`` (a sum over
+        every point) came out apart between ranks in some runs on 4 ranks
+        sharing one H100, and its weight with it."""
+        if self.mesh.shape.get(tensor_parallel.MODEL, 1) <= 1:
+            return
+        ax = self.mesh.axis_group(tensor_parallel.MODEL)
+        whole = [n for n in grads if tensor_parallel.model_dim(self.tp_sh[n]) is None]
+        for dtype in dict.fromkeys(grads[n].dtype for n in whole):
+            names = [n for n in whole if grads[n].dtype == dtype]
+            flat = comm.all_gather(torch.cat([grads[n].reshape(-1) for n in names]), ax)[0]
+            for n, part in zip(names, flat.split([grads[n].numel() for n in names])):
+                grads[n].copy_(part.view(grads[n].shape))
 
     def _update_parts(self, params, grads, opt_state, lr):
         """AdamW on this rank's parts (``opt_shardings``) of the parameters

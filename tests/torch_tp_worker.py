@@ -82,24 +82,31 @@ def _trainer(api, mesh, **kw):
                    device="cpu", **kw)
 
 
-def _fit_case(api, params, batches, mesh, *, spy=False, **kw) -> dict:
+def _fit_case(api, params, batches, mesh, *, spy=False, keep_grads=False, **kw) -> dict:
     """Two steps on ``mesh`` from the JAX parameters ``params`` (None: the
     port's seed-0 weights); with ``spy``, the first step's products and the
-    parameter bytes this rank held after each step."""
+    parameter bytes this rank held after each step; with ``keep_grads``,
+    each step's (clipped) gradients, whole."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.params import full_tensor
     tr = _trainer(api, mesh, **kw)
     model = api.init(0, device="cpu") if params is None else W.jax_model(api, params)
     whole = {n: (tuple(p.shape), p.element_size()) for n, p in model.named_parameters()}
-    seen, held = {}, []
+    seen, held, grads = {}, [], []
     step = tr._step
 
     def spied(model, opt_state, batch):
-        ctx = record_products(model, seen) if not held else contextlib.nullcontext()
+        ctx = record_products(model, seen) if spy and not held else contextlib.nullcontext()
         with ctx:
             res = step(model, opt_state, batch)
         held.append((tr.param_bytes(model), {n: tuple(p.shape)
                                              for n, p in model.named_parameters()}))
+        if keep_grads:
+            grads.append({n: W._np(p.grad if tensor_parallel.cut_dim(p) is None else full_tensor(
+                p.grad.contiguous(), tr.tp_sh[n], tr._shapes[n], mesh))
+                for n, p in model.named_parameters() if p.grad is not None})
         return res
-    if spy:
+    if spy or keep_grads:
         tr._step = spied
     model, opt = tr.fit(iter(batches), steps=W.STEPS, model=model)
     full = tr.full_state(model, opt)
@@ -112,6 +119,8 @@ def _fit_case(api, params, batches, mesh, *, spy=False, **kw) -> dict:
         out.update(seen={n: sorted(s) for n, s in seen.items()}, held=held, whole=whole,
                    tp_dims={n: [i for i, e in enumerate(s) if e == "model"]
                             for n, s in tr.tp_sh.items()})
+    if keep_grads:
+        out["grads"] = grads
     return out
 
 
